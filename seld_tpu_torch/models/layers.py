@@ -1,0 +1,384 @@
+"""Primitive layers (seld_tpu/models/layers.py) as torch nn.Modules.
+
+Parameters keep flax's names and shapes — conv kernels HWIO ([*k, in/groups,
+out]), Dense [I, O], MHA [H, I, S] / [H, S, O], GRU kernel [D, I, 3U],
+recurrent_kernel [D, U, 3U], bias [D, 2, 3U], BatchNorm scale/bias plus the
+running mean/var as buffers — and every child module is registered under
+flax's auto-name `<Class>_<n>` (`add_child`). A flax variable tree then maps
+onto `state_dict()` by joining its path with "." (seld_tpu_torch.bridge).
+Convs permute their kernel to OIHW at call time.
+
+Activations stay channels-last ([B, T, F, C] / [B, T, D]), the JAX package's
+layout. Modules are built for a known per-sample input shape (batch
+excluded) and expose `out_shape`, the way flax infers shapes at init.
+
+Keras-default initialisation from an explicit `torch.Generator`:
+glorot-uniform kernels, orthogonal recurrent kernels, zero biases,
+BatchNorm scale 1 (momentum 0.99, eps 1e-3).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from seld_tpu_torch.ops.dropout import dropout
+from seld_tpu_torch.ops.gru import gru_forward
+from seld_tpu_torch.ops.pooling import max_pool
+
+
+# ---------------------------------------------------------------- helpers
+
+def add_child(parent: nn.Module, child: nn.Module,
+              name: Optional[str] = None) -> nn.Module:
+    """Register `child` under `name` or flax's auto-name `<Class>_<n>`
+    (n counts the parent's earlier children of the same class).
+
+    Parents keep further references to their children in plain lists,
+    tuples or dicts, which nn.Module does not register a second time."""
+    if name is None:
+        kind = type(child).__name__
+        n = sum(1 for k in parent._modules if k.rsplit("_", 1)[0] == kind)
+        name = f"{kind}_{n}"
+    parent.add_module(name, child)
+    return child
+
+
+def glorot_uniform(shape: Sequence[int], generator: torch.Generator,
+                   batch_axis: Tuple[int, ...] = ()) -> torch.Tensor:
+    """flax `glorot_uniform` (fan_avg uniform; in axis -2, out axis -1)."""
+    shape = tuple(shape)
+    nd = len(shape)
+    skip = {nd - 2, nd - 1} | {a % nd for a in batch_axis}
+    receptive = math.prod(s for i, s in enumerate(shape) if i not in skip)
+    fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * limit
+
+
+def orthogonal(shape: Sequence[int], generator: torch.Generator
+               ) -> torch.Tensor:
+    """flax `orthogonal` (column axis -1) from a torch generator."""
+    shape = tuple(shape)
+    n_rows, n_cols = math.prod(shape[:-1]), shape[-1]
+    mat_shape = (n_cols, n_rows) if n_rows < n_cols else (n_rows, n_cols)
+    a = torch.randn(mat_shape, generator=generator, dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    if n_rows < n_cols:
+        q = q.T
+    return q.reshape(shape).float()
+
+
+def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    return generator if generator is not None else torch.Generator()
+
+
+def same_padding(size: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA "SAME": out = ceil(size / s), the total pad split with the
+    smaller half first — asymmetric for even totals (strided convs,
+    even kernels)."""
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def get_activation(name: Optional[Union[str, Callable]]
+                   ) -> Optional[Callable]:
+    """Keras-style activation-name resolution."""
+    if name is None or callable(name):
+        return name
+    table = {
+        "relu": torch.relu,
+        "sigmoid": torch.sigmoid,
+        "tanh": torch.tanh,
+        "swish": F.silu,
+        "silu": F.silu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu
+        "elu": F.elu,
+        "softmax": lambda x: torch.softmax(x, dim=-1),
+        "linear": None,
+    }
+    if name not in table:
+        raise ValueError(f"unknown activation: {name!r}")
+    return table[name]
+
+
+def merge_bidirectional(fwd, bwd, merge_mode: str):
+    """Bidirectional RNN merge (Keras Bidirectional merge_mode semantics)."""
+    if merge_mode == "mul":
+        return fwd * bwd
+    if merge_mode == "concat":
+        return torch.cat([fwd, bwd], dim=-1)
+    if merge_mode in ("ave", "avg"):
+        return (fwd + bwd) * 0.5
+    if merge_mode == "sum":
+        return fwd + bwd
+    raise ValueError(f"unknown merge_mode: {merge_mode!r}")
+
+
+def force_1d(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, F, C] -> [B, T, F*C]; passthrough for 3D (layers.py:41-47)."""
+    if x.dim() == 4:
+        return x.reshape(x.shape[0], x.shape[1], x.shape[2] * x.shape[3])
+    return x
+
+
+def force_1d_shape(shape: Sequence[int]) -> Tuple[int, ...]:
+    """Per-sample shape after `force_1d`."""
+    shape = tuple(shape)
+    return (shape[0], shape[1] * shape[2]) if len(shape) == 3 else shape
+
+
+def basic_pos_encoding(time: int, d_model: int) -> torch.Tensor:
+    """Sinusoidal encoding [1, time, d_model], cos/sin interleaved."""
+    k = d_model // 2
+    w = np.power(10000.0, -np.arange(k) / k)[None, :]
+    t = np.arange(time, dtype=np.float64)[:, None]
+    enc = np.stack([np.cos(w * t), np.sin(w * t)], axis=-1)
+    return torch.from_numpy(enc.reshape(1, time, 2 * k).astype(np.float32))
+
+
+# ---------------------------------------------------------------- layers
+
+class Conv(nn.Module):
+    """Channels-last 1D/2D conv; parameters `kernel` [*k, in/groups, out]
+    and `bias` [out], padding computed as XLA's "SAME" or "VALID"."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Tuple[int, ...],
+                 strides: Optional[Tuple[int, ...]] = None,
+                 padding: str = "SAME", feature_group_count: int = 1,
+                 use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = _generator(generator)
+        self.kernel_size = tuple(kernel_size)
+        self.strides = (tuple(strides) if strides
+                        else (1,) * len(self.kernel_size))
+        self.padding = padding.upper()
+        if self.padding not in ("SAME", "VALID"):
+            raise ValueError(f"unknown padding {padding!r}")
+        self.groups = feature_group_count
+        self.kernel = nn.Parameter(glorot_uniform(
+            (*self.kernel_size, in_features // self.groups, features), g))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def out_shape_of(self, in_shape: Sequence[int]) -> Tuple[int, ...]:
+        *spatial, _ = in_shape
+        if self.padding == "SAME":
+            spatial = [-(-n // s) for n, s in zip(spatial, self.strides)]
+        else:
+            spatial = [(n - k) // s + 1 for n, k, s in
+                       zip(spatial, self.kernel_size, self.strides)]
+        return (*spatial, self.kernel.shape[-1])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.kernel.dtype)
+        nsp = len(self.kernel_size)
+        x = x.to(dt).movedim(-1, 1)                 # channels first
+        if self.padding == "SAME":
+            pads = []
+            for i in reversed(range(nsp)):          # F.pad: last dim first
+                pads += same_padding(x.shape[2 + i], self.kernel_size[i],
+                                     self.strides[i])
+            if any(pads):
+                x = F.pad(x, pads)
+        w = self.kernel.to(dt).permute(nsp + 1, nsp, *range(nsp))  # OI(H)W
+        b = self.bias.to(dt) if self.bias is not None else None
+        conv = F.conv2d if nsp == 2 else F.conv1d
+        y = conv(x, w, b, stride=self.strides, groups=self.groups)
+        return y.movedim(1, -1)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm with Keras defaults (momentum 0.99, epsilon 1e-3) over the
+    last axis: f32 math, result cast back to the promoted input/param dtype.
+    Training mode uses biased batch statistics and updates the running
+    stats as ra = m * ra + (1 - m) * batch."""
+
+    def __init__(self, features: int, momentum: float = 0.99,
+                 epsilon: float = 1e-3):
+        super().__init__()
+        self.momentum, self.epsilon = momentum, epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = xf.square().mean(dims) - mean.square()
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.mul_(m).add_((1 - m) * mean)
+                self.var.mul_(m).add_((1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        out_dtype = torch.promote_types(x.dtype, self.scale.dtype)
+        inv = torch.rsqrt(var + self.epsilon) * self.scale.float()
+        y = (xf - mean) * inv + self.bias.float()
+        return y.to(out_dtype)
+
+
+class Conv2DBN(nn.Module):
+    """Conv2D + BatchNorm + activation, then (with `pool`) a VALID
+    non-overlapping max pool — the conv_temporal stem (composed path)."""
+
+    def __init__(self, in_shape: Sequence[int], filters: int,
+                 kernel_size: Union[int, Tuple[int, int]],
+                 strides: Union[int, Tuple[int, int]] = (1, 1),
+                 padding: str = "SAME", groups: int = 1,
+                 use_bias: bool = True, activation: Optional[str] = "relu",
+                 pool: Optional[Tuple[int, int]] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        ks = (kernel_size,) * 2 if isinstance(kernel_size, int) \
+            else tuple(kernel_size)
+        st = (strides,) * 2 if isinstance(strides, int) else tuple(strides)
+        conv = add_child(self, Conv(
+            in_shape[-1], filters, ks, strides=st, padding=padding,
+            feature_group_count=groups, use_bias=use_bias,
+            generator=generator))
+        add_child(self, BatchNorm(filters))
+        self.act = get_activation(activation)
+        self.pool = tuple(pool) if pool is not None else None
+        t, f, c = conv.out_shape_of(in_shape)
+        if self.pool is not None:
+            t, f = t // self.pool[0], f // self.pool[1]
+        self.out_shape = (t, f, c)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.BatchNorm_0(self.Conv_0(x))
+        if self.act:
+            x = self.act(x)
+        if self.pool is not None:
+            x = max_pool(x, self.pool, strides=self.pool, padding="VALID")
+        return x
+
+
+class Dense(nn.Module):
+    """flax `nn.Dense`: `kernel` [I, O] (glorot uniform), `bias` [O]."""
+
+    def __init__(self, in_features: int, features: int,
+                 use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(
+            glorot_uniform((in_features, features), _generator(generator)))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.kernel.dtype)
+        y = x.to(dt) @ self.kernel.to(dt)
+        return y + self.bias.to(dt) if self.bias is not None else y
+
+
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm` over the last axis: f32 statistics with the fast
+    variance E[x^2] - E[x]^2 (clamped at 0), `scale`/`bias` params."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = (xf.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0)
+        y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.scale)
+        return (y + self.bias).to(torch.promote_types(x.dtype,
+                                                    self.scale.dtype))
+
+
+class MultiHeadAttention(nn.Module):
+    """MHA with per-head Q/K/V kernels [H, I, S] and projection [H, S, O];
+    the query is pre-scaled by 1/sqrt(S) before the logits product."""
+
+    def __init__(self, query_features: int, key_features: int,
+                 value_features: int, num_heads: int, head_size: int,
+                 output_size: Optional[int] = None, dropout: float = 0.0,
+                 use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = _generator(generator)
+        h, s = num_heads, head_size
+        out = output_size or value_features
+        self.head_size, self.dropout = head_size, dropout
+        self.query_kernel = nn.Parameter(glorot_uniform((h, query_features, s), g))
+        self.key_kernel = nn.Parameter(glorot_uniform((h, key_features, s), g))
+        self.value_kernel = nn.Parameter(glorot_uniform((h, value_features, s), g))
+        self.projection_kernel = nn.Parameter(glorot_uniform((h, s, out), g))
+        self.use_bias = use_bias
+        if use_bias:
+            self.q_bias = nn.Parameter(torch.zeros(h, s))
+            self.k_bias = nn.Parameter(torch.zeros(h, s))
+            self.v_bias = nn.Parameter(torch.zeros(h, s))
+            self.projection_bias = nn.Parameter(torch.zeros(out))
+
+    def forward(self, query, key, value):
+        q = torch.einsum("...ni,hio->...hno", query, self.query_kernel)
+        k = torch.einsum("...mi,hio->...hmo", key, self.key_kernel)
+        v = torch.einsum("...mi,hio->...hmo", value, self.value_kernel)
+        if self.use_bias:
+            q = q + self.q_bias[:, None]
+            k = k + self.k_bias[:, None]
+            v = v + self.v_bias[:, None]
+        q = q / math.sqrt(self.head_size)
+        logits = torch.einsum("...hno,...hmo->...hnm", q, k)
+        attn = torch.softmax(logits, dim=-1)
+        attn = dropout(attn, self.dropout, self.training)
+        out = torch.einsum("...hnm,...hmi->...hni", attn, v)
+        out = torch.einsum("...hni,hio->...no", out, self.projection_kernel)
+        if self.use_bias:
+            out = out + self.projection_bias
+        return out
+
+
+class GRU(nn.Module):
+    """(Bi)directional GRU over [B, T, I] -> [B, T, U*dirs or U].
+
+    Keras GRU v2 semantics (reset_after, z|r|h): kernel [D, I, 3U],
+    recurrent_kernel [D, U, 3U], bias [D, 2, 3U]. The recurrence runs
+    through `ops.gru.gru_scan` — the CUDA kernel on the card, its plain
+    version on the CPU. Direction 1 runs in descending time with its states
+    at their real t, which equals the JAX scan path's reverse-and-flip.
+    Input and recurrent dropout in training are not yet ported (every
+    shipped config uses 0.0).
+    """
+
+    def __init__(self, in_features: int, units: int,
+                 bidirectional: bool = False, merge_mode: str = "mul",
+                 dropout: float = 0.0, recurrent_dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = _generator(generator)
+        dirs = 2 if bidirectional else 1
+        self.units, self.bidirectional = units, bidirectional
+        self.merge_mode = merge_mode
+        self.dropout, self.recurrent_dropout = dropout, recurrent_dropout
+        # per-direction glorot fans ([I, 3U]), as Keras Bidirectional
+        self.kernel = nn.Parameter(glorot_uniform(
+            (dirs, in_features, 3 * units), g, batch_axis=(0,)))
+        self.recurrent_kernel = nn.Parameter(
+            orthogonal((dirs, units, 3 * units), g))
+        self.bias = nn.Parameter(torch.zeros(dirs, 2, 3 * units))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and (self.dropout > 0 or self.recurrent_dropout > 0):
+            raise NotImplementedError("GRU dropout in training is not yet "
+                                      "ported")
+        return gru_forward(x, self.kernel, self.recurrent_kernel, self.bias,
+                           bidirectional=self.bidirectional,
+                           merge_mode=self.merge_mode)

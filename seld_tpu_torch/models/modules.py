@@ -1,0 +1,481 @@
+"""Config-dict-driven block factories (seld_tpu/models/modules.py).
+
+Each factory takes a plain config dict (the JSON architecture DSL),
+validates it eagerly with the reference's ValueErrors (NAS rejection
+sampling relies on them) and returns a function
+`build(in_shape, generator=None) -> nn.Module`; the module's
+`forward(x)` applies the block and its `out_shape` is the per-sample
+output shape. Children register under flax's auto-names in flax's creation
+order, so parameter paths equal the JAX package's.
+
+Ported blocks (the SS5 path):
+  mother_stage/mother_block            2D -> 2D (NAS super-block)
+  simple_dense_stage/simple_dense_block
+  conformer_encoder_stage/block        unrolled; no or basic-absolute
+                                       positional encoding
+  bidirectional_GRU_stage/block
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from seld_tpu_torch.config.registry import register_block
+from seld_tpu_torch.models.layers import (
+    GRU,
+    BatchNorm,
+    Conv,
+    Dense,
+    LayerNorm,
+    MultiHeadAttention,
+    add_child,
+    basic_pos_encoding,
+    force_1d,
+    force_1d_shape,
+    get_activation,
+)
+from seld_tpu_torch.ops.dropout import dropout
+
+
+def _layer_norm(features: int) -> LayerNorm:
+    """LayerNorm with the Keras default epsilon (1e-3, vs flax's 1e-6)."""
+    return LayerNorm(features, epsilon=1e-3)
+
+
+def _tuple2(v) -> Tuple[int, int]:
+    if isinstance(v, (int, float)):
+        return (int(v), int(v))
+    v = tuple(int(i) for i in v)
+    return v * 2 if len(v) == 1 else v
+
+
+def _conv(in_ch, filters, kernel, strides=(1, 1), groups=1, use_bias=True,
+          generator=None) -> Conv:
+    return Conv(in_ch, filters, _tuple2(kernel), strides=_tuple2(strides),
+                padding="SAME", feature_group_count=groups,
+                use_bias=use_bias, generator=generator)
+
+
+def _conv1d(in_ch, filters, kernel, groups=1, use_bias=True,
+            generator=None) -> Conv:
+    return Conv(in_ch, filters, (int(kernel),), padding="SAME",
+                feature_group_count=groups, use_bias=use_bias,
+                generator=generator)
+
+
+def _dense(in_features, units, use_bias=True, generator=None) -> Dense:
+    return Dense(in_features, units, use_bias=use_bias, generator=generator)
+
+
+# --------------------------------------------------------------------------
+#                               MOTHER BLOCK
+# --------------------------------------------------------------------------
+def _validate_mother_config(c: dict) -> None:
+    """Reference-identical validation (modules.py:202-222)."""
+    f0, f1, f2 = c["filters0"], c["filters1"], c["filters2"]
+    k0, k1, k2 = c["kernel_size0"], c["kernel_size1"], c["kernel_size2"]
+    connect0, connect1, connect2 = c["connect0"], c["connect1"], c["connect2"]
+    strides = _tuple2(c.get("strides", (1, 1)))
+
+    if (f0 == 0) != (k0 == 0):
+        raise ValueError("0) skipped layer must have 0 filters, 0 kernel size")
+    if (f1 == 0) != (k1 == 0):
+        raise ValueError("1) skipped layer must have 0 filters, 0 kernel size")
+    if (f2 == 0) != (k2 == 0):
+        raise ValueError("2) skipped layer must have 0 filters, 0 kernel size")
+
+    if f0 == 0 and max(connect1[1], connect2[1]):
+        raise ValueError("cannot link skipped layer (first layer)")
+    if f1 == 0 and connect2[2] > 0:
+        raise ValueError("cannot link skipped layer (second layer)")
+
+    if (f0 != 0) + sum(connect0) == 0:
+        raise ValueError("cannot pass zero inputs to the second layer")
+    if (f1 != 0) + sum(connect1) == 0:
+        raise ValueError("cannot pass zero inputs to the third layer")
+    if (f2 != 0) + sum(connect2) == 0:
+        raise ValueError("cannot pass zero inputs to the final output")
+
+    if f1 == 0 and strides != (1, 1):
+        raise ValueError("if strides are set, the second layer must be active")
+
+
+class MotherBlock(nn.Module):
+    """NAS super-block: <=3 convs with arbitrary skip/concat wiring + SE.
+
+    The wiring is resolved at construction from the input shape into
+    `self.layers`, one entry per conv layer:
+      ("conv", conv, bn, [(i, skip_conv, skip_bn)])  bn(conv(prev)) + skips
+      ("concat", [(i, skip_conv)])                   concat of outputs[i]
+      ("pass",)                                      the previous output
+    where a skip_conv of None means the identity.
+    """
+
+    def __init__(self, config: Dict[str, Any], strides: Tuple[int, int],
+                 in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = config
+        if c.get("bn_pair_batch", False):
+            raise NotImplementedError("mother_block bn_pair_batch is not yet "
+                                      "ported")
+        f0, f1, f2 = c["filters0"], c["filters1"], c["filters2"]
+        k0, k1, k2 = c["kernel_size0"], c["kernel_size1"], c["kernel_size2"]
+        connect0, connect1, connect2 = (c["connect0"], c["connect1"],
+                                        c["connect2"])
+        self.act = get_activation(c.get("activation", "relu"))
+        self.se_act = get_activation(c.get("se_activation", "relu"))
+        squeeze_ratio = c.get("squeeze_ratio", 0)
+        g = generator
+
+        def conv(shape, f, k, s=(1, 1)):
+            m = add_child(self, _conv(shape[-1], f, k, strides=s,
+                                      generator=g))
+            return m, m.out_shape_of(shape)
+
+        def bn(f):
+            return add_child(self, BatchNorm(f))
+
+        def conv_layer(prev, f, k, s, connect, shapes, skip_strides):
+            main, out = conv(prev, f, k, s)
+            main_bn = bn(f)
+            skips = []
+            for i in range(len(connect)):
+                if connect[i] == 1:
+                    if tuple(shapes[i]) != tuple(out):
+                        sc, _ = conv(shapes[i], f, 1, skip_strides(i))
+                        skips.append((i, sc, bn(f)))
+                    else:
+                        skips.append((i, None, None))
+            return ("conv", main, main_bn, skips), out
+
+        shapes = [tuple(in_shape)]
+        self.layers = []
+        # first layer (never strided)
+        if f0 > 0:
+            layer, out = conv_layer(shapes[-1], f0, k0, (1, 1), connect0[:1],
+                                    shapes[-1:], lambda i: (1, 1))
+        else:
+            layer, out = ("pass",), shapes[-1]
+        self.layers.append(layer)
+        shapes.append(out)
+
+        # second layer (applies strides)
+        if f1 > 0:
+            layer, out = conv_layer(shapes[-1], f1, k1, strides, connect1,
+                                    shapes, lambda i: strides)
+        else:
+            sel = [i for i in range(len(connect1)) if connect1[i] == 1]
+            layer = ("concat", [(i, None) for i in sel])
+            out = (*shapes[sel[0]][:2], sum(shapes[i][2] for i in sel))
+        self.layers.append(layer)
+        shapes.append(out)
+
+        # third layer (never strided)
+        if f2 > 0:
+            layer, out = conv_layer(
+                shapes[-1], f2, k2, (1, 1), connect2, shapes,
+                lambda i: (1, 1) if i == 2 else strides)
+        else:
+            parts, chans, spatial = [], 0, None
+            for i in range(len(connect2)):
+                if connect2[i] == 1:
+                    shape, sc = shapes[i], None
+                    if connect2[-1] == 1 and strides != (1, 1) and i < 2:
+                        # align pre-stride tensors with the strided branch
+                        sc, shape = conv(shape, shape[-1], 1, strides)
+                    parts.append((i, sc))
+                    chans += shape[-1]
+                    spatial = shape[:2]
+            layer, out = ("concat", parts), (*spatial, chans)
+        self.layers.append(layer)
+
+        # squeeze and excitation
+        self.se = None
+        if squeeze_ratio > 0:
+            se_filters = int(squeeze_ratio * out[-1])
+            se1, _ = conv((1, 1, out[-1]), se_filters, 1)
+            se2, _ = conv((1, 1, se_filters), out[-1], 1)
+            self.se = (se1, se2)
+        self.out_shape = tuple(out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outputs = [x]
+        for layer in self.layers:
+            if layer[0] == "pass":
+                out = outputs[-1]
+            elif layer[0] == "conv":
+                _, main, main_bn, skips = layer
+                out = main_bn(main(outputs[-1]))
+                for i, sc, sbn in skips:
+                    skip = outputs[i]
+                    if sc is not None:
+                        skip = sbn(sc(skip))
+                    out = out + skip
+                out = self.act(out)
+            else:
+                out = torch.cat([outputs[i] if sc is None else sc(outputs[i])
+                                 for i, sc in layer[1]], dim=-1)
+            outputs.append(out)
+        if self.se is not None:
+            se = out.mean(dim=(-3, -2), keepdim=True)
+            se = self.se_act(self.se[0](se))
+            se = torch.sigmoid(self.se[1](se))
+            out = se * out
+        return out
+
+
+class MotherStage(nn.Module):
+    def __init__(self, config: Dict[str, Any], in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        strides = _tuple2(config.get("strides", (1, 1)))
+        shape = tuple(in_shape)
+        for i in range(config["depth"]):
+            block = add_child(self, MotherBlock(
+                config, strides if i == 0 else (1, 1), shape, generator))
+            shape = block.out_shape
+        self.out_shape = shape
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.children():
+            x = block(x)
+        return x
+
+
+@register_block("mother_block")
+def mother_block(model_config: dict):
+    _validate_mother_config(model_config)
+    return functools.partial(MotherBlock, dict(model_config),
+                             _tuple2(model_config.get("strides", (1, 1))))
+
+
+@register_block("mother_stage")
+def mother_stage(model_config: dict):
+    _validate_mother_config(model_config)
+    return functools.partial(MotherStage, dict(model_config))
+
+
+# --------------------------------------------------------------------------
+#                        RNN / DENSE 1D BLOCKS
+# --------------------------------------------------------------------------
+class BidirectionalGRUBlock(nn.Module):
+    """force_1d then stacked biGRUs merged multiplicatively."""
+
+    def __init__(self, units: Tuple[int, ...], in_shape: Sequence[int],
+                 dropout_rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        t, i = force_1d_shape(in_shape)
+        for u in units:
+            # reference GRU blocks pass recurrent_dropout=dropout_rate
+            add_child(self, GRU(i, u, bidirectional=True, merge_mode="mul",
+                                dropout=dropout_rate,
+                                recurrent_dropout=dropout_rate,
+                                generator=generator))
+            i = u
+        self.out_shape = (t, i)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = force_1d(x)
+        for gru in self.children():
+            x = gru(x)
+        return x
+
+
+def _bigru(units, dropout_rate, in_shape, generator=None):
+    return BidirectionalGRUBlock(units, in_shape, dropout_rate, generator)
+
+
+@register_block("bidirectional_GRU_block")
+def bidirectional_GRU_block(model_config: dict):
+    return functools.partial(_bigru, tuple(model_config["units"]),
+                             model_config.get("dropout_rate", 0.0))
+
+
+@register_block("bidirectional_GRU_stage")
+def bidirectional_GRU_stage(model_config: dict):
+    return functools.partial(
+        _bigru, (model_config["units"],) * model_config["depth"],
+        model_config.get("dropout_rate", 0.0))
+
+
+class SimpleDenseBlock(nn.Module):
+    """Dense for 2D inputs, Conv1D for 3D (modules.py:350-376)."""
+
+    def __init__(self, units: Tuple[int, ...], in_shape: Sequence[int],
+                 kernel_size: int = 1, activation: Optional[str] = None,
+                 dropout_rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        shape = force_1d_shape(in_shape)
+        for u in units:
+            if len(shape) == 1:
+                add_child(self, _dense(shape[-1], u, generator=generator))
+            else:
+                add_child(self, _conv1d(shape[-1], u, kernel_size,
+                                        generator=generator))
+            shape = (*shape[:-1], u)
+        self.act = get_activation(activation)
+        self.dropout_rate = dropout_rate
+        self.out_shape = shape
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = force_1d(x)
+        for layer in self.children():
+            x = layer(x)
+            if self.act:
+                x = self.act(x)
+            x = dropout(x, self.dropout_rate, self.training)
+        return x
+
+
+@register_block("simple_dense_block")
+def simple_dense_block(model_config: dict):
+    return functools.partial(
+        _simple_dense, tuple(model_config["units"]),
+        model_config.get("kernel_size", 1),
+        model_config.get("dense_activation", None),
+        model_config.get("dropout_rate", 0.0))
+
+
+@register_block("simple_dense_stage")
+def simple_dense_stage(model_config: dict):
+    # Reference quirk (modules.py:86-103): the stage OVERWRITES
+    # 'dense_activation' with the 'activation' key (default None), so a
+    # config carrying only 'dense_activation' — like SS5.json's BLOCK1 —
+    # runs a LINEAR dense stage. Replicated exactly.
+    return functools.partial(
+        _simple_dense, (model_config["units"],) * model_config["depth"],
+        model_config.get("kernel_size", 1),
+        model_config.get("activation", None),
+        model_config.get("dropout_rate", 0.0))
+
+
+def _simple_dense(units, kernel_size, activation, dropout_rate, in_shape,
+                  generator=None):
+    return SimpleDenseBlock(units, in_shape, kernel_size, activation,
+                            dropout_rate, generator)
+
+
+# --------------------------------------------------------------------------
+#                       ATTENTION-FAMILY 1D BLOCKS
+# --------------------------------------------------------------------------
+class ConformerEncoderBlock(nn.Module):
+    """Conformer block: FFN/2 -> MHSA -> GLU+depthwise conv -> FFN/2
+    (modules.py:410-508), unrolled over `depth`. Positional encoding: none
+    or "basic" in absolute mode; relative mode, RFF encodings and
+    `scan_depth` are not yet ported."""
+
+    def __init__(self, in_shape: Sequence[int], key_dim: int = 36,
+                 n_head: int = 4, kernel_size: int = 32,
+                 activation: str = "swish", dropout_rate: float = 0.1,
+                 multiplier: float = 4, ffn_factor: float = 0.5,
+                 pos_encoding: Optional[str] = "basic",
+                 pos_mode: str = "absolute", use_bias: bool = True,
+                 depth: int = 1, scan_depth: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if scan_depth:
+            raise NotImplementedError("conformer scan_depth is not yet ported")
+        if pos_mode != "absolute" or pos_encoding not in (None, "basic"):
+            raise NotImplementedError(
+                f"conformer pos_encoding={pos_encoding!r}, "
+                f"pos_mode={pos_mode!r} is not yet ported")
+        self.act = get_activation(activation)
+        self.dropout_rate, self.ffn_factor = dropout_rate, ffn_factor
+        self.pos_encoding = pos_encoding
+        time, emb = force_1d_shape(in_shape)
+        hidden = int(multiplier * emb)
+        g = generator
+
+        def child(m):
+            return add_child(self, m)
+
+        def ffn():
+            return (child(_layer_norm(emb)),
+                    child(_dense(emb, hidden, generator=g)),
+                    child(_dense(hidden, emb, generator=g)))
+
+        # one dict of children per iteration, created in flax's order
+        self.iters = []
+        for _ in range(depth):
+            it = {"ffn1": ffn(), "attn_ln": child(_layer_norm(emb))}
+            it["mha"] = child(MultiHeadAttention(
+                emb, emb, emb, n_head, key_dim, dropout=dropout_rate,
+                use_bias=use_bias, generator=g))
+            it["conv_ln"] = child(_layer_norm(emb))
+            it["glu"] = child(_conv1d(emb, 2 * emb, 1, generator=g))
+            it["depthwise"] = child(_conv1d(emb, emb, kernel_size,
+                                            groups=emb, generator=g))
+            it["bn"] = child(BatchNorm(emb))
+            it["pointwise"] = child(_conv1d(emb, emb, 1, generator=g))
+            it["ffn2"] = ffn()
+            it["out_ln"] = child(_layer_norm(emb))
+            self.iters.append(it)
+        self.out_shape = (time, emb)
+
+    def _ffn(self, x, layers):
+        ln, d1, d2 = layers
+        x = dropout(self.act(d1(ln(x))), self.dropout_rate, self.training)
+        return dropout(d2(x), self.dropout_rate, self.training)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = force_1d(x)
+        for it in self.iters:
+            x = x + self.ffn_factor * self._ffn(x, it["ffn1"])
+            if self.pos_encoding == "basic":
+                x = x + basic_pos_encoding(x.shape[-2], x.shape[-1]).to(x)
+
+            attn_in = it["attn_ln"](x)
+            attn = it["mha"](attn_in, attn_in, attn_in)
+            x = dropout(attn, self.dropout_rate, self.training) + x
+
+            # conv module: pointwise-GLU -> depthwise -> BN -> swish -> pointwise
+            conv = it["glu"](it["conv_ln"](x))
+            conv_1, conv_2 = conv.chunk(2, dim=-1)
+            conv = conv_1 * torch.sigmoid(conv_2)
+            conv = torch.nn.functional.silu(it["bn"](it["depthwise"](conv)))
+            conv = dropout(it["pointwise"](conv), self.dropout_rate,
+                           self.training)
+            conv = conv + x
+
+            # final half-step FFN off the conv output, residual to pre-conv x
+            ffn = self._ffn(conv, it["ffn2"])
+            x = it["out_ln"](x + self.ffn_factor * ffn)
+        return x
+
+
+def _conformer_kwargs(model_config: dict) -> dict:
+    return dict(
+        key_dim=model_config.get("key_dim", 36),
+        n_head=model_config.get("n_head", 4),
+        kernel_size=model_config.get("kernel_size", 32),
+        activation=model_config.get("activation", "swish"),
+        dropout_rate=model_config.get("dropout_rate", 0.1),
+        multiplier=model_config.get("multiplier", 4),
+        ffn_factor=model_config.get("ffn_factor", 0.5),
+        pos_encoding=model_config.get("pos_encoding", "basic"),
+        pos_mode=model_config.get("pos_mode", "absolute"),
+        use_bias=model_config.get("use_bias", True),
+    )
+
+
+def _conformer(kwargs, in_shape, generator=None):
+    return ConformerEncoderBlock(in_shape, generator=generator, **kwargs)
+
+
+@register_block("conformer_encoder_block")
+def conformer_encoder_block(model_config: dict):
+    return functools.partial(_conformer, _conformer_kwargs(model_config))
+
+
+@register_block("conformer_encoder_stage")
+def conformer_encoder_stage(model_config: dict):
+    kwargs = dict(_conformer_kwargs(model_config),
+                  depth=model_config["depth"],
+                  scan_depth=model_config.get("scan_depth", False))
+    return functools.partial(_conformer, kwargs)

@@ -1,0 +1,102 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each kernel is one `.cu` file under `seld_tpu_torch/csrc/` with a plain C
+interface. At first use it is compiled by nvcc for sm_90a into
+`build/kernels/` at the repository root, under a file name that carries a
+hash of the source (an edited source builds anew), and loaded with ctypes.
+`build()` starts one nvcc per source, all at once, so a cold start pays for
+the slowest source only.
+
+Every wrapper adds one to `launch_counts[<kernel>]` where it launches its
+kernel, and nowhere else, so a run can show that it went through the kernel.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Sequence
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+SOURCES = ("gru_fwd.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+launch_counts: collections.Counter = collections.Counter()
+
+_load_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    for cand in (os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None,
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: building the CUDA kernels needs the "
+                       "CUDA toolkit")
+
+
+def library_path(source: str) -> str:
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
+
+
+def build(sources: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Compile every source whose library is missing, in parallel.
+
+    Returns {source: nvcc output (ptxas register/shared-memory report)};
+    raises with the compiler's output if any build fails.
+    """
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for src in sources:
+        out = library_path(src)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    logs, failed = {}, []
+    for src, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[src] = log
+        if proc.returncode != 0:
+            failed.append(f"{src} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)   # atomic: a concurrent loader never sees half
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of `source`, built on first use."""
+    with _load_lock:
+        lib = _libs.get(source)
+        if lib is None:
+            build([source])
+            lib = ctypes.CDLL(library_path(source))
+            lib.seld_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.seld_cuda_error_string.restype = ctypes.c_char_p
+            _libs[source] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C launcher returned a CUDA error (a refused launch never
+    runs, and a later synchronize does not report it)."""
+    if err != 0:
+        msg = lib.seld_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

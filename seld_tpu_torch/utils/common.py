@@ -1,0 +1,11 @@
+"""Helpers shared by the port's modules (copies from seld_tpu/utils/common.py)."""
+from __future__ import annotations
+
+
+def sorted_block_keys(cfg) -> list:
+    """BLOCK0..BLOCKn keys in NUMERIC order — lexicographic sorted() puts
+    BLOCK10 before BLOCK2, which fed 1D stages into 2D complexity folds
+    and misordered model bodies for n_blocks >= 11."""
+    keys = [k for k in cfg
+            if k.startswith("BLOCK") and not k.endswith("ARGS")]
+    return sorted(keys, key=lambda k: (len(k), k))

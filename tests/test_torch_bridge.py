@@ -1,0 +1,103 @@
+"""The flax <-> port parameter bridge (seld_tpu_torch/bridge.py)."""
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seld_tpu.config import get_model_config
+from seld_tpu.models import build_model as jax_build_model
+from seld_tpu_torch.bridge import from_flax, to_flax
+from seld_tpu_torch.models import build_model
+
+torch.set_num_threads(1)
+SHAPE = (30, 16, 7)
+
+
+def _narrow():
+    cfg = copy.deepcopy(get_model_config("SS5", search_paths=[]))
+    cfg["filters"] = 4
+    cfg["BLOCK0_ARGS"]["filters1"] = 8
+    cfg["BLOCK1_ARGS"]["units"] = 16
+    cfg["BLOCK2_ARGS"].update(key_dim=4, depth=1)
+    cfg["SED_ARGS"]["key_dim"] = 4
+    cfg["DOA_ARGS"]["units"] = 8
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def pair():
+    cfg = _narrow()
+    shapes = jax.eval_shape(lambda: jax_build_model(
+        "conv_temporal", SHAPE, cfg).init(
+            {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, *SHAPE)),
+            train=False))
+    rng = np.random.RandomState(0)
+    v = jax.tree_util.tree_map(
+        lambda s: rng.randn(*s.shape).astype(np.float32), shapes)
+    return build_model("conv_temporal", SHAPE, cfg, device="cpu"), v
+
+
+def _flat(tree):
+    return {jax.tree_util.keystr(p): a
+            for p, a in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def test_names_are_flax_paths_joined(pair):
+    model, v = pair
+    keys = set(model.state_dict())
+    want = set()
+    for col in ("params", "batch_stats"):
+        for path, _ in jax.tree_util.tree_flatten_with_path(v[col])[0]:
+            want.add(".".join(str(k.key) for k in path))
+    assert keys == want
+
+
+def test_round_trip_is_exact(pair):
+    model, v = pair
+    model.load_state_dict(from_flax(v, model))
+    back = _flat(to_flax(model))
+    orig = _flat(v)
+    assert set(back) == set(orig)
+    for k in orig:
+        np.testing.assert_array_equal(back[k], orig[k])
+
+
+def test_from_flax_without_model_is_a_plain_name_map(pair):
+    _, v = pair
+    sd = from_flax(v)
+    np.testing.assert_array_equal(
+        sd["Conv2DBN_0.BatchNorm_0.mean"].numpy(),
+        v["batch_stats"]["Conv2DBN_0"]["BatchNorm_0"]["mean"])
+
+
+def test_raises_on_unconsumed_leaf(pair):
+    model, v = pair
+    bad = copy.deepcopy(v)
+    bad["params"]["Conv2DBN_0"]["Conv_0"]["extra"] = np.zeros(3, np.float32)
+    with pytest.raises(KeyError, match="not consumed.*extra"):
+        from_flax(bad, model)
+
+
+def test_raises_on_missing_leaf(pair):
+    model, v = pair
+    bad = copy.deepcopy(v)
+    del bad["batch_stats"]["Conv2DBN_0"]["BatchNorm_0"]["var"]
+    with pytest.raises(KeyError, match="not found.*BatchNorm_0.var"):
+        from_flax(bad, model)
+
+
+def test_raises_on_shape_mismatch(pair):
+    model, v = pair
+    bad = copy.deepcopy(v)
+    bad["params"]["SELDHeads_0"]["sed_out"]["bias"] = np.zeros(5, np.float32)
+    with pytest.raises(ValueError, match="sed_out.bias"):
+        from_flax(bad, model)
+
+
+def test_raises_on_unknown_collection(pair):
+    _, v = pair
+    with pytest.raises(KeyError, match="unknown flax collections"):
+        from_flax({**v, "intermediates": {}})

@@ -1,0 +1,122 @@
+"""The port stands alone: no file under seld_tpu_torch/, and not
+chip_smoke.py, imports jax, flax or seld_tpu; the modules it copies stay
+equal to their originals; chip_smoke.py refuses to run without a card.
+"""
+import ast
+import glob
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = sorted(glob.glob(os.path.join(REPO, "seld_tpu_torch", "**",
+                                           "*.py"), recursive=True))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "seld_tpu")
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+def test_port_files_exist():
+    names = {os.path.relpath(p, REPO) for p in PORT_FILES}
+    for want in ("config/registry.py", "config/zoo.py", "models/layers.py",
+                 "models/modules.py", "models/models.py", "ops/gru.py",
+                 "inference/export.py", "serving/server.py",
+                 "serving/client.py", "bridge.py"):
+        assert os.path.join("seld_tpu_torch", want) in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [
+    os.path.join(REPO, "chip_smoke.py")],
+    ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+def test_copied_zoo_and_client_are_byte_identical():
+    for rel in ("config/zoo.py", "serving/client.py"):
+        with open(os.path.join(REPO, "seld_tpu", rel)) as f:
+            want = f.read()
+        with open(os.path.join(REPO, "seld_tpu_torch", rel)) as f:
+            assert f.read() == want, rel
+
+
+def test_model_configs_equal():
+    from seld_tpu.config.zoo import MODEL_CONFIGS as want
+    from seld_tpu_torch.config.zoo import MODEL_CONFIGS as got
+    assert got == want
+
+
+def _code_without_docstrings(path, package):
+    with open(path) as f:
+        tree = ast.parse(f.read().replace(package, "PKG"))
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(
+                body[0], ast.Expr) and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            node.body = body[1:]
+    return ast.dump(tree)
+
+
+def test_registry_copy_equals_original_modulo_package():
+    want = _code_without_docstrings(
+        os.path.join(REPO, "seld_tpu", "config", "registry.py"), "seld_tpu.")
+    got = _code_without_docstrings(
+        os.path.join(REPO, "seld_tpu_torch", "config", "registry.py"),
+        "seld_tpu_torch.")
+    assert got == want
+
+
+def test_common_helpers_equal():
+    from seld_tpu.utils.common import sorted_block_keys as want
+    from seld_tpu_torch.utils import sorted_block_keys as got
+    cfg = {f"BLOCK{i}": "x" for i in (0, 2, 10, 1)}
+    cfg.update({"BLOCK10_ARGS": {}, "SED": "y"})
+    assert got(cfg) == want(cfg) == ["BLOCK0", "BLOCK1", "BLOCK2", "BLOCK10"]
+
+
+def test_kernel_build_is_lazy_and_keyed_by_source():
+    """Importing the port builds nothing; the library name carries a hash
+    of the source, so an edited source builds anew."""
+    from seld_tpu_torch.ops import kernels
+    assert not kernels._libs
+    path = kernels.library_path("gru_fwd.cu")
+    assert path.startswith(os.path.join(REPO, "build", "kernels"))
+    assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
+    with open(os.path.join(kernels.CSRC_DIR, "gru_fwd.cu")) as f:
+        src = f.read()
+    assert "seld_tpu/ops/pallas/gru.py::_fwd_kernel" in src
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    if alone:
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        cwd = str(tmp_path)
+    else:
+        cwd = REPO
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
