@@ -7,8 +7,9 @@ Phases, one line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compile every CUDA kernel of the port from csrc/ (seconds)
   3. kernels  each kernel against its plain PyTorch version on the card, in
-              f32 and bf16 at the serving path's shapes, with its time, the
-              plain version's time and one PyTorch library call's time
+              f32 and bf16 at its path's shapes, with its time, the plain
+              version's time, its bound and one PyTorch library call's time
+              (none for stem_dy)
   4. model    full-width SS5 (seeded weights), B=32, on the card against the
               same model on the CPU with the plain kernels, TF32 off
   5. serve    export a window artifact, serve it with micro-batching on an
@@ -16,6 +17,12 @@ Phases, one line each:
               one bf16) through the port's client, check every reply against
               a direct forward and that every dispatch launched the GRU
               kernel once per GRU layer
+  6. train    the SS5 training step at full width: (a) one f32 step at B=8,
+              dropouts zeroed, on the card against the same step on the CPU
+              (losses, every gradient, the updated parameters, the running
+              statistics); (b) 20 bf16 steps at B=256 with dropout through
+              seld_tpu_torch.bench's step: finite losses and exactly 2
+              gru_scan, 2 gru_scan_bwd and 1 stem_dy launches per step
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed phase raises: the exit code
 is non-zero and no result line is printed. Without a CUDA card, or run
@@ -41,6 +48,31 @@ GRU_TOL = {"float32": 1e-4,
            "bfloat16": 2.0 ** -7}
 MODEL_TOL = 1e-4      # f32, TF32 off: cuDNN/cuBLAS vs CPU summation order
 REPLY_TOL = 1e-4      # a reply's rows ran in a padded batch of another size
+# Backward kernels, as a share of the largest |value| of the plain version's
+# output: f32 sums in another order (1e-5); a bf16 output is one rounding of
+# an f32 value on both sides, so they may sit one bf16 ulp apart (2^-7 of
+# the value). Every reduced output (dRk, dRb, dbias) is f32 on both sides.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# train phase (a), f32 with TF32 off, card against CPU through the plain
+# versions: losses and running statistics to 1e-5 relative; each gradient
+# to 1e-3 of its largest |element| (deep reductions in another order, and
+# a pool window whose two largest values lie within rounding may route its
+# gradient to the other one); the updated parameters to 1e-6 where the
+# gradient stands clear of that noise — AdaBelief's first step moves every
+# element by about 1.1 lr whatever its size, so an element whose gradient
+# sign is noise may move the other way — and to 2.3 lr everywhere.
+# Some gradients are zero in exact arithmetic: the bias of a conv that
+# feeds a train-mode BatchNorm (the batch mean absorbs it) and attention's
+# key bias (softmax ignores a shift shared by all keys). Their elements are
+# rounding noise on both sides, so they are held, card and CPU alike, below
+# TRAIN_NULL_GRAD of the step's largest gradient element instead of to a
+# share of themselves.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_NULL_GRAD = 1e-6
+TRAIN_PARAM_ATOL = 1e-6
+TRAIN_STATS_RTOL = 1e-5
+TRAIN_STEPS = 20
 
 
 def log(phase, msg):
@@ -61,10 +93,10 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def cudnn_gru(x_proj, rec_kernel, rec_bias):
-    """torch.nn.GRU (cuDNN) computing gru_scan's function: the input is
-    x_proj of both directions side by side and each direction's input
-    weights select its own block, permuted z|r|h -> r|z|n."""
+def _cudnn_gru(x_proj, rec_kernel, rec_bias):
+    """torch.nn.GRU (cuDNN) computing gru_scan's function, and its f32
+    input: x_proj of both directions side by side, where each direction's
+    input weights select its own block, permuted z|r|h -> r|z|n."""
     import torch
     d, t, b, k = x_proj.shape
     u = k // 3
@@ -81,6 +113,13 @@ def cudnn_gru(x_proj, rec_kernel, rec_bias):
             getattr(gru, f"weight_hh_l0{sfx}").copy_(rec_kernel[di][:, perm].T)
             getattr(gru, f"bias_hh_l0{sfx}").copy_(rec_bias[di][perm])
     inp = torch.cat(list(x_proj.float()), dim=-1)        # [T, B, D*3U]
+    return gru, inp
+
+
+def cudnn_gru(x_proj, rec_kernel, rec_bias):
+    """One no-grad cuDNN GRU forward on gru_scan's function, f32."""
+    import torch
+    gru, inp = _cudnn_gru(x_proj, rec_kernel, rec_bias)
 
     def run():
         with torch.no_grad():
@@ -120,6 +159,8 @@ def phase_kernels(card):
             worst[dtype] = max(worst[dtype], err)
             if dtype == "float32" and b == 32:
                 timing = (xp, rk, rb, hs)
+            if dtype == "bfloat16" and b == 256:
+                train_args = (xp, rk, rb)
 
     # the serving path's shape: SS5 biGRU-128, T=60, a B=32 bucket, f32
     xp, rk, rb, hs = timing
@@ -132,26 +173,216 @@ def phase_kernels(card):
     ms = cuda_ms(lambda: gru_scan(xp, rk, rb), 200)
     plain_ms = cuda_ms(lambda: gru_scan_ref(xp, rk, rb), 10)
     library_ms = cuda_ms(lib, 200)
-    b = xp.shape[2]
-    nbytes = (xp.numel() * xp.element_size() + rk.numel() * 4
-              + rb.numel() * 4 + hs.numel() * hs.element_size())
-    flops = 2 * d * t * b * u * 3 * u + 10 * d * t * b * u   # product + gates
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = flops / H100_F32_FLOPS * 1e3
+    bound_ms, bound_by = gru_scan_bound(xp, rk, rb)
     log("kernels", f"gru_scan f32 D=2 T=60 B=32 U=128 on {card}: "
                    f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
                    f"(cuDNN GRU) {library_ms:.4f} bound_ms "
-                   f"{max(bytes_ms, ops_ms):.5f}; cuDNN vs kernel "
-                   f"{lib_err:.2e}")
+                   f"{bound_ms:.5f}; cuDNN vs kernel {lib_err:.2e}")
+    # and at the training path's shape, B=256 bf16
+    xp, rk, rb = train_args
+    train_ms = cuda_ms(lambda: gru_scan(xp, rk, rb), 50)
+    train_bound_ms, train_bound_by = gru_scan_bound(xp, rk, rb)
+    log("kernels", f"gru_scan bf16 D=2 T=60 B=256 U=128 (training shape): "
+                   f"kernel_ms {train_ms:.4f} bound_ms {train_bound_ms:.5f} "
+                   f"({train_bound_by})")
     return {"name": "gru_scan", "route": "cuda",
             "source": "seld_tpu_torch/csrc/gru_fwd.cu",
             "replaces": "seld_tpu/ops/pallas/gru.py:170",
             "launches": None, "max_abs_err": worst["float32"],
             "max_abs_err_bf16": worst["bfloat16"],
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "library_ms": library_ms}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "train_shape_ms": train_ms, "train_shape_bound_ms": train_bound_ms,
+            "train_shape_bound_by": train_bound_by}
+
+
+def gru_scan_bound(xp, rk, rb):
+    """gru_scan's bound: x_proj read and hs written in x_proj's dtype, the
+    f32 weights read; the recurrent product and the gates' arithmetic."""
+    d, t, b, k = xp.shape
+    u = k // 3
+    hs_numel = d * t * b * u
+    nbytes = ((xp.numel() + hs_numel) * xp.element_size() + rk.numel() * 4
+              + rb.numel() * 4)
+    flops = 2 * d * t * b * u * 3 * u + 10 * d * t * b * u   # product + gates
+    return bound(nbytes, flops)
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    f32 operations over the f32 rate outside the tensor cores."""
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = flops / H100_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms
+                                   else "operations")
+
+
+def rel_err(got, want):
+    """max |got - want| as a share of max |want|."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def cudnn_gru_train(x_proj, rec_kernel, rec_bias, g):
+    """cuDNN's GRU on gru_scan's function in x_proj's dtype: (training
+    forward, training forward + backward for the cotangent g); the
+    backward's time is their difference. cuDNN also computes the identity
+    input weights' gradient."""
+    import torch
+    gru, inp = _cudnn_gru(x_proj, rec_kernel, rec_bias)
+    gru = gru.to(x_proj.dtype)
+    inp = inp.to(x_proj.dtype).requires_grad_()
+    gout = torch.cat(list(g), dim=-1)                    # [T, B, D*U]
+
+    def fwd():
+        return gru(inp)[0]
+
+    def fwd_bwd():
+        gru(inp)[0].backward(gout)
+    return fwd, fwd_bwd
+
+
+def phase_kernels_bwd(card):
+    import torch
+    from seld_tpu_torch.ops.gru import (gru_scan_bwd, gru_scan_bwd_ref,
+                                        gru_scan_ref)
+    from seld_tpu_torch.ops.stem_bwd import stem_dy, stem_dy_ref
+
+    rng = np.random.RandomState(4)
+    d, t, u = 2, 60, 128
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    timing = None
+    for dtype in ("float32", "bfloat16"):
+        for b in (1, 3, 32, 256):
+            dt = getattr(torch, dtype)
+            xp = torch.from_numpy(rng.randn(d, t, b, 3 * u).astype(
+                np.float32)).cuda().to(dt)
+            rk = torch.from_numpy((rng.randn(d, u, 3 * u) / math.sqrt(u))
+                                  .astype(np.float32)).cuda()
+            rb = torch.from_numpy(0.1 * rng.randn(d, 3 * u).astype(
+                np.float32)).cuda()
+            hs = gru_scan_ref(xp, rk, rb)
+            g = torch.from_numpy(rng.randn(d, t, b, u).astype(
+                np.float32)).cuda().to(dt)
+            got = gru_scan_bwd(xp, rk, rb, hs, g)
+            torch.cuda.synchronize()
+            want = gru_scan_bwd_ref(xp, rk, rb, hs, g)
+            errs = [rel_err(a, w) for a, w in zip(got, want)]
+            tols = [BWD_TOL[dtype], BWD_TOL["float32"], BWD_TOL["float32"]]
+            ok = all(e <= tl for e, tl in zip(errs, tols)) and \
+                got[0].dtype == dt
+            log("kernels", f"gru_scan_bwd {dtype} B={b}: rel_err dx_proj "
+                           f"{errs[0]:.2e} dRk {errs[1]:.2e} dRb "
+                           f"{errs[2]:.2e} (tol {tols[0]:.1e}/"
+                           f"{tols[1]:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"gru_scan_bwd disagrees with "
+                                 f"gru_scan_bwd_ref at {dtype} B={b}")
+            worst[dtype] = max(worst[dtype], max(
+                (a.float() - w.float()).abs().max().item()
+                for a, w in zip(got, want)))
+            if dtype == "bfloat16" and b == 256:
+                timing = (xp, rk, rb, hs, g, got)
+
+    # the training path's shape: D=2, T=60, B=256, U=128, bf16 storage
+    xp, rk, rb, hs, g, got = timing
+    b = xp.shape[2]
+    ms = cuda_ms(lambda: gru_scan_bwd(xp, rk, rb, hs, g), 20)
+    plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xp, rk, rb, hs, g), 2)
+    lib_fwd, lib_both = cudnn_gru_train(xp, rk, rb, g)
+    library_ms = cuda_ms(lib_both, 20) - cuda_ms(lib_fwd, 20)
+    nbytes = ((xp.numel() * 2 + hs.numel() + g.numel()) * xp.element_size()
+              + (rk.numel() + rb.numel()) * 4 * 2)
+    flops = 3 * 2 * d * t * b * u * 3 * u
+    bound_ms, bound_by = bound(nbytes, flops)
+    log("kernels", f"gru_scan_bwd bf16 D=2 T=60 B=256 U=128 on {card}: "
+                   f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                   f"(cuDNN GRU backward) {library_ms:.4f} bound_ms "
+                   f"{bound_ms:.5f} ({bound_by})")
+    entries = [{"name": "gru_scan_bwd", "route": "cuda",
+                "source": "seld_tpu_torch/csrc/gru_bwd.cu",
+                "replaces": "seld_tpu/ops/pallas/gru.py:209",
+                "launches": None, "max_abs_err": worst["float32"],
+                "max_abs_err_bf16": worst["bfloat16"],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}]
+
+    # stem_dy at the SS5 stem shape: y [B, 300, 64, 32], pool [5, 2], in
+    # the training path's layout (the conv's output is channels-last in
+    # memory, so the [B, T, F, C] view is contiguous) and, once, as a
+    # channels-first buffer; y on a coarse grid with many negatives, so
+    # windows hold exact ties and ReLU zeros
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    cases = [(dtype, b, "channels-last") for dtype in ("float32", "bfloat16")
+             for b in (8, 256)] + [("bfloat16", 8, "channels-first")]
+    for dtype, b, layout in cases:
+        dt = getattr(torch, dtype)
+        shape = (b, 300, 64, 32) if layout == "channels-last" \
+            else (b, 32, 300, 64)
+        y = (torch.randint(-6, 5, shape, generator=gen, device="cuda")
+             / 4.0).to(dt)
+        if layout == "channels-first":
+            y = y.movedim(1, -1)
+        dp = torch.randn(b, 60, 32, 32, generator=gen, device="cuda").to(dt)
+        p6 = torch.stack([
+            0.1 * torch.randn(32, generator=gen, device="cuda"),
+            1.0 + 0.1 * torch.rand(32, generator=gen, device="cuda"),
+            1.0 + 0.2 * torch.rand(32, generator=gen, device="cuda"),
+            0.1 * torch.randn(32, generator=gen, device="cuda"),
+            1e-3 * torch.randn(32, generator=gen, device="cuda"),
+            1e-3 * torch.randn(32, generator=gen, device="cuda")])
+        dy, dbias = stem_dy(y, dp, p6, (5, 2))
+        torch.cuda.synchronize()
+        want_dy, want_db = stem_dy_ref(y, dp, p6, (5, 2))
+        e_dy, e_db = rel_err(dy, want_dy), rel_err(dbias, want_db)
+        ties = _tied_windows(y, p6)
+        ok = (e_dy <= BWD_TOL[dtype] and e_db <= BWD_TOL["float32"]
+              and dy.stride() == y.stride() and ties > 0)
+        log("kernels", f"stem_dy {dtype} B={b} {layout}: rel_err dy "
+                       f"{e_dy:.2e} dbias {e_db:.2e} (tol "
+                       f"{BWD_TOL[dtype]:.1e}/{BWD_TOL['float32']:.0e}), "
+                       f"{ties} windows with "
+                       f"tied positive maxima {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"stem_dy disagrees with stem_dy_ref at "
+                             f"{dtype} B={b} {layout}")
+        worst[dtype] = max(worst[dtype],
+                           (dy.float() - want_dy.float()).abs().max()
+                           .item())
+        if (dtype, b, layout) == ("bfloat16", 256, "channels-last"):
+            timing = (y, dp, p6)
+    # the training path's shape and layout: B=256 bf16, channels-last
+    y, dp, p6 = timing
+    out = torch.empty_like(y)
+    ms = cuda_ms(lambda: stem_dy(y, dp, p6, (5, 2), out=out), 20)
+    plain_ms = cuda_ms(lambda: stem_dy_ref(y, dp, p6, (5, 2)), 3)
+    nbytes = (2 * y.numel() + dp.numel()) * y.element_size() + p6.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 0)
+    log("kernels", f"stem_dy bf16 B=256 [256,300,64,32] pool [5,2] on "
+                   f"{card}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                   f"library_ms none bound_ms {bound_ms:.5f} ({bound_by})")
+    entries.append({"name": "stem_dy", "route": "cuda",
+                    "source": "seld_tpu_torch/csrc/stem_dy.cu",
+                    "replaces": "seld_tpu/ops/pallas/stem_bwd.py:102",
+                    "launches": None, "max_abs_err": worst["float32"],
+                    "max_abs_err_bf16": worst["bfloat16"],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
+    return entries
+
+
+def _tied_windows(y, p6):
+    """Windows whose positive maximum is held by two or more elements."""
+    from seld_tpu_torch.ops.stem_bwd import bn_affine
+    scale, shift = bn_affine(p6[0], p6[1], p6[2], p6[3], y.dtype)
+    bno = (y * scale + shift).float()
+    b, t, f, c = bno.shape
+    w = bno.reshape(b, t // 5, 5, f // 2, 2, c)
+    m = w.amax(dim=(2, 4), keepdim=True)
+    cnt = ((w == m) & (w > 0)).sum(dim=(2, 4))
+    return int((cnt > 1).sum().item())
 
 
 def phase_model(card):
@@ -289,6 +520,117 @@ def phase_serve(model, card):
     return launches
 
 
+def _one_step(device):
+    """One f32 bench step at B=8 with dropouts zeroed on `device`; returns
+    (losses, raw gradients, parameters before and after, running stats,
+    learning rate, parameter names)."""
+    from seld_tpu_torch.bench import build
+    b = build(batch=8, dtype="fp32", device=device, dropout=False)
+    names = list(b.state.params)
+    params = list(b.state.model.parameters())
+    before = [p.detach().cpu().clone() for p in params]
+    grads = []
+    step_fn = b.state.optimizer.step
+
+    def recording_step(ps, gs):
+        grads.extend(g.detach().cpu().clone() for g in gs)
+        step_fn(ps, gs)
+    b.state.optimizer.step = recording_step
+    _, _, losses = b.step(b.state, b.metric, b.x, b.y)
+    after = [p.detach().cpu() for p in params]
+    stats = [v.detach().cpu() for v in b.state.model.buffers()]
+    return [v.item() for v in losses], grads, before, after, stats, \
+        b.state.optimizer.lr, names
+
+
+def phase_train(card):
+    import torch
+    from seld_tpu_torch.bench import build, gflops_per_window, \
+        H100_BF16_PEAK_TFLOPS
+    from seld_tpu_torch.ops import kernels
+
+    # (a) one f32 step, card against the CPU through the plain versions
+    t0 = time.perf_counter()
+    lc, gc, p0, pc, sc, lr, names = _one_step("cuda")
+    lh, gh, _, ph, sh, _, _ = _one_step("cpu")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    null_at = TRAIN_NULL_GRAD * max(g.abs().max().item() for g in gh)
+    null = [g.abs().max().item() < null_at for g in gh]
+    null_names = [n for n, z in zip(names, null) if z]
+    grad_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   .item() for a, b, z in zip(gc, gh, null) if not z)
+    null_max = max([a.abs().max().item() for a, z in zip(gc, null) if z],
+                   default=0.0)
+    clear_err, move_err = 0.0, 0.0
+    for a, b, g, z in zip(pc, ph, gh, null):
+        clear = g.abs() > TRAIN_GRAD_RTOL * g.abs().max()
+        diff = (a - b).abs()
+        if clear.any() and not z:
+            clear_err = max(clear_err, diff[clear].max().item())
+        move_err = max(move_err, diff.max().item())
+    stats_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                    .item() for a, b in zip(sc, sh))
+    moved = max((a - p).abs().max().item() for a, p in zip(pc, p0))
+    ok = (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL
+          and null_max < null_at
+          and all(n.endswith("bias") for n in null_names)
+          and clear_err <= TRAIN_PARAM_ATOL and move_err <= 2.3 * lr
+          and stats_err <= TRAIN_STATS_RTOL and moved > 0.5 * lr)
+    log("train", f"(a) SS5 full width f32 B=8, one step, card vs cpu: "
+                 f"losses {lc} rel_err {loss_err:.2e} (tol "
+                 f"{TRAIN_LOSS_RTOL:.0e}); {len(gc) - len(null_names)} "
+                 f"gradients rel_err {grad_err:.2e} (tol "
+                 f"{TRAIN_GRAD_RTOL:.0e}); {len(null_names)} zero in exact "
+                 f"arithmetic ({', '.join(null_names)}) below "
+                 f"{null_at:.1e} on the card: {null_max:.1e}; updated "
+                 f"params max_abs_err {clear_err:.2e} where the gradient is "
+                 f"clear (tol {TRAIN_PARAM_ATOL:.0e}), {move_err:.2e} "
+                 f"anywhere (tol {2.3 * lr:.1e}); running stats rel_err "
+                 f"{stats_err:.2e} (tol {TRAIN_STATS_RTOL:.0e}); "
+                 f"{time.perf_counter() - t0:.1f} s "
+                 f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the f32 train step on the card disagrees with the "
+                         "CPU")
+
+    # (b) bf16 steps at B=256 with dropout, through the bench's step
+    b = build(batch=256, dtype="bf16", device="cuda")
+    state, mstate = b.state, b.metric
+    for _ in range(2):                       # warm up, uncounted
+        state, mstate, _ = b.step(state, mstate, b.x, b.y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launch_counts.clear()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, mstate, (sl, dl) = b.step(state, mstate, b.x, b.y)
+        losses += [sl, dl]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: kernels.launch_counts[k] for k in kernels.KERNELS}
+    finite = bool(torch.isfinite(torch.stack(losses)).all().item())
+    ms_step = wall / TRAIN_STEPS * 1e3
+    wps = TRAIN_STEPS * b.batch / wall
+    mfu = wps * gflops_per_window(b.cfg) / 1e3 / H100_BF16_PEAK_TFLOPS
+    want = {"gru_scan": 2 * TRAIN_STEPS, "gru_scan_bwd": 2 * TRAIN_STEPS,
+            "stem_dy": TRAIN_STEPS}
+    log("train", f"(b) SS5 full width bf16 B=256, {TRAIN_STEPS} steps with "
+                 f"dropout: losses finite {finite} (first "
+                 f"{losses[0].item():.4f}/{losses[1].item():.4f}, last "
+                 f"{losses[-2].item():.4f}/{losses[-1].item():.4f}); "
+                 f"launches {counts} (want {want}); {ms_step:.2f} ms/step, "
+                 f"{wps:.1f} windows/s, MFU {mfu:.4f} of "
+                 f"{H100_BF16_PEAK_TFLOPS:.0f} TFLOP/s bf16, "
+                 f"max_memory_allocated "
+                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                 f"on {card}")
+    if not finite or counts != want:
+        raise SystemExit("bf16 training produced a non-finite loss or "
+                         "skipped a kernel")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -315,11 +657,15 @@ def main():
     log("build", f"{len(kernels.SOURCES)} kernel source(s) ready in "
                  f"{time.perf_counter() - t0:.1f} s")
 
-    entry = phase_kernels(smi)
+    entries = [phase_kernels(smi)] + phase_kernels_bwd(smi)
     model = phase_model(smi)
-    entry["launches"] = phase_serve(model, smi)
+    entries[0]["launches"] = phase_serve(model, smi)
+    train_counts = phase_train(smi)
+    entries[0]["train_launches"] = train_counts["gru_scan"]
+    for e in entries[1:]:
+        e["launches"] = train_counts[e["name"]]
 
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

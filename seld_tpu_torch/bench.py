@@ -1,0 +1,175 @@
+"""Benchmark: SS5 training throughput on one NVIDIA card.
+
+    python -m seld_tpu_torch.bench
+
+Trains conv_temporal + SS5 at full width on synthetic data made from a
+numpy seed: bf16 compute over f32 master weights, class-weighted BCE +
+1000 x class-weighted masked MSE + L2 1e-3, AGC 0.01 and AdaBelief, with
+the streaming SELD metric — the JAX package's bench.py workload. Prints ONE
+JSON line: windows/sec, the two timed windows, the FLOPs per window (6 x the
+analytic forward MACs) and the MFU against the H100's dense bf16 peak, with
+the card's name and power limit. Without a CUDA card it exits non-zero.
+
+Environment: BENCH_BATCH (256), BENCH_STEPS (steps per timed window, 400,
+as the JAX package's bench), BENCH_DTYPE (bf16 | fp32).
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import subprocess
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from seld_tpu_torch.config import get_model_config
+from seld_tpu_torch.models import build_model
+from seld_tpu_torch.nas.complexity import conv_temporal_complexity
+from seld_tpu_torch.train import losses as L
+from seld_tpu_torch.train import metrics as M
+from seld_tpu_torch.train.optimizers import adabelief
+from seld_tpu_torch.train.steps import make_train_step
+from seld_tpu_torch.train.train_state import TrainState
+
+INPUT_SHAPE = (300, 64, 7)
+N_CLASSES = 12
+# dense bf16 tensor-core peak of one H100 SXM (NVIDIA data sheet, 700 W)
+H100_BF16_PEAK_TFLOPS = 989.0
+# 2 flops per multiply-accumulate x (1 forward + 2 backward)
+FWD_BWD_HW_FLOPS_PER_MAC = 6.0
+DTYPES = {"bf16": torch.bfloat16, "fp32": None}
+
+
+def ss5_config(dropout: bool = True) -> dict:
+    cfg = copy.deepcopy(get_model_config("SS5", search_paths=[]))
+    cfg["n_classes"] = N_CLASSES
+    if not dropout:
+        # every dropout zeroed (the conformer stages default to 0.1)
+        for key in ("BLOCK0", "BLOCK1", "BLOCK2", "SED", "DOA"):
+            cfg.setdefault(f"{key}_ARGS", {})["dropout_rate"] = 0.0
+    return cfg
+
+
+def build(batch: int = 256, dtype: str = "bf16", device="cuda",
+          seed: int = 0, dropout: bool = True) -> SimpleNamespace:
+    """The bench's model, optimizer, step and one synthetic batch.
+
+    Weights come from `seed` (drawn on the CPU, so every device gets the
+    same model) and the batch from numpy seed `seed`; x is pre-cast to the
+    compute dtype, as the JAX package's feed does."""
+    compute_dtype = DTYPES[dtype]
+    cfg = ss5_config(dropout)
+    model = build_model("conv_temporal", INPUT_SHAPE, cfg, seed=seed,
+                        device=device)
+    opt = adabelief(list(model.parameters()), 1e-3, agc_clip=0.01)
+    state = TrainState(model, opt, seed=seed + 1)
+    cw = L.class_weights_from_samples(L.DCASE2021_TRAIN_SAMPLES, device)
+    step = make_train_step(
+        sed_loss_fn=lambda y, p: L.sed_loss_with_weights(y, p, cw),
+        doa_loss_fn=lambda y, p: L.MMSE_with_cls_weights(y, p, cw),
+        loss_weights=(1.0, 1000.0), l2=1e-3, compute_dtype=compute_dtype)
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(batch, *INPUT_SHAPE).astype(np.float32))
+    sed = (rng.rand(batch, 60, N_CLASSES) < 0.1).astype(np.float32)
+    doa = (np.clip(rng.randn(batch, 60, 3 * N_CLASSES), -1, 1)
+           * np.repeat(sed, 3, axis=-1)).astype(np.float32)
+    x = x.to(device=device, dtype=compute_dtype or torch.float32)
+    y = (torch.from_numpy(sed).to(device), torch.from_numpy(doa).to(device))
+    return SimpleNamespace(cfg=cfg, state=state, step=step, x=x, y=y,
+                           metric=M.init_state(N_CLASSES, device),
+                           batch=batch, dtype=dtype)
+
+
+def gflops_per_window(cfg: dict) -> float:
+    """Hardware fwd+bwd GFLOPs per window: 6 x the analytic forward MACs."""
+    cx, _ = conv_temporal_complexity(cfg, INPUT_SHAPE)
+    return cx["flops"] / 1e9 * FWD_BWD_HW_FLOPS_PER_MAC
+
+
+def robust_window_time(run_window, n_windows=2, anomaly_ratio=1.25):
+    """Time `n_windows` back-to-back windows; if window 0 exceeds
+    `anomaly_ratio` x the best of the rest (a first-execution cost that the
+    warmup did not flush), drop it and flag the run. run_window() runs the
+    step loop, synchronises and returns its wall time. Returns
+    (per_window_seconds, window_times, anomaly_flag)."""
+    times = [run_window() for _ in range(n_windows)]
+    if len(times) == 1:
+        return times[0], times, False
+    rest_min = min(times[1:])
+    anomaly = times[0] > anomaly_ratio * rest_min
+    counted = times[1:] if anomaly else times
+    return sum(counted) / len(counted), times, anomaly
+
+
+def card_name_and_power_limit() -> str:
+    """nvidia-smi's `name, power.limit` line of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> None:
+    argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter).parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench: no CUDA device (the bench measures the card "
+                         "and never falls back to the CPU)")
+    batch = int(os.environ.get("BENCH_BATCH", "256"))
+    n_steps = int(os.environ.get("BENCH_STEPS", "400"))
+    dtype = os.environ.get("BENCH_DTYPE", "bf16")
+    if dtype not in DTYPES:
+        raise SystemExit(f"bench: BENCH_DTYPE={dtype!r}; one of "
+                         f"{sorted(DTYPES)}")
+    b = build(batch, dtype, "cuda")
+    state, mstate = b.state, b.metric
+
+    # warmup: builds the kernels, and ends in a scalar fetch of the step's
+    # loss, which cannot complete before the step has run
+    for _ in range(2):
+        state, mstate, losses = b.step(state, mstate, b.x, b.y)
+    warmup_loss = losses[0].item()
+    if not np.isfinite(warmup_loss):
+        raise SystemExit(f"non-finite warmup loss {warmup_loss}")
+
+    def run_window():
+        nonlocal state, mstate
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state, mstate, _ = b.step(state, mstate, b.x, b.y)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    dt, window_times, anomaly = robust_window_time(run_window)
+    windows_per_sec = n_steps * batch / dt
+    gflops = gflops_per_window(b.cfg)
+    achieved_tflops = windows_per_sec * gflops / 1e3
+    print(json.dumps({
+        "metric": "ss5_train_throughput",
+        "value": windows_per_sec,
+        "unit": "windows/sec",
+        "batch": batch,
+        "compute_dtype": dtype,
+        "ms_per_step": dt / n_steps * 1e3,
+        "warmup_anomaly": bool(anomaly),
+        "window_times_sec": window_times,
+        "steps_per_window": n_steps,
+        "model_gflops_per_window": gflops,
+        "achieved_tflops": achieved_tflops,
+        "mfu_vs_bf16_peak": achieved_tflops / H100_BF16_PEAK_TFLOPS,
+        "peak_tflops_bf16": H100_BF16_PEAK_TFLOPS,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "device": torch.cuda.get_device_name(0),
+        "card": card_name_and_power_limit(),
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -29,6 +29,7 @@ from torch import nn
 from seld_tpu_torch.ops.dropout import dropout
 from seld_tpu_torch.ops.gru import gru_forward
 from seld_tpu_torch.ops.pooling import max_pool
+from seld_tpu_torch.ops.stem import conv_bn_relu_pool, fused_stem_applicable
 
 
 # ---------------------------------------------------------------- helpers
@@ -217,10 +218,7 @@ class BatchNorm(nn.Module):
             dims = tuple(range(x.dim() - 1))
             mean = xf.mean(dims)
             var = xf.square().mean(dims) - mean.square()
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.mul_(m).add_((1 - m) * mean)
-                self.var.mul_(m).add_((1 - m) * var)
+            self.update_running(mean, var)
         else:
             mean, var = self.mean, self.var
         out_dtype = torch.promote_types(x.dtype, self.scale.dtype)
@@ -228,10 +226,25 @@ class BatchNorm(nn.Module):
         y = (xf - mean) * inv + self.bias.float()
         return y.to(out_dtype)
 
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """ra = m * ra + (1 - m) * batch, for the running mean and var."""
+        m = self.momentum
+        self.mean.mul_(m).add_((1 - m) * mean)
+        self.var.mul_(m).add_((1 - m) * var)
+
 
 class Conv2DBN(nn.Module):
     """Conv2D + BatchNorm + activation, then (with `pool`) a VALID
-    non-overlapping max pool — the conv_temporal stem (composed path)."""
+    non-overlapping max pool — the conv_temporal stem.
+
+    In training, with a pool and a conv bias, where `fused_stem_applicable`
+    holds (ReLU, SAME, unit stride, no groups, T and F divisible by the
+    pool), the whole block runs as `ops.stem.conv_bn_relu_pool` — the fused
+    op whose backward is the stem_dy kernel on the card — and BatchNorm_0's
+    running statistics follow from its batch mean and variance
+    (seld_tpu/models/layers.py:224-236). Eval and other shapes compose the
+    layers."""
 
     def __init__(self, in_shape: Sequence[int], filters: int,
                  kernel_size: Union[int, Tuple[int, int]],
@@ -249,6 +262,7 @@ class Conv2DBN(nn.Module):
             feature_group_count=groups, use_bias=use_bias,
             generator=generator))
         add_child(self, BatchNorm(filters))
+        self.activation = activation
         self.act = get_activation(activation)
         self.pool = tuple(pool) if pool is not None else None
         t, f, c = conv.out_shape_of(in_shape)
@@ -257,7 +271,17 @@ class Conv2DBN(nn.Module):
         self.out_shape = (t, f, c)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.BatchNorm_0(self.Conv_0(x))
+        conv, bn = self.Conv_0, self.BatchNorm_0
+        if self.training and conv.bias is not None and fused_stem_applicable(
+                x.shape, self.pool, conv.strides, conv.padding, conv.groups,
+                self.activation):
+            dt = torch.promote_types(x.dtype, conv.kernel.dtype)
+            pooled, mean, var = conv_bn_relu_pool(
+                x.to(dt), conv.kernel.to(dt), conv.bias.to(dt), bn.scale,
+                bn.bias, self.pool, bn.epsilon)
+            bn.update_running(mean, var)
+            return pooled
+        x = bn(conv(x))
         if self.act:
             x = self.act(x)
         if self.pool is not None:
@@ -316,6 +340,7 @@ class MultiHeadAttention(nn.Module):
         h, s = num_heads, head_size
         out = output_size or value_features
         self.head_size, self.dropout = head_size, dropout
+        self.dropout_generator = None   # set_dropout_generator
         self.query_kernel = nn.Parameter(glorot_uniform((h, query_features, s), g))
         self.key_kernel = nn.Parameter(glorot_uniform((h, key_features, s), g))
         self.value_kernel = nn.Parameter(glorot_uniform((h, value_features, s), g))
@@ -338,7 +363,8 @@ class MultiHeadAttention(nn.Module):
         q = q / math.sqrt(self.head_size)
         logits = torch.einsum("...hno,...hmo->...hnm", q, k)
         attn = torch.softmax(logits, dim=-1)
-        attn = dropout(attn, self.dropout, self.training)
+        attn = dropout(attn, self.dropout, self.training,
+                       self.dropout_generator)
         out = torch.einsum("...hnm,...hmi->...hni", attn, v)
         out = torch.einsum("...hni,hio->...no", out, self.projection_kernel)
         if self.use_bias:

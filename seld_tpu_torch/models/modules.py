@@ -321,6 +321,7 @@ class SimpleDenseBlock(nn.Module):
             shape = (*shape[:-1], u)
         self.act = get_activation(activation)
         self.dropout_rate = dropout_rate
+        self.dropout_generator = None   # set_dropout_generator
         self.out_shape = shape
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -329,7 +330,8 @@ class SimpleDenseBlock(nn.Module):
             x = layer(x)
             if self.act:
                 x = self.act(x)
-            x = dropout(x, self.dropout_rate, self.training)
+            x = dropout(x, self.dropout_rate, self.training,
+                        self.dropout_generator)
         return x
 
 
@@ -388,6 +390,7 @@ class ConformerEncoderBlock(nn.Module):
         self.act = get_activation(activation)
         self.dropout_rate, self.ffn_factor = dropout_rate, ffn_factor
         self.pos_encoding = pos_encoding
+        self.dropout_generator = None   # set_dropout_generator
         time, emb = force_1d_shape(in_shape)
         hidden = int(multiplier * emb)
         g = generator
@@ -418,10 +421,13 @@ class ConformerEncoderBlock(nn.Module):
             self.iters.append(it)
         self.out_shape = (time, emb)
 
+    def _drop(self, x):
+        return dropout(x, self.dropout_rate, self.training,
+                       self.dropout_generator)
+
     def _ffn(self, x, layers):
         ln, d1, d2 = layers
-        x = dropout(self.act(d1(ln(x))), self.dropout_rate, self.training)
-        return dropout(d2(x), self.dropout_rate, self.training)
+        return self._drop(d2(self._drop(self.act(d1(ln(x))))))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = force_1d(x)
@@ -432,15 +438,14 @@ class ConformerEncoderBlock(nn.Module):
 
             attn_in = it["attn_ln"](x)
             attn = it["mha"](attn_in, attn_in, attn_in)
-            x = dropout(attn, self.dropout_rate, self.training) + x
+            x = self._drop(attn) + x
 
             # conv module: pointwise-GLU -> depthwise -> BN -> swish -> pointwise
             conv = it["glu"](it["conv_ln"](x))
             conv_1, conv_2 = conv.chunk(2, dim=-1)
             conv = conv_1 * torch.sigmoid(conv_2)
             conv = torch.nn.functional.silu(it["bn"](it["depthwise"](conv)))
-            conv = dropout(it["pointwise"](conv), self.dropout_rate,
-                           self.training)
+            conv = self._drop(it["pointwise"](conv))
             conv = conv + x
 
             # final half-step FFN off the conv output, residual to pre-conv x

@@ -1,20 +1,40 @@
 """Dropout: plain inverted dropout, the identity in eval.
 
-The JAX package draws its own uint16 bits on the TPU (seld_tpu/ops/dropout.py);
-random streams cannot match across frameworks, so parity is checked in eval
-mode or at rate 0.
+The mask is drawn with `torch.rand(..., generator=)` from an explicit
+`torch.Generator` on the tensor's device: training hands every module that
+drops the one generator of its `TrainState` (`set_dropout_generator`), so
+a seed fixes the masks. The JAX package draws its own uint16 bits on the
+TPU (seld_tpu/ops/dropout.py); random streams cannot match across
+frameworks, so parity is checked in eval mode or at rate 0.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch import nn
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Zero each element with probability `rate` and scale the rest by
+    1 / (1 - rate). `generator` must live on x's device; None draws from
+    torch's default generator of that device."""
     if not training or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand_like(x, dtype=torch.float32) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
-                                                   device=x.device))
+    u = torch.rand(x.shape, generator=generator, device=x.device,
+                   dtype=torch.float32)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Point every submodule that draws dropout masks (it has a
+    `dropout_generator` attribute) at `generator`."""
+    for m in model.modules():
+        if hasattr(m, "dropout_generator"):
+            m.dropout_generator = generator

@@ -1,15 +1,18 @@
 """Fused (bi)directional GRU recurrence (seld_tpu/ops/pallas/gru.py).
 
 `gru_scan` runs the Keras reset_after recurrence (z|r|h gate order) for one
-or two directions over a precomputed input projection. On a CUDA tensor it
-launches the hand-written sm_90a kernel in csrc/gru_fwd.cu; on a CPU tensor
-it runs `gru_scan_ref`, the plain PyTorch version of the same arithmetic.
-There is no fallback from the kernel to the plain version: a CUDA tensor
-the kernel does not take raises.
+or two directions over a precomputed input projection, as a
+`torch.autograd.Function`. Its forward launches the hand-written sm_90a
+kernel in csrc/gru_fwd.cu on a CUDA tensor and runs `gru_scan_ref`, the
+plain PyTorch version of the same arithmetic, on a CPU tensor. It saves only
+the residuals (x_proj, rec_kernel, rec_bias, hs) and its backward recomputes
+the gates: csrc/gru_bwd.cu on a CUDA tensor, `gru_scan_bwd_ref` on a CPU
+tensor. There is no fallback from a kernel to its plain version: a CUDA
+tensor the kernel does not take raises.
 
 The input projection `x @ kernel + bias[:, 0]` stays one large
-`torch.einsum` (`gru_forward`), as the JAX package leaves it to XLA; only the
-recurrence is the kernel.
+`torch.einsum` (`gru_forward`), and so does its backward, as the JAX
+package leaves both to XLA; only the recurrence is the kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +24,20 @@ import torch
 from seld_tpu_torch.ops import kernels
 
 _SOURCE = "gru_fwd.cu"
+_BWD_SOURCE = "gru_bwd.cu"
 _MAX_SMEM = 232448   # bytes of shared memory one H100 block may use
+
+
+def _step_order(d: int, t_steps: int) -> range:
+    """Real time indices in scan order: d=0 ascends, d=1 descends."""
+    return range(t_steps) if d == 0 else range(t_steps - 1, -1, -1)
+
+
+def _gates(xp: torch.Tensor, hp: torch.Tensor, u: int):
+    z = torch.sigmoid(xp[:, :u] + hp[:, :u])
+    r = torch.sigmoid(xp[:, u:2 * u] + hp[:, u:2 * u])
+    hcand = torch.tanh(xp[:, 2 * u:] + r * hp[:, 2 * u:])
+    return z, r, hcand, hp[:, 2 * u:]
 
 
 def gru_scan_ref(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
@@ -40,16 +56,57 @@ def gru_scan_ref(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
                      device=x_proj.device)
     for d in range(d_dirs):
         h = torch.zeros((b, u), dtype=torch.float32, device=x_proj.device)
-        order = range(t_steps) if d == 0 else range(t_steps - 1, -1, -1)
-        for t in order:
+        for t in _step_order(d, t_steps):
             hp = h @ rk[d] + rb[d]
-            xp = x_proj[d, t].float()
-            z = torch.sigmoid(xp[:, :u] + hp[:, :u])
-            r = torch.sigmoid(xp[:, u:2 * u] + hp[:, u:2 * u])
-            hcand = torch.tanh(xp[:, 2 * u:] + r * hp[:, 2 * u:])
+            z, _, hcand, _ = _gates(x_proj[d, t].float(), hp, u)
             h = z * h + (1.0 - z) * hcand
             hs[d, t] = h
     return hs.to(x_proj.dtype)
+
+
+def gru_scan_bwd_ref(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
+                     rec_bias: torch.Tensor, hs: torch.Tensor,
+                     g: torch.Tensor):
+    """Plain PyTorch BPTT: the arithmetic of `_bwd_kernel`
+    (seld_tpu/ops/pallas/gru.py:86-109), step by step.
+
+    Each direction walks its scan in reverse (d=0 t downwards, d=1 t
+    upwards), recomputes the gates from (h_prev, x_proj) with h_prev the
+    stored state of the previous scan step (zero at the scan start), and
+    carries dh. All math is f32. Returns (dx_proj in x_proj's dtype,
+    drk [D, U, 3U] in rec_kernel's dtype, drb [D, 3U] in rec_bias's dtype).
+    """
+    d_dirs, t_steps, b, k = x_proj.shape
+    u = k // 3
+    dev = x_proj.device
+    rk = rec_kernel.float()
+    rb = rec_bias.float()
+    dxp = torch.empty((d_dirs, t_steps, b, k), dtype=torch.float32,
+                      device=dev)
+    drk = torch.zeros((d_dirs, u, k), dtype=torch.float32, device=dev)
+    drb = torch.zeros((d_dirs, k), dtype=torch.float32, device=dev)
+    zeros = torch.zeros((b, u), dtype=torch.float32, device=dev)
+    for d in range(d_dirs):
+        order = list(_step_order(d, t_steps))
+        dh = zeros
+        for p in range(t_steps - 1, -1, -1):        # scan position, reversed
+            t = order[p]
+            h_prev = hs[d, order[p - 1]].float() if p > 0 else zeros
+            hp = h_prev @ rk[d] + rb[d]
+            z, r, hcand, hh = _gates(x_proj[d, t].float(), hp, u)
+            dh = dh + g[d, t].float()
+            dz = dh * (h_prev - hcand)
+            da_h = dh * (1.0 - z) * (1.0 - hcand * hcand)     # pre-tanh
+            dr = da_h * hh
+            da_z = dz * z * (1.0 - z)
+            da_r = dr * r * (1.0 - r)
+            dxp[d, t] = torch.cat([da_z, da_r, da_h], dim=-1)
+            dhp = torch.cat([da_z, da_r, da_h * r], dim=-1)
+            dh = dh * z + dhp @ rk[d].T
+            drk[d] += h_prev.T @ dhp
+            drb[d] += dhp.sum(0)
+    return (dxp.to(x_proj.dtype), drk.to(rec_kernel.dtype),
+            drb.to(rec_bias.dtype))
 
 
 def _check_cuda_args(x_proj, rec_kernel, rec_bias):
@@ -83,6 +140,25 @@ def _check_cuda_args(x_proj, rec_kernel, rec_bias):
         raise ValueError(f"U={u}: the kernel needs U % 4 == 0 and 3U <= 1024")
 
 
+def _check_cuda_bwd_args(x_proj, rec_kernel, rec_bias, hs, g):
+    """The forward's checks, plus hs and g: [D, T, B, U] in x_proj's dtype,
+    contiguous, on its device."""
+    _check_cuda_args(x_proj, rec_kernel, rec_bias)
+    d, t, b, k = x_proj.shape
+    for name, a in (("hs", hs), ("g", g)):
+        if tuple(a.shape) != (d, t, b, k // 3):
+            raise ValueError(f"{name} {tuple(a.shape)} does not match x_proj "
+                             f"{tuple(x_proj.shape)}")
+        if a.dtype != x_proj.dtype:
+            raise TypeError(f"{name} dtype {a.dtype}; x_proj is "
+                            f"{x_proj.dtype}")
+        if a.device != x_proj.device:
+            raise ValueError(f"{name} is on {a.device}, x_proj on "
+                             f"{x_proj.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = kernels.load(_SOURCE)
@@ -91,6 +167,19 @@ def _library() -> ctypes.CDLL:
     lib.seld_gru_fwd.restype = ctypes.c_int
     lib.seld_gru_fwd_smem_bytes.argtypes = [ctypes.c_int]
     lib.seld_gru_fwd_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = kernels.load(_BWD_SOURCE)
+    lib.seld_gru_bwd.argtypes = [ctypes.c_void_p] * 9 + \
+        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.seld_gru_bwd.restype = ctypes.c_int
+    lib.seld_gru_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.seld_gru_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.seld_gru_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 4
+    lib.seld_gru_bwd_workspace_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -119,9 +208,80 @@ def _gru_scan_cuda(x_proj, rec_kernel, rec_bias):
     return hs
 
 
+def _gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, hs, g):
+    _check_cuda_bwd_args(x_proj, rec_kernel, rec_bias, hs, g)
+    d, t, b, k = x_proj.shape
+    u = k // 3
+    lib = _bwd_library()
+    smem = lib.seld_gru_bwd_smem_bytes(u)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"U={u} needs {smem} B of shared memory; a block "
+                         f"has {_MAX_SMEM}")
+    dev = x_proj.device
+    dxp = torch.empty_like(x_proj)
+    if dxp.numel() == 0:
+        return (dxp, torch.zeros_like(rec_kernel), torch.zeros_like(rec_bias))
+    rk = rec_kernel.float().contiguous()
+    rb = rec_bias.float().contiguous()
+    # scratch of the three passes (dhp and the reduction's partials), laid
+    # out by csrc/gru_bwd.cu
+    workspace = torch.empty(lib.seld_gru_bwd_workspace_bytes(d, t, b, u),
+                            dtype=torch.uint8, device=dev)
+    drk = torch.empty((d, u, k), dtype=torch.float32, device=dev)
+    drb = torch.empty((d, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.seld_gru_bwd(x_proj.data_ptr(), rk.data_ptr(),
+                               rb.data_ptr(), hs.data_ptr(), g.data_ptr(),
+                               dxp.data_ptr(), workspace.data_ptr(),
+                               drk.data_ptr(), drb.data_ptr(), d, t, b, u,
+                               int(x_proj.dtype == torch.bfloat16), stream)
+    kernels.check(lib, err, "gru_bwd launch")
+    kernels.launch_counts["gru_scan_bwd"] += 1
+    return dxp, drk.to(rec_kernel.dtype), drb.to(rec_bias.dtype)
+
+
+def gru_scan_bwd(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
+                 rec_bias: torch.Tensor, hs: torch.Tensor, g: torch.Tensor):
+    """BPTT of `gru_scan`: (dx_proj, drk, drb) for the cotangent g of hs.
+
+    A CPU tensor runs `gru_scan_bwd_ref`; a CUDA tensor runs the kernel of
+    csrc/gru_bwd.cu or raises."""
+    if x_proj.device.type == "cpu":
+        return gru_scan_bwd_ref(x_proj, rec_kernel, rec_bias, hs, g)
+    if x_proj.device.type == "cuda":
+        return _gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, hs, g)
+    raise ValueError(f"gru_scan_bwd runs on cpu or cuda, not "
+                     f"{x_proj.device}")
+
+
+class _GRUScan(torch.autograd.Function):
+    """hs = scan(x_proj, rec_kernel, rec_bias); the backward recomputes the
+    gates from the saved residuals, as the JAX custom VJP does
+    (seld_tpu/ops/pallas/gru.py:336-347)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, rec_kernel, rec_bias):
+        if x_proj.device.type == "cpu":
+            hs = gru_scan_ref(x_proj, rec_kernel, rec_bias)
+        elif x_proj.device.type == "cuda":
+            hs = _gru_scan_cuda(x_proj, rec_kernel, rec_bias)
+        else:
+            raise ValueError(f"gru_scan runs on cpu or cuda, not "
+                             f"{x_proj.device}")
+        ctx.save_for_backward(x_proj, rec_kernel, rec_bias, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        x_proj, rec_kernel, rec_bias, hs = ctx.saved_tensors
+        return gru_scan_bwd(x_proj, rec_kernel, rec_bias, hs,
+                            g.to(hs.dtype).contiguous())
+
+
 def gru_scan(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
              rec_bias: torch.Tensor) -> torch.Tensor:
-    """Fused GRU recurrence.
+    """Fused GRU recurrence, differentiable in all three arguments.
 
     Args:
       x_proj:     [D, T, B, 3U] input projection incl. input bias
@@ -130,14 +290,11 @@ def gru_scan(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
       rec_bias:   [D, 3U] recurrent bias (reset_after)
 
     Returns hs [D, T, B, U] in x_proj's dtype — REAL-time indexed for both
-    directions. A CPU tensor runs `gru_scan_ref`; a CUDA tensor runs the
-    kernel or raises.
+    directions. A CPU tensor runs `gru_scan_ref` (and `gru_scan_bwd_ref` in
+    the backward); a CUDA tensor runs the kernels or raises. Gradients come
+    back in each argument's own dtype.
     """
-    if x_proj.device.type == "cpu":
-        return gru_scan_ref(x_proj, rec_kernel, rec_bias)
-    if x_proj.device.type == "cuda":
-        return _gru_scan_cuda(x_proj, rec_kernel, rec_bias)
-    raise ValueError(f"gru_scan runs on cpu or cuda, not {x_proj.device}")
+    return _GRUScan.apply(x_proj, rec_kernel, rec_bias)
 
 
 def gru_forward(x: torch.Tensor, kernel: torch.Tensor,

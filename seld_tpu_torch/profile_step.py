@@ -1,0 +1,136 @@
+"""Where the SS5 training step's time goes on one NVIDIA card.
+
+    python -m seld_tpu_torch.profile_step
+
+Builds the bench's step with its defaults (`seld_tpu_torch.bench.build`:
+SS5 full width, B=256, bf16 compute over f32 masters, dropout on), warms it
+up, times STEPS (10) steps on the host clock (ended by
+`torch.cuda.synchronize()`), then traces as many more under
+`torch.profiler` and prints ONE JSON line:
+
+  ms_per_step           host clock per step, without the profiler
+  traced_ms_per_step    host clock per step under the profiler
+  device_ms_per_step    summed device time of every kernel, copy and set
+  idle_share            1 - device time / ms_per_step: the share of a step
+                        the card waits on the host (eager dispatch); the
+                        kernels' device times do not change under the
+                        profiler, the host's time does. The script fails
+                        if the device time exceeds the step by more than
+                        OVERLAP_NOISE, which would mean device time was
+                        counted twice
+  port_kernels          ms per step and share of device time of each
+                        hand-written kernel (gru_scan, gru_scan_bwd, stem_dy)
+  groups                device ms per step of library GEMMs, convolutions
+                        and everything else
+  top                   the largest kernels by device time
+
+Without a CUDA card it exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from seld_tpu_torch.bench import build, card_name_and_power_limit
+
+STEPS = 10            # steps per timed and per traced run
+# one stream runs the step's kernels one after another, so their summed
+# device time cannot exceed the host's step; past this share of it, the
+# trace double-counts
+OVERLAP_NOISE = 0.02
+# substrings of the demangled names of the port's own kernels
+PORT_KERNELS = {"gru_scan": ("gru_fwd_kernel",),
+                "gru_scan_bwd": ("gru_bwd_rec_kernel", "gru_bwd_reduce_kernel",
+                                 "gru_bwd_finalize_kernel"),
+                "stem_dy": ("stem_dy_kernel",)}
+GEMM_WORDS = ("gemm", "xmma", "cutlass", "cublas", "matmul")
+CONV_WORDS = ("conv", "cudnn", "implicit", "winograd", "wgrad", "dgrad")
+
+
+def _device_us(avg) -> float:
+    t = getattr(avg, "self_device_time_total", None)
+    return float(avg.self_cuda_time_total if t is None else t)
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for kernel, parts in PORT_KERNELS.items():
+        if any(p in name for p in parts):
+            return kernel
+    if any(w in low for w in CONV_WORDS):
+        return "conv"
+    if any(w in low for w in GEMM_WORDS):
+        return "gemm"
+    return "other"
+
+
+def main(argv=None) -> None:
+    argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter).parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: no CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b = build(device="cuda")
+    state, mstate = b.state, b.metric
+
+    def run():
+        nonlocal state, mstate
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            state, mstate, losses = b.step(state, mstate, b.x, b.y)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / STEPS * 1e3, losses
+
+    _, losses = run()                                  # warm up
+    if not torch.isfinite(torch.stack(losses)).all():
+        raise SystemExit("non-finite loss in the warmup")
+    ms_step, _ = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_ms, _ = run()
+
+    by_name = {}
+    for avg in prof.key_averages():
+        if avg.device_type == DeviceType.CUDA and _device_us(avg) > 0:
+            by_name[avg.key] = by_name.get(avg.key, 0.0) + _device_us(avg)
+    if not by_name:
+        raise SystemExit("the profiler recorded no device time")
+    per_step = {k: v / 1e3 / STEPS for k, v in by_name.items()}   # ms per step
+    device_ms = sum(per_step.values())
+    groups = {}
+    for name, ms in per_step.items():
+        g = _group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    port = {k: {"ms_per_step": groups.get(k, 0.0),
+                "share_of_device": groups.get(k, 0.0) / device_ms}
+            for k in PORT_KERNELS}
+    idle_share = 1.0 - device_ms / ms_step
+    if idle_share < -OVERLAP_NOISE:
+        raise SystemExit(f"device time {device_ms:.3f} ms per step exceeds "
+                         f"the host's step {ms_step:.3f} ms: the trace "
+                         "counts some device time twice")
+    top = sorted(per_step.items(), key=lambda kv: -kv[1])[:12]
+    print(json.dumps({
+        "metric": "ss5_train_step_breakdown",
+        "batch": b.batch, "compute_dtype": b.dtype, "steps": STEPS,
+        "ms_per_step": ms_step,
+        "traced_ms_per_step": traced_ms,
+        "device_ms_per_step": device_ms,
+        "idle_share": idle_share,
+        "port_kernels": port,
+        "groups": {k: groups.get(k, 0.0) for k in ("gemm", "conv", "other")},
+        "top": [{"kernel": k[:120], "ms_per_step": v,
+                 "share_of_device": v / device_ms} for k, v in top],
+        "device": torch.cuda.get_device_name(0),
+        "card": card_name_and_power_limit(),
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,136 @@
+"""Optimizers and gradient tools (seld_tpu/train/optimizers.py).
+
+  - AdaBelief: the reference's TF2 update rule (utils.py:99-247):
+      m_t = b1 m + (1-b1) g;  v_t = b2 v + (1-b2)(g - m_t)^2
+      step = lr * sqrt(1 - b2^t)/(1 - b1^t) * m_t / (sqrt(v_t) + eps)
+    eps = 1e-7 outside the sqrt; amsgrad (a running max of v) optional.
+  - Adam: optax's scale_by_adam with Keras' eps 1e-7.
+  - adaptive_clip_grad: NFNet-style AGC (utils.py:67-96) with the
+    reference's unit-wise norms: scalars/vectors -> global norm; 2D/3D ->
+    axis 0; 4D conv HWIO -> axes (0, 1, 2). The port keeps flax layouts
+    (HWIO, [D, I, 3U]), so the axes carry over unchanged.
+
+An optimizer updates a list of f32 master parameters in place:
+`opt.step(params, grads)`, with AGC (`agc_clip`) applied first to the raw
+gradients, as `adabelief(..., agc_clip=)` chains it. `opt.lr` can be read
+and set between steps.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+def unitwise_norm(x: torch.Tensor) -> torch.Tensor:
+    if x.dim() <= 1:
+        return x.square().sum().sqrt()
+    if x.dim() in (2, 3):
+        return x.square().sum(dim=0, keepdim=True).sqrt()
+    if x.dim() == 4:
+        return x.square().sum(dim=(0, 1, 2), keepdim=True).sqrt()
+    raise ValueError(f"Got a parameter with shape not in [1, 2, 3, 4]: "
+                     f"{tuple(x.shape)}")
+
+
+def adaptive_clip_grad(params: Sequence[torch.Tensor],
+                       grads: Sequence[torch.Tensor],
+                       clip_factor: float = 0.01, eps: float = 1e-3
+                       ) -> List[torch.Tensor]:
+    """AGC over matching parameter/gradient lists."""
+    out = []
+    for p, g in zip(params, grads):
+        max_norm = unitwise_norm(p).clamp_min(eps) * clip_factor
+        g_norm = unitwise_norm(g)
+        clipped = g * (max_norm / g_norm.clamp_min(1e-6))
+        out.append(torch.where(g_norm < max_norm, g, clipped))
+    return out
+
+
+class _Optimizer:
+    def __init__(self, params: Sequence[torch.Tensor], learning_rate: float,
+                 agc_clip: Optional[float]):
+        self.lr = float(learning_rate)
+        self.agc_clip = agc_clip
+        self.count = 0
+        self.m = [torch.zeros_like(p) for p in params]
+        self.v = [torch.zeros_like(p) for p in params]
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor],
+             grads: Sequence[torch.Tensor]) -> None:
+        """One update of `params` in place from `grads`."""
+        grads = list(grads)
+        if self.agc_clip is not None:
+            grads = adaptive_clip_grad(params, grads, self.agc_clip)
+        self.count += 1
+        scaled = self._scale(grads)
+        # params + (-lr) * update, as optax's scale_by_learning_rate and
+        # apply_updates compose it
+        torch._foreach_add_(list(params),
+                            torch._foreach_mul(scaled, -self.lr))
+
+
+class AdaBelief(_Optimizer):
+    """Reference AdaBelief (scale_by_adabelief_ref + learning rate)."""
+
+    def __init__(self, params, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-7, amsgrad: bool = False,
+                 agc_clip: Optional[float] = None):
+        super().__init__(params, learning_rate, agc_clip)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.vhat = [torch.zeros_like(p) for p in params] if amsgrad \
+            else None
+
+    def _scale(self, grads):
+        b1, b2, t = self.b1, self.b2, self.count
+        torch._foreach_mul_(self.m, b1)
+        torch._foreach_add_(self.m, grads, alpha=1 - b1)
+        diff = torch._foreach_sub(grads, self.m)
+        torch._foreach_mul_(self.v, b2)
+        torch._foreach_addcmul_(self.v, diff, diff, value=1 - b2)
+        denom = self.v
+        if self.vhat is not None:
+            torch._foreach_maximum_(self.vhat, self.v)
+            denom = self.vhat
+        # bias corrections in f32, as the JAX package computes them
+        b1_t, b2_t = np.float32(b1) ** t, np.float32(b2) ** t
+        correction = float(np.sqrt(1 - b2_t) / (1 - b1_t))
+        den = torch._foreach_sqrt(denom)
+        torch._foreach_add_(den, self.eps)
+        return torch._foreach_div(torch._foreach_mul(self.m, correction),
+                                  den)
+
+
+class Adam(_Optimizer):
+    """optax.scale_by_adam(b1, b2, eps) + learning rate, Keras' eps 1e-7."""
+
+    def __init__(self, params, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-7,
+                 agc_clip: Optional[float] = None):
+        super().__init__(params, learning_rate, agc_clip)
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def _scale(self, grads):
+        b1, b2, t = self.b1, self.b2, self.count
+        torch._foreach_mul_(self.m, b1)
+        torch._foreach_add_(self.m, grads, alpha=1 - b1)
+        torch._foreach_mul_(self.v, b2)
+        torch._foreach_addcmul_(self.v, grads, grads, value=1 - b2)
+        m_hat = torch._foreach_div(self.m, float(1 - np.float32(b1) ** t))
+        den = torch._foreach_sqrt(
+            torch._foreach_div(self.v, float(1 - np.float32(b2) ** t)))
+        torch._foreach_add_(den, self.eps)
+        return torch._foreach_div(m_hat, den)
+
+
+def adabelief(params, learning_rate: float, b1: float = 0.9,
+              b2: float = 0.999, eps: float = 1e-7, amsgrad: bool = False,
+              agc_clip: Optional[float] = None) -> AdaBelief:
+    return AdaBelief(params, learning_rate, b1, b2, eps, amsgrad, agc_clip)
+
+
+def adam(params, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-7, agc_clip: Optional[float] = None) -> Adam:
+    return Adam(params, learning_rate, b1, b2, eps, agc_clip)

@@ -1,6 +1,19 @@
 """Helpers shared by the port's modules (copies from seld_tpu/utils/common.py)."""
 from __future__ import annotations
 
+import copy
+
+
+def dict_add(first: dict, second: dict) -> dict:
+    """Key-wise sum of two dicts (missing keys treated as absent, not zero)."""
+    output = copy.deepcopy(first)
+    for key, val in second.items():
+        if key in output:
+            output[key] += val
+        else:
+            output[key] = val
+    return output
+
 
 def sorted_block_keys(cfg) -> list:
     """BLOCK0..BLOCKn keys in NUMERIC order — lexicographic sorted() puts

@@ -38,7 +38,11 @@ def test_port_files_exist():
     for want in ("config/registry.py", "config/zoo.py", "models/layers.py",
                  "models/modules.py", "models/models.py", "ops/gru.py",
                  "inference/export.py", "serving/server.py",
-                 "serving/client.py", "bridge.py"):
+                 "serving/client.py", "bridge.py", "ops/stem.py",
+                 "ops/stem_bwd.py", "train/losses.py", "train/metrics.py",
+                 "train/optimizers.py", "train/steps.py",
+                 "train/train_state.py", "nas/complexity.py", "bench.py",
+                 "profile_step.py"):
         assert os.path.join("seld_tpu_torch", want) in names
 
 
@@ -102,9 +106,15 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     path = kernels.library_path("gru_fwd.cu")
     assert path.startswith(os.path.join(REPO, "build", "kernels"))
     assert "sm_90a" in " ".join(kernels.NVCC_FLAGS)
-    with open(os.path.join(kernels.CSRC_DIR, "gru_fwd.cu")) as f:
-        src = f.read()
-    assert "seld_tpu/ops/pallas/gru.py::_fwd_kernel" in src
+    for source, replaced in (
+            ("gru_fwd.cu", "seld_tpu/ops/pallas/gru.py::_fwd_kernel"),
+            ("gru_bwd.cu", "seld_tpu/ops/pallas/gru.py::_bwd_kernel"),
+            ("stem_dy.cu", "seld_tpu/ops/pallas/stem_bwd.py::_dy_kernel")):
+        assert source in kernels.SOURCES
+        with open(os.path.join(kernels.CSRC_DIR, source)) as f:
+            src = f.read()
+        assert replaced in src and "seld_cuda_error_string" in src
+    assert set(kernels.KERNELS.values()) == set(kernels.SOURCES)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["repo", "alone"])
