@@ -23,6 +23,19 @@ Phases, one line each:
               statistics); (b) 20 bf16 steps at B=256 with dropout through
               seld_tpu_torch.bench's step: finite losses and exactly 2
               gru_scan, 2 gru_scan_bwd and 1 stem_dy launches per step
+  7. feed     the wav-native training path at full width through its CLI
+              (python -m seld_tpu_torch.train's main): 20 numpy-seeded
+              60-s 24 kHz FOA wavs with label CSVs (16 train, 2 val, 2
+              test) -> the front-end kernel -> train-split normalizer ->
+              windows staged on the card -> 2 epochs of SS5 bf16 training at
+              B=64 with --use_tfm --use_acs, each batch gathered on the card
+              by the row-gather kernel, val and test epochs, a best-score
+              checkpoint; then --resume from that checkpoint. Exact launch
+              counts of all five kernels, finite losses, the feature-build
+              time, each epoch's time and windows/s through the feed
+Phase 3 also holds the two feed kernels against their plain versions:
+foa_frontend at one chunk of 8 synthetic 60-s clips, gather_rows in bf16
+and f32 at B=256 rows of [300, 64, 7] from 4,000 staged windows.
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed phase raises: the exit code
 is non-zero and no result line is printed. Without a CUDA card, or run
@@ -31,6 +44,7 @@ it fails the same way.
 """
 import json
 import math
+import os
 import subprocess
 import tempfile
 import threading
@@ -73,6 +87,17 @@ TRAIN_NULL_GRAD = 1e-6
 TRAIN_PARAM_ATOL = 1e-6
 TRAIN_STATS_RTOL = 1e-5
 TRAIN_STEPS = 20
+# foa_frontend against its plain version, f32 with TF32 off, on the dB and
+# IV channels: the 1024-term DFT sums run in another order, and the dB step
+# and the IV normalisation amplify relative error where energy is low
+FRONTEND_TOL = 1e-3
+FEED_CLIPS = {1: 4, 2: 4, 3: 4, 4: 4, 5: 2, 6: 2}   # fold -> clips
+FEED_SECONDS = 60
+FEED_ARGV = ["--name", "smoke", "--model", "conv_temporal", "--model_config",
+             "SS5", "--doa_loss", "MMSE", "--from_wav", "--device_data",
+             "--bf16", "--use_tfm", "--use_acs", "--agc", "true", "--batch",
+             "64", "--loop_time", "5", "--epoch", "2", "--swa_start", "1",
+             "--swa_freq", "1", "--eval_every", "0"]
 
 
 def log(phase, msg):
@@ -614,7 +639,7 @@ def phase_train(card):
     wps = TRAIN_STEPS * b.batch / wall
     mfu = wps * gflops_per_window(b.cfg) / 1e3 / H100_BF16_PEAK_TFLOPS
     want = {"gru_scan": 2 * TRAIN_STEPS, "gru_scan_bwd": 2 * TRAIN_STEPS,
-            "stem_dy": TRAIN_STEPS}
+            "stem_dy": TRAIN_STEPS, "foa_frontend": 0, "gather_rows": 0}
     log("train", f"(b) SS5 full width bf16 B=256, {TRAIN_STEPS} steps with "
                  f"dropout: losses finite {finite} (first "
                  f"{losses[0].item():.4f}/{losses[1].item():.4f}, last "
@@ -628,6 +653,279 @@ def phase_train(card):
     if not finite or counts != want:
         raise SystemExit("bf16 training produced a non-finite loss or "
                          "skipped a kernel")
+    return counts
+
+
+def frontend_bound(n, t, n_fft=1024, n_mels=64, hop=480, sample_rate=24000):
+    """foa_frontend's bound for n clips of t frames, from the work its
+    function needs, not the work the kernel's algorithm does (the DFT as
+    two dense products, about 80x an FFT's operations, and a dense
+    filterbank). Bytes: the padded wav read and the features written, f32.
+    Operations: per frame and channel a real FFT (2.5 N log2 N) and the
+    window (N); per bin the power of 4 channels (3 each) and the 3 IV
+    components with their norm (18); the filterbank's non-zeros (at most 2
+    mels a bin) for the 4 power and 3 IV rows (2 each)."""
+    from seld_tpu_torch.ops.frontend import _frontend_constants
+    fbank = _frontend_constants(n_fft, n_fft, n_mels, sample_rate)[2]
+    nnz = int(np.count_nonzero(fbank))
+    bins = n_fft // 2 + 1
+    per_frame = (4 * (2.5 * n_fft * math.log2(n_fft) + n_fft)
+                 + bins * (4 * 3 + 18) + 7 * nnz * 2)
+    lp = (t - 1) * hop + n_fft
+    nbytes = (n * 4 * lp + n * 7 * t * n_mels) * 4
+    return bound(nbytes, n * t * per_frame)
+
+
+def phase_kernels_feed(card):
+    import torch
+    from seld_tpu_torch.ops.frontend import foa_frontend, foa_frontend_ref
+    from seld_tpu_torch.ops.gather import gather_rows, gather_rows_ref
+    from seld_tpu_torch.ops.mel import amplitude_to_db
+    from seld_tpu_torch.ops.stft import reflect_pad
+
+    # foa_frontend: one chunk of 8 clips of 60 s at 24 kHz, int16-quantised
+    # noise at levels from -6 to -46 dBFS; the last clip is digital silence
+    # from 30 s on, so its last frames must give IV 0 and power 0
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n, length = 8, 60 * 24000
+    amp = torch.tensor([0.5, 0.1, 0.02, 0.005, 0.5, 0.25, 0.05, 0.01],
+                       device="cuda")[:, None, None]
+    wav = torch.randn(n, 4, length, generator=gen, device="cuda") * amp
+    wav[-1, :, length // 2:] = 0
+    wav = (wav * 32767).round().clamp(-32768, 32767) / 32768.0
+    padded = reflect_pad(wav, 512).contiguous()
+    del wav
+    mel, iv = foa_frontend(padded)
+    torch.cuda.synchronize()
+    mel_r, iv_r = foa_frontend_ref(padded)
+    t = mel.shape[2]
+    db_err = (amplitude_to_db(mel, clip_dims=1)
+              - amplitude_to_db(mel_r, clip_dims=1)).abs().max().item()
+    iv_err = (iv - iv_r).abs().max().item()
+    silent = 1 + (length // 2 + 512) // 480      # first all-silent frame
+    quiet = (mel[-1, :, silent:].abs().max().item(),
+             iv[-1, :, silent:].abs().max().item())
+    ok = (tuple(mel.shape) == (n, 4, t, 64) and tuple(iv.shape) == (n, 3, t, 64)
+          and db_err <= FRONTEND_TOL and iv_err <= FRONTEND_TOL
+          and quiet == (0.0, 0.0))
+    log("kernels", f"foa_frontend f32 [8, 4, {padded.shape[-1]}] -> T={t}: "
+                   f"max_abs_err dB {db_err:.3e} IV {iv_err:.3e} (tol "
+                   f"{FRONTEND_TOL:.0e}); silent frames mel/IV max "
+                   f"{quiet[0]:.1e}/{quiet[1]:.1e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("foa_frontend disagrees with foa_frontend_ref")
+    del mel_r, iv_r
+    ms = cuda_ms(lambda: foa_frontend(padded), 10)
+    plain_ms = cuda_ms(lambda: foa_frontend_ref(padded), 3)
+    bound_ms, bound_by = frontend_bound(n, t)
+    log("kernels", f"foa_frontend one chunk of 8 60-s clips on {card}: "
+                   f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                   f"none bound_ms {bound_ms:.5f} ({bound_by})")
+    entries = [{"name": "foa_frontend", "route": "cuda",
+                "source": "seld_tpu_torch/csrc/foa_frontend.cu",
+                "replaces": "seld_tpu/ops/pallas/frontend.py:208",
+                "also_replaces": "seld_tpu/ops/pallas/frontend.py:150",
+                "launches": None, "max_abs_err": max(db_err, iv_err),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}]
+    del padded
+
+    # gather_rows: B=256 ids into 4,000 staged windows [300, 64, 7] (bf16,
+    # the path's, and f32) and their labels [60, 48] f32; and a row of 30
+    # bytes, which takes the kernel's byte-wise copy
+    ids = torch.randint(0, 4000, (256,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    rows = {}
+    for name, shape, dtype in (("x bf16", (4000, 300, 64, 7), torch.bfloat16),
+                               ("x f32", (4000, 300, 64, 7), torch.float32),
+                               ("y f32", (4000, 60, 48), torch.float32),
+                               ("bytes", (4000, 3, 5), torch.bfloat16)):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        got = gather_rows(x, ids)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, gather_rows_ref(x, ids))
+        ms = cuda_ms(lambda: gather_rows(x, ids), 50)
+        plain_ms = cuda_ms(lambda: gather_rows_ref(x, ids), 50)
+        library_ms = cuda_ms(lambda: torch.index_select(x, 0, ids), 50)
+        nbytes = 2 * ids.numel() * x[0].numel() * x.element_size() + \
+            ids.numel() * 4
+        bound_ms, bound_by = bound(nbytes, 0)
+        rows[name] = (ms, plain_ms, library_ms, bound_ms, bound_by)
+        log("kernels", f"gather_rows {name} B=256 of {list(shape)}: exactly "
+                       f"equal {equal}; kernel_ms {ms:.4f} plain_ms "
+                       f"{plain_ms:.4f} library_ms (index_select) "
+                       f"{library_ms:.4f} bound_ms {bound_ms:.5f} "
+                       f"({bound_by}) on {card}")
+        if not equal:
+            raise SystemExit(f"gather_rows disagrees with gather_rows_ref "
+                             f"({name})")
+        del x, got
+    ms, plain_ms, library_ms, bound_ms, bound_by = rows["x bf16"]
+    entries.append({"name": "gather_rows", "route": "cuda",
+                    "source": "seld_tpu_torch/csrc/gather_rows.cu",
+                    "replaces": "seld_tpu/ops/pallas/gather.py:67",
+                    "also_replaces": "seld_tpu/ops/pallas/gather.py:135",
+                    "launches": None, "max_abs_err": 0.0,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms,
+                    "f32_ms": rows["x f32"][0],
+                    "f32_bound_ms": rows["x f32"][3],
+                    "labels_ms": rows["y f32"][0],
+                    "labels_bound_ms": rows["y f32"][3]})
+    torch.cuda.empty_cache()
+    return entries
+
+
+def write_wav_tree(root, clips, seconds, seed=0):
+    """`clips` {fold: count} 4-channel 24 kHz int16 wavs of `seconds`
+    under root/foa_dev and DCASE label CSVs (frame, class, track, azimuth,
+    elevation) under root/metadata_dev, an event in most 100-ms frames."""
+    import wave
+    rng = np.random.RandomState(seed)
+    for sub in ("foa_dev", "metadata_dev"):
+        os.makedirs(os.path.join(root, sub))
+    n = int(24000 * seconds)
+    i = 0
+    for fold, count in clips.items():
+        for _ in range(count):
+            name = f"fold{fold}_room{1 + i % 3}_mix{i:03d}"
+            level = 0.3 * 10.0 ** (-rng.rand())
+            data = np.clip(rng.randn(n, 4) * level * 32767, -32768, 32767)
+            with wave.open(os.path.join(root, "foa_dev", f"{name}.wav"),
+                           "wb") as w:
+                w.setnchannels(4)
+                w.setsampwidth(2)
+                w.setframerate(24000)
+                w.writeframes(data.astype("<i2").tobytes())
+            # the 600 label frames of a 60-s clip, also for a shorter one
+            # (padded): a window without an event has a 0/0 DOA loss
+            frames = np.flatnonzero(rng.rand(600) < 0.7)
+            with open(os.path.join(root, "metadata_dev", f"{name}.csv"),
+                      "w") as f:
+                for fr in frames:
+                    f.write(f"{fr},{rng.randint(12)},0,"
+                            f"{rng.randint(-180, 180)},"
+                            f"{rng.randint(-45, 46)}\n")
+            i += 1
+
+
+def check_prefetch(card):
+    """DeviceIterator, the host loader's path to the card (the CLI without
+    --device_data): every batch arrives equal to its host batch, in
+    order, with a kernel reading each one on the compute stream."""
+    import torch
+    from seld_tpu_torch.data.loader import DeviceIterator, SeldDataset
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(40, 300, 64, 7).astype(np.float32)).to(
+        torch.bfloat16)
+    y = rng.randn(40, 60, 48).astype(np.float32)
+    host = list(SeldDataset(x, y, 8, seed=1))
+    dev, sums = [], []
+    for xb, yb in DeviceIterator(SeldDataset(x, y, 8, seed=1), "cuda"):
+        sums.append(xb.float().sum())
+        dev.append((xb.cpu(), yb.cpu()))
+    torch.cuda.synchronize()
+    ok = len(dev) == len(host) == 5 and all(
+        torch.equal(a, b) and torch.equal(c, torch.as_tensor(d))
+        for (a, c), (b, d) in zip(dev, host))
+    log("feed", f"DeviceIterator: {len(dev)} batches through pinned memory "
+                f"and a side stream, equal to the host batches {ok} on "
+                f"{card}")
+    if not ok:
+        raise SystemExit("DeviceIterator's batches differ from the host's")
+
+
+def _feed_run(argv):
+    """Run the training CLI's main on the card in the current directory
+    with the launch counts at 0; returns (its result, the launch counts)."""
+    import torch
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.train.main import main as train_main
+    kernels.launch_counts.clear()
+    out = train_main([*argv, "--device", "cuda"])
+    torch.cuda.synchronize()
+    return out, {k: kernels.launch_counts[k] for k in kernels.KERNELS}
+
+
+def _want_counts(steps, epochs, n_train, n_val, n_test, chunk=8):
+    """Exact launches of each kernel for a CLI run of `steps` train steps
+    over `epochs` epochs: the front-end once per chunk of each split's
+    clips; two gathers (x, y) per batch; per train step 2 GRU forwards, 2
+    GRU backwards and 1 stem backward; per eval batch (one clip) 2 GRU
+    forwards."""
+    from seld_tpu_torch.data.device_dataset import LAUNCHES_PER_BATCH
+    evals = epochs * (n_val + n_test)
+    return {"foa_frontend": sum(-(-c // chunk) for c in (n_train, n_val,
+                                                          n_test)),
+            "gather_rows": LAUNCHES_PER_BATCH * (steps + evals),
+            "gru_scan": 2 * (steps + evals), "gru_scan_bwd": 2 * steps,
+            "stem_dy": steps}
+
+
+def phase_feed(card):
+    """The wav-native training path through the CLI on FEED_CLIPS clips of
+    FEED_SECONDS; returns the first run's launch counts."""
+    from seld_tpu_torch.train.checkpoint import latest_best
+    check_prefetch(card)
+    clips, seconds = FEED_CLIPS, FEED_SECONDS
+    n_train = sum(c for f, c in clips.items() if f <= 4)
+    n_val, n_test = clips[5], clips[6]
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_wav_tree(root, clips, seconds)
+        write_s = time.perf_counter() - t0
+        os.chdir(root)
+        try:
+            argv = [*FEED_ARGV, "--abspath", root]
+            out, counts = _feed_run(argv)
+            trainer = out["trainer"]
+            run_dir = os.path.join(root, "saved_model", trainer.config.name)
+            best = latest_best(run_dir)
+            with open(best + ".meta.json") as f:
+                best_epoch = json.load(f)["epoch"]
+            resumed, resumed_counts = _feed_run(
+                [*argv, "--resume", "--epoch", "3"])
+            has_normalizer = os.path.exists(os.path.join(run_dir,
+                                                         "normalizer.npz"))
+        finally:
+            os.chdir(cwd)
+    hist, rhist = out["history"], resumed["history"]
+    cfg = trainer.config
+    per_epoch = n_train * 10 * cfg.loop_time // cfg.batch   # 10 windows/clip
+    windows = per_epoch * cfg.batch
+    want = _want_counts(trainer.state.step, len(hist), n_train, n_val,
+                        n_test)
+    rtrainer = resumed["trainer"]
+    rwant = _want_counts(rtrainer.state.step - (best_epoch + 1) * per_epoch,
+                         len(rhist), n_train, n_val, n_test)
+    losses = [h[s][k] for h in hist + rhist for s in ("train", "val")
+              for k in ("sedLoss", "doaLoss")]
+    finite = all(math.isfinite(v) for v in losses)
+    resumed_ok = ([h["epoch"] for h in rhist]
+                  == list(range(best_epoch + 1, 3))
+                  and rtrainer.start_epoch == best_epoch + 1)
+    log("feed", f"{sum(clips.values())} wavs of {seconds} s written in "
+                f"{write_s:.1f} s; features, normalizer and staging in "
+                f"{out['setup_secs']:.2f} s on the card")
+    for h in hist:
+        log("feed", f"epoch {h['epoch']}: {per_epoch} steps of "
+                    f"{trainer.config.batch} in {h['train_secs']:.3f} s, "
+                    f"{windows / h['train_secs']:.1f} windows/s through the "
+                    f"feed; train sed/doa loss {h['train']['sedLoss']:.4f}/"
+                    f"{h['train']['doaLoss']:.4f}, val seld "
+                    f"{h['val']['seldScore']:.4f}; epoch with val and test "
+                    f"{h['secs']:.3f} s")
+    log("feed", f"launches {counts} (want {want}); best checkpoint from "
+                f"epoch {best_epoch}, normalizer.npz {has_normalizer}; "
+                f"resumed epochs {[h['epoch'] for h in rhist]}, launches "
+                f"{resumed_counts} (want {rwant}); losses finite {finite}; "
+                f"phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    if not (finite and counts == want and resumed_counts == rwant
+            and trainer.state.step == cfg.epoch * per_epoch == len(hist)
+            * per_epoch and has_normalizer and resumed_ok):
+        raise SystemExit("the wav-native training path failed a check")
     return counts
 
 
@@ -658,12 +956,20 @@ def main():
                  f"{time.perf_counter() - t0:.1f} s")
 
     entries = [phase_kernels(smi)] + phase_kernels_bwd(smi)
+    feed_entries = phase_kernels_feed(smi)
     model = phase_model(smi)
     entries[0]["launches"] = phase_serve(model, smi)
+    del model
     train_counts = phase_train(smi)
     entries[0]["train_launches"] = train_counts["gru_scan"]
     for e in entries[1:]:
         e["launches"] = train_counts[e["name"]]
+    feed_counts = phase_feed(smi)
+    for e in feed_entries:
+        e["launches"] = feed_counts[e["name"]]
+    for e in entries:
+        e["feed_launches"] = feed_counts[e["name"]]
+    entries += feed_entries
 
     print(json.dumps({"kernels": entries}))
     print(smi)

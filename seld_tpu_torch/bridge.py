@@ -4,7 +4,8 @@ The port keeps flax's parameter names, shapes and layouts, and registers
 children under flax's auto-names, so the bridge is a name map and a copy:
 the flax path `params/A_0/B_1/kernel` (or `batch_stats/.../mean`) is the
 state_dict key `A_0.B_1.kernel`. Variables travel as nested dicts of numpy
-arrays (e.g. `jax.tree_util.tree_map(np.asarray, variables)`).
+arrays (e.g. `jax.tree_util.tree_map(np.asarray, variables)`), or on disk as
+a flat `.npz` keyed by those paths (`load_npz`).
 """
 from __future__ import annotations
 
@@ -27,6 +28,21 @@ def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]):
                 raise KeyError(f"flax leaf {path!r} appears in two "
                                "collections")
             out[path] = np.asarray(value)
+
+
+def load_npz(path: str) -> Dict[str, dict]:
+    """A flat `.npz` of flax variables keyed by path
+    ("params/Conv2DBN_0/Conv_0/kernel", "batch_stats/...") -> the nested
+    dict `from_flax` takes."""
+    tree: Dict[str, dict] = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = flat[key]
+    return tree
 
 
 def from_flax(variables: Mapping, model: Optional[nn.Module] = None

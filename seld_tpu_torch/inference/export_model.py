@@ -19,17 +19,6 @@ import numpy as np
 import torch
 
 
-def _nest(flat) -> dict:
-    tree: dict = {}
-    for key in flat.files:
-        node = tree
-        *parents, leaf = key.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = flat[key]
-    return tree
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="conv_temporal")
@@ -56,7 +45,7 @@ def main(argv=None):
                          "model on random input")
     args = ap.parse_args(argv)
 
-    from seld_tpu_torch.bridge import from_flax
+    from seld_tpu_torch.bridge import from_flax, load_npz
     from seld_tpu_torch.config import resolve_model_config
     from seld_tpu_torch.inference.export import export_window, load_exported
     from seld_tpu_torch.models import build_model
@@ -67,8 +56,7 @@ def main(argv=None):
     model = build_model(args.model, input_shape, cfg, seed=args.seed,
                         device=args.device)
     if args.variables:
-        with np.load(args.variables) as flat:
-            model.load_state_dict(from_flax(_nest(flat), model))
+        model.load_state_dict(from_flax(load_npz(args.variables), model))
     export_window(model, args.out, dtype=args.dtype,
                   batch=args.batch or None,
                   extra_meta={"model_config_name": args.model_config,

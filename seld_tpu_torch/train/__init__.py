@@ -1,2 +1,3 @@
 """Training (seld_tpu/train): losses, optimizers with AGC, the train state,
-the streaming SELD metric and the train step."""
+the streaming SELD metric, the train and eval steps, checkpoints, the
+trainer and the `python -m seld_tpu_torch.train` entry point."""

@@ -23,7 +23,7 @@ _SCALARS = ("TP", "FP", "TN", "FN", "S", "D", "I", "Nref", "Nsys",
 _CLASS_ARRAYS = ("class_tp", "class_fp", "class_tn", "class_fn")
 
 
-def init_state(n_classes: int = 14, device="cpu") -> State:
+def init_state(n_classes: int = 14, device="cuda") -> State:
     state = {k: torch.zeros((), device=device) for k in _SCALARS}
     state.update({k: torch.zeros(n_classes, device=device)
                   for k in _CLASS_ARRAYS})
@@ -165,7 +165,7 @@ class SELDMetrics:
     """Stateful convenience wrapper mirroring the reference class API."""
 
     def __init__(self, doa_threshold: float = 20, block_size: int = 10,
-                 n_classes: int = 14, device="cpu"):
+                 n_classes: int = 14, device="cuda"):
         self.doa_threshold = doa_threshold
         self.block_size = block_size
         self.n_classes = n_classes

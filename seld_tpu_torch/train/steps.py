@@ -1,4 +1,4 @@
-"""The training step (seld_tpu/train/steps.py:22-138).
+"""The training and eval steps (seld_tpu/train/steps.py:22-138, 308-347).
 
 One step: forward in train mode (BatchNorm running statistics update in
 place, dropout masks from the state's generator) -> dual loss + L2 kernel
@@ -89,5 +89,44 @@ def make_train_step(*,
                                     doa_threshold=doa_threshold,
                                     block_size=metric_block_size)
         return state, metric_state, (sloss.detach(), dloss.detach())
+
+    return step
+
+
+def make_eval_step(*,
+                   sed_loss_fn: Callable,
+                   doa_loss_fn: Callable,
+                   doa_threshold: float = 20.0,
+                   metric_block_size: int = 10,
+                   return_preds: bool = False,
+                   compute_dtype=None):
+    """Build an eval step: (state, metric_state, x, y[, n_valid]) ->
+    (metric_state, (sed_loss, doa_loss)[, preds]).
+
+    The model runs in eval mode on its f32 parameters; with a
+    `compute_dtype`, x is first rounded to it, and the forward then runs in
+    f32, as the JAX package's eval step promotes a bf16 input against f32
+    parameters. With `n_valid`, predictions and labels are cut to the first
+    n_valid rows before the losses and the metric.
+    """
+    def step(state: TrainState, metric_state, x, y, n_valid=None):
+        sed_y, doa_y = y
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        with torch.no_grad():
+            sed_p, doa_p = state.model.eval()(x.float())
+            sed_p, doa_p = sed_p.float(), doa_p.float()
+            if n_valid is not None:
+                sed_p, doa_p = sed_p[:n_valid], doa_p[:n_valid]
+                sed_y, doa_y = sed_y[:n_valid], doa_y[:n_valid]
+            sloss = sed_loss_fn(sed_y, sed_p)
+            dloss = doa_loss_fn(doa_y, doa_p)
+            metric_state = M.update(metric_state, (sed_y, doa_y),
+                                    (sed_p, doa_p),
+                                    doa_threshold=doa_threshold,
+                                    block_size=metric_block_size)
+        if return_preds:
+            return metric_state, (sloss, dloss), (sed_p, doa_p)
+        return metric_state, (sloss, dloss)
 
     return step

@@ -1,0 +1,294 @@
+"""SELD training loop (seld_tpu/train/trainer.py).
+
+`SELDTrainer` runs the reference's two recipes, picked by `--swa`:
+  - `--swa off` (train.py, v1): plateau lr decay over the whole schedule,
+    early stop, best-checkpoint save, no weight averaging
+  - `--swa on` (default, trainv2.py, the challenge loop): AdaBelief with
+    AGC, class weights, label smoothing, MMSE_with_cls_weights, L2 1e-3,
+    SWA (start 80, freq 2, lr halved at the start; plateau decay stops once
+    SWA engages)
+
+Each epoch streams batches from the dataset (gathered on the card when it
+is device-resident, else copied ahead by `DeviceIterator`), applies the
+augment from the trainer's own generator, and runs the train step; val and
+test epochs run the eval step. Checkpoints carry the whole training state
+(train/checkpoint.py), so a resumed run continues exactly.
+
+Not ported yet: the full-clip ensemble evaluation (`evaluate_ensemble`,
+ROADMAP queue 1, item 9) and the whole-epoch step (`--epoch_scan`, a CUDA
+graph in a later PR).
+"""
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from seld_tpu_torch.bridge import from_flax, load_npz
+from seld_tpu_torch.data.loader import DeviceIterator
+from seld_tpu_torch.models import build_model
+from seld_tpu_torch.train import losses as L
+from seld_tpu_torch.train import metrics as M
+from seld_tpu_torch.train.checkpoint import (latest_best, restore_checkpoint,
+                                             save_checkpoint)
+from seld_tpu_torch.train.optimizers import adabelief, adam
+from seld_tpu_torch.train.steps import make_eval_step, make_train_step
+from seld_tpu_torch.train.train_state import SWAState, TrainState
+from seld_tpu_torch.utils.logging import ScalarLogger
+
+
+class SELDTrainer:
+    def __init__(self, config, model_config: dict, *,
+                 n_classes: Optional[int] = None,
+                 input_shape=(300, 64, 7),
+                 device="cuda",
+                 optimizer: str = "adabelief",
+                 use_class_weights: bool = True,
+                 train_samples: Optional[np.ndarray] = None,
+                 workdir: str = "./saved_model",
+                 logdir: str = "./tensorboard_log",
+                 metric_block_size: int = 10):
+        self.config = config
+        self.model_config = dict(model_config)
+        self.n_classes = n_classes or self.model_config.get("n_classes", 14)
+        self.model_config["n_classes"] = self.n_classes
+        self.input_shape = tuple(input_shape)
+        self.device = torch.device(device)
+        self.workdir = os.path.join(workdir, config.name)
+        self.logger = ScalarLogger(os.path.join(logdir, config.name))
+        self.metric_block_size = metric_block_size
+
+        # losses (trainv2.py:291-297)
+        if use_class_weights:
+            samples = (train_samples if train_samples is not None
+                       else L.DCASE2021_TRAIN_SAMPLES)
+            if np.shape(samples)[-1] != self.n_classes:
+                raise ValueError("train_samples does not match n_classes")
+            self.cls_weights = L.class_weights_from_samples(samples,
+                                                            self.device)
+        else:
+            self.cls_weights = None
+
+        smoothing = getattr(config, "label_smoothing", 0.0)
+        sed_kind = getattr(config, "sed_loss", "BCE")
+        focal_a = getattr(config, "focal_a", 0.25)
+        focal_g = getattr(config, "focal_g", 2.0)
+
+        def sed_loss(y, p):
+            return L.sed_loss_with_weights(
+                y, p, self.cls_weights, label_smoothing=smoothing,
+                kind=sed_kind, focal_alpha=focal_a, focal_gamma=focal_g)
+
+        doa_kind = getattr(config, "doa_loss", "MMSE")
+        if doa_kind == "MMSE" and self.cls_weights is not None:
+            def doa_loss(y, p):
+                return L.MMSE_with_cls_weights(y, p, self.cls_weights)
+        else:
+            doa_loss = L.get_doa_loss(doa_kind)
+        self.sed_loss, self.doa_loss = sed_loss, doa_loss
+        self.loss_weights = tuple(
+            float(w) for w in str(getattr(config, "loss_weight", "1,1000")
+                                  ).split(","))
+        agc = getattr(config, "agc", True)
+        self.agc_clip = (0.01 if agc is True else float(agc)) if agc else None
+        self.l2 = float(getattr(config, "l2", 1e-3))
+
+        # model + state: weights from `seed`, dropout masks from seed + 1,
+        # augment draws from seed + 17
+        seed = getattr(config, "seed", 0)
+        self.model = build_model(config.model, self.input_shape,
+                                 self.model_config, seed=seed,
+                                 device=self.device)
+        lr = float(getattr(config, "lr", 1e-3))
+        opt_factory = adabelief if optimizer == "adabelief" else adam
+        self.state = TrainState(
+            self.model, opt_factory(list(self.model.parameters()), lr,
+                                    agc_clip=self.agc_clip), seed=seed + 1)
+        self.swa = SWAState(self.state.params, self.state.batch_stats)
+
+        compute_dtype = (torch.bfloat16 if getattr(config, "bf16", False)
+                         else None)
+        self.train_step = make_train_step(
+            sed_loss_fn=self.sed_loss, doa_loss_fn=self.doa_loss,
+            loss_weights=self.loss_weights, l2=self.l2,
+            doa_threshold=getattr(config, "lad_doa_thresh", 20),
+            metric_block_size=metric_block_size, compute_dtype=compute_dtype)
+        self.eval_step = make_eval_step(
+            sed_loss_fn=self.sed_loss, doa_loss_fn=self.doa_loss,
+            doa_threshold=getattr(config, "lad_doa_thresh", 20),
+            metric_block_size=metric_block_size, compute_dtype=compute_dtype)
+
+        self.best_score = np.inf
+        self.start_epoch = 0
+        self._augment: Optional[Callable] = None
+        self.aug_generator = torch.Generator(device=self.device).manual_seed(
+            seed + 17)
+
+    # ------------------------------------------------------------------
+    def set_augment(self, augment_fn: Optional[Callable]) -> None:
+        """augment_fn(generator, x, y_total) -> (x, y_total)."""
+        self._augment = augment_fn
+
+    def resume(self) -> bool:
+        """Restore the best checkpoint of this run (not the last one, as the
+        JAX package does); False when there is none."""
+        path = latest_best(self.workdir)
+        if path is None:
+            return False
+        _, _, extra = restore_checkpoint(path, self.state, self.swa,
+                                         self.aug_generator)
+        if extra:
+            self.best_score = extra.get("best_score", np.inf)
+            self.start_epoch = extra.get("epoch", -1) + 1
+        return True
+
+    def init_from(self, path: str) -> None:
+        """Warm-start params and batch stats from a flax-variables `.npz`
+        (keys "params/...", "batch_stats/..."), with the optimizer, the SWA
+        average, the lr schedule and the epoch counter fresh — unlike
+        resume(), which restores this run's whole training state."""
+        self.model.load_state_dict(from_flax(load_npz(path), self.model))
+        self.swa = SWAState(self.state.params, self.state.batch_stats)
+
+    # ------------------------------------------------------------------
+    def _split_labels(self, y):
+        c = self.n_classes
+        return y[..., :c], y[..., c:]
+
+    def _run_epoch(self, dataset, epoch: int, mode: str) -> Dict[str, float]:
+        train = mode == "train"
+        mstate = M.init_state(self.n_classes, self.device)
+        slosses, dlosses = [], []
+        feed = (dataset if getattr(dataset, "device_resident", False)
+                else DeviceIterator(dataset, self.device))
+        for x, y in feed:
+            if train and self._augment is not None:
+                x, y = self._augment(self.aug_generator, x, y)
+            y = self._split_labels(y)
+            if train:
+                self.state, mstate, (sl, dl) = self.train_step(
+                    self.state, mstate, x, y)
+            else:
+                mstate, (sl, dl) = self.eval_step(self.state, mstate, x, y)
+            slosses.append(sl)
+            dlosses.append(dl)
+        n = len(slosses)
+        sloss_sum = float(torch.stack(slosses).sum()) if n else 0.0
+        dloss_sum = float(torch.stack(dlosses).sum()) if n else 0.0
+        return self._epoch_scalars(mstate, sloss_sum, dloss_sum, n, epoch,
+                                   mode)
+
+    def _epoch_scalars(self, mstate, sloss_sum: float, dloss_sum: float,
+                       n: int, epoch: int, mode: str) -> Dict[str, float]:
+        er, f, de, de_f = [float(v) for v in M.result(mstate)]
+        seld = float(M.calculate_seld_score((er, f, de, de_f)))
+        scalars = {
+            "ErrorRate": er, "F": f, "DoaErrorRate": de, "DoaErrorRateF": de_f,
+            "sedLoss": sloss_sum / max(n, 1), "doaLoss": dloss_sum / max(n, 1),
+            "seldScore": seld,
+        }
+        for tag, val in scalars.items():
+            self.logger.add_scalar(f"{mode}/{mode}_{tag}", val, epoch)
+        return scalars
+
+    # ------------------------------------------------------------------
+    def evaluate_ensemble(self, *args, **kwargs):
+        raise NotImplementedError("the full-clip ensemble evaluation is not "
+                                  "ported yet (ROADMAP queue 1, item 9)")
+
+    def swa_params(self):
+        return self.swa.avg_params
+
+    def swa_batch_stats(self):
+        return self.swa.avg_batch_stats
+
+    # ------------------------------------------------------------------
+    def fit(self, trainset, valset=None, testset=None, *,
+            epochs: Optional[int] = None,
+            eval_fn: Optional[Callable] = None,
+            eval_every: int = 10,
+            verbose: bool = True) -> Dict:
+        cfg = self.config
+        epochs = epochs or getattr(cfg, "epoch", 1000)
+        use_swa = bool(getattr(cfg, "swa", True))
+        swa_start = getattr(cfg, "swa_start", 80)
+        swa_freq = getattr(cfg, "swa_freq", 2)
+        patience = getattr(cfg, "patience", 100)
+        lr_patience = getattr(cfg, "lr_patience", 80)
+        decay = getattr(cfg, "decay", 0.5)
+        base_lr = float(getattr(cfg, "lr", 1e-3))
+
+        early_stop, lr_decay_wait = 0, 0
+        if valset is None:
+            logging.getLogger("seld_tpu_torch").warning(
+                "SELDTrainer.fit: no valset given — best-checkpoint "
+                "selection and early stopping will use the TRAIN-split SELD "
+                "score, which rewards overfitting.")
+        history: List[Dict] = []
+        for epoch in range(self.start_epoch, epochs):
+            t0 = time.time()
+            if use_swa and epoch == swa_start:
+                self.state.set_lr(base_lr * 0.5)        # trainv2:325-326
+
+            if eval_fn is not None and eval_every > 0 \
+                    and epoch % eval_every == 0:
+                eval_fn(self, epoch)
+
+            epoch_trainset = (trainset(epoch) if callable(trainset)
+                              else trainset)
+            train_scalars = self._run_epoch(epoch_trainset, epoch, "train")
+            train_secs = time.time() - t0
+            score = train_scalars["seldScore"]
+            val_scalars = None
+            if valset is not None:
+                val_scalars = self._run_epoch(valset, epoch, "val")
+                score = val_scalars["seldScore"]
+            if testset is not None:
+                self._run_epoch(testset, epoch, "test")
+
+            if use_swa and self.swa.should_update(epoch, swa_start, swa_freq):
+                self.swa.update(self.state.params, self.state.batch_stats)
+            self.logger.add_scalar("train/lr", float(self.state.get_lr()),
+                                   epoch)
+            self.logger.add_scalar("train/swa_count", float(self.swa.count),
+                                   epoch)
+
+            history.append({"epoch": epoch, "train": train_scalars,
+                            "val": val_scalars, "secs": time.time() - t0,
+                            "train_secs": train_secs})
+            if verbose:
+                msg = (f"epoch {epoch}: train seld "
+                       f"{train_scalars['seldScore']:.4f}")
+                if val_scalars:
+                    msg += f", val seld {val_scalars['seldScore']:.4f}"
+                print(msg + f" ({time.time() - t0:.1f}s)")
+
+            if score < self.best_score:
+                self.best_score = score
+                early_stop, lr_decay_wait = 0, 0
+                save_checkpoint(
+                    self.workdir, f"bestscore_{self.best_score:.5f}",
+                    self.state, self.swa,
+                    extra={"best_score": float(self.best_score),
+                           "epoch": epoch},
+                    keep_best_only=True, aug_generator=self.aug_generator)
+            else:
+                if (lr_decay_wait >= lr_patience and decay != 1
+                        and (not use_swa or epoch < swa_start)):
+                    lr = self.state.get_lr() * decay
+                    self.state.set_lr(lr)               # train.py:381-385
+                    lr_decay_wait = 0
+                    if verbose:
+                        print(f"epoch {epoch}: plateau lr decay -> {lr:.2e}")
+                if early_stop >= patience:
+                    break
+                early_stop += 1
+                lr_decay_wait += 1
+
+        return {"history": history, "best_score": self.best_score,
+                # resuming an already-completed run never enters the loop
+                "last_epoch": epoch if history else self.start_epoch - 1}

@@ -2,6 +2,9 @@
 from __future__ import annotations
 
 import copy
+import math
+
+import numpy as np
 
 
 def dict_add(first: dict, second: dict) -> dict:
@@ -22,3 +25,15 @@ def sorted_block_keys(cfg) -> list:
     keys = [k for k in cfg
             if k.startswith("BLOCK") and not k.endswith("ARGS")]
     return sorted(keys, key=lambda k: (len(k), k))
+
+
+def degree_to_radian(degree):
+    if isinstance(degree, (np.ndarray, np.generic, int, float)):
+        return degree * np.pi / 180
+    return degree * math.pi / 180
+
+
+def radian_to_degree(radian):
+    if isinstance(radian, (np.ndarray, np.generic, int, float)):
+        return radian * 180 / np.pi
+    return radian * 180 / math.pi

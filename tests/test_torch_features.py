@@ -1,0 +1,153 @@
+"""The port's feature front-end pieces (seld_tpu_torch/ops/{stft,mel,
+features}.py) against the JAX package's (seld_tpu/ops/{stft,mel,
+features}.py) on the same numpy inputs.
+
+Tolerances: the filterbank and the labels are built by the same numpy code
+and must be equal; the spectra to 1e-4 of their largest magnitude (f32
+FFTs in another order); the features to 1e-4 absolute (dB and IV, as
+tests/test_torch_frontend.py states), the preprocessing, statistics and
+normalizer to f32 rounding.
+"""
+import importlib
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seld_tpu.ops import features as JFe
+from seld_tpu.ops import mel as JM
+from seld_tpu_torch.ops import features as Fe
+from seld_tpu_torch.ops import mel as M
+from seld_tpu_torch.ops import stft as S
+
+# seld_tpu.ops exports the function `stft` under the module's name
+JS = importlib.import_module("seld_tpu.ops.stft")
+torch.set_num_threads(1)
+ATOL = 1e-4
+SR = 24000
+
+
+def _pcm(seed, n, amplitude=0.5, dtype=np.int16):
+    rng = np.random.RandomState(seed)
+    bits = np.iinfo(dtype).max
+    return np.round(rng.uniform(-1, 1, (4, n)) * amplitude * bits
+                    ).astype(dtype)
+
+
+@pytest.mark.parametrize("method", ["fft", "matmul"])
+def test_complex_spec_matches_jax(method):
+    wav = np.random.RandomState(0).randn(4, 4800).astype(np.float32)
+    got = S.complex_spec(torch.from_numpy(wav), n_fft=1024, win_length=960,
+                         hop_length=480, method=method).numpy()
+    want = np.asarray(JS.complex_spec(jnp.asarray(wav), n_fft=1024,
+                                      win_length=960, hop_length=480,
+                                      method=method))
+    assert got.shape == want.shape == (4, 513, 11)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+
+
+def test_window_and_bases_equal_jax():
+    np.testing.assert_array_equal(S._padded_window(1024, 960).numpy(),
+                                  np.asarray(JS._padded_window(1024, 960)))
+    np.testing.assert_array_equal(S.hann_window(64).numpy(),
+                                  np.asarray(JS.hann_window(64)))
+    for got, want in zip(S._dft_bases(1024), JS._dft_bases(1024)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_freqs,n_mels,sr", [(513, 64, 24000),
+                                               (257, 40, 16000)])
+def test_mel_filterbank_equal(n_freqs, n_mels, sr):
+    got = M.mel_filterbank(n_freqs, n_mels, sr).numpy()
+    want = np.asarray(JM.mel_filterbank(n_freqs, n_mels, sr))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_amplitude_to_db_matches_jax():
+    x = (np.random.RandomState(1).rand(4, 64, 30) ** 8).astype(np.float32)
+    x[0, :3] = 0.0
+    got = M.amplitude_to_db(torch.from_numpy(x)).numpy()
+    want = np.asarray(JM.amplitude_to_db(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+    # per clip over a batch: each slice gets its own floor
+    batch = M.amplitude_to_db(torch.from_numpy(np.stack([x, x * 1e-6])),
+                              clip_dims=1)
+    np.testing.assert_allclose(batch[0].numpy(), want, rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(
+        batch[1].numpy(), np.asarray(JM.amplitude_to_db(jnp.asarray(
+            x * 1e-6))), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32, np.float32])
+def test_extract_features_matches_jax(dtype):
+    pcm = _pcm(2, 12000, dtype=np.int16 if dtype == np.float32 else dtype)
+    wav = pcm.astype(np.float32) / 32768.0 if dtype == np.float32 else pcm
+    got = Fe.extract_features(torch.from_numpy(wav)).numpy()
+    want = np.asarray(JFe.extract_features(jnp.asarray(wav), mode="foa",
+                                           method="fft"))
+    assert got.shape == want.shape == (26, 64, 7)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_extract_features_batch_and_clips_match_jax():
+    clips = [_pcm(3, 12000), _pcm(4, 12000, amplitude=0.01),
+             _pcm(5, 9600, dtype=np.int32), _pcm(6, 12000)]
+    batch = np.stack([clips[0], clips[1]])
+    got = Fe.extract_features_batch(torch.from_numpy(batch)).numpy()
+    want = np.asarray(JFe.extract_features_batch(jnp.asarray(batch),
+                                                 method="fft"))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    got = Fe.extract_features_clips(clips, chunk_size=2, device="cpu")
+    want = JFe.extract_features_clips(clips, chunk_size=2, method="fft")
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL)
+
+
+def test_unported_modes_raise():
+    wav = torch.zeros(4, 4800)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Fe.extract_features(wav, mode="mic")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Fe.gcc_features(None, 64)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Fe.salsa_lite_features(None)
+    with pytest.raises(ValueError, match="invalid mode"):
+        Fe.extract_features(wav, mode="stereo")
+
+
+def test_extract_labels_equal(tmp_path):
+    path = os.path.join(tmp_path, "fold1_room1_mix001.csv")
+    with open(path, "w") as f:
+        for fr, cls, azi, ele in [(0, 3, 45, -10), (2, 3, 50, 0),
+                                  (2, 7, -170, 30), (9, 11, 90, 80)]:
+            f.write(f"{fr},{cls},0,{azi},{ele}\n")
+    for max_frames in (None, 20):
+        got = Fe.extract_labels(path, n_classes=12, max_frames=max_frames)
+        want = JFe.extract_labels(path, n_classes=12, max_frames=max_frames)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("frames", [40, 70])
+def test_preprocess_statistics_and_normalizer_match_jax(frames):
+    rng = np.random.RandomState(frames)
+    feats = rng.randn(frames, 64, 7).astype(np.float32)
+    labels = rng.rand(frames // 5, 48).astype(np.float32)
+    got = Fe.preprocess_features_labels(feats, labels, max_label_length=10)
+    want = JFe.preprocess_features_labels(feats, labels, max_label_length=10)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    stats = Fe.calculate_statistics(got[0])
+    want_stats = JFe.calculate_statistics(want[0])
+    for g, w in zip(stats, want_stats):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(
+        Fe.apply_normalizer(got[0], *stats),
+        np.asarray(JFe.apply_normalizer(want[0], *want_stats)))
+    on_tensor = Fe.apply_normalizer(torch.from_numpy(got[0]), *stats)
+    np.testing.assert_allclose(on_tensor.numpy(),
+                               Fe.apply_normalizer(got[0], *stats),
+                               rtol=1e-6, atol=1e-6)

@@ -42,7 +42,13 @@ def test_port_files_exist():
                  "ops/stem_bwd.py", "train/losses.py", "train/metrics.py",
                  "train/optimizers.py", "train/steps.py",
                  "train/train_state.py", "nas/complexity.py", "bench.py",
-                 "profile_step.py"):
+                 "profile_step.py", "utils/coords.py", "ops/stft.py",
+                 "ops/mel.py", "ops/frontend.py", "ops/features.py",
+                 "ops/gather.py", "data/loader.py", "data/wav_pipeline.py",
+                 "data/device_dataset.py", "data/transforms.py",
+                 "train/checkpoint.py", "utils/logging.py",
+                 "config/params.py", "config/manager.py",
+                 "train/trainer.py", "train/main.py", "train/__main__.py"):
         assert os.path.join("seld_tpu_torch", want) in names
 
 
@@ -90,6 +96,41 @@ def test_registry_copy_equals_original_modulo_package():
     assert got == want
 
 
+@pytest.mark.parametrize("rel", ["config/params.py", "config/manager.py",
+                                 "utils/coords.py", "utils/logging.py"])
+def test_copied_modules_equal_originals_modulo_package(rel):
+    """The flag table and config store, the coordinate helpers and the
+    scalar logger are copies: code equal to the JAX package's."""
+    want = _code_without_docstrings(os.path.join(REPO, "seld_tpu", rel),
+                                    "seld_tpu.")
+    got = _code_without_docstrings(os.path.join(REPO, "seld_tpu_torch", rel),
+                                   "seld_tpu_torch.")
+    assert got == want
+
+
+def test_copied_constants_equal():
+    """The front-end's constants (mel filterbank, DFT bases, window) and
+    the fold splits are the JAX package's values."""
+    import numpy as np
+    from seld_tpu.data.loader import SPLITS as want_splits
+    from seld_tpu.ops.mel import _mel_filterbank_np as want_fb
+    from seld_tpu.ops.stft import _dft_bases as want_dft
+    from seld_tpu.ops.stft import _padded_window as want_window
+    from seld_tpu_torch.data.loader import SPLITS
+    from seld_tpu_torch.ops.mel import _mel_filterbank_np
+    from seld_tpu_torch.ops.stft import _dft_bases, _padded_window_np
+    assert SPLITS == want_splits
+    for args in ((513, 64, 24000, 0.0, 12000.0), (257, 40, 16000, 0.0,
+                                                  8000.0)):
+        np.testing.assert_array_equal(_mel_filterbank_np(*args),
+                                      want_fb(*args))
+    for n_fft, win in ((1024, 960), (512, 512)):
+        for got, want in zip(_dft_bases(n_fft), want_dft(n_fft)):
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(_padded_window_np(n_fft, win),
+                                      np.asarray(want_window(n_fft, win)))
+
+
 def test_common_helpers_equal():
     from seld_tpu.utils.common import sorted_block_keys as want
     from seld_tpu_torch.utils import sorted_block_keys as got
@@ -109,7 +150,11 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     for source, replaced in (
             ("gru_fwd.cu", "seld_tpu/ops/pallas/gru.py::_fwd_kernel"),
             ("gru_bwd.cu", "seld_tpu/ops/pallas/gru.py::_bwd_kernel"),
-            ("stem_dy.cu", "seld_tpu/ops/pallas/stem_bwd.py::_dy_kernel")):
+            ("stem_dy.cu", "seld_tpu/ops/pallas/stem_bwd.py::_dy_kernel"),
+            ("foa_frontend.cu",
+             "seld_tpu/ops/pallas/frontend.py::_frontend_kernel"),
+            ("gather_rows.cu", "seld_tpu/ops/pallas/gather.py::_gather_lanes"),
+            ("gather_rows.cu", "seld_tpu/ops/pallas/gather.py::_gather_dma")):
         assert source in kernels.SOURCES
         with open(os.path.join(kernels.CSRC_DIR, source)) as f:
             src = f.read()

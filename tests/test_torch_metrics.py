@@ -39,8 +39,13 @@ def _batch(seed, b=3, t=20):
     return (sed, doa), (sed_p, doa_p)
 
 
+def _init(mod):
+    return (TM.init_state(N_CLASSES, "cpu") if mod is TM
+            else JM.init_state(N_CLASSES))
+
+
 def _accumulate(mod, as_array, batches, **kwargs):
-    state = mod.init_state(N_CLASSES)
+    state = _init(mod)
     for y, p in batches:
         state = mod.update(state, tuple(map(as_array, y)),
                            tuple(map(as_array, p)), **kwargs)
@@ -81,7 +86,7 @@ def test_update_result_and_scores_match_jax(sed_threshold, block):
 
 
 def test_empty_state_scores_and_merge():
-    got, want = TM.init_state(N_CLASSES), JM.init_state(N_CLASSES)
+    got, want = _init(TM), _init(JM)
     for g, w in zip(TM.result(got), JM.result(want)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w))
     a = _accumulate(TM, torch.from_numpy, [_batch(3)])
@@ -95,19 +100,19 @@ def test_empty_state_scores_and_merge():
 def test_unbatched_input_and_block_check():
     (sed, doa), (sed_p, doa_p) = _batch(5, b=1)
     args = [torch.from_numpy(a[0]) for a in (sed, doa, sed_p, doa_p)]
-    got = TM.update(TM.init_state(N_CLASSES), args[:2], args[2:])
+    got = TM.update(_init(TM), args[:2], args[2:])
     want = JM.update(JM.init_state(N_CLASSES),
                      (jnp.asarray(sed[0]), jnp.asarray(doa[0])),
                      (jnp.asarray(sed_p[0]), jnp.asarray(doa_p[0])))
     _compare(got, want)
     with pytest.raises(ValueError, match="divisible"):
-        TM.update(TM.init_state(N_CLASSES), args[:2], args[2:],
+        TM.update(_init(TM), args[:2], args[2:],
                   block_size=7)
 
 
 def test_seld_metrics_class():
     batches = [_batch(s) for s in (6, 7)]
-    got = TM.SELDMetrics(n_classes=N_CLASSES)
+    got = TM.SELDMetrics(n_classes=N_CLASSES, device="cpu")
     want = JM.SELDMetrics(n_classes=N_CLASSES)
     for (y, p) in batches:
         got.update_states(tuple(map(torch.from_numpy, y)),
@@ -120,3 +125,13 @@ def test_seld_metrics_class():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL)
     got.reset_states()
     assert float(got.state["Nref"]) == 0.0
+
+
+def test_metric_state_defaults_to_the_card():
+    """Like every entry point of the port, the metric state lives on the
+    card unless the caller asks for the CPU."""
+    import inspect
+    assert inspect.signature(TM.init_state).parameters["device"].default \
+        == "cuda"
+    assert inspect.signature(TM.SELDMetrics).parameters["device"].default \
+        == "cuda"

@@ -119,7 +119,7 @@ def _torch_run(variables, batches, compute_dtype=None, grads=None):
         state.optimizer.step = recording_step
     cw = TL.class_weights_from_samples(TL.DCASE2021_TRAIN_SAMPLES)
     step = _torch_step(cw, compute_dtype)
-    metric, losses = TM.init_state(N_CLASSES), []
+    metric, losses = TM.init_state(N_CLASSES, "cpu"), []
     for x, sed, doa in batches:
         state, metric, (sl, dl) = step(
             state, metric, torch.from_numpy(x),
@@ -283,7 +283,7 @@ def test_train_state_hands_its_generator_to_every_dropout():
         assert users and all(m.dropout_generator is state.generator
                              for m in users)
         _, _, (sl, dl) = _torch_step(cw)(
-            state, TM.init_state(N_CLASSES), torch.from_numpy(x),
+            state, TM.init_state(N_CLASSES, "cpu"), torch.from_numpy(x),
             (torch.from_numpy(sed), torch.from_numpy(doa)))
         return sl.item(), dl.item()
 
