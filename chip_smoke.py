@@ -33,9 +33,15 @@ Phases, one line each:
               checkpoint; then --resume from that checkpoint. Exact launch
               counts of all five kernels, finite losses, the feature-build
               time, each epoch's time and windows/s through the feed
-Phase 3 also holds the two feed kernels against their plain versions:
-foa_frontend at one chunk of 8 synthetic 60-s clips, gather_rows in bf16
-and f32 at B=256 rows of [300, 64, 7] from 4,000 staged windows.
+Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16)
+and at U=64, printing each call's tile plan, and times every plan at the
+serving and training shapes. It also holds the two feed kernels against
+their plain versions: foa_frontend at one chunk of 8 synthetic 60-s
+clips, gather_rows at B=256 rows of [300, 64, 7] (bf16, f32) from 4,000
+staged windows, of their labels [60, 48] f32, of 30-byte rows, and as the
+x+y pairs the feed launches, with per-call and device-only times (a CUDA
+graph of 50 calls) beside index_select's, and the wrapper's host work
+piece by piece.
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed phase raises: the exit code
 is non-zero and no result line is printed. Without a CUDA card, or run
@@ -152,43 +158,65 @@ def cudnn_gru(x_proj, rec_kernel, rec_bias):
     return run
 
 
+def _plan_text(plan):
+    return f"plan Bt={plan.bt} C={plan.c} CTAs={plan.ctas}"
+
+
+def _plan_json(plan):
+    return {"bt": plan.bt, "c": plan.c, "ctas": plan.ctas}
+
+
+def _gru_inputs(rng, d, t, b, u, dtype):
+    import torch
+    xp = torch.from_numpy(rng.randn(d, t, b, 3 * u).astype(
+        np.float32)).cuda().to(getattr(torch, dtype))
+    rk = torch.from_numpy((rng.randn(d, u, 3 * u) / math.sqrt(u))
+                          .astype(np.float32)).cuda()
+    rb = torch.from_numpy(0.1 * rng.randn(d, 3 * u).astype(np.float32)).cuda()
+    return xp, rk, rb
+
+
 def phase_kernels(card):
     import torch
-    from seld_tpu_torch.ops.gru import gru_scan, gru_scan_ref
+    from seld_tpu_torch.ops.gru import (_FWD_VARIANTS, _fwd_plan,
+                                        _gru_scan_cuda, gru_scan,
+                                        gru_scan_ref, library_variants)
 
+    if library_variants() != _FWD_VARIANTS:
+        raise SystemExit(f"csrc/gru_fwd.cu's variants {library_variants()} "
+                         f"differ from ops/gru.py's {_FWD_VARIANTS}")
     rng = np.random.RandomState(0)
-    d, t, u = 2, 60, 128
+    d, t = 2, 60
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    timing = None
-    for dtype in ("float32", "bfloat16"):
-        for b in (1, 3, 32, 256):
-            xp = torch.from_numpy(rng.randn(d, t, b, 3 * u).astype(
-                np.float32)).cuda().to(getattr(torch, dtype))
-            rk = torch.from_numpy((rng.randn(d, u, 3 * u) / math.sqrt(u))
-                                  .astype(np.float32)).cuda()
-            rb = torch.from_numpy(0.1 * rng.randn(d, 3 * u).astype(
-                np.float32)).cuda()
-            hs = gru_scan(xp, rk, rb)
-            torch.cuda.synchronize()
-            ref = gru_scan_ref(xp, rk, rb)
-            err = (hs.float() - ref.float()).abs().max().item()
-            ok = hs.shape == ref.shape and hs.dtype == xp.dtype and \
-                err <= GRU_TOL[dtype]
-            ms = cuda_ms(lambda: gru_scan(xp, rk, rb), 50)
-            log("kernels", f"gru_scan {dtype} B={b}: max_abs_err {err:.3e} "
-                           f"(tol {GRU_TOL[dtype]:.1e}) {'ok' if ok else 'FAIL'}"
-                           f", kernel_ms {ms:.4f}")
-            if not ok:
-                raise SystemExit(f"gru_scan disagrees with gru_scan_ref at "
-                                 f"{dtype} B={b}")
-            worst[dtype] = max(worst[dtype], err)
-            if dtype == "float32" and b == 32:
-                timing = (xp, rk, rb, hs)
-            if dtype == "bfloat16" and b == 256:
-                train_args = (xp, rk, rb)
+    cases = [(dtype, b, 128) for dtype in ("float32", "bfloat16")
+             for b in (1, 3, 17, 32, 256)]
+    cases += [("float32", 17, 64), ("bfloat16", 17, 64)]
+    for dtype, b, u in cases:
+        xp, rk, rb = _gru_inputs(rng, d, t, b, u, dtype)
+        hs = gru_scan(xp, rk, rb)
+        torch.cuda.synchronize()
+        ref = gru_scan_ref(xp, rk, rb)
+        err = (hs.float() - ref.float()).abs().max().item()
+        ok = hs.shape == ref.shape and hs.dtype == xp.dtype and \
+            err <= GRU_TOL[dtype]
+        ms = cuda_ms(lambda: gru_scan(xp, rk, rb), 50)
+        log("kernels", f"gru_scan {dtype} B={b} U={u}: max_abs_err "
+                       f"{err:.3e} (tol {GRU_TOL[dtype]:.1e}) "
+                       f"{'ok' if ok else 'FAIL'}, kernel_ms {ms:.4f}, "
+                       f"{_plan_text(_fwd_plan(d, b, u))}")
+        if not ok:
+            raise SystemExit(f"gru_scan disagrees with gru_scan_ref at "
+                             f"{dtype} B={b} U={u}")
+        worst[dtype] = max(worst[dtype], err)
+        if (dtype, b, u) == ("float32", 32, 128):
+            timing = (xp, rk, rb, hs)
+        if (dtype, b, u) == ("bfloat16", 256, 128):
+            train_args = (xp, rk, rb)
 
     # the serving path's shape: SS5 biGRU-128, T=60, a B=32 bucket, f32
     xp, rk, rb, hs = timing
+    u = xp.shape[-1] // 3
+    plan = _fwd_plan(xp.shape[0], xp.shape[2], u)
     lib = cudnn_gru(xp, rk, rb)
     lib_out = lib()
     lib_err = max((lib_out[..., :u] - hs[0]).abs().max().item(),
@@ -196,20 +224,48 @@ def phase_kernels(card):
     if lib_err > GRU_TOL["float32"]:
         raise SystemExit(f"cuDNN GRU disagrees with gru_scan: {lib_err:.3e}")
     ms = cuda_ms(lambda: gru_scan(xp, rk, rb), 200)
+    device_ms = graph_ms(lambda: gru_scan(xp, rk, rb), 50)
     plain_ms = cuda_ms(lambda: gru_scan_ref(xp, rk, rb), 10)
     library_ms = cuda_ms(lib, 200)
     bound_ms, bound_by = gru_scan_bound(xp, rk, rb)
     log("kernels", f"gru_scan f32 D=2 T=60 B=32 U=128 on {card}: "
-                   f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                   f"(cuDNN GRU) {library_ms:.4f} bound_ms "
-                   f"{bound_ms:.5f}; cuDNN vs kernel {lib_err:.2e}")
-    # and at the training path's shape, B=256 bf16
+                   f"kernel_ms {ms:.4f} (device ms {device_ms:.4f}; "
+                   f"{_plan_text(plan)}) plain_ms "
+                   f"{plain_ms:.4f} library_ms (cuDNN GRU) {library_ms:.4f} "
+                   f"bound_ms {bound_ms:.5f}; cuDNN vs kernel {lib_err:.2e}")
+    # and at the training path's shape, B=256 bf16, beside cuDNN's training
+    # forward in bf16
     xp, rk, rb = train_args
+    train_plan = _fwd_plan(xp.shape[0], xp.shape[2], u)
     train_ms = cuda_ms(lambda: gru_scan(xp, rk, rb), 50)
+    train_device_ms = graph_ms(lambda: gru_scan(xp, rk, rb), 50)
     train_bound_ms, train_bound_by = gru_scan_bound(xp, rk, rb)
+    g = torch.zeros(xp.shape[:3] + (u,), dtype=xp.dtype, device="cuda")
+    lib_fwd, _ = cudnn_gru_train(xp, rk, rb, g)
+    train_library_ms = cuda_ms(lib_fwd, 50)
     log("kernels", f"gru_scan bf16 D=2 T=60 B=256 U=128 (training shape): "
-                   f"kernel_ms {train_ms:.4f} bound_ms {train_bound_ms:.5f} "
+                   f"kernel_ms {train_ms:.4f} (device ms "
+                   f"{train_device_ms:.4f}; {_plan_text(train_plan)}) "
+                   f"library_ms (cuDNN GRU training forward, bf16) "
+                   f"{train_library_ms:.4f} bound_ms {train_bound_ms:.5f} "
                    f"({train_bound_by})")
+    # every plan that takes U=128 at both shapes, for the choice above
+    # and every plan that takes U=128 at both shapes, each held against the
+    # plain version, for the choice above
+    for name, args in (("B=32 f32", timing[:3]), ("B=256 bf16", train_args)):
+        ref = gru_scan_ref(*args).float()
+        tol = GRU_TOL[str(args[0].dtype).split(".")[-1]]
+        times = []
+        for v in range(len(_FWD_VARIANTS)):
+            p = _fwd_plan(args[0].shape[0], args[0].shape[2], u, variant=v)
+            err = (_gru_scan_cuda(*args, plan=p).float() - ref).abs().max()
+            if err.item() > tol:
+                raise SystemExit(f"gru_scan variant {v} disagrees with "
+                                 f"gru_scan_ref at {name}: {err.item():.3e}")
+            v_ms = cuda_ms(lambda: _gru_scan_cuda(*args, plan=p), 50)
+            times.append(f"variant {v} {_FWD_VARIANTS[v]} {_plan_text(p)}: "
+                         f"{v_ms:.4f} ms (err {err.item():.1e})")
+        log("kernels", f"gru_scan plans at {name}: " + "; ".join(times))
     return {"name": "gru_scan", "route": "cuda",
             "source": "seld_tpu_torch/csrc/gru_fwd.cu",
             "replaces": "seld_tpu/ops/pallas/gru.py:170",
@@ -217,8 +273,13 @@ def phase_kernels(card):
             "max_abs_err_bf16": worst["bfloat16"],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "train_shape_ms": train_ms, "train_shape_bound_ms": train_bound_ms,
-            "train_shape_bound_by": train_bound_by}
+            "device_ms": device_ms, "plan": _plan_json(plan),
+            "train_shape_ms": train_ms,
+            "train_shape_device_ms": train_device_ms,
+            "train_shape_library_ms": train_library_ms,
+            "train_shape_bound_ms": train_bound_ms,
+            "train_shape_bound_by": train_bound_by,
+            "train_shape_plan": _plan_json(train_plan)}
 
 
 def gru_scan_bound(xp, rk, rb):
@@ -257,6 +318,7 @@ def cudnn_gru_train(x_proj, rec_kernel, rec_bias, g):
     import torch
     gru, inp = _cudnn_gru(x_proj, rec_kernel, rec_bias)
     gru = gru.to(x_proj.dtype)
+    gru.flatten_parameters()   # else cuDNN compacts the weights every call
     inp = inp.to(x_proj.dtype).requires_grad_()
     gout = torch.cat(list(g), dim=-1)                    # [T, B, D*U]
 
@@ -679,7 +741,7 @@ def frontend_bound(n, t, n_fft=1024, n_mels=64, hop=480, sample_rate=24000):
 def phase_kernels_feed(card):
     import torch
     from seld_tpu_torch.ops.frontend import foa_frontend, foa_frontend_ref
-    from seld_tpu_torch.ops.gather import gather_rows, gather_rows_ref
+    from seld_tpu_torch.ops.gather import gather_batch, gather_batch_ref
     from seld_tpu_torch.ops.mel import amplitude_to_db
     from seld_tpu_torch.ops.stft import reflect_pad
 
@@ -731,49 +793,150 @@ def phase_kernels_feed(card):
     del padded
 
     # gather_rows: B=256 ids into 4,000 staged windows [300, 64, 7] (bf16,
-    # the path's, and f32) and their labels [60, 48] f32; and a row of 30
-    # bytes, which takes the kernel's byte-wise copy
+    # the path's, and f32), their labels [60, 48] f32, and a row of 30
+    # bytes, which takes the kernel's byte-wise copy; each alone and as the
+    # pairs the feed launches (x and y with one ids row)
     ids = torch.randint(0, 4000, (256,), generator=gen, device="cuda",
                         dtype=torch.int32)
+    arrays = {name: torch.randn(shape, generator=gen, device="cuda").to(dt)
+              for name, shape, dt in (
+                  ("x", (4000, 300, 64, 7), torch.bfloat16),
+                  ("x f32", (4000, 300, 64, 7), torch.float32),
+                  ("y", (4000, 60, 48), torch.float32),
+                  ("bytes", (4000, 3, 5), torch.bfloat16))}
+    cases = {name: (a,) for name, a in arrays.items()}
+    cases["pair"] = (arrays["x"], arrays["y"])
+    cases["pair with bytes"] = (arrays["x"], arrays["bytes"])
     rows = {}
-    for name, shape, dtype in (("x bf16", (4000, 300, 64, 7), torch.bfloat16),
-                               ("x f32", (4000, 300, 64, 7), torch.float32),
-                               ("y f32", (4000, 60, 48), torch.float32),
-                               ("bytes", (4000, 3, 5), torch.bfloat16)):
-        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        got = gather_rows(x, ids)
+    for name, arrs in cases.items():
+        got = gather_batch(arrs, ids)
         torch.cuda.synchronize()
-        equal = torch.equal(got, gather_rows_ref(x, ids))
-        ms = cuda_ms(lambda: gather_rows(x, ids), 50)
-        plain_ms = cuda_ms(lambda: gather_rows_ref(x, ids), 50)
-        library_ms = cuda_ms(lambda: torch.index_select(x, 0, ids), 50)
-        nbytes = 2 * ids.numel() * x[0].numel() * x.element_size() + \
-            ids.numel() * 4
+        equal = all(torch.equal(a, b)
+                    for a, b in zip(got, gather_batch_ref(arrs, ids)))
+        ms = cuda_ms(lambda: gather_batch(arrs, ids), 50)
+        plain_ms = cuda_ms(lambda: gather_batch_ref(arrs, ids), 50)
+        library_ms = cuda_ms(
+            lambda: [torch.index_select(a, 0, ids) for a in arrs], 50)
+        device_ms = graph_ms(lambda: gather_batch(arrs, ids), 50)
+        library_device_ms = graph_ms(
+            lambda: [torch.index_select(a, 0, ids) for a in arrs], 50)
+        nbytes = sum(2 * ids.numel() * a[0].numel() * a.element_size()
+                     for a in arrs) + ids.numel() * 4
         bound_ms, bound_by = bound(nbytes, 0)
-        rows[name] = (ms, plain_ms, library_ms, bound_ms, bound_by)
-        log("kernels", f"gather_rows {name} B=256 of {list(shape)}: exactly "
-                       f"equal {equal}; kernel_ms {ms:.4f} plain_ms "
-                       f"{plain_ms:.4f} library_ms (index_select) "
-                       f"{library_ms:.4f} bound_ms {bound_ms:.5f} "
-                       f"({bound_by}) on {card}")
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          device_ms=device_ms,
+                          library_device_ms=library_device_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        shapes = " + ".join(str(list(a.shape)) for a in arrs)
+        log("kernels", f"gather_batch {name} B=256 of {shapes}: exactly "
+                       f"equal {equal}; per call ms {ms:.4f}, device ms "
+                       f"{device_ms:.4f}; plain_ms {plain_ms:.4f}; "
+                       f"index_select x{len(arrs)} per call ms "
+                       f"{library_ms:.4f}, device ms {library_device_ms:.4f};"
+                       f" bound_ms {bound_ms:.5f} ({bound_by}) on {card}")
         if not equal:
-            raise SystemExit(f"gather_rows disagrees with gather_rows_ref "
+            raise SystemExit(f"gather_batch disagrees with gather_batch_ref "
                              f"({name})")
-        del x, got
-    ms, plain_ms, library_ms, bound_ms, bound_by = rows["x bf16"]
+        del got
+    gather_host_us(arrays["x"], arrays["y"], ids)
+    x, pair = rows["x"], rows["pair"]
     entries.append({"name": "gather_rows", "route": "cuda",
                     "source": "seld_tpu_torch/csrc/gather_rows.cu",
                     "replaces": "seld_tpu/ops/pallas/gather.py:67",
                     "also_replaces": "seld_tpu/ops/pallas/gather.py:135",
                     "launches": None, "max_abs_err": 0.0,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": library_ms,
-                    "f32_ms": rows["x f32"][0],
-                    "f32_bound_ms": rows["x f32"][3],
-                    "labels_ms": rows["y f32"][0],
-                    "labels_bound_ms": rows["y f32"][3]})
+                    "ms": x["ms"], "plain_ms": x["plain_ms"],
+                    "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
+                    "library_ms": x["library_ms"],
+                    "device_ms": pair["device_ms"],
+                    "x_device_ms": x["device_ms"],
+                    "labels_ms": rows["y"]["ms"],
+                    "labels_device_ms": rows["y"]["device_ms"],
+                    "labels_bound_ms": rows["y"]["bound_ms"],
+                    "pair_ms": pair["ms"],
+                    "pair_library_ms": pair["library_ms"],
+                    "pair_device_library_ms": pair["library_device_ms"],
+                    "pair_plain_ms": pair["plain_ms"],
+                    "pair_bound_ms": pair["bound_ms"],
+                    "f32_ms": rows["x f32"]["ms"],
+                    "f32_bound_ms": rows["x f32"]["bound_ms"]})
+    del arrays, cases
     torch.cuda.empty_cache()
     return entries
+
+
+def graph_ms(fn, n):
+    """Device time of one call of fn: CUDA events around the replay of a
+    CUDA graph of n calls, so the host's per-call work is not in it."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                                  # warm up off the graph
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / n
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def gather_host_us(x, y, ids, n=300):
+    """Host microseconds per call of each piece of a gather wrapper's work,
+    on the labels' shape (their copy is 1.8 us at the bytes bound): the
+    pieces the lean wrapper dropped (a device switch, a Stream object, a
+    row view, torch.empty's arguments) beside those it keeps, and whole
+    calls (the x+y pair's host time hides behind its device time). n
+    stays under the card's queue of pending launches, so the loop measures
+    the host and not the device."""
+    import torch
+    from seld_tpu_torch.ops import gather as G
+    from seld_tpu_torch.ops import kernels
+    dev = y.device
+    shape = (ids.shape[0],) + tuple(y.shape[1:])
+
+    def device_switch():
+        with torch.cuda.device(dev):
+            pass
+    pieces = {
+        "device switch": device_switch,
+        "current_stream(dev)": lambda: torch.cuda.current_stream(dev)
+        .cuda_stream,
+        "current_stream()": lambda: torch.cuda.current_stream().cuda_stream,
+        "raw current stream": lambda: kernels.current_stream(dev.index),
+        "current_device()": torch.cuda.current_device,
+        "x[0].numel()": lambda: y[0].numel(),
+        "torch.empty": lambda: torch.empty(shape, dtype=y.dtype, device=dev),
+        "new_empty": lambda: y.new_empty(shape),
+        "gather_batch(y)": lambda: G.gather_batch((y,), ids),
+        "index_select(y)": lambda: torch.index_select(y, 0, ids),
+        "gather_batch(x, y)": lambda: G.gather_batch((x, y), ids),
+        "index_select(x), (y)": lambda: (torch.index_select(x, 0, ids),
+                                         torch.index_select(y, 0, ids)),
+    }
+    out = {}
+    for name, fn in pieces.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    log("kernels", "gather host us per call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out.items()))
+    return out
 
 
 def write_wav_tree(root, clips, seconds, seed=0):
@@ -850,7 +1013,7 @@ def _feed_run(argv):
 def _want_counts(steps, epochs, n_train, n_val, n_test, chunk=8):
     """Exact launches of each kernel for a CLI run of `steps` train steps
     over `epochs` epochs: the front-end once per chunk of each split's
-    clips; two gathers (x, y) per batch; per train step 2 GRU forwards, 2
+    clips; one gather launch (x and y) per batch; per train step 2 GRU forwards, 2
     GRU backwards and 1 stem backward; per eval batch (one clip) 2 GRU
     forwards."""
     from seld_tpu_torch.data.device_dataset import LAUNCHES_PER_BATCH

@@ -13,7 +13,7 @@ loader's for the same seed. Eval mode gives whole-clip batches in dataset
 order. Several cards (the JAX package's sharded staging) are ROADMAP queue
 1, item 14.
 
-Each batch is two gather launches, x then y, with the same ids row
+Each batch is one gather launch that copies x and y with the same ids row
 (`LAUNCHES_PER_BATCH`).
 
 Capacity: x at [N, 300, 64, 7] is ~269 KB a window in bf16 (~538 KB f32):
@@ -28,9 +28,9 @@ import numpy as np
 import torch
 
 from seld_tpu_torch.data.loader import cast_clips, window_clips
-from seld_tpu_torch.ops.gather import gather_rows
+from seld_tpu_torch.ops.gather import gather_batch
 
-LAUNCHES_PER_BATCH = 2
+LAUNCHES_PER_BATCH = 1
 
 
 class DeviceDataset:
@@ -115,4 +115,4 @@ class DeviceDataset:
     def __iter__(self):
         idx = self.epoch_index_matrix()
         for i in range(len(self)):
-            yield gather_rows(self._x, idx[i]), gather_rows(self._y, idx[i])
+            yield gather_batch((self._x, self._y), idx[i])

@@ -8,7 +8,9 @@ plain PyTorch version of the same arithmetic, on a CPU tensor. It saves only
 the residuals (x_proj, rec_kernel, rec_bias, hs) and its backward recomputes
 the gates: csrc/gru_bwd.cu on a CUDA tensor, `gru_scan_bwd_ref` on a CPU
 tensor. There is no fallback from a kernel to its plain version: a CUDA
-tensor the kernel does not take raises.
+tensor the kernel does not take raises. The forward kernel runs each
+(direction, batch tile) as a thread block cluster; `_fwd_plan` picks its
+tile, cluster size and variant.
 
 The input projection `x @ kernel + bias[:, 0]` stays one large
 `torch.einsum` (`gru_forward`), and so does its backward, as the JAX
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -26,6 +29,64 @@ from seld_tpu_torch.ops import kernels
 _SOURCE = "gru_fwd.cu"
 _BWD_SOURCE = "gru_bwd.cu"
 _MAX_SMEM = 232448   # bytes of shared memory one H100 block may use
+# csrc/gru_fwd.cu's kVariants: (S lanes splitting a unit's k-range, NI
+# 4-row k chunks per lane, BT batch rows per tile, most threads a block may
+# have); variant v takes U <= 4 * S * NI
+_FWD_VARIANTS = ((4, 8, 8, 256), (4, 8, 4, 256), (4, 9, 8, 256))
+_FWD_BATCH, _FWD_LATENCY, _FWD_WIDE = 0, 1, 2
+_CLUSTERS = (1, 2, 4, 8)      # portable thread block cluster sizes
+_SMS = 132                    # H100 SXM
+# the latency variant while its warps average at most 4 per SM
+_LATENCY_THREADS = _SMS * 128
+
+
+class FwdPlan(NamedTuple):
+    """How csrc/gru_fwd.cu runs one call: a cluster of `c` CTAs of
+    `threads` threads per (direction, tile of `bt` batch rows); grid
+    (tiles * c, D); each CTA owns U / c units."""
+    variant: int
+    bt: int
+    c: int
+    threads: int
+    grid: Tuple[int, int]
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
+    """The forward kernel's tile plan for D directions, B rows, U units.
+
+    The latency variant (BT = 4) spreads each tile over the largest cluster
+    that divides U, while its threads fit `_LATENCY_THREADS`; otherwise the
+    batch variant (BT = 8), or the wide one past U = 128, packs each tile
+    into the smallest cluster whose blocks fit the variant's thread limit
+    (at U = 128, B = 256: 2 CTAs of 256 threads, 128 CTAs in all).
+    `variant` forces one. Raises on a U no variant takes."""
+    takes = [v for v, (s, ni, _, _) in enumerate(_FWD_VARIANTS)
+             if u <= 4 * s * ni]
+    if u < 4 or u % 4 or not takes:
+        raise ValueError(
+            f"U={u}: the GRU forward kernel takes U % 4 == 0 and 4 <= U <= "
+            f"{max(4 * s * ni for s, ni, _, _ in _FWD_VARIANTS)}")
+
+    def plan(v):
+        s, _, bt, maxt = _FWD_VARIANTS[v]
+        fits = [c for c in _CLUSTERS
+                if u % c == 0 and -(-(u // c * s) // 32) * 32 <= maxt]
+        c = fits[-1] if v == _FWD_LATENCY else fits[0]
+        threads = -(-(u // c * s) // 32) * 32
+        return FwdPlan(v, bt, c, threads, (-(-b // bt) * c, d))
+
+    if variant is None:
+        latency = plan(_FWD_LATENCY)
+        variant = _FWD_LATENCY if _FWD_LATENCY in takes and \
+            latency.ctas * latency.threads <= _LATENCY_THREADS else takes[0]
+    elif variant not in takes:
+        raise ValueError(f"variant {variant} does not take U={u}")
+    return plan(variant)
 
 
 def _step_order(d: int, t_steps: int) -> range:
@@ -163,11 +224,19 @@ def _check_cuda_bwd_args(x_proj, rec_kernel, rec_bias, hs, g):
 def _library() -> ctypes.CDLL:
     lib = kernels.load(_SOURCE)
     lib.seld_gru_fwd.argtypes = [ctypes.c_void_p] * 4 + \
-        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.seld_gru_fwd.restype = ctypes.c_int
-    lib.seld_gru_fwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.seld_gru_fwd_smem_bytes.restype = ctypes.c_size_t
+    lib.seld_gru_fwd_variants.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.seld_gru_fwd_variants.restype = ctypes.c_int
     return lib
+
+
+def library_variants() -> tuple:
+    """The variant table compiled into csrc/gru_fwd.cu, to hold
+    `_FWD_VARIANTS` against (loads the library)."""
+    buf = (ctypes.c_int * 64)()
+    n = _library().seld_gru_fwd_variants(buf, 64)
+    return tuple(tuple(buf[4 * i:4 * i + 4]) for i in range(n))
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,26 +252,28 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def _gru_scan_cuda(x_proj, rec_kernel, rec_bias):
+def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
+    """Launch csrc/gru_fwd.cu on `plan` (`_fwd_plan`'s by default)."""
     _check_cuda_args(x_proj, rec_kernel, rec_bias)
     d, t, b, k = x_proj.shape
     u = k // 3
-    lib = _library()
-    smem = lib.seld_gru_fwd_smem_bytes(u)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"U={u} needs {smem} B of shared memory; a block "
-                         f"has {_MAX_SMEM}")
+    if plan is None:
+        plan = _fwd_plan(d, b, u)
+    dev = x_proj.get_device()
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan)
     hs = torch.empty((d, t, b, u), dtype=x_proj.dtype, device=x_proj.device)
     if hs.numel() == 0:
         return hs
     # weights are tiny ([D, U, 3U]); the kernel reads them as f32
     rk = rec_kernel.float().contiguous()
     rb = rec_bias.float().contiguous()
-    with torch.cuda.device(x_proj.device):
-        stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-        err = lib.seld_gru_fwd(x_proj.data_ptr(), rk.data_ptr(),
-                               rb.data_ptr(), hs.data_ptr(), d, t, b, u,
-                               int(x_proj.dtype == torch.bfloat16), stream)
+    lib = _library()
+    err = lib.seld_gru_fwd(x_proj.data_ptr(), rk.data_ptr(), rb.data_ptr(),
+                           hs.data_ptr(), d, t, b, u,
+                           int(x_proj.dtype == torch.bfloat16), plan.variant,
+                           plan.c, kernels.current_stream(dev))
     kernels.check(lib, err, "gru_fwd launch")
     kernels.launch_counts["gru_scan"] += 1
     return hs

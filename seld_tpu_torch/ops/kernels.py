@@ -99,6 +99,16 @@ def load(source: str) -> ctypes.CDLL:
         return lib
 
 
+def current_stream(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on a card, for a launch.
+
+    `torch.cuda.current_stream()` builds a Stream object first, which costs
+    more host time than a small kernel's whole launch (chip_smoke's
+    `gather host us` line); this reads the handle alone."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C launcher returned a CUDA error (a refused launch never
     runs, and a later synchronize does not report it)."""

@@ -105,7 +105,30 @@ def test_from_clips_bf16_and_index_matrix():
     assert idx.dtype == torch.int32 and tuple(idx.shape) == (7, 8)
     np.testing.assert_array_equal(idx.numpy(),
                                   np.asarray(want.epoch_index_matrix()))
-    assert LAUNCHES_PER_BATCH == 2
+    assert LAUNCHES_PER_BATCH == 1
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_device_dataset_gathers_each_batch_in_one_call(monkeypatch, train):
+    """One gather_batch call per batch, for x and y with the same ids row,
+    and the batches JAX's DeviceDataset gives."""
+    from seld_tpu_torch.data import device_dataset as DD
+    x, y = _data(n=30)
+    calls = []
+    gather_batch = DD.gather_batch
+
+    def counting(arrays, ids):
+        calls.append((len(arrays), tuple(ids.shape)))
+        return gather_batch(arrays, ids)
+    kw = dict(loop_time=2, seed=5) if train else dict(train=False)
+    b = 8 if train else 10
+    want = list(JaxDeviceDataset(x, y, b, _mesh(), **kw))
+    dev = DeviceDataset(x, y, b, "cpu", **kw)
+    monkeypatch.setattr(DD, "gather_batch", counting)
+    got = list(dev)
+    _assert_batches_equal(got, want)
+    assert calls == [(2, (b,))] * len(dev) == [(2, (b,))] * len(want)
+    assert len(calls) * LAUNCHES_PER_BATCH == len(dev)
 
 
 def test_window_clips_equal_jax():

@@ -142,3 +142,74 @@ def test_gru_layer_dropout_in_training_is_not_ported():
         layer(torch.zeros(2, 3, 4))
     layer.eval()
     assert layer(torch.zeros(2, 3, 4)).shape == (2, 3, 8)
+
+
+def _fwd_writes(plan, d, b, u):
+    """The (direction, row, unit) states the forward kernel's threads
+    write on `plan`, by csrc/gru_fwd.cu's own index arithmetic: CTA
+    (blockIdx.x, d) is rank blockIdx.x % C of tile blockIdx.x // C; thread
+    tid is lane tid % S of CTA unit tid // S; lane l finishes rows
+    [l R, (l + 1) R), R = BT / S."""
+    s, ni, bt, maxt = gru._FWD_VARIANTS[plan.variant]
+    assert plan.bt == bt and u <= 4 * s * ni and bt % s == 0
+    assert plan.threads % 32 == 0 and plan.threads <= maxt
+    uc, r = u // plan.c, bt // s
+    writes = []
+    for dd in range(plan.grid[1]):
+        for bx in range(plan.grid[0]):
+            rank, b0 = bx % plan.c, (bx // plan.c) * bt
+            rows = min(bt, b - b0)
+            for tid in range(plan.threads):
+                lane, uu = tid % s, tid // s
+                for j in range(r):
+                    if uu < uc and lane * r + j < rows:
+                        writes.append((dd, b0 + lane * r + j,
+                                       rank * uc + uu))
+    return writes
+
+
+@pytest.mark.parametrize("u", [64, 128])
+@pytest.mark.parametrize("b", [1, 3, 17, 32, 256])
+def test_fwd_plan_covers_every_state_exactly_once(b, u):
+    plan = gru._fwd_plan(2, b, u)
+    assert u % plan.c == 0 and plan.c in gru._CLUSTERS
+    assert plan.grid[0] % plan.c == 0
+    writes = _fwd_writes(plan, 2, b, u)
+    assert len(writes) == len(set(writes)) == 2 * b * u
+
+
+def test_fwd_plan_fills_the_card_at_the_path_shapes():
+    train = gru._fwd_plan(2, 256, 128)      # training: B=256
+    serve = gru._fwd_plan(2, 32, 128)       # serving: a B=32 bucket
+    assert train.ctas <= gru._SMS
+    assert serve.ctas > 16                  # the one-block-per-4-rows design
+    assert (train.variant, train.bt, train.c, train.threads) == \
+        (gru._FWD_BATCH, 8, 2, 256)
+    assert (serve.variant, serve.bt, serve.c) == (gru._FWD_LATENCY, 4, 8)
+    for b in (1, 8, 10, 64, 128, 1000):     # the latency variant only while
+        p = gru._fwd_plan(2, b, 128)        # its threads fit
+        assert p.variant == gru._FWD_BATCH or \
+            p.ctas * p.threads <= gru._LATENCY_THREADS
+    assert gru._fwd_plan(2, 8, 132).variant == gru._FWD_WIDE
+
+
+@pytest.mark.parametrize("u", [4, 12, 20, 100, 124, 132, 144])
+def test_fwd_plan_takes_every_u_the_kernel_takes(u):
+    for b in (1, 17, 256):
+        plan = gru._fwd_plan(2, b, u)
+        assert len(set(_fwd_writes(plan, 2, b, u))) == 2 * b * u
+
+
+@pytest.mark.parametrize("u", [2, 6, 148, 200])
+def test_fwd_plan_raises_on_a_u_it_cannot_take(u):
+    """Before any library load: the wrapper's checks and the plan run on
+    CPU tensors here."""
+    with pytest.raises(ValueError, match="U % 4"):
+        gru._fwd_plan(2, 8, u)
+    xp = torch.zeros(2, 5, 8, 3 * u)
+    loaded = dict(kernels._libs)
+    with pytest.raises(ValueError, match="U % 4"):
+        gru._gru_scan_cuda(xp, torch.zeros(2, u, 3 * u), torch.zeros(2, 3 * u))
+    assert kernels._libs == loaded
+    with pytest.raises(ValueError, match="does not take"):
+        gru._fwd_plan(2, 8, 132, variant=gru._FWD_LATENCY)
