@@ -35,13 +35,17 @@ Phases, one line each:
               time, each epoch's time and windows/s through the feed
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16)
 and at U=64, printing each call's tile plan, and times every plan at the
-serving and training shapes. It also holds the two feed kernels against
-their plain versions: foa_frontend at one chunk of 8 synthetic 60-s
-clips, gather_rows at B=256 rows of [300, 64, 7] (bf16, f32) from 4,000
-staged windows, of their labels [60, 48] f32, of 30-byte rows, and as the
-x+y pairs the feed launches, with per-call and device-only times (a CUDA
-graph of 50 calls) beside index_select's, and the wrapper's host work
-piece by piece.
+serving and training shapes; gru_scan_bwd the same way at B in {1, 3, 32,
+256} (U=128, f32 and bf16), U=64 and U=144, with its device time by
+kernel (torch.profiler) and every plan at B=256 and B=64. It also holds
+the two feed kernels against their plain versions: foa_frontend at one
+chunk of 8 synthetic 60-s clips (beside torch.fft.rfft over the same
+windowed frames, the FFT stage alone), gather_rows at B=256 rows of [300,
+64, 7] (bf16, f32) from 4,000 staged windows, of their labels [60, 48]
+f32, of 30-byte rows, and as the x+y pairs the feed launches. Device-only
+times come from a CUDA graph of the calls (graph_ms), beside the time per
+call; the build prints each kernel's registers and spills.
+With --kernels-only it stops after phase 3, with no result line.
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed phase raises: the exit code
 is non-zero and no result line is printed. Without a CUDA card, or run
@@ -303,6 +307,45 @@ def bound(nbytes, flops):
                                    else "operations")
 
 
+def kernel_split_ms(fn, n, prefix):
+    """Device ms per call of fn by kernel, for the kernels whose name
+    starts with `prefix`, from torch.profiler's CUDA events over n calls;
+    None if the profiler recorded no device time."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:          # a machine without CUPTI
+        log("kernels", f"torch.profiler failed: {e}")
+        return None
+    out = {}
+    for avg in prof.key_averages():
+        if avg.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"\b(" + prefix + r"\w*)", avg.key)
+        us = getattr(avg, "self_device_time_total", None)
+        us = avg.self_cuda_time_total if us is None else us
+        if m and us > 0:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + us / 1e3 / n
+    return out or None
+
+
+def _split_text(split):
+    if not split:
+        return "not measured (no device time in the trace)"
+    return ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + \
+        f"; sum {sum(split.values()):.4f}"
+
+
 def rel_err(got, want):
     """max |got - want| as a share of max |want|."""
     want = want.float()
@@ -316,9 +359,20 @@ def cudnn_gru_train(x_proj, rec_kernel, rec_bias, g):
     backward's time is their difference. cuDNN also computes the identity
     input weights' gradient."""
     import torch
+    import warnings
+
+    import torch.backends.cudnn.rnn as cudnn_rnn
     gru, inp = _cudnn_gru(x_proj, rec_kernel, rec_bias)
     gru = gru.to(x_proj.dtype)
-    gru.flatten_parameters()   # else cuDNN compacts the weights every call
+    # else cuDNN compacts the weights every call; flatten_parameters() skips
+    # bf16 (torch.backends.cudnn.is_acceptable takes f16/f32/f64 only), so
+    # its flattening call is made directly
+    with torch.no_grad():
+        torch._cudnn_rnn_flatten_weight(
+            gru._flat_weights, 4, gru.input_size,
+            cudnn_rnn.get_cudnn_mode(gru.mode), gru.hidden_size,
+            gru.proj_size, gru.num_layers, gru.batch_first,
+            bool(gru.bidirectional))
     inp = inp.to(x_proj.dtype).requires_grad_()
     gout = torch.cat(list(g), dim=-1)                    # [T, B, D*U]
 
@@ -327,55 +381,74 @@ def cudnn_gru_train(x_proj, rec_kernel, rec_bias, g):
 
     def fwd_bwd():
         gru(inp)[0].backward(gout)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fwd_bwd()
+    flat = not any("contiguous chunk" in str(w.message) for w in caught)
+    log("kernels", f"cuDNN GRU {x_proj.dtype} training weights in one "
+                   f"flat buffer: {flat}" + ("" if flat else " (cuDNN "
+                   "compacts them every call; its times include that)"))
     return fwd, fwd_bwd
 
 
 def phase_kernels_bwd(card):
     import torch
-    from seld_tpu_torch.ops.gru import (gru_scan_bwd, gru_scan_bwd_ref,
-                                        gru_scan_ref)
+    from seld_tpu_torch.ops.gru import (_BWD_VARIANTS, _bwd_plan,
+                                        _gru_scan_bwd_cuda, gru_scan_bwd,
+                                        gru_scan_bwd_ref, gru_scan_ref,
+                                        library_bwd_variants)
     from seld_tpu_torch.ops.stem_bwd import stem_dy, stem_dy_ref
 
+    if library_bwd_variants() != _BWD_VARIANTS:
+        raise SystemExit(f"csrc/gru_bwd.cu's variants "
+                         f"{library_bwd_variants()} differ from ops/gru.py's "
+                         f"{_BWD_VARIANTS}")
     rng = np.random.RandomState(4)
-    d, t, u = 2, 60, 128
+    d, t = 2, 60
     worst = {"float32": 0.0, "bfloat16": 0.0}
     timing = None
-    for dtype in ("float32", "bfloat16"):
-        for b in (1, 3, 32, 256):
-            dt = getattr(torch, dtype)
-            xp = torch.from_numpy(rng.randn(d, t, b, 3 * u).astype(
-                np.float32)).cuda().to(dt)
-            rk = torch.from_numpy((rng.randn(d, u, 3 * u) / math.sqrt(u))
-                                  .astype(np.float32)).cuda()
-            rb = torch.from_numpy(0.1 * rng.randn(d, 3 * u).astype(
-                np.float32)).cuda()
-            hs = gru_scan_ref(xp, rk, rb)
-            g = torch.from_numpy(rng.randn(d, t, b, u).astype(
-                np.float32)).cuda().to(dt)
-            got = gru_scan_bwd(xp, rk, rb, hs, g)
-            torch.cuda.synchronize()
-            want = gru_scan_bwd_ref(xp, rk, rb, hs, g)
-            errs = [rel_err(a, w) for a, w in zip(got, want)]
-            tols = [BWD_TOL[dtype], BWD_TOL["float32"], BWD_TOL["float32"]]
-            ok = all(e <= tl for e, tl in zip(errs, tols)) and \
-                got[0].dtype == dt
-            log("kernels", f"gru_scan_bwd {dtype} B={b}: rel_err dx_proj "
-                           f"{errs[0]:.2e} dRk {errs[1]:.2e} dRb "
-                           f"{errs[2]:.2e} (tol {tols[0]:.1e}/"
-                           f"{tols[1]:.0e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"gru_scan_bwd disagrees with "
-                                 f"gru_scan_bwd_ref at {dtype} B={b}")
-            worst[dtype] = max(worst[dtype], max(
-                (a.float() - w.float()).abs().max().item()
-                for a, w in zip(got, want)))
-            if dtype == "bfloat16" and b == 256:
-                timing = (xp, rk, rb, hs, g, got)
+    cases = [(dtype, b, 128) for dtype in ("float32", "bfloat16")
+             for b in (1, 3, 32, 256)]
+    cases += [("float32", 17, 64), ("bfloat16", 64, 144)]
+    for dtype, b, u in cases:
+        dt = getattr(torch, dtype)
+        xp = torch.from_numpy(rng.randn(d, t, b, 3 * u).astype(
+            np.float32)).cuda().to(dt)
+        rk = torch.from_numpy((rng.randn(d, u, 3 * u) / math.sqrt(u))
+                              .astype(np.float32)).cuda()
+        rb = torch.from_numpy(0.1 * rng.randn(d, 3 * u).astype(
+            np.float32)).cuda()
+        hs = gru_scan_ref(xp, rk, rb)
+        g = torch.from_numpy(rng.randn(d, t, b, u).astype(
+            np.float32)).cuda().to(dt)
+        got = gru_scan_bwd(xp, rk, rb, hs, g)
+        torch.cuda.synchronize()
+        want = gru_scan_bwd_ref(xp, rk, rb, hs, g)
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        tols = [BWD_TOL[dtype], BWD_TOL["float32"], BWD_TOL["float32"]]
+        ok = all(e <= tl for e, tl in zip(errs, tols)) and \
+            got[0].dtype == dt
+        log("kernels", f"gru_scan_bwd {dtype} B={b} U={u}: rel_err "
+                       f"dx_proj {errs[0]:.2e} dRk {errs[1]:.2e} dRb "
+                       f"{errs[2]:.2e} (tol {tols[0]:.1e}/"
+                       f"{tols[1]:.0e}) {'ok' if ok else 'FAIL'}, "
+                       f"{_plan_text(_bwd_plan(d, b, u))}")
+        if not ok:
+            raise SystemExit(f"gru_scan_bwd disagrees with "
+                             f"gru_scan_bwd_ref at {dtype} B={b} U={u}")
+        worst[dtype] = max(worst[dtype], max(
+            (a.float() - w.float()).abs().max().item()
+            for a, w in zip(got, want)))
+        if (dtype, b, u) == ("bfloat16", 256, 128):
+            timing = (xp, rk, rb, hs, g, got)
 
     # the training path's shape: D=2, T=60, B=256, U=128, bf16 storage
     xp, rk, rb, hs, g, got = timing
-    b = xp.shape[2]
+    b, u = xp.shape[2], xp.shape[-1] // 3
     ms = cuda_ms(lambda: gru_scan_bwd(xp, rk, rb, hs, g), 20)
+    device_ms = graph_ms(lambda: gru_scan_bwd(xp, rk, rb, hs, g), 20)
+    passes = kernel_split_ms(lambda: gru_scan_bwd(xp, rk, rb, hs, g), 20,
+                             "gru_bwd_")
     plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xp, rk, rb, hs, g), 2)
     lib_fwd, lib_both = cudnn_gru_train(xp, rk, rb, g)
     library_ms = cuda_ms(lib_both, 20) - cuda_ms(lib_fwd, 20)
@@ -384,16 +457,42 @@ def phase_kernels_bwd(card):
     flops = 3 * 2 * d * t * b * u * 3 * u
     bound_ms, bound_by = bound(nbytes, flops)
     log("kernels", f"gru_scan_bwd bf16 D=2 T=60 B=256 U=128 on {card}: "
-                   f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                   f"(cuDNN GRU backward) {library_ms:.4f} bound_ms "
-                   f"{bound_ms:.5f} ({bound_by})")
+                   f"kernel_ms {ms:.4f} (device ms {device_ms:.4f}) plain_ms "
+                   f"{plain_ms:.4f} library_ms (cuDNN GRU backward) "
+                   f"{library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by})")
+    log("kernels", "gru_scan_bwd device ms per call by kernel (profiler): "
+                   + _split_text(passes))
+    # every plan that takes U=128 at the training shape and at the feed's
+    # B=64, each held against the plain version, for the choice above
+    for bb in (256, 64):
+        args = [a[:, :, :bb].contiguous() if a.dim() == 4 else a
+                for a in (xp, rk, rb, hs, g)]
+        want = gru_scan_bwd_ref(*args)
+        times = []
+        for v in range(len(_BWD_VARIANTS)):
+            try:
+                p = _bwd_plan(d, bb, u, variant=v)
+            except ValueError:          # the variant does not take U
+                continue
+            got_v = _gru_scan_bwd_cuda(*args, plan=p)
+            err = max(rel_err(a, w) for a, w in zip(got_v, want))
+            if err > BWD_TOL["bfloat16"]:
+                raise SystemExit(f"gru_scan_bwd variant {v} disagrees with "
+                                 f"gru_scan_bwd_ref at B={bb}: {err:.3e}")
+            v_ms = cuda_ms(lambda: _gru_scan_bwd_cuda(*args, plan=p), 20)
+            times.append(f"variant {v} {_BWD_VARIANTS[v]} {_plan_text(p)}: "
+                         f"{v_ms:.4f} ms (rel_err {err:.1e})")
+        log("kernels", f"gru_scan_bwd plans at B={bb} bf16: "
+                       + "; ".join(times))
     entries = [{"name": "gru_scan_bwd", "route": "cuda",
                 "source": "seld_tpu_torch/csrc/gru_bwd.cu",
                 "replaces": "seld_tpu/ops/pallas/gru.py:209",
                 "launches": None, "max_abs_err": worst["float32"],
                 "max_abs_err_bf16": worst["bfloat16"],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}]
+                "bound_by": bound_by, "library_ms": library_ms,
+                "device_ms": device_ms, "passes_ms": passes,
+                "plan": _plan_json(_bwd_plan(d, b, u))}]
 
     # stem_dy at the SS5 stem shape: y [B, 300, 64, 32], pool [5, 2], in
     # the training path's layout (the conv's output is channels-last in
@@ -738,6 +837,41 @@ def frontend_bound(n, t, n_fft=1024, n_mels=64, hop=480, sample_rate=24000):
     return bound(nbytes, n * t * per_frame)
 
 
+def frontend_f64(padded, n_fft=1024, win_length=960, hop=480, n_mels=64,
+                 sample_rate=24000, eps=1e-8):
+    """The front-end's function of the same padded wav in float64 through
+    torch.fft: (mel, iv), a yardstick of accuracy only."""
+    import torch
+    from seld_tpu_torch.ops.frontend import _frontend_constants
+    from seld_tpu_torch.ops.stft import _padded_window
+    window = _padded_window(n_fft, win_length, device=padded.device).double()
+    x = torch.fft.rfft(padded.double().unfold(-1, n_fft, hop) * window)
+    fbank = torch.as_tensor(_frontend_constants(
+        n_fft, win_length, n_mels, sample_rate)[2],
+        device=padded.device).double()
+    mel = (x.real ** 2 + x.imag ** 2) @ fbank
+    w, xyz = x[:, :1], x[:, [3, 1, 2]]
+    del x
+    ivc = w.real * xyz.real + w.imag * xyz.imag
+    del w, xyz
+    iv = (ivc / torch.clamp_min(ivc.norm(dim=1, keepdim=True), eps)) @ fbank
+    return mel, iv
+
+
+def rfft_yardstick_ms(padded, n_fft=1024, win_length=960, hop=480):
+    """torch.fft.rfft's time over the front-end's windowed frames
+    (materialised beforehand, so only the FFT is timed): the FFT stage of
+    the function alone, for scale; the port never calls it."""
+    import torch
+    from seld_tpu_torch.ops.stft import _padded_window
+    window = _padded_window(n_fft, win_length, device=padded.device)
+    frames = padded.unfold(-1, n_fft, hop) * window
+    ms = cuda_ms(lambda: torch.fft.rfft(frames), 10)
+    del frames
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase_kernels_feed(card):
     import torch
     from seld_tpu_torch.ops.frontend import foa_frontend, foa_frontend_ref
@@ -776,20 +910,36 @@ def phase_kernels_feed(card):
                    f"{quiet[0]:.1e}/{quiet[1]:.1e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("foa_frontend disagrees with foa_frontend_ref")
-    del mel_r, iv_r
+    # both against the function in float64, for which of them is closer
+    mel_e, iv_e = frontend_f64(padded)
+    db_e = amplitude_to_db(mel_e, clip_dims=1)
+    exact = {name: ((amplitude_to_db(m, clip_dims=1).double() - db_e).abs()
+                    .max().item(), (v.double() - iv_e).abs().max().item())
+             for name, (m, v) in (("kernel", (mel, iv)),
+                                  ("plain", (mel_r, iv_r)))}
+    log("kernels", "foa_frontend against float64 (torch.fft): max_abs_err "
+                   + "; ".join(f"{k} dB {a:.3e} IV {b:.3e}"
+                               for k, (a, b) in exact.items()))
+    del mel_r, iv_r, mel_e, iv_e, db_e
     ms = cuda_ms(lambda: foa_frontend(padded), 10)
+    device_ms = graph_ms(lambda: foa_frontend(padded), 10)
     plain_ms = cuda_ms(lambda: foa_frontend_ref(padded), 3)
     bound_ms, bound_by = frontend_bound(n, t)
+    rfft_ms = rfft_yardstick_ms(padded)
     log("kernels", f"foa_frontend one chunk of 8 60-s clips on {card}: "
-                   f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                   f"none bound_ms {bound_ms:.5f} ({bound_by})")
+                   f"kernel_ms {ms:.4f} (device ms {device_ms:.4f}) plain_ms "
+                   f"{plain_ms:.4f} library_ms none bound_ms {bound_ms:.5f} "
+                   f"({bound_by}); FFT stage alone, torch.fft.rfft over the "
+                   f"windowed frames (a yardstick, not the function): "
+                   f"{rfft_ms:.4f}")
     entries = [{"name": "foa_frontend", "route": "cuda",
                 "source": "seld_tpu_torch/csrc/foa_frontend.cu",
                 "replaces": "seld_tpu/ops/pallas/frontend.py:208",
                 "also_replaces": "seld_tpu/ops/pallas/frontend.py:150",
                 "launches": None, "max_abs_err": max(db_err, iv_err),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}]
+                "bound_by": bound_by, "library_ms": None,
+                "device_ms": device_ms, "rfft_frames_ms": rfft_ms}]
     del padded
 
     # gather_rows: B=256 ids into 4,000 staged windows [300, 64, 7] (bf16,
@@ -1092,7 +1242,37 @@ def phase_feed(card):
     return counts
 
 
-def main():
+def ptxas_report(text):
+    """One line per kernel of an `nvcc -Xptxas -v` log: its name (template
+    arguments in brackets), registers and spills."""
+    import re
+    out, name, spill = [], "?", ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            k = re.search(r"\d+([A-Za-z]\w*?_kernel)(\w*)", mangled)
+            args = [] if not k else re.findall(r"Li(\d+)E", k.group(2)) + (
+                ["bf16"] if "bfloat16" in k.group(2) else [])
+            name = mangled if not k else k.group(1) + (
+                f"<{','.join(args)}>" if args else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+    return out
+
+
+def main(argv=None):
+    import argparse
+    parser = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0],
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument(
+        "--kernels-only", action="store_true",
+        help="build, check and time the kernels (phase 3, every kernel "
+             "even after one fails), then stop with no result line")
+    kernels_only = parser.parse_args(argv).kernels_only
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (this script measures "
@@ -1112,12 +1292,20 @@ def main():
     t0 = time.perf_counter()
     logs = kernels.build()
     for src, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line:
-                log("build", f"{src}: {line.strip()}")
+        for line in ptxas_report(text):
+            log("build", f"{src}: {line}")
     log("build", f"{len(kernels.SOURCES)} kernel source(s) ready in "
                  f"{time.perf_counter() - t0:.1f} s")
 
+    if kernels_only:
+        failed = []
+        for phase in (phase_kernels, phase_kernels_bwd, phase_kernels_feed):
+            try:
+                phase(smi)
+            except SystemExit as e:
+                log("kernels", f"{phase.__name__} FAILED: {e}")
+                failed.append(phase.__name__)
+        raise SystemExit(f"failed: {failed}" if failed else 0)
     entries = [phase_kernels(smi)] + phase_kernels_bwd(smi)
     feed_entries = phase_kernels_feed(smi)
     model = phase_model(smi)

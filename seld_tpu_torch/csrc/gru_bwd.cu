@@ -16,303 +16,632 @@
 //   dx_proj[t] = [da_z, da_r, da_h];  dhp = [da_z, da_r, da_h * r]
 //   dh = dh z + dhp @ Rk^T;  dRk += h_prev^T dhp;  dRb += sum_b dhp
 //
-// Design. On the TPU, dh, dRk and dRb lived in VMEM across a sequential
-// grid axis over T. Blocks here run in parallel and in no order, so:
-//   1. gru_bwd_rec_kernel keeps the forward kernel's partition: grid =
-//      (D, ceil(B / kBt)), one block owns kBt batch rows of one direction
-//      and loops over all T in scan-reverse order with dh in registers. It
-//      writes dx_proj and dhp (f32, a scratch buffer for pass 2).
-//      Rk[d] sits in shared memory once per block with a row stride of
-//      3U + 1 floats: the step's two products read it in both orientations
-//      (thread j walks column j of Rk for h_prev @ Rk; thread (u, part) walks
-//      row u for dhp @ Rk^T), and the odd stride puts both walks on 32
-//      distinct banks per warp instead of one.
-//   2. dRk is [U, 3U] f32 (192 KB at U = 128) and sums over every batch
-//      tile, so it cannot sit in a block beside Rk, and f32 atomics would
-//      make it nondeterministic. gru_bwd_reduce_kernel computes
-//      dRk[d] = sum_{t,b} h_prev[d,t,b]^T dhp[d,t,b] (and dRb, the column
-//      sums of dhp) as a tiled product over the T*B rows: each block owns a
-//      32 x 32 output tile of one direction and one slice of the rows, so the
-//      card is filled at B = 256; h_prev is read from hs at the shifted time
-//      index, never materialised.
-//   3. gru_bwd_finalize_kernel sums the slices' partials in a fixed order:
-//      the result does not depend on block scheduling.
+// Design. On the TPU dh, dRk and dRb lived in VMEM across a sequential grid
+// axis over T, and each step recomputed hp. Here three kernels and a sum:
+//   1. gru_bwd_hp_kernel: h_prev is known for every step from hs, so hp for
+//      all T is one parallel [T B, U] x [U, 3U] f32 product per direction
+//      (128 x 128 output tiles, 8 x 8 a thread, 16-deep chunks loaded into
+//      registers while the previous chunk is multiplied), into the
+//      workspace.
+//   2. gru_bwd_rec_kernel: the serial part, with ONE product a step,
+//      dh_prev = dh z + dhp @ Rk^T, on the forward kernel's partition: a
+//      thread block cluster per (direction, tile of BT batch rows), whose C
+//      CTAs split the U units. CTA c owns units [c U/C, (c+1) U/C):
+//        - it holds Rk's rows for its units (U/C x 3U f32) in REGISTERS for
+//          all T steps: a group of S lanes owns NU units, and lane l the
+//          k-chunks 4 (S i + l) + q of each gate's third of the rows;
+//        - a step: each lane finishes NU BT / S consecutive (unit, row)
+//          states: dh = carry + g, then dx_proj and dhp, which are linear in
+//          dh with coefficients formed off the chain (from x_proj, hp and
+//          h_prev loaded two steps ahead); dhp goes through distributed
+//          shared memory into the double-buffered dhp rows of every CTA of
+//          the cluster; ONE cluster barrier, whose arrive comes before the
+//          step's global stores (dx_proj, dhp over hp for pass 3) so that
+//          its release waits on the exchange alone; then the product of the
+//          full dhp rows with the CTA's Rk rows (a float4 of dhp read from
+//          shared memory feeds 4 NU FMAs) and a reduce-scatter over the S
+//          lanes that leaves each lane the sums of its own states;
+//        - no block barrier inside the step. dRb's sums over T stay in
+//          registers and are added over a tile's rows at the end.
+//      `_bwd_plan` in seld_tpu_torch/ops/gru.py picks the variant (kVariants)
+//      and C, as `_fwd_plan` does for the forward.
+//   3. gru_bwd_drk_kernel: dRk[d] = sum over the T B rows of h_prev^T dhp,
+//      as pass 1's tile product over fixed slices of the rows, no float
+//      atomics; gru_bwd_finalize_kernel adds the slices (dRk) and the tiles
+//      (dRb) in a fixed order, so the result does not depend on block
+//      scheduling.
 //
 // What bounds it. At the training shape (D = 2, T = 60, B = 256, U = 128,
-// bf16 storage) the three B x U x 3U products per step per direction are
-// 9.1 GFLOP, 0.135 ms at the f32 rate outside the tensor cores (67 TFLOP/s),
-// and the bytes (about 63 MB) 0.019 ms at 3.35 TB/s: operations-bound on
-// paper. In practice pass 1 is latency-bound by 60 dependent steps, each two
-// shared-memory dot products and four block barriers; only D * ceil(B / kBt)
-// SMs work. Running the step's products on the tensor cores and splitting U
-// over a thread block cluster is the route to a shorter step.
+// bf16 storage) the three B x U x 3U products per step and direction are
+// 9.06 GFLOP, 0.135 ms at the f32 rate outside the tensor cores (67
+// TFLOP/s); the reference multiplies in f32, so neither bf16 nor one-pass
+// TF32 tensor-core products may stand in. Bytes (about 63 MB, plus the f32
+// workspace hp/dhp written and read twice, 47 MB) are a few hundredths of a
+// ms. Passes 1 and 3 are parallel f32 tile products (each float loaded from
+// shared memory feeds 4 FMAs, so shared-memory reads pace them with the
+// FMAs); pass 2 is a chain of T steps, each a third of the FMAs on 128 SMs
+// plus one cluster barrier. The previous design kept Rk[d] in shared
+// memory, did both products of a step on the serial chain (h_prev @ Rk and
+// dhp @ Rk^T) with four block barriers a step, and reduced dRk with 4
+// outputs a thread (1.02 ms).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBt = 4;      // batch rows per block in pass 1
-constexpr int kTile = 32;   // dRk output tile edge in pass 2
-constexpr int kChunk = 32;  // T*B rows staged per iteration in pass 2
-constexpr int kReduceThreads = 256;
-constexpr int kTargetBlocks = 528;  // about four waves of 132 SMs
+struct Variant {
+  int s;     // lanes that split one unit group's k-range
+  int ni;    // 4-wide k chunks per lane and gate
+  int bt;    // batch rows per tile
+  int nu;    // units per lane group
+  int maxt;  // most threads a block may have (__launch_bounds__)
+};
+// mirrored by seld_tpu_torch/ops/gru.py::_BWD_VARIANTS; variant v takes
+// U <= 4 s ni
+constexpr Variant kVariants[] = {{16, 2, 8, 4, 256}, {16, 2, 4, 4, 256},
+                                 {8, 5, 8, 2, 256}};
+constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
+constexpr int kMaxCluster = 8;
+// Rk values a lane holds (NU x 3 x NI x 4): with its partial sums, dhp reads
+// and coefficients it stays within the 255 registers a thread may have
+constexpr int kMaxWeights = 128;
+constexpr bool weights_fit(int i) {
+  return i == kNumVariants ||
+         (kVariants[i].nu * 3 * kVariants[i].ni * 4 <= kMaxWeights &&
+          weights_fit(i + 1));
+}
+static_assert(weights_fit(0), "a variant holds more Rk than registers allow");
+
+// passes 1 and 3: 128 x 128 output tiles, 16-deep k chunks, 8 x 8 a thread
+constexpr int kTile = 128;
+constexpr int kDepth = 16;
+constexpr int kGemmThreads = 256;
+constexpr int kTargetBlocks = 264;  // two blocks on each of 132 SMs
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, as torch's cast
-}
+// __expf and __fdividef keep ~2 ulp relative error, as in the forward
+// kernel; tanh through exp is exact at both tails
 __device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
+  return __fdividef(1.0f, 1.0f + __expf(-v));
+}
+__device__ __forceinline__ float tanh_fast(float v) {
+  return 1.0f - __fdividef(2.0f, __expf(2.0f * v) + 1.0f);
 }
 
-// blockDim.x == 3U; U % 4 == 0 (float4 reads of h_prev).
-template <typename T>
-__global__ void gru_bwd_rec_kernel(const T* __restrict__ xp,
-                                   const float* __restrict__ rk,
-                                   const float* __restrict__ rb,
-                                   const T* __restrict__ hs,
-                                   const T* __restrict__ g,
-                                   T* __restrict__ dxp,
-                                   float* __restrict__ dhp, int steps,
-                                   int batch, int units) {
-  extern __shared__ __align__(16) float smem[];
-  const int U = units;
-  const int K = 3 * units;
-  const int KP = K + 1;                 // padded row stride of Rk
-  float* rk_s = smem;                   // [U][KP]
-  float* h_s = rk_s + U * KP;           // [kBt][U]  (U * KP % 4 == 0)
-  float* hp_s = h_s + kBt * U;          // [kBt][K]
-  float* dhp_s = hp_s + kBt * K;        // [kBt][K]
-  float* part_s = dhp_s + kBt * K;      // [3][kBt][U]
+// R consecutive values (R = 1 or 2; a pair is 8-byte aligned in f32 and
+// 4-byte aligned in bf16: U % 4 == 0 and the first unit is even)
+template <int R>
+__device__ __forceinline__ void load_run(const float* p, float (&v)[R]) {
+  if constexpr (R == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int R>
+__device__ __forceinline__ void load_run(const __nv_bfloat16* p,
+                                         float (&v)[R]) {
+  if constexpr (R == 2) {
+    const float2 x =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = x.x;
+    v[1] = x.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+template <int R>
+__device__ __forceinline__ void store_run(float* p, const float (&v)[R]) {
+  if constexpr (R == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else
+    *p = v[0];
+}
+// rounded to nearest even, as torch's cast
+template <int R>
+__device__ __forceinline__ void store_run(__nv_bfloat16* p,
+                                          const float (&v)[R]) {
+  if constexpr (R == 2)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  else
+    *p = __float2bfloat16(v[0]);
+}
 
-  const int d = blockIdx.x;
-  const int b0 = blockIdx.y * kBt;
-  const int tid = threadIdx.x;
-  const int rows = min(kBt, batch - b0);
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// the shared::cluster address of a shared::cta address in CTA `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+template <int R>
+__device__ __forceinline__ void st_cluster_run(uint32_t addr,
+                                               const float (&v)[R]) {
+  if constexpr (R == 2)
+    asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};" ::"r"(addr),
+                 "f"(v[0]), "f"(v[1])
+                 : "memory");
+  else
+    asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v[0])
+                 : "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
 
-  const float* rk_d = rk + static_cast<size_t>(d) * U * K;
-  for (int i = tid; i < U * K; i += K) rk_s[(i / K) * KP + i % K] = rk_d[i];
-  const float bias = rb[static_cast<size_t>(d) * K + tid];
-  float dh_reg[kBt];
-#pragma unroll
-  for (int b = 0; b < kBt; ++b) dh_reg[b] = 0.0f;
-  __syncthreads();
+// h_prev of row n = t B + b of direction d is hs at the previous scan step:
+// row n - B for d = 0, n + B for d = 1; -1 at the scan start
+__device__ __forceinline__ int prev_row(int n, int d, int batch, int N) {
+  return d == 0 ? (n >= batch ? n - batch : -1)
+                : (n + batch < N ? n + batch : -1);
+}
 
-  for (int p = steps - 1; p >= 0; --p) {
-    const int t = d == 0 ? p : steps - 1 - p;
-    const int tp = d == 0 ? p - 1 : steps - p;  // real t of scan step p - 1
-    const size_t row0 = (static_cast<size_t>(d) * steps + t) * batch + b0;
-    const size_t prow0 = (static_cast<size_t>(d) * steps + tp) * batch + b0;
-
-    float xz[kBt], xr[kBt], xh[kBt], gg[kBt];
+// The 8 x 8 outputs of thread (ty, tx) of a 128 x 128 tile: rows
+// {4 ty + i, 64 + 4 ty + i}, columns {4 tx + j, 64 + 4 tx + j}; a[k][row]
+// and b[k][col] hold a 16-deep chunk of the two operands.
+__device__ __forceinline__ void tile_fma(float (&acc)[8][8],
+                                         const float (&a)[kDepth][kTile],
+                                         const float (&b)[kDepth][kTile],
+                                         int ty, int tx) {
 #pragma unroll
-    for (int b = 0; b < kBt; ++b) {
-      xz[b] = xr[b] = xh[b] = gg[b] = 0.0f;
-      if (tid < U) {
-        float hv = 0.0f;
-        if (b < rows) {
-          const T* x = xp + (row0 + b) * K;
-          xz[b] = to_f32(x[tid]);
-          xr[b] = to_f32(x[U + tid]);
-          xh[b] = to_f32(x[2 * U + tid]);
-          gg[b] = to_f32(g[(row0 + b) * U + tid]);
-          if (p > 0) hv = to_f32(hs[(prow0 + b) * U + tid]);
-        }
-        h_s[b * U + tid] = hv;
-      }
-    }
-    __syncthreads();
-
-    // hp[b][j] = h_prev[b] . Rk[:, j] + rb[j]  (thread j, column j)
-    float acc[kBt];
+  for (int k = 0; k < kDepth; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(&a[k][4 * ty]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&a[k][64 + 4 * ty]);
+    const float4 b0 = *reinterpret_cast<const float4*>(&b[k][4 * tx]);
+    const float4 b1 = *reinterpret_cast<const float4*>(&b[k][64 + 4 * tx]);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int b = 0; b < kBt; ++b) acc[b] = 0.0f;
-    for (int k = 0; k < U; k += 4) {
-      const float w0 = rk_s[(k + 0) * KP + tid];
-      const float w1 = rk_s[(k + 1) * KP + tid];
-      const float w2 = rk_s[(k + 2) * KP + tid];
-      const float w3 = rk_s[(k + 3) * KP + tid];
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int b = 0; b < kBt; ++b) {
-        const float4 h4 = *reinterpret_cast<const float4*>(h_s + b * U + k);
-        acc[b] = fmaf(h4.x, w0, acc[b]);
-        acc[b] = fmaf(h4.y, w1, acc[b]);
-        acc[b] = fmaf(h4.z, w2, acc[b]);
-        acc[b] = fmaf(h4.w, w3, acc[b]);
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < kBt; ++b) hp_s[b * K + tid] = acc[b] + bias;
-    __syncthreads();
-
-    // gates and their derivatives (thread u < U, unit u)
-    if (tid < U) {
-#pragma unroll
-      for (int b = 0; b < kBt; ++b) {
-        float* ds = dhp_s + b * K;
-        if (b < rows) {
-          const float* hp = hp_s + b * K;
-          const float h_prev = h_s[b * U + tid];
-          const float z = sigmoid(xz[b] + hp[tid]);
-          const float r = sigmoid(xr[b] + hp[U + tid]);
-          const float hh = hp[2 * U + tid];
-          const float c = tanhf(xh[b] + r * hh);
-          const float dh = dh_reg[b] + gg[b];
-          const float dz = dh * (h_prev - c);
-          const float da_h = dh * (1.0f - z) * (1.0f - c * c);
-          const float dr = da_h * hh;
-          const float da_z = dz * z * (1.0f - z);
-          const float da_r = dr * r * (1.0f - r);
-          T* dx = dxp + (row0 + b) * K;
-          store(dx + tid, da_z);
-          store(dx + U + tid, da_r);
-          store(dx + 2 * U + tid, da_h);
-          float* dg = dhp + (row0 + b) * K;
-          dg[tid] = da_z;
-          dg[U + tid] = da_r;
-          dg[2 * U + tid] = da_h * r;
-          ds[tid] = da_z;
-          ds[U + tid] = da_r;
-          ds[2 * U + tid] = da_h * r;
-          dh_reg[b] = dh * z;
-        } else {
-          ds[tid] = ds[U + tid] = ds[2 * U + tid] = 0.0f;
-        }
-      }
-    }
-    __syncthreads();
-
-    // (dhp @ Rk^T)[b][u], split in three parts of U columns each so that
-    // all 3U threads work: thread (u, part) walks row u of Rk
-    {
-      const int u = tid % U;
-      const int part = tid / U;
-      const float* rrow = rk_s + u * KP + part * U;
-      const float* dp = dhp_s + part * U;
-      float acc2[kBt];
-#pragma unroll
-      for (int b = 0; b < kBt; ++b) acc2[b] = 0.0f;
-      for (int jj = 0; jj < U; ++jj) {
-        const float w = rrow[jj];
-#pragma unroll
-        for (int b = 0; b < kBt; ++b) acc2[b] = fmaf(dp[b * K + jj], w, acc2[b]);
-      }
-#pragma unroll
-      for (int b = 0; b < kBt; ++b) part_s[(part * kBt + b) * U + u] = acc2[b];
-    }
-    __syncthreads();
-
-    if (tid < U) {
-#pragma unroll
-      for (int b = 0; b < kBt; ++b) {
-        dh_reg[b] += part_s[(0 * kBt + b) * U + tid] +
-                     part_s[(1 * kBt + b) * U + tid] +
-                     part_s[(2 * kBt + b) * U + tid];
-      }
-    }
-    // the next step rewrites h_s, hp_s, dhp_s and part_s only after a
-    // barrier that every reader of this step has passed
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
-// part[s][d][u][j] = sum over rows n of slice s of h_prev[d, n, u] *
-// dhp[d, n, j] for u < U; part[s][d][U][j] = sum of dhp[d, n, j].
-// Row n = t * B + b; h_prev of (d, t, b) is hs[d, t - 1, b] for d = 0 and
-// hs[d, t + 1, b] for d = 1, zero at the scan start.
+__device__ __forceinline__ int tile_row(int ty, int i) {
+  return i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4;
+}
+
+// (ty, tx) of thread tid: a warp covers 4 ty x 8 tx, so its float4 reads
+// of a chunk row are 4 and 8 distinct words (one wavefront each)
+__device__ __forceinline__ void thread_tile(int tid, int& ty, int& tx) {
+  const int warp = tid / 32, lane = tid % 32;
+  ty = warp / 2 * 4 + lane / 8;
+  tx = warp % 2 * 8 + lane % 8;
+}
+
+// A 128 x 128 tile product over `chunks` 16-deep chunks, double-buffered:
+// chunk c + 1 is loaded into registers while chunk c is multiplied, so one
+// barrier a chunk. load_a(c, r) and load_b(c, r) give this thread's 8
+// elements (row tid / 128 + 2 i, column tid % 128, i < 8) of chunk c of
+// a[k][row] and b[k][col].
+template <class LoadA, class LoadB>
+__device__ __forceinline__ void tile_product(float (&acc)[8][8], int chunks,
+                                             LoadA load_a, LoadB load_b) {
+  __shared__ __align__(16) float a_s[2][kDepth][kTile];
+  __shared__ __align__(16) float b_s[2][kDepth][kTile];
+  const int tid = threadIdx.x;
+  int ty, tx;
+  thread_tile(tid, ty, tx);
+  const int r0 = tid / kTile, c = tid % kTile;
+  float ra[8], rb[8];
+  load_a(0, ra);
+  load_b(0, rb);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    a_s[0][r0 + 2 * i][c] = ra[i];
+    b_s[0][r0 + 2 * i][c] = rb[i];
+  }
+  __syncthreads();
+  for (int ch = 0; ch < chunks; ++ch) {
+    const bool more = ch + 1 < chunks;
+    if (more) {
+      load_a(ch + 1, ra);
+      load_b(ch + 1, rb);
+    }
+    tile_fma(acc, a_s[ch & 1], b_s[ch & 1], ty, tx);
+    if (more) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        a_s[(ch + 1) & 1][r0 + 2 * i][c] = ra[i];
+        b_s[(ch + 1) & 1][r0 + 2 * i][c] = rb[i];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Pass 1: hp[d, n, :] = h_prev[d, n, :] @ Rk[d] + rb[d] for the N = T B
+// rows; grid (ceil(3U / 128), ceil(N / 128), D). Thread tid loads row
+// n0 + tid % 128 of h_prev (its k-th element for k = tid / 128 + 2 i).
 template <typename T>
-__global__ void gru_bwd_reduce_kernel(const T* __restrict__ hs,
-                                      const float* __restrict__ dhp,
-                                      float* __restrict__ part, int n_dirs,
-                                      int steps, int batch, int units,
-                                      int rows_per_slice) {
-  __shared__ float a_s[kChunk][kTile];  // h_prev rows
-  __shared__ float b_s[kChunk][kTile];  // dhp rows
+__global__ void __launch_bounds__(kGemmThreads, 2)
+gru_bwd_hp_kernel(const T* __restrict__ hs, const float* __restrict__ rk,
+                  const float* __restrict__ rb, float* __restrict__ hp,
+                  int steps, int batch, int units) {
+  const int U = units, K = 3 * units, N = steps * batch;
+  const int j0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
+  const int d = blockIdx.z;
+  const int tid = threadIdx.x;
+  int ty, tx;
+  thread_tile(tid, ty, tx);
+  const int r0 = tid / kTile, c = tid % kTile;
+  const int n = n0 + c;
+  const int p = n < N ? prev_row(n, d, batch, N) : -1;
+  const T* h_row = hs + (static_cast<size_t>(d) * N + (p < 0 ? 0 : p)) * U;
+  const float* rk_d = rk + static_cast<size_t>(d) * U * K;
+
+  float acc[8][8] = {};
+  tile_product(
+      acc, (U + kDepth - 1) / kDepth,
+      [&](int ch, float (&r)[8]) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int k = ch * kDepth + r0 + 2 * i;
+          r[i] = p >= 0 && k < U ? to_f32(h_row[k]) : 0.0f;
+        }
+      },
+      [&](int ch, float (&r)[8]) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int k = ch * kDepth + r0 + 2 * i;
+          r[i] = k < U && j0 + c < K
+                     ? rk_d[static_cast<size_t>(k) * K + j0 + c]
+                     : 0.0f;
+        }
+      });
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = n0 + tile_row(ty, i);
+    if (row >= N) continue;
+    float* out = hp + (static_cast<size_t>(d) * N + row) * K;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + 64 * h + 4 * tx;  // K % 4 == 0: all 4 or none
+      if (j >= K) continue;
+      const float* bias = rb + static_cast<size_t>(d) * K + j;
+      *reinterpret_cast<float4*>(out + j) =
+          make_float4(acc[i][4 * h] + bias[0], acc[i][4 * h + 1] + bias[1],
+                      acc[i][4 * h + 2] + bias[2], acc[i][4 * h + 3] + bias[3]);
+    }
+  }
+}
+
+// Adds up the partial sums of the S lanes of a group and leaves lane l the
+// totals of entries [l E/S, (l + 1) E/S) in acc[0, E/S). Round by round
+// (lane bit M from S / 2 down to 1; N entries in each half), a lane keeps
+// the half of its entries that its bit selects and adds its partner's copy.
+template <int M, int N, int E>
+__device__ __forceinline__ void reduce_scatter(float (&acc)[E], int lane) {
+  if constexpr (M >= 1) {
+    const bool upper = (lane & M) != 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float send = upper ? acc[j] : acc[j + N];
+      const float keep = upper ? acc[j + N] : acc[j];
+      acc[j] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+    }
+    reduce_scatter<M / 2, N / 2, E>(acc, lane);
+  }
+}
+
+// What the states of one step need from memory (x_proj's gates, hp's
+// gates, h_prev, g), loaded a step before their coefficients are formed
+template <int R>
+struct Raw {
+  float x[3][R], h[3][R], h_prev[R], g[R];
+};
+// ... and their update gate and the coefficients that make dx_proj and dhp
+// linear in dh: dx_proj = dh [az, ar, ah], dhp = dh [az, ar, ahr]
+template <int R>
+struct Coef {
+  float z[R], az[R], ar[R], ah[R], ahr[R], g[R];
+};
+
+template <int R>
+__device__ __forceinline__ void coefficients(const Raw<R>& w, Coef<R>& cf) {
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const float z = sigmoid(w.x[0][j] + w.h[0][j]);
+    const float r = sigmoid(w.x[1][j] + w.h[1][j]);
+    const float hh = w.h[2][j];
+    const float c = tanh_fast(w.x[2][j] + r * hh);
+    cf.z[j] = z;
+    cf.ah[j] = (1.0f - z) * (1.0f - c * c);
+    cf.az[j] = (w.h_prev[j] - c) * z * (1.0f - z);
+    cf.ar[j] = cf.ah[j] * hh * r * (1.0f - r);
+    cf.ahr[j] = cf.ah[j] * r;
+    cf.g[j] = w.g[j];
+  }
+}
+
+// Pass 2; grid (tiles * C, D), clusters of C CTAs along x. hp_dhp holds hp
+// [D, T, B, 3U] on entry and dhp on exit (a lane reads its states' hp two
+// steps before it writes their dhp there); dbias [D, tiles, 3U] gets each
+// tile's dhp summed over T (in step order) and its rows (in a fixed
+// butterfly over the lanes of a group).
+template <int S, int NI, int BT, int NU, int MAXT, typename T>
+__global__ void __launch_bounds__(MAXT)
+gru_bwd_rec_kernel(const T* __restrict__ xp, const float* __restrict__ rk,
+                   const T* __restrict__ hs, const T* __restrict__ g,
+                   T* __restrict__ dxp, float* __restrict__ hp_dhp,
+                   float* __restrict__ dbias, int steps, int batch,
+                   int units, int cluster) {
+  constexpr int KP = 4 * S * NI;  // k extent of a gate's dhp row, 0 from U
+  constexpr int E = NU * BT;      // partial sums a lane carries
+  constexpr int R = E / S;        // states a lane finishes each step
+  static_assert(E % S == 0 && NU % R == 0,
+                "a lane finishes R consecutive units of one row");
+  __shared__ __align__(16) float dbuf[2][BT][3][KP];
+
   const int U = units;
   const int K = 3 * units;
-  const int N = steps * batch;
-  const int j0 = blockIdx.x * kTile;
-  const int u0 = blockIdx.y * kTile;
-  const int d = blockIdx.z % n_dirs;
-  const int s = blockIdx.z / n_dirs;
-  const int tid = threadIdx.x;
-  const int tj = tid % kTile;
-  const int tq = tid / kTile;  // 0..7: rows tq*4 .. tq*4+3 of the tile
-  const int n_begin = s * rows_per_slice;
-  const int n_end = min(N, n_begin + rows_per_slice);
-  const bool with_bias = blockIdx.y == 0 && tq == 0;
+  const int uc = units / cluster;  // units of this CTA
+  const int lane = threadIdx.x % S;
+  const int grp = threadIdx.x / S;
+  const bool live = grp * NU < uc;  // not a padding group
+  const int ubase = static_cast<int>(cluster_ctarank()) * uc + grp * NU;
+  const int d = blockIdx.y;
+  const int b0 = (blockIdx.x / cluster) * BT;
+  const int rows = min(BT, batch - b0);
 
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float bsum = 0.0f;
+  // this lane's slice of Rk[d]'s rows ubase .. ubase + NU, for all T steps
+  float w[NU][3][NI][4];
+  const float* rk_d = rk + static_cast<size_t>(d) * U * K;
+#pragma unroll
+  for (int v = 0; v < NU; ++v)
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = 4 * (S * i + lane) + q;
+          w[v][gt][i][q] =
+              live && k < U
+                  ? rk_d[static_cast<size_t>(ubase + v) * K + gt * U + k]
+                  : 0.0f;
+        }
+
+  float* dflat = &dbuf[0][0][0][0];
+  for (int i = threadIdx.x; i < 2 * BT * 3 * KP; i += blockDim.x)
+    dflat[i] = 0.0f;
+  const uint32_t d_local =
+      static_cast<uint32_t>(__cvta_generic_to_shared(dflat));
+  uint32_t peer[kMaxCluster];  // dbuf of each CTA of the cluster
+#pragma unroll
+  for (int p = 0; p < kMaxCluster; ++p)
+    peer[p] = p < cluster ? map_rank(d_local, p) : 0u;
+
+  // partial sums are ordered e = b NU + v, so lane l finishes entries
+  // [l R, (l + 1) R): units u0 .. u0 + R of row sb of the tile
+  const int sb = lane * R / NU;
+  const int u0 = ubase + lane * R % NU;
+  const bool ok = live && sb < rows;
+  const size_t bstride = static_cast<size_t>(batch);
+  auto row_of = [&](int s) {  // x_proj / workspace row of step s
+    const int t = d == 0 ? steps - 1 - s : s;
+    return (static_cast<size_t>(d) * steps + t) * bstride + b0 + sb;
+  };
+  auto fetch = [&](Raw<R>& raw, int s) {
+    if (!ok || s >= steps) return;
+    const size_t row = row_of(s);
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) {
+      load_run<R>(xp + row * K + gt * U + u0, raw.x[gt]);
+      load_run<R>(hp_dhp + row * K + gt * U + u0, raw.h[gt]);
+    }
+    load_run<R>(g + row * U + u0, raw.g);
+    if (s + 1 < steps) {
+      load_run<R>(hs + (d == 0 ? row - bstride : row + bstride) * U + u0,
+                  raw.h_prev);
+    } else {  // the scan start
+#pragma unroll
+      for (int j = 0; j < R; ++j) raw.h_prev[j] = 0.0f;
+    }
+  };
+
+  Raw<R> raw = {};
+  Coef<R> cf;
+  fetch(raw, 0);
+  coefficients(raw, cf);
+  fetch(raw, 1);
+  float carry[R], bsum[3][R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    carry[j] = 0.0f;
+    bsum[0][j] = bsum[1][j] = bsum[2][j] = 0.0f;
+  }
+  // every CTA's dbuf is zero before any peer writes into it
+  cluster_arrive();
+  cluster_wait();
+
+  for (int s = 0; s < steps; ++s) {
+    const bool exchange = s + 1 < steps;
+    const int buf = s & 1;
+    float dh[R], zdh[R];
+    float dx[3][R], dhp[3][R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      dh[j] = carry[j] + cf.g[j];
+      zdh[j] = dh[j] * cf.z[j];
+      dx[0][j] = dhp[0][j] = dh[j] * cf.az[j];
+      dx[1][j] = dhp[1][j] = dh[j] * cf.ar[j];
+      dx[2][j] = dh[j] * cf.ah[j];
+      dhp[2][j] = dh[j] * cf.ahr[j];
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) bsum[gt][j] += dhp[gt][j];
+    }
+    if (ok && exchange) {
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        const uint32_t off = static_cast<uint32_t>(
+            (((buf * BT + sb) * 3 + gt) * KP + u0) * sizeof(float));
+#pragma unroll
+        for (int p = 0; p < kMaxCluster; ++p)
+          if (p < cluster) st_cluster_run<R>(peer[p] + off, dhp[gt]);
+      }
+    }
+    if (exchange) cluster_arrive();
+    // after the arrive: its release orders the exchange, not these stores
+    if (ok) {
+      const size_t row = row_of(s);
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        store_run<R>(dxp + row * K + gt * U + u0, dx[gt]);
+        store_run<R>(hp_dhp + row * K + gt * U + u0, dhp[gt]);
+      }
+    }
+    if (!exchange) break;
+    // while peers arrive: the next step's coefficients from what was
+    // loaded a step ago, and the loads for the step after
+    coefficients(raw, cf);
+    fetch(raw, s + 2);
+    cluster_wait();
+
+    // dh_prev partials: the full dhp rows against this lane's Rk slice
+    float acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.0f;
+    const float* cur = dflat + buf * BT * 3 * KP;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const int k0 = 4 * (S * i + lane);
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        float4 d4[BT];
+#pragma unroll
+        for (int b = 0; b < BT; ++b)
+          d4[b] = *reinterpret_cast<const float4*>(cur + (b * 3 + gt) * KP +
+                                                   k0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int b = 0; b < BT; ++b) {
+            const float dv = q == 0 ? d4[b].x : q == 1 ? d4[b].y
+                           : q == 2 ? d4[b].z : d4[b].w;
+#pragma unroll
+            for (int v = 0; v < NU; ++v)
+              acc[b * NU + v] = fmaf(dv, w[v][gt][i][q], acc[b * NU + v]);
+          }
+        }
+      }
+    }
+    reduce_scatter<S / 2, E / 2, E>(acc, lane);
+#pragma unroll
+    for (int j = 0; j < R; ++j) carry[j] = zdh[j] + acc[j];
+  }
+  // the lanes of a group that hold the same units differ in their row bits
+#pragma unroll
+  for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float v = ok ? bsum[gt][j] : 0.0f;
+#pragma unroll
+      for (int m = NU / R; m < S; m *= 2) v += __shfl_xor_sync(0xffffffffu, v, m);
+      bsum[gt][j] = v;
+    }
+  if (live && lane < NU / R) {
+    float* out = dbias + (static_cast<size_t>(d) * gridDim.x / cluster +
+                          blockIdx.x / cluster) * K;
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) store_run<R>(out + gt * U + u0, bsum[gt]);
+  }
+}
+
+// Pass 3: part[sl][d][u][j] = sum over rows n of slice sl of h_prev[d, n, u]
+// dhp[d, n, j]; grid (ceil(3U / 128), ceil(U / 128), D * slices). Thread
+// tid loads column tid % 128 of rows tid / 128 + 2 i of each chunk.
+template <typename T>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+gru_bwd_drk_kernel(const T* __restrict__ hs, const float* __restrict__ dhp,
+                   float* __restrict__ part, int n_dirs, int steps, int batch,
+                   int units, int rows_per_slice) {
+  const int U = units, K = 3 * units, N = steps * batch;
+  const int j0 = blockIdx.x * kTile, u0 = blockIdx.y * kTile;
+  const int d = blockIdx.z % n_dirs, sl = blockIdx.z / n_dirs;
+  const int tid = threadIdx.x;
+  int ty, tx;
+  thread_tile(tid, ty, tx);
+  const int r0 = tid / kTile, c = tid % kTile;
+  const int n_begin = sl * rows_per_slice;
+  const int n_end = min(N, n_begin + rows_per_slice);
   const T* hs_d = hs + static_cast<size_t>(d) * N * U;
   const float* dhp_d = dhp + static_cast<size_t>(d) * N * K;
-  for (int n0 = n_begin; n0 < n_end; n0 += kChunk) {
-    for (int i = tid; i < kChunk * kTile; i += kReduceThreads) {
-      const int r = i / kTile;
-      const int c = i % kTile;
-      const int n = n0 + r;
-      float av = 0.0f, bv = 0.0f;
-      if (n < n_end) {
-        const int t = n / batch;
-        const int b = n % batch;
-        const int tp = d == 0 ? t - 1 : t + 1;
-        if (tp >= 0 && tp < steps && u0 + c < U)
-          av = to_f32(hs_d[(static_cast<size_t>(tp) * batch + b) * U + u0 + c]);
-        if (j0 + c < K) bv = dhp_d[static_cast<size_t>(n) * K + j0 + c];
-      }
-      a_s[r][c] = av;
-      b_s[r][c] = bv;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kChunk; ++k) {
-      const float bv = b_s[k][tj];
+
+  float acc[8][8] = {};
+  tile_product(
+      acc, (n_end - n_begin + kDepth - 1) / kDepth,
+      [&](int ch, float (&r)[8]) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = fmaf(a_s[k][tq * 4 + i], bv, acc[i]);
-      if (with_bias) bsum += bv;
-    }
-    __syncthreads();
-  }
-  const int j = j0 + tj;
-  if (j >= K) return;
-  float* out = part + (static_cast<size_t>(s) * n_dirs + d) * (U + 1) * K;
+        for (int i = 0; i < 8; ++i) {
+          const int n = n_begin + ch * kDepth + r0 + 2 * i;
+          const int p = n < n_end ? prev_row(n, d, batch, N) : -1;
+          r[i] = p >= 0 && u0 + c < U
+                     ? to_f32(hs_d[static_cast<size_t>(p) * U + u0 + c])
+                     : 0.0f;
+        }
+      },
+      [&](int ch, float (&r)[8]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int u = u0 + tq * 4 + i;
-    if (u < U) out[static_cast<size_t>(u) * K + j] = acc[i];
+        for (int i = 0; i < 8; ++i) {
+          const int n = n_begin + ch * kDepth + r0 + 2 * i;
+          r[i] = n < n_end && j0 + c < K
+                     ? dhp_d[static_cast<size_t>(n) * K + j0 + c]
+                     : 0.0f;
+        }
+      });
+  float* out = part + (static_cast<size_t>(sl) * n_dirs + d) * U * K;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = j0 + 64 * h + 4 * tx;
+    if (j >= K) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int u = u0 + tile_row(ty, i);
+      if (u < U)
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(u) * K + j) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+    }
   }
-  if (with_bias) out[static_cast<size_t>(U) * K + j] = bsum;
 }
 
+// dRk: pass 3's slices added in slice order; dRb: the recurrence's
+// per-tile sums added in tile order. Neither depends on block scheduling.
 __global__ void gru_bwd_finalize_kernel(const float* __restrict__ part,
+                                        const float* __restrict__ dbias,
                                         float* __restrict__ drk,
                                         float* __restrict__ drb, int slices,
-                                        int n_dirs, int units) {
-  const int U = units;
+                                        int n_dirs, int n_tiles, int units) {
   const int K = 3 * units;
-  const size_t per_dir = static_cast<size_t>(U + 1) * K;
-  const size_t total = n_dirs * per_dir;
+  const size_t n_drk = static_cast<size_t>(n_dirs) * units * K;
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
   float sum = 0.0f;
-  for (int s = 0; s < slices; ++s) sum += part[s * total + i];  // fixed order
-  const size_t d = i / per_dir;
-  const size_t rem = i % per_dir;
-  const size_t u = rem / K;
-  const size_t j = rem % K;
-  if (u < static_cast<size_t>(U))
-    drk[(d * U + u) * K + j] = sum;
-  else
+  if (i < n_drk) {
+    for (int sl = 0; sl < slices; ++sl) sum += part[sl * n_drk + i];
+    drk[i] = sum;
+  } else if (i < n_drk + static_cast<size_t>(n_dirs) * K) {
+    const size_t d = (i - n_drk) / K, j = (i - n_drk) % K;
+    for (int tl = 0; tl < n_tiles; ++tl)
+      sum += dbias[(d * n_tiles + tl) * K + j];
     drb[d * K + j] = sum;
-}
-
-size_t rec_smem_bytes(int U) {
-  const size_t K = 3 * static_cast<size_t>(U);
-  return sizeof(float) *
-         (U * (K + 1) + kBt * U + 2 * kBt * K + 3 * kBt * U);
+  }
 }
 
 int tiles(int D, int U) {
@@ -320,56 +649,108 @@ int tiles(int D, int U) {
   return D * ((U + kTile - 1) / kTile) * ((K + kTile - 1) / kTile);
 }
 
-int rows_per_slice(int N, int slices) {
-  const int rows = (N + slices - 1) / slices;
-  return (rows + kChunk - 1) / kChunk * kChunk;
-}
-
-// Row slices of the dRk reduction for N = T * B rows: enough blocks for
-// about four waves, and at least four row chunks per slice.
+// Row slices of pass 3 for N = T * B rows: about kTargetBlocks blocks, and
+// at least four 16-row chunks a slice.
 int reduce_slices(int D, int N, int U) {
   const int want = (kTargetBlocks + tiles(D, U) - 1) / tiles(D, U);
-  const int most = (N + 4 * kChunk - 1) / (4 * kChunk);
+  const int most = (N + 4 * kDepth - 1) / (4 * kDepth);
   const int s = want < most ? want : most;
   return s < 1 ? 1 : s;
 }
 
-// The workspace holds dhp [D, T * B, 3U] f32, then the reduction's
-// partials [slices, D, U + 1, 3U] f32.
-size_t dhp_floats(int D, int N, int U) {
+int rows_per_slice(int N, int slices) {
+  const int rows = (N + slices - 1) / slices;
+  return (rows + kDepth - 1) / kDepth * kDepth;
+}
+
+// The workspace holds hp, then dhp, [D, T * B, 3U] f32; the per-tile dRb
+// sums [D, tiles <= B, 3U]; pass 3's partials [slices, D, U, 3U].
+size_t hp_floats(int D, int N, int U) {
   return static_cast<size_t>(D) * N * 3 * U;
 }
 
-size_t workspace_floats(int D, int N, int U) {
-  return dhp_floats(D, N, U) + static_cast<size_t>(reduce_slices(D, N, U)) *
-                                   D * (U + 1) * 3 * U;
+size_t workspace_floats(int D, int T_steps, int B, int U) {
+  const int N = T_steps * B;
+  return hp_floats(D, N, U) + hp_floats(D, B, U) +
+         static_cast<size_t>(reduce_slices(D, N, U)) * D * U * 3 * U;
 }
+
+template <int V, typename T>
+cudaError_t launch_rec(const void* xp, const float* rk, const void* hs,
+                       const void* g, void* dxp, float* hp_dhp, float* dbias,
+                       int D, int T_steps, int B, int U, int cluster,
+                       cudaStream_t stream) {
+  constexpr Variant v = kVariants[V];
+  if (cluster < 1 || cluster > kMaxCluster || U < 1 || U % cluster ||
+      (U / cluster) % v.nu || U > 4 * v.s * v.ni)
+    return cudaErrorInvalidValue;
+  const int threads = (U / cluster / v.nu * v.s + 31) / 32 * 32;
+  if (threads > v.maxt) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((B + v.bt - 1) / v.bt * cluster, D, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gru_bwd_rec_kernel<v.s, v.ni, v.bt, v.nu, v.maxt, T>,
+      static_cast<const T*>(xp), rk, static_cast<const T*>(hs),
+      static_cast<const T*>(g), static_cast<T*>(dxp), hp_dhp, dbias, T_steps,
+      B, U, cluster);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_rec(int variant, const void* xp, const float* rk,
+                         const void* hs, const void* g, void* dxp,
+                         float* hp_dhp, float* dbias, int D, int T_steps,
+                         int B, int U, int cluster, cudaStream_t st) {
+  switch (variant) {
+    case 0: return launch_rec<0, T>(xp, rk, hs, g, dxp, hp_dhp, dbias, D,
+                                    T_steps, B, U, cluster, st);
+    case 1: return launch_rec<1, T>(xp, rk, hs, g, dxp, hp_dhp, dbias, D,
+                                    T_steps, B, U, cluster, st);
+    case 2: return launch_rec<2, T>(xp, rk, hs, g, dxp, hp_dhp, dbias, D,
+                                    T_steps, B, U, cluster, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+static_assert(kNumVariants == 3, "dispatch_rec() names every variant");
 
 template <typename T>
 cudaError_t launch(const void* xp, const float* rk, const float* rb,
                    const void* hs, const void* g, void* dxp, float* workspace,
                    float* drk, float* drb, int D, int T_steps, int B, int U,
-                   cudaStream_t stream) {
+                   int variant, int cluster, cudaStream_t stream) {
   const int K = 3 * U;
   const int N = T_steps * B;
-  const int slices = reduce_slices(D, N, U);
-  float* dhp = workspace;
-  float* part = workspace + dhp_floats(D, N, U);
-  const size_t smem = rec_smem_bytes(U);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_rec_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  gru_bwd_rec_kernel<T><<<dim3(D, (B + kBt - 1) / kBt), K, smem, stream>>>(
-      static_cast<const T*>(xp), rk, rb, static_cast<const T*>(hs),
-      static_cast<const T*>(g), static_cast<T*>(dxp), dhp, T_steps, B, U);
-  err = cudaGetLastError();
+  float* hp_dhp = workspace;
+  float* dbias = hp_dhp + hp_floats(D, N, U);
+  float* part = dbias + hp_floats(D, B, U);
+
+  gru_bwd_hp_kernel<T><<<dim3((K + kTile - 1) / kTile, (N + kTile - 1) / kTile,
+                              D),
+                         kGemmThreads, 0, stream>>>(
+      static_cast<const T*>(hs), rk, rb, hp_dhp, T_steps, B, U);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
+  err = dispatch_rec<T>(variant, xp, rk, hs, g, dxp, hp_dhp, dbias, D,
+                        T_steps, B, U, cluster, stream);
+  if (err != cudaSuccess) return err;
+  const int bt = kVariants[variant].bt;  // a valid variant: it launched
+
+  const int slices = reduce_slices(D, N, U);
   const dim3 grid((K + kTile - 1) / kTile, (U + kTile - 1) / kTile,
                   D * slices);
-  gru_bwd_reduce_kernel<T><<<grid, kReduceThreads, 0, stream>>>(
-      static_cast<const T*>(hs), dhp, part, D, T_steps, B, U,
+  gru_bwd_drk_kernel<T><<<grid, kGemmThreads, 0, stream>>>(
+      static_cast<const T*>(hs), hp_dhp, part, D, T_steps, B, U,
       rows_per_slice(N, slices));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -377,7 +758,7 @@ cudaError_t launch(const void* xp, const float* rk, const float* rb,
   const size_t total = static_cast<size_t>(D) * (U + 1) * K;
   const unsigned fin_blocks = static_cast<unsigned>((total + 255) / 256);
   gru_bwd_finalize_kernel<<<fin_blocks, 256, 0, stream>>>(
-      part, drk, drb, slices, D, U);
+      part, dbias, drk, drb, slices, D, (B + bt - 1) / bt, U);
   return cudaGetLastError();
 }
 
@@ -385,23 +766,34 @@ cudaError_t launch(const void* xp, const float* rk, const float* rb,
 
 extern "C" {
 
-// Shared memory the recurrence kernel asks for, so the wrapper can refuse a
-// U that does not fit before it launches.
-size_t seld_gru_bwd_smem_bytes(int U) { return rec_smem_bytes(U); }
+// Writes the variant table as (S, NI, BT, NU, max threads) quintuples into
+// out (room for `cap` ints) and returns the number of variants, so the
+// wrapper's copy can be checked against it.
+int seld_gru_bwd_variants(int* out, int cap) {
+  for (int i = 0; i < kNumVariants && 5 * i + 4 < cap; ++i) {
+    out[5 * i] = kVariants[i].s;
+    out[5 * i + 1] = kVariants[i].ni;
+    out[5 * i + 2] = kVariants[i].bt;
+    out[5 * i + 3] = kVariants[i].nu;
+    out[5 * i + 4] = kVariants[i].maxt;
+  }
+  return kNumVariants;
+}
 
-// Bytes of scratch one call needs (dhp and the dRk/dRb partials); the
+// Bytes of scratch one call needs (hp/dhp and pass 3's partials); the
 // wrapper allocates them as one flat buffer, whose layout is this file's.
 size_t seld_gru_bwd_workspace_bytes(int D, int T_steps, int B, int U) {
-  return sizeof(float) * workspace_floats(D, T_steps * B, U);
+  return sizeof(float) * workspace_floats(D, T_steps, B, U);
 }
 
 // Returns a cudaError_t (0 on success). is_bf16 selects the storage type of
-// x_proj, hs, g and dx_proj; rk, rb, drk and drb are f32, and workspace
-// holds seld_gru_bwd_workspace_bytes(D, T_steps, B, U) bytes.
+// x_proj, hs, g and dx_proj; rk, rb, drk and drb are f32; workspace holds
+// seld_gru_bwd_workspace_bytes(D, T_steps, B, U) bytes; variant and cluster
+// come from the wrapper's plan.
 int seld_gru_bwd(const void* xp, const void* rk, const void* rb,
                  const void* hs, const void* g, void* dxp, void* workspace,
                  void* drk, void* drb, int D, int T_steps, int B, int U,
-                 int is_bf16, void* stream) {
+                 int is_bf16, int variant, int cluster, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* rkf = static_cast<const float*>(rk);
   const auto* rbf = static_cast<const float*>(rb);
@@ -410,9 +802,10 @@ int seld_gru_bwd(const void* xp, const void* rk, const void* rb,
   auto* drbf = static_cast<float*>(drb);
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(xp, rkf, rbf, hs, g, dxp, ws, drkf,
-                                      drbf, D, T_steps, B, U, st)
+                                      drbf, D, T_steps, B, U, variant,
+                                      cluster, st)
               : launch<float>(xp, rkf, rbf, hs, g, dxp, ws, drkf, drbf, D,
-                              T_steps, B, U, st);
+                              T_steps, B, U, variant, cluster, st);
   return static_cast<int>(err);
 }
 

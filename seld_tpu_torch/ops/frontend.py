@@ -2,12 +2,14 @@
 
 `foa_frontend` takes a chunk of n reflect-padded 4-channel clips and gives
 their mel power [n, 4, T, 64] and mel-projected unit intensity vectors
-[n, 3, T, 64]: the windowed real DFT as products against the bases, |X|^2,
-the HTK filterbank, and Re(conj(W) {X, Y, Z}) L2-normalised with an eps
-floor (ACN channel order W, Y, Z, X). On a CUDA tensor it launches the
-hand-written sm_90a kernel in csrc/foa_frontend.cu, which keeps the complex
-spectrum on chip; on a CPU tensor it runs `foa_frontend_ref`, the plain
-PyTorch version. A CUDA tensor the kernel does not take raises.
+[n, 3, T, 64]: the windowed real DFT, |X|^2, the HTK filterbank, and
+Re(conj(W) {X, Y, Z}) L2-normalised with an eps floor (ACN channel order
+W, Y, Z, X). On a CUDA tensor it launches the hand-written sm_90a kernel in
+csrc/foa_frontend.cu (a 512-point complex FFT per frame in shared memory,
+the real split step, the filterbank as sparse rows; `_kernel_tables` builds
+its constants); on a CPU tensor it runs `foa_frontend_ref`, the plain
+PyTorch version (the DFT as products against the bases). A CUDA tensor the
+kernel does not take raises.
 
 `fused_foa_frontend` wraps it with what the JAX package does around its
 kernel: the reflect pad, the per-clip dB step and the concatenation to
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -29,9 +31,13 @@ from seld_tpu_torch.ops.mel import _mel_filterbank_np, amplitude_to_db
 from seld_tpu_torch.ops.stft import _dft_bases, _padded_window_np, reflect_pad
 
 _SOURCE = "foa_frontend.cu"
-_BINS = 32       # csrc/foa_frontend.cu kBins: bins per chunk
-_K_TILE = 32     # kK: n_fft must be a multiple of it
+_N_FFT = 1024    # csrc/foa_frontend.cu: a 512-point complex FFT per frame
 _MELS = 64       # kMels: the kernel's filterbank width
+_MAX_NNZ = 2 * (_N_FFT // 2 + 1)   # kMaxNnz: each bin feeds at most 2 mels
+# csrc/foa_frontend.cu's twiddle table, complex entries: W_512^(j k1) at
+# j * 8 + k1 (j < 64, k1 < 8), W_64^(b c) at _TW2 + b * 8 + c (b, c < 8),
+# W_1024^k at _TW3 + k (k < 256)
+_TW2, _TW3, _TWIDDLES = 512, 576, 832
 
 
 @functools.lru_cache(maxsize=4)
@@ -48,23 +54,57 @@ def _frontend_constants(n_fft: int, win_length: int, n_mels: int,
     return window * cos_b, window * sin_b, fbank
 
 
+def _twiddles() -> np.ndarray:
+    """[_TWIDDLES, 2] f32 (re, im) of exp(-2 pi i m / N), computed in float64
+    and rounded once, in the kernel's order (see _TW2, _TW3)."""
+    j, k1 = np.meshgrid(np.arange(64), np.arange(8), indexing="ij")
+    b, c = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+    ang = np.concatenate([(j * k1).ravel() / 512.0, (b * c).ravel() / 64.0,
+                          np.arange(256) / 1024.0]) * (-2.0 * np.pi)
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+def _sparse_rows(fbank: np.ndarray):
+    """The filterbank [n_bins, n_mels] as one contiguous run of bins per
+    mel: (first bin [n_mels], row pointers [n_mels + 1]) int32 and the
+    run's weights f32 (a mel with no non-zero has an empty run)."""
+    starts, ptr, weights = [], [0], []
+    for m in range(fbank.shape[1]):
+        nz = np.flatnonzero(fbank[:, m])
+        lo, hi = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
+        starts.append(lo)
+        weights.append(fbank[lo:hi, m])
+        ptr.append(ptr[-1] + hi - lo)
+    return (np.asarray(starts, np.int32), np.asarray(ptr, np.int32),
+            np.concatenate(weights).astype(np.float32))
+
+
+class KernelTables(NamedTuple):
+    window: np.ndarray     # [n_fft] f32, the padded periodic Hann window
+    twiddles: np.ndarray   # [_TWIDDLES, 2] f32
+    fb_index: np.ndarray   # [2 n_mels + 1] int32: first bins, row pointers
+    fb_weights: np.ndarray  # [nnz] f32
+
+
+@functools.lru_cache(maxsize=4)
+def _kernel_tables(n_fft: int, win_length: int, n_mels: int,
+                   sample_rate: int) -> KernelTables:
+    """csrc/foa_frontend.cu's constants, numpy: the window it applies on
+    load, its FFT twiddles and the filterbank of `_frontend_constants` as
+    sparse rows."""
+    starts, ptr, weights = _sparse_rows(
+        _frontend_constants(n_fft, win_length, n_mels, sample_rate)[2])
+    return KernelTables(_padded_window_np(n_fft, win_length), _twiddles(),
+                        np.concatenate([starts, ptr]), weights)
+
+
 @functools.lru_cache(maxsize=4)
 def _kernel_constants(n_fft: int, win_length: int, n_mels: int,
-                      sample_rate: int, device: torch.device):
-    """The kernel's layout of the constants on `device`: wcat [n_fft,
-    chunks * 64] (per 32-bin chunk, its cos columns then its sin columns)
-    and the filterbank [chunks * 32, n_mels], zero past the last bin."""
-    wre, wim, fbank = _frontend_constants(n_fft, win_length, n_mels,
-                                          sample_rate)
-    n_bins = wre.shape[1]
-    chunks = -(-n_bins // _BINS)
-    pad = chunks * _BINS - n_bins
-    wre = np.pad(wre, ((0, 0), (0, pad))).reshape(n_fft, chunks, 1, _BINS)
-    wim = np.pad(wim, ((0, 0), (0, pad))).reshape(n_fft, chunks, 1, _BINS)
-    wcat = np.concatenate([wre, wim], axis=2).reshape(n_fft, -1)
-    fb = np.pad(fbank, ((0, pad), (0, 0)))
-    return (torch.from_numpy(np.ascontiguousarray(wcat)).to(device),
-            torch.from_numpy(np.ascontiguousarray(fb)).to(device), chunks)
+                      sample_rate: int, device: torch.device) -> KernelTables:
+    """`_kernel_tables` as contiguous tensors on `device`."""
+    return KernelTables(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                          for a in _kernel_tables(n_fft, win_length, n_mels,
+                                                  sample_rate)))
 
 
 def foa_frontend_ref(wav: torch.Tensor, *, n_fft: int = 1024,
@@ -91,8 +131,8 @@ def foa_frontend_ref(wav: torch.Tensor, *, n_fft: int = 1024,
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = kernels.load(_SOURCE)
-    lib.seld_foa_frontend.argtypes = [ctypes.c_void_p] * 5 + \
-        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    lib.seld_foa_frontend.argtypes = [ctypes.c_void_p] * 7 + \
+        [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     lib.seld_foa_frontend.restype = ctypes.c_int
     return lib
 
@@ -103,17 +143,20 @@ def _foa_frontend_cuda(wav, n_fft, win_length, hop_length, n_mels,
         raise ValueError("the front-end kernel takes a contiguous float32 "
                          f"wav; got {wav.dtype}, contiguous "
                          f"{wav.is_contiguous()}")
-    if n_mels != _MELS or n_fft % _K_TILE:
-        raise ValueError(f"the front-end kernel takes {_MELS} mels and an "
-                         f"n_fft that is a multiple of {_K_TILE}; got "
-                         f"{n_mels}, {n_fft}")
+    if n_mels != _MELS or n_fft != _N_FFT or not 0 < win_length <= n_fft:
+        raise ValueError(f"the front-end kernel takes {_MELS} mels, n_fft "
+                         f"{_N_FFT} and a window no longer; got {n_mels}, "
+                         f"{n_fft}, {win_length}")
     n, _, lp = wav.shape
-    if lp < n_fft or n * 4 * lp >= 2 ** 31:
-        raise ValueError(f"padded length {lp} is shorter than n_fft or too "
-                         "long for the kernel's indices")
+    if lp < n_fft or n * 4 * lp >= 2 ** 31 or n >= 2 ** 16:
+        raise ValueError(f"padded length {lp} is shorter than n_fft, or {n} "
+                         "clips are too many for the kernel's indices")
     t = 1 + (lp - n_fft) // hop_length
-    wcat, fbank, chunks = _kernel_constants(n_fft, win_length, n_mels,
-                                            sample_rate, wav.device)
+    tables = _kernel_constants(n_fft, win_length, n_mels, sample_rate,
+                               wav.device)
+    if tables.fb_weights.numel() > _MAX_NNZ:
+        raise ValueError(f"the filterbank has {tables.fb_weights.numel()} "
+                         f"non-zeros; the kernel holds {_MAX_NNZ}")
     mel = torch.empty((n, 4, t, n_mels), dtype=torch.float32,
                       device=wav.device)
     iv = torch.empty((n, 3, t, n_mels), dtype=torch.float32,
@@ -122,9 +165,10 @@ def _foa_frontend_cuda(wav, n_fft, win_length, hop_length, n_mels,
     with torch.cuda.device(wav.device):
         stream = torch.cuda.current_stream(wav.device).cuda_stream
         err = lib.seld_foa_frontend(
-            wav.data_ptr(), wcat.data_ptr(), fbank.data_ptr(),
-            mel.data_ptr(), iv.data_ptr(), n, lp, t, hop_length, n_fft,
-            chunks, eps, stream)
+            wav.data_ptr(), tables.window.data_ptr(),
+            tables.twiddles.data_ptr(), tables.fb_index.data_ptr(),
+            tables.fb_weights.data_ptr(), mel.data_ptr(), iv.data_ptr(), n,
+            lp, t, hop_length, eps, stream)
     kernels.check(lib, err, "foa_frontend launch")
     kernels.launch_counts["foa_frontend"] += 1
     return mel, iv

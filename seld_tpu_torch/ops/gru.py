@@ -8,8 +8,8 @@ plain PyTorch version of the same arithmetic, on a CPU tensor. It saves only
 the residuals (x_proj, rec_kernel, rec_bias, hs) and its backward recomputes
 the gates: csrc/gru_bwd.cu on a CUDA tensor, `gru_scan_bwd_ref` on a CPU
 tensor. There is no fallback from a kernel to its plain version: a CUDA
-tensor the kernel does not take raises. The forward kernel runs each
-(direction, batch tile) as a thread block cluster; `_fwd_plan` picks its
+tensor the kernel does not take raises. Both kernels run each (direction,
+batch tile) as a thread block cluster; `_fwd_plan` and `_bwd_plan` pick the
 tile, cluster size and variant.
 
 The input projection `x @ kernel + bias[:, 0]` stays one large
@@ -28,7 +28,6 @@ from seld_tpu_torch.ops import kernels
 
 _SOURCE = "gru_fwd.cu"
 _BWD_SOURCE = "gru_bwd.cu"
-_MAX_SMEM = 232448   # bytes of shared memory one H100 block may use
 # csrc/gru_fwd.cu's kVariants: (S lanes splitting a unit's k-range, NI
 # 4-row k chunks per lane, BT batch rows per tile, most threads a block may
 # have); variant v takes U <= 4 * S * NI
@@ -84,6 +83,73 @@ def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
         latency = plan(_FWD_LATENCY)
         variant = _FWD_LATENCY if _FWD_LATENCY in takes and \
             latency.ctas * latency.threads <= _LATENCY_THREADS else takes[0]
+    elif variant not in takes:
+        raise ValueError(f"variant {variant} does not take U={u}")
+    return plan(variant)
+
+
+# csrc/gru_bwd.cu's kVariants: (S lanes splitting a group's k-range, NI
+# 4-wide k chunks per lane and gate, BT batch rows per tile, NU units per
+# lane group, most threads a block may have); variant v takes U <= 4 * S * NI
+# and a cluster size C with (U / C) % NU == 0. A float4 of dhp read from
+# shared memory feeds 4 NU FMAs: the batch and latency variants hold 4
+# units a group, the wide one (U up to 160) 2.
+_BWD_VARIANTS = ((16, 2, 8, 4, 256), (16, 2, 4, 4, 256), (8, 5, 8, 2, 256))
+_BWD_BATCH, _BWD_LATENCY, _BWD_WIDE = 0, 1, 2
+_BWD_MAX_WEIGHTS = 128   # kMaxWeights: Rk values one lane holds in registers
+
+
+class BwdPlan(NamedTuple):
+    """How csrc/gru_bwd.cu's recurrence runs one call: a cluster of `c`
+    CTAs of `threads` threads per (direction, tile of `bt` batch rows);
+    grid (tiles * c, D); each CTA owns U / c units, NU to a group of S
+    lanes."""
+    variant: int
+    bt: int
+    c: int
+    threads: int
+    grid: Tuple[int, int]
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def _bwd_clusters(v: int, u: int) -> list:
+    """The cluster sizes on which variant v takes U units."""
+    s, ni, _, nu, maxt = _BWD_VARIANTS[v]
+    return [c for c in _CLUSTERS if u <= 4 * s * ni and u % c == 0
+            and (u // c) % nu == 0 and -(-(u // c // nu * s) // 32) * 32
+            <= maxt]
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(d: int, b: int, u: int, variant: int = None) -> BwdPlan:
+    """The backward recurrence's tile plan for D directions, B rows, U
+    units, by `_fwd_plan`'s rule: a variant of 4-row tiles over the largest
+    cluster that takes U, while its threads fit `_LATENCY_THREADS`; else
+    the first variant that takes U (8-row tiles) over the smallest cluster
+    that does (U = 128, B = 256: 2 CTAs of 256 threads, 128 CTAs in all).
+    `variant` forces one. Raises on a U no variant takes."""
+    takes = [v for v in range(len(_BWD_VARIANTS)) if _bwd_clusters(v, u)]
+    if u < 4 or u % 4 or not takes:
+        raise ValueError(
+            f"U={u}: the GRU backward kernel takes U % 4 == 0 and 4 <= U <= "
+            f"{max(4 * s * ni for s, ni, _, _, _ in _BWD_VARIANTS)}")
+
+    def plan(v):
+        s, _, bt, nu, _ = _BWD_VARIANTS[v]
+        fits = _bwd_clusters(v, u)
+        c = fits[-1] if bt < 8 else fits[0]
+        threads = -(-(u // c // nu * s) // 32) * 32
+        return BwdPlan(v, bt, c, threads, (-(-b // bt) * c, d))
+
+    if variant is None:
+        variant = takes[0]
+        if _BWD_LATENCY in takes:
+            latency = plan(_BWD_LATENCY)
+            if latency.ctas * latency.threads <= _LATENCY_THREADS:
+                variant = _BWD_LATENCY
     elif variant not in takes:
         raise ValueError(f"variant {variant} does not take U={u}")
     return plan(variant)
@@ -243,13 +309,21 @@ def library_variants() -> tuple:
 def _bwd_library() -> ctypes.CDLL:
     lib = kernels.load(_BWD_SOURCE)
     lib.seld_gru_bwd.argtypes = [ctypes.c_void_p] * 9 + \
-        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.seld_gru_bwd.restype = ctypes.c_int
-    lib.seld_gru_bwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.seld_gru_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.seld_gru_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 4
     lib.seld_gru_bwd_workspace_bytes.restype = ctypes.c_size_t
+    lib.seld_gru_bwd_variants.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.seld_gru_bwd_variants.restype = ctypes.c_int
     return lib
+
+
+def library_bwd_variants() -> tuple:
+    """The variant table compiled into csrc/gru_bwd.cu, to hold
+    `_BWD_VARIANTS` against (loads the library)."""
+    buf = (ctypes.c_int * 64)()
+    n = _bwd_library().seld_gru_bwd_variants(buf, 64)
+    return tuple(tuple(buf[5 * i:5 * i + 5]) for i in range(n))
 
 
 def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
@@ -279,34 +353,34 @@ def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
     return hs
 
 
-def _gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, hs, g):
+def _gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, hs, g, plan=None):
+    """Launch csrc/gru_bwd.cu on `plan` (`_bwd_plan`'s by default)."""
     _check_cuda_bwd_args(x_proj, rec_kernel, rec_bias, hs, g)
     d, t, b, k = x_proj.shape
     u = k // 3
-    lib = _bwd_library()
-    smem = lib.seld_gru_bwd_smem_bytes(u)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"U={u} needs {smem} B of shared memory; a block "
-                         f"has {_MAX_SMEM}")
+    if plan is None:
+        plan = _bwd_plan(d, b, u)
     dev = x_proj.device
     dxp = torch.empty_like(x_proj)
     if dxp.numel() == 0:
         return (dxp, torch.zeros_like(rec_kernel), torch.zeros_like(rec_bias))
     rk = rec_kernel.float().contiguous()
     rb = rec_bias.float().contiguous()
-    # scratch of the three passes (dhp and the reduction's partials), laid
+    lib = _bwd_library()
+    # scratch of the three passes (hp, then dhp, and the dRk partials), laid
     # out by csrc/gru_bwd.cu
     workspace = torch.empty(lib.seld_gru_bwd_workspace_bytes(d, t, b, u),
                             dtype=torch.uint8, device=dev)
     drk = torch.empty((d, u, k), dtype=torch.float32, device=dev)
     drb = torch.empty((d, k), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.seld_gru_bwd(x_proj.data_ptr(), rk.data_ptr(),
                                rb.data_ptr(), hs.data_ptr(), g.data_ptr(),
                                dxp.data_ptr(), workspace.data_ptr(),
                                drk.data_ptr(), drb.data_ptr(), d, t, b, u,
-                               int(x_proj.dtype == torch.bfloat16), stream)
+                               int(x_proj.dtype == torch.bfloat16),
+                               plan.variant, plan.c,
+                               kernels.current_stream(dev.index))
     kernels.check(lib, err, "gru_bwd launch")
     kernels.launch_counts["gru_scan_bwd"] += 1
     return dxp, drk.to(rec_kernel.dtype), drb.to(rec_bias.dtype)

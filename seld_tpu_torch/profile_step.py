@@ -43,8 +43,7 @@ STEPS = 10            # steps per timed and per traced run
 OVERLAP_NOISE = 0.02
 # substrings of the demangled names of the port's own kernels
 PORT_KERNELS = {"gru_scan": ("gru_fwd_kernel",),
-                "gru_scan_bwd": ("gru_bwd_rec_kernel", "gru_bwd_reduce_kernel",
-                                 "gru_bwd_finalize_kernel"),
+                "gru_scan_bwd": ("gru_bwd_",),
                 "stem_dy": ("stem_dy_kernel",)}
 GEMM_WORDS = ("gemm", "xmma", "cutlass", "cublas", "matmul")
 CONV_WORDS = ("conv", "cudnn", "implicit", "winograd", "wgrad", "dgrad")

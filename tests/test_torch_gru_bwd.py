@@ -6,7 +6,10 @@ of the `layers.GRU` layer on both of its paths.
 
 Tolerance: 2e-5 abs + 1e-5 rel in f32. Both sides do the same f32 gate
 arithmetic; dRk and dRb are sums over T*B terms of size ~1, which the two
-frameworks add in another order (a few f32 ulps of a value ~10).
+frameworks add in another order (a few f32 ulps of a value ~10). The
+CUDA kernel's tile plan (`_bwd_plan`) is checked by its own index
+arithmetic, and a CPU model of its decomposition against the plain
+version at the same tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -114,11 +117,14 @@ def test_bf16_storage_keeps_f32_math_and_gradient_dtypes():
     ("g_contig", ValueError, "g must be contiguous"),
     ("hs_device", ValueError, "hs is on meta"),
     ("fwd_checks", ValueError, "directions"),
+    ("u_odd", ValueError, "U % 4"),
+    ("u_too_wide", ValueError, r"4 <= U <= 160"),
 ])
 def test_cuda_bwd_wrapper_checks_raise(case, exc, match):
-    """The backward wrapper's argument checks run before any launch; they
-    are plain tensor checks, exercised here on CPU tensors."""
-    u = 16
+    """The backward wrapper's argument checks and its plan run before any
+    library load or launch; they are plain tensor checks, exercised here on
+    CPU tensors."""
+    u = {"u_odd": 18, "u_too_wide": 164}.get(case, 16)
     xp = torch.zeros(2, 5, 8, 3 * u)
     rk, rb = torch.zeros(2, u, 3 * u), torch.zeros(2, 3 * u)
     hs, g = torch.zeros(2, 5, 8, u), torch.zeros(2, 5, 8, u)
@@ -136,8 +142,10 @@ def test_cuda_bwd_wrapper_checks_raise(case, exc, match):
         hs = torch.zeros(2, 5, 8, u, device="meta")
     elif case == "fwd_checks":
         xp = torch.zeros(3, 5, 8, 3 * u)
+    loaded = dict(kernels._libs)
     with pytest.raises(exc, match=match):
-        gru._check_cuda_bwd_args(xp, rk, rb, hs, g)
+        gru._gru_scan_bwd_cuda(xp, rk, rb, hs, g)
+    assert kernels._libs == loaded
 
 
 @pytest.mark.parametrize("bidirectional,merge", [
@@ -177,3 +185,161 @@ def test_gru_layer_grads_match_jax_grad_both_paths(bidirectional, merge):
             np.testing.assert_allclose(p.grad.numpy(),
                                        np.asarray(want_p[name]),
                                        rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def _bwd_states(plan, d, b, u):
+    """The (direction, row, unit) states whose dh the backward recurrence's
+    lanes finish on `plan`, by csrc/gru_bwd.cu's own index arithmetic: CTA
+    (blockIdx.x, d) is rank blockIdx.x % C of tile blockIdx.x // C; thread
+    tid is lane tid % S of group tid // S, which owns the CTA's units
+    [NU grp, NU (grp + 1)); lane l finishes entries e in [l R, (l + 1) R),
+    R = NU BT / S: row e // NU of the tile, unit e % NU of the group."""
+    s, ni, bt, nu, maxt = gru._BWD_VARIANTS[plan.variant]
+    assert plan.bt == bt and u <= 4 * s * ni and (nu * bt) % s == 0
+    uc, r = u // plan.c, nu * bt // s
+    assert nu % r == 0           # a lane's states: consecutive units, a row
+    states = []
+    for dd in range(plan.grid[1]):
+        for bx in range(plan.grid[0]):
+            rank, b0 = bx % plan.c, (bx // plan.c) * bt
+            rows = min(bt, b - b0)
+            for tid in range(plan.threads):
+                lane, grp = tid % s, tid // s
+                for j in range(r):
+                    e = lane * r + j
+                    if grp * nu < uc and e // nu < rows:
+                        states.append((dd, b0 + e // nu,
+                                       rank * uc + grp * nu + e % nu))
+    return states
+
+
+@pytest.mark.parametrize("u", [16, 64, 128, 144])
+@pytest.mark.parametrize("b", [1, 3, 8, 17, 32, 64, 256])
+def test_bwd_plan_covers_every_state_exactly_once(b, u):
+    """Every (direction, row, unit) once; clusters of at most 8 CTAs that
+    split U into whole lane groups; blocks within the variant's thread
+    limit, the Rk slice of a lane within kMaxWeights registers, and the
+    threads of a block within the SM's 65,536 registers at 255 each."""
+    plan = gru._bwd_plan(2, b, u)
+    s, ni, bt, nu, maxt = gru._BWD_VARIANTS[plan.variant]
+    assert plan.c in gru._CLUSTERS and plan.c <= 8
+    assert u % plan.c == 0 and (u // plan.c) % nu == 0
+    assert plan.grid[0] % plan.c == 0 and plan.grid[1] == 2
+    assert plan.threads % 32 == 0 and plan.threads <= maxt
+    assert plan.threads * 255 <= 65536
+    assert nu * 3 * ni * 4 <= gru._BWD_MAX_WEIGHTS
+    states = _bwd_states(plan, 2, b, u)
+    assert len(states) == len(set(states)) == 2 * b * u
+
+
+def test_bwd_plan_at_the_path_shapes():
+    """Training (B=256) one CTA a SM in 2-CTA clusters of 256 threads, as
+    the forward; the feed's B=64 and small B on the latency variant."""
+    train = gru._bwd_plan(2, 256, 128)
+    assert (train.variant, train.bt, train.c, train.threads, train.ctas) \
+        == (gru._BWD_BATCH, 8, 2, 256, 128)
+    assert train.ctas <= gru._SMS
+    feed = gru._bwd_plan(2, 64, 128)
+    assert (feed.variant, feed.bt, feed.c) == (gru._BWD_LATENCY, 4, 8)
+    for b in (1, 8, 10, 64, 128, 1000):
+        p = gru._bwd_plan(2, b, 128)
+        assert p.variant == gru._BWD_BATCH or \
+            p.ctas * p.threads <= gru._LATENCY_THREADS
+    assert gru._bwd_plan(2, 8, 144).variant == gru._BWD_WIDE
+    with pytest.raises(ValueError, match="does not take"):
+        gru._bwd_plan(2, 8, 144, variant=gru._BWD_LATENCY)
+
+
+@pytest.mark.parametrize("u", [2, 6, 164, 200])
+def test_bwd_plan_raises_on_a_u_it_cannot_take(u):
+    with pytest.raises(ValueError, match="U % 4"):
+        gru._bwd_plan(2, 8, u)
+
+
+def _cuda_table(source, name):
+    """A `constexpr` table or constant of a csrc/ file, parsed from its
+    text: the tuples of `name`'s braces, or its integer."""
+    import os
+    import re
+    with open(os.path.join(kernels.CSRC_DIR, source)) as f:
+        src = f.read()
+    m = re.search(name + r"(?:\[\])? = (\{.*?\}\}|\d+);", src, re.S)
+    body = m.group(1)
+    if body.isdigit():
+        return int(body)
+    return tuple(tuple(int(x) for x in t.split(","))
+                 for t in re.findall(r"\{([\d,\s]+)\}", body))
+
+
+def test_variant_tables_equal_their_cuda_sources():
+    """ops/gru.py's plan tables are the kernels' own (chip_smoke holds
+    them against the built libraries too)."""
+    assert _cuda_table("gru_bwd.cu", "kVariants") == gru._BWD_VARIANTS
+    assert _cuda_table("gru_bwd.cu", "kMaxWeights") == gru._BWD_MAX_WEIGHTS
+    assert _cuda_table("gru_fwd.cu", "kVariants") == gru._FWD_VARIANTS
+
+
+def _bwd_model(xp, rk, rb, hs, g):
+    """Plain-torch model of csrc/gru_bwd.cu's decomposition: hp for every
+    step in one product (pass 1); the gate coefficients that make dx_proj
+    and dhp linear in dh; one product a step, dh_prev = dh z + dhp @ Rk^T
+    (pass 2); dRk and dRb as sums over all rows (pass 3). Tests only."""
+    d_dirs, t_steps, b, k = xp.shape
+    u = k // 3
+    dxp = torch.empty_like(xp)
+    drk = torch.empty_like(rk)
+    drb = torch.empty_like(rb)
+    for d in range(d_dirs):
+        order = list(gru._step_order(d, t_steps))
+        prev = torch.zeros_like(hs[d])
+        for p in range(1, t_steps):
+            prev[order[p]] = hs[d, order[p - 1]]
+        hp = prev @ rk[d] + rb[d]                            # [T, B, 3U]
+        z = torch.sigmoid(xp[d, ..., :u] + hp[..., :u])
+        r = torch.sigmoid(xp[d, ..., u:2 * u] + hp[..., u:2 * u])
+        hh = hp[..., 2 * u:]
+        c = torch.tanh(xp[d, ..., 2 * u:] + r * hh)
+        ah = (1 - z) * (1 - c * c)
+        az = (prev - c) * z * (1 - z)
+        ar = ah * hh * r * (1 - r)
+        dhp = torch.empty_like(hp)
+        carry = torch.zeros_like(hs[d, 0])
+        for p in range(t_steps - 1, -1, -1):
+            t = order[p]
+            dh = carry + g[d, t]
+            dxp[d, t] = torch.cat([dh * az[t], dh * ar[t], dh * ah[t]], -1)
+            dhp[t] = torch.cat([dh * az[t], dh * ar[t], dh * ah[t] * r[t]],
+                               -1)
+            carry = dh * z[t] + dhp[t] @ rk[d].T
+        drk[d] = prev.reshape(-1, u).T @ dhp.reshape(-1, k)
+        drb[d] = dhp.reshape(-1, k).sum(0)
+    return dxp, drk, drb
+
+
+@pytest.mark.parametrize("d,t,b,u", [(1, 12, 8, 16), (2, 60, 3, 16),
+                                     (2, 9, 17, 64)])
+def test_kernel_decomposition_matches_the_plain_version(d, t, b, u):
+    """The backward's algorithm (hp off the chain, coefficients linear in
+    dh, one product a step), modelled on the CPU, holds
+    `gru_scan_bwd_ref` in f32."""
+    xp, rk, rb, hs, g = map(torch.from_numpy,
+                            _bwd_inputs(d, t=t, b=b, u=u, seed=6))
+    got = _bwd_model(xp, rk, rb, hs, g)
+    want = gru.gru_scan_bwd_ref(xp, rk, rb, hs, g)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b", [3, 64, 256])
+def test_every_bwd_variant_covers_every_state_where_it_takes_u(b):
+    """chip_smoke times every variant at the path shapes: each forced plan
+    covers every state once too, and a variant that cannot take U raises."""
+    for v in range(len(gru._BWD_VARIANTS)):
+        for u in (16, 128, 144):
+            if not gru._bwd_clusters(v, u):
+                with pytest.raises(ValueError, match="does not take"):
+                    gru._bwd_plan(2, b, u, variant=v)
+                continue
+            plan = gru._bwd_plan(2, b, u, variant=v)
+            states = _bwd_states(plan, 2, b, u)
+            assert len(states) == len(set(states)) == 2 * b * u
