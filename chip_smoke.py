@@ -10,20 +10,27 @@ Phases, one line each:
               f32 and bf16 at its path's shapes, with its time, the plain
               version's time, its bound and one PyTorch library call's time
               (none for stem_dy)
-  4. model    full-width SS5 (seeded weights), B=32, on the card against the
+  4. routes   the shapes the kernels do not take, on the card against the
+              CPU through the composed routes, with no kernel launched: a
+              biGRU at U=6 (B=8) and U=384 (B=3), FOA features at 40
+              mels and n_fft 512; a Conv2DBN stem with pool [5, 4] (one
+              train step), whose backward runs stem_dy's generic path
+              once; and a biGRU at U=384, B=8, which raises on the card
+              (the JAX package runs its kernel there; the port has none)
+  5. model    full-width SS5 (seeded weights), B=32, on the card against the
               same model on the CPU with the plain kernels, TF32 off
-  5. serve    export a window artifact, serve it with micro-batching on an
+  6. serve    export a window artifact, serve it with micro-batching on an
               ephemeral port, send concurrent /v1/score requests (f32 and
               one bf16) through the port's client, check every reply against
               a direct forward and that every dispatch launched the GRU
               kernel once per GRU layer
-  6. train    the SS5 training step at full width: (a) one f32 step at B=8,
+  7. train    the SS5 training step at full width: (a) one f32 step at B=8,
               dropouts zeroed, on the card against the same step on the CPU
               (losses, every gradient, the updated parameters, the running
               statistics); (b) 20 bf16 steps at B=256 with dropout through
               seld_tpu_torch.bench's step: finite losses and exactly 2
               gru_scan, 2 gru_scan_bwd and 1 stem_dy launches per step
-  7. feed     the wav-native training path at full width through its CLI
+  8. feed     the wav-native training path at full width through its CLI
               (python -m seld_tpu_torch.train's main): 20 numpy-seeded
               60-s 24 kHz FOA wavs with label CSVs (16 train, 2 val, 2
               test) -> the front-end kernel -> train-split normalizer ->
@@ -33,11 +40,17 @@ Phases, one line each:
               checkpoint; then --resume from that checkpoint. Exact launch
               counts of all five kernels, finite losses, the feature-build
               time, each epoch's time and windows/s through the feed
-Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16)
-and at U=64, printing each call's tile plan, and times every plan at the
-serving and training shapes; gru_scan_bwd the same way at B in {1, 3, 32,
-256} (U=128, f32 and bf16), U=64 and U=144, with its device time by
-kernel (torch.profiler) and every plan at B=256 and B=64. It also holds
+Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
+at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152,
+printing each call's tile plan, and times every plan at the serving and
+training shapes and U=256 at B=256 bf16; gru_scan_bwd the same way at B in
+{1, 3, 32, 256} (U=128, f32 and bf16), U=64, U=144, U in {192, 256} and
+U in {100, 152, 208} (blocks with padding lanes), with its device time by
+kernel (torch.profiler) and every plan at B=256 and B=64. stem_dy: the
+layout of the cotangent the training step hands it (a tensor hook on the
+stem's pooled output), every pool of STEM_CASES on data with ties against
+stem_dy_ref, and at the training shape its time beside a bytes yardstick.
+It also holds
 the two feed kernels against their plain versions: foa_frontend at one
 chunk of 8 synthetic 60-s clips (beside torch.fft.rfft over the same
 windowed frames, the FFT stage alone), gather_rows at B=256 rows of [300,
@@ -45,13 +58,15 @@ windowed frames, the FFT stage alone), gather_rows at B=256 rows of [300,
 f32, of 30-byte rows, and as the x+y pairs the feed launches. Device-only
 times come from a CUDA graph of the calls (graph_ms), beside the time per
 call; the build prints each kernel's registers and spills.
-With --kernels-only it stops after phase 3, with no result line.
+With --kernels-only it stops after phase 3, with no result line; it also
+prints stem_dy.cu's static SASS instruction counts (cuobjdump).
 Then a JSON line {"kernels": [...]}, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed phase raises: the exit code
 is non-zero and no result line is printed. Without a CUDA card, or run
 from a directory that holds this file and nothing else of the repository,
 it fails the same way.
 """
+import copy
 import json
 import math
 import os
@@ -195,6 +210,10 @@ def phase_kernels(card):
     cases = [(dtype, b, 128) for dtype in ("float32", "bfloat16")
              for b in (1, 3, 17, 32, 256)]
     cases += [("float32", 17, 64), ("bfloat16", 17, 64)]
+    # the widest variant, also with padding lanes (U = 152: 19 units a CTA)
+    cases += [(dtype, b, u) for u in (192, 256)
+              for dtype in ("float32", "bfloat16") for b in (3, 32, 256)]
+    cases += [("float32", 17, 152), ("bfloat16", 256, 152)]
     for dtype, b, u in cases:
         xp, rk, rb = _gru_inputs(rng, d, t, b, u, dtype)
         hs = gru_scan(xp, rk, rb)
@@ -216,6 +235,8 @@ def phase_kernels(card):
             timing = (xp, rk, rb, hs)
         if (dtype, b, u) == ("bfloat16", 256, 128):
             train_args = (xp, rk, rb)
+        if (dtype, b, u) == ("bfloat16", 256, 256):
+            wide_args = (xp, rk, rb)
 
     # the serving path's shape: SS5 biGRU-128, T=60, a B=32 bucket, f32
     xp, rk, rb, hs = timing
@@ -253,8 +274,16 @@ def phase_kernels(card):
                    f"library_ms (cuDNN GRU training forward, bf16) "
                    f"{train_library_ms:.4f} bound_ms {train_bound_ms:.5f} "
                    f"({train_bound_by})")
-    # every plan that takes U=128 at both shapes, for the choice above
-    # and every plan that takes U=128 at both shapes, each held against the
+    # U=256, B=256 bf16: the widest variant against its bound
+    wide_ms = cuda_ms(lambda: gru_scan(*wide_args), 50)
+    wide_device_ms = graph_ms(lambda: gru_scan(*wide_args), 50)
+    wide_bound_ms, wide_bound_by = gru_scan_bound(*wide_args)
+    wide_plan = _fwd_plan(2, 256, 256)
+    log("kernels", f"gru_scan bf16 D=2 T=60 B=256 U=256: kernel_ms "
+                   f"{wide_ms:.4f} (device ms {wide_device_ms:.4f}; "
+                   f"{_plan_text(wide_plan)}) bound_ms {wide_bound_ms:.5f} "
+                   f"({wide_bound_by})")
+    # every plan that takes U=128 at both shapes, each held against the
     # plain version, for the choice above
     for name, args in (("B=32 f32", timing[:3]), ("B=256 bf16", train_args)):
         ref = gru_scan_ref(*args).float()
@@ -283,7 +312,10 @@ def phase_kernels(card):
             "train_shape_library_ms": train_library_ms,
             "train_shape_bound_ms": train_bound_ms,
             "train_shape_bound_by": train_bound_by,
-            "train_shape_plan": _plan_json(train_plan)}
+            "train_shape_plan": _plan_json(train_plan),
+            "u256_ms": wide_ms, "u256_device_ms": wide_device_ms,
+            "u256_bound_ms": wide_bound_ms, "u256_bound_by": wide_bound_by,
+            "u256_plan": _plan_json(wide_plan)}
 
 
 def gru_scan_bound(xp, rk, rb):
@@ -296,6 +328,17 @@ def gru_scan_bound(xp, rk, rb):
               + rb.numel() * 4)
     flops = 2 * d * t * b * u * 3 * u + 10 * d * t * b * u   # product + gates
     return bound(nbytes, flops)
+
+
+def gru_bwd_bound(xp, rk, rb, hs, g):
+    """gru_scan_bwd's bound: x_proj, hs and g read and dx_proj written in
+    x_proj's dtype, the f32 weights read and their gradients written; the
+    three B x U x 3U products a step and direction."""
+    d, t, b, k = xp.shape
+    u = k // 3
+    nbytes = ((xp.numel() * 2 + hs.numel() + g.numel()) * xp.element_size()
+              + (rk.numel() + rb.numel()) * 4 * 2)
+    return bound(nbytes, 3 * 2 * d * t * b * u * 3 * u)
 
 
 def bound(nbytes, flops):
@@ -397,7 +440,6 @@ def phase_kernels_bwd(card):
                                         _gru_scan_bwd_cuda, gru_scan_bwd,
                                         gru_scan_bwd_ref, gru_scan_ref,
                                         library_bwd_variants)
-    from seld_tpu_torch.ops.stem_bwd import stem_dy, stem_dy_ref
 
     if library_bwd_variants() != _BWD_VARIANTS:
         raise SystemExit(f"csrc/gru_bwd.cu's variants "
@@ -410,6 +452,13 @@ def phase_kernels_bwd(card):
     cases = [(dtype, b, 128) for dtype in ("float32", "bfloat16")
              for b in (1, 3, 32, 256)]
     cases += [("float32", 17, 64), ("bfloat16", 64, 144)]
+    # the widest variant, and blocks with padding lanes (U = 100 and 152 on
+    # the wide variant, 208 on the widest)
+    cases += [(dtype, b, u) for u in (192, 256)
+              for dtype in ("float32", "bfloat16") for b in (3, 32, 256)]
+    cases += [("float32", 17, 100), ("bfloat16", 256, 100),
+              ("float32", 17, 152), ("bfloat16", 32, 208)]
+    wide = None
     for dtype, b, u in cases:
         dt = getattr(torch, dtype)
         xp = torch.from_numpy(rng.randn(d, t, b, 3 * u).astype(
@@ -441,6 +490,19 @@ def phase_kernels_bwd(card):
             for a, w in zip(got, want)))
         if (dtype, b, u) == ("bfloat16", 256, 128):
             timing = (xp, rk, rb, hs, g, got)
+        if (dtype, b, u) == ("bfloat16", 256, 256):
+            wide = (xp, rk, rb, hs, g)
+
+    # U=256, B=256 bf16: the widest variant against its bound
+    wide_ms = cuda_ms(lambda: gru_scan_bwd(*wide), 20)
+    wide_device_ms = graph_ms(lambda: gru_scan_bwd(*wide), 20)
+    wide_bound_ms, wide_bound_by = gru_bwd_bound(*wide)
+    wide_plan = _bwd_plan(d, 256, 256)
+    log("kernels", f"gru_scan_bwd bf16 D=2 T=60 B=256 U=256: kernel_ms "
+                   f"{wide_ms:.4f} (device ms {wide_device_ms:.4f}; "
+                   f"{_plan_text(wide_plan)}) bound_ms {wide_bound_ms:.5f} "
+                   f"({wide_bound_by})")
+    del wide
 
     # the training path's shape: D=2, T=60, B=256, U=128, bf16 storage
     xp, rk, rb, hs, g, got = timing
@@ -452,10 +514,7 @@ def phase_kernels_bwd(card):
     plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xp, rk, rb, hs, g), 2)
     lib_fwd, lib_both = cudnn_gru_train(xp, rk, rb, g)
     library_ms = cuda_ms(lib_both, 20) - cuda_ms(lib_fwd, 20)
-    nbytes = ((xp.numel() * 2 + hs.numel() + g.numel()) * xp.element_size()
-              + (rk.numel() + rb.numel()) * 4 * 2)
-    flops = 3 * 2 * d * t * b * u * 3 * u
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = gru_bwd_bound(xp, rk, rb, hs, g)
     log("kernels", f"gru_scan_bwd bf16 D=2 T=60 B=256 U=128 on {card}: "
                    f"kernel_ms {ms:.4f} (device ms {device_ms:.4f}) plain_ms "
                    f"{plain_ms:.4f} library_ms (cuDNN GRU backward) "
@@ -492,83 +551,358 @@ def phase_kernels_bwd(card):
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
                 "device_ms": device_ms, "passes_ms": passes,
-                "plan": _plan_json(_bwd_plan(d, b, u))}]
+                "plan": _plan_json(_bwd_plan(d, b, u)),
+                "u256_ms": wide_ms, "u256_device_ms": wide_device_ms,
+                "u256_bound_ms": wide_bound_ms, "u256_bound_by": wide_bound_by,
+                "u256_plan": _plan_json(wide_plan)}]
 
-    # stem_dy at the SS5 stem shape: y [B, 300, 64, 32], pool [5, 2], in
-    # the training path's layout (the conv's output is channels-last in
-    # memory, so the [B, T, F, C] view is contiguous) and, once, as a
-    # channels-first buffer; y on a coarse grid with many negatives, so
-    # windows hold exact ties and ReLU zeros
+    return entries + [kernels_stem_dy(card)]
+
+
+# stem_dy cases: (dtype, B, pool, y layout, dpooled layout); a layout is
+# "channels-last" (C innermost: the stem conv's output), "channels-first",
+# or "main path" (dpooled laid out as the training step hands it over)
+STEM_CASES = ([(dtype, b, (5, 2), "channels-last", "channels-last")
+               for dtype in ("float32", "bfloat16") for b in (8, 256)]
+              + [("bfloat16", 8, (5, 2), "channels-first", "channels-last"),
+                 ("float32", 256, (5, 2), "channels-last", "main path"),
+                 ("bfloat16", 256, (5, 2), "channels-last", "main path")]
+              # the other compile-time window, and the generic path's
+              + [(dtype, 64, pool, "channels-last", "main path")
+                 for pool in ((5, 1), (5, 4), (10, 2))
+                 for dtype in ("float32", "bfloat16")]
+              + [("bfloat16", 8, (5, 4), "channels-first", "channels-first"),
+                 ("float32", 8, (10, 2), "channels-first", "main path")])
+
+
+def _stem_inputs(gen, dtype, b, pool, layout, dp_layout, dp_order):
+    """y [B, 300, 64, 32] on a coarse grid with many negatives (windows hold
+    exact ties and ReLU zeros), dpooled and params6, in the given layouts."""
+    import torch
+    dt = getattr(torch, dtype)
+    shape = (b, 300, 64, 32)
+    first = (0, 3, 1, 2)                 # [B, C, T, F] in memory
+    y = (torch.randint(-6, 5, shape if layout == "channels-last" else
+                       tuple(shape[i] for i in first), generator=gen,
+                       device="cuda") / 4.0).to(dt)
+    if layout == "channels-first":
+        y = y.movedim(1, -1)
+    dshape = (b, 300 // pool[0], 64 // pool[1], 32)
+    order = {"channels-last": (0, 1, 2, 3), "channels-first": first,
+             "main path": dp_order}[dp_layout]
+    dp = torch.randn(tuple(dshape[i] for i in order), generator=gen,
+                     device="cuda").to(dt)
+    dp = dp.permute(tuple(order.index(i) for i in range(4)))
+    p6 = torch.stack([
+        0.1 * torch.randn(32, generator=gen, device="cuda"),
+        1.0 + 0.1 * torch.rand(32, generator=gen, device="cuda"),
+        1.0 + 0.2 * torch.rand(32, generator=gen, device="cuda"),
+        0.1 * torch.randn(32, generator=gen, device="cuda"),
+        1e-3 * torch.randn(32, generator=gen, device="cuda"),
+        1e-3 * torch.randn(32, generator=gen, device="cuda")])
+    return y, dp, p6
+
+
+def main_path_dpooled():
+    """(shape, strides, dtype) of the cotangent that the SS5 bf16 training
+    step hands the fused stem's backward: a tensor hook on the stem's pooled
+    output during one step of seld_tpu_torch.bench's step at B=8."""
+    import torch
+    import seld_tpu_torch.models.layers as layers
+    from seld_tpu_torch.bench import build
+    seen = []
+    fused = layers.conv_bn_relu_pool
+
+    def hooked(*args, **kwargs):
+        out = fused(*args, **kwargs)
+        if out[0].requires_grad:
+            out[0].register_hook(lambda g: seen.append(
+                (tuple(g.shape), g.stride(), g.dtype)))
+        return out
+    layers.conv_bn_relu_pool = hooked
+    try:
+        b = build(batch=8, dtype="bf16", device="cuda")
+        b.step(b.state, b.metric, b.x, b.y)
+        torch.cuda.synchronize()
+    finally:
+        layers.conv_bn_relu_pool = fused
+    if len(seen) != 1:
+        raise SystemExit(f"the stem's pooled output got {len(seen)} "
+                         "cotangents in one step")
+    return seen[0]
+
+
+def sass_report(source):
+    """Static SASS instruction counts of each kernel in a built library
+    (cuobjdump -sass): all, global loads and stores, integer arithmetic
+    (IMAD, IADD3, LEA, SHF, LOP3, ISETP, SEL, PRMT), the rest."""
+    import collections
+    import re
+
+    from seld_tpu_torch.ops import kernels
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("kernels", f"no {tool}: SASS not counted")
+        return {}
+    text = subprocess.run([tool, "-sass", kernels.library_path(source)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    integer = ("IMAD", "IADD3", "LEA", "SHF", "LOP3", "ISETP", "SEL", "PRMT")
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"\d+([A-Za-z]\w*?_kernel)(\w*)", m.group(1))
+            args = [] if not k else re.findall(r"Li(\d+)E", k.group(2)) + (
+                ["bf16"] if "bfloat16" in k.group(2) else [])
+            name = m.group(1) if not k else k.group(1) + (
+                f"<{','.join(args)}>" if args else "")
+            while name in out:
+                name += "'"
+            out[name] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                      line)
+        if name and m and m.group(1) != "NOP":
+            op = m.group(1)
+            c = out[name]
+            c["all"] += 1
+            c["LDG" if op == "LDG" else "STG" if op == "STG" else
+              "int" if op in integer else "other"] += 1
+    return {k: dict(v) for k, v in out.items()}
+
+
+def phase_sass(card):
+    """stem_dy.cu's static SASS instruction counts, by kernel."""
+    for fn, counts in sass_report("stem_dy.cu").items():
+        log("kernels", f"stem_dy.cu SASS {fn}: {counts}")
+
+
+def kernels_stem_dy(card):
+    """stem_dy against stem_dy_ref on every STEM_CASES case (with ties), and
+    its times at the training path's shape: B=256 bf16, pool [5, 2], y
+    channels-last and dpooled as the training step lays it out."""
+    import torch
+    from seld_tpu_torch.ops.stem_bwd import (_VEC_WINDOWS, _vector_path,
+                                             library_vec_windows, stem_dy,
+                                             stem_dy_ref)
+
+    if library_vec_windows() != _VEC_WINDOWS:
+        raise SystemExit(f"csrc/stem_dy.cu's vector windows "
+                         f"{library_vec_windows()} differ from "
+                         f"ops/stem_bwd.py's {_VEC_WINDOWS}")
+    dshape, dstride, ddtype = main_path_dpooled()
+    dp_order = tuple(sorted(range(4), key=lambda i: -dstride[i]))
+    log("kernels", f"stem_dy dpooled on the training path: shape {dshape}, "
+                   f"strides {dstride}, {ddtype}, dims outermost first "
+                   f"{dp_order} (0 B, 1 T, 2 F, 3 C)")
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    cases = [(dtype, b, "channels-last") for dtype in ("float32", "bfloat16")
-             for b in (8, 256)] + [("bfloat16", 8, "channels-first")]
-    for dtype, b, layout in cases:
-        dt = getattr(torch, dtype)
-        shape = (b, 300, 64, 32) if layout == "channels-last" \
-            else (b, 32, 300, 64)
-        y = (torch.randint(-6, 5, shape, generator=gen, device="cuda")
-             / 4.0).to(dt)
-        if layout == "channels-first":
-            y = y.movedim(1, -1)
-        dp = torch.randn(b, 60, 32, 32, generator=gen, device="cuda").to(dt)
-        p6 = torch.stack([
-            0.1 * torch.randn(32, generator=gen, device="cuda"),
-            1.0 + 0.1 * torch.rand(32, generator=gen, device="cuda"),
-            1.0 + 0.2 * torch.rand(32, generator=gen, device="cuda"),
-            0.1 * torch.randn(32, generator=gen, device="cuda"),
-            1e-3 * torch.randn(32, generator=gen, device="cuda"),
-            1e-3 * torch.randn(32, generator=gen, device="cuda")])
-        dy, dbias = stem_dy(y, dp, p6, (5, 2))
+    timing = None
+    for dtype, b, pool, layout, dp_layout in STEM_CASES:
+        y, dp, p6 = _stem_inputs(gen, dtype, b, pool, layout, dp_layout,
+                                 dp_order)
+        dy, dbias = stem_dy(y, dp, p6, pool)
         torch.cuda.synchronize()
-        want_dy, want_db = stem_dy_ref(y, dp, p6, (5, 2))
+        want_dy, want_db = stem_dy_ref(y, dp, p6, pool)
         e_dy, e_db = rel_err(dy, want_dy), rel_err(dbias, want_db)
-        ties = _tied_windows(y, p6)
+        ties = _tied_windows(y, p6, pool)
         ok = (e_dy <= BWD_TOL[dtype] and e_db <= BWD_TOL["float32"]
               and dy.stride() == y.stride() and ties > 0)
-        log("kernels", f"stem_dy {dtype} B={b} {layout}: rel_err dy "
-                       f"{e_dy:.2e} dbias {e_db:.2e} (tol "
+        path = "vector" if _vector_path(y, pool) else "generic"
+        log("kernels", f"stem_dy {dtype} B={b} pool {list(pool)} y "
+                       f"{layout}, dpooled {dp_layout} {dp.stride()} "
+                       f"({path} path): rel_err "
+                       f"dy {e_dy:.2e} dbias {e_db:.2e} (tol "
                        f"{BWD_TOL[dtype]:.1e}/{BWD_TOL['float32']:.0e}), "
-                       f"{ties} windows with "
-                       f"tied positive maxima {'ok' if ok else 'FAIL'}")
+                       f"{ties} windows with tied positive maxima "
+                       f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"stem_dy disagrees with stem_dy_ref at "
-                             f"{dtype} B={b} {layout}")
+            raise SystemExit(f"stem_dy disagrees with stem_dy_ref at {dtype} "
+                             f"B={b} pool {pool} {layout}/{dp_layout}")
         worst[dtype] = max(worst[dtype],
-                           (dy.float() - want_dy.float()).abs().max()
-                           .item())
-        if (dtype, b, layout) == ("bfloat16", 256, "channels-last"):
+                           (dy.float() - want_dy.float()).abs().max().item())
+        if (dtype, b, pool, dp_layout) == ("bfloat16", 256, (5, 2),
+                                           "main path"):
             timing = (y, dp, p6)
-    # the training path's shape and layout: B=256 bf16, channels-last
+        del y, dp, dy, want_dy
+    # the training path's shape and layouts; out is a separate buffer, so
+    # calls (and a graph's replays) do not chain through dy
     y, dp, p6 = timing
     out = torch.empty_like(y)
     ms = cuda_ms(lambda: stem_dy(y, dp, p6, (5, 2), out=out), 20)
+    device_ms = graph_ms(lambda: stem_dy(y, dp, p6, (5, 2), out=out), 20)
+    split = kernel_split_ms(lambda: stem_dy(y, dp, p6, (5, 2), out=out), 20,
+                            "stem_dy_")
     plain_ms = cuda_ms(lambda: stem_dy_ref(y, dp, p6, (5, 2)), 3)
+    # a bytes yardstick over the same bytes: a PyTorch elementwise pass that
+    # reads y and writes a buffer like it, then a read of dpooled
+    def stream():
+        torch.mul(y, 2.0, out=out)
+        dp.amax()
+    stream_ms = cuda_ms(stream, 20)
+    stream_device_ms = graph_ms(stream, 20)
     nbytes = (2 * y.numel() + dp.numel()) * y.element_size() + p6.numel() * 4
     bound_ms, bound_by = bound(nbytes, 0)
     log("kernels", f"stem_dy bf16 B=256 [256,300,64,32] pool [5,2] on "
-                   f"{card}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                   f"library_ms none bound_ms {bound_ms:.5f} ({bound_by})")
-    entries.append({"name": "stem_dy", "route": "cuda",
-                    "source": "seld_tpu_torch/csrc/stem_dy.cu",
-                    "replaces": "seld_tpu/ops/pallas/stem_bwd.py:102",
-                    "launches": None, "max_abs_err": worst["float32"],
-                    "max_abs_err_bf16": worst["bfloat16"],
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": None})
-    return entries
+                   f"{card}: kernel_ms {ms:.4f} (device ms {device_ms:.4f}; "
+                   f"{_split_text(split)}) plain_ms {plain_ms:.4f} "
+                   f"library_ms none; yardstick: torch.mul of y into a "
+                   f"buffer like y and dpooled.amax() {stream_ms:.4f} "
+                   f"(device ms "
+                   f"{stream_device_ms:.4f}); bound_ms {bound_ms:.5f} "
+                   f"({bound_by})")
+    return {"name": "stem_dy", "route": "cuda",
+            "source": "seld_tpu_torch/csrc/stem_dy.cu",
+            "replaces": "seld_tpu/ops/pallas/stem_bwd.py:102",
+            "launches": None, "max_abs_err": worst["float32"],
+            "max_abs_err_bf16": worst["bfloat16"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "device_ms": device_ms, "split_ms": split,
+            "yardstick_ms": stream_ms,
+            "yardstick_device_ms": stream_device_ms,
+            "dpooled_strides": list(dstride)}
 
 
-def _tied_windows(y, p6):
+def _tied_windows(y, p6, pool):
     """Windows whose positive maximum is held by two or more elements."""
     from seld_tpu_torch.ops.stem_bwd import bn_affine
     scale, shift = bn_affine(p6[0], p6[1], p6[2], p6[3], y.dtype)
     bno = (y * scale + shift).float()
     b, t, f, c = bno.shape
-    w = bno.reshape(b, t // 5, 5, f // 2, 2, c)
+    pt, pf = pool
+    w = bno.reshape(b, t // pt, pt, f // pf, pf, c)
     m = w.amax(dim=(2, 4), keepdim=True)
     cnt = ((w == m) & (w > 0)).sum(dim=(2, 4))
     return int((cnt > 1).sum().item())
+
+
+def _grads_err(got, want):
+    """max |got - want| / max |want| of each tensor."""
+    return [rel_err(g.cpu(), w) for g, w in zip(got, want)]
+
+
+def phase_routes(card):
+    """The shapes the kernels do not take run the composed routes on the
+    card, as the JAX package composes them with XLA, and match the CPU: a
+    biGRU layer at U=6, B=8 and U=384, B=3 (forward and gradients, no GRU
+    kernel launched), FOA features at 40 mels and n_fft 512 (no front-end
+    launch), and one training step of a Conv2DBN stem with pool [5, 4],
+    whose fused backward runs stem_dy's generic path (one launch). A biGRU
+    at U=384, B=8, where the JAX package runs its Pallas kernel, raises on
+    the card before any launch."""
+    import torch
+    from seld_tpu_torch.models.layers import GRU, Conv2DBN
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.ops.features import extract_features_batch
+    from seld_tpu_torch.ops.gru import gru_route
+    from seld_tpu_torch.ops.stem_bwd import _VEC_WINDOWS
+
+    def step(module, x, w, device):
+        m = copy.deepcopy(module).to(device)
+        xd = x.detach().clone().to(device).requires_grad_()
+        out = m(xd)
+        (out * w.to(device)).sum().backward()
+        return [out, xd.grad] + [p.grad for p in m.parameters()], \
+            [b.detach().clone() for b in m.buffers()]
+
+    rng = np.random.RandomState(11)
+    kernels.launch_counts.clear()
+    def gru_layer(u):
+        gen = torch.Generator().manual_seed(u)
+        layer = GRU(64, u, bidirectional=True, generator=gen)
+        with torch.no_grad():
+            layer.bias.copy_(0.1 * torch.randn(layer.bias.shape,
+                                               generator=gen))
+        return layer
+
+    gru_counts = ("gru_scan", "gru_scan_bwd")
+    for u, b in ((6, 8), (384, 3)):
+        if gru_route(b, u, "cuda") != "plain":
+            raise SystemExit(f"U={u}, B={b} should take the composed route")
+        x = torch.from_numpy(rng.randn(b, 60, 64).astype(np.float32))
+        w = torch.from_numpy(rng.randn(b, 60, u).astype(np.float32))
+        layer = gru_layer(u)
+        want, _ = step(layer, x, w, "cpu")
+        got, _ = step(layer, x, w, "cuda")
+        err = max(_grads_err(got, want))
+        counts = {k: kernels.launch_counts[k] for k in gru_counts}
+        log("routes", f"biGRU U={u} B={b} T=60 f32 on the card vs the CPU: "
+                      f"output and gradients rel_err {err:.2e} (tol "
+                      f"{TRAIN_GRAD_RTOL:.0e}); GRU kernel launches {counts}")
+        if err > TRAIN_GRAD_RTOL or any(counts.values()):
+            raise SystemExit(f"the composed GRU route failed at U={u}")
+    try:
+        gru_layer(384).cuda()(torch.zeros(8, 60, 64, device="cuda"))
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    counts = {k: kernels.launch_counts[k] for k in gru_counts}
+    log("routes", f"biGRU U=384 B=8 on the card (the JAX package's kernel "
+                  f"shape): raised {raised!r}; GRU kernel launches {counts}")
+    if raised is None or any(counts.values()):
+        raise SystemExit("a biGRU at U=384, B=8 should raise on the card")
+
+    wavs = torch.from_numpy(np.round(rng.uniform(-0.5, 0.5, (2, 4, 48000))
+                                     * 32767).astype(np.int16))
+    kw = dict(n_mels=40, n_fft=512, win_length=480, hop_length=240)
+    want = extract_features_batch(wavs, **kw)
+    got = extract_features_batch(wavs.cuda(), **kw)
+    torch.cuda.synchronize()
+    err = (got.cpu() - want).abs().max().item()
+    launched = kernels.launch_counts["foa_frontend"]
+    log("routes", f"features 40 mels n_fft 512 of 2 2-s clips on the card "
+                  f"vs the CPU: {tuple(got.shape)} max_abs_err {err:.2e} "
+                  f"(tol {FRONTEND_TOL:.0e}); front-end launches {launched}")
+    if got.shape != want.shape or err > FRONTEND_TOL or launched:
+        raise SystemExit("the composed front-end route failed")
+
+    pool = (5, 4)
+    if pool in _VEC_WINDOWS:
+        raise SystemExit(f"pool {pool} should take stem_dy's generic path")
+    # input and weights on grids of 1/4 and 1/8: every conv sum is exact
+    # in f32 whatever its order, so the card and the CPU pool the same y.
+    # With continuous values a window whose two largest outputs differ by
+    # the two convs' rounding routes its gradient to another element on
+    # each device, and the input gradient differs there by a whole
+    # cotangent (as train phase (a) notes)
+    x = torch.from_numpy((rng.randint(-4, 5, (8, 300, 64, 7)) / 4.0)
+                         .astype(np.float32))
+    w = torch.from_numpy(rng.randn(8, 60, 16, 32).astype(np.float32))
+    stem = Conv2DBN((300, 64, 7), 32, 7, pool=pool)
+    with torch.no_grad():
+        stem.Conv_0.kernel.copy_(torch.from_numpy(
+            (rng.randint(-2, 3, (7, 7, 7, 32)) / 8.0).astype(np.float32)))
+        stem.Conv_0.bias.copy_(torch.from_numpy(
+            (rng.randint(-4, 5, 32) / 8.0).astype(np.float32)))
+    stem.train()
+    want, want_stats = step(stem, x, w, "cpu")
+    got, got_stats = step(stem, x, w, "cuda")
+    names = ["output", "input"] + [n for n, _ in stem.named_parameters()]
+    errs = dict(zip(names, _grads_err(got, want)))
+    # the conv bias's gradient is zero in exact arithmetic (the batch mean
+    # absorbs it): rounding noise on both sides, held below TRAIN_NULL_GRAD
+    # of the largest gradient element, as in train phase (a)
+    null = names.index("Conv_0.bias")
+    null_at = TRAIN_NULL_GRAD * max(g.abs().max().item() for g in want[1:])
+    null_max = max(got[null].abs().max().item(),
+                   want[null].abs().max().item())
+    del errs["Conv_0.bias"]
+    stats_err = max(_grads_err(got_stats, want_stats))
+    launched = kernels.launch_counts["stem_dy"]
+    log("routes", f"Conv2DBN 7x7/32 pool [5,4] train step B=8 f32 on the "
+                  f"card vs the CPU: rel_err of the output and the "
+                  f"gradients " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                            errs.items())
+                  + f" (tol {TRAIN_GRAD_RTOL:.0e}); Conv_0.bias, zero in "
+                  f"exact arithmetic, {null_max:.1e} (below {null_at:.1e}); "
+                  f"running stats rel_err {stats_err:.2e} (tol "
+                  f"{TRAIN_STATS_RTOL:.0e}); stem_dy launches {launched} "
+                  f"(generic path) on {card}")
+    if max(errs.values()) > TRAIN_GRAD_RTOL or null_max >= null_at or \
+            stats_err > TRAIN_STATS_RTOL or launched != 1:
+        raise SystemExit("the [5, 4] stem failed on the card")
 
 
 def phase_model(card):
@@ -1299,7 +1633,8 @@ def main(argv=None):
 
     if kernels_only:
         failed = []
-        for phase in (phase_kernels, phase_kernels_bwd, phase_kernels_feed):
+        for phase in (phase_sass, phase_kernels, phase_kernels_bwd,
+                      phase_kernels_feed):
             try:
                 phase(smi)
             except SystemExit as e:
@@ -1308,6 +1643,7 @@ def main(argv=None):
         raise SystemExit(f"failed: {failed}" if failed else 0)
     entries = [phase_kernels(smi)] + phase_kernels_bwd(smi)
     feed_entries = phase_kernels_feed(smi)
+    phase_routes(smi)
     model = phase_model(smi)
     entries[0]["launches"] = phase_serve(model, smi)
     del model

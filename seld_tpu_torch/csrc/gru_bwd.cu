@@ -44,7 +44,10 @@
 //        - no block barrier inside the step. dRb's sums over T stay in
 //          registers and are added over a tile's rows at the end.
 //      `_bwd_plan` in seld_tpu_torch/ops/gru.py picks the variant (kVariants)
-//      and C, as `_fwd_plan` does for the forward.
+//      and C, as `_fwd_plan` does for the forward. The widest variant
+//      (16, 4, 8, 2) takes U up to 256: 96 Rk values a lane, and at U = 256
+//      a cluster of 8 CTAs of 256 threads whose double-buffered dhp rows
+//      fill the 48 KB of static shared memory.
 //   3. gru_bwd_drk_kernel: dRk[d] = sum over the T B rows of h_prev^T dhp,
 //      as pass 1's tile product over fixed slices of the rows, no float
 //      atomics; gru_bwd_finalize_kernel adds the slices (dRk) and the tiles
@@ -80,7 +83,7 @@ struct Variant {
 // mirrored by seld_tpu_torch/ops/gru.py::_BWD_VARIANTS; variant v takes
 // U <= 4 s ni
 constexpr Variant kVariants[] = {{16, 2, 8, 4, 256}, {16, 2, 4, 4, 256},
-                                 {8, 5, 8, 2, 256}};
+                                 {8, 5, 8, 2, 256}, {16, 4, 8, 2, 256}};
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
 constexpr int kMaxCluster = 8;
 // Rk values a lane holds (NU x 3 x NI x 4): with its partial sums, dhp reads
@@ -718,10 +721,12 @@ cudaError_t dispatch_rec(int variant, const void* xp, const float* rk,
                                     T_steps, B, U, cluster, st);
     case 2: return launch_rec<2, T>(xp, rk, hs, g, dxp, hp_dhp, dbias, D,
                                     T_steps, B, U, cluster, st);
+    case 3: return launch_rec<3, T>(xp, rk, hs, g, dxp, hp_dhp, dbias, D,
+                                    T_steps, B, U, cluster, st);
     default: return cudaErrorInvalidValue;
   }
 }
-static_assert(kNumVariants == 3, "dispatch_rec() names every variant");
+static_assert(kNumVariants == 4, "dispatch_rec() names every variant");
 
 template <typename T>
 cudaError_t launch(const void* xp, const float* rk, const float* rb,

@@ -33,13 +33,16 @@
 //   - a ragged last tile is masked; a block is a whole number of warps, and
 //     the lanes of its padding units compute on zero weights and store
 //     nothing.
-// Three variants (S, NI, BT) take every U up to 144 (kVariants); the plan,
-// seld_tpu_torch/ops/gru.py::_fwd_plan, picks the variant and C. At small B
-// the latency variant (4, 8, 4) spreads a tile of 4 rows over a cluster of
-// 8 CTAs of 64 threads (B = 32: 128 CTAs); at large B the batch variant
-// (4, 8, 8) packs a tile of 8 rows into 2 CTAs of 256 threads (B = 256:
-// 128 CTAs, one a SM, 8 warps each to hide the FMA and shared-memory
-// latency). The wide variant (4, 9, 8) takes U up to 144.
+// Four variants (S, NI, BT) take U % 4 == 0 up to 256 where a cluster
+// size splits U evenly (kVariants); the plan,
+// seld_tpu_torch/ops/gru.py::_fwd_plan, picks the variant and C.
+// At small B the latency variant (4, 8, 4) spreads a tile of 4 rows over a
+// cluster of 8 CTAs of 64 threads (B = 32: 128 CTAs); at large B the batch
+// variant (4, 8, 8) packs a tile of 8 rows into 2 CTAs of 256 threads (B =
+// 256: 128 CTAs, one a SM, 8 warps each to hide the FMA and shared-memory
+// latency). The wide variant (4, 9, 8) takes U up to 144, and the widest
+// (8, 8, 8) U up to 256: 8 lanes a unit keep 96 Rk values a lane, and at
+// U = 256 a cluster of 8 CTAs of 256 threads.
 //
 // What bounds it: the f32 FMAs of h @ Rk at 67 TFLOP/s (the reference
 // multiplies in f32, so neither bf16 nor single-pass TF32 tensor-core
@@ -66,7 +69,7 @@ struct Variant {
 };
 // mirrored by seld_tpu_torch/ops/gru.py::_FWD_VARIANTS
 constexpr Variant kVariants[] = {{4, 8, 8, 256}, {4, 8, 4, 256},
-                                 {4, 9, 8, 256}};
+                                 {4, 9, 8, 256}, {8, 8, 8, 256}};
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
 constexpr int kMaxCluster = 8;    // the portable cluster size
 constexpr int kGroup = 8;         // h rows read ahead of their FMAs
@@ -320,10 +323,11 @@ cudaError_t dispatch(int variant, const void* xp, const float* rk,
     case 0: return launch<0, T>(xp, rk, rb, hs, D, T_steps, B, U, cluster, st);
     case 1: return launch<1, T>(xp, rk, rb, hs, D, T_steps, B, U, cluster, st);
     case 2: return launch<2, T>(xp, rk, rb, hs, D, T_steps, B, U, cluster, st);
+    case 3: return launch<3, T>(xp, rk, rb, hs, D, T_steps, B, U, cluster, st);
     default: return cudaErrorInvalidValue;
   }
 }
-static_assert(kNumVariants == 3, "dispatch() names every variant");
+static_assert(kNumVariants == 4, "dispatch() names every variant");
 
 }  // namespace
 

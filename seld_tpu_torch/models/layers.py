@@ -376,10 +376,14 @@ class GRU(nn.Module):
     """(Bi)directional GRU over [B, T, I] -> [B, T, U*dirs or U].
 
     Keras GRU v2 semantics (reset_after, z|r|h): kernel [D, I, 3U],
-    recurrent_kernel [D, U, 3U], bias [D, 2, 3U]. The recurrence runs
-    through `ops.gru.gru_scan` — the CUDA kernel on the card, its plain
-    version on the CPU. Direction 1 runs in descending time with its states
-    at their real t, which equals the JAX scan path's reverse-and-flip.
+    recurrent_kernel [D, U, 3U], bias [D, 2, 3U]. `ops.gru.gru_route`
+    picks the recurrence: `ops.gru.gru_scan` where the kernels take U (the
+    CUDA kernels on the card, their plain versions on the CPU), else the
+    plain recurrence under torch's autograd where the JAX layer runs
+    `lax.scan` too; on the card it raises where the JAX layer runs a Pallas
+    kernel that the port lacks. Direction 1 runs in descending time with
+    its states at their real t, which equals the JAX scan path's
+    reverse-and-flip.
     Input and recurrent dropout in training are not yet ported (every
     shipped config uses 0.0).
     """

@@ -8,9 +8,12 @@
     calculate_statistics, apply_normalizer
 
 On a CUDA tensor FOA extraction runs the fused front-end kernel
-(ops/frontend.py); on a CPU tensor the plain composition of the JAX package
-(complex spectrum, |X|^2, mel projection, intensity vectors). Integer PCM
-is scaled to [-1, 1) first, exactly as the loader's int / 2^(bits-1).
+(ops/frontend.py) where it takes the shape (`frontend_applicable`: 64 mels,
+n_fft 1024); a CPU tensor, and any other shape on the card, runs the plain
+composition of the JAX package (complex spectrum, |X|^2, mel projection,
+intensity vectors), as the JAX package composes every shape with XLA.
+Integer PCM is scaled to [-1, 1) first, exactly as the loader's int /
+2^(bits-1).
 
 Not ported yet (ROADMAP queue 1, item 8): the microphone-array features
 (`mode="mic"`, GCC-PHAT) and SALSA-lite.
@@ -22,7 +25,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from seld_tpu_torch.ops.frontend import fused_foa_frontend
+from seld_tpu_torch.ops.frontend import (frontend_applicable,
+                                         fused_foa_frontend)
 from seld_tpu_torch.ops.mel import (amplitude_to_db, apply_melscale,
                                     mel_filterbank)
 from seld_tpu_torch.ops.stft import complex_spec
@@ -82,14 +86,16 @@ def extract_features_batch(wavs: torch.Tensor,
                            hop_length: int = 480,
                            method: Optional[str] = None) -> torch.Tensor:
     """[N, chan, T] equal-length wavs -> [N, time, n_mels, 7]. On the card
-    one launch of the front-end kernel for the batch; `method` picks the
-    CPU path's DFT ('fft' or 'matmul') and is unused on the card."""
+    one launch of the front-end kernel for the batch where
+    `frontend_applicable` holds, else the plain composition there too;
+    `method` picks the plain composition's DFT ('fft' or 'matmul')."""
     if mode == "mic":
         raise NotImplementedError(_UNPORTED)
     if mode != "foa":
         raise ValueError(f"invalid mode: {mode!r}")
     wavs = _to_float(wavs)
-    if wavs.device.type == "cuda":
+    if wavs.device.type == "cuda" and frontend_applicable(n_mels, n_fft,
+                                                          win_length):
         return fused_foa_frontend(wavs, sample_rate=sample_rate,
                                   n_mels=n_mels, n_fft=n_fft,
                                   win_length=win_length,

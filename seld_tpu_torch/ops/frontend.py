@@ -40,6 +40,13 @@ _MAX_NNZ = 2 * (_N_FFT // 2 + 1)   # kMaxNnz: each bin feeds at most 2 mels
 _TW2, _TW3, _TWIDDLES = 512, 576, 832
 
 
+def frontend_applicable(n_mels: int, n_fft: int, win_length: int) -> bool:
+    """Whether csrc/foa_frontend.cu takes the shape: 64 mels, n_fft 1024
+    and 0 < win_length <= n_fft. `extract_features_batch` runs every other
+    shape through the plain composition, on either device."""
+    return n_mels == _MELS and n_fft == _N_FFT and 0 < win_length <= n_fft
+
+
 @functools.lru_cache(maxsize=4)
 def _frontend_constants(n_fft: int, win_length: int, n_mels: int,
                         sample_rate: int) -> Tuple[np.ndarray, ...]:
@@ -143,7 +150,7 @@ def _foa_frontend_cuda(wav, n_fft, win_length, hop_length, n_mels,
         raise ValueError("the front-end kernel takes a contiguous float32 "
                          f"wav; got {wav.dtype}, contiguous "
                          f"{wav.is_contiguous()}")
-    if n_mels != _MELS or n_fft != _N_FFT or not 0 < win_length <= n_fft:
+    if not frontend_applicable(n_mels, n_fft, win_length):
         raise ValueError(f"the front-end kernel takes {_MELS} mels, n_fft "
                          f"{_N_FFT} and a window no longer; got {n_mels}, "
                          f"{n_fft}, {win_length}")

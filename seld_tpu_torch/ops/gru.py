@@ -10,7 +10,13 @@ the gates: csrc/gru_bwd.cu on a CUDA tensor, `gru_scan_bwd_ref` on a CPU
 tensor. There is no fallback from a kernel to its plain version: a CUDA
 tensor the kernel does not take raises. Both kernels run each (direction,
 batch tile) as a thread block cluster; `_fwd_plan` and `_bwd_plan` pick the
-tile, cluster size and variant.
+tile, cluster size and variant; each CTA of a cluster owns an equal share
+of U. `gru_kernel_applicable` holds where both plans exist (U % 4 == 0,
+4 <= U <= 256, split evenly: every U of the shipped configs and of the NAS
+space but 6). `gru_route` sends any other U through the plain recurrence
+under torch's autograd where the JAX package composes it too (`lax.scan`),
+and raises on the card where the JAX package runs its Pallas kernel and
+the port has none (B % 8 == 0, U % 128 == 0, U > 256).
 
 The input projection `x @ kernel + bias[:, 0]` stays one large
 `torch.einsum` (`gru_forward`), and so does its backward, as the JAX
@@ -31,12 +37,32 @@ _BWD_SOURCE = "gru_bwd.cu"
 # csrc/gru_fwd.cu's kVariants: (S lanes splitting a unit's k-range, NI
 # 4-row k chunks per lane, BT batch rows per tile, most threads a block may
 # have); variant v takes U <= 4 * S * NI
-_FWD_VARIANTS = ((4, 8, 8, 256), (4, 8, 4, 256), (4, 9, 8, 256))
-_FWD_BATCH, _FWD_LATENCY, _FWD_WIDE = 0, 1, 2
+_FWD_VARIANTS = ((4, 8, 8, 256), (4, 8, 4, 256), (4, 9, 8, 256),
+                 (8, 8, 8, 256))
+_FWD_BATCH, _FWD_LATENCY, _FWD_WIDE, _FWD_WIDEST = 0, 1, 2, 3
+_MAX_UNITS = 256              # the widest variants of both kernels
 _CLUSTERS = (1, 2, 4, 8)      # portable thread block cluster sizes
 _SMS = 132                    # H100 SXM
 # the latency variant while its warps average at most 4 per SM
 _LATENCY_THREADS = _SMS * 128
+
+
+def _warps(threads: int) -> int:
+    """`threads` rounded up to whole warps."""
+    return -(-threads // 32) * 32
+
+
+def _split_clusters(units: int, s: int, maxt: int) -> list:
+    """Cluster sizes that split `units` (or lane groups) of S lanes evenly
+    over their CTAs within `maxt` threads a CTA."""
+    return [c for c in _CLUSTERS
+            if units % c == 0 and _warps(units // c * s) <= maxt]
+
+
+def _fwd_clusters(v: int, u: int) -> list:
+    """The cluster sizes on which forward variant v takes U units."""
+    s, ni, _, maxt = _FWD_VARIANTS[v]
+    return _split_clusters(u, s, maxt) if u <= 4 * s * ni else []
 
 
 class FwdPlan(NamedTuple):
@@ -62,27 +88,28 @@ def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
     that divides U, while its threads fit `_LATENCY_THREADS`; otherwise the
     batch variant (BT = 8), or the wide one past U = 128, packs each tile
     into the smallest cluster whose blocks fit the variant's thread limit
-    (at U = 128, B = 256: 2 CTAs of 256 threads, 128 CTAs in all).
-    `variant` forces one. Raises on a U no variant takes."""
-    takes = [v for v, (s, ni, _, _) in enumerate(_FWD_VARIANTS)
-             if u <= 4 * s * ni]
+    (at U = 128, B = 256: 2 CTAs of 256 threads, 128 CTAs in all), and the
+    widest past U = 144. `variant` forces one. Raises on a U no variant
+    takes."""
+    takes = [v for v in range(len(_FWD_VARIANTS)) if _fwd_clusters(v, u)]
     if u < 4 or u % 4 or not takes:
         raise ValueError(
             f"U={u}: the GRU forward kernel takes U % 4 == 0 and 4 <= U <= "
-            f"{max(4 * s * ni for s, ni, _, _ in _FWD_VARIANTS)}")
+            f"{max(4 * s * ni for s, ni, _, _ in _FWD_VARIANTS)} that a "
+            "cluster size splits evenly within a block's threads")
 
     def plan(v):
-        s, _, bt, maxt = _FWD_VARIANTS[v]
-        fits = [c for c in _CLUSTERS
-                if u % c == 0 and -(-(u // c * s) // 32) * 32 <= maxt]
+        s, _, bt, _ = _FWD_VARIANTS[v]
+        fits = _fwd_clusters(v, u)
         c = fits[-1] if v == _FWD_LATENCY else fits[0]
-        threads = -(-(u // c * s) // 32) * 32
-        return FwdPlan(v, bt, c, threads, (-(-b // bt) * c, d))
+        return FwdPlan(v, bt, c, _warps(u // c * s), (-(-b // bt) * c, d))
 
     if variant is None:
-        latency = plan(_FWD_LATENCY)
-        variant = _FWD_LATENCY if _FWD_LATENCY in takes and \
-            latency.ctas * latency.threads <= _LATENCY_THREADS else takes[0]
+        variant = takes[0]
+        if _FWD_LATENCY in takes:
+            latency = plan(_FWD_LATENCY)
+            if latency.ctas * latency.threads <= _LATENCY_THREADS:
+                variant = _FWD_LATENCY
     elif variant not in takes:
         raise ValueError(f"variant {variant} does not take U={u}")
     return plan(variant)
@@ -91,19 +118,20 @@ def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
 # csrc/gru_bwd.cu's kVariants: (S lanes splitting a group's k-range, NI
 # 4-wide k chunks per lane and gate, BT batch rows per tile, NU units per
 # lane group, most threads a block may have); variant v takes U <= 4 * S * NI
-# and a cluster size C with (U / C) % NU == 0. A float4 of dhp read from
-# shared memory feeds 4 NU FMAs: the batch and latency variants hold 4
-# units a group, the wide one (U up to 160) 2.
-_BWD_VARIANTS = ((16, 2, 8, 4, 256), (16, 2, 4, 4, 256), (8, 5, 8, 2, 256))
-_BWD_BATCH, _BWD_LATENCY, _BWD_WIDE = 0, 1, 2
+# with U % NU == 0. A float4 of dhp read from shared memory feeds 4 NU FMAs:
+# the batch and latency variants hold 4 units a group, the wide one (U up
+# to 160) and the widest (up to 256) 2.
+_BWD_VARIANTS = ((16, 2, 8, 4, 256), (16, 2, 4, 4, 256), (8, 5, 8, 2, 256),
+                 (16, 4, 8, 2, 256))
+_BWD_BATCH, _BWD_LATENCY, _BWD_WIDE, _BWD_WIDEST = 0, 1, 2, 3
 _BWD_MAX_WEIGHTS = 128   # kMaxWeights: Rk values one lane holds in registers
 
 
 class BwdPlan(NamedTuple):
     """How csrc/gru_bwd.cu's recurrence runs one call: a cluster of `c`
     CTAs of `threads` threads per (direction, tile of `bt` batch rows);
-    grid (tiles * c, D); each CTA owns U / c units, NU to a group of S
-    lanes."""
+    grid (tiles * c, D); each CTA owns U / NU / c groups of NU units, each
+    group S lanes."""
     variant: int
     bt: int
     c: int
@@ -118,9 +146,9 @@ class BwdPlan(NamedTuple):
 def _bwd_clusters(v: int, u: int) -> list:
     """The cluster sizes on which variant v takes U units."""
     s, ni, _, nu, maxt = _BWD_VARIANTS[v]
-    return [c for c in _CLUSTERS if u <= 4 * s * ni and u % c == 0
-            and (u // c) % nu == 0 and -(-(u // c // nu * s) // 32) * 32
-            <= maxt]
+    if u > 4 * s * ni or u % nu:
+        return []
+    return _split_clusters(u // nu, s, maxt)
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,14 +163,16 @@ def _bwd_plan(d: int, b: int, u: int, variant: int = None) -> BwdPlan:
     if u < 4 or u % 4 or not takes:
         raise ValueError(
             f"U={u}: the GRU backward kernel takes U % 4 == 0 and 4 <= U <= "
-            f"{max(4 * s * ni for s, ni, _, _, _ in _BWD_VARIANTS)}")
+            f"{max(4 * s * ni for s, ni, _, _, _ in _BWD_VARIANTS)} that a "
+            "cluster size splits into whole lane groups evenly within a "
+            "block's threads")
 
     def plan(v):
         s, _, bt, nu, _ = _BWD_VARIANTS[v]
         fits = _bwd_clusters(v, u)
         c = fits[-1] if bt < 8 else fits[0]
-        threads = -(-(u // c // nu * s) // 32) * 32
-        return BwdPlan(v, bt, c, threads, (-(-b // bt) * c, d))
+        return BwdPlan(v, bt, c, _warps(u // nu // c * s),
+                       (-(-b // bt) * c, d))
 
     if variant is None:
         variant = takes[0]
@@ -153,6 +183,38 @@ def _bwd_plan(d: int, b: int, u: int, variant: int = None) -> BwdPlan:
     elif variant not in takes:
         raise ValueError(f"variant {variant} does not take U={u}")
     return plan(variant)
+
+
+def gru_kernel_applicable(units: int) -> bool:
+    """Whether the GRU kernels take U units (any batch): what `_fwd_plan`
+    and `_bwd_plan` both plan for, U % 4 == 0 and 4 <= U <= 256 where a
+    cluster size splits U evenly within a variant's threads."""
+    return units >= 4 and units % 4 == 0 and \
+        any(_fwd_clusters(v, units) for v in range(len(_FWD_VARIANTS))) and \
+        any(_bwd_clusters(v, units) for v in range(len(_BWD_VARIANTS)))
+
+
+def tpu_kernel_applicable(batch: int, units: int) -> bool:
+    """Where the JAX package runs its Pallas GRU kernels (a copy of
+    seld_tpu/ops/pallas/gru.py::pallas_gru_applicable): B % 8 == 0 and
+    U % 128 == 0; elsewhere it runs `lax.scan`."""
+    return batch % 8 == 0 and units % 128 == 0
+
+
+def gru_route(batch: int, units: int, device_type: str) -> str:
+    """How `gru_forward` runs the recurrence: "kernel" (`gru_scan`) where
+    `gru_kernel_applicable` holds, else "plain" (`gru_scan_ref` under
+    torch's autograd) on the CPU or where the JAX package composes the
+    recurrence too. Raises NotImplementedError on the card where the JAX
+    package runs a kernel that the port lacks (B % 8 == 0, U % 128 == 0,
+    U > 256)."""
+    if gru_kernel_applicable(units):
+        return "kernel"
+    if device_type == "cuda" and tpu_kernel_applicable(batch, units):
+        raise NotImplementedError(
+            f"U={units}, B={batch}: the JAX package runs its GRU kernel "
+            f"here; the port's kernels take U <= {_MAX_UNITS}")
+    return "plain"
 
 
 def _step_order(d: int, t_steps: int) -> range:
@@ -449,7 +511,8 @@ def gru_forward(x: torch.Tensor, kernel: torch.Tensor,
 
     x [B, T, I]; kernel [D, I, 3U]; rec_kernel [D, U, 3U]; bias [D, 2, 3U].
     Returns [B, T, U*dirs] ('concat') or [B, T, U] (other merges), matching
-    seld_tpu.models.layers.GRU.
+    seld_tpu.models.layers.GRU. The recurrence runs as `gru_route` says:
+    `gru_scan`, or `gru_scan_ref` under torch's autograd.
     """
     from seld_tpu_torch.models.layers import merge_bidirectional
 
@@ -457,7 +520,9 @@ def gru_forward(x: torch.Tensor, kernel: torch.Tensor,
     # one large product for all timesteps/directions; bias[:, 0] = input
     x_proj = torch.einsum("bti,dik->dtbk", x.to(dt), kernel.to(dt))
     x_proj = (x_proj + bias[:, None, None, 0].to(dt)).contiguous()
-    hs = gru_scan(x_proj, rec_kernel, bias[:, 1].contiguous())  # [D,T,B,U]
+    route = gru_route(x.shape[0], rec_kernel.shape[-2], x.device.type)
+    scan = gru_scan if route == "kernel" else gru_scan_ref
+    hs = scan(x_proj, rec_kernel, bias[:, 1].contiguous())    # [D,T,B,U]
     hs = hs.transpose(1, 2)                                   # [D,B,T,U]
     if not bidirectional:
         return hs[0]

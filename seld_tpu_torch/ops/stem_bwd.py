@@ -8,14 +8,18 @@ and folds in the BatchNorm-backward terms, giving dy (the gradient with
 respect to y) and dbias = sum(dy). On a CUDA tensor it launches the
 hand-written sm_90a kernel in csrc/stem_dy.cu; on a CPU tensor it runs
 `stem_dy_ref`, the plain PyTorch version (the JAX package's `_dy_xla`,
-seld_tpu/ops/stem.py:103-120). A CUDA tensor the kernel does not take
-raises.
+seld_tpu/ops/stem.py:103-120). The kernel takes any pool window and any
+strides: `_vector_path` picks its vector path (16-byte vectors of
+channels, the window a compile-time constant of `_VEC_WINDOWS`) where the
+layout allows, else its generic path. A CUDA tensor the kernel does not
+take raises.
 
 Routing compares against the window max of the recomputed affine, so the
 affine must be recomputed exactly as the forward computed it: `bn_affine`
 is the one definition of scale/shift that the forward (ops/stem.py) and
-both versions here use, and the product and sum then run in y's dtype,
-rounding after each, as PyTorch's eager `y * scale + shift` does.
+the plain version here use, and the kernel repeats it operation for
+operation; the product and sum then run in y's dtype, rounding after
+each, as PyTorch's eager `y * scale + shift` does.
 """
 from __future__ import annotations
 
@@ -28,8 +32,13 @@ import torch
 from seld_tpu_torch.ops import kernels
 
 _SOURCE = "stem_dy.cu"
-_MAX_WINDOW = 16          # pool window elements the kernel holds per thread
-_WINDOWS_PER_BLOCK = 32   # csrc/stem_dy.cu kWinPerBlock
+# csrc/stem_dy.cu's kVecWindows: the pool windows of the vector path (the
+# SS5 stem's and conv_temporal's default)
+_VEC_WINDOWS = ((5, 2), (5, 1))
+_THREADS = 256            # kThreads: a block of either path
+_MAX_BLOCKS = 1056        # kMaxBlocks: the grid strides over the rest
+_ROWS = 8                 # kRows: the generic path's windows a block step
+_MAX_CHANNELS = 256       # kLanes * 8: a block's dbias row
 
 
 def bn_affine(mean: torch.Tensor, inv: torch.Tensor, gamma: torch.Tensor,
@@ -63,6 +72,11 @@ def stem_dy_ref(y: torch.Tensor, dpooled: torch.Tensor,
     return dy.to(y.dtype), dy.sum(dim=(0, 1, 2))
 
 
+def _max_offset(a: torch.Tensor) -> int:
+    """The largest element offset a view reaches from its first element."""
+    return sum((n - 1) * st for n, st in zip(a.shape, a.stride()) if n)
+
+
 def _check_cuda_args(y, dpooled, params6, pool, out):
     if y.dim() != 4:
         raise ValueError(f"y must be [B, T, F, C]; got {tuple(y.shape)}")
@@ -70,15 +84,15 @@ def _check_cuda_args(y, dpooled, params6, pool, out):
     pt, pf = pool
     if pt < 1 or pf < 1 or t % pt or f % pf:
         raise ValueError(f"pool {tuple(pool)} must divide T={t} and F={f}")
-    if pt * pf > _MAX_WINDOW:
-        raise ValueError(f"pool window {pt}x{pf} has more than "
-                         f"{_MAX_WINDOW} elements")
     if tuple(dpooled.shape) != (b, t // pt, f // pf, c):
         raise ValueError(f"dpooled {tuple(dpooled.shape)} does not match y "
                          f"{tuple(y.shape)} under pool {tuple(pool)}")
     if tuple(params6.shape) != (6, c) or params6.dtype != torch.float32:
         raise ValueError(f"params6 must be [6, {c}] float32; got "
                          f"{tuple(params6.shape)} {params6.dtype}")
+    if c > _MAX_CHANNELS:
+        raise ValueError(f"C={c}: the kernel takes at most {_MAX_CHANNELS} "
+                         "channels")
     if y.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"y dtype {y.dtype}; the kernel takes float32 or "
                         "bfloat16")
@@ -94,44 +108,79 @@ def _check_cuda_args(y, dpooled, params6, pool, out):
             raise ValueError(f"{name} is on {a.device}, y on {y.device}")
     if not params6.is_contiguous():
         raise ValueError("params6 must be contiguous")
-    if y.numel() >= 2 ** 31:
+    if any(st < 0 for a in (y, dpooled) for st in a.stride()):
+        raise ValueError("y and dpooled need non-negative strides")
+    if max(_max_offset(y), _max_offset(dpooled)) >= 2 ** 31:
         raise ValueError("y is too large for the kernel's 32-bit indices")
+
+
+def _vector_path(y, pool) -> bool:
+    """Whether csrc/stem_dy.cu takes its vector path: a window of
+    `_VEC_WINDOWS`, C innermost and unit-stride in y, y's (and out's) other
+    strides whole 16-byte vectors of V channels (8 bf16, 4 f32), C / V a
+    power of two up to 32, and y 16-byte aligned. It reads dpooled element
+    by element with its strides (the training step hands it over
+    channels-first)."""
+    c = y.shape[-1]
+    v = 16 // y.element_size()
+    nv = c // v
+    ys = y.stride()
+    return (tuple(pool) in _VEC_WINDOWS and c % v == 0
+            and 1 <= nv <= 32 and nv & (nv - 1) == 0 and ys[3] == 1
+            and all(st % v == 0 for st in ys[:3])
+            and y.data_ptr() % 16 == 0)
+
+
+def _blocks(shape, pool, vec: bool, elem_bytes: int) -> int:
+    """Blocks of the kernel's grid (the rows of its dbias partials): one
+    (window, channel vector) item a thread on the vector path, 8 windows a
+    block step on the generic path, capped at `_MAX_BLOCKS`."""
+    b, t, f, c = shape
+    n_win = b * (t // pool[0]) * (f // pool[1])
+    work = -(-n_win * (c // (16 // elem_bytes)) // _THREADS) if vec \
+        else -(-n_win // _ROWS)
+    return max(1, min(work, _MAX_BLOCKS))
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = kernels.load(_SOURCE)
     lib.seld_stem_dy.argtypes = [ctypes.c_void_p] * 6 + \
-        [ctypes.c_int] * 16 + [ctypes.c_void_p]
+        [ctypes.c_int] * 18 + [ctypes.c_void_p]
     lib.seld_stem_dy.restype = ctypes.c_int
+    lib.seld_stem_dy_vec_windows.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.seld_stem_dy_vec_windows.restype = ctypes.c_int
     return lib
+
+
+def library_vec_windows() -> tuple:
+    """The vector path's windows compiled into csrc/stem_dy.cu, to hold
+    `_VEC_WINDOWS` against (loads the library)."""
+    buf = (ctypes.c_int * 32)()
+    n = _library().seld_stem_dy_vec_windows(buf, 32)
+    return tuple(tuple(buf[2 * i:2 * i + 2]) for i in range(n))
 
 
 def _stem_dy_cuda(y, dpooled, params6, pool, out):
     _check_cuda_args(y, dpooled, params6, pool, out)
     b, t, f, c = y.shape
     pt, pf = pool
+    vec = _vector_path(y, pool) and out.data_ptr() % 16 == 0
+    blocks = _blocks(y.shape, pool, vec, y.element_size())
     lib = _library()
-    mean, inv, gamma, beta = params6[:4]
-    # scale/shift exactly as the forward computed them (bn_affine), handed
-    # to the kernel as f32 values of y's dtype
-    scale, shift = bn_affine(mean, inv, gamma, beta, y.dtype)
-    affine = torch.stack([scale, shift]).float().contiguous()
-    blocks = -(-b * (t // pt) * (f // pf) // _WINDOWS_PER_BLOCK)
-    partial = torch.empty((blocks, c), dtype=torch.float32, device=y.device)
+    # the blocks' dbias partial rows, then dbias itself
+    work = torch.empty((blocks + 1, c), dtype=torch.float32, device=y.device)
     with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
         err = lib.seld_stem_dy(
             y.data_ptr(), dpooled.data_ptr(), params6.data_ptr(),
-            affine.data_ptr(), out.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), work.data_ptr(), work[blocks].data_ptr(),
             b, t, f, c, pt, pf, *y.stride(), *dpooled.stride(),
             int(y.dtype == torch.bfloat16),
-            int(dpooled.dtype == torch.bfloat16), stream)
+            int(dpooled.dtype == torch.bfloat16), int(vec),
+            blocks, kernels.current_stream(y.device.index))
     kernels.check(lib, err, "stem_dy launch")
     kernels.launch_counts["stem_dy"] += 1
-    # per-block partials of dbias, summed outside the kernel as the JAX
-    # package does (seld_tpu/ops/pallas/stem_bwd.py:125-127)
-    return out, partial.sum(dim=0)
+    return out, work[blocks]
 
 
 def stem_dy(y: torch.Tensor, dpooled: torch.Tensor, params6: torch.Tensor,

@@ -44,7 +44,7 @@ OVERLAP_NOISE = 0.02
 # substrings of the demangled names of the port's own kernels
 PORT_KERNELS = {"gru_scan": ("gru_fwd_kernel",),
                 "gru_scan_bwd": ("gru_bwd_",),
-                "stem_dy": ("stem_dy_kernel",)}
+                "stem_dy": ("stem_dy_",)}
 GEMM_WORDS = ("gemm", "xmma", "cutlass", "cublas", "matmul")
 CONV_WORDS = ("conv", "cudnn", "implicit", "winograd", "wgrad", "dgrad")
 

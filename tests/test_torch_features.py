@@ -107,6 +107,38 @@ def test_extract_features_batch_and_clips_match_jax():
         np.testing.assert_allclose(g, w, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("n_mels,n_fft,win_length,hop_length", [
+    (40, 1024, 960, 480), (64, 512, 480, 240), (40, 512, 512, 256)])
+def test_extract_features_batch_at_other_shapes_matches_jax(
+        n_mels, n_fft, win_length, hop_length):
+    """Shapes the front-end kernel does not take run the plain
+    composition (on the card too); here against the JAX package's."""
+    batch = np.stack([_pcm(7, 12000), _pcm(8, 12000, amplitude=0.05)])
+    kw = dict(n_mels=n_mels, n_fft=n_fft, win_length=win_length,
+              hop_length=hop_length)
+    got = Fe.extract_features_batch(torch.from_numpy(batch), **kw).numpy()
+    want = np.asarray(JFe.extract_features_batch(jnp.asarray(batch),
+                                                 method="fft", **kw))
+    assert got.shape == want.shape == (2, 12000 // hop_length + 1, n_mels, 7)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_mels,n_fft,win_length,takes", [
+    (64, 1024, 960, True), (64, 1024, 1024, True), (64, 1024, 1, True),
+    (40, 1024, 960, False), (128, 1024, 960, False), (64, 512, 480, False),
+    (64, 2048, 960, False), (64, 1024, 0, False), (64, 1024, 1025, False)])
+def test_frontend_route_rule(n_mels, n_fft, win_length, takes):
+    """The kernel gets exactly the shapes csrc/foa_frontend.cu takes; its
+    wrapper keeps raising on any other."""
+    from seld_tpu_torch.ops import frontend
+    assert frontend.frontend_applicable(n_mels, n_fft, win_length) == takes
+    if not takes:
+        wav = torch.zeros(1, 4, n_fft + 960)
+        with pytest.raises(ValueError, match="front-end kernel takes"):
+            frontend._foa_frontend_cuda(wav, n_fft, win_length, 480, n_mels,
+                                        24000, 1e-8)
+
+
 def test_unported_modes_raise():
     wav = torch.zeros(4, 4800)
     with pytest.raises(NotImplementedError, match="item 8"):

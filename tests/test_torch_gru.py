@@ -168,9 +168,11 @@ def _fwd_writes(plan, d, b, u):
     return writes
 
 
-@pytest.mark.parametrize("u", [64, 128])
+@pytest.mark.parametrize("u", [64, 128, 152, 192, 200, 256])
 @pytest.mark.parametrize("b", [1, 3, 17, 32, 256])
 def test_fwd_plan_covers_every_state_exactly_once(b, u):
+    """Every (direction, row, unit) once, on clusters of at most 8 CTAs
+    that split U evenly."""
     plan = gru._fwd_plan(2, b, u)
     assert u % plan.c == 0 and plan.c in gru._CLUSTERS
     assert plan.grid[0] % plan.c == 0
@@ -191,16 +193,18 @@ def test_fwd_plan_fills_the_card_at_the_path_shapes():
         assert p.variant == gru._FWD_BATCH or \
             p.ctas * p.threads <= gru._LATENCY_THREADS
     assert gru._fwd_plan(2, 8, 132).variant == gru._FWD_WIDE
+    for u in (152, 192, 256):
+        assert gru._fwd_plan(2, 256, u).variant == gru._FWD_WIDEST
 
 
-@pytest.mark.parametrize("u", [4, 12, 20, 100, 124, 132, 144])
+@pytest.mark.parametrize("u", [4, 12, 20, 100, 124, 132, 144, 152, 248])
 def test_fwd_plan_takes_every_u_the_kernel_takes(u):
     for b in (1, 17, 256):
         plan = gru._fwd_plan(2, b, u)
         assert len(set(_fwd_writes(plan, 2, b, u))) == 2 * b * u
 
 
-@pytest.mark.parametrize("u", [2, 6, 148, 200])
+@pytest.mark.parametrize("u", [2, 6, 148, 260, 384])
 def test_fwd_plan_raises_on_a_u_it_cannot_take(u):
     """Before any library load: the wrapper's checks and the plan run on
     CPU tensors here."""
@@ -213,3 +217,91 @@ def test_fwd_plan_raises_on_a_u_it_cannot_take(u):
     assert kernels._libs == loaded
     with pytest.raises(ValueError, match="does not take"):
         gru._fwd_plan(2, 8, 132, variant=gru._FWD_LATENCY)
+
+
+def _has_plan(plan, u):
+    try:
+        plan(2, 8, u)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("u,takes", [(2, False), (4, True), (6, False),
+                                     (128, True), (148, False), (200, False),
+                                     (208, True), (256, True), (260, False),
+                                     (384, False)])
+def test_gru_kernel_applicable_is_what_the_plans_take(u, takes):
+    """The route rule holds exactly where both kernels have a plan (U = 200
+    has a forward plan only: 100 lane groups of the backward split evenly
+    over no cluster within 256 threads)."""
+    assert gru.gru_kernel_applicable(u) == takes
+    assert (_has_plan(gru._fwd_plan, u) and _has_plan(gru._bwd_plan, u)) \
+        == takes
+
+
+def test_every_u_the_rule_takes_has_both_plans():
+    for u in range(1, 400):
+        if gru.gru_kernel_applicable(u):
+            for b in (1, 3, 64, 256):
+                gru._fwd_plan(2, b, u)
+                gru._bwd_plan(2, b, u)
+        else:
+            assert not (_has_plan(gru._fwd_plan, u)
+                        and _has_plan(gru._bwd_plan, u))
+
+
+def test_the_rule_takes_every_nas_and_shipped_unit_but_6():
+    """seld_tpu/nas/search.py's GRU units, and SS5's 128."""
+    nas = [4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256]
+    assert [u for u in nas if not gru.gru_kernel_applicable(u)] == [6]
+
+
+@pytest.mark.parametrize("b,u,device,route", [
+    (8, 128, "cuda", "kernel"), (3, 256, "cuda", "kernel"),
+    (8, 6, "cuda", "plain"), (8, 148, "cuda", "plain"),
+    (3, 384, "cuda", "plain"), (12, 512, "cuda", "plain"),
+    (8, 384, "cpu", "plain"), (8, 384, "cuda", None),
+    (16, 512, "cuda", None)])
+def test_gru_route(b, u, device, route):
+    """The plain route on the card only where the JAX package composes the
+    recurrence too (B % 8 or U % 128); where it runs its Pallas kernel and
+    the port's kernels do not take U, the card raises."""
+    if route is None:
+        with pytest.raises(NotImplementedError, match="GRU kernel"):
+            gru.gru_route(b, u, device)
+    else:
+        assert gru.gru_route(b, u, device) == route
+
+
+@pytest.mark.parametrize("u", [192, 256])
+def test_gru_scan_ref_matches_pallas_interpret_at_wide_units(u):
+    xp, rk, rb = _scan_inputs(2, t=5, u=u, seed=7)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_gru.gru_scan(jnp.asarray(xp), jnp.asarray(rk),
+                                jnp.asarray(rb))
+    got = gru.gru_scan_ref(*map(torch.from_numpy, (xp, rk, rb)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("u", [6, 192, 256])
+def test_gru_layer_matches_jax_scan_layer_at_any_units(u):
+    """U = 6 takes the plain route (no kernel plan), 192 and 256 the
+    kernel route (the plain versions on the CPU); the JAX layer runs
+    lax.scan for all three here."""
+    rng = np.random.RandomState(8)
+    x = rng.randn(8, 5, 10).astype(np.float32)
+    scan = JaxGRU(u, bidirectional=True, merge_mode="mul", use_pallas=False)
+    v = jax.tree_util.tree_map(np.asarray, scan.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.asarray(x)))
+    v["params"]["bias"] = (0.1 * rng.randn(*v["params"]["bias"].shape)
+                           ).astype(np.float32)
+    want = np.asarray(scan.apply(v, jnp.asarray(x)))
+    layer = GRU(10, u, bidirectional=True, merge_mode="mul")
+    layer.load_state_dict(from_flax(v, layer))
+    before = kernels.launch_counts["gru_scan"]
+    with torch.inference_mode():
+        got = layer(torch.from_numpy(x)).numpy()
+    assert kernels.launch_counts["gru_scan"] == before
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)

@@ -118,13 +118,13 @@ def test_bf16_storage_keeps_f32_math_and_gradient_dtypes():
     ("hs_device", ValueError, "hs is on meta"),
     ("fwd_checks", ValueError, "directions"),
     ("u_odd", ValueError, "U % 4"),
-    ("u_too_wide", ValueError, r"4 <= U <= 160"),
+    ("u_too_wide", ValueError, r"4 <= U <= 256"),
 ])
 def test_cuda_bwd_wrapper_checks_raise(case, exc, match):
     """The backward wrapper's argument checks and its plan run before any
     library load or launch; they are plain tensor checks, exercised here on
     CPU tensors."""
-    u = {"u_odd": 18, "u_too_wide": 164}.get(case, 16)
+    u = {"u_odd": 18, "u_too_wide": 260}.get(case, 16)
     xp = torch.zeros(2, 5, 8, 3 * u)
     rk, rb = torch.zeros(2, u, 3 * u), torch.zeros(2, 3 * u)
     hs, g = torch.zeros(2, 5, 8, u), torch.zeros(2, 5, 8, u)
@@ -213,7 +213,7 @@ def _bwd_states(plan, d, b, u):
     return states
 
 
-@pytest.mark.parametrize("u", [16, 64, 128, 144])
+@pytest.mark.parametrize("u", [16, 64, 128, 144, 152, 192, 208, 256])
 @pytest.mark.parametrize("b", [1, 3, 8, 17, 32, 64, 256])
 def test_bwd_plan_covers_every_state_exactly_once(b, u):
     """Every (direction, row, unit) once; clusters of at most 8 CTAs that
@@ -246,11 +246,13 @@ def test_bwd_plan_at_the_path_shapes():
         assert p.variant == gru._BWD_BATCH or \
             p.ctas * p.threads <= gru._LATENCY_THREADS
     assert gru._bwd_plan(2, 8, 144).variant == gru._BWD_WIDE
+    for u in (192, 208, 256):
+        assert gru._bwd_plan(2, 256, u).variant == gru._BWD_WIDEST
     with pytest.raises(ValueError, match="does not take"):
         gru._bwd_plan(2, 8, 144, variant=gru._BWD_LATENCY)
 
 
-@pytest.mark.parametrize("u", [2, 6, 164, 200])
+@pytest.mark.parametrize("u", [2, 6, 164, 200, 260, 384])
 def test_bwd_plan_raises_on_a_u_it_cannot_take(u):
     with pytest.raises(ValueError, match="U % 4"):
         gru._bwd_plan(2, 8, u)
@@ -335,7 +337,7 @@ def test_every_bwd_variant_covers_every_state_where_it_takes_u(b):
     """chip_smoke times every variant at the path shapes: each forced plan
     covers every state once too, and a variant that cannot take U raises."""
     for v in range(len(gru._BWD_VARIANTS)):
-        for u in (16, 128, 144):
+        for u in (16, 100, 128, 144, 256):
             if not gru._bwd_clusters(v, u):
                 with pytest.raises(ValueError, match="does not take"):
                     gru._bwd_plan(2, b, u, variant=v)
@@ -343,3 +345,40 @@ def test_every_bwd_variant_covers_every_state_where_it_takes_u(b):
             plan = gru._bwd_plan(2, b, u, variant=v)
             states = _bwd_states(plan, 2, b, u)
             assert len(states) == len(set(states)) == 2 * b * u
+
+
+@pytest.mark.parametrize("u", [192, 256])
+def test_gru_scan_bwd_ref_matches_pallas_interpret_at_wide_units(u):
+    xp, rk, rb, hs, g = _bwd_inputs(2, t=5, u=u, seed=9)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_gru._gru_scan_bwd_impl(*map(jnp.asarray,
+                                               (xp, rk, rb, hs, g)))
+    got = gru.gru_scan_bwd_ref(*map(torch.from_numpy, (xp, rk, rb, hs, g)))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("u", [6, 192, 256])
+def test_gru_layer_grads_match_jax_scan_grad_at_any_units(u):
+    """U = 6 runs the plain recurrence under torch's autograd, 192 and 256
+    the Function's hand-written backward (its plain version here); both
+    against jax.grad of the JAX layer's lax.scan path."""
+    rng = np.random.RandomState(10)
+    x = rng.randn(8, 5, 12).astype(np.float32)
+    w = rng.randn(8, 5, u).astype(np.float32)
+    scan = JaxGRU(u, bidirectional=True, merge_mode="mul", use_pallas=False)
+    v = jax.tree_util.tree_map(np.asarray, scan.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.asarray(x)))
+    v["params"]["bias"] = (0.1 * rng.randn(*v["params"]["bias"].shape)
+                           ).astype(np.float32)
+    want_p, want_x = jax.grad(
+        lambda p, xx: jnp.sum(scan.apply({"params": p}, xx) * w),
+        argnums=(0, 1))(v["params"], x)
+    layer = GRU(12, u, bidirectional=True, merge_mode="mul")
+    layer.load_state_dict(from_flax(v, layer))
+    xt = torch.from_numpy(x).requires_grad_()
+    (layer(xt) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_x),
+                               rtol=RTOL, atol=ATOL)
+    for name, p in layer.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(want_p[name]),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)

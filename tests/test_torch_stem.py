@@ -8,7 +8,10 @@ path (SELD_FUSED_STEM=always, set per test).
 Tolerances: 1e-5 for f32 forwards (the conv's sums run in another order);
 2e-4 for gradients, which pass through the conv's reductions over
 B*T*F terms (as tests/test_stem.py); dy from the same y, dpooled and
-params6 is the same f32 formula on both sides, to 1e-6.
+params6 is the same f32 formula on both sides, to 1e-6. A CPU model of
+csrc/stem_dy.cu's decomposition (`_kernel_model`) holds `stem_dy_ref`: dy
+to 1e-6 (one bf16 ulp in bf16), dbias, summed in the kernel's order, to
+1e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -41,12 +44,12 @@ def _data(b=3, t=20, f=8, ci=7, co=16, seed=0):
     return x, kernel, bias, gamma, beta
 
 
-def _tied_dy_inputs(dtype, seed=1, b=2, t=20, f=8, c=16):
+def _tied_dy_inputs(dtype, seed=1, b=2, t=20, f=8, c=16, pool=POOL):
     """y on a coarse grid with many negatives: windows hold exact ties of
     their positive maximum and ReLU zeros."""
     rng = np.random.RandomState(seed)
     y = (rng.randint(-6, 5, (b, t, f, c)) / 4.0).astype(np.float32)
-    dp = rng.randn(b, t // POOL[0], f // POOL[1], c).astype(np.float32)
+    dp = rng.randn(b, t // pool[0], f // pool[1], c).astype(np.float32)
     p6 = np.stack([0.1 * rng.randn(c), 1 + 0.1 * rng.rand(c),
                    1 + 0.2 * rng.rand(c), 0.1 * rng.randn(c),
                    1e-3 * rng.randn(c), 1e-3 * rng.randn(c)]
@@ -84,14 +87,15 @@ def test_fused_forward_and_grads_match_jax():
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("pool", [POOL, (5, 1), (5, 4), (10, 2)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_stem_dy_ref_matches_jax_on_ties(dtype):
-    y, dp, p6 = _tied_dy_inputs(getattr(torch, dtype))
-    got_dy, got_db = stem_bwd.stem_dy_ref(y, dp, p6, POOL)
+def test_stem_dy_ref_matches_jax_on_ties(dtype, pool):
+    y, dp, p6 = _tied_dy_inputs(getattr(torch, dtype), pool=pool)
+    got_dy, got_db = stem_bwd.stem_dy_ref(y, dp, p6, pool)
     yj = jnp.asarray(y.float().numpy()).astype(getattr(jnp, dtype))
     dpj, p6j = jnp.asarray(dp.numpy()), jnp.asarray(p6.numpy())
-    want_xla = jax_stem._dy_xla(yj, dpj, p6j, POOL)
-    want_pallas = jax_stem_bwd.stem_dy(yj, dpj, p6j, POOL, interpret=True)
+    want_xla = jax_stem._dy_xla(yj, dpj, p6j, pool)
+    want_pallas = jax_stem_bwd.stem_dy(yj, dpj, p6j, pool, interpret=True)
     assert got_dy.dtype == y.dtype and got_db.dtype == torch.float32
     # exactly one bf16 rounding of the same f32 value on both sides
     dy_tol = DY_TOL if dtype == "float32" else 2.0 ** -8
@@ -172,7 +176,7 @@ def test_second_backward_through_the_stem_raises():
 @pytest.mark.parametrize("case,exc,match", [
     ("rank", ValueError, r"\[B, T, F, C\]"),
     ("pool", ValueError, "must divide"),
-    ("window", ValueError, "more than 16"),
+    ("channels", ValueError, "at most 256 channels"),
     ("dpooled", ValueError, "dpooled .* does not match"),
     ("params6", ValueError, "params6 must be"),
     ("ydtype", TypeError, "y dtype"),
@@ -185,8 +189,9 @@ def test_stem_dy_cuda_wrapper_checks_raise(case, exc, match):
         y = y[0]
     elif case == "pool":
         pool = (3, 2)
-    elif case == "window":
-        pool = (10, 2)
+    elif case == "channels":
+        y, dp, p6 = _tied_dy_inputs(torch.float32, c=264)
+        out = torch.empty_like(y)
     elif case == "dpooled":
         dp = dp[:, :2]
     elif case == "params6":
@@ -209,16 +214,18 @@ def test_fused_stem_applicable_rules():
         assert not stem.fused_stem_applicable(**{**ok, key: value}), key
 
 
-def test_conv2dbn_train_matches_jax_fused(monkeypatch):
+@pytest.mark.parametrize("pool", [POOL, (5, 4)])
+def test_conv2dbn_train_matches_jax_fused(monkeypatch, pool):
     """Train-mode Conv2DBN with a pool: output, running statistics and the
     gradients of every parameter and of the input, against the JAX layer
-    on its fused path."""
+    on its fused path. A [5, 4] window takes the kernel's generic path on
+    the card."""
     monkeypatch.setenv("SELD_FUSED_STEM", "always")
     rng = np.random.RandomState(6)
     x = (rng.permutation(np.arange(2 * 20 * 8 * 7, dtype=np.float32))
          .reshape(2, 20, 8, 7) / 1000.0)
-    w = rng.randn(2, 4, 4, 12).astype(np.float32)
-    jm = JaxConv2DBN(12, 5, activation="relu", pool=POOL)
+    w = rng.randn(2, 20 // pool[0], 8 // pool[1], 12).astype(np.float32)
+    jm = JaxConv2DBN(12, 5, activation="relu", pool=pool)
     v = jax.tree_util.tree_map(np.asarray, jm.init(
         {"params": jax.random.PRNGKey(1)}, jnp.asarray(x), train=False))
     v["params"]["Conv_0"]["bias"] = (0.1 * rng.randn(12)).astype(np.float32)
@@ -232,7 +239,7 @@ def test_conv2dbn_train_matches_jax_fused(monkeypatch):
     (gp, gx), (want_out, want_stats) = jax.grad(
         loss, argnums=(0, 1), has_aux=True)(v["params"], jnp.asarray(x))
 
-    tm = Conv2DBN((20, 8, 7), 12, 5, pool=POOL)
+    tm = Conv2DBN((20, 8, 7), 12, 5, pool=pool)
     tm.load_state_dict(from_flax(v, tm))
     tm.train()
     xt = torch.from_numpy(x).requires_grad_()
@@ -254,3 +261,185 @@ def test_conv2dbn_train_matches_jax_fused(monkeypatch):
                                    np.asarray(gp[mod][leaf]),
                                    rtol=GRAD_TOL, atol=GRAD_TOL,
                                    err_msg=name)
+
+
+def _cuda_constant(name):
+    """A `constexpr` integer or table of (pt, pf) pairs in csrc/stem_dy.cu,
+    parsed from its text."""
+    import os
+    import re
+    with open(os.path.join(kernels.CSRC_DIR, "stem_dy.cu")) as f:
+        src = f.read()
+    body = re.search(name + r"(?:\[\])? = (\{.*?\}\}|\d+);", src, re.S)
+    body = body.group(1)
+    if body.isdigit():
+        return int(body)
+    return tuple(tuple(int(x) for x in t.split(","))
+                 for t in re.findall(r"\{([\d,\s]+)\}", body))
+
+
+def test_vector_windows_and_grid_constants_equal_the_cuda_source():
+    """The wrapper's copies of the kernel's compile-time windows and grid
+    constants (chip_smoke holds the windows against the built library)."""
+    assert _cuda_constant("kVecWindows") == stem_bwd._VEC_WINDOWS
+    assert _cuda_constant("kThreads") == stem_bwd._THREADS
+    assert _cuda_constant("kMaxBlocks") == stem_bwd._MAX_BLOCKS
+    assert stem_bwd._ROWS == stem_bwd._THREADS // 32
+    assert stem_bwd._MAX_CHANNELS == 32 * 8
+
+
+def _affine(y, p6):
+    scale, shift = stem_bwd.bn_affine(p6[0], p6[1], p6[2], p6[3], y.dtype)
+    return scale, shift
+
+
+def _window_dy(yw, dpw, p6c, scale, shift):
+    """dy of one window, [E, K] (E window elements in the kernel's order, K
+    channels), and the kernel's online max and count: the max so far, and
+    how many elements equal it."""
+    mean, inv, gamma, _, dgn, dbn = p6c
+    bno = (yw * scale + shift).float()          # the forward's rounding
+    m, cnt = bno[0].clone(), torch.ones_like(bno[0])
+    for e in range(1, bno.shape[0]):
+        v = bno[e]
+        cnt = torch.where(v > m, torch.ones_like(cnt),
+                          cnt + (v == m).float())
+        m = torch.maximum(m, v)
+    share = dpw.float() / cnt
+    m = torch.where(m > 0, m, torch.full_like(m, float("nan")))
+    dyr = torch.where(bno == m, share, torch.zeros_like(bno))
+    xhat = (yw.float() - mean) * inv
+    return (inv * gamma) * (dyr - dbn - xhat * dgn)
+
+
+def _finalize(partial):
+    """stem_dy_finalize_kernel: thread t sums rows t, t + 256, ... in order,
+    then the 256 sums halve pairwise."""
+    threads = stem_bwd._THREADS
+    s = torch.zeros(threads, partial.shape[1])
+    for r in range(partial.shape[0]):
+        s[r % threads] += partial[r]
+    h = threads // 2
+    while h:
+        s[:h] = s[:h] + s[h:2 * h]
+        h //= 2
+    return s[0]
+
+
+def _kernel_model(y, dp, p6, pool):
+    """Plain-torch model of csrc/stem_dy.cu's decomposition: the path
+    `_vector_path` picks; on the vector path thread tid of the grid takes
+    the (window, channel vector) items tid, tid + stride, ... with its
+    vector fixed at tid % (C / V), its dbias sums reduced by the warp's
+    xor butterfly over lanes of one vector, then the block's warps in
+    order; on the generic path thread (channel lane, row) of block bx the
+    windows bx 8 + row, + 8 blocks, ..., the rows summed in order; the
+    partial rows then go through the finalize tree. Returns (dy, dbias,
+    path, how often each element was written). Tests only."""
+    b, t, f, c = y.shape
+    pt, pf = pool
+    tl_n, fl_n = t // pt, f // pf
+    vec = stem_bwd._vector_path(y, pool)
+    blocks = stem_bwd._blocks(y.shape, pool, vec, y.element_size())
+    threads = stem_bwd._THREADS
+    scale, shift = _affine(y, p6)
+    dy = torch.zeros(y.shape, dtype=torch.float32)
+    writes = torch.zeros(y.shape, dtype=torch.int32)
+    partial = torch.zeros(blocks, c)
+
+    def window(bb, tl, fl, chans):
+        ts = slice(tl * pt, tl * pt + pt)
+        fs = slice(fl * pf, fl * pf + pf)
+        yw = y[bb, ts, fs][..., chans].reshape(pt * pf, -1)
+        d = _window_dy(yw, dp[bb, tl, fl, chans], p6[:, chans],
+                       scale[chans], shift[chans])
+        dy[bb, ts, fs, chans] = d.reshape(pt, pf, -1)
+        writes[bb, ts, fs, chans] += 1
+        return d
+
+    if vec:
+        v = 16 // y.element_size()
+        nv = c // v
+        n_items = b * tl_n * fl_n * nv
+        stride = blocks * threads
+        sums = torch.zeros(stride, v)
+        for tid in range(stride):
+            cv = tid % nv
+            chans = slice(cv * v, cv * v + v)
+            for item in range(tid, n_items, stride):
+                w = item // nv
+                fl, r = w % fl_n, w // fl_n
+                for row in window(r // tl_n, r % tl_n, fl, chans):
+                    sums[tid] += row
+        for blk in range(blocks):
+            for w0 in range(blk * threads, (blk + 1) * threads, 32):
+                warp = sums[w0:w0 + 32]
+                m = nv
+                while m < 32:
+                    warp = warp + warp[torch.arange(32) ^ m]
+                    m *= 2
+                for lane in range(nv):
+                    partial[blk, lane * v:lane * v + v] += warp[lane]
+    else:
+        n_win = b * tl_n * fl_n
+        rows = stem_bwd._ROWS
+        for blk in range(blocks):
+            row_sums = torch.zeros(rows, c)
+            for row in range(rows):
+                for w in range(blk * rows + row, n_win, blocks * rows):
+                    fl, r = w % fl_n, w // fl_n
+                    for ch in range(c):
+                        d = window(r // tl_n, r % tl_n, fl, slice(ch, ch + 1))
+                        for e in range(d.shape[0]):
+                            row_sums[row, ch] += d[e, 0]
+            for row in range(rows):
+                partial[blk] += row_sums[row]
+    return dy.to(y.dtype), _finalize(partial), vec, writes
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool,layout,vec", [
+    ((5, 2), "channels-last", True), ((5, 1), "channels-last", True),
+    ((5, 4), "channels-last", False), ((10, 2), "channels-last", False),
+    ((5, 2), "channels-first", False)])
+def test_kernel_decomposition_matches_the_plain_version(dtype, pool, layout,
+                                                        vec):
+    """The kernel's algorithm (its thread -> item map, the compile-time
+    windows of the vector path, the generic two-pass path, the online max
+    and count, the fixed dbias order), modelled on the CPU, holds
+    `stem_dy_ref` on data with ties, and writes every element once."""
+    dt = getattr(torch, dtype)
+    y, dp, p6 = _tied_dy_inputs(dt, seed=7, b=2, t=20, f=8, c=16, pool=pool)
+    if layout == "channels-first":
+        y = y.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    # the training step hands dpooled over channels-first
+    dp = dp.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    got_dy, got_db, got_vec, writes = _kernel_model(y, dp, p6, pool)
+    want_dy, want_db = stem_bwd.stem_dy_ref(y, dp, p6, pool)
+    assert got_vec == vec and bool((writes == 1).all())
+    dy_tol = DY_TOL if dtype == "float32" else 2.0 ** -8
+    torch.testing.assert_close(got_dy.float(), want_dy.float(), rtol=dy_tol,
+                               atol=DY_TOL)
+    torch.testing.assert_close(got_db, want_db, rtol=1e-5, atol=1e-5)
+
+
+def test_vector_path_rules():
+    """Where the kernel's vector path applies: a compile-time window, C
+    innermost and unit-stride in y, whole 16-byte vectors of channels a
+    power of two of them a pixel, aligned."""
+    y, dp, _ = _tied_dy_inputs(torch.bfloat16, c=16)
+    assert stem_bwd._vector_path(y, POOL) is True
+    assert stem_bwd._vector_path(y, (5, 1)) is True
+    assert stem_bwd._vector_path(y, (5, 4)) is False
+    y_cf = y.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert stem_bwd._vector_path(y_cf, POOL) is False
+    assert stem_bwd._vector_path(y[..., :8], POOL) is True      # nv 1
+    y24, _, _ = _tied_dy_inputs(torch.bfloat16, c=24)
+    assert stem_bwd._vector_path(y24.to(torch.bfloat16), POOL) is False
+    yf, _, _ = _tied_dy_inputs(torch.float32, c=16)
+    assert stem_bwd._vector_path(yf, POOL) is True
+    shifted = torch.empty(y.numel() + 1, dtype=y.dtype)[1:].view(y.shape)
+    assert stem_bwd._vector_path(shifted, POOL) is False
+    # no window limit: a 20-element window passes the wrapper's checks
+    y20, dp20, p20 = _tied_dy_inputs(torch.float32, pool=(10, 2))
+    stem_bwd._check_cuda_args(y20, dp20, p20, (10, 2), torch.empty_like(y20))
