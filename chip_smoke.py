@@ -30,16 +30,28 @@ Phases, one line each:
               statistics); (b) 20 bf16 steps at B=256 with dropout through
               seld_tpu_torch.bench's step: finite losses and exactly 2
               gru_scan, 2 gru_scan_bwd and 1 stem_dy launches per step
-  8. feed     the wav-native training path at full width through its CLI
+  8. graph    the k-step call (make_train_multistep, k=8: a CUDA graph of
+              one step replayed k times) at SS5 full width, B=256, bf16,
+              dropout on: (a) one call against 8 eager steps from the same
+              seed on the same batches (losses, parameters, running
+              statistics, the metric, the dropout generator's state, one
+              further eager step; exact launch counts); (b) ms/step and
+              windows/s eager and graphed in turns, and the launch counts
+              of graph replays alone, exactly 8 x the eager step's per call
+  9. feed     the wav-native training path at full width through its CLI
               (python -m seld_tpu_torch.train's main): 20 numpy-seeded
               60-s 24 kHz FOA wavs with label CSVs (16 train, 2 val, 2
               test) -> the front-end kernel -> train-split normalizer ->
               windows staged on the card -> 2 epochs of SS5 bf16 training at
               B=64 with --use_tfm --use_acs, each batch gathered on the card
               by the row-gather kernel, val and test epochs, a best-score
-              checkpoint; then --resume from that checkpoint. Exact launch
-              counts of all five kernels, finite losses, the feature-build
-              time, each epoch's time and windows/s through the feed
+              checkpoint; then --resume from that checkpoint. Three times:
+              eagerly, with --epoch_scan (the epoch step: gather, augments
+              and update a step as a CUDA graph replayed once a step) and
+              with --epoch_scan --fuse_metrics. Exact launch counts of all
+              five kernels, finite losses, the resumed epochs, the
+              feature-build time, each epoch's time and windows/s through
+              the feed
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
 at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152,
 printing each call's tile plan, and times every plan at the serving and
@@ -112,17 +124,37 @@ TRAIN_NULL_GRAD = 1e-6
 TRAIN_PARAM_ATOL = 1e-6
 TRAIN_STATS_RTOL = 1e-5
 TRAIN_STEPS = 20
+# [graph]: make_train_multistep(k=GRAPH_STEPS) against k eager steps from
+# the same seed, bf16, cuDNN's deterministic algorithms in both: the graph
+# replays the kernels the eager step launches, on the same values, with
+# the dropout masks drawn at the generator's offset of each replay, so the
+# two agree to rounding of the same sums (losses 1e-5 relative, parameters
+# and running statistics 1e-6 absolute). A replay that reused the masks
+# of the capture moves parameters by ~lr = 1e-3. The metric: one folded
+# update against k updates sums the same counts in another order (1e-5).
+GRAPH_STEPS = 8
+GRAPH_CALLS = 2          # timed calls of k steps a run
+GRAPH_LOSS_RTOL = 1e-5
+GRAPH_STATE_ATOL = 1e-6
+GRAPH_METRIC_RTOL = 1e-5
 # foa_frontend against its plain version, f32 with TF32 off, on the dB and
 # IV channels: the 1024-term DFT sums run in another order, and the dB step
 # and the IV normalisation amplify relative error where energy is low
 FRONTEND_TOL = 1e-3
 FEED_CLIPS = {1: 4, 2: 4, 3: 4, 4: 4, 5: 2, 6: 2}   # fold -> clips
 FEED_SECONDS = 60
-FEED_ARGV = ["--name", "smoke", "--model", "conv_temporal", "--model_config",
+FEED_ARGV = ["--model", "conv_temporal", "--model_config",
              "SS5", "--doa_loss", "MMSE", "--from_wav", "--device_data",
              "--bf16", "--use_tfm", "--use_acs", "--agc", "true", "--batch",
              "64", "--loop_time", "5", "--epoch", "2", "--swa_start", "1",
              "--swa_freq", "1", "--eval_every", "0"]
+# [feed] runs the CLI (and its resume) once per variant, each under a run
+# name of its own
+FEED_VARIANTS = (("eager", ["--name", "smoke"]),
+                 ("epoch_scan", ["--name", "smoke_scan", "--epoch_scan"]),
+                 ("epoch_scan+fuse_metrics", ["--name", "smoke_fused",
+                                              "--epoch_scan",
+                                              "--fuse_metrics"]))
 
 
 def log(phase, msg):
@@ -1151,6 +1183,145 @@ def phase_train(card):
     return counts
 
 
+def _max_rel(a, b):
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def _state_err(a, b):
+    """Largest |a - b| over the parameters and over the running statistics
+    of two TrainStates."""
+    import torch
+    with torch.no_grad():
+        p = max((x - y).abs().max().item() for x, y in
+                zip(a.model.parameters(), b.model.parameters()))
+        s = max((x - y).abs().max().item() for x, y in
+                zip(a.model.buffers(), b.model.buffers()))
+    return p, s
+
+
+def _step_ms(run, steps):
+    """Host ms per step of `run()`, which runs `steps` steps, ended by a
+    synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def phase_graph(card):
+    """make_train_multistep(k=GRAPH_STEPS), a CUDA graph of one step
+    replayed k times a call, against k eager make_train_step calls from
+    the same seed: SS5 full width, B=256, bf16, dropout on. Returns the
+    launch counts of the timed graph calls."""
+    import torch
+    from seld_tpu_torch.bench import build
+    from seld_tpu_torch.ops import kernels
+    k, per_step = GRAPH_STEPS, {"gru_scan": 2, "gru_scan_bwd": 2,
+                                "stem_dy": 1}
+
+    def want(steps):
+        return {n: per_step.get(n, 0) * steps for n in kernels.KERNELS}
+
+    def counts():
+        return {n: kernels.launch_counts[n] for n in kernels.KERNELS}
+
+    # (a) the same k batches through the graph and eagerly; cuDNN's
+    # deterministic algorithms in both, so that the two run the same
+    # kernels on the same values
+    torch.backends.cudnn.deterministic = True
+    try:
+        g = build(batch=256, dtype="bf16", device="cuda", steps_per_call=k)
+        e = build(batch=256, dtype="bf16", device="cuda")
+        xs, (sed, doa) = g.x, g.y
+        kernels.launch_counts.clear()
+        t0 = time.perf_counter()
+        g.state, g.metric, (gs, gd) = g.step(g.state, g.metric, xs,
+                                             (sed, doa))
+        torch.cuda.synchronize()
+        first_s, first = time.perf_counter() - t0, counts()
+        eager = []
+        for i in range(k):
+            e.state, e.metric, (sl, dl) = e.step(e.state, e.metric, xs[i],
+                                                 (sed[i], doa[i]))
+            eager += [sl.item(), dl.item()]
+        graphed = torch.stack([gs, gd], -1).reshape(-1).tolist()
+        loss_err = _max_rel(graphed, eager)
+        param_err, stats_err = _state_err(g.state, e.state)
+        same_gen = torch.equal(g.state.generator.get_state(),
+                               e.state.generator.get_state())
+        metric_err = _max_rel([float(g.metric[n].sum()) for n in g.metric],
+                              [float(e.metric[n].sum()) for n in e.metric])
+        # one further eager step on each state draws the same masks
+        after = []
+        for b in (g, e):
+            _, _, (sl, dl) = e.step(b.state, e.metric, xs[0],
+                                    (sed[0], doa[0]))
+            after.append([sl.item(), dl.item()])
+        after_err = _max_rel(after[0], after[1])
+        steps_ok = g.state.step == e.state.step == k + 1
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ok = (loss_err <= GRAPH_LOSS_RTOL and after_err <= GRAPH_LOSS_RTOL
+          and param_err <= GRAPH_STATE_ATOL
+          and stats_err <= GRAPH_STATE_ATOL and same_gen and steps_ok
+          and metric_err <= GRAPH_METRIC_RTOL and first == want(k))
+    log("graph", f"(a) SS5 full width bf16 B=256 dropout on, "
+                 f"make_train_multistep(k={k}) (warm-up step, capture, "
+                 f"{k - 1} replays in {first_s:.2f} s) against {k} eager "
+                 f"steps: losses rel_err {loss_err:.2e}, params max_abs_err "
+                 f"{param_err:.2e}, running stats {stats_err:.2e} (tol "
+                 f"{GRAPH_LOSS_RTOL:.0e} rel, {GRAPH_STATE_ATOL:.0e} abs); "
+                 f"metric sums rel_err {metric_err:.2e} (tol "
+                 f"{GRAPH_METRIC_RTOL:.0e}); dropout generators equal "
+                 f"{same_gen}; one more eager step rel_err {after_err:.2e}; "
+                 f"launches {first} (want {want(k)}) "
+                 f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the graphed steps disagree with the eager steps")
+
+    # (b) times, eager and graphed in turns, and exact counts over
+    # replays alone, with cuDNN's default algorithms (as the bench runs):
+    # the same states, a graph captured anew
+    from seld_tpu_torch.train.steps import make_train_multistep
+    multistep = make_train_multistep(steps_per_call=k, **g.step_kwargs)
+
+    def graphed():
+        for _ in range(GRAPH_CALLS):
+            g.state, g.metric, _ = multistep(g.state, g.metric, xs,
+                                             (sed, doa))
+
+    def eager():
+        for i in range(GRAPH_CALLS * k):
+            e.state, e.metric, _ = e.step(e.state, e.metric, xs[i % k],
+                                          (sed[i % k], doa[i % k]))
+
+    g.state, g.metric, _ = multistep(g.state, g.metric, xs, (sed, doa))
+    n = GRAPH_CALLS * k
+    ms = {"eager": [], "graph": []}
+    replays = {name: 0 for name in kernels.KERNELS}
+    for name in ("eager", "graph", "graph", "eager"):
+        kernels.launch_counts.clear()
+        ms[name].append(_step_ms(eager if name == "eager" else graphed, n))
+        if name == "graph":
+            replays = {m: c + kernels.launch_counts[m]
+                       for m, c in replays.items()}
+    want_counts = want(2 * n)         # two graphed runs of n steps
+    mean = {name: sum(v) / len(v) for name, v in ms.items()}
+    log("graph", f"(b) {n} steps a run, eager and graphed in turns: eager "
+                 f"{ms['eager'][0]:.2f}/{ms['eager'][1]:.2f} ms/step "
+                 f"({256e3 / mean['eager']:.1f} windows/s), graphed "
+                 f"{ms['graph'][0]:.2f}/{ms['graph'][1]:.2f} ms/step "
+                 f"({256e3 / mean['graph']:.1f} windows/s), "
+                 f"{mean['eager'] / mean['graph']:.2f}x; launches {replays} "
+                 f"(want {want_counts}) on {card}")
+    if replays != want_counts:
+        raise SystemExit("a graph replay skipped a kernel or was counted "
+                         "wrongly")
+    return replays
+
+
 def frontend_bound(n, t, n_fft=1024, n_mels=64, hop=480, sample_rate=24000):
     """foa_frontend's bound for n clips of t frames, from the work its
     function needs, not the work the kernel's algorithm does (the DFT as
@@ -1509,35 +1680,23 @@ def _want_counts(steps, epochs, n_train, n_val, n_test, chunk=8):
             "stem_dy": steps}
 
 
-def phase_feed(card):
-    """The wav-native training path through the CLI on FEED_CLIPS clips of
-    FEED_SECONDS; returns the first run's launch counts."""
+def _feed_variant(root, card, label, flags):
+    """One training run of the CLI with `flags` (2 epochs) and its
+    --resume; checks the counts, the losses and the resumed epochs, logs
+    each epoch's windows/s and returns (counts, the run's windows/s)."""
     from seld_tpu_torch.train.checkpoint import latest_best
-    check_prefetch(card)
-    clips, seconds = FEED_CLIPS, FEED_SECONDS
+    clips = FEED_CLIPS
     n_train = sum(c for f, c in clips.items() if f <= 4)
     n_val, n_test = clips[5], clips[6]
-    cwd = os.getcwd()
-    t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        write_wav_tree(root, clips, seconds)
-        write_s = time.perf_counter() - t0
-        os.chdir(root)
-        try:
-            argv = [*FEED_ARGV, "--abspath", root]
-            out, counts = _feed_run(argv)
-            trainer = out["trainer"]
-            run_dir = os.path.join(root, "saved_model", trainer.config.name)
-            best = latest_best(run_dir)
-            with open(best + ".meta.json") as f:
-                best_epoch = json.load(f)["epoch"]
-            resumed, resumed_counts = _feed_run(
-                [*argv, "--resume", "--epoch", "3"])
-            has_normalizer = os.path.exists(os.path.join(run_dir,
-                                                         "normalizer.npz"))
-        finally:
-            os.chdir(cwd)
+    argv = [*FEED_ARGV, "--abspath", root, *flags]
+    out, counts = _feed_run(argv)
+    trainer = out["trainer"]
+    run_dir = os.path.join(root, "saved_model", trainer.config.name)
+    best = latest_best(run_dir)
+    with open(best + ".meta.json") as f:
+        best_epoch = json.load(f)["epoch"]
+    resumed, resumed_counts = _feed_run([*argv, "--resume", "--epoch", "3"])
+    has_normalizer = os.path.exists(os.path.join(run_dir, "normalizer.npz"))
     hist, rhist = out["history"], resumed["history"]
     cfg = trainer.config
     per_epoch = n_train * 10 * cfg.loop_time // cfg.batch   # 10 windows/clip
@@ -1553,26 +1712,55 @@ def phase_feed(card):
     resumed_ok = ([h["epoch"] for h in rhist]
                   == list(range(best_epoch + 1, 3))
                   and rtrainer.start_epoch == best_epoch + 1)
-    log("feed", f"{sum(clips.values())} wavs of {seconds} s written in "
-                f"{write_s:.1f} s; features, normalizer and staging in "
+    log("feed", f"{label}: features, normalizer and staging in "
                 f"{out['setup_secs']:.2f} s on the card")
-    for h in hist:
-        log("feed", f"epoch {h['epoch']}: {per_epoch} steps of "
-                    f"{trainer.config.batch} in {h['train_secs']:.3f} s, "
+    for h in hist + rhist:
+        log("feed", f"{label} epoch {h['epoch']}: {per_epoch} steps of "
+                    f"{cfg.batch} in {h['train_secs']:.3f} s, "
                     f"{windows / h['train_secs']:.1f} windows/s through the "
                     f"feed; train sed/doa loss {h['train']['sedLoss']:.4f}/"
                     f"{h['train']['doaLoss']:.4f}, val seld "
                     f"{h['val']['seldScore']:.4f}; epoch with val and test "
                     f"{h['secs']:.3f} s")
-    log("feed", f"launches {counts} (want {want}); best checkpoint from "
-                f"epoch {best_epoch}, normalizer.npz {has_normalizer}; "
-                f"resumed epochs {[h['epoch'] for h in rhist]}, launches "
-                f"{resumed_counts} (want {rwant}); losses finite {finite}; "
-                f"phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    log("feed", f"{label}: launches {counts} (want {want}); best "
+                f"checkpoint from epoch {best_epoch}, normalizer.npz "
+                f"{has_normalizer}; resumed epochs "
+                f"{[h['epoch'] for h in rhist]}, launches {resumed_counts} "
+                f"(want {rwant}); losses finite {finite} on {card}")
     if not (finite and counts == want and resumed_counts == rwant
             and trainer.state.step == cfg.epoch * per_epoch == len(hist)
             * per_epoch and has_normalizer and resumed_ok):
-        raise SystemExit("the wav-native training path failed a check")
+        raise SystemExit(f"the wav-native training path ({label}) failed a "
+                         "check")
+    # the first epoch holds the warm-up (and, with --epoch_scan, the
+    # capture): the run's rate is its later epochs'
+    later = [h["train_secs"] for h in hist[1:]]
+    return counts, windows * len(later) / sum(later)
+
+
+def phase_feed(card):
+    """The wav-native training path through the CLI on FEED_CLIPS clips of
+    FEED_SECONDS, eagerly and with --epoch_scan [--fuse_metrics]; returns
+    {variant: the first run's launch counts}."""
+    check_prefetch(card)
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    counts, rates = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_wav_tree(root, FEED_CLIPS, FEED_SECONDS)
+        log("feed", f"{sum(FEED_CLIPS.values())} wavs of {FEED_SECONDS} s "
+                    f"written in {time.perf_counter() - t0:.1f} s")
+        os.chdir(root)
+        try:
+            for label, flags in FEED_VARIANTS:
+                counts[label], rates[label] = _feed_variant(root, card,
+                                                            label, flags)
+        finally:
+            os.chdir(cwd)
+    log("feed", "windows/s through the feed after the first epoch: " + ", ".join(
+        f"{label} {rate:.1f}" for label, rate in rates.items())
+        + f"; phase {time.perf_counter() - t_phase:.1f} s on {card}")
     return counts
 
 
@@ -1607,6 +1795,7 @@ def main(argv=None):
         help="build, check and time the kernels (phase 3, every kernel "
              "even after one fails), then stop with no result line")
     kernels_only = parser.parse_args(argv).kernels_only
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (this script measures "
@@ -1641,23 +1830,36 @@ def main(argv=None):
                 log("kernels", f"{phase.__name__} FAILED: {e}")
                 failed.append(phase.__name__)
         raise SystemExit(f"failed: {failed}" if failed else 0)
-    entries = [phase_kernels(smi)] + phase_kernels_bwd(smi)
-    feed_entries = phase_kernels_feed(smi)
-    phase_routes(smi)
-    model = phase_model(smi)
-    entries[0]["launches"] = phase_serve(model, smi)
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        log("time", f"{phase.__name__} {time.perf_counter() - t0:.1f} s")
+        return out
+
+    entries = [timed(phase_kernels, smi)] + timed(phase_kernels_bwd, smi)
+    feed_entries = timed(phase_kernels_feed, smi)
+    timed(phase_routes, smi)
+    model = timed(phase_model, smi)
+    entries[0]["launches"] = timed(phase_serve, model, smi)
     del model
-    train_counts = phase_train(smi)
+    train_counts = timed(phase_train, smi)
     entries[0]["train_launches"] = train_counts["gru_scan"]
     for e in entries[1:]:
         e["launches"] = train_counts[e["name"]]
-    feed_counts = phase_feed(smi)
+    graph_counts = timed(phase_graph, smi)
+    feed_counts = timed(phase_feed, smi)
     for e in feed_entries:
-        e["launches"] = feed_counts[e["name"]]
+        e["launches"] = feed_counts["eager"][e["name"]]
     for e in entries:
-        e["feed_launches"] = feed_counts[e["name"]]
+        e["feed_launches"] = feed_counts["eager"][e["name"]]
     entries += feed_entries
+    for e in entries:
+        e["graph_launches"] = graph_counts[e["name"]]
+        e["epoch_scan_launches"] = feed_counts["epoch_scan"][e["name"]]
+        e["epoch_scan_fused_launches"] = feed_counts[
+            "epoch_scan+fuse_metrics"][e["name"]]
 
+    log("time", f"all phases {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,13 @@ analytic forward MACs) and the MFU against the H100's dense bf16 peak, with
 the card's name and power limit. Without a CUDA card it exits non-zero.
 
 Environment: BENCH_BATCH (256), BENCH_STEPS (steps per timed window, 400,
-as the JAX package's bench), BENCH_DTYPE (bf16 | fp32).
+as the JAX package's bench), BENCH_DTYPE (bf16 | fp32), BENCH_SPC (steps
+per call, 1) and BENCH_SPC_UNROLL (1). With BENCH_SPC=k > 1 each call is
+`make_train_multistep(steps_per_call=k, unroll=BENCH_SPC_UNROLL)` on a
+stacked [k, B, ...] batch: k updates replayed as a captured CUDA graph of
+`unroll` steps, then one metric update, as the JAX package's bench runs
+k steps a dispatch. BENCH_SPC=1 is the eager step of every earlier
+measurement.
 """
 from __future__ import annotations
 
@@ -32,7 +38,7 @@ from seld_tpu_torch.nas.complexity import conv_temporal_complexity
 from seld_tpu_torch.train import losses as L
 from seld_tpu_torch.train import metrics as M
 from seld_tpu_torch.train.optimizers import adabelief
-from seld_tpu_torch.train.steps import make_train_step
+from seld_tpu_torch.train.steps import make_train_multistep, make_train_step
 from seld_tpu_torch.train.train_state import TrainState
 
 INPUT_SHAPE = (300, 64, 7)
@@ -55,12 +61,16 @@ def ss5_config(dropout: bool = True) -> dict:
 
 
 def build(batch: int = 256, dtype: str = "bf16", device="cuda",
-          seed: int = 0, dropout: bool = True) -> SimpleNamespace:
+          seed: int = 0, dropout: bool = True, steps_per_call: int = 1,
+          unroll: int = 1) -> SimpleNamespace:
     """The bench's model, optimizer, step and one synthetic batch.
 
     Weights come from `seed` (drawn on the CPU, so every device gets the
     same model) and the batch from numpy seed `seed`; x is pre-cast to the
-    compute dtype, as the JAX package's feed does."""
+    compute dtype, as the JAX package's feed does. With steps_per_call k
+    > 1 the step is `make_train_multistep(k, unroll)` and the batch is k
+    batches stacked [k, B, ...], drawn as the JAX package's bench draws
+    them."""
     compute_dtype = DTYPES[dtype]
     cfg = ss5_config(dropout)
     model = build_model("conv_temporal", INPUT_SHAPE, cfg, seed=seed,
@@ -68,21 +78,38 @@ def build(batch: int = 256, dtype: str = "bf16", device="cuda",
     opt = adabelief(list(model.parameters()), 1e-3, agc_clip=0.01)
     state = TrainState(model, opt, seed=seed + 1)
     cw = L.class_weights_from_samples(L.DCASE2021_TRAIN_SAMPLES, device)
-    step = make_train_step(
+    kwargs = dict(
         sed_loss_fn=lambda y, p: L.sed_loss_with_weights(y, p, cw),
         doa_loss_fn=lambda y, p: L.MMSE_with_cls_weights(y, p, cw),
         loss_weights=(1.0, 1000.0), l2=1e-3, compute_dtype=compute_dtype)
+    if steps_per_call > 1:
+        step = make_train_multistep(steps_per_call=steps_per_call,
+                                    unroll=unroll, **kwargs)
+    else:
+        step = make_train_step(**kwargs)
 
     rng = np.random.RandomState(seed)
-    x = torch.from_numpy(rng.randn(batch, *INPUT_SHAPE).astype(np.float32))
-    sed = (rng.rand(batch, 60, N_CLASSES) < 0.1).astype(np.float32)
-    doa = (np.clip(rng.randn(batch, 60, 3 * N_CLASSES), -1, 1)
+    lead = (steps_per_call, batch) if steps_per_call > 1 else (batch,)
+    x = torch.from_numpy(rng.randn(*lead, *INPUT_SHAPE).astype(np.float32))
+    sed = (rng.rand(*lead, 60, N_CLASSES) < 0.1).astype(np.float32)
+    doa = (np.clip(rng.randn(*lead, 60, 3 * N_CLASSES), -1, 1)
            * np.repeat(sed, 3, axis=-1)).astype(np.float32)
     x = x.to(device=device, dtype=compute_dtype or torch.float32)
     y = (torch.from_numpy(sed).to(device), torch.from_numpy(doa).to(device))
     return SimpleNamespace(cfg=cfg, state=state, step=step, x=x, y=y,
                            metric=M.init_state(N_CLASSES, device),
-                           batch=batch, dtype=dtype)
+                           batch=batch, dtype=dtype,
+                           steps_per_call=steps_per_call, step_kwargs=kwargs)
+
+
+def steps_per_call_from_env():
+    """(BENCH_SPC, BENCH_SPC_UNROLL) from the environment, checked."""
+    spc = int(os.environ.get("BENCH_SPC", "1"))
+    unroll = int(os.environ.get("BENCH_SPC_UNROLL", "1"))
+    if spc < 1 or not 1 <= unroll <= spc:
+        raise SystemExit(f"bench: BENCH_SPC={spc} must be >= 1 and "
+                         f"BENCH_SPC_UNROLL={unroll} in [1, BENCH_SPC]")
+    return spc, unroll
 
 
 def gflops_per_window(cfg: dict) -> float:
@@ -127,27 +154,31 @@ def main(argv=None) -> None:
     if dtype not in DTYPES:
         raise SystemExit(f"bench: BENCH_DTYPE={dtype!r}; one of "
                          f"{sorted(DTYPES)}")
-    b = build(batch, dtype, "cuda")
+    spc, unroll = steps_per_call_from_env()
+    n_calls = max(1, n_steps // spc)
+    b = build(batch, dtype, "cuda", steps_per_call=spc, unroll=unroll)
     state, mstate = b.state, b.metric
 
-    # warmup: builds the kernels, and ends in a scalar fetch of the step's
-    # loss, which cannot complete before the step has run
+    # warmup: builds the kernels (and captures the graph), and ends in a
+    # scalar fetch of the step's loss, which cannot complete before the
+    # step has run
     for _ in range(2):
         state, mstate, losses = b.step(state, mstate, b.x, b.y)
-    warmup_loss = losses[0].item()
+    warmup_loss = losses[0].reshape(-1)[0].item()
     if not np.isfinite(warmup_loss):
         raise SystemExit(f"non-finite warmup loss {warmup_loss}")
 
     def run_window():
         nonlocal state, mstate
         t0 = time.perf_counter()
-        for _ in range(n_steps):
+        for _ in range(n_calls):
             state, mstate, _ = b.step(state, mstate, b.x, b.y)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
     dt, window_times, anomaly = robust_window_time(run_window)
+    n_steps = n_calls * spc
     windows_per_sec = n_steps * batch / dt
     gflops = gflops_per_window(b.cfg)
     achieved_tflops = windows_per_sec * gflops / 1e3
@@ -157,6 +188,8 @@ def main(argv=None) -> None:
         "unit": "windows/sec",
         "batch": batch,
         "compute_dtype": dtype,
+        "steps_per_call": spc,
+        "unroll": unroll,
         "ms_per_step": dt / n_steps * 1e3,
         "warmup_anomaly": bool(anomaly),
         "window_times_sec": window_times,
@@ -166,6 +199,8 @@ def main(argv=None) -> None:
         "mfu_vs_bf16_peak": achieved_tflops / H100_BF16_PEAK_TFLOPS,
         "peak_tflops_bf16": H100_BF16_PEAK_TFLOPS,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        # a captured graph's private pool is reserved, not allocated
+        "max_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
         "device": torch.cuda.get_device_name(0),
         "card": card_name_and_power_limit(),
     }))

@@ -14,7 +14,11 @@ order. Several cards (the JAX package's sharded staging) are ROADMAP queue
 1, item 14.
 
 Each batch is one gather launch that copies x and y with the same ids row
-(`LAUNCHES_PER_BATCH`).
+(`LAUNCHES_PER_BATCH`). The index matrix lives in one buffer on the card
+for the dataset's life: each epoch writes its ids there in one copy, so
+an epoch step captured as a CUDA graph over that buffer
+(train/steps.py::make_train_epoch) replays the next epoch with no new
+capture.
 
 Capacity: x at [N, 300, 64, 7] is ~269 KB a window in bf16 (~538 KB f32):
 the 4-fold DCASE2021 train split (~4,000 windows) is ~1.1 GB in bf16.
@@ -70,6 +74,8 @@ class DeviceDataset:
                            + y.numel() * y.element_size())
         self._x = x.to(self.device).contiguous()
         self._y = y.to(self.device).contiguous()
+        self._idx = torch.empty((len(self), batch_size), dtype=torch.int32,
+                                device=self.device)
 
     @classmethod
     def from_clips(cls, features: Sequence, labels: Sequence,
@@ -94,9 +100,10 @@ class DeviceDataset:
         return self._x, self._y
 
     def epoch_index_matrix(self) -> torch.Tensor:
-        """Stage one epoch's [steps, B] int32 index matrix on the card and
+        """Write one epoch's [steps, B] int32 index matrix into the
+        dataset's buffer on the card (the same tensor every epoch) and
         advance the shuffle."""
-        return torch.from_numpy(self._epoch_order()).to(self.device)
+        return self._idx.copy_(torch.from_numpy(self._epoch_order()))
 
     def __len__(self) -> int:
         return (self.n_windows * self.loop_time) // self.batch_size

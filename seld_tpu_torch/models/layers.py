@@ -18,6 +18,7 @@ BatchNorm scale 1 (momentum 0.99, eps 1e-3).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Optional, Sequence, Tuple, Union
 
@@ -142,6 +143,15 @@ def basic_pos_encoding(time: int, d_model: int) -> torch.Tensor:
     t = np.arange(time, dtype=np.float64)[:, None]
     enc = np.stack([np.cos(w * t), np.sin(w * t)], axis=-1)
     return torch.from_numpy(enc.reshape(1, time, 2 * k).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def basic_pos_encoding_on(time: int, d_model: int, device: torch.device,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """`basic_pos_encoding` on `device` in `dtype`, made once: a forward
+    that adds it makes no host-to-device copy, which the capture of a CUDA
+    graph refuses. Callers must not write into it."""
+    return basic_pos_encoding(time, d_model).to(device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------- layers

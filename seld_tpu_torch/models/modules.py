@@ -32,7 +32,7 @@ from seld_tpu_torch.models.layers import (
     LayerNorm,
     MultiHeadAttention,
     add_child,
-    basic_pos_encoding,
+    basic_pos_encoding_on,
     force_1d,
     force_1d_shape,
     get_activation,
@@ -434,7 +434,8 @@ class ConformerEncoderBlock(nn.Module):
         for it in self.iters:
             x = x + self.ffn_factor * self._ffn(x, it["ffn1"])
             if self.pos_encoding == "basic":
-                x = x + basic_pos_encoding(x.shape[-2], x.shape[-1]).to(x)
+                x = x + basic_pos_encoding_on(x.shape[-2], x.shape[-1],
+                                              x.device, x.dtype)
 
             attn_in = it["attn_ln"](x)
             attn = it["mha"](attn_in, attn_in, attn_in)

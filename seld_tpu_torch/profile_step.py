@@ -6,7 +6,10 @@ Builds the bench's step with its defaults (`seld_tpu_torch.bench.build`:
 SS5 full width, B=256, bf16 compute over f32 masters, dropout on), warms it
 up, times STEPS (10) steps on the host clock (ended by
 `torch.cuda.synchronize()`), then traces as many more under
-`torch.profiler` and prints ONE JSON line:
+`torch.profiler` and prints ONE JSON line. BENCH_SPC=k (and
+BENCH_SPC_UNROLL), as the bench reads them, profiles the k-step call
+(`make_train_multistep`, a CUDA graph replayed on the card) instead: each
+run is ceil(STEPS / k) calls, and every number below is per step.
 
   ms_per_step           host clock per step, without the profiler
   traced_ms_per_step    host clock per step under the profiler
@@ -34,7 +37,8 @@ import time
 
 import torch
 
-from seld_tpu_torch.bench import build, card_name_and_power_limit
+from seld_tpu_torch.bench import (build, card_name_and_power_limit,
+                                  steps_per_call_from_env)
 
 STEPS = 10            # steps per timed and per traced run
 # one stream runs the step's kernels one after another, so their summed
@@ -75,16 +79,19 @@ def main(argv=None) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    b = build(device="cuda")
+    spc, unroll = steps_per_call_from_env()
+    calls = -(-STEPS // spc)
+    steps = calls * spc
+    b = build(device="cuda", steps_per_call=spc, unroll=unroll)
     state, mstate = b.state, b.metric
 
     def run():
         nonlocal state, mstate
         t0 = time.perf_counter()
-        for _ in range(STEPS):
+        for _ in range(calls):
             state, mstate, losses = b.step(state, mstate, b.x, b.y)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / STEPS * 1e3, losses
+        return (time.perf_counter() - t0) / steps * 1e3, losses
 
     _, losses = run()                                  # warm up
     if not torch.isfinite(torch.stack(losses)).all():
@@ -100,7 +107,7 @@ def main(argv=None) -> None:
             by_name[avg.key] = by_name.get(avg.key, 0.0) + _device_us(avg)
     if not by_name:
         raise SystemExit("the profiler recorded no device time")
-    per_step = {k: v / 1e3 / STEPS for k, v in by_name.items()}   # ms per step
+    per_step = {k: v / 1e3 / steps for k, v in by_name.items()}   # ms per step
     device_ms = sum(per_step.values())
     groups = {}
     for name, ms in per_step.items():
@@ -117,7 +124,8 @@ def main(argv=None) -> None:
     top = sorted(per_step.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
         "metric": "ss5_train_step_breakdown",
-        "batch": b.batch, "compute_dtype": b.dtype, "steps": STEPS,
+        "batch": b.batch, "compute_dtype": b.dtype, "steps": steps,
+        "steps_per_call": spc, "unroll": unroll,
         "ms_per_step": ms_step,
         "traced_ms_per_step": traced_ms,
         "device_ms_per_step": device_ms,

@@ -10,7 +10,15 @@ best, as the reference does; `<name>.meta.json` beside it carries the
 extra state (best score, epoch).
 
 The format is the port's own: a directory `<name>` holding `state.pt`, a
-`torch.save` of CPU tensors (not the JAX package's orbax layout).
+`torch.save` of CPU tensors (not the JAX package's orbax layout). The
+optimizer's count and learning rate are stored as a Python int and float.
+
+Restore writes into the state's existing tensors: the parameters, the
+statistics, the moments, the optimizer's count and learning rate tensors,
+and the generators (`set_state` writes a generator's seed and offset in
+place). A CUDA graph captured over that state (train/graphs.py) holds
+their addresses and registered generator states, so it replays the
+restored run without a new capture.
 """
 from __future__ import annotations
 

@@ -14,9 +14,14 @@ back to the CPU). Data sources under --abspath:
 Checkpoints go to ./saved_model/<run>/bestscore_<score>, scalars to
 ./tensorboard_log/<run>/scalars.jsonl, run configs to ./config/.
 
+With --device_data, --epoch_scan runs each train epoch as one epoch step
+(gather, augment and update a step, captured once as a CUDA graph and
+replayed a step at a time on the card; a plain loop with --device cpu),
+and --fuse_metrics accumulates the metric inside it.
+
 Flags whose code is not ported raise: --use_tdm, --use_both, --wav_mode
-mic, --epoch_scan, --fuse_metrics, and the periodic ensemble evaluation
-(an <ans_path>/dev-test directory with --eval_every > 0).
+mic, and the periodic ensemble evaluation (an <ans_path>/dev-test
+directory with --eval_every > 0).
 """
 from __future__ import annotations
 
@@ -38,10 +43,6 @@ _UNPORTED = {
     "use_tdm": (True, "TDM mixing (queue 1, item 6)"),
     "use_both": (True, "the joint FOA+MIC input (queue 1, item 8)"),
     "wav_mode": ("mic", "the microphone-array features (queue 1, item 8)"),
-    "epoch_scan": (True, "the whole-epoch step (a CUDA graph, queue 1, "
-                         "item 7)"),
-    "fuse_metrics": (True, "the whole-epoch step (a CUDA graph, queue 1, "
-                           "item 7)"),
 }
 
 
@@ -107,6 +108,14 @@ def _check_flags(config, device):
         if getattr(config, flag, None) == value:
             raise NotImplementedError(
                 f"--{flag} runs {what}, which is not ported yet (ROADMAP)")
+    if getattr(config, "epoch_scan", False) and not getattr(
+            config, "device_data", False):
+        raise ValueError("--epoch_scan requires --device_data (the epoch "
+                         "scan gathers from the HBM-resident dataset)")
+    if getattr(config, "fuse_metrics", False) and not getattr(
+            config, "epoch_scan", False):
+        raise ValueError("--fuse_metrics only applies to the --epoch_scan "
+                         "path (metrics accumulate inside the epoch scan)")
     if config.resume and getattr(config, "init_from", ""):
         raise ValueError("--resume restores this run's full training state; "
                          "--init_from starts a fresh fine-tune from external "

@@ -12,14 +12,21 @@
 
 An optimizer updates a list of f32 master parameters in place:
 `opt.step(params, grads)`, with AGC (`agc_clip`) applied first to the raw
-gradients, as `adabelief(..., agc_clip=)` chains it. `opt.lr` can be read
-and set between steps.
+gradients, as `adabelief(..., agc_clip=)` chains it.
+
+The step count and the learning rate are 0-dim f32 tensors on the
+parameters' device, and the bias corrections are computed from the count
+there, in f32, as the JAX package computes them inside its compiled step.
+A step so reads no value from the host, and a CUDA graph that captured it
+(train/graphs.py) advances the count on every replay and sees a new
+learning rate: `opt.lr = v` writes into the tensor in place. `opt.lr`
+reads back the value last set (a Python float, as it was given) and
+`opt.count` the count as an int.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
-import numpy as np
 import torch
 
 
@@ -51,11 +58,32 @@ def adaptive_clip_grad(params: Sequence[torch.Tensor],
 class _Optimizer:
     def __init__(self, params: Sequence[torch.Tensor], learning_rate: float,
                  agc_clip: Optional[float]):
-        self.lr = float(learning_rate)
+        params = list(params)
+        device = params[0].device if params else torch.device("cpu")
         self.agc_clip = agc_clip
-        self.count = 0
+        self._lr = torch.zeros((), dtype=torch.float32, device=device)
+        self._count = torch.zeros((), dtype=torch.float32, device=device)
+        self.lr = learning_rate
         self.m = [torch.zeros_like(p) for p in params]
         self.v = [torch.zeros_like(p) for p in params]
+
+    @property
+    def lr(self) -> float:
+        return self._lr_value
+
+    @lr.setter
+    def lr(self, value: float) -> None:
+        self._lr_value = float(value)
+        self._lr.fill_(self._lr_value)
+
+    @property
+    def count(self) -> int:
+        """Updates taken so far (reads the device tensor)."""
+        return int(self._count.item())
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._count.fill_(int(value))
 
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor],
@@ -64,12 +92,12 @@ class _Optimizer:
         grads = list(grads)
         if self.agc_clip is not None:
             grads = adaptive_clip_grad(params, grads, self.agc_clip)
-        self.count += 1
+        self._count.add_(1)
         scaled = self._scale(grads)
         # params + (-lr) * update, as optax's scale_by_learning_rate and
-        # apply_updates compose it
-        torch._foreach_add_(list(params),
-                            torch._foreach_mul(scaled, -self.lr))
+        # apply_updates compose it (lr * u negated is exact)
+        torch._foreach_sub_(list(params), torch._foreach_mul(scaled,
+                                                             self._lr))
 
 
 class AdaBelief(_Optimizer):
@@ -84,7 +112,7 @@ class AdaBelief(_Optimizer):
             else None
 
     def _scale(self, grads):
-        b1, b2, t = self.b1, self.b2, self.count
+        b1, b2, t = self.b1, self.b2, self._count
         torch._foreach_mul_(self.m, b1)
         torch._foreach_add_(self.m, grads, alpha=1 - b1)
         diff = torch._foreach_sub(grads, self.m)
@@ -94,9 +122,9 @@ class AdaBelief(_Optimizer):
         if self.vhat is not None:
             torch._foreach_maximum_(self.vhat, self.v)
             denom = self.vhat
-        # bias corrections in f32, as the JAX package computes them
-        b1_t, b2_t = np.float32(b1) ** t, np.float32(b2) ** t
-        correction = float(np.sqrt(1 - b2_t) / (1 - b1_t))
+        # bias corrections in f32 on the device, as the JAX package
+        # computes them
+        correction = torch.sqrt(1 - b2 ** t) / (1 - b1 ** t)
         den = torch._foreach_sqrt(denom)
         torch._foreach_add_(den, self.eps)
         return torch._foreach_div(torch._foreach_mul(self.m, correction),
@@ -113,14 +141,13 @@ class Adam(_Optimizer):
         self.b1, self.b2, self.eps = b1, b2, eps
 
     def _scale(self, grads):
-        b1, b2, t = self.b1, self.b2, self.count
+        b1, b2, t = self.b1, self.b2, self._count
         torch._foreach_mul_(self.m, b1)
         torch._foreach_add_(self.m, grads, alpha=1 - b1)
         torch._foreach_mul_(self.v, b2)
         torch._foreach_addcmul_(self.v, grads, grads, value=1 - b2)
-        m_hat = torch._foreach_div(self.m, float(1 - np.float32(b1) ** t))
-        den = torch._foreach_sqrt(
-            torch._foreach_div(self.v, float(1 - np.float32(b2) ** t)))
+        m_hat = torch._foreach_div(self.m, 1 - b1 ** t)
+        den = torch._foreach_sqrt(torch._foreach_div(self.v, 1 - b2 ** t))
         torch._foreach_add_(den, self.eps)
         return torch._foreach_div(m_hat, den)
 

@@ -1,4 +1,4 @@
-"""The training and eval steps (seld_tpu/train/steps.py:22-138, 308-347).
+"""The training and eval steps (seld_tpu/train/steps.py).
 
 One step: forward in train mode (BatchNorm running statistics update in
 place, dropout masks from the state's generator) -> dual loss + L2 kernel
@@ -10,6 +10,13 @@ cast once to `compute_dtype`; every f32 parameter is cast to it inside the
 loss (bf16 copies through `torch.func.functional_call`), so gradients flow
 back through the cast to the f32 masters; the running statistics stay f32;
 predictions are upcast to f32 before the loss.
+
+`make_train_step` runs one step eagerly. `make_train_multistep` (k steps a
+call) and `make_train_epoch` (an epoch over a card-resident split) run
+the same update as a captured CUDA graph on a CUDA device and as a plain
+loop on the CPU (train/graphs.py): each step reads its batch at a
+device-side counter and writes its outputs there, so the graph holds no
+per-step value of the host.
 """
 from __future__ import annotations
 
@@ -17,7 +24,9 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from seld_tpu_torch.ops.gather import gather_batch
 from seld_tpu_torch.train import metrics as M
+from seld_tpu_torch.train.graphs import StepLoop
 from seld_tpu_torch.train.train_state import TrainState
 
 
@@ -44,21 +53,12 @@ def l2_kernel_penalty(params: Dict[str, torch.Tensor],
     return l2 * torch.stack(squares).sum()
 
 
-def make_train_step(*,
-                    sed_loss_fn: Callable,
-                    doa_loss_fn: Callable,
-                    loss_weights: Tuple[float, float] = (1.0, 1000.0),
-                    l2: float = 0.0,
-                    doa_threshold: float = 20.0,
-                    metric_block_size: int = 10,
-                    compute_dtype=None):
-    """Build a train step.
-
-    sed_loss_fn(y, p) and doa_loss_fn(y, p) return scalars. Step signature:
-    (state, metric_state, x, y) -> (state, metric_state, (sed_loss,
-    doa_loss)) with y = (sed, doa); the state is updated in place and
-    returned.
-    """
+def _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
+                      compute_dtype):
+    """The single-batch update: (state, x, y) -> ((sed_p, doa_p),
+    (sed_loss, doa_loss)). It updates the parameters, the moments and the
+    statistics in place and touches nothing on the host: the caller counts
+    `state.step`."""
     w_sed, w_doa = loss_weights
 
     def cast(p: torch.Tensor) -> torch.Tensor:
@@ -66,7 +66,7 @@ def make_train_step(*,
             return p.to(compute_dtype)
         return p
 
-    def step(state: TrainState, metric_state, x, y):
+    def update(state: TrainState, x, y):
         model = state.model.train()
         sed_y, doa_y = y
         if compute_dtype is not None:
@@ -82,15 +82,304 @@ def make_train_step(*,
                     + l2_kernel_penalty(params, l2))
             grads = torch.autograd.grad(loss, list(params.values()))
         state.optimizer.step(list(params.values()), grads)
+        return (sed_p.detach(), doa_p.detach()), (sloss.detach(),
+                                                  dloss.detach())
+
+    return update
+
+
+def make_train_step(*,
+                    sed_loss_fn: Callable,
+                    doa_loss_fn: Callable,
+                    loss_weights: Tuple[float, float] = (1.0, 1000.0),
+                    l2: float = 0.0,
+                    doa_threshold: float = 20.0,
+                    metric_block_size: int = 10,
+                    compute_dtype=None):
+    """Build a train step.
+
+    sed_loss_fn(y, p) and doa_loss_fn(y, p) return scalars. Step signature:
+    (state, metric_state, x, y) -> (state, metric_state, (sed_loss,
+    doa_loss)) with y = (sed, doa); the state is updated in place and
+    returned.
+    """
+    update = _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
+                               compute_dtype)
+
+    def step(state: TrainState, metric_state, x, y):
+        preds, losses = update(state, x, y)
         state.step += 1
         with torch.no_grad():
-            metric_state = M.update(metric_state, (sed_y, doa_y),
-                                    (sed_p.detach(), doa_p.detach()),
+            metric_state = M.update(metric_state, y, preds,
                                     doa_threshold=doa_threshold,
                                     block_size=metric_block_size)
-        return state, metric_state, (sloss.detach(), dloss.detach())
+        return state, metric_state, losses
 
     return step
+
+
+def _fold(a: torch.Tensor) -> torch.Tensor:
+    """[k, B, ...] -> [k*B, ...]"""
+    return a.reshape(a.shape[0] * a.shape[1], *a.shape[2:])
+
+
+def _state_key(state: TrainState) -> tuple:
+    # the program that holds these ids keeps the objects alive, so an id
+    # is not reused while its entry exists
+    return id(state), id(state.model), id(state.optimizer), \
+        id(state.generator)
+
+
+def _tensor_key(t: torch.Tensor) -> tuple:
+    return tuple(t.shape), t.dtype, t.device
+
+
+class _Slots:
+    """Per-step output buffers [steps, ...] written at a device-side
+    counter `i` ([1] int64) by index_copy_: the graph writes step i's
+    values where the host reads them after the last replay."""
+
+    def __init__(self, device, steps: int):
+        self.counter = torch.zeros(1, dtype=torch.int64, device=device)
+        self.steps = steps
+        self.bufs: Dict[str, torch.Tensor] = {}
+
+    def put(self, name: str, value: torch.Tensor) -> None:
+        self.bufs[name].index_copy_(0, self.counter, value.unsqueeze(0))
+
+    def alloc(self, name: str, shape, dtype) -> None:
+        self.bufs[name] = torch.empty((self.steps, *shape), dtype=dtype,
+                                      device=self.counter.device)
+
+    def row(self, a: torch.Tensor) -> torch.Tensor:
+        """a[i] of a [steps, ...] tensor, i the device-side counter."""
+        return a.index_select(0, self.counter).squeeze(0)
+
+
+def make_train_multistep(*,
+                         steps_per_call: int,
+                         sed_loss_fn: Callable,
+                         doa_loss_fn: Callable,
+                         loss_weights: Tuple[float, float] = (1.0, 1000.0),
+                         l2: float = 0.0,
+                         doa_threshold: float = 20.0,
+                         metric_block_size: int = 10,
+                         compute_dtype=None,
+                         donate: bool = True,
+                         unroll: int = 1):
+    """k optimizer updates a call (seld_tpu/train/steps.py:141-200).
+
+    Batches arrive stacked: xs [k, B, ...], ys = (sed [k, B, ...], doa
+    [k, B, ...]). The k updates run back to back; then ONE metric update
+    folds the k stacked predictions in ([k*B, ...]), as the JAX package
+    does. Semantics equal k calls of `make_train_step`: one update a
+    batch, the dropout masks drawn from the state's generator in step
+    order, so the generator ends where k single steps leave it.
+
+    On a CUDA device the steps run as a captured CUDA graph of `unroll`
+    steps, replayed over the k (train/graphs.py); the batches are copied
+    once a call into the graph's own [k, B, ...] buffers, and each step
+    reads its batch at a device-side counter. The first call on a state
+    warms up (its first `unroll` steps run eagerly) and captures. On the
+    CPU the same step body runs in a plain loop. `unroll` does not change
+    the result. `donate` is accepted for the JAX signature: the port
+    always updates the state in place.
+
+    Returns step(state, metric_state, xs, ys) -> (state, metric_state,
+    (sed_losses [k], doa_losses [k])).
+    """
+    if steps_per_call < 1:
+        raise ValueError("steps_per_call must be >= 1")
+    if not 1 <= int(unroll) <= steps_per_call:
+        raise ValueError(f"unroll={unroll!r} must be in [1, steps_per_call]")
+    k, unroll = int(steps_per_call), int(unroll)
+    update = _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
+                               compute_dtype)
+    live = {}      # the one program of the last signature
+
+    def build(state, xs, sed, doa):
+        slots = _Slots(xs.device, k)
+        for name, a in (("x", xs), ("sed", sed), ("doa", doa)):
+            slots.alloc(name, a.shape[1:], a.dtype)
+        slots.alloc("sed_p", sed.shape[1:], torch.float32)
+        slots.alloc("doa_p", doa.shape[1:], torch.float32)
+        slots.alloc("losses", (2,), torch.float32)
+        b = slots.bufs
+
+        def one_step():
+            x = slots.row(b["x"])
+            y = (slots.row(b["sed"]), slots.row(b["doa"]))
+            (sp, dp), (sl, dl) = update(state, x, y)
+            slots.put("sed_p", sp)
+            slots.put("doa_p", dp)
+            slots.put("losses", torch.stack([sl, dl]))
+            slots.counter.add_(1)
+
+        loop = StepLoop(one_step, [state.generator], xs.device, unroll)
+        return state, slots, loop
+
+    def step(state: TrainState, metric_state, xs, ys):
+        sed, doa = ys
+        if xs.shape[0] != k or sed.shape[0] != k or doa.shape[0] != k:
+            raise ValueError(f"batches must be stacked [{k}, B, ...]; got "
+                             f"{tuple(xs.shape)}, {tuple(sed.shape)}, "
+                             f"{tuple(doa.shape)}")
+        key = (_state_key(state), _tensor_key(xs), _tensor_key(sed),
+               _tensor_key(doa))
+        if key not in live:
+            live.clear()
+            live[key] = build(state, xs, sed, doa)
+        _, slots, loop = live[key]
+        b = slots.bufs
+        with torch.no_grad():
+            b["x"].copy_(xs)
+            b["sed"].copy_(sed)
+            b["doa"].copy_(doa)
+            slots.counter.zero_()
+        loop.run(k)
+        state.step += k
+        with torch.no_grad():
+            metric_state = M.update(
+                metric_state, (_fold(sed), _fold(doa)),
+                (_fold(b["sed_p"]), _fold(b["doa_p"])),
+                doa_threshold=doa_threshold, block_size=metric_block_size)
+            losses = b["losses"].clone()
+        return state, metric_state, (losses[:, 0], losses[:, 1])
+
+    return step
+
+
+def make_train_epoch(*,
+                     sed_loss_fn: Callable,
+                     doa_loss_fn: Callable,
+                     n_classes: int,
+                     mesh=None,
+                     axis: str = "data",
+                     loss_weights: Tuple[float, float] = (1.0, 1000.0),
+                     l2: float = 0.0,
+                     doa_threshold: float = 20.0,
+                     metric_block_size: int = 10,
+                     compute_dtype=None,
+                     donate: bool = True,
+                     augment_fn: Callable = None,
+                     fuse_metrics: bool = False):
+    """One train epoch over a card-resident split a call
+    (seld_tpu/train/steps.py:203-305).
+
+    Companion to `data.device_dataset.DeviceDataset`: the windowed split
+    (x_all [N, ...], y_all [N, T, 4C], sed and doa labels side by side)
+    and the epoch's index matrix (idx_all [steps, B] int32) already lie on
+    the card. Each step reads its row of idx_all at a device-side counter,
+    gathers its batch with `gather_batch` (the gather_rows kernel), applies
+    `augment_fn(generator, x, y)`, splits the labels at `n_classes` and
+    runs the update. On a CUDA device that step is a captured CUDA graph,
+    replayed `steps` times (train/graphs.py): the host's work a step is one
+    replay. The graph is captured once per signature (shapes, dtypes, the
+    state, the generator and the addresses of x_all, y_all and idx_all),
+    so an epoch over the same buffers with new ids in idx_all replays it
+    again; the first step of the first epoch is its warm-up and runs
+    eagerly. On the CPU the same step body runs in a plain loop.
+
+    The augments draw from the `aug_generator` the call is handed, in step
+    order: the augment stream is the trainer's eager loop's for the same
+    generator. It cannot equal the JAX package's, which splits a key per
+    step inside its scan from `aug_rng`.
+
+    As in JAX, with fuse_metrics=False the (post-augment) labels and the
+    predictions of every step are stacked and ONE metric update folds them
+    in after the last step; with fuse_metrics=True the metric state is
+    updated inside every step. One card: `mesh` must be None (several cards
+    are ROADMAP queue 1, item 14); `axis` and `donate` are accepted for the
+    JAX signature (the port updates the state in place).
+
+    Returns epoch(state, metric_state, x_all, y_all, idx_all,
+    aug_generator) -> (state, metric_state, (sed_losses [steps],
+    doa_losses [steps])).
+    """
+    if mesh is not None:
+        raise NotImplementedError("make_train_epoch runs on one card; a "
+                                  "mesh of several is not ported yet "
+                                  "(ROADMAP queue 1, item 14)")
+    update = _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
+                               compute_dtype)
+    c = n_classes
+    live = {}      # the one program of the last signature
+
+    def build(state, x_all, y_all, idx_all, aug_generator, metric_state):
+        steps, batch = idx_all.shape
+        slots = _Slots(x_all.device, steps)
+        slots.alloc("losses", (2,), torch.float32)
+        if fuse_metrics:
+            metric = {k: torch.empty_like(v) for k, v in metric_state.items()}
+        else:
+            metric = None
+            lead = (batch, *y_all.shape[1:-1])
+            for name, width in (("sed", c), ("doa", y_all.shape[-1] - c)):
+                slots.alloc(name, (*lead, width), y_all.dtype)
+                slots.alloc(f"{name}_p", (*lead, width), torch.float32)
+
+        def one_step():
+            xb, yb = gather_batch((x_all, y_all), slots.row(idx_all))
+            if augment_fn is not None:
+                xb, yb = augment_fn(aug_generator, xb, yb)
+            y = (yb[..., :c], yb[..., c:])
+            preds, (sl, dl) = update(state, xb, y)
+            with torch.no_grad():
+                if fuse_metrics:
+                    new = M.update(metric, y, preds,
+                                   doa_threshold=doa_threshold,
+                                   block_size=metric_block_size)
+                    for name, t in metric.items():
+                        t.copy_(new[name])
+                else:
+                    slots.put("sed", y[0])
+                    slots.put("doa", y[1])
+                    slots.put("sed_p", preds[0])
+                    slots.put("doa_p", preds[1])
+                slots.put("losses", torch.stack([sl, dl]))
+                slots.counter.add_(1)
+
+        gens = [state.generator] + ([aug_generator] if augment_fn else [])
+        loop = StepLoop(one_step, gens, x_all.device)
+        return (state, aug_generator), slots, loop, metric
+
+    def epoch(state: TrainState, metric_state, x_all, y_all, idx_all,
+              aug_generator):
+        if idx_all.dim() != 2 or y_all.shape[-1] <= c:
+            raise ValueError(f"idx_all must be [steps, B] and y_all "
+                             f"[N, T, >{c}]; got {tuple(idx_all.shape)}, "
+                             f"{tuple(y_all.shape)}")
+        key = (_state_key(state), id(aug_generator),
+               tuple(sorted(metric_state)),
+               *[(_tensor_key(a), a.data_ptr())
+                 for a in (x_all, y_all, idx_all)])
+        if key not in live:
+            live.clear()
+            live[key] = build(state, x_all, y_all, idx_all, aug_generator,
+                              metric_state)
+        _, slots, loop, metric = live[key]
+        with torch.no_grad():
+            slots.counter.zero_()
+            if metric is not None:
+                for name, t in metric.items():
+                    t.copy_(metric_state[name])
+        steps = idx_all.shape[0]
+        loop.run(steps)
+        state.step += steps
+        b = slots.bufs
+        with torch.no_grad():
+            if metric is not None:
+                metric_state = {k: v.clone() for k, v in metric.items()}
+            else:
+                metric_state = M.update(
+                    metric_state, (_fold(b["sed"]), _fold(b["doa"])),
+                    (_fold(b["sed_p"]), _fold(b["doa_p"])),
+                    doa_threshold=doa_threshold,
+                    block_size=metric_block_size)
+            losses = b["losses"].clone()
+        return state, metric_state, (losses[:, 0], losses[:, 1])
+
+    return epoch
 
 
 def make_eval_step(*,

@@ -11,12 +11,15 @@
 Each epoch streams batches from the dataset (gathered on the card when it
 is device-resident, else copied ahead by `DeviceIterator`), applies the
 augment from the trainer's own generator, and runs the train step; val and
-test epochs run the eval step. Checkpoints carry the whole training state
+test epochs run the eval step. With `--epoch_scan` a train epoch over a
+device-resident split runs as one epoch step instead
+(`steps.make_train_epoch`: gather, augment and update a step, replayed as
+a CUDA graph on the card), with the metric inside it under
+`--fuse_metrics`. Checkpoints carry the whole training state
 (train/checkpoint.py), so a resumed run continues exactly.
 
 Not ported yet: the full-clip ensemble evaluation (`evaluate_ensemble`,
-ROADMAP queue 1, item 9) and the whole-epoch step (`--epoch_scan`, a CUDA
-graph in a later PR).
+ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ from seld_tpu_torch.train import metrics as M
 from seld_tpu_torch.train.checkpoint import (latest_best, restore_checkpoint,
                                              save_checkpoint)
 from seld_tpu_torch.train.optimizers import adabelief, adam
-from seld_tpu_torch.train.steps import make_eval_step, make_train_step
+from seld_tpu_torch.train.steps import (make_eval_step, make_train_epoch,
+                                        make_train_step)
 from seld_tpu_torch.train.train_state import SWAState, TrainState
 from seld_tpu_torch.utils.logging import ScalarLogger
 
@@ -112,6 +116,7 @@ class SELDTrainer:
 
         compute_dtype = (torch.bfloat16 if getattr(config, "bf16", False)
                          else None)
+        self.compute_dtype = compute_dtype
         self.train_step = make_train_step(
             sed_loss_fn=self.sed_loss, doa_loss_fn=self.doa_loss,
             loss_weights=self.loss_weights, l2=self.l2,
@@ -127,11 +132,28 @@ class SELDTrainer:
         self._augment: Optional[Callable] = None
         self.aug_generator = torch.Generator(device=self.device).manual_seed(
             seed + 17)
+        # --epoch_scan: a train epoch over a device-resident split is one
+        # epoch step (a CUDA graph replayed once a step on the card)
+        self._use_epoch_scan = bool(getattr(config, "epoch_scan", False))
+        self._epoch_step = None
 
     # ------------------------------------------------------------------
     def set_augment(self, augment_fn: Optional[Callable]) -> None:
         """augment_fn(generator, x, y_total) -> (x, y_total)."""
         self._augment = augment_fn
+        self._epoch_step = None  # rebuild with the new augment inside
+
+    def _get_epoch_step(self):
+        if self._epoch_step is None:
+            self._epoch_step = make_train_epoch(
+                sed_loss_fn=self.sed_loss, doa_loss_fn=self.doa_loss,
+                n_classes=self.n_classes, loss_weights=self.loss_weights,
+                l2=self.l2,
+                doa_threshold=getattr(self.config, "lad_doa_thresh", 20),
+                metric_block_size=self.metric_block_size,
+                compute_dtype=self.compute_dtype, augment_fn=self._augment,
+                fuse_metrics=getattr(self.config, "fuse_metrics", False))
+        return self._epoch_step
 
     def resume(self) -> bool:
         """Restore the best checkpoint of this run (not the last one, as the
@@ -161,6 +183,9 @@ class SELDTrainer:
 
     def _run_epoch(self, dataset, epoch: int, mode: str) -> Dict[str, float]:
         train = mode == "train"
+        if (train and self._use_epoch_scan
+                and getattr(dataset, "device_resident", False)):
+            return self._run_epoch_scan(dataset, epoch, mode)
         mstate = M.init_state(self.n_classes, self.device)
         slosses, dlosses = [], []
         feed = (dataset if getattr(dataset, "device_resident", False)
@@ -181,6 +206,19 @@ class SELDTrainer:
         dloss_sum = float(torch.stack(dlosses).sum()) if n else 0.0
         return self._epoch_scalars(mstate, sloss_sum, dloss_sum, n, epoch,
                                    mode)
+
+    def _run_epoch_scan(self, dataset, epoch: int, mode: str
+                        ) -> Dict[str, float]:
+        """A train epoch as one epoch step over the device-resident split
+        (steps.make_train_epoch): the host stages the epoch's index matrix
+        and fetches the scalars at the end."""
+        mstate = M.init_state(self.n_classes, self.device)
+        x_all, y_all = dataset.device_arrays
+        idx_all = dataset.epoch_index_matrix()
+        self.state, mstate, (sl, dl) = self._get_epoch_step()(
+            self.state, mstate, x_all, y_all, idx_all, self.aug_generator)
+        return self._epoch_scalars(mstate, float(sl.sum()), float(dl.sum()),
+                                   int(sl.shape[0]), epoch, mode)
 
     def _epoch_scalars(self, mstate, sloss_sum: float, dloss_sum: float,
                        n: int, epoch: int, mode: str) -> Dict[str, float]:

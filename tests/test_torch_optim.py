@@ -9,6 +9,8 @@ Each step moves a parameter by about lr = 1e-3 through the same f32
 formulas; the two frameworks round the bias corrections and the square
 roots independently, so the trajectories drift apart by a few f32 ulps.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -162,3 +164,88 @@ def test_swa_averages_params_and_batch_stats():
                                rtol=1e-6)
     assert got.should_update(5, 3, 2) == want.should_update(5, 3, 2)
     assert got.should_update(4, 3, 2) == want.should_update(4, 3, 2)
+
+
+@pytest.mark.parametrize("name", ["adabelief", "adam"])
+def test_count_and_lr_are_device_tensors_that_track_jax(name):
+    """The count and the learning rate are 0-dim f32 tensors on the
+    parameters' device, read back as an int and the float last set; after
+    100 steps the count is JAX's and the update uses the lr tensor."""
+    tx = getattr(JO, name)(LR)
+    params = [jnp.asarray(p) for p in _init_params()]
+    jstate = tx.init(params)
+    update = jax.jit(tx.update)
+    for t in range(STEPS):
+        _, jstate = update([jnp.asarray(g) for g in _grads_at(t)], jstate,
+                           params)
+    opt = getattr(TO, name)([torch.from_numpy(p) for p in _init_params()],
+                            LR)
+    for t in range(STEPS):
+        opt.step([torch.from_numpy(p) for p in _init_params()],
+                 [torch.from_numpy(g) for g in _grads_at(t)])
+    for tensor in (opt._count, opt._lr):
+        assert tensor.dim() == 0 and tensor.dtype == torch.float32
+        assert tensor.device == torch.device("cpu")
+    jcount = [leaf for leaf in jax.tree_util.tree_leaves(jstate)
+              if np.shape(leaf) == () and np.asarray(leaf).dtype == np.int32]
+    assert opt.count == STEPS == int(jcount[0])
+    assert opt.lr == LR and opt._lr.item() == np.float32(LR)
+
+
+def test_set_lr_between_calls_takes_effect():
+    """A step that reads the lr tensor it was built over (as a captured
+    graph does) sees `set_lr` between calls: the lr is written in place."""
+    params = [torch.from_numpy(p) for p in _init_params()]
+    model = torch.nn.Module()
+    for i, p in enumerate(params):
+        model.register_parameter(f"p{i}", torch.nn.Parameter(p))
+    state = TrainState(model, TO.adabelief(list(model.parameters()), LR,
+                                           agc_clip=0.01))
+    lr_tensor, count_tensor = state.optimizer._lr, state.optimizer._count
+    grads = [torch.zeros_like(p) for p in params]
+
+    def call(t):   # the body: reads nothing from the host but the grads
+        for g, new in zip(grads, _grads_at(t)):
+            g.copy_(torch.from_numpy(new))
+        state.optimizer.step(list(model.parameters()), grads)
+
+    tx = optax.inject_hyperparams(JO.adabelief)(learning_rate=LR,
+                                                agc_clip=0.01)
+    want = _run_jax(tx, lr_change=LR / 10)
+    for t in range(STEPS):
+        if t == STEPS // 2:
+            state.set_lr(LR / 10)
+        call(t)
+    assert state.optimizer._lr is lr_tensor
+    assert state.optimizer._count is count_tensor
+    assert lr_tensor.item() == np.float32(LR / 10)
+    for g, w in zip(model.parameters(), want):
+        np.testing.assert_allclose(g.detach().numpy(), w, rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_a_checkpoint_written_before_the_tensor_count_loads(tmp_path):
+    """A checkpoint that stores the count as an int and the lr as a float
+    (the port's format) restores into the existing tensors."""
+    from seld_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
+    model = torch.nn.Linear(3, 2)
+    state = TrainState(model, TO.adabelief(list(model.parameters()), LR))
+    path = save_checkpoint(str(tmp_path), "old", state)
+    tree = torch.load(os.path.join(path, "state.pt"), weights_only=True)
+    tree["opt_state"]["count"], tree["opt_state"]["lr"] = 7, 5e-4
+    tree["opt_state"]["slots"]["m"] = [torch.full_like(t, 0.5) for t in
+                                       tree["opt_state"]["slots"]["m"]]
+    torch.save(tree, os.path.join(path, "state.pt"))
+    lr_tensor, count_tensor = state.optimizer._lr, state.optimizer._count
+    restore_checkpoint(path, state)
+    opt = state.optimizer
+    assert opt.count == 7 and opt.lr == 5e-4
+    assert opt._lr is lr_tensor and opt._count is count_tensor
+    assert lr_tensor.item() == np.float32(5e-4) and count_tensor.item() == 7
+    assert all(torch.equal(m, torch.full_like(m, 0.5)) for m in opt.m)
+    saved = torch.load(os.path.join(save_checkpoint(str(tmp_path), "new",
+                                                    state), "state.pt"),
+                       weights_only=True)["opt_state"]
+    assert saved["count"] == 7 and type(saved["count"]) is int
+    assert saved["lr"] == 5e-4 and type(saved["lr"]) is float

@@ -1,7 +1,9 @@
 """The port's trainer (seld_tpu_torch/train/trainer.py) against the JAX
 package's `SELDTrainer.fit` on a one-device mesh with its `DeviceDataset`,
-from the same initial variables (through the bridge) and the same windows;
-exact resume from a checkpoint; and the training CLI on a tiny wav tree.
+from the same initial variables (through the bridge) and the same windows,
+eagerly and with `--epoch_scan` on both sides; exact resume from a
+checkpoint; and the training CLI on a tiny wav tree, eagerly and with
+`--epoch_scan [--fuse_metrics]`.
 
 Setup: narrow SS5 (tests/test_torch_model.py::narrow_ss5), every dropout
 zeroed, 12 classes with the DCASE2021 class weights, AGC 0.01, L2 1e-3,
@@ -153,16 +155,17 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _jax_fit(tmp, tag, perturb=0.0, first=None):
+def _jax_fit(tmp, tag, perturb=0.0, first=None, **overrides):
     """JAX's fit on a one-device mesh, its initial weights scaled element
     by element by 1 + perturb x N(0, 1); returns (trainer, fit's result,
-    initial variables). `first` receives the parameters after step 1."""
+    initial variables). `first` receives the parameters after step 1;
+    `overrides` go to the config."""
     x, y = _windows(12, 0)
     xv, yv = _windows(6, 1)
     os.environ["SELD_FUSED_STEM"] = "always"
     try:
         mesh = make_mesh("data:1", devices=jax.devices()[:1])
-        jt = JaxTrainer(_config("run"), _model_config(),
+        jt = JaxTrainer(_config("run", **overrides), _model_config(),
                         n_classes=N_CLASSES, input_shape=SHAPE, mesh=mesh,
                         workdir=str(tmp / tag / "m"),
                         logdir=str(tmp / tag / "l"))
@@ -238,9 +241,9 @@ def runs(tmp_path_factory):
                 first=(jax_first, port_first, port_grads))
 
 
-def test_losses_scores_and_schedule_match_jax(runs):
-    jt, jax_out = runs["jax"]
-    port, port_out = runs["port"]
+def _holds_jax_fit(tmp, jax_tag, port_tag, jt, jax_out, port, port_out):
+    """Per-epoch losses, SELD scalars, the lr schedule, the SWA count and
+    the best score of the port's fit against JAX's."""
     assert len(jax_out["history"]) == len(port_out["history"]) == EPOCHS
     for jh, ph in zip(jax_out["history"], port_out["history"]):
         for split in ("train", "val"):
@@ -252,8 +255,8 @@ def test_losses_scores_and_schedule_match_jax(runs):
                 np.testing.assert_allclose(ph[split][key], jh[split][key],
                                            rtol=0, atol=SCORE_ATOL,
                                            err_msg=f"{split} {key}")
-    want = _scalars(str(runs["tmp"] / "jax" / "l"), "run")
-    got = _scalars(str(runs["tmp"] / "port" / "l"), "run")
+    want = _scalars(str(tmp / jax_tag / "l"), "run")
+    got = _scalars(str(tmp / port_tag / "l"), "run")
     lrs = [np.float32(got[("train/lr", e)]) for e in range(EPOCHS)]
     assert lrs == [np.float32(want[("train/lr", e)]) for e in range(EPOCHS)]
     assert lrs[2] == np.float32(LR / 2)
@@ -261,6 +264,23 @@ def test_losses_scores_and_schedule_match_jax(runs):
     assert counts == [want[("train/swa_count", e)] for e in range(EPOCHS)]
     assert counts == [0.0, 0.0, 1.0, 2.0]
     assert port.best_score == pytest.approx(jt.best_score, abs=SCORE_ATOL)
+
+
+def test_losses_scores_and_schedule_match_jax(runs):
+    _holds_jax_fit(runs["tmp"], "jax", "port", *runs["jax"], *runs["port"])
+
+
+def test_epoch_scan_fit_matches_jax_epoch_scan_fit(runs):
+    """--epoch_scan on both sides (augment off): the port's epoch step (a
+    plain loop on the CPU) against JAX's whole-epoch lax.scan, over the
+    same 4 epochs, schedule and SWA as the eager fit."""
+    tmp = runs["tmp"] / "scan"
+    jt, jax_out, _ = _jax_fit(tmp, "jax", epoch_scan=True)
+    port = _port_trainer(tmp, "port", runs["variables"], epoch_scan=True)
+    port_out = port.fit(*_port_data(*_windows(12, 0), *_windows(6, 1)),
+                        verbose=False)
+    assert port._epoch_step is not None
+    _holds_jax_fit(tmp, "jax", "port", jt, jax_out, port, port_out)
 
 
 def _null_leaves(grads):
@@ -459,9 +479,35 @@ def test_cli_trains_from_wavs_and_resumes(cli_tree):
     assert again["trainer"].state.step == 20
 
 
+@pytest.mark.parametrize("flags", [["--epoch_scan"],
+                                   ["--epoch_scan", "--fuse_metrics"]],
+                         ids=["epoch_scan", "fuse_metrics"])
+def test_cli_trains_and_resumes_with_epoch_scan(cli_tree, flags):
+    out = cli.main(_argv(cli_tree, *flags))
+    trainer = out["trainer"]
+    assert trainer._epoch_step is not None and trainer.state.step == 10
+    h = out["history"][0]
+    assert np.isfinite([h["train"]["sedLoss"], h["train"]["doaLoss"],
+                        h["val"]["sedLoss"]]).all()
+    again = cli.main(_argv(cli_tree, *flags, "--resume", "--epoch", "2"))
+    assert again["trainer"].config.name == trainer.config.name
+    assert again["trainer"].start_epoch == 1
+    assert [h["epoch"] for h in again["history"]] == [1]
+    assert again["trainer"].state.step == 20
+
+
+@pytest.mark.parametrize("drop,flags,match", [
+    ("--device_data", ["--epoch_scan"], "requires --device_data"),
+    (None, ["--fuse_metrics"], "only applies to the --epoch_scan")])
+def test_cli_checks_the_epoch_scan_flags(cli_tree, drop, flags, match):
+    """The JAX CLI's two checks (scripts/train.py), with its messages."""
+    argv = [a for a in _argv(cli_tree, *flags) if a != drop]
+    with pytest.raises(ValueError, match=match):
+        cli.main(argv)
+
+
 @pytest.mark.parametrize("flag", [
-    ["--use_tdm"], ["--use_both"], ["--wav_mode", "mic"], ["--epoch_scan"],
-    ["--fuse_metrics"]])
+    ["--use_tdm"], ["--use_both"], ["--wav_mode", "mic"]])
 def test_cli_refuses_unported_flags(cli_tree, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(_argv(cli_tree, *flag))
