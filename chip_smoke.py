@@ -52,6 +52,27 @@ Phases, one line each:
               five kernels, finite losses, the resumed epochs, the
               feature-build time, each epoch's time and windows/s through
               the feed
+ 10. clip     clip scoring at SS5 full width (seeded weights) on four
+              seeded 60-s clips [3000, 64, 7], f32, TF32 off: gru_scan
+              against gru_scan_ref at the clip path's batch shapes (B=512
+              chunks of the exact path, B=544 of the fast path, B=2168 of
+              four clips stacked); the exact path (chunks of 512 windows)
+              and the fast path (the trunk once a clip, all 541 windows in
+              one head chunk of 544) on the card, against the same paths
+              on the CPU (the exact path on one clip, the fast on two);
+              the fast path against the exact one where they must
+              agree (a one-window clip, the trunk's interior frames);
+              clip_batch=4 against clip-at-a-time; a clip artifact and a
+              two-member clip-ensemble artifact, reloaded, against the
+              direct call; int8 weights and bf16 against f32 within stated
+              tolerances; a served clip artifact's reply against the direct
+              call; exact gru_scan launch counts (2 per head forward)
+ 11. answer   the dress rehearsal (python -m seld_tpu_torch.dress_rehearsal)
+              on the card: train into the SWA window with the periodic
+              official evaluation, resume to the end, the final SWA
+              evaluation and its save, the schedule checks from the run's
+              scalars, search_best on dev-val, make_answer on dev-test with
+              the searched thresholds
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
 at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152,
 printing each call's tile plan, and times every plan at the serving and
@@ -148,6 +169,28 @@ FEED_ARGV = ["--model", "conv_temporal", "--model_config",
              "--bf16", "--use_tfm", "--use_acs", "--agc", "true", "--batch",
              "64", "--loop_time", "5", "--epoch", "2", "--swa_start", "1",
              "--swa_freq", "1", "--eval_every", "0"]
+# [clip]: 60-s DCASE clips at win 300 / step 5 (541 windows), the exact path
+# in make_answer's chunks of 512 windows. The card against the CPU, f32
+# with TF32 off: serving's tolerance (MODEL_TOL). Where the fast path must
+# equal the exact one (a one-window clip; the trunk's frames farther than
+# its receptive field from a window's edge, CLIP_INTERIOR trunk frames) and
+# clip_batch=4 against clip-at-a-time, the card against itself: the same
+# tolerance, the library kernels choosing their algorithms by batch size.
+# Weight-only int8 (per-channel error up to amax/254) and bf16 weights and
+# activations (8 mantissa bits through ~40 layers) against f32 on the
+# sigmoid/tanh outputs: INT8_TOL and BF16_TOL, absolute.
+CLIP_FRAMES = 3000
+CLIP_COUNT = 4
+CLIP_BATCH = 512
+CLIP_INTERIOR = 10
+INT8_TOL = 5e-2
+BF16_TOL = 5e-2
+# [answer]: the dress rehearsal at rehearsal scale (4 train, 2 + 2 eval
+# clips of 120 label frames, 5 epochs with SWA from epoch 2 and the
+# ensemble evaluation every 2)
+ANSWER_ARGV = ["--clips", "4", "--eval_clips", "2", "--batch", "8",
+               "--epoch", "5", "--swa_start", "2", "--swa_freq", "1",
+               "--eval_every", "2", "--device", "cuda"]
 # [feed] runs the CLI (and its resume) once per variant, each under a run
 # name of its own
 FEED_VARIANTS = (("eager", ["--name", "smoke"]),
@@ -1764,6 +1807,243 @@ def phase_feed(card):
     return counts
 
 
+def _max_err(got, want):
+    """Largest |got - want| over lists of (sed, doa) pairs, on the host."""
+    return max(max((g.float().cpu() - w.float().cpu()).abs().max().item()
+                   for g, w in zip(gp, wp))
+               for gp, wp in zip(got, want))
+
+
+def _gru_at_clip_shape(rng, b, card):
+    """gru_scan held against gru_scan_ref at a clip path's batch shape
+    [2, 60, b, 384] f32; its time, plain and library (cuDNN) times and
+    bound."""
+    from seld_tpu_torch.ops.gru import _fwd_plan, gru_scan, gru_scan_ref
+    xp, rk, rb = _gru_inputs(rng, 2, 60, b, 128, "float32")
+    hs = gru_scan(xp, rk, rb)
+    ref = gru_scan_ref(xp, rk, rb)
+    err = (hs - ref).abs().max().item()
+    if err > GRU_TOL["float32"]:
+        raise SystemExit(f"gru_scan disagrees with gru_scan_ref at B={b}: "
+                         f"{err:.3e}")
+    ms = cuda_ms(lambda: gru_scan(xp, rk, rb), 50)
+    plain_ms = cuda_ms(lambda: gru_scan_ref(xp, rk, rb), 3)
+    library_ms = cuda_ms(cudnn_gru(xp, rk, rb), 50)
+    bound_ms, bound_by = gru_scan_bound(xp, rk, rb)
+    plan = _fwd_plan(2, b, 128)
+    log("clip", f"gru_scan f32 D=2 T=60 B={b} U=128: max_abs_err {err:.3e} "
+                f"(tol {GRU_TOL['float32']:.0e}), kernel_ms {ms:.4f} "
+                f"({_plan_text(plan)}) plain_ms {plain_ms:.4f} library_ms "
+                f"(cuDNN GRU) {library_ms:.4f} bound_ms {bound_ms:.5f} "
+                f"({bound_by}) on {card}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "plan": _plan_json(plan)}
+
+
+def _counted(run):
+    """run() with the launch counts set to 0 before and read after."""
+    import torch
+    from seld_tpu_torch.ops import kernels
+    kernels.launch_counts.clear()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(kernels.launch_counts)
+
+
+def phase_clip(card):
+    """Clip scoring at SS5 full width; returns gru_scan's clip-shape
+    measurements and its launches on the exact and fast paths."""
+    import torch
+    from seld_tpu_torch.config import get_model_config
+    from seld_tpu_torch.inference import (ensemble_outputs,
+                                          export_clip_fast,
+                                          export_clip_fast_ensemble,
+                                          load_exported)
+    from seld_tpu_torch.inference.quantize import (dequantize_tree,
+                                                   quantize_tree)
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.serving import SELDClient, SELDServer
+    from seld_tpu_torch.serving.server import serve
+
+    rng = np.random.RandomState(8)
+    n_win = (CLIP_FRAMES - 300) // 5 + 1
+    fast_rows = -(-n_win // 8) * 8
+    shapes = {"exact": CLIP_BATCH, "fast": fast_rows,
+              "fast_clip_batch4": -(-CLIP_COUNT * n_win // 8) * 8}
+    gru = {name: _gru_at_clip_shape(rng, b, card)
+           for name, b in shapes.items()}
+
+    cfg = get_model_config("SS5", search_paths=[])
+    cfg["n_classes"] = 12
+    gpu = build_model("conv_temporal", (300, 64, 7), cfg, seed=0,
+                      device="cuda")
+    cpu = build_model("conv_temporal", (300, 64, 7), cfg, seed=0,
+                      device="cpu")
+    clips = [torch.from_numpy(rng.randn(CLIP_FRAMES, 64, 7).astype(
+        np.float32)) for _ in range(CLIP_COUNT)]
+    on_card = [c.cuda() for c in clips]
+
+    def score(model, xs, **kw):
+        return ensemble_outputs(model, xs, batch_size=CLIP_BATCH,
+                                time_down=5, **kw)
+
+    # the main path, counted: the exact and the fast path on the card
+    t0 = time.perf_counter()
+    exact, exact_counts = _counted(lambda: score(gpu, on_card))
+    exact_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast, fast_counts = _counted(lambda: score(gpu, on_card, fast=True))
+    fast_s = time.perf_counter() - t0
+    batched, batched_counts = _counted(
+        lambda: score(gpu, on_card, fast=True, clip_batch=CLIP_COUNT))
+    launches = {"exact": exact_counts.get("gru_scan", 0),
+                "fast": fast_counts.get("gru_scan", 0),
+                "fast_clip_batch4": batched_counts.get("gru_scan", 0)}
+    chunks = -(-n_win // CLIP_BATCH)
+    want = {"exact": 2 * chunks * CLIP_COUNT, "fast": 2 * CLIP_COUNT,
+            "fast_clip_batch4": 2}
+    others = {k: v for c in (exact_counts, fast_counts, batched_counts)
+              for k, v in c.items() if k != "gru_scan" and v}
+    if launches != want or others:
+        raise SystemExit(f"clip path launches {launches} (want {want}), "
+                         f"other kernels {others}")
+    for sed, doa in exact + fast + batched:
+        labels = CLIP_FRAMES // 5
+        if tuple(sed.shape) != (labels, 12) or \
+                tuple(doa.shape) != (labels, 36) \
+                or not (torch.isfinite(sed).all() and
+                        torch.isfinite(doa).all()):
+            raise SystemExit(f"clip outputs {tuple(sed.shape)}, "
+                             f"{tuple(doa.shape)} or not finite")
+
+    # the card against the CPU: the exact path on one clip, the fast path
+    # on two
+    t0 = time.perf_counter()
+    exact_err = _max_err(exact[:1], score(cpu, clips[:1]))
+    fast_err = _max_err(fast[:2], score(cpu, clips[:2], fast=True))
+    cpu_s = time.perf_counter() - t0
+    batch_err = _max_err(batched, fast)
+
+    # the fast path equals the exact one where it must: a one-window clip,
+    # and the trunk's frames away from a window's edges
+    one = [on_card[0][:300]]
+    one_err = _max_err(score(gpu, one, fast=True), score(gpu, one))
+    with torch.inference_mode():
+        trunk = gpu(on_card[1][None], stage="trunk")[0]
+        interior_err = 0.0
+        last = CLIP_FRAMES - 300
+        for start in (0, last // 10 * 5, last):
+            window = gpu(on_card[1][None, start:start + 300],
+                         stage="trunk")[0]
+            lo, hi = CLIP_INTERIOR, 60 - CLIP_INTERIOR
+            interior_err = max(interior_err, (
+                trunk[start // 5 + lo:start // 5 + hi] - window[lo:hi]
+            ).abs().max().item())
+    fast_vs_exact = _max_err(fast, exact)
+    corr = float(np.corrcoef(
+        torch.cat([d.flatten() for _, d in fast]).cpu().numpy(),
+        torch.cat([d.flatten() for _, d in exact]).cpu().numpy())[0, 1])
+    log("clip", f"{CLIP_COUNT} clips of {CLIP_FRAMES} frames ({n_win} "
+                f"windows): exact {exact_s * 1e3 / CLIP_COUNT:.1f} ms/clip, "
+                f"fast {fast_s * 1e3 / CLIP_COUNT:.1f} ms/clip (first runs, "
+                f"host clock); card vs cpu max_abs_err exact {exact_err:.3e}"
+                f", fast {fast_err:.3e} (tol {MODEL_TOL:.0e}; cpu "
+                f"{cpu_s:.1f} s); clip_batch={CLIP_COUNT} vs one at a time "
+                f"{batch_err:.3e}; fast vs exact: one-window clip "
+                f"{one_err:.3e}, trunk interior {interior_err:.3e}, whole "
+                f"clips {fast_vs_exact:.3e} (doa corr {corr:.5f}); gru_scan "
+                f"launches {launches}")
+    if max(exact_err, fast_err, batch_err, one_err, interior_err) \
+            > MODEL_TOL:
+        raise SystemExit("a clip path disagrees with its reference")
+
+    # artifacts: a clip artifact, a two-member clip ensemble, int8 weights
+    other = build_model("conv_temporal", (300, 64, 7), cfg, seed=1,
+                        device="cuda")
+    fast2 = score(other, on_card[:1], fast=True)
+    deq = copy.deepcopy(gpu)
+    deq.load_state_dict(dequantize_tree(quantize_tree(gpu.state_dict(),
+                                                      "int8")))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {
+            "clip": export_clip_fast(gpu, f"{tmp}/clip.npz", CLIP_FRAMES,
+                                     time_down=5),
+            "ensemble": export_clip_fast_ensemble(
+                [gpu, other], f"{tmp}/ens.npz", CLIP_FRAMES,
+                time_downs=[5, 5]),
+            "int8": export_clip_fast(gpu, f"{tmp}/int8.npz", CLIP_FRAMES,
+                                     time_down=5, quantize="int8")}
+        arts = {k: load_exported(p, device="cuda") for k, p in paths.items()}
+        x0 = clips[0]
+        art_err = max(np.abs(g - w.cpu().numpy()).max() for g, w in
+                      zip(arts["clip"].call(x0), fast[0]))
+        ens_want = [(a + b) / 2 for a, b in zip(fast[0], fast2[0])]
+        ens_err = max(np.abs(g - w.cpu().numpy()).max() for g, w in
+                      zip(arts["ensemble"].call(x0), ens_want))
+        int8_out = arts["int8"].call(x0)
+        int8_deq_err = _max_err([tuple(torch.from_numpy(o)
+                                       for o in int8_out)],
+                                score(deq, on_card[:1], fast=True))
+        int8_err = max(np.abs(g - w.cpu().numpy()).max() for g, w in
+                       zip(int8_out, fast[0]))
+        sizes = {k: a.meta["bytes"] for k, a in arts.items()}
+
+        # a served clip artifact: its reply against the direct call
+        server = SELDServer(artifact=paths["clip"], batch_window_ms=2.0,
+                            device="cuda")
+        httpd = serve(server, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            client = SELDClient("127.0.0.1", httpd.server_address[1],
+                                timeout=600)
+            health = client.health()
+            reply = client.score(clips[2].numpy())
+        finally:
+            httpd.shutdown()
+            server.close()
+            httpd.server_close()
+            thread.join(timeout=10)
+        reply_err = max(np.abs(g - w).max() for g, w in
+                        zip(reply, arts["clip"].call(clips[2])))
+
+    bf16_model = copy.deepcopy(gpu).to(torch.bfloat16)
+    bf16_out, bf16_counts = _counted(lambda: score(
+        bf16_model, [c.to(torch.bfloat16) for c in on_card[:1]], fast=True))
+    bf16_err = _max_err(bf16_out, fast[:1])
+    log("clip", f"clip artifact vs direct {art_err:.3e}, two-member "
+                f"ensemble vs the average {ens_err:.3e}, int8 artifact vs "
+                f"dequantised model {int8_deq_err:.3e} (tol {MODEL_TOL:.0e})"
+                f", int8 vs f32 {int8_err:.3e} (tol {INT8_TOL:.0e}), bf16 "
+                f"vs f32 {bf16_err:.3e} (tol {BF16_TOL:.0e}; gru_scan "
+                f"launches {bf16_counts.get('gru_scan', 0)}), served reply "
+                f"vs direct {reply_err:.3e} (tol {REPLY_TOL:.0e}); artifact "
+                f"bytes {sizes}; healthz units {health.get('units')}")
+    if max(art_err, ens_err, int8_deq_err, reply_err) > MODEL_TOL or \
+            int8_err > INT8_TOL or bf16_err > BF16_TOL or \
+            health.get("units") != ["clip"] or \
+            bf16_counts.get("gru_scan", 0) != 2:
+        raise SystemExit("a clip artifact, the quantised or bf16 path or "
+                         "the served clip disagrees")
+    return {"gru": gru, "launches": launches}
+
+
+def phase_answer(card):
+    """The dress rehearsal on the card (its CLIs as subprocesses)."""
+    from seld_tpu_torch import dress_rehearsal
+    with tempfile.TemporaryDirectory() as tmp:
+        work = os.path.join(tmp, "rehearsal")
+        t0 = time.perf_counter()
+        dress_rehearsal.main(["--workdir", work] + ANSWER_ARGV)
+        answers = [f for f in os.listdir(os.path.join(work, "answer"))
+                   if f.endswith(".csv")]
+    if len(answers) != 2:
+        raise SystemExit(f"make_answer wrote {len(answers)} CSVs")
+    log("answer", f"dress rehearsal passed in {time.perf_counter() - t0:.1f}"
+                  f" s on {card}")
+
+
 def ptxas_report(text):
     """One line per kernel of an `nvcc -Xptxas -v` log: its name (template
     arguments in brackets), registers and spills."""
@@ -1858,6 +2138,15 @@ def main(argv=None):
         e["epoch_scan_launches"] = feed_counts["epoch_scan"][e["name"]]
         e["epoch_scan_fused_launches"] = feed_counts[
             "epoch_scan+fuse_metrics"][e["name"]]
+    clip = timed(phase_clip, smi)
+    timed(phase_answer, smi)
+    for e in entries:
+        e["clip_launches"] = 0
+    entries[0]["clip_launches"] = clip["launches"]["exact"] + \
+        clip["launches"]["fast"]
+    entries[0]["clip_launches_by_path"] = clip["launches"]
+    for name, m in clip["gru"].items():
+        entries[0][f"clip_{name}_shape"] = m
 
     log("time", f"all phases {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -1,0 +1,371 @@
+"""Sliding-window overlap-add inference (seld_tpu/inference/ensemble.py).
+
+Each full clip is framed into win=300-feature-frame windows at step=5, the
+windows go through the model in chunks of `batch_size`, and the per-window
+label-domain outputs are averaged back into one sequence by overlap-add
+normalised by window counts (the reference's trainv2.py:158-192 and
+make_answer.py:21-55).
+
+Everything runs on the model's device: the windows are gathered a chunk at
+a time by tensor indexing (the 60x-expanded tensor is never built) and the
+overlap-add is `index_add_`, as the JAX package leaves both to XLA. The
+fast path (`fast=True`) runs the time-local trunk once a clip and slides
+only the sequence head; with `clip_batch > 1` it stacks equal-length
+clips. The scoring half (DCASE CSVs, the official metric, the threshold
+search) stays numpy on the host.
+
+`model` is a `ConvTemporal` (models.build_model); `variables`, when given,
+are state_dict tensors the forward uses in place of the model's own
+(`torch.func.functional_call`), e.g. the SWA average.
+"""
+from __future__ import annotations
+
+import os
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from seld_tpu_torch.train.metrics import calculate_seld_score
+from seld_tpu_torch.train.official_metrics import SELDMetricsOfficial
+from seld_tpu_torch.utils import io
+
+# per-class SED decision thresholds of the shipped submission
+# (make_answer.py:156)
+DEFAULT_CLASS_THRESHOLDS = np.asarray(
+    [0.35, 0.35, 0.3, 0.4, 0.65, 0.6, 0.45, 0.55, 0.3, 0.3, 0.45, 0.3],
+    dtype=np.float32)
+
+_NO_MESH = ("ensemble_outputs(mesh=...) shards windows over several "
+            "devices, which is not ported yet (ROADMAP queue 1, item 14)")
+
+
+def _frame_index(n: int, length: int, step: int, device) -> torch.Tensor:
+    """[n, length] frame indices of n frames of `length` at stride `step`."""
+    return (torch.arange(n, device=device)[:, None] * step
+            + torch.arange(length, device=device)[None, :])
+
+
+def sliding_windows(x: torch.Tensor, win_size: int, step: int
+                    ) -> torch.Tensor:
+    """[T, ...] -> [n_win, win_size, ...] (tf.signal.frame parity, no pad)."""
+    n_win = (x.shape[0] - win_size) // step + 1
+    return x[_frame_index(n_win, win_size, step, x.device)]
+
+
+def overlap_add(frames: torch.Tensor, step: int = 1) -> torch.Tensor:
+    """[n_win, L, C] -> [(n_win-1)*step + L, C] scatter-add."""
+    n, l, c = frames.shape
+    idx = _frame_index(n, l, step, frames.device).reshape(-1)
+    out = torch.zeros(((n - 1) * step + l, c), dtype=frames.dtype,
+                      device=frames.device)
+    return out.index_add_(0, idx, frames.reshape(n * l, c))
+
+
+def _chunked_windows_forward(source: torch.Tensor, twin: int, tstep: int,
+                             n_win: int, batch_size: int, forward):
+    """Gather [twin]-frame windows of `source` ([T, ...]) at stride `tstep`
+    in chunks of `batch_size` and run `forward` on each chunk (the shared
+    machinery of the exact and fast sliding-window paths)."""
+    n_chunks = -(-n_win // batch_size)
+    win_idx = torch.arange(twin, device=source.device)
+    rows = torch.arange(batch_size, device=source.device)
+    seds, doas = [], []
+    for chunk in range(n_chunks):
+        starts = (chunk * batch_size + rows) * tstep
+        # clamp so padded windows gather valid data (sliced off below)
+        starts = starts.clamp(max=source.shape[0] - twin)
+        sed, doa = forward(source[starts[:, None] + win_idx[None, :]])
+        seds.append(sed)
+        doas.append(doa)
+    return torch.cat(seds)[:n_win], torch.cat(doas)[:n_win]
+
+
+def _overlap_add_normalized(sed: torch.Tensor, doa: torch.Tensor,
+                            win_size: int, step_size: int):
+    """Validate the feature/label geometry and overlap-add with count
+    normalisation (trainv2.py:158-192 semantics)."""
+    n_win, label_win = sed.shape[0], sed.shape[1]
+    if win_size % label_win:
+        raise ValueError(
+            f"win_size={win_size} not a multiple of the model's label "
+            f"window {label_win}")
+    multiplier = win_size // label_win
+    if step_size % multiplier:
+        raise ValueError(
+            f"step_size={step_size} must be a multiple of the feature/label "
+            f"frame multiplier {multiplier} (win {win_size} -> {label_win} "
+            f"label frames)")
+    label_step = step_size // multiplier
+    # accumulate in f32 whatever the model's compute dtype: a frame receives
+    # up to win/step (= 60) overlapping contributions
+    sed, doa = sed.float(), doa.float()
+    counts = overlap_add(torch.ones((n_win, label_win, 1),
+                                    device=sed.device), label_step)
+    return (overlap_add(sed, label_step) / counts,
+            overlap_add(doa, label_step) / counts)
+
+
+def _check_fast_geometry(win_size: int, step_size: int, time_down: int):
+    if win_size % time_down or step_size % time_down:
+        raise ValueError(
+            f"fast path needs win_size ({win_size}) and step_size "
+            f"({step_size}) divisible by the trunk time stride {time_down}")
+
+
+def _predict_clip(apply: Callable, x: torch.Tensor, *, win_size: int,
+                  step_size: int, batch_size: int):
+    """One full clip [T_f, F, C] -> overlap-added (sed [T_l, C],
+    doa [T_l, 3C])."""
+    n_win = (x.shape[0] - win_size) // step_size + 1
+    sed, doa = _chunked_windows_forward(x, win_size, step_size, n_win,
+                                        batch_size, apply)
+    return _overlap_add_normalized(sed, doa, win_size, step_size)
+
+
+def _predict_clip_fast(apply: Callable, x: torch.Tensor, *, win_size: int,
+                       step_size: int, batch_size: int, time_down: int):
+    """Fast sliding window: the time-local trunk (stem + conv body) runs
+    ONCE over the full clip; only the sequence blocks + heads slide.
+
+    Near-exact rather than exact: the per-window path zero-pads at each
+    window's own edges while the full-clip trunk sees the real neighbouring
+    frames, so predictions can differ within a conv receptive field of each
+    window edge (interior trunk frames are the same). `time_down` (the stem
+    pool's time stride for conv_temporal) must divide `step_size`; it is
+    checked against the trunk's actual output length.
+    """
+    t_f = x.shape[0]
+    _check_fast_geometry(win_size, step_size, time_down)
+    n_win = (t_f - win_size) // step_size + 1
+    trunk = apply(x[None], stage="trunk")[0]
+    if trunk.shape[0] != t_f // time_down:
+        raise ValueError(
+            f"time_down={time_down} does not match the model: a "
+            f"{t_f}-frame clip produced {trunk.shape[0]} trunk frames "
+            f"(expected {t_f // time_down}). Pass the model's actual total "
+            f"time downsampling (conv_temporal: first_pool_size[0]).")
+
+    def head(windows):
+        return apply(windows, stage="head")
+
+    # the head is a tail of small ops whose cost a clip grows with the
+    # number of chunks more than with the number of windows: run all of a
+    # clip's windows in one chunk when they fit (a 60-s clip: 541 windows,
+    # padded to 544)
+    eff_batch = batch_size
+    if n_win <= max(batch_size, 1024):
+        eff_batch = -(-n_win // 8) * 8
+    sed, doa = _chunked_windows_forward(
+        trunk, win_size // time_down, step_size // time_down, n_win,
+        eff_batch, head)
+    return _overlap_add_normalized(sed, doa, win_size, step_size)
+
+
+def _predict_clips_fast_batched(apply: Callable, xs: torch.Tensor, *,
+                                win_size: int, step_size: int,
+                                time_down: int):
+    """Multi-clip fast path: trunks batched over clips, then ALL clips'
+    windows run through the sequence head as ONE chunk.
+
+    xs [N, T_f, F, C] -> (sed [N, T_l, C], doa [N, T_l, 3C]); the same as N
+    calls of `_predict_clip_fast` (same trunk values by batch independence,
+    same head on the same windows) up to the summation order of the
+    batch-size-dependent library kernels.
+    """
+    n, t_f = xs.shape[0], xs.shape[1]
+    _check_fast_geometry(win_size, step_size, time_down)
+    n_win = (t_f - win_size) // step_size + 1
+    trunks = apply(xs, stage="trunk")
+    if trunks.shape[1] != t_f // time_down:
+        raise ValueError(
+            f"time_down={time_down} does not match the model: "
+            f"{t_f}-frame clips produced {trunks.shape[1]} trunk frames "
+            f"(expected {t_f // time_down})")
+    idx = _frame_index(n_win, win_size // time_down, step_size // time_down,
+                       trunks.device)
+    windows = trunks[:, idx]                           # [N, n_win, twin, ..]
+    flat = windows.reshape(n * n_win, *windows.shape[2:])
+    pad = (-flat.shape[0]) % 8
+    if pad:  # zero rows (not a slice of flat: flat may have < pad rows)
+        flat = torch.cat([flat, flat.new_zeros((pad, *flat.shape[1:]))])
+    sed, doa = apply(flat, stage="head")
+    sed = sed[: n * n_win].reshape(n, n_win, *sed.shape[1:])
+    doa = doa[: n * n_win].reshape(n, n_win, *doa.shape[1:])
+    return [_overlap_add_normalized(s, d, win_size, step_size)
+            for s, d in zip(sed, doa)]
+
+
+def _model_device(model: nn.Module, variables: Optional[Dict]):
+    src = variables.values() if variables else model.parameters()
+    return next(iter(src)).device
+
+
+def _clip_on(x, device: torch.device) -> torch.Tensor:
+    """A clip (numpy array or tensor) on the model's device, dtype kept. A
+    host clip is copied to the model's device; a clip on another device
+    than the model's (a CUDA clip for a CPU model) is refused, not moved."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type not in ("cpu", device.type):
+            raise ValueError(f"a clip on {x.device} for a model on {device}")
+        return x.to(device)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def ensemble_outputs(model: nn.Module, xs: Sequence,
+                     win_size: int = 300, step_size: int = 5,
+                     batch_size: int = 256,
+                     mesh=None, data_axis: str = "data",
+                     fast: bool = False, time_down: int = 5,
+                     clip_batch: int = 1,
+                     variables: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per-clip sliding-window predictions for a list of full clips, as f32
+    tensors on the model's device, the model in eval mode.
+
+    fast=True computes the time-local trunk once per clip and slides only
+    the sequence blocks + heads (conv_temporal only; requires
+    step_size % time_down == 0, where time_down is the stem pool's time
+    stride); near-exact (see `_predict_clip_fast`). The exact path stays
+    the default and the parity baseline. clip_batch > 1 (with fast) stacks
+    consecutive equal-length clips with all their windows in one head
+    chunk. `mesh` (sharding the windows over several devices) is not
+    ported.
+    """
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
+    device = _model_device(model, variables)
+
+    def apply(x, stage="full"):
+        if variables is None:
+            return model(x, stage=stage)
+        return torch.func.functional_call(model, variables, (x,),
+                                          {"stage": stage})
+
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            return _ensemble_outputs(apply, xs, device, win_size, step_size,
+                                     batch_size, fast, time_down, clip_batch)
+    finally:
+        model.train(was_training)
+
+
+def _ensemble_outputs(apply, xs, device, win_size, step_size, batch_size,
+                      fast, time_down, clip_batch):
+    if fast and clip_batch > 1:
+        # group consecutive equal-shape clips into stacked batches
+        outs: List = [None] * len(xs)
+        i = 0
+        while i < len(xs):
+            group = [i]
+            while (len(group) < clip_batch and i + len(group) < len(xs)
+                   and tuple(xs[i + len(group)].shape)
+                   == tuple(xs[i].shape)):
+                group.append(i + len(group))
+            if len(group) == 1:
+                outs[i] = _predict_clip_fast(
+                    apply, _clip_on(xs[i], device), win_size=win_size,
+                    step_size=step_size, batch_size=batch_size,
+                    time_down=time_down)
+            else:
+                stacked = torch.stack([_clip_on(xs[j], device)
+                                       for j in group])
+                batched = _predict_clips_fast_batched(
+                    apply, stacked, win_size=win_size, step_size=step_size,
+                    time_down=time_down)
+                for j, out in zip(group, batched):
+                    outs[j] = out
+            i += len(group)
+        return outs
+
+    predict = _predict_clip_fast if fast else _predict_clip
+    kwargs = {"time_down": time_down} if fast else {}
+    return [predict(apply, _clip_on(x, device), win_size=win_size,
+                    step_size=step_size, batch_size=batch_size, **kwargs)
+            for x in xs]
+
+
+def average_ensemble(model_outputs: Sequence[Sequence[Tuple]]
+                     ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Average (sed, doa) across models: [model][clip] -> [clip]
+    (make_answer.py:133-140)."""
+    outputs = []
+    for per_clip in zip(*model_outputs):
+        seds, doas = zip(*per_clip)
+        outputs.append((sum(seds) / len(seds), sum(doas) / len(doas)))
+    return outputs
+
+
+def _host(a) -> np.ndarray:
+    """A prediction as a host numpy array (a device tensor is copied)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a)
+
+
+def evaluate_clips_official(outputs: Sequence[Tuple], label_names: Sequence[str],
+                            gt_dir: str, output_dir: str,
+                            thresholds=0.5, n_classes: int = 12,
+                            gt_polar: bool = True,
+                            doa_threshold: float = 20.0):
+    """Write DCASE CSVs for predictions and score with the official metric.
+
+    Parity: generate_evaluate_fn (trainv2.py:195-237) / make_answer.py:159-176.
+    Returns (seld_score, (ER, F, LE, LR)).
+    """
+    os.makedirs(output_dir, exist_ok=True)
+    scorer = SELDMetricsOfficial(doa_threshold=doa_threshold,
+                                 nb_classes=n_classes)
+    for name, (sed, doa) in zip(label_names, outputs):
+        sed = _host(sed)
+        doa = _host(doa)
+        answer_class = sed > thresholds
+        io.write_answer(output_dir, name + ".csv", answer_class, doa)
+        pred = io.load_output_format_file(
+            os.path.join(output_dir, name + ".csv"))
+        pred = io.segment_labels(pred, answer_class.shape[0])
+        gt = io.load_output_format_file(os.path.join(gt_dir, name + ".csv"))
+        if gt_polar:
+            gt = io.convert_output_format_polar_to_cartesian(gt)
+        gt = io.segment_labels(gt, answer_class.shape[0])
+        scorer.update_seld_scores(pred, gt)
+
+    metric_values = scorer.compute_seld_scores()
+    return float(calculate_seld_score(metric_values)), metric_values
+
+
+def search_thresholds(outputs, label_names, gt_dir: str, output_dir: str,
+                      n_classes: int = 12,
+                      candidates=(0.3, 0.35, 0.4, 0.45, 0.55, 0.6, 0.65, 0.7),
+                      gt_polar: bool = True, verbose: bool = False):
+    """Greedy per-class SED threshold search on a validation split
+    (search_best.py / analyzer.py __main__ threshold-sweep machinery).
+
+    Coordinate descent: sweep each class's threshold over `candidates`,
+    keeping the best SELD score; one pass over all classes.
+    Returns (best_thresholds [n_classes], best_score).
+    """
+    outputs = [(_host(s), _host(d)) for s, d in outputs]
+    thresholds = np.full(n_classes, 0.5, np.float32)
+
+    def score_with(th):
+        seld, _ = evaluate_clips_official(
+            outputs, label_names, gt_dir, output_dir,
+            thresholds=th, n_classes=n_classes, gt_polar=gt_polar)
+        return seld
+
+    best = score_with(thresholds)
+    for cls in range(n_classes):
+        for cand in candidates:
+            trial = thresholds.copy()
+            trial[cls] = cand
+            s = score_with(trial)
+            if s < best:
+                best = s
+                thresholds = trial
+        if verbose:
+            print(f"class {cls}: th={thresholds[cls]:.2f} seld={best:.5f}")
+    return thresholds, best

@@ -1,65 +1,121 @@
-"""Window serving artifacts (seld_tpu/inference/export.py, window unit).
+"""Serving artifacts (seld_tpu/inference/export.py): window and clip units,
+model ensembles, weight-only quantisation.
 
 The JAX package exports the jitted forward as StableHLO with the weights
 baked in. A torch artifact cannot hold StableHLO, so the port's counterpart
 keeps the same contract — export once, then serve with no checkpoint
 directory and no training code — as two files:
 
-  <path>            the weights, an .npz keyed by state_dict name (f32)
-  <path>.meta.json  unit "window", model name and config, per-window input
-                    shape, input dtype, optional static batch
+  <path>            the weights, an .npz keyed "<member>/<state_dict name>":
+                    f32 values, or with `quantize` the int8 words and f32
+                    scales ("#q", "#scale") or the bf16 bits ("#bf16")
+  <path>.meta.json  the unit, the members (model name, config, per-window
+                    input shape), the input shape and dtype the artifact
+                    takes, the quantisation, and the unit's geometry
 
-`load_exported(path, device=...)` rebuilds the model from the port's zoo
-and loads the weights. The window unit maps `[b, win, F, C]` to
-`(sed [b, t, C], doa [b, t, 3C])` for any b (or for b == batch when the
-artifact was exported with a static batch).
+`load_exported(path, device=...)` rebuilds each member from the port's zoo
+and loads its weights, dequantised on the device. Two units:
 
-Not yet ported: the clip unit, the stream unit, ensembles, quantisation and
-data-parallel artifacts.
+- ``window``: ``[b, win, F, C] -> (sed [b, t, C], doa [b, t, 3C])`` for any
+  b (or b == batch when exported with a static batch).
+- ``clip`` (conv_temporal only): ``[T, F, C] -> (sed [L, C], doa
+  [L, 3C])``, the trunk-once fast sliding-window predictor
+  (inference/ensemble.py) for a fixed clip length `clip_frames` (DCASE 60-s
+  clips: T=3000), with `win_size`, `step_size` and `time_down` in the meta.
+
+An artifact of several members returns their average, computed in f32.
+Not yet ported: the stream unit (ROADMAP queue 1, item 10) and
+data-parallel artifacts (item 14).
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 _META_SUFFIX = ".meta.json"
-FORMAT = "seld_tpu_torch.window/v1"
+FORMAT = "seld_tpu_torch.artifact/v2"
+UNITS = ("window", "clip")
 INPUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_NO_STREAM = ("the stream unit (a streaming engine bundle) is not ported "
+              "yet (ROADMAP queue 1, item 10)")
 
 
-def export_window(model: nn.Module, path: str, *, dtype: str = "float32",
-                  batch: Optional[int] = None,
-                  extra_meta: Optional[Dict[str, Any]] = None) -> str:
-    """Write `model` (from `models.build_model`) as a window artifact.
+def _pack(state: Dict[str, torch.Tensor], quantize: Optional[str],
+          prefix: str) -> Dict[str, np.ndarray]:
+    """A member's state_dict as npz entries, quantised as asked."""
+    from seld_tpu_torch.inference.quantize import QTensor, quantize_tree
 
-    dtype: the input dtype the artifact accepts ("float32" or "bfloat16";
-      requests in another dtype are value-cast to it). Weights stay f32.
-    batch: None serves every batch size; an int N makes the server
-      pad-and-chunk every dispatch to exactly N rows.
-    """
+    state = {k: v.detach().float().cpu() for k, v in state.items()}
+    entries = quantize_tree(state, quantize) if quantize else state
+    out = {}
+    for key, v in entries.items():
+        name = f"{prefix}/{key}"
+        if isinstance(v, QTensor):
+            out[name + "#q"] = v.q.numpy()
+            out[name + "#scale"] = v.scale.numpy()
+        elif v.dtype == torch.bfloat16:
+            out[name + "#bf16"] = v.view(torch.int16).numpy()
+        else:
+            out[name] = v.numpy()
+    return out
+
+
+def _unpack(weights, prefix: str, device) -> Dict[str, torch.Tensor]:
+    """A member's state_dict from npz entries, dequantised on `device`."""
+    from seld_tpu_torch.inference.quantize import QTensor, dequantize_tree
+
+    entries: Dict[str, Any] = {}
+    for name in weights.files:
+        member, key = name.split("/", 1)
+        if member != prefix or key.endswith("#scale"):
+            continue
+        arr = torch.from_numpy(weights[name]).to(device)
+        if key.endswith("#q"):
+            scale = torch.from_numpy(weights[name[:-2] + "#scale"])
+            entries[key[:-2]] = QTensor(arr, scale.to(device))
+        elif key.endswith("#bf16"):
+            entries[key[:-5]] = arr.view(torch.bfloat16)
+        else:
+            entries[key] = arr
+    return dequantize_tree(entries)
+
+
+def _export(models: Sequence[nn.Module], path: str, unit: str,
+            input_shape: Sequence[int], *, dtype: str,
+            quantize: Optional[str], geometry: Dict[str, Any],
+            extra_meta: Optional[Dict[str, Any]]) -> str:
     if dtype not in INPUT_DTYPES:
         raise ValueError(f"dtype {dtype!r}; one of {sorted(INPUT_DTYPES)}")
+    if not models:
+        raise ValueError("need at least one model")
+    shapes = {tuple(m.input_shape) for m in models}
+    if len(shapes) != 1:
+        raise ValueError(f"ensemble members take different window shapes "
+                         f"{sorted(shapes)}")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    arrays = {k: v.detach().float().cpu().numpy()
-              for k, v in model.state_dict().items()}
+    arrays = {}
+    for i, m in enumerate(models):
+        arrays.update(_pack(m.state_dict(), quantize, str(i)))
     with open(path, "wb") as f:
         np.savez(f, **arrays)
     meta = {
         "format": FORMAT,
-        "unit": "window",
-        "model": model.model_name,
-        "model_config": model.model_config,
-        "input_shape": list(model.input_shape),
+        "unit": unit,
+        "members": [{"model": m.model_name, "model_config": m.model_config,
+                     "input_shape": list(m.input_shape)} for m in models],
+        "n_members": len(models),
+        "input_shape": list(input_shape),
         "input_dtype": dtype,
-        "batch": batch,
-        "n_classes": model.model_config.get("n_classes", 14),
+        "quantize": quantize or "none",
+        "n_classes": models[0].model_config.get("n_classes", 14),
         "torch_version": torch.__version__,
         "bytes": os.path.getsize(path),
+        **geometry,
     }
     meta.update(extra_meta or {})
     with open(path + _META_SUFFIX, "w") as f:
@@ -67,24 +123,120 @@ def export_window(model: nn.Module, path: str, *, dtype: str = "float32",
     return path
 
 
-class LoadedArtifact:
-    """A loaded window artifact: `call(x)` on its device, plus meta."""
+def export_window(model: nn.Module, path: str, *, dtype: str = "float32",
+                  batch: Optional[int] = None,
+                  quantize: Optional[str] = None,
+                  extra_meta: Optional[Dict[str, Any]] = None) -> str:
+    """Write `model` (from `models.build_model`) as a window artifact.
 
-    def __init__(self, model: nn.Module, meta: Dict[str, Any], device):
-        self.model = model
+    dtype: the input dtype the artifact accepts ("float32" or "bfloat16";
+      requests in another dtype are value-cast to it).
+    batch: None serves every batch size; an int N makes the server
+      pad-and-chunk every dispatch to exactly N rows.
+    quantize: None (f32 weights), "int8" or "bfloat16" (quantize.py).
+    """
+    return export_window_ensemble([model], path, dtype=dtype, batch=batch,
+                                  quantize=quantize, extra_meta=extra_meta)
+
+
+def export_window_ensemble(models: Sequence[nn.Module], path: str, *,
+                           dtype: str = "float32",
+                           batch: Optional[int] = None,
+                           quantize: Optional[str] = None,
+                           extra_meta: Optional[Dict[str, Any]] = None
+                           ) -> str:
+    """An N-model ensemble's per-window forward as ONE artifact: one call
+    returns the members' average (sed, doa), computed in f32
+    (make_answer.py:133-140). Members may differ in architecture but take
+    the same window shape."""
+    return _export(models, path, "window", models[0].input_shape,
+                   dtype=dtype, quantize=quantize, geometry={"batch": batch},
+                   extra_meta=extra_meta)
+
+
+def export_clip_fast(model: nn.Module, path: str, clip_frames: int, *,
+                     win_size: int = 300, step_size: int = 5,
+                     time_down: Optional[int] = None,
+                     dtype: str = "float32", quantize: Optional[str] = None,
+                     extra_meta: Optional[Dict[str, Any]] = None) -> str:
+    """The trunk-once fast sliding-window clip predictor as an artifact.
+
+    One call scores a whole clip of `clip_frames` frames: the time-local
+    trunk runs once, all windows go through the sequence head in one
+    chunk, and the overlap-add normalisation happens inside the call.
+    conv_temporal only (it needs the trunk/head stage split).
+    """
+    if time_down is None:
+        raise ValueError("pass time_down (conv_temporal: "
+                         "first_pool_size[0], e.g. 5)")
+    return export_clip_fast_ensemble(
+        [model], path, clip_frames, win_size=win_size, step_size=step_size,
+        time_downs=[time_down], dtype=dtype, quantize=quantize,
+        extra_meta=extra_meta)
+
+
+def export_clip_fast_ensemble(models: Sequence[nn.Module], path: str,
+                              clip_frames: int, *, win_size: int = 300,
+                              step_size: int = 5,
+                              time_downs: Sequence[int],
+                              dtype: str = "float32",
+                              quantize: Optional[str] = None,
+                              extra_meta: Optional[Dict[str, Any]] = None
+                              ) -> str:
+    """An N-model ensemble trunk-once clip scorer as ONE artifact: each
+    member runs its own fast sliding-window pass and the overlap-added
+    sequences are averaged inside the call. `time_downs[i]` is member i's
+    total trunk time stride (conv_temporal: first_pool_size[0])."""
+    if len(time_downs) != len(models):
+        raise ValueError("need one time_down per member")
+    if any(m.model_name != "conv_temporal" for m in models):
+        raise ValueError("the clip unit needs the trunk/head stage split "
+                         "(conv_temporal only)")
+    feat = models[0].input_shape[1:]
+    return _export(models, path, "clip", (clip_frames, *feat), dtype=dtype,
+                   quantize=quantize,
+                   geometry={"clip_frames": clip_frames,
+                             "win_size": win_size, "step_size": step_size,
+                             "time_downs": [int(t) for t in time_downs],
+                             "time_down": int(time_downs[0])},
+                   extra_meta=extra_meta)
+
+
+class LoadedArtifact:
+    """A loaded window or clip artifact: `call(x)` on its device, plus
+    meta."""
+
+    def __init__(self, models: List[nn.Module], meta: Dict[str, Any],
+                 device):
+        self.models = models
         self.meta = meta
+        self.unit: str = meta["unit"]
         self.device = torch.device(device)
         self.input_shape: Tuple[int, ...] = tuple(meta["input_shape"])
         self.dtype = INPUT_DTYPES[meta["input_dtype"]]
         self.batch: Optional[int] = meta.get("batch")
 
+    def _member_outputs(self, x: torch.Tensor):
+        if self.unit == "window":
+            return [m(x) for m in self.models]
+        from seld_tpu_torch.inference.ensemble import _predict_clip_fast
+        return [_predict_clip_fast(
+                    m, x, win_size=self.meta["win_size"],
+                    step_size=self.meta["step_size"], batch_size=1 << 30,
+                    time_down=td)
+                for m, td in zip(self.models, self.meta["time_downs"])]
+
     @torch.inference_mode()
     def call(self, x: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
-        """[b, *input_shape] (any host or device tensor) -> (sed, doa) as
-        float32 numpy arrays (the copy back waits for the device)."""
+        """window: [b, *input_shape]; clip: [*input_shape] (any host or
+        device tensor) -> (sed, doa) as float32 numpy arrays, the members'
+        average (the copy back waits for the device)."""
         x = x.to(device=self.device, dtype=self.dtype)
-        sed, doa = self.model(x)
-        return sed.float().cpu().numpy(), doa.float().cpu().numpy()
+        outs = self._member_outputs(x)
+        n = float(len(outs))
+        sed = sum(s.float() for s, _ in outs) / n
+        doa = sum(d.float() for _, d in outs) / n
+        return sed.cpu().numpy(), doa.cpu().numpy()
 
 
 def load_exported(path: str, device="cuda") -> LoadedArtifact:
@@ -92,13 +244,18 @@ def load_exported(path: str, device="cuda") -> LoadedArtifact:
 
     with open(path + _META_SUFFIX) as f:
         meta = json.load(f)
-    if meta.get("format") != FORMAT or meta.get("unit") != "window":
-        raise ValueError(f"{path}: not a {FORMAT} window artifact "
-                         f"(format {meta.get('format')!r}, unit "
-                         f"{meta.get('unit')!r})")
-    model = build_model(meta["model"], meta["input_shape"],
-                        meta["model_config"], device=device)
+    unit = meta.get("unit")
+    if unit == "stream":
+        raise NotImplementedError(_NO_STREAM)
+    if meta.get("format") != FORMAT or unit not in UNITS:
+        raise ValueError(f"{path}: not a {FORMAT} window or clip artifact "
+                         f"(format {meta.get('format')!r}, unit {unit!r})")
+    models = []
     with np.load(path) as weights:
-        state = {k: torch.from_numpy(weights[k]) for k in weights.files}
-    model.load_state_dict(state, strict=True)
-    return LoadedArtifact(model, meta, device)
+        for i, member in enumerate(meta["members"]):
+            model = build_model(member["model"], member["input_shape"],
+                                member["model_config"], device=device)
+            model.load_state_dict(_unpack(weights, str(i), device),
+                                  strict=True)
+            models.append(model)
+    return LoadedArtifact(models, meta, device)

@@ -1,4 +1,4 @@
-"""Write a window serving artifact for the port's server.
+"""Write a serving artifact for the port's server (scripts/export_model.py).
 
     # seeded Keras-style weights (no trained checkpoint needed):
     python -m seld_tpu_torch.inference.export_model --model_config SS5 \
@@ -9,6 +9,15 @@
     python -m seld_tpu_torch.inference.export_model --model_config SS5 \
         --variables ss5_flax.npz --out ss5_window.npz
 
+    # the whole-clip scorer (trunk-once fast path, fixed 60-s geometry), a
+    # two-member ensemble, int8 weights:
+    python -m seld_tpu_torch.inference.export_model --model_config SS5 \
+        --unit clip --variables a.npz,b.npz --quantize int8 --out clip.npz
+
+Comma lists in --variables, --seed, --model_config and --model make an
+ensemble: one artifact whose call returns the members' average (a list of
+one value is broadcast over the members).
+
 Serve it with `python -m seld_tpu_torch.serving.serve --artifact <out>`.
 """
 from __future__ import annotations
@@ -18,65 +27,163 @@ import argparse
 import numpy as np
 import torch
 
+_UNPORTED_STREAM = ("--unit stream exports a streaming engine bundle, which "
+                    "is not ported yet (ROADMAP queue 1, item 10)")
+_UNPORTED_DP = ("--data_parallel exports a data-parallel artifact, which "
+                "is not ported yet (ROADMAP queue 1, item 14)")
+
+
+def _members(args):
+    """(model name, model config, variables path, seed) per member."""
+    lists = {k: [v.strip() for v in str(getattr(args, k)).split(",")
+                 if v.strip()]
+             for k in ("model", "model_config", "variables", "seed")}
+    lists["variables"] = lists["variables"] or [""]
+    n = max(len(v) for v in lists.values())
+    for k, v in lists.items():
+        if len(v) not in (1, n):
+            raise SystemExit(f"--{k}: {len(v)} values for {n} members")
+        lists[k] = v * n if len(v) == 1 else v
+    return list(zip(lists["model"], lists["model_config"],
+                    lists["variables"], [int(s) for s in lists["seed"]]))
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="conv_temporal")
+    ap.add_argument("--model", default="conv_temporal",
+                    help="comma list broadcast across ensemble members")
     ap.add_argument("--model_config", required=True,
-                    help="zoo name or a model-config JSON path")
+                    help="zoo name or a model-config JSON path; comma list "
+                         "broadcast across ensemble members")
     ap.add_argument("--out", required=True, help="artifact file to write")
     ap.add_argument("--variables", default="",
                     help="flax variables as a flat .npz keyed by path; "
-                         "empty = seeded initial weights")
-    ap.add_argument("--seed", type=int, default=0)
+                         "empty = seeded initial weights; comma-separate N "
+                         "files for an N-member ensemble")
+    ap.add_argument("--seed", default="0",
+                    help="seed of the initial weights; comma list for an "
+                         "ensemble of seeded members")
+    ap.add_argument("--unit", default="window",
+                    choices=["window", "clip", "stream"],
+                    help="window: [b, win, F, C] forward, any batch; clip: "
+                         "fixed-length trunk-once clip scorer "
+                         "(conv_temporal); stream: not ported yet")
     ap.add_argument("--n_classes", type=int, default=12)
     ap.add_argument("--win_size", type=int, default=300)
     ap.add_argument("--n_freq", type=int, default=64)
     ap.add_argument("--n_chan", type=int, default=7,
                     help="7 foa / 10 mic / 17 joint")
+    ap.add_argument("--step_size", type=int, default=5,
+                    help="clip unit: window stride in feature frames")
+    ap.add_argument("--clip_frames", type=int, default=3000,
+                    help="clip unit: fixed clip length (3000 = 60 s DCASE)")
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
+    ap.add_argument("--quantize", default="none",
+                    choices=["none", "int8", "bfloat16"],
+                    help="weight-only quantisation of the stored weights: "
+                         "int8 = per-output-channel symmetric (~4x smaller), "
+                         "bfloat16 = cast weights (~2x); dequantised on the "
+                         "device at load (inference/quantize.py)")
     ap.add_argument("--batch", type=int, default=0,
-                    help="0 = every batch size; N = static batch (the "
-                         "server pads and chunks each dispatch to N rows)")
+                    help="window unit: 0 = every batch size; N = static "
+                         "batch (the server pads and chunks each dispatch "
+                         "to N rows)")
+    ap.add_argument("--data_parallel", type=int, default=0,
+                    help="window unit: shard over this many devices (not "
+                         "ported yet)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--verify", action="store_true",
                     help="reload the artifact and check it matches the live "
-                         "model on random input")
+                         "model(s) on random input")
     args = ap.parse_args(argv)
+    if args.unit == "stream":
+        raise NotImplementedError(_UNPORTED_STREAM)
+    if args.data_parallel:
+        raise NotImplementedError(_UNPORTED_DP)
+    members = _members(args)
+    if args.unit == "clip" and {m for m, *_ in members} != {"conv_temporal"}:
+        raise SystemExit("--unit clip needs the trunk/head stage split "
+                         "(conv_temporal only)")
 
     from seld_tpu_torch.bridge import from_flax, load_npz
     from seld_tpu_torch.config import resolve_model_config
-    from seld_tpu_torch.inference.export import export_window, load_exported
+    from seld_tpu_torch.inference import export as E
+    from seld_tpu_torch.inference.ensemble import _predict_clip_fast
+    from seld_tpu_torch.inference.quantize import (dequantize_tree,
+                                                   quantization_report,
+                                                   quantize_tree)
     from seld_tpu_torch.models import build_model
 
-    cfg = resolve_model_config(args.model_config)
-    cfg["n_classes"] = args.n_classes
     input_shape = (args.win_size, args.n_freq, args.n_chan)
-    model = build_model(args.model, input_shape, cfg, seed=args.seed,
-                        device=args.device)
-    if args.variables:
-        model.load_state_dict(from_flax(load_npz(args.variables), model))
-    export_window(model, args.out, dtype=args.dtype,
-                  batch=args.batch or None,
-                  extra_meta={"model_config_name": args.model_config,
-                              "variables": args.variables or None,
-                              "seed": None if args.variables else args.seed})
-    print(f"exported window artifact: {args.out}")
+    quantize = None if args.quantize == "none" else args.quantize
+    models, time_downs = [], []
+    for name, cfg_name, variables, seed in members:
+        cfg = resolve_model_config(cfg_name)
+        cfg["n_classes"] = args.n_classes
+        model = build_model(name, input_shape, cfg, seed=seed,
+                            device=args.device)
+        if variables:
+            model.load_state_dict(from_flax(load_npz(variables), model))
+        models.append(model)
+        time_downs.append(cfg.get("first_pool_size", [5, 1])[0])
 
-    if args.verify:
-        art = load_exported(args.out, device=args.device)
-        x = torch.from_numpy(np.random.RandomState(0).randn(
-            args.batch or 3, *input_shape).astype(np.float32))
-        with torch.inference_mode():
-            want = [o.float().cpu().numpy() for o in
-                    model(x.to(args.device, art.dtype))]
-        # the failure this guards (wrong or missing weights) is O(1) on the
-        # sigmoid/tanh heads; the slack covers a GPU library picking another
-        # algorithm between two calls
-        for got, ref in zip(art.call(x), want):
-            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
-        print("verify: artifact matches the live model")
+    extra = {"model_config_name": args.model_config,
+             "variables": args.variables or None,
+             "seed": None if args.variables else args.seed}
+    if args.unit == "window":
+        E.export_window_ensemble(models, args.out, dtype=args.dtype,
+                                 batch=args.batch or None, quantize=quantize,
+                                 extra_meta=extra)
+    else:
+        E.export_clip_fast_ensemble(
+            models, args.out, args.clip_frames, win_size=args.win_size,
+            step_size=args.step_size, time_downs=time_downs,
+            dtype=args.dtype, quantize=quantize, extra_meta=extra)
+    print(f"exported {args.unit} artifact: {args.out} "
+          f"({len(models)} member(s))")
+
+    if not args.verify:
+        return
+    # the live members carry what the artifact computes:
+    # dequantize(quantize(w))
+    for model in models:
+        state = model.state_dict()
+        if quantize:
+            qstate = quantize_tree(state, quantize)
+            rep = quantization_report(state, qstate)
+            print(f"quantize {quantize}: weights "
+                  f"{rep['bytes_before'] / 1e6:.2f} -> "
+                  f"{rep['bytes_after'] / 1e6:.2f} MB, "
+                  f"{rep['n_quantized_leaves']} entries, "
+                  f"max |w - deq(q(w))| = {rep['max_abs_error']:.3e}")
+            model.load_state_dict(dequantize_tree(qstate))
+    art = E.load_exported(args.out, device=args.device)
+    rng = np.random.RandomState(0)
+    if args.unit == "window":
+        x = torch.from_numpy(rng.randn(args.batch or 3, *input_shape)
+                             .astype(np.float32))
+    else:
+        x = torch.from_numpy(rng.randn(args.clip_frames, *input_shape[1:])
+                             .astype(np.float32))
+    xin = x.to(args.device, art.dtype)
+    with torch.inference_mode():
+        if args.unit == "window":
+            outs = [m(xin) for m in models]
+        else:
+            outs = [_predict_clip_fast(
+                        m, xin, win_size=args.win_size,
+                        step_size=args.step_size, batch_size=1 << 30,
+                        time_down=td)
+                    for m, td in zip(models, time_downs)]
+        want = [(sum(o[i].float() for o in outs) / len(outs)).cpu().numpy()
+                for i in range(2)]
+    # the failure this guards (wrong or missing weights) is O(1) on the
+    # sigmoid/tanh heads; the slack covers a GPU library picking another
+    # algorithm between two calls
+    for got, ref in zip(art.call(x), want):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    print("verify: artifact matches the live model")
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ Each model is an nn.Module built from a JSON-style model_config dict whose
 block names dispatch through the port's registry. SELD models output
 (sed [B, T', C], doa [B, T', 3C]).
 
-Ported: conv_temporal (the SS5 challenge model), stage "full" only.
+Ported: conv_temporal (the SS5 challenge model), with its trunk/head split
+for the fast sliding-window inference (`stage=`).
 """
 from __future__ import annotations
 
@@ -51,8 +52,43 @@ class SELDHeads(nn.Module):
         return sed, doa
 
 
+def _time_local_block(name: str, args: dict) -> bool:
+    """Blocks that are translation-equivariant along time with stride 1 —
+    computable once on a full clip and windowed afterwards (the fast
+    inference split, seld_tpu_torch.inference.ensemble)."""
+    if name in ("simple_dense_stage", "simple_dense_block", "identity_block"):
+        return True
+    if name == "mother_stage":
+        strides = args.get("strides", (1, 1))
+        if (strides[0] if hasattr(strides, "__len__") else strides) != 1:
+            return False
+        # squeeze-and-excitation global-average-pools over TIME, so
+        # clip-global statistics differ from per-window ones on every
+        # frame: SE blocks are not window-local even at stride 1
+        return not args.get("squeeze_ratio", 0)
+    return False
+
+
+def conv_temporal_trunk_blocks(cfg: Dict[str, Any]) -> int:
+    """Number of leading BLOCKs (after the stem) in the time-local trunk."""
+    n = 0
+    for block in sorted_block_keys(cfg):
+        if not _time_local_block(cfg[block], cfg.get(f"{block}_ARGS", {})):
+            break
+        n += 1
+    return n
+
+
 class ConvTemporal(nn.Module):
-    """Stem conv+pool then sorted BLOCK0..N + heads (models.py:54-78)."""
+    """Stem conv+pool then sorted BLOCK0..N + heads (models.py:54-78).
+
+    forward(x, stage): "full" (default) runs everything; "trunk" runs the
+    stem and the leading time-local blocks (`conv_temporal_trunk_blocks`)
+    and returns their features; "head" takes trunk features and runs the
+    remaining blocks and the heads. Every child exists whatever the stage,
+    so the state_dict is the same. Nothing is sized by the input's length:
+    the trunk takes a whole clip (e.g. 3000 frames) as it takes a window.
+    """
 
     def __init__(self, model_config: Dict[str, Any],
                  input_shape: Sequence[int],
@@ -75,11 +111,22 @@ class ConvTemporal(nn.Module):
             shape = block.out_shape
         add_child(self, SELDHeads(cfg, cfg.get("n_classes", 14), shape,
                                   generator=generator))
+        self.n_trunk = conv_temporal_trunk_blocks(cfg)
 
-    def forward(self, x: torch.Tensor):
-        x = self.Conv2DBN_0(x)
-        for block in self.blocks:
+    def forward(self, x: torch.Tensor, stage: str = "full"):
+        if stage not in ("full", "trunk", "head"):
+            raise ValueError(f"stage {stage!r}: one of full, trunk, head")
+        blocks = self.blocks
+        if stage != "head":
+            x = self.Conv2DBN_0(x)
+        if stage == "trunk":
+            blocks = blocks[:self.n_trunk]
+        elif stage == "head":
+            blocks = blocks[self.n_trunk:]
+        for block in blocks:
             x = block(x)
+        if stage == "trunk":
+            return x
         return self.SELDHeads_0(x)
 
 

@@ -1,10 +1,14 @@
-"""Serve the port's window artifacts over HTTP (scripts/serve.py, window
-unit).
+"""Serve the port's window and clip artifacts over HTTP (scripts/serve.py).
 
     python -m seld_tpu_torch.inference.export_model --model_config SS5 \
         --out ss5_window.npz
     python -m seld_tpu_torch.serving.serve --artifact ss5_window.npz \
         --port 8765 --batch_window_ms 2
+
+    # bulk scoring of whole 60-s clips ([3000, 64, 7] a request):
+    python -m seld_tpu_torch.inference.export_model --model_config SS5 \
+        --unit clip --out ss5_clip.npz
+    python -m seld_tpu_torch.serving.serve --artifact ss5_clip.npz
 
     # client (stdlib): seld_tpu_torch.serving.client.SELDClient
     #   sed, doa = SELDClient(port=8765).score(x)
@@ -21,7 +25,7 @@ import argparse
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--artifact", default="",
-                    help="default window artifact "
+                    help="default window or clip artifact "
                          "(seld_tpu_torch.inference.export_model), served "
                          "by /v1/score")
     ap.add_argument("--model", action="append", default=[],
@@ -44,7 +48,9 @@ def main(argv=None):
                     help="CSV of batch sizes to run once at startup, e.g. "
                          "'1,8,32' — keeps first-request latency flat")
     ap.add_argument("--warmup", action="store_true",
-                    help="run one dummy dispatch per model before binding")
+                    help="run one dummy dispatch per model before binding "
+                         "(clip artifacts: one clip; --warmup_buckets skips "
+                         "them, having no batch axis)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if not args.artifact and not args.model:
@@ -72,8 +78,11 @@ def main(argv=None):
         int(b) for b in args.warmup_buckets.split(",") if b]
     for name, slot in service._slots.items():
         art = slot.artifact
-        for b in sizes:
-            shape = (art.batch or b, *art.input_shape)
+        if art.unit == "clip":
+            shapes = [art.input_shape] if args.warmup else []
+        else:
+            shapes = [(art.batch or b, *art.input_shape) for b in sizes]
+        for shape in shapes:
             service.score(torch.zeros(shape, dtype=art.dtype), model=name)
             print(f"warmup: score[{name}] {shape} ok", flush=True)
 

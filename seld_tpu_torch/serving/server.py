@@ -1,4 +1,4 @@
-"""HTTP serving daemon for the port's window artifacts
+"""HTTP serving daemon for the port's window and clip artifacts
 (seld_tpu/serving/server.py).
 
 Export once (seld_tpu_torch.inference.export_model), then serve the artifact
@@ -11,9 +11,10 @@ Wire protocol (binary request bodies are `.npy`; responses `.npz`):
   GET    /metrics                    Prometheus text: per-route request
                                      counters + latency histograms, batch
                                      counters
-  POST   /v1/score[?model=<name>]    npy x [b, win, F, C] in -> npz
-                                     {sed, doa}; ?model= routes to a named
-                                     artifact
+  POST   /v1/score[?model=<name>]    npy in -> npz {sed, doa}
+                                     (window artifact: x [b, win, F, C];
+                                      clip artifact: x [T_clip, F, C];
+                                      ?model= routes to a named artifact)
   GET    /v1/models                  JSON {name: {default, path, ...meta}}
   POST   /v1/reload                  hot-swap every artifact from its file
   /v1/stream/...                     404: streaming is not yet ported
@@ -26,7 +27,8 @@ One device serves every request: a global dispatch lock serializes device
 work across the threaded server's handlers (HTTP parsing/serialization still
 overlaps).
 
-Dynamic micro-batching (batch_window_ms > 0): concurrent /v1/score requests
+Dynamic micro-batching (batch_window_ms > 0, window artifacts): concurrent
+/v1/score requests
 coalesce into ONE device dispatch, row-concatenated on the batch axis.
 Greedy-drain policy: requests never idle-wait (solo clients pay zero added
 latency); coalescing comes from requests queuing while a dispatch is in
@@ -181,11 +183,11 @@ class _SlotState:
 
 
 class _ScoreSlot:
-    """One loaded window artifact + its batcher.
+    """One loaded score artifact (window or clip unit) + its batcher.
 
     Slots share the server's dispatch lock (one device, one dispatch at a
-    time across every model) but each runs its own greedy-drain batcher
-    thread. Reload is two-phase (`prepare_reload` loads and validates off to
+    time across every model) but each window-unit slot runs its own
+    greedy-drain batcher thread; a clip request is one dispatch. Reload is two-phase (`prepare_reload` loads and validates off to
     the side, `commit_reload` publishes the new state as a single reference
     swap); in-flight dispatches complete on the state they captured."""
 
@@ -202,7 +204,7 @@ class _ScoreSlot:
         self.batch_stats = {"requests": 0, "dispatches": 0, "rows": 0}
         self._state = self._load_state()
         self._queue: Optional[queue.Queue] = None
-        if self.batch_window_ms > 0:
+        if self.batch_window_ms > 0 and self.meta.get("unit") == "window":
             self._queue = queue.Queue()
             threading.Thread(target=self._batch_loop, daemon=True,
                              name=f"seld-batcher-{name}").start()
@@ -226,7 +228,14 @@ class _ScoreSlot:
 
     def prepare_reload(self) -> _SlotState:
         """Phase 1: load + validate the new artifact WITHOUT publishing."""
-        return self._load_state()
+        new = self._load_state()
+        old_unit, new_unit = self.meta.get("unit"), new.meta.get("unit")
+        if new_unit != old_unit:
+            # the batcher (or its absence) is wired for the original unit;
+            # switching window<->clip needs a fresh slot, not a hot swap
+            raise ValueError(f"unit changed {old_unit!r} -> {new_unit!r}; "
+                             f"restart to swap artifact units")
+        return new
 
     def commit_reload(self, new: _SlotState) -> dict:
         """Phase 2: publish (single reference swap; cannot fail)."""
@@ -238,6 +247,13 @@ class _ScoreSlot:
     def _validate(self, x: torch.Tensor, st: _SlotState) -> torch.Tensor:
         art = st.artifact
         per = art.input_shape
+        if x.is_complex():
+            raise HTTPError(400, f"input dtype {x.dtype} is complex")
+        if art.unit == "clip":
+            if tuple(x.shape) != per:
+                raise HTTPError(400, f"clip artifact wants {list(per)}; "
+                                     f"got {tuple(x.shape)}")
+            return x.to(art.dtype).contiguous()
         if tuple(x.shape) == per:                  # bare window: add batch
             x = x[None]
         if x.dim() != len(per) + 1 or tuple(x.shape[1:]) != per:
@@ -245,8 +261,6 @@ class _ScoreSlot:
                                  f"got {tuple(x.shape)}")
         if x.shape[0] == 0:
             raise HTTPError(400, "empty batch (0 windows)")
-        if x.is_complex():
-            raise HTTPError(400, f"input dtype {x.dtype} is complex")
         # accept clients that send f32 to a bf16 artifact (and vice versa)
         return x.to(art.dtype).contiguous()
 
@@ -255,7 +269,8 @@ class _ScoreSlot:
         x = self._validate(x, st)
         if self._queue is not None:
             return self._score_batched(x, st)
-        if st.artifact.batch is not None and x.shape[0] != st.artifact.batch:
+        if st.artifact.unit == "window" and st.artifact.batch is not None \
+                and x.shape[0] != st.artifact.batch:
             raise HTTPError(400, f"static-batch artifact wants b="
                                  f"{st.artifact.batch}; got {x.shape[0]} "
                                  "(serve with batch_window_ms > 0 to "
@@ -359,18 +374,19 @@ class _ScoreSlot:
 
 
 class SELDServer:
-    """Serves window artifacts.
+    """Serves window and clip artifacts.
 
     Args:
-      artifact: path to the DEFAULT window artifact
+      artifact: path to the DEFAULT window or clip artifact
         (seld_tpu_torch.inference.export_model), served by bare /v1/score.
       artifacts: extra named models, `{name: path}`, served by
-        `/v1/score?model=<name>`; each slot gets its own micro-batcher.
+        `/v1/score?model=<name>`; each window-unit slot gets its own
+        micro-batcher.
         GET /v1/models lists them; POST /v1/reload hot-swaps every slot
         from its file.
-      batch_window_ms: > 0 enables dynamic micro-batching (see the module
-        docstring): concurrent /v1/score requests coalesce into one device
-        dispatch.
+      batch_window_ms: > 0 enables dynamic micro-batching of window
+        artifacts (see the module docstring): concurrent /v1/score requests
+        coalesce into one device dispatch.
       max_batch: chunk dispatches at this many rows (also the largest
         power-of-two bucket).
       bucket_pad: pad a coalesced dispatch up to the next power of two
@@ -427,13 +443,14 @@ class SELDServer:
     # ---- service methods (HTTP-agnostic; raise HTTPError) ----
 
     def health(self) -> dict:
+        slot = self._default_slot
         out = {"status": "ok",
-               "units": ["window"] if self._default_slot is not None else [],
+               "units": [slot.meta["unit"]] if slot is not None else [],
                "artifact_meta": self.artifact_meta}
         if len(self._slots) > (1 if self._default_name else 0):
             out["models"] = {n: s.meta.get("unit")
                              for n, s in self._slots.items()}
-        if self.batch_window_ms > 0 and self._default_slot is not None:
+        if slot is not None and slot._queue is not None:
             out["batching"] = {"window_ms": self.batch_window_ms,
                                "max_batch": self.max_batch,
                                **self.batch_stats}

@@ -42,7 +42,8 @@ def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def _to_saveable(state: TrainState, swa: Optional[SWAState],
-                 aug_generator: Optional[torch.Generator]) -> Dict[str, Any]:
+                 aug_generator: Optional[torch.Generator],
+                 params: Optional[Dict[str, torch.Tensor]]) -> Dict[str, Any]:
     opt = state.optimizer
     slots = {"m": [t.cpu().clone() for t in opt.m],
              "v": [t.cpu().clone() for t in opt.v]}
@@ -50,7 +51,7 @@ def _to_saveable(state: TrainState, swa: Optional[SWAState],
         slots["vhat"] = [t.cpu().clone() for t in opt.vhat]
     tree = {
         "step": state.step,
-        "params": _cpu(state.params),
+        "params": _cpu(params if params is not None else state.params),
         "batch_stats": _cpu(state.batch_stats),
         "opt_state": {"slots": slots, "count": opt.count, "lr": opt.lr},
         "rng": state.generator.get_state(),
@@ -69,8 +70,12 @@ def save_checkpoint(directory: str, name: str, state: TrainState,
                     swa: Optional[SWAState] = None,
                     extra: Optional[Dict[str, Any]] = None,
                     keep_best_only: bool = False,
-                    aug_generator: Optional[torch.Generator] = None) -> str:
-    """Save the state under `<directory>/<name>`; returns the path."""
+                    aug_generator: Optional[torch.Generator] = None,
+                    params: Optional[Dict[str, torch.Tensor]] = None) -> str:
+    """Save the state under `<directory>/<name>`; returns the path.
+    `params` are stored in place of the state's own (the final SWA save
+    stores the SWA average, as the JAX package's `state.replace(params=...)`
+    does)."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.abspath(os.path.join(directory, name))
     if keep_best_only:
@@ -86,7 +91,7 @@ def save_checkpoint(directory: str, name: str, state: TrainState,
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    torch.save(_to_saveable(state, swa, aug_generator),
+    torch.save(_to_saveable(state, swa, aug_generator, params),
                os.path.join(path, _STATE_FILE))
     if extra:
         with open(path + ".meta.json", "w") as f:
@@ -135,6 +140,16 @@ def restore_checkpoint(path: str, state: TrainState,
         with open(path + ".meta.json") as f:
             extra = json.load(f)
     return state, swa, extra
+
+
+def load_variables(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load only a checkpoint's model variables (parameters and BatchNorm
+    statistics) into `model`, for inference tooling that has no optimizer
+    (the JAX package's `load_variables`); returns the model."""
+    tree = torch.load(os.path.join(path, _STATE_FILE), weights_only=True)
+    model.load_state_dict({**tree["params"], **tree["batch_stats"]},
+                          strict=True)
+    return model
 
 
 def latest_best(directory: str) -> Optional[str]:

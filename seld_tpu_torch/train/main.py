@@ -14,20 +14,26 @@ back to the CPU). Data sources under --abspath:
 Checkpoints go to ./saved_model/<run>/bestscore_<score>, scalars to
 ./tensorboard_log/<run>/scalars.jsonl, run configs to ./config/.
 
+When <ans_path>/dev-test holds ground-truth CSVs, the test split's full
+clips are scored every --eval_every epochs by sliding-window overlap-add
+against the official scorer (ENS_T/* scalars, CSVs under --output_path),
+and after training the SWA average is scored and saved as
+./saved_model/<run>/SWA_best_<score>.
+
 With --device_data, --epoch_scan runs each train epoch as one epoch step
 (gather, augment and update a step, captured once as a CUDA graph and
 replayed a step at a time on the card; a plain loop with --device cpu),
 and --fuse_metrics accumulates the metric inside it.
 
-Flags whose code is not ported raise: --use_tdm, --use_both, --wav_mode
-mic, and the periodic ensemble evaluation (an <ans_path>/dev-test
-directory with --eval_every > 0).
+Flags whose code is not ported raise: --use_tdm, --use_both and
+--wav_mode mic.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
+from glob import glob
 
 import numpy as np
 import torch
@@ -36,6 +42,7 @@ from seld_tpu_torch.config.params import get_param
 from seld_tpu_torch.data import transforms as T
 from seld_tpu_torch.data.device_dataset import DeviceDataset
 from seld_tpu_torch.data.loader import SeldDataset, load_seldnet_data
+from seld_tpu_torch.train.checkpoint import save_checkpoint
 from seld_tpu_torch.train.trainer import SELDTrainer
 
 # flag -> (value that runs unported code, ROADMAP item that ports it)
@@ -75,11 +82,12 @@ def build_augment(config):
 
 
 def build_datasets(config, device):
-    """{split: SeldDataset} for train, val and test."""
+    """({split: SeldDataset} for train, val and test, the test split's full
+    clips for the ensemble evaluation)."""
     feat_dtype = torch.bfloat16 if getattr(config, "bf16", False) else None
     if getattr(config, "from_wav", False):
         from seld_tpu_torch.data.wav_pipeline import make_wav_datasets
-        datasets, _, stats = make_wav_datasets(
+        datasets, splits, stats = make_wav_datasets(
             os.path.join(config.abspath, "foa_dev"),
             os.path.join(config.abspath, "metadata_dev"),
             batch=config.batch, loop_time=config.loop_time, n_classes=12,
@@ -89,18 +97,21 @@ def build_datasets(config, device):
         os.makedirs(norm_dir, exist_ok=True)
         np.savez(os.path.join(norm_dir, "normalizer.npz"),
                  mean=np.asarray(stats[0]), std=np.asarray(stats[1]))
-        return datasets
+        return datasets, list(splits["test"][0])
 
     path = os.path.join(config.abspath, "DCASE2021/feat_label/")
     datasets = {}
+    test_xs = None
     for mode in ("train", "val", "test"):
         x, y = load_seldnet_data(os.path.join(path, "foa_dev_norm"),
                                  os.path.join(path, "foa_dev_label"),
                                  mode=mode, n_freq_bins=64)
+        if mode == "test":
+            test_xs = x
         datasets[mode] = SeldDataset.from_clips(
             x, y, batch_size=config.batch, train=mode == "train",
             loop_time=config.loop_time, feature_dtype=feat_dtype)
-    return datasets
+    return datasets, test_xs
 
 
 def _check_flags(config, device):
@@ -120,12 +131,6 @@ def _check_flags(config, device):
         raise ValueError("--resume restores this run's full training state; "
                          "--init_from starts a fresh fine-tune from external "
                          "weights — pick one")
-    if config.eval_every > 0 and os.path.exists(
-            os.path.join(config.ans_path, "dev-test")):
-        raise NotImplementedError(
-            f"{config.ans_path}/dev-test exists and --eval_every is "
-            f"{config.eval_every}: the full-clip ensemble evaluation is not "
-            "ported yet (ROADMAP queue 1, item 9); pass --eval_every 0")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("seld_tpu_torch.train: no CUDA device (pass "
                          "--device cpu to train on the CPU)")
@@ -143,7 +148,7 @@ def main(argv=None):
     _check_flags(config, device)
 
     t0 = time.perf_counter()
-    datasets = build_datasets(config, device)
+    datasets, test_xs = build_datasets(config, device)
     trainer = SELDTrainer(config, model_config, n_classes=12,
                           input_shape=(300, 64, 7), device=device)
     trainer.set_augment(build_augment(config))
@@ -154,6 +159,19 @@ def main(argv=None):
     elif getattr(config, "init_from", ""):
         trainer.init_from(config.init_from)
         print(f"initialized params from {config.init_from}")
+
+    # periodic full-clip ensemble eval against the official scorer
+    gt_dir = os.path.join(config.ans_path, "dev-test")
+    eval_fn = None
+    if os.path.exists(gt_dir):
+        names = sorted(os.path.splitext(os.path.basename(f))[0]
+                       for f in glob(os.path.join(gt_dir, "*.csv")))
+
+        def eval_fn(tr, epoch):
+            seld, mv = tr.evaluate_ensemble(
+                test_xs, names, gt_dir, config.output_path, epoch)
+            print(f"ensemble @ {epoch}: ER {mv[0]:.4f} F {mv[1]:.4f} "
+                  f"LE {mv[2]:.4f} LR {mv[3]:.4f} SELD {seld:.4f}")
 
     trainset = datasets["train"]
     if getattr(config, "device_data", False):
@@ -171,6 +189,17 @@ def main(argv=None):
     setup_secs = time.perf_counter() - t0
 
     result = trainer.fit(trainset, datasets["val"], datasets["test"],
-                         eval_every=config.eval_every)
+                         eval_fn=eval_fn, eval_every=config.eval_every)
     print(f"best val seld score: {result['best_score']:.5f}")
+
+    # final SWA evaluation + save (trainv2.py:362-369)
+    if trainer.swa.count > 0 and eval_fn is not None:
+        seld, _ = trainer.evaluate_ensemble(
+            test_xs, names, gt_dir, config.output_path,
+            result["last_epoch"], params=trainer.swa_params(),
+            batch_stats=trainer.swa_batch_stats())
+        save_checkpoint(trainer.workdir, f"SWA_best_{seld:.5f}",
+                        trainer.state, trainer.swa,
+                        params=trainer.swa_params())
+        print(f"SWA seld score: {seld:.5f}")
     return {**result, "trainer": trainer, "setup_secs": setup_secs}

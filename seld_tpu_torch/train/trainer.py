@@ -17,9 +17,8 @@ device-resident split runs as one epoch step instead
 a CUDA graph on the card), with the metric inside it under
 `--fuse_metrics`. Checkpoints carry the whole training state
 (train/checkpoint.py), so a resumed run continues exactly.
-
-Not ported yet: the full-clip ensemble evaluation (`evaluate_ensemble`,
-ROADMAP queue 1, item 9).
+`evaluate_ensemble` scores full clips by sliding-window overlap-add against
+the official DCASE scorer (the recipe's periodic evaluation, `eval_fn`).
 """
 from __future__ import annotations
 
@@ -234,9 +233,31 @@ class SELDTrainer:
         return scalars
 
     # ------------------------------------------------------------------
-    def evaluate_ensemble(self, *args, **kwargs):
-        raise NotImplementedError("the full-clip ensemble evaluation is not "
-                                  "ported yet (ROADMAP queue 1, item 9)")
+    def evaluate_ensemble(self, test_xs, label_names, gt_dir, output_dir,
+                          epoch: int, batch_size: Optional[int] = None,
+                          thresholds=0.5, params=None, batch_stats=None):
+        """Full-clip sliding-window eval + official scoring
+        (trainv2.py:195-237), logged as ENS_T/*. `params`/`batch_stats`
+        score other weights than the model's own (the SWA average)."""
+        from seld_tpu_torch.inference.ensemble import (
+            ensemble_outputs, evaluate_clips_official)
+        variables = None
+        if params is not None or batch_stats is not None:
+            variables = {**(params if params is not None
+                            else self.state.params),
+                         **(batch_stats if batch_stats is not None
+                            else self.state.batch_stats)}
+        outs = ensemble_outputs(
+            self.model, test_xs,
+            batch_size=batch_size or getattr(self.config, "batch", 256),
+            variables=variables)
+        seld, metric_values = evaluate_clips_official(
+            outs, label_names, gt_dir, output_dir,
+            thresholds=thresholds, n_classes=self.n_classes)
+        for tag, val in zip(("ER", "F", "DER", "DERF"), metric_values):
+            self.logger.add_scalar(f"ENS_T/{tag}", float(val), epoch)
+        self.logger.add_scalar("ENS_T/seldScore", seld, epoch)
+        return seld, metric_values
 
     def swa_params(self):
         return self.swa.avg_params

@@ -48,7 +48,11 @@ def test_port_files_exist():
                  "data/device_dataset.py", "data/transforms.py",
                  "train/checkpoint.py", "utils/logging.py",
                  "config/params.py", "config/manager.py",
-                 "train/trainer.py", "train/main.py", "train/__main__.py"):
+                 "train/trainer.py", "train/main.py", "train/__main__.py",
+                 "utils/io.py", "train/official_metrics.py",
+                 "inference/ensemble.py", "inference/quantize.py",
+                 "make_answer.py", "search_best.py", "bench_infer.py",
+                 "dress_rehearsal.py"):
         assert os.path.join("seld_tpu_torch", want) in names
 
 
@@ -97,10 +101,12 @@ def test_registry_copy_equals_original_modulo_package():
 
 
 @pytest.mark.parametrize("rel", ["config/params.py", "config/manager.py",
-                                 "utils/coords.py", "utils/logging.py"])
+                                 "utils/coords.py", "utils/logging.py",
+                                 "utils/io.py", "train/official_metrics.py"])
 def test_copied_modules_equal_originals_modulo_package(rel):
-    """The flag table and config store, the coordinate helpers and the
-    scalar logger are copies: code equal to the JAX package's."""
+    """The flag table and config store, the coordinate helpers, the scalar
+    logger, the DCASE CSV I/O and the official scorer are copies: code
+    equal to the JAX package's."""
     want = _code_without_docstrings(os.path.join(REPO, "seld_tpu", rel),
                                     "seld_tpu.")
     got = _code_without_docstrings(os.path.join(REPO, "seld_tpu_torch", rel),

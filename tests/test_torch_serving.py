@@ -1,7 +1,9 @@
-"""The port's window-scoring server (seld_tpu_torch/serving/) on
-device="cpu": routes, micro-batching, bucket padding, static-batch
-pad-and-chunk, the bf16 wire, reload, the two CLIs, and replies equal to
-the JAX model's apply on bridged weights.
+"""The port's scoring server (seld_tpu_torch/serving/) on device="cpu":
+routes, micro-batching, bucket padding, static-batch pad-and-chunk, the
+bf16 wire, reload, the two CLIs, and replies equal to the JAX model's apply
+on bridged weights; the clip unit (a whole clip a request, no batcher, its
+reply the JAX package's trunk-once fast path), ensemble artifacts, and a
+reload that would change an artifact's unit, refused.
 """
 import copy
 import io
@@ -19,9 +21,13 @@ import pytest
 import torch
 
 from seld_tpu.config import get_model_config
+from seld_tpu.inference.ensemble import ensemble_outputs as jax_ensemble
 from seld_tpu.models import build_model as jax_build_model
 from seld_tpu_torch.bridge import from_flax
-from seld_tpu_torch.inference import export_window, load_exported
+from seld_tpu_torch.inference import (export_clip_fast,
+                                      export_clip_fast_ensemble,
+                                      export_window, export_window_ensemble,
+                                      load_exported)
 from seld_tpu_torch.models import build_model
 from seld_tpu_torch.serving import SELDClient, SELDServer
 from seld_tpu_torch.serving.server import serve
@@ -333,11 +339,14 @@ def test_load_exported_refuses_other_units(tmp_path):
     meta_path = path + ".meta.json"
     with open(meta_path) as f:
         meta = json.load(f)
-    meta["unit"] = "clip"
-    with open(meta_path, "w") as f:
-        json.dump(meta, f)
-    with pytest.raises(ValueError, match="window artifact"):
-        load_exported(path, device="cpu")
+    for unit, error, match in (("stream", NotImplementedError, "item 10"),
+                               ("bundle", ValueError,
+                                "window or clip artifact")):
+        meta["unit"] = unit
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+        with pytest.raises(error, match=match):
+            load_exported(path, device="cpu")
 
 
 def test_export_cli_from_flax_variables_then_serve_cli(tmp_path):
@@ -407,3 +416,119 @@ def test_serve_cli_argument_errors():
         serve_cli.main([])
     with pytest.raises(SystemExit):
         serve_cli.main(["--model", "no_equals_sign"])
+
+
+CLIP = 100      # frames of a clip artifact's clip: 11 windows of 50 at step 5
+
+
+def _clip_x(seed=0):
+    return np.random.RandomState(seed).randn(CLIP, *SHAPE[1:]).astype(
+        np.float32)
+
+
+def _clip_artifact(tmp_path, name="clip.npz", seed=0):
+    model = build_model("conv_temporal", SHAPE, _narrow(), seed=seed,
+                        device="cpu")
+    return export_clip_fast(model, str(tmp_path / name), CLIP, win_size=50,
+                            step_size=5, time_down=5)
+
+
+def test_clip_unit_replies_equal_the_jax_fast_path(tmp_path):
+    """A clip artifact of bridged JAX weights, served with micro-batching
+    asked for: one clip a request, no batcher, and the reply is the JAX
+    package's trunk-once fast path on the same clip."""
+    cfg = dict(_narrow(), n_classes=12)
+    jm = jax_build_model("conv_temporal", SHAPE, cfg)
+    shapes = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, *SHAPE)),
+        train=False))
+    rng = np.random.RandomState(4)
+    v = jax.tree_util.tree_map(
+        lambda s: (0.3 * rng.randn(*s.shape)).astype(np.float32), shapes)
+    v["batch_stats"] = jax.tree_util.tree_map(np.abs, v["batch_stats"])
+    model = build_model("conv_temporal", SHAPE, cfg, device="cpu")
+    model.load_state_dict(from_flax(v, model))
+    path = export_clip_fast(model, str(tmp_path / "clip.npz"), CLIP,
+                            win_size=50, step_size=5, time_down=5)
+    x = _clip_x()
+    want = jax_ensemble(jm.apply, v, [x], win_size=50, step_size=5,
+                        fast=True)[0]
+    svc = SELDServer(artifact=path, batch_window_ms=1.0, device="cpu")
+    assert svc._slots["default"]._queue is None
+    with _Daemon(svc) as client:
+        h = client.health()
+        assert h["units"] == ["clip"] and "batching" not in h
+        assert client.models()["default"]["unit"] == "clip"
+        assert h["artifact_meta"]["clip_frames"] == CLIP
+        sed, doa = client.score(x)
+        with pytest.raises(RuntimeError, match="400.*clip artifact"):
+            client.score(x[None])
+    assert sed.shape == (20, 12) and doa.shape == (20, 36)
+    np.testing.assert_array_equal(sed, _direct(path, x)[0])
+    for g, w in zip((sed, doa), want):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-4, atol=1e-5)
+
+
+def test_ensemble_artifacts_return_the_members_average(tmp_path):
+    members = [build_model("conv_temporal", SHAPE, _narrow(), seed=s,
+                           device="cpu") for s in (0, 1)]
+    x, clip = torch.from_numpy(_x(3)), torch.from_numpy(_clip_x(1))
+    wpath = export_window_ensemble(members, str(tmp_path / "w.npz"))
+    cpath = export_clip_fast_ensemble(members, str(tmp_path / "c.npz"), CLIP,
+                                      win_size=50, step_size=5,
+                                      time_downs=[5, 5])
+    from seld_tpu_torch.inference.ensemble import _predict_clip_fast
+    with torch.inference_mode():
+        wouts = [m(x) for m in members]
+        couts = [_predict_clip_fast(m, clip, win_size=50, step_size=5,
+                                    batch_size=1 << 30, time_down=5)
+                 for m in members]
+    for path, outs in ((wpath, wouts), (cpath, couts)):
+        art = load_exported(path, device="cpu")
+        assert art.meta["n_members"] == 2
+        got = art.call(clip if art.unit == "clip" else x)
+        for i in range(2):
+            want = ((outs[0][i] + outs[1][i]) / 2).numpy()
+            np.testing.assert_allclose(got[i], want, atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="one time_down per member"):
+        export_clip_fast_ensemble(members, str(tmp_path / "x.npz"), CLIP,
+                                  time_downs=[5])
+
+
+def test_reload_refuses_a_unit_change(tmp_path):
+    path = _artifact(tmp_path, "a.npz")
+    x = _x(2)
+    with _Daemon(SELDServer(artifact=path, device="cpu")) as client:
+        before = client.score(x)
+        export_clip_fast(build_model("conv_temporal", SHAPE, _narrow(),
+                                     device="cpu"), path, CLIP,
+                         win_size=50, step_size=5, time_down=5)
+        with pytest.raises(RuntimeError, match="500.*unit changed"):
+            client.reload()
+        assert client.health()["units"] == ["window"]
+        np.testing.assert_array_equal(client.score(x)[0], before[0])
+
+
+def test_export_cli_clip_ensemble_quantized_and_refusals(tmp_path):
+    from seld_tpu_torch.inference import export_model
+
+    cfg_path = tmp_path / "narrow.json"
+    cfg_path.write_text(json.dumps(_narrow()))
+    common = ["--model_config", str(cfg_path), "--win_size", "50",
+              "--n_freq", "16", "--device", "cpu"]
+    out = str(tmp_path / "clip.npz")
+    export_model.main(common + ["--out", out, "--unit", "clip",
+                                "--clip_frames", str(CLIP), "--step_size",
+                                "5", "--seed", "0,1", "--quantize", "int8",
+                                "--verify"])
+    meta = load_exported(out, device="cpu").meta
+    assert (meta["unit"], meta["n_members"], meta["quantize"],
+            meta["clip_frames"], meta["step_size"]) == (
+                "clip", 2, "int8", CLIP, 5)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        export_model.main(common + ["--out", out, "--unit", "stream"])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        export_model.main(common + ["--out", out, "--data_parallel", "2"])
+    with pytest.raises(SystemExit, match="2 values for 3 members"):
+        export_model.main(common + ["--out", out, "--seed", "0,1",
+                                    "--model_config", "a,b,c"])

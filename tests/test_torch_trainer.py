@@ -513,11 +513,7 @@ def test_cli_refuses_unported_flags(cli_tree, flag):
         cli.main(_argv(cli_tree, *flag))
 
 
-def test_cli_refuses_the_ensemble_eval_and_a_missing_card(cli_tree):
-    os.makedirs(cli_tree / "metadata_dev" / "dev-test")
-    argv = _argv(cli_tree, "--ans_path", str(cli_tree / "metadata_dev"))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cli.main([a if a != "0" else "10" for a in argv])
+def test_cli_refuses_a_missing_card(cli_tree):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             cli.main(_argv(cli_tree)[:-2])
