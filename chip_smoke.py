@@ -73,10 +73,30 @@ Phases, one line each:
               evaluation and its save, the schedule checks from the run's
               scalars, search_best on dev-val, make_answer on dev-test with
               the searched thresholds
+ 12. stream   real-time streaming at SS5 full width (seeded weights), f32
+              with TF32 off: gru_scan at the stream head's batches (B=10,
+              14, 40, 56; f32 and bf16) and foa_frontend at a push's
+              segment, the right-aligned tail and a short clip, each
+              against its plain version with its times and bound; the
+              halo measured on the card; one seeded 60-s feature clip
+              pushed 1 s at a time through StreamingSELD (600 of 600
+              frames, equal to the fast path on the card; exactly 2
+              gru_scan launches a head call), a 15-s clip's stream on the
+              card against the CPU's, 4 lockstep streams against 4 single
+              ones, a bf16 engine against f32; StreamingSELDWav on a
+              seeded 60-s wav against offline extraction + the fast path
+              (one foa_frontend launch an extraction); f32 and int8 stream
+              bundles, served: two concurrent /v1/stream sessions equal to
+              the live engine, a short stream's finalize refused (400), a
+              /v1/reload under a live session, the session gauge back to
+              0; push latency p50/p99, device ms and idle share a push at
+              1 and 4 streams, finalize ms and the real-time factor
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
 at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152,
 printing each call's tile plan, and times every plan at the serving and
-training shapes and U=256 at B=256 bf16; gru_scan_bwd the same way at B in
+training shapes and U=256 at B=256 bf16, and at the stream head's batches
+B in {10, 14, 40, 56} (f32 and bf16, beside cuDNN's f32 GRU); gru_scan_bwd
+the same way at B in
 {1, 3, 32, 256} (U=128, f32 and bf16), U=64, U=144, U in {192, 256} and
 U in {100, 152, 208} (blocks with padding lanes), with its device time by
 kernel (torch.profiler) and every plan at B=256 and B=64. stem_dy: the
@@ -85,7 +105,9 @@ stem's pooled output), every pool of STEM_CASES on data with ties against
 stem_dy_ref, and at the training shape its time beside a bytes yardstick.
 It also holds
 the two feed kernels against their plain versions: foa_frontend at one
-chunk of 8 synthetic 60-s clips (beside torch.fft.rfft over the same
+chunk of 8 synthetic 60-s clips and at a stream's three segment shapes
+(a push's [1, 4, 25,920] samples, the tail, a 1-s short clip), each
+(beside torch.fft.rfft over the same
 windowed frames, the FFT stage alone), gather_rows at B=256 rows of [300,
 64, 7] (bf16, f32) from 4,000 staged windows, of their labels [60, 48]
 f32, of 30-byte rows, and as the x+y pairs the feed launches. Device-only
@@ -185,6 +207,18 @@ CLIP_BATCH = 512
 CLIP_INTERIOR = 10
 INT8_TOL = 5e-2
 BF16_TOL = 5e-2
+# [stream]: 60-s clips pushed 1 s (50 feature frames) at a time, SS5 full
+# width, f32 with TF32 off. The stream against the fast path on the card
+# and the card's stream against the CPU's: MODEL_TOL (the trunk runs on
+# 90-frame buffers in the stream and over the whole clip in the fast path,
+# so cuDNN picks other algorithms). The head's GRUs run at B = 10 a stream
+# (bootstrap, each push) and 14 (finalize: chunk + halo windows).
+STREAM_SECONDS = 60
+STREAM_PUSH = 50
+STREAM_CHECK_SECONDS = 15
+STREAM_N = 4
+STREAM_GRU_BATCHES = (10, 14, 40, 56)
+STREAM_REPS = 2
 # [answer]: the dress rehearsal at rehearsal scale (4 train, 2 + 2 eval
 # clips of 120 label frames, 5 epochs with SWA from epoch 2 and the
 # ensemble evaluation every 2)
@@ -374,6 +408,11 @@ def phase_kernels(card):
             times.append(f"variant {v} {_FWD_VARIANTS[v]} {_plan_text(p)}: "
                          f"{v_ms:.4f} ms (err {err.item():.1e})")
         log("kernels", f"gru_scan plans at {name}: " + "; ".join(times))
+    # the stream head's batches: B = 10 a stream (bootstrap, each push),
+    # 14 (finalize), and both at 4 lockstep streams
+    stream_shapes = {f"{dtype}_B{b}": _stream_gru(rng, b, dtype, card)
+                     for dtype in ("float32", "bfloat16")
+                     for b in STREAM_GRU_BATCHES}
     return {"name": "gru_scan", "route": "cuda",
             "source": "seld_tpu_torch/csrc/gru_fwd.cu",
             "replaces": "seld_tpu/ops/pallas/gru.py:170",
@@ -390,7 +429,8 @@ def phase_kernels(card):
             "train_shape_plan": _plan_json(train_plan),
             "u256_ms": wide_ms, "u256_device_ms": wide_device_ms,
             "u256_bound_ms": wide_bound_ms, "u256_bound_by": wide_bound_by,
-            "u256_plan": _plan_json(wide_plan)}
+            "u256_plan": _plan_json(wide_plan),
+            "stream_shapes": stream_shapes}
 
 
 def gru_scan_bound(xp, rk, rb):
@@ -1487,7 +1527,8 @@ def phase_kernels_feed(card):
                 "launches": None, "max_abs_err": max(db_err, iv_err),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None,
-                "device_ms": device_ms, "rfft_frames_ms": rfft_ms}]
+                "device_ms": device_ms, "rfft_frames_ms": rfft_ms,
+                "stream_shapes": stream_frontend_shapes(card)}]
     del padded
 
     # gather_rows: B=256 ids into 4,000 staged windows [300, 64, 7] (bf16,
@@ -2029,6 +2070,387 @@ def phase_clip(card):
     return {"gru": gru, "launches": launches}
 
 
+def _stream_gru(rng, b, dtype, card):
+    """gru_scan against gru_scan_ref at a stream head's batch [2, 60, b,
+    384], its times, cuDNN's f32 GRU on the same values and its bound."""
+    from seld_tpu_torch.ops.gru import _fwd_plan, gru_scan, gru_scan_ref
+    xp, rk, rb = _gru_inputs(rng, 2, 60, b, 128, dtype)
+    hs = gru_scan(xp, rk, rb)
+    err = (hs.float() - gru_scan_ref(xp, rk, rb).float()).abs().max().item()
+    if err > GRU_TOL[dtype] or hs.dtype != xp.dtype:
+        raise SystemExit(f"gru_scan disagrees with gru_scan_ref at {dtype} "
+                         f"B={b}: {err:.3e}")
+    ms = cuda_ms(lambda: gru_scan(xp, rk, rb), 100)
+    device_ms = graph_ms(lambda: gru_scan(xp, rk, rb), 50)
+    plain_ms = cuda_ms(lambda: gru_scan_ref(xp, rk, rb), 5)
+    library_ms = cuda_ms(cudnn_gru(xp, rk, rb), 100)
+    bound_ms, bound_by = gru_scan_bound(xp, rk, rb)
+    plan = _fwd_plan(2, b, 128)
+    log("kernels", f"gru_scan (stream head) {dtype} D=2 T=60 B={b} U=128: "
+                   f"max_abs_err "
+                   f"{err:.3e} (tol {GRU_TOL[dtype]:.1e}), kernel_ms "
+                   f"{ms:.4f} (device ms {device_ms:.4f}; "
+                   f"{_plan_text(plan)}) plain_ms {plain_ms:.4f} "
+                   f"library_ms (cuDNN GRU, f32) {library_ms:.4f} bound_ms "
+                   f"{bound_ms:.5f} ({bound_by}) on {card}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "plan": _plan_json(plan)}
+
+
+def _stream_wav():
+    """The [stream] phase's seeded 60-s 24 kHz FOA wav, int16-quantised
+    noise at -26 dBFS, float32 [4, T]."""
+    gen = np.random.RandomState(10)
+    wav = gen.randn(4, STREAM_SECONDS * 24000) * 0.05 * 32767
+    return wav.round().clip(-32768, 32767).astype(np.float32) / 32768.0
+
+
+def stream_frontend_shapes(card):
+    """(a) of [stream]: foa_frontend at the shapes a stream gives it, on
+    the phase's wav: a push's segment (chunk + 2 edge frames = 54 frames of
+    hop, 55 frames out), the right-aligned tail (as long) and a short clip
+    (1 s, the front-end's one-extraction path)."""
+    import torch
+    wav = torch.from_numpy(_stream_wav()).cuda()
+    seg = (STREAM_PUSH + 2 * 2) * 480
+    return {name: _stream_frontend(name, w, card) for name, w in (
+        ("push segment", wav[:, :seg]), ("tail", wav[:, -seg:]),
+        ("short clip", wav[:, :24000]))}
+
+
+def _stream_frontend(name, wav, card):
+    """foa_frontend against foa_frontend_ref on one reflect-padded segment
+    [1, 4, L + 1024] of a stream, its times, the rfft yardstick and its
+    bound."""
+    from seld_tpu_torch.ops.frontend import foa_frontend, foa_frontend_ref
+    from seld_tpu_torch.ops.mel import amplitude_to_db
+    from seld_tpu_torch.ops.stft import reflect_pad
+    padded = reflect_pad(wav[None], 512).contiguous()
+    mel, iv = foa_frontend(padded)
+    mel_r, iv_r = foa_frontend_ref(padded)
+    t = mel.shape[2]
+    err = max((amplitude_to_db(mel, clip_dims=1)
+               - amplitude_to_db(mel_r, clip_dims=1)).abs().max().item(),
+              (iv - iv_r).abs().max().item())
+    if err > FRONTEND_TOL:
+        raise SystemExit(f"foa_frontend disagrees with foa_frontend_ref at "
+                         f"the stream's {name} ({t} frames): {err:.3e}")
+    ms = cuda_ms(lambda: foa_frontend(padded), 50)
+    device_ms = graph_ms(lambda: foa_frontend(padded), 50)
+    plain_ms = cuda_ms(lambda: foa_frontend_ref(padded), 10)
+    rfft_ms = rfft_yardstick_ms(padded)
+    bound_ms, bound_by = frontend_bound(1, t)
+    log("kernels", f"foa_frontend (stream) f32 {name} [1, 4, "
+                   f"{padded.shape[-1]}] -> T={t}: max_abs_err (dB, IV) "
+                   f"{err:.3e} (tol {FRONTEND_TOL:.0e}), kernel_ms {ms:.4f} "
+                   f"(device ms {device_ms:.4f}) plain_ms {plain_ms:.4f} "
+                   f"bound_ms {bound_ms:.5f} ({bound_by}); torch.fft.rfft "
+                   f"over the windowed frames {rfft_ms:.4f} on {card}")
+    return {"frames": t, "max_abs_err": err, "ms": ms,
+            "device_ms": device_ms, "plain_ms": plain_ms,
+            "rfft_frames_ms": rfft_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def _stream_frames(engine, clip, push=STREAM_PUSH):
+    """(sed, doa) host arrays of every frame a clip ([T, F, C], or [N, T,
+    F, C] for lockstep streams, then [N, T', ...]) emits, pushed `push`
+    frames at a time, then finalized."""
+    engine.reset()
+    out = []
+    for lo in range(0, clip.shape[-3], push):
+        out.extend(engine.push(clip[..., lo:lo + push, :, :]))
+    out.extend(engine.finalize())
+    axis = 0 if engine.n_streams == 1 else 1
+    return (np.stack([s for s, _ in out], axis=axis),
+            np.stack([d for _, d in out], axis=axis))
+
+
+def _frames_err(got, want):
+    return max(float(np.abs(np.asarray(g, np.float32)
+                            - np.asarray(w, np.float32)).max())
+               for g, w in zip(got, want))
+
+
+def _stream_session(client, sid, clip, out, push=STREAM_PUSH):
+    """One /v1/stream session over a whole clip: `out[sid]` = (sed, doa)."""
+    seds, doas = [], []
+    for lo in range(0, clip.shape[0], push):
+        sed, doa = client.stream_push(sid, clip[lo:lo + push])
+        seds.extend(sed)
+        doas.extend(doa)
+    sed, doa = client.stream_finalize(sid)
+    out[sid] = (np.stack(seds + list(sed)), np.stack(doas + list(doa)))
+
+
+def _push_syncs(engine, clip):
+    """The synchronizing CUDA calls of one steady-state push, as torch's
+    sync debug mode reports them (warn): the push's copies in and out and
+    any the model makes."""
+    import warnings
+
+    import torch
+    from seld_tpu_torch import stream_demo
+    engine.reset()
+    n_boot = stream_demo.boot_pushes(engine)
+    for lo in range(0, (n_boot + 1) * STREAM_PUSH, STREAM_PUSH):
+        if lo == n_boot * STREAM_PUSH:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    engine.push(clip[..., lo:lo + STREAM_PUSH, :, :])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        else:
+            engine.push(clip[..., lo:lo + STREAM_PUSH, :, :])
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_stream(card):
+    """Real-time streaming at SS5 full width (module docstring, phase 12);
+    returns the kernels' stream-shape measurements and the launches of the
+    counted runs."""
+    import torch
+    from seld_tpu_torch import stream_demo
+    from seld_tpu_torch.config import get_model_config
+    from seld_tpu_torch.inference import (StreamingSELD, StreamingSELDWav,
+                                          ensemble_outputs,
+                                          export_streaming,
+                                          measure_trunk_halo)
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.ops.features import extract_features
+    from seld_tpu_torch.serving import SELDClient, SELDServer
+    from seld_tpu_torch.serving.server import serve
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(9)
+    wav = _stream_wav()
+    wav_card = torch.from_numpy(wav).cuda()
+    seconds = wav.shape[1]
+
+    # (b) the engine on a 60-s feature clip (the kernels at the stream's
+    # shapes, (a), are held in phase 3)
+    cfg = get_model_config("SS5", search_paths=[])
+    cfg["n_classes"] = 12
+    gpu = build_model("conv_temporal", (300, 64, 7), cfg, seed=0,
+                      device="cuda")
+    cpu = build_model("conv_temporal", (300, 64, 7), cfg, seed=0,
+                      device="cpu")
+    frames = STREAM_SECONDS * 50
+    clips = rng.randn(STREAM_N, frames, 64, 7).astype(np.float32)
+    clip = clips[0]
+    t0 = time.perf_counter()
+    engine = StreamingSELD(gpu, (64, 7))
+    halo_s = time.perf_counter() - t0
+    halo_cpu = measure_trunk_halo(cpu, (64, 7), 5)
+    head_calls = 1 + (frames - engine.l_f) // engine.chunk_f + 1
+    (sed, doa), counts = _counted(lambda: _stream_frames(engine, clip))
+    want_counts = {"gru_scan": 2 * head_calls}
+    got_counts = {k: v for k, v in counts.items() if v}
+    fast = ensemble_outputs(gpu, [clip], fast=True, batch_size=CLIP_BATCH)[0]
+    fast = tuple(f.cpu().numpy() for f in fast)
+    fast_err = _frames_err((sed, doa), fast)
+    short = clip[:STREAM_CHECK_SECONDS * 50]
+    card_vs_cpu = _frames_err(
+        _stream_frames(engine, short),
+        _stream_frames(StreamingSELD(cpu, (64, 7), halo=engine.halo_t),
+                       short))
+    ok = (sed.shape == (frames // 5, 12) and doa.shape == (frames // 5, 36)
+          and np.isfinite(sed).all() and np.isfinite(doa).all())
+    log("stream", f"halo {engine.halo_t} trunk frames on the card "
+                  f"({halo_s:.2f} s), {halo_cpu} on the CPU; l_f "
+                  f"{engine.l_f}; {sed.shape[0]} of {frames // 5} frames "
+                  f"emitted; against the fast path on the card "
+                  f"{fast_err:.3e}, a {STREAM_CHECK_SECONDS}-s stream card "
+                  f"vs CPU {card_vs_cpu:.3e} (tol {MODEL_TOL:.0e}); "
+                  f"launches {got_counts} (want {want_counts}: 2 a head "
+                  f"call, {head_calls} head calls)")
+    if not ok or max(fast_err, card_vs_cpu) > MODEL_TOL or \
+            got_counts != want_counts or engine.halo_t != halo_cpu:
+        raise SystemExit("the stream disagrees with the fast path or the "
+                         "CPU, or launched other kernels than gru_scan's "
+                         f"{want_counts}")
+
+    engine4 = StreamingSELD(gpu, (64, 7), halo=engine.halo_t,
+                            n_streams=STREAM_N)
+    (sed4, doa4), counts4 = _counted(lambda: _stream_frames(engine4, clips))
+    singles = [(sed, doa)] + [_stream_frames(engine, c) for c in clips[1:]]
+    lock_err = max(_frames_err((sed4[k], doa4[k]), singles[k])
+                   for k in range(STREAM_N))
+    bf16_model = copy.deepcopy(gpu).to(torch.bfloat16)
+    try:
+        bf16_halo = measure_trunk_halo(bf16_model, (64, 7), 5,
+                                       dtype=torch.bfloat16)
+    except ValueError as e:     # a measurement: recorded, not a failure
+        bf16_halo = f"raised: {e}"
+    engine_bf16 = StreamingSELD(bf16_model, (64, 7), halo=engine.halo_t,
+                                dtype=torch.bfloat16)
+    bf16_out, bf16_counts = _counted(lambda: _stream_frames(engine_bf16,
+                                                            clip))
+    bf16_err = _frames_err(bf16_out, (sed, doa))
+    log("stream", f"{STREAM_N} lockstep streams vs {STREAM_N} single ones "
+                  f"{lock_err:.3e} (tol {MODEL_TOL:.0e}; gru_scan launches "
+                  f"{counts4.get('gru_scan', 0)}); bf16 engine vs f32 "
+                  f"{bf16_err:.3e} (tol {BF16_TOL:.0e}; gru_scan launches "
+                  f"{bf16_counts.get('gru_scan', 0)}); halo measured in bf16"
+                  f": {bf16_halo} (f32: {engine.halo_t})")
+    if lock_err > MODEL_TOL or bf16_err > BF16_TOL or \
+            counts4.get("gru_scan") != 2 * head_calls or \
+            bf16_counts.get("gru_scan") != 2 * head_calls:
+        raise SystemExit("lockstep or bf16 streams disagree")
+
+    # (c) raw audio: StreamingSELDWav against offline extraction + crop +
+    # normalizer + the fast path
+    with torch.inference_mode():
+        feats = extract_features(wav_card).cpu().numpy()[:frames]
+    mean, std = feats.mean(axis=0), feats.std(axis=0) + 1e-6
+    sw = StreamingSELDWav(gpu, normalizer=(mean, std), halo=engine.halo_t)
+    extractions = [0]
+    extract = sw.frontend._extract
+
+    def counting_extract(segment):
+        extractions[0] += 1
+        return extract(segment)
+    sw.frontend._extract = counting_extract
+
+    def run_wav():
+        out = []
+        for lo in range(0, seconds, 24000):
+            out.extend(sw.push(wav[:, lo:lo + 24000]))
+        return out + sw.finalize()
+    wav_out, wav_counts = _counted(run_wav)
+    wav_fast = ensemble_outputs(gpu, [(feats - mean) / std], fast=True,
+                                batch_size=CLIP_BATCH)[0]
+    wav_err = _frames_err((np.stack([s for s, _ in wav_out]),
+                           np.stack([d for _, d in wav_out])),
+                          tuple(f.cpu().numpy() for f in wav_fast))
+    log("stream", f"StreamingSELDWav on a {STREAM_SECONDS}-s wav: "
+                  f"{len(wav_out)} frames, against offline extraction + "
+                  f"the fast path {wav_err:.3e} (tol {MODEL_TOL:.0e}); "
+                  f"{extractions[0]} front-end extractions, launches "
+                  f"{dict(wav_counts)}")
+    if len(wav_out) != frames // 5 or wav_err > MODEL_TOL or \
+            wav_counts.get("foa_frontend") != extractions[0] or \
+            wav_counts.get("gru_scan") != 2 * head_calls:
+        raise SystemExit("the wav stream disagrees or its launches are "
+                         "not one foa_frontend an extraction")
+
+    # (d) bundles, served
+    with tempfile.TemporaryDirectory() as tmp:
+        b32 = export_streaming(gpu, f"{tmp}/f32", (64, 7))
+        bint8 = export_streaming(gpu, f"{tmp}/int8", (64, 7),
+                                 quantize="int8")
+        exp32 = StreamingSELD.from_exported(b32, device="cuda")
+        exp8 = StreamingSELD.from_exported(bint8, device="cuda")
+        bundle_err = _frames_err(_stream_frames(exp32, clip), (sed, doa))
+        int8_out = _stream_frames(exp8, clip)
+        int8_err = _frames_err(int8_out, (sed, doa))
+        served = export_streaming(gpu, f"{tmp}/served", (64, 7))
+        server = SELDServer(bundle=served, device="cuda")
+        httpd = serve(server, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            port = httpd.server_address[1]
+            got = {}
+            threads = [threading.Thread(
+                target=_stream_session,
+                args=(SELDClient("127.0.0.1", port, timeout=600), sid, c,
+                      got)) for sid, c in (("a", clips[0]), ("b", clips[1]))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            session_err = max(_frames_err(got["a"], singles[0]),
+                              _frames_err(got["b"], singles[1]))
+            client = SELDClient("127.0.0.1", port, timeout=600)
+            client.stream_push("short", clip[:40])
+            try:
+                client.stream_finalize("short")
+                short_code = 200
+            except RuntimeError as e:
+                short_code = 400 if "-> 400" in str(e) else str(e)
+            client.stream_drop("short")
+            # a reload between two pushes of a live session: the session
+            # keeps its engine (f32) while the bundle on disk turns int8
+            half = frames // 2
+            seds, doas = [], []
+            for lo in range(0, frames, STREAM_PUSH):
+                if lo == half:
+                    export_streaming(gpu, served, (64, 7), quantize="int8")
+                    client.reload()
+                s_, d_ = client.stream_push("r", clip[lo:lo + STREAM_PUSH])
+                seds.extend(s_)
+                doas.extend(d_)
+            s_, d_ = client.stream_finalize("r")
+            reload_err = _frames_err((np.stack(seds + list(s_)),
+                                      np.stack(doas + list(d_))),
+                                     (sed, doa))
+            health = client.health()
+            gauge = [ln for ln in client.metrics().splitlines()
+                     if ln.startswith("seld_stream_sessions ")]
+        finally:
+            httpd.shutdown()
+            server.close()
+            httpd.server_close()
+            thread.join(timeout=10)
+    log("stream", f"bundle f32 vs live {bundle_err:.3e} (tol "
+                  f"{MODEL_TOL:.0e}), int8 vs f32 {int8_err:.3e} (tol "
+                  f"{INT8_TOL:.0e}); served: two concurrent sessions vs "
+                  f"the live engine {session_err:.3e}, a short stream's "
+                  f"finalize {short_code}, a session across /v1/reload "
+                  f"{reload_err:.3e}, bundle after reload quantize "
+                  f"{health['bundle_meta'].get('quantize')}, {gauge}")
+    if max(bundle_err, session_err, reload_err) > MODEL_TOL or \
+            int8_err > INT8_TOL or short_code != 400 or \
+            gauge != ["seld_stream_sessions 0"] or \
+            health["bundle_meta"].get("quantize") != "int8":
+        raise SystemExit("a bundle, a served session or the reload "
+                         "disagrees")
+
+    # (e) timings: push latency, device time and idle share a push at 1
+    # and STREAM_N streams, finalize and the real-time factor
+    timing = {}
+    for n, eng, c in ((1, engine, clip), (STREAM_N, engine4, clips)):
+        runs = [stream_demo.stream_clip(eng, c) for _ in range(STREAM_REPS)]
+        n_boot = stream_demo.boot_pushes(eng)
+        lat = np.concatenate([r[1][n_boot:] for r in runs])
+        span = np.concatenate([r[2][n_boot:] for r in runs])
+        device_ms = stream_demo.profile_push_ms(eng, c)
+        syncs = _push_syncs(eng, c)
+        p50 = float(np.percentile(lat, 50))
+        timing[n] = {"push_p50_ms": p50,
+                     "push_p99_ms": float(np.percentile(lat, 99)),
+                     "push_event_p50_ms": float(np.percentile(span, 50)),
+                     "device_ms_per_push": device_ms,
+                     "idle_share": 1 - device_ms / p50,
+                     "boot_push_ms": float(np.mean([r[1][n_boot - 1]
+                                                    for r in runs])),
+                     "finalize_ms": float(np.mean([r[3] for r in runs])),
+                     "realtime_x": float(np.mean(
+                         [STREAM_SECONDS * n / r[4] for r in runs])),
+                     "syncs_per_push": syncs}
+        t = timing[n]
+        log("stream", f"{n} stream(s): push p50 {t['push_p50_ms']:.3f} ms "
+                      f"p99 {t['push_p99_ms']:.3f} ms (host clock; CUDA-"
+                      f"event span p50 {t['push_event_p50_ms']:.3f}), "
+                      f"device {device_ms:.3f} ms a push (torch.profiler)"
+                      f", idle {t['idle_share']:.1%}; bootstrap push "
+                      f"{t['boot_push_ms']:.3f} ms, finalize "
+                      f"{t['finalize_ms']:.3f} ms, {t['realtime_x']:.0f}x "
+                      f"real time ({STREAM_REPS} reps of a "
+                      f"{STREAM_SECONDS}-s clip); {syncs} synchronizing "
+                      f"call(s) in a steady-state push on {card}")
+    log("stream", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"timing": timing, "launches": {"gru_scan": want_counts["gru_scan"],
+                         "foa_frontend": wav_counts["foa_frontend"]},
+            "halo": engine.halo_t, "bf16_halo": bf16_halo}
+
+
 def phase_answer(card):
     """The dress rehearsal on the card (its CLIs as subprocesses)."""
     from seld_tpu_torch import dress_rehearsal
@@ -2140,13 +2562,17 @@ def main(argv=None):
             "epoch_scan+fuse_metrics"][e["name"]]
     clip = timed(phase_clip, smi)
     timed(phase_answer, smi)
+    stream = timed(phase_stream, smi)
     for e in entries:
         e["clip_launches"] = 0
+        e["stream_launches"] = stream["launches"].get(e["name"], 0)
     entries[0]["clip_launches"] = clip["launches"]["exact"] + \
         clip["launches"]["fast"]
     entries[0]["clip_launches_by_path"] = clip["launches"]
     for name, m in clip["gru"].items():
         entries[0][f"clip_{name}_shape"] = m
+    entries[0]["stream_timing"] = stream["timing"]
+    entries[0]["stream_halo"] = stream["halo"]
 
     log("time", f"all phases {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -70,6 +70,24 @@ def load_seldnet_data(feat_path: str, label_path: str, mode: str = "train",
     return features, labels
 
 
+def read_wav(path: str, pcm: bool = False) -> Tuple[np.ndarray, int]:
+    """A 16- or 32-bit PCM wav as ([chan, T], sample rate): float32 scaled
+    to [-1, 1) by int / 2^(bits-1), or with `pcm` the on-disk integers."""
+    import wave as wave_mod
+    with wave_mod.open(path, "rb") as w:
+        n, ch, width = w.getnframes(), w.getnchannels(), w.getsampwidth()
+        sr = w.getframerate()
+        raw = w.readframes(n)
+    if width not in (2, 4):
+        raise ValueError(f"{os.path.basename(path)}: unsupported sample "
+                         f"width {width}")
+    scale = {2: 32768.0, 4: 2147483648.0}[width]
+    data = np.frombuffer(raw, {2: np.int16, 4: np.int32}[width])
+    if not pcm:
+        data = data.astype(np.float32) / scale
+    return data.reshape(n, ch).T, sr
+
+
 def load_wav_clips(wav_dir: str, label_dir: str, mode: str = "train",
                    n_classes: int = 14, max_label_length: int = 600,
                    expected_sr: int = 24000, pcm: bool = False):
@@ -78,7 +96,6 @@ def load_wav_clips(wav_dir: str, label_dir: str, mode: str = "train",
     100 ms label-frame geometry assumes 24 kHz; None skips the check).
     `pcm=True` keeps the on-disk integer format (int16/int32); the
     front-end scales it to [-1, 1) with the same int / 2^(bits-1)."""
-    import wave as wave_mod
     from seld_tpu_torch.ops.features import extract_labels
 
     wav_paths = [p for p in sorted(glob(os.path.join(wav_dir, "*.wav")))
@@ -87,25 +104,14 @@ def load_wav_clips(wav_dir: str, label_dir: str, mode: str = "train",
                  if _fold_of(p) in SPLITS[mode]]
     pairs = _pair_by_basename(wav_paths, csv_paths, "label CSV")
 
-    def read_wav(path):
-        with wave_mod.open(path, "rb") as w:
-            n, ch, width = w.getnframes(), w.getnchannels(), w.getsampwidth()
-            sr = w.getframerate()
-            raw = w.readframes(n)
-        if expected_sr is not None and sr != expected_sr:
-            raise ValueError(
-                f"{os.path.basename(path)}: {sr} Hz, expected {expected_sr}"
-                f" (the 100 ms label-frame geometry assumes it)")
-        scale = {2: 32768.0, 4: 2147483648.0}[width]
-        dtype = {2: np.int16, 4: np.int32}[width]
-        data = np.frombuffer(raw, dtype)
-        if not pcm:
-            data = data.astype(np.float32) / scale
-        return data.reshape(n, ch).T
-
     xs, ys = [], []
     for wav_path, csv_path in pairs:
-        xs.append(read_wav(wav_path))
+        wav, sr = read_wav(wav_path, pcm=pcm)
+        if expected_sr is not None and sr != expected_sr:
+            raise ValueError(
+                f"{os.path.basename(wav_path)}: {sr} Hz, expected "
+                f"{expected_sr} (the 100 ms label-frame geometry assumes it)")
+        xs.append(wav)
         lab = extract_labels(csv_path, n_classes=n_classes)
         if lab.shape[0] < max_label_length:
             lab = np.pad(lab, ((0, max_label_length - lab.shape[0]), (0, 0)))

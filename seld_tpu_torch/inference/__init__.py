@@ -1,5 +1,6 @@
 """Inference tooling: sliding-window overlap-add ensembles, submissions,
-serving artifacts and their weight-only quantisation."""
+serving artifacts and their weight-only quantisation, real-time streaming
+and its bundles."""
 from seld_tpu_torch.inference.ensemble import (  # noqa: F401
     DEFAULT_CLASS_THRESHOLDS,
     average_ensemble,
@@ -14,6 +15,7 @@ from seld_tpu_torch.inference.export import (  # noqa: F401
     export_clip_fast,
     export_clip_fast_ensemble,
     export_window,
+    export_streaming,
     export_window_ensemble,
     load_exported,
 )
@@ -22,4 +24,12 @@ from seld_tpu_torch.inference.quantize import (  # noqa: F401
     dequantize_tree,
     quantization_report,
     quantize_tree,
+)
+from seld_tpu_torch.inference.streaming import (  # noqa: F401
+    StreamingSELD,
+    measure_trunk_halo,
+)
+from seld_tpu_torch.inference.streaming_wav import (  # noqa: F401
+    StreamingFrontEnd,
+    StreamingSELDWav,
 )

@@ -55,12 +55,13 @@ def sliding_windows(x: torch.Tensor, win_size: int, step: int
 
 
 def overlap_add(frames: torch.Tensor, step: int = 1) -> torch.Tensor:
-    """[n_win, L, C] -> [(n_win-1)*step + L, C] scatter-add."""
-    n, l, c = frames.shape
+    """[..., n_win, L, C] -> [..., (n_win-1)*step + L, C] scatter-add (the
+    leading axes, e.g. lockstep streams, are independent)."""
+    *lead, n, l, c = frames.shape
     idx = _frame_index(n, l, step, frames.device).reshape(-1)
-    out = torch.zeros(((n - 1) * step + l, c), dtype=frames.dtype,
+    out = torch.zeros((*lead, (n - 1) * step + l, c), dtype=frames.dtype,
                       device=frames.device)
-    return out.index_add_(0, idx, frames.reshape(n * l, c))
+    return out.index_add_(len(lead), idx, frames.reshape(*lead, n * l, c))
 
 
 def _chunked_windows_forward(source: torch.Tensor, twin: int, tstep: int,

@@ -24,8 +24,17 @@ and loads its weights, dequantised on the device. Two units:
   clips: T=3000), with `win_size`, `step_size` and `time_down` in the meta.
 
 An artifact of several members returns their average, computed in f32.
-Not yet ported: the stream unit (ROADMAP queue 1, item 10) and
-data-parallel artifacts (item 14).
+
+The stream unit is a BUNDLE, a directory (`export_streaming`):
+
+  <dir>/meta.json    the geometry keys of the JAX package's bundle
+                     (feat_shape, win_size, step_size, time_down, chunk,
+                     the halo measured at export, dtype, n_streams, l_f),
+                     the member and the quantisation
+  <dir>/weights.npz  the weights, stored as an artifact's
+
+served by `StreamingSELD.from_exported(dir, device=...)`. Not yet ported:
+data-parallel artifacts (ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -41,8 +50,9 @@ _META_SUFFIX = ".meta.json"
 FORMAT = "seld_tpu_torch.artifact/v2"
 UNITS = ("window", "clip")
 INPUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_NO_STREAM = ("the stream unit (a streaming engine bundle) is not ported "
-              "yet (ROADMAP queue 1, item 10)")
+STREAM_FORMAT = "seld_tpu_torch.streaming_bundle/v1"
+_BUNDLE_META = "meta.json"
+_BUNDLE_WEIGHTS = "weights.npz"
 
 
 def _pack(state: Dict[str, torch.Tensor], quantize: Optional[str],
@@ -85,6 +95,29 @@ def _unpack(weights, prefix: str, device) -> Dict[str, torch.Tensor]:
     return dequantize_tree(entries)
 
 
+def _members_meta(models: Sequence[nn.Module]) -> Dict[str, Any]:
+    return {"members": [{"model": m.model_name,
+                         "model_config": m.model_config,
+                         "input_shape": list(m.input_shape)}
+                        for m in models],
+            "n_members": len(models),
+            "n_classes": models[0].model_config.get("n_classes", 14),
+            "torch_version": torch.__version__}
+
+
+def _build_members(meta: Dict[str, Any], weights, device) -> List[nn.Module]:
+    """Each member rebuilt from the zoo with its stored weights."""
+    from seld_tpu_torch.models import build_model
+
+    models = []
+    for i, member in enumerate(meta["members"]):
+        model = build_model(member["model"], member["input_shape"],
+                            member["model_config"], device=device)
+        model.load_state_dict(_unpack(weights, str(i), device), strict=True)
+        models.append(model)
+    return models
+
+
 def _export(models: Sequence[nn.Module], path: str, unit: str,
             input_shape: Sequence[int], *, dtype: str,
             quantize: Optional[str], geometry: Dict[str, Any],
@@ -106,14 +139,10 @@ def _export(models: Sequence[nn.Module], path: str, unit: str,
     meta = {
         "format": FORMAT,
         "unit": unit,
-        "members": [{"model": m.model_name, "model_config": m.model_config,
-                     "input_shape": list(m.input_shape)} for m in models],
-        "n_members": len(models),
+        **_members_meta(models),
         "input_shape": list(input_shape),
         "input_dtype": dtype,
         "quantize": quantize or "none",
-        "n_classes": models[0].model_config.get("n_classes", 14),
-        "torch_version": torch.__version__,
         "bytes": os.path.getsize(path),
         **geometry,
     }
@@ -202,6 +231,74 @@ def export_clip_fast_ensemble(models: Sequence[nn.Module], path: str,
                    extra_meta=extra_meta)
 
 
+def export_streaming(model: nn.Module, out_dir: str, feat_shape, *,
+                     win_size: int = 300, step_size: int = 5,
+                     time_down: int = 5, chunk: int = 10,
+                     halo: Optional[int] = None, dtype: str = "float32",
+                     n_streams: int = 1,
+                     quantize: Optional[str] = None) -> str:
+    """Write the real-time streaming engine as a BUNDLE directory.
+
+    The geometry is validated and the trunk halo MEASURED here, on the
+    weights the bundle holds (after `quantize`), by building the live
+    engine; `StreamingSELD.from_exported(out_dir)` then serves live feeds
+    from the bundle alone, with no checkpoint and nothing measured again.
+    conv_temporal only (the engine needs the trunk/head stage split).
+    dtype: the features' dtype on the device, "float32" or "bfloat16".
+    """
+    import copy
+
+    from seld_tpu_torch.inference.quantize import (dequantize_tree,
+                                                   quantize_tree)
+    from seld_tpu_torch.inference.streaming import StreamingSELD
+
+    if dtype not in INPUT_DTYPES:
+        raise ValueError(f"dtype {dtype!r}; one of {sorted(INPUT_DTYPES)}")
+    if model.model_name != "conv_temporal":
+        raise ValueError("the stream unit needs the trunk/head stage split "
+                         "(conv_temporal only)")
+    live = model
+    if quantize:
+        live = copy.deepcopy(model)
+        live.load_state_dict(dequantize_tree(quantize_tree(
+            model.state_dict(), quantize)))
+    engine = StreamingSELD(live, feat_shape, win_size=win_size,
+                           step_size=step_size, time_down=time_down,
+                           chunk=chunk, halo=halo,
+                           dtype=INPUT_DTYPES[dtype], n_streams=n_streams)
+    os.makedirs(out_dir, exist_ok=True)
+    weights = os.path.join(out_dir, _BUNDLE_WEIGHTS)
+    with open(weights, "wb") as f:
+        np.savez(f, **_pack(model.state_dict(), quantize, "0"))
+    meta = {
+        "format": STREAM_FORMAT,
+        "unit": "stream",
+        "feat_shape": list(engine.feat_shape),
+        "win_size": win_size, "step_size": step_size,
+        "time_down": time_down, "chunk": chunk, "halo": engine.halo_t,
+        "dtype": dtype, "n_streams": n_streams, "l_f": engine.l_f,
+        **_members_meta([model]),
+        "quantize": quantize or "none",
+        "bytes": os.path.getsize(weights),
+    }
+    with open(os.path.join(out_dir, _BUNDLE_META), "w") as f:
+        json.dump(meta, f, indent=2)
+    return out_dir
+
+
+def load_stream_bundle(path: str, device="cuda"
+                       ) -> Tuple[nn.Module, Dict[str, Any]]:
+    """(model on `device`, meta) of a stream bundle directory."""
+    with open(os.path.join(path, _BUNDLE_META)) as f:
+        meta = json.load(f)
+    if meta.get("format") != STREAM_FORMAT:
+        raise ValueError(f"{path}: not a {STREAM_FORMAT} bundle (format "
+                         f"{meta.get('format')!r})")
+    with np.load(os.path.join(path, _BUNDLE_WEIGHTS)) as weights:
+        (model,) = _build_members(meta, weights, device)
+    return model, meta
+
+
 class LoadedArtifact:
     """A loaded window or clip artifact: `call(x)` on its device, plus
     meta."""
@@ -240,22 +337,20 @@ class LoadedArtifact:
 
 
 def load_exported(path: str, device="cuda") -> LoadedArtifact:
-    from seld_tpu_torch.models import build_model
-
-    with open(path + _META_SUFFIX) as f:
+    """A window or clip artifact on `device`. A stream bundle (a directory,
+    or a meta whose unit is "stream") is refused: it loads through
+    `StreamingSELD.from_exported`."""
+    meta_path = (os.path.join(path, _BUNDLE_META) if os.path.isdir(path)
+                 else path + _META_SUFFIX)
+    with open(meta_path) as f:
         meta = json.load(f)
     unit = meta.get("unit")
     if unit == "stream":
-        raise NotImplementedError(_NO_STREAM)
+        raise ValueError(f"{path}: a streaming engine bundle; load it with "
+                         "StreamingSELD.from_exported")
     if meta.get("format") != FORMAT or unit not in UNITS:
         raise ValueError(f"{path}: not a {FORMAT} window or clip artifact "
                          f"(format {meta.get('format')!r}, unit {unit!r})")
-    models = []
     with np.load(path) as weights:
-        for i, member in enumerate(meta["members"]):
-            model = build_model(member["model"], member["input_shape"],
-                                member["model_config"], device=device)
-            model.load_state_dict(_unpack(weights, str(i), device),
-                                  strict=True)
-            models.append(model)
+        models = _build_members(meta, weights, device)
     return LoadedArtifact(models, meta, device)

@@ -14,11 +14,17 @@
     python -m seld_tpu_torch.inference.export_model --model_config SS5 \
         --unit clip --variables a.npz,b.npz --quantize int8 --out clip.npz
 
+    # the real-time streaming engine, a bundle directory (1-s pushes, 4
+    # lockstep streams a device step), checked against the live engine:
+    python -m seld_tpu_torch.inference.export_model --model_config SS5 \
+        --unit stream --n_streams 4 --out ss5_stream --verify
+
 Comma lists in --variables, --seed, --model_config and --model make an
 ensemble: one artifact whose call returns the members' average (a list of
 one value is broadcast over the members).
 
-Serve it with `python -m seld_tpu_torch.serving.serve --artifact <out>`.
+Serve it with `python -m seld_tpu_torch.serving.serve --artifact <out>`
+(a stream bundle: `--bundle <out>`).
 """
 from __future__ import annotations
 
@@ -27,8 +33,6 @@ import argparse
 import numpy as np
 import torch
 
-_UNPORTED_STREAM = ("--unit stream exports a streaming engine bundle, which "
-                    "is not ported yet (ROADMAP queue 1, item 10)")
 _UNPORTED_DP = ("--data_parallel exports a data-parallel artifact, which "
                 "is not ported yet (ROADMAP queue 1, item 14)")
 
@@ -48,6 +52,65 @@ def _members(args):
                     lists["variables"], [int(s) for s in lists["seed"]]))
 
 
+def _fake_quantize(model, quantize) -> None:
+    """Give a live model what an artifact of its weights computes:
+    dequantize(quantize(w)), with the quantisation's report."""
+    from seld_tpu_torch.inference.quantize import (dequantize_tree,
+                                                   quantization_report,
+                                                   quantize_tree)
+    if not quantize:
+        return
+    state = model.state_dict()
+    qstate = quantize_tree(state, quantize)
+    rep = quantization_report(state, qstate)
+    print(f"quantize {quantize}: weights "
+          f"{rep['bytes_before'] / 1e6:.2f} -> "
+          f"{rep['bytes_after'] / 1e6:.2f} MB, "
+          f"{rep['n_quantized_leaves']} entries, "
+          f"max |w - deq(q(w))| = {rep['max_abs_error']:.3e}")
+    model.load_state_dict(dequantize_tree(qstate))
+
+
+def _export_stream(args, model, time_down: int, quantize) -> None:
+    """--unit stream: write the bundle; with --verify drive the bundle's
+    engine and the live one (the model's fake-quantised weights) on the
+    same random stream."""
+    from seld_tpu_torch.inference.export import INPUT_DTYPES, \
+        export_streaming
+    from seld_tpu_torch.inference.streaming import StreamingSELD
+
+    feat_shape = (args.n_freq, args.n_chan)
+    geometry = dict(win_size=args.win_size, step_size=args.step_size,
+                    time_down=time_down, chunk=args.chunk,
+                    n_streams=args.n_streams)
+    export_streaming(model, args.out, feat_shape, dtype=args.dtype,
+                     quantize=quantize, **geometry)
+    exp = StreamingSELD.from_exported(args.out, device=args.device)
+    print(f"exported stream bundle: {args.out} (halo {exp.halo_t}, l_f "
+          f"{exp.l_f}; serve with StreamingSELD.from_exported or "
+          f"serving.serve --bundle)")
+    if not args.verify:
+        return
+    _fake_quantize(model, quantize)
+    live = StreamingSELD(model, feat_shape, halo=exp.halo_t,
+                         dtype=INPUT_DTYPES[args.dtype], **geometry)
+    # one window, then a bootstrap, steady-state pushes and a tail
+    x = np.random.RandomState(0).randn(
+        args.n_streams, args.win_size + 2 * live.l_f + live.chunk_f,
+        *feat_shape).astype(np.float32)
+    gl = list(live.push(x)) + list(live.finalize())
+    ge = list(exp.push(x)) + list(exp.finalize())
+    if len(gl) != len(ge) or not gl:
+        raise SystemExit(f"verify: {len(ge)} frames from the bundle, "
+                         f"{len(gl)} from the live engine")
+    # the slack covers a GPU library picking another algorithm between
+    # two engines; wrong or missing weights are O(1) on the heads
+    for (sl, dl), (se, de) in zip(gl, ge):
+        np.testing.assert_allclose(se, sl, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(de, dl, rtol=0, atol=1e-5)
+    print("verify: exported stream engine matches the live engine")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", default="conv_temporal",
@@ -55,7 +118,8 @@ def main(argv=None):
     ap.add_argument("--model_config", required=True,
                     help="zoo name or a model-config JSON path; comma list "
                          "broadcast across ensemble members")
-    ap.add_argument("--out", required=True, help="artifact file to write")
+    ap.add_argument("--out", required=True,
+                    help="artifact file to write (stream: a directory)")
     ap.add_argument("--variables", default="",
                     help="flax variables as a flat .npz keyed by path; "
                          "empty = seeded initial weights; comma-separate N "
@@ -67,7 +131,9 @@ def main(argv=None):
                     choices=["window", "clip", "stream"],
                     help="window: [b, win, F, C] forward, any batch; clip: "
                          "fixed-length trunk-once clip scorer "
-                         "(conv_temporal); stream: not ported yet")
+                         "(conv_temporal); stream: the real-time "
+                         "streaming engine's bundle (conv_temporal, one "
+                         "member)")
     ap.add_argument("--n_classes", type=int, default=12)
     ap.add_argument("--win_size", type=int, default=300)
     ap.add_argument("--n_freq", type=int, default=64)
@@ -77,6 +143,11 @@ def main(argv=None):
                     help="clip unit: window stride in feature frames")
     ap.add_argument("--clip_frames", type=int, default=3000,
                     help="clip unit: fixed clip length (3000 = 60 s DCASE)")
+    ap.add_argument("--chunk", type=int, default=10,
+                    help="stream unit: label frames per device step "
+                         "(10 = 1 s)")
+    ap.add_argument("--n_streams", type=int, default=1,
+                    help="stream unit: lockstep streams per device step")
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--quantize", default="none",
@@ -97,22 +168,21 @@ def main(argv=None):
                     help="reload the artifact and check it matches the live "
                          "model(s) on random input")
     args = ap.parse_args(argv)
-    if args.unit == "stream":
-        raise NotImplementedError(_UNPORTED_STREAM)
     if args.data_parallel:
         raise NotImplementedError(_UNPORTED_DP)
     members = _members(args)
-    if args.unit == "clip" and {m for m, *_ in members} != {"conv_temporal"}:
-        raise SystemExit("--unit clip needs the trunk/head stage split "
-                         "(conv_temporal only)")
+    if args.unit in ("clip", "stream") and \
+            {m for m, *_ in members} != {"conv_temporal"}:
+        raise SystemExit(f"--unit {args.unit} needs the trunk/head stage "
+                         "split (conv_temporal only)")
+    if args.unit == "stream" and len(members) > 1:
+        raise SystemExit("--unit stream serves one engine per model; "
+                         "export each member separately")
 
     from seld_tpu_torch.bridge import from_flax, load_npz
     from seld_tpu_torch.config import resolve_model_config
     from seld_tpu_torch.inference import export as E
     from seld_tpu_torch.inference.ensemble import _predict_clip_fast
-    from seld_tpu_torch.inference.quantize import (dequantize_tree,
-                                                   quantization_report,
-                                                   quantize_tree)
     from seld_tpu_torch.models import build_model
 
     input_shape = (args.win_size, args.n_freq, args.n_chan)
@@ -131,6 +201,9 @@ def main(argv=None):
     extra = {"model_config_name": args.model_config,
              "variables": args.variables or None,
              "seed": None if args.variables else args.seed}
+    if args.unit == "stream":
+        _export_stream(args, models[0], time_downs[0], quantize)
+        return
     if args.unit == "window":
         E.export_window_ensemble(models, args.out, dtype=args.dtype,
                                  batch=args.batch or None, quantize=quantize,
@@ -145,19 +218,8 @@ def main(argv=None):
 
     if not args.verify:
         return
-    # the live members carry what the artifact computes:
-    # dequantize(quantize(w))
     for model in models:
-        state = model.state_dict()
-        if quantize:
-            qstate = quantize_tree(state, quantize)
-            rep = quantization_report(state, qstate)
-            print(f"quantize {quantize}: weights "
-                  f"{rep['bytes_before'] / 1e6:.2f} -> "
-                  f"{rep['bytes_after'] / 1e6:.2f} MB, "
-                  f"{rep['n_quantized_leaves']} entries, "
-                  f"max |w - deq(q(w))| = {rep['max_abs_error']:.3e}")
-            model.load_state_dict(dequantize_tree(qstate))
+        _fake_quantize(model, quantize)
     art = E.load_exported(args.out, device=args.device)
     rng = np.random.RandomState(0)
     if args.unit == "window":

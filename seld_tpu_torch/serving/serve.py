@@ -1,4 +1,5 @@
-"""Serve the port's window and clip artifacts over HTTP (scripts/serve.py).
+"""Serve the port's window and clip artifacts and streaming bundles over
+HTTP (scripts/serve.py).
 
     python -m seld_tpu_torch.inference.export_model --model_config SS5 \
         --out ss5_window.npz
@@ -10,12 +11,20 @@
         --unit clip --out ss5_clip.npz
     python -m seld_tpu_torch.serving.serve --artifact ss5_clip.npz
 
+    # live streams (/v1/stream/<sid>/push, 1-s pushes of [50, 64, 7]):
+    python -m seld_tpu_torch.inference.export_model --model_config SS5 \
+        --unit stream --out ss5_stream
+    python -m seld_tpu_torch.serving.serve --bundle ss5_stream \
+        --max_sessions 64
+
     # client (stdlib): seld_tpu_torch.serving.client.SELDClient
     #   sed, doa = SELDClient(port=8765).score(x)
+    #   sed, doa = SELDClient(port=8765).stream_push("mic0", feats)
 
 Protocol: npy request bodies, npz responses (route table in
-seld_tpu_torch/serving/server.py). Streaming bundles (--bundle) and the
-XLA compilation cache (--cache_dir) have no counterpart yet.
+seld_tpu_torch/serving/server.py). The XLA compilation cache (--cache_dir)
+has no counterpart: nothing is compiled at serve time but the kernels,
+which build once into build/kernels/.
 """
 from __future__ import annotations
 
@@ -34,6 +43,11 @@ def main(argv=None):
                          "/v1/score?model=NAME (repeatable); GET /v1/models "
                          "lists them, POST /v1/reload hot-swaps all from "
                          "their files")
+    ap.add_argument("--bundle", default="",
+                    help="streaming bundle directory (export_model --unit "
+                         "stream), served by /v1/stream/<sid>/...")
+    ap.add_argument("--max_sessions", type=int, default=64,
+                    help="live streaming sessions before new ones get 429")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8765)
     ap.add_argument("--batch_window_ms", type=float, default=0.0,
@@ -53,8 +67,8 @@ def main(argv=None):
                          "them, having no batch axis)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if not args.artifact and not args.model:
-        ap.error("need --artifact and/or --model")
+    if not args.artifact and not args.model and not args.bundle:
+        ap.error("need --artifact, --model and/or --bundle")
     named = {}
     for spec in args.model:
         if "=" not in spec:
@@ -69,6 +83,8 @@ def main(argv=None):
     from seld_tpu_torch.serving.server import SELDServer, serve
 
     service = SELDServer(artifact=args.artifact or None,
+                         bundle=args.bundle or None,
+                         max_sessions=args.max_sessions,
                          artifacts=named or None,
                          batch_window_ms=args.batch_window_ms,
                          max_batch=args.max_batch,

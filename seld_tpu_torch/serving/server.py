@@ -1,5 +1,5 @@
-"""HTTP serving daemon for the port's window and clip artifacts
-(seld_tpu/serving/server.py).
+"""HTTP serving daemon for the port's window and clip artifacts and its
+streaming bundles (seld_tpu/serving/server.py).
 
 Export once (seld_tpu_torch.inference.export_model), then serve the artifact
 from a process with no training code and no checkpoint: stdlib
@@ -7,25 +7,33 @@ from a process with no training code and no checkpoint: stdlib
 
 Wire protocol (binary request bodies are `.npy`; responses `.npz`):
 
-  GET    /healthz                    JSON {status, units, ...}
+  GET    /healthz                    JSON {status, units, sessions, ...}
   GET    /metrics                    Prometheus text: per-route request
                                      counters + latency histograms, batch
-                                     counters
+                                     counters, live-session gauge
   POST   /v1/score[?model=<name>]    npy in -> npz {sed, doa}
                                      (window artifact: x [b, win, F, C];
                                       clip artifact: x [T_clip, F, C];
                                       ?model= routes to a named artifact)
   GET    /v1/models                  JSON {name: {default, path, ...meta}}
-  POST   /v1/reload                  hot-swap every artifact from its file
-  /v1/stream/...                     404: streaming is not yet ported
+  POST   /v1/reload                  hot-swap every artifact (+ streaming
+                                     bundle) from its file; live sessions
+                                     keep their engine
+  POST   /v1/stream/<sid>/push       npy [n, F, C] (or [N, n, F, C]) in ->
+                                     npz {sed [k, ...], doa [k, ...]} of
+                                     frames that became FINAL this push
+  POST   /v1/stream/<sid>/finalize   npz of the remaining frames; frees sid
+  DELETE /v1/stream/<sid>            drop a session without finalizing
 
 A bfloat16 body travels as its uint16 bit view with an `X-SELD-Dtype:
 bfloat16` header; the server views it back as torch.bfloat16 (no
 ml_dtypes needed).
 
-One device serves every request: a global dispatch lock serializes device
-work across the threaded server's handlers (HTTP parsing/serialization still
-overlaps).
+Streaming sessions are created on first push; each shares the bundle's
+model (copy.copy of a template engine + reset(), which gives the session
+state tensors of its own), so a new session costs microseconds. One device
+serves every request: a global dispatch lock serializes device work across
+the threaded server's handlers (HTTP parsing/serialization still overlaps).
 
 Dynamic micro-batching (batch_window_ms > 0, window artifacts): concurrent
 /v1/score requests
@@ -39,6 +47,7 @@ exact-batch restriction.
 """
 from __future__ import annotations
 
+import copy
 import io
 import json
 import queue
@@ -55,7 +64,6 @@ MAX_BODY_BYTES = 256 * 1024 * 1024
 
 _STREAM_RE = re.compile(r"^/v1/stream/([A-Za-z0-9_.-]{1,64})/(push|finalize)$")
 _STREAM_DEL_RE = re.compile(r"^/v1/stream/([A-Za-z0-9_.-]{1,64})$")
-_NO_STREAMING = "streaming is not yet ported"
 
 # X-SELD-Dtype names -> (wire view, torch dtype)
 _WIRE_DTYPES = {"bfloat16": (np.int16, torch.bfloat16)}
@@ -98,6 +106,16 @@ def _npz_bytes(**arrays) -> bytes:
     return buf.getvalue()
 
 
+def _stack_emits(emits) -> Dict[str, np.ndarray]:
+    """[(sed, doa)] -> {'sed': [k, ...], 'doa': [k, ...]} (f32; k may be 0)."""
+    if not emits:
+        return {"sed": np.zeros((0,), np.float32),
+                "doa": np.zeros((0,), np.float32)}
+    seds, doas = zip(*emits)
+    return {"sed": np.stack([np.asarray(s, np.float32) for s in seds]),
+            "doa": np.stack([np.asarray(d, np.float32) for d in doas])}
+
+
 _LATENCY_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
                     1.0, 2.5, 5.0, 10.0)
 
@@ -124,7 +142,8 @@ class _Metrics:
             h[-1] += 1
             self._sum[route] = self._sum.get(route, 0.0) + seconds
 
-    def render(self, extra_counters: Dict[str, list]) -> str:
+    def render(self, extra_counters: Dict[str, list],
+               gauges: Dict[str, float]) -> str:
         """extra_counters: metric name -> [(label_str, value)]."""
         with self._lock:
             lines = ["# TYPE seld_requests_total counter"]
@@ -147,6 +166,9 @@ class _Metrics:
             lines.append(f"# TYPE {name} counter")
             for labels, v in samples:
                 lines.append(f"{name}{{{labels}}} {v}")
+        for name, v in gauges.items():
+            lines.append(f"# TYPE {name} gauge")
+            lines.append(f"{name} {v}")
         return "\n".join(lines) + "\n"
 
 
@@ -374,16 +396,20 @@ class _ScoreSlot:
 
 
 class SELDServer:
-    """Serves window and clip artifacts.
+    """Serves window and clip artifacts and/or a streaming bundle.
 
     Args:
       artifact: path to the DEFAULT window or clip artifact
         (seld_tpu_torch.inference.export_model), served by bare /v1/score.
+      bundle: path to a streaming bundle directory (`--unit stream`),
+        served by /v1/stream/<sid>/...
+      max_sessions: refuse new streaming sessions beyond this (429).
       artifacts: extra named models, `{name: path}`, served by
         `/v1/score?model=<name>`; each window-unit slot gets its own
         micro-batcher.
         GET /v1/models lists them; POST /v1/reload hot-swaps every slot
-        from its file.
+        (and the streaming template) from its file, without dropping live
+        streaming sessions.
       batch_window_ms: > 0 enables dynamic micro-batching of window
         artifacts (see the module docstring): concurrent /v1/score requests
         coalesce into one device dispatch.
@@ -392,20 +418,24 @@ class SELDServer:
       bucket_pad: pad a coalesced dispatch up to the next power of two
         (result rows sliced back), bounding the batch shapes the device
         sees to log2(max_batch) + 1.
-      device: where the artifacts run; "cuda" unless the caller asks for
-        "cpu".
+      device: where the artifacts and the bundle run; "cuda" unless the
+        caller asks for "cpu".
     """
 
     DEFAULT = "default"
 
     def __init__(self, artifact: Optional[str] = None,
+                 bundle: Optional[str] = None, max_sessions: int = 64,
                  batch_window_ms: float = 0.0, max_batch: int = 32,
                  bucket_pad: bool = True,
                  artifacts: Optional[Dict[str, str]] = None,
                  device="cuda"):
-        if not artifact and not artifacts:
-            raise ValueError("need an artifact")
+        if not artifact and not bundle and not artifacts:
+            raise ValueError("need an artifact and/or a streaming bundle")
         self._dispatch_lock = threading.Lock()   # one device, one dispatch
+        self._sessions_lock = threading.Lock()   # session-table mutations
+        self.max_sessions = max_sessions
+        self.device = device
         slot_kw = dict(batch_window_ms=batch_window_ms, max_batch=max_batch,
                        bucket_pad=bucket_pad, device=device)
         self._slots: Dict[str, _ScoreSlot] = {}
@@ -422,6 +452,16 @@ class SELDServer:
         self._default_name = (self.DEFAULT if artifact else
                               next(iter(self._slots))
                               if len(self._slots) == 1 else None)
+
+        self._bundle_path = bundle
+        self._stream_template = None
+        self.bundle_meta: dict = {}
+        if bundle:
+            from seld_tpu_torch.inference.streaming import StreamingSELD
+            self._stream_template = StreamingSELD.from_exported(
+                bundle, device=device)
+            self.bundle_meta = dict(self._stream_template.meta)
+        self._sessions: Dict[str, object] = {}
         self.metrics = _Metrics()
         self.batch_window_ms = float(batch_window_ms)
         self.max_batch = int(max_batch)
@@ -444,9 +484,13 @@ class SELDServer:
 
     def health(self) -> dict:
         slot = self._default_slot
-        out = {"status": "ok",
-               "units": [slot.meta["unit"]] if slot is not None else [],
-               "artifact_meta": self.artifact_meta}
+        units = [slot.meta["unit"]] if slot is not None else []
+        if self._stream_template is not None:
+            units.append("stream")
+        out = {"status": "ok", "units": units,
+               "sessions": len(self._sessions),
+               "artifact_meta": self.artifact_meta,
+               "bundle_meta": self.bundle_meta}
         if len(self._slots) > (1 if self._default_name else 0):
             out["models"] = {n: s.meta.get("unit")
                              for n, s in self._slots.items()}
@@ -463,10 +507,12 @@ class SELDServer:
                 for name, slot in self._slots.items()}
 
     def reload(self) -> dict:
-        """POST /v1/reload: hot-swap every artifact slot from its file.
+        """POST /v1/reload: hot-swap every artifact slot and the streaming
+        template from their files. Live streaming sessions keep the engine
+        they started with; new sessions get the reloaded bundle.
 
-        All-or-nothing: every artifact is loaded and validated BEFORE any
-        slot is published."""
+        All-or-nothing: every artifact (and the bundle) is loaded and
+        validated BEFORE any slot is published."""
         prepared = {}
         for name, slot in self._slots.items():
             try:
@@ -474,8 +520,24 @@ class SELDServer:
             except Exception as e:
                 raise HTTPError(500, f"reload {name!r} from {slot.path}: "
                                      f"{e!r} (no artifacts were swapped)")
-        return {name: self._slots[name].commit_reload(state)
-                for name, state in prepared.items()}
+        new_template = None
+        if self._bundle_path:
+            from seld_tpu_torch.inference.streaming import StreamingSELD
+            try:
+                new_template = StreamingSELD.from_exported(
+                    self._bundle_path, device=self.device)
+            except Exception as e:
+                raise HTTPError(500, f"reload bundle from "
+                                     f"{self._bundle_path}: {e!r} "
+                                     f"(no artifacts were swapped)")
+        # commit phase: pure reference swaps, cannot fail
+        out = {name: self._slots[name].commit_reload(state)
+               for name, state in prepared.items()}
+        if new_template is not None:
+            self._stream_template = new_template
+            self.bundle_meta = dict(new_template.meta)
+            out["bundle"] = {"path": self._bundle_path}
+        return out
 
     def metrics_text(self) -> str:
         counters: Dict[str, list] = {}
@@ -484,7 +546,8 @@ class SELDServer:
             for k, v in slot.batch_stats.items():
                 counters.setdefault(f"seld_batch_{k}_total",
                                     []).append((label, v))
-        return self.metrics.render(counters)
+        return self.metrics.render(
+            counters, {"seld_stream_sessions": len(self._sessions)})
 
     def score(self, x: torch.Tensor,
               model: Optional[str] = None) -> Dict[str, np.ndarray]:
@@ -494,7 +557,9 @@ class SELDServer:
             if model:
                 raise HTTPError(404, f"no such model: {model!r} (have "
                                      f"{sorted(self._slots)})")
-            raise HTTPError(404, f"multiple models loaded and no default; "
+            raise HTTPError(404, "no score artifact loaded (serve started "
+                                 "without --artifact)" if not self._slots
+                            else f"multiple models loaded and no default; "
                                  f"pass ?model= (have {sorted(self._slots)})")
         return slot.score(x)
 
@@ -502,6 +567,51 @@ class SELDServer:
         """Stop the batcher threads (pending requests still complete)."""
         for slot in self._slots.values():
             slot.close()
+
+    def _get_session(self, sid: str, create: bool):
+        with self._sessions_lock:
+            eng = self._sessions.get(sid)
+            if eng is None:
+                if not create:
+                    raise HTTPError(404, f"no such stream session: {sid}")
+                if self._stream_template is None:
+                    raise HTTPError(404, "no streaming bundle loaded (serve "
+                                         "started without --bundle)")
+                if len(self._sessions) >= self.max_sessions:
+                    raise HTTPError(429, f"session limit "
+                                         f"({self.max_sessions}) reached")
+                eng = copy.copy(self._stream_template)
+                eng.reset()
+                self._sessions[sid] = eng
+            return eng
+
+    def stream_push(self, sid: str, feats: torch.Tensor
+                    ) -> Dict[str, np.ndarray]:
+        eng = self._get_session(sid, create=True)
+        if feats.is_complex():
+            raise HTTPError(400, f"input dtype {feats.dtype} is complex")
+        with self._dispatch_lock:
+            try:
+                emits = eng.push(feats.float().numpy())
+            except (ValueError, RuntimeError) as e:
+                raise HTTPError(400, str(e))
+        return _stack_emits(emits)
+
+    def stream_finalize(self, sid: str) -> Dict[str, np.ndarray]:
+        eng = self._get_session(sid, create=False)
+        with self._dispatch_lock:
+            try:
+                emits = eng.finalize()
+            except (ValueError, RuntimeError) as e:
+                raise HTTPError(400, str(e))
+        with self._sessions_lock:
+            self._sessions.pop(sid, None)
+        return _stack_emits(emits)
+
+    def stream_drop(self, sid: str) -> dict:
+        with self._sessions_lock:
+            existed = self._sessions.pop(sid, None) is not None
+        return {"dropped": existed}
 
 
 def build_handler(service: SELDServer):
@@ -527,8 +637,11 @@ def build_handler(service: SELDServer):
                                _npz_bytes(**arrays))
 
         def _route(self) -> str:
-            if _STREAM_RE.match(self.path) or _STREAM_DEL_RE.match(self.path):
-                return "/v1/stream"
+            m = _STREAM_RE.match(self.path)
+            if m:
+                return "/v1/stream/" + m.group(2)
+            if _STREAM_DEL_RE.match(self.path):
+                return "/v1/stream/drop"
             path = self.path.split("?", 1)[0]
             if path in ("/v1/score", "/v1/models", "/v1/reload",
                         "/healthz", "/metrics"):
@@ -590,8 +703,9 @@ def build_handler(service: SELDServer):
             return self._timed(self._delete_impl)
 
         def _delete_impl(self):
-            if _STREAM_DEL_RE.match(self.path):
-                return self._reply_json(404, {"error": _NO_STREAMING})
+            m = _STREAM_DEL_RE.match(self.path)
+            if m:
+                return self._reply_json(200, service.stream_drop(m.group(1)))
             return self._reply_json(404, {"error": f"no route {self.path}"})
 
         def do_POST(self):  # noqa: N802
@@ -607,9 +721,16 @@ def build_handler(service: SELDServer):
                     return self._reply_npz(service.score(x, model=model))
                 if path == "/v1/reload":
                     return self._reply_json(200, service.reload())
+                m = _STREAM_RE.match(self.path)
+                if m and m.group(2) == "push":
+                    feats = _load_npy(self._read_body(),
+                                      self.headers.get("X-SELD-Dtype"))
+                    return self._reply_npz(service.stream_push(m.group(1),
+                                                               feats))
                 self._drain_body()
-                if _STREAM_RE.match(self.path):
-                    return self._reply_json(404, {"error": _NO_STREAMING})
+                if m:
+                    return self._reply_npz(service.stream_finalize(
+                        m.group(1)))
                 return self._reply_json(404,
                                         {"error": f"no route {self.path}"})
             except HTTPError as e:

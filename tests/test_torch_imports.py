@@ -52,7 +52,9 @@ def test_port_files_exist():
                  "utils/io.py", "train/official_metrics.py",
                  "inference/ensemble.py", "inference/quantize.py",
                  "make_answer.py", "search_best.py", "bench_infer.py",
-                 "dress_rehearsal.py"):
+                 "dress_rehearsal.py", "inference/streaming.py",
+                 "inference/streaming_wav.py", "stream_demo.py",
+                 "predict_wav.py"):
         assert os.path.join("seld_tpu_torch", want) in names
 
 

@@ -3,7 +3,10 @@ routes, micro-batching, bucket padding, static-batch pad-and-chunk, the
 bf16 wire, reload, the two CLIs, and replies equal to the JAX model's apply
 on bridged weights; the clip unit (a whole clip a request, no batcher, its
 reply the JAX package's trunk-once fast path), ensemble artifacts, and a
-reload that would change an artifact's unit, refused.
+reload that would change an artifact's unit, refused; stream bundles
+(export_streaming, the export CLI's --unit stream) and the server's
+/v1/stream sessions, whose frames equal the JAX package's streaming engine
+on the same bridged weights, and stream_demo serving a bundle.
 """
 import copy
 import io
@@ -22,12 +25,13 @@ import torch
 
 from seld_tpu.config import get_model_config
 from seld_tpu.inference.ensemble import ensemble_outputs as jax_ensemble
+from seld_tpu.inference.streaming import StreamingSELD as JaxStreamingSELD
 from seld_tpu.models import build_model as jax_build_model
 from seld_tpu_torch.bridge import from_flax
-from seld_tpu_torch.inference import (export_clip_fast,
+from seld_tpu_torch.inference import (StreamingSELD, export_clip_fast,
                                       export_clip_fast_ensemble,
-                                      export_window, export_window_ensemble,
-                                      load_exported)
+                                      export_streaming, export_window,
+                                      export_window_ensemble, load_exported)
 from seld_tpu_torch.models import build_model
 from seld_tpu_torch.serving import SELDClient, SELDServer
 from seld_tpu_torch.serving.server import serve
@@ -131,16 +135,18 @@ def test_score_health_models_and_errors(tmp_path):
         assert client.health()["status"] == "ok"
 
 
-def test_streaming_routes_are_not_yet_ported(tmp_path):
+def test_streaming_routes_without_a_bundle(tmp_path):
     path = _artifact(tmp_path)
     with _Daemon(SELDServer(artifact=path, device="cpu")) as client:
-        for call in (lambda: client.stream_push("s0", _x(1)[0]),
-                     lambda: client.stream_finalize("s0"),
-                     lambda: client.stream_drop("s0")):
-            with pytest.raises(RuntimeError,
-                               match="404.*streaming is not yet ported"):
-                call()
-        assert client.health()["status"] == "ok"
+        with pytest.raises(RuntimeError,
+                           match="404.*no streaming bundle loaded"):
+            client.stream_push("s0", _x(1)[0])
+        with pytest.raises(RuntimeError, match="404.*no such stream"):
+            client.stream_finalize("s0")
+        assert client.stream_drop("s0") is False
+        h = client.health()
+        assert h["status"] == "ok" and h["units"] == ["window"]
+        assert h["sessions"] == 0
 
 
 def test_microbatch_coalesces(tmp_path):
@@ -339,7 +345,8 @@ def test_load_exported_refuses_other_units(tmp_path):
     meta_path = path + ".meta.json"
     with open(meta_path) as f:
         meta = json.load(f)
-    for unit, error, match in (("stream", NotImplementedError, "item 10"),
+    for unit, error, match in (("stream", ValueError,
+                                "StreamingSELD.from_exported"),
                                ("bundle", ValueError,
                                 "window or clip artifact")):
         meta["unit"] = unit
@@ -525,10 +532,174 @@ def test_export_cli_clip_ensemble_quantized_and_refusals(tmp_path):
     assert (meta["unit"], meta["n_members"], meta["quantize"],
             meta["clip_frames"], meta["step_size"]) == (
                 "clip", 2, "int8", CLIP, 5)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        export_model.main(common + ["--out", out, "--unit", "stream"])
+    bundle = str(tmp_path / "stream")
+    export_model.main(common + ["--out", bundle, "--unit", "stream",
+                                "--chunk", "4", "--n_streams", "2",
+                                "--quantize", "int8", "--verify"])
+    with pytest.raises(ValueError, match="from_exported"):
+        load_exported(bundle, device="cpu")
+    eng = StreamingSELD.from_exported(bundle, device="cpu")
+    assert (eng.n_streams, eng.chunk_t, eng.meta["quantize"]) == (2, 4,
+                                                                  "int8")
+    with pytest.raises(SystemExit, match="one engine per model"):
+        export_model.main(common + ["--out", bundle, "--unit", "stream",
+                                    "--seed", "0,1"])
     with pytest.raises(NotImplementedError, match="item 14"):
         export_model.main(common + ["--out", out, "--data_parallel", "2"])
     with pytest.raises(SystemExit, match="2 values for 3 members"):
         export_model.main(common + ["--out", out, "--seed", "0,1",
                                     "--model_config", "a,b,c"])
+
+
+# ---- stream bundles and /v1/stream sessions
+
+def _jax_pair(seed=6):
+    """The JAX model with random variables and the port's model on the
+    same weights (narrow SS5, [50, 16, 7] windows)."""
+    cfg = dict(_narrow(), n_classes=12)
+    jm = jax_build_model("conv_temporal", SHAPE, cfg)
+    shapes = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, *SHAPE)),
+        train=False))
+    rng = np.random.RandomState(seed)
+    v = jax.tree_util.tree_map(
+        lambda s: (0.3 * rng.randn(*s.shape)).astype(np.float32), shapes)
+    v["batch_stats"] = jax.tree_util.tree_map(np.abs, v["batch_stats"])
+    model = build_model("conv_temporal", SHAPE, cfg, device="cpu")
+    model.load_state_dict(from_flax(v, model))
+    return jm, v, model
+
+
+STREAM_GEOM = dict(win_size=50, step_size=5, time_down=5, chunk=4)
+
+
+def _stream_frames(engine, x, step=40):
+    engine.reset()
+    out = []
+    for lo in range(0, x.shape[0], step):
+        out.extend(engine.push(x[lo:lo + step]))
+    return out + list(engine.finalize())
+
+
+def _same_frames(got, want, atol=1e-5):
+    assert len(got) == len(want) > 0
+    for (gs, gd), (ws, wd) in zip(got, want):
+        np.testing.assert_allclose(gs, np.asarray(ws), rtol=0, atol=atol)
+        np.testing.assert_allclose(gd, np.asarray(wd), rtol=0, atol=atol)
+
+
+def test_stream_bundle_round_trip(tmp_path):
+    """export_streaming + StreamingSELD.from_exported: the bundle's engine
+    (model rebuilt from the zoo, halo from the meta) emits the live
+    engine's frames on ragged pushes, refuses a short clip, and an int8
+    bundle equals the live engine on dequantised weights."""
+    from seld_tpu_torch.inference import dequantize_tree, quantize_tree
+    _, _, model = _jax_pair()
+    bundle = export_streaming(model, str(tmp_path / "b"), (16, 7),
+                              **STREAM_GEOM)
+    live = StreamingSELD(model, (16, 7), **STREAM_GEOM)
+    exp = StreamingSELD.from_exported(bundle, device="cpu")
+    assert (exp.halo_t, exp.l_f, exp.live) == (live.halo_t, live.l_f, False)
+    meta = exp.meta
+    assert (meta["unit"], meta["halo"], meta["l_f"], meta["n_streams"],
+            meta["feat_shape"]) == ("stream", live.halo_t, live.l_f, 1,
+                                    [16, 7])
+    x = np.random.RandomState(2).randn(200, 16, 7).astype(np.float32)
+    _same_frames(_stream_frames(exp, x, 33), _stream_frames(live, x, 33))
+    exp.reset()
+    exp.push(x[:exp.l_f - 10])
+    with pytest.raises(RuntimeError, match="exported streaming engines"):
+        exp.finalize()
+
+    q = export_streaming(model, str(tmp_path / "q"), (16, 7),
+                         quantize="int8", **STREAM_GEOM)
+    deq = copy.deepcopy(model)
+    deq.load_state_dict(dequantize_tree(quantize_tree(model.state_dict(),
+                                                      "int8")))
+    live_q = StreamingSELD(deq, (16, 7), **STREAM_GEOM)
+    _same_frames(_stream_frames(StreamingSELD.from_exported(q, "cpu"), x),
+                 _stream_frames(live_q, x))
+
+
+def test_serve_streaming_sessions(tmp_path):
+    """Two interleaved sessions over one bundle emit the JAX engine's
+    frames; finalize frees a session; a short stream's finalize is a 400;
+    a reload leaves a live session's engine alone; 429 at the session
+    limit; the session gauge in /metrics."""
+    jm, v, model = _jax_pair()
+    bundle = export_streaming(model, str(tmp_path / "bundle"), (16, 7),
+                              **STREAM_GEOM)
+    halo = StreamingSELD.from_exported(bundle, device="cpu").halo_t
+    jax_eng = JaxStreamingSELD(jm.apply, v, (16, 7), halo=halo,
+                               **dict(STREAM_GEOM, chunk=4))
+    rng = np.random.RandomState(2)
+    xa = rng.randn(200, 16, 7).astype(np.float32)
+    xb = rng.randn(200, 16, 7).astype(np.float32)
+    want = {"a": _stream_frames(jax_eng, xa), "b": _stream_frames(jax_eng,
+                                                                  xb)}
+    svc = SELDServer(bundle=bundle, max_sessions=2, device="cpu")
+    with _Daemon(svc) as client:
+        h = client.health()
+        assert h["units"] == ["stream"] and h["bundle_meta"]["halo"] == halo
+        got = {"a": [], "b": []}
+        for lo in range(0, 200, 40):       # interleaved pushes
+            if lo == 80:
+                # re-export the bundle with other weights and reload: the
+                # live sessions keep the engine they started with
+                other = build_model("conv_temporal", SHAPE, _narrow(),
+                                    seed=3, device="cpu")
+                export_streaming(other, bundle, (16, 7), **STREAM_GEOM)
+                assert client.reload()["bundle"]["path"] == bundle
+                with pytest.raises(RuntimeError, match="429"):
+                    client.stream_push("c", xa[:40])
+            for sid, x in (("a", xa), ("b", xb)):
+                sed, doa = client.stream_push(sid, x[lo:lo + 40])
+                got[sid].extend(zip(sed, doa))
+        assert client.health()["sessions"] == 2
+        assert "seld_stream_sessions 2" in client.metrics()
+        for sid in ("a", "b"):
+            sed, doa = client.stream_finalize(sid)
+            got[sid].extend(zip(sed, doa))
+            _same_frames(got[sid], want[sid])
+        assert client.health()["sessions"] == 0
+        text = client.metrics()
+        assert "seld_stream_sessions 0" in text
+        assert 'route="/v1/stream/push",code="200"} 10' in text
+
+        # a new session runs the reloaded bundle
+        sed, doa = client.stream_push("new", xa[:120])
+        fresh = StreamingSELD.from_exported(bundle, device="cpu")
+        want_new = fresh.push(xa[:120])
+        _same_frames(list(zip(sed, doa)), want_new)
+        # short clip: exported engines refuse finalize -> clean 400
+        assert client.stream_drop("new") is True
+        client.stream_push("short", xa[:40])
+        with pytest.raises(RuntimeError, match="400"):
+            client.stream_finalize("short")
+        assert client.stream_drop("short") is True
+        assert client.stream_drop("short") is False
+        with pytest.raises(RuntimeError, match="400"):
+            client.stream_push("bad", np.zeros((10, 16, 5), np.float32))
+        client.stream_drop("bad")
+        with pytest.raises(RuntimeError, match="404.*no score artifact"):
+            client.score(_x(1))
+
+
+def test_stream_demo_serves_a_bundle(tmp_path):
+    """stream_demo --export_dir as a subprocess at a toy size: every frame
+    of the clip emitted, each rep's latency line and the JSON line."""
+    model = build_model("conv_temporal", SHAPE, _narrow(), device="cpu")
+    bundle = export_streaming(model, str(tmp_path / "bundle"), (16, 7),
+                              n_streams=2, **STREAM_GEOM)
+    r = subprocess.run(
+        [sys.executable, "-m", "seld_tpu_torch.stream_demo", "--export_dir",
+         bundle, "--chunk", "4", "--streams", "2", "--seconds", "4",
+         "--reps", "1", "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-2000:])
+    assert "measured trunk halo" in r.stdout
+    assert "rep 0: 40/40 frames" in r.stdout
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["streams"] == 2 and out["reps"][0]["frames"] == 40
+    assert "not measured" in r.stdout

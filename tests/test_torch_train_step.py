@@ -321,7 +321,9 @@ def test_robust_window_time_drops_a_slow_first_window():
                                     "seld_tpu_torch.bench_infer",
                                     "seld_tpu_torch.make_answer",
                                     "seld_tpu_torch.search_best",
-                                    "seld_tpu_torch.dress_rehearsal"])
+                                    "seld_tpu_torch.dress_rehearsal",
+                                    "seld_tpu_torch.stream_demo",
+                                    "seld_tpu_torch.predict_wav"])
 def test_card_entry_points_fail_without_a_card(module):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
