@@ -13,7 +13,10 @@ Phases, one line each:
   4. routes   the shapes the kernels do not take, on the card against the
               CPU through the composed routes, with no kernel launched: a
               biGRU at U=6 (B=8) and U=384 (B=3), FOA features at 40
-              mels and n_fft 512; a Conv2DBN stem with pool [5, 4] (one
+              mels and n_fft 512, microphone-array features (log-mel +
+              GCC-PHAT, mode "mic", never the front-end kernel) of two
+              10-s clips, one with a second of digital silence; a
+              Conv2DBN stem with pool [5, 4] (one
               train step), whose backward runs stem_dy's generic path
               once; and a biGRU at U=384, B=8, which raises on the card
               (the JAX package runs its kernel there; the port has none)
@@ -52,7 +55,23 @@ Phases, one line each:
               five kernels, finite losses, the resumed epochs, the
               feature-build time, each epoch's time and windows/s through
               the feed
- 10. clip     clip scoring at SS5 full width (seeded weights) on four
+ 10. tdm      TDM and the microphone-array inputs through the same CLI
+              at full width: 20 seeded 60-s clips under foa_dev and
+              mic_dev (the same stems, independent noise) with labels in
+              runs of events. --use_tdm --tdm_epoch 1 --epoch_scan: each
+              epoch rebuilds the train split (events pasted on the host,
+              features through the front-end kernel, normalization and
+              windows on the host) and restages it, and the epoch step is
+              captured anew; the first batch each replayed epoch gathers
+              equals the host's gather from the new split; each rebuild's
+              seconds by part, the front-end's device ms and the capture's
+              seconds beside the epoch's. --from_wav --wav_mode mic (10
+              channels, no front-end launch) and --use_both --use_acs
+              --epoch_scan (17 channels, acs_aug inside the epoch graph).
+              Each with its --resume: exact launch counts of all five
+              kernels (the rebuilds' included), finite losses, the resumed
+              epochs, the normalizer's width, windows/s
+ 11. clip     clip scoring at SS5 full width (seeded weights) on four
               seeded 60-s clips [3000, 64, 7], f32, TF32 off: gru_scan
               against gru_scan_ref at the clip path's batch shapes (B=512
               chunks of the exact path, B=544 of the fast path, B=2168 of
@@ -67,13 +86,13 @@ Phases, one line each:
               direct call; int8 weights and bf16 against f32 within stated
               tolerances; a served clip artifact's reply against the direct
               call; exact gru_scan launch counts (2 per head forward)
- 11. answer   the dress rehearsal (python -m seld_tpu_torch.dress_rehearsal)
+ 12. answer   the dress rehearsal (python -m seld_tpu_torch.dress_rehearsal)
               on the card: train into the SWA window with the periodic
               official evaluation, resume to the end, the final SWA
               evaluation and its save, the schedule checks from the run's
               scalars, search_best on dev-val, make_answer on dev-test with
               the searched thresholds
- 12. stream   real-time streaming at SS5 full width (seeded weights), f32
+ 13. stream   real-time streaming at SS5 full width (seeded weights), f32
               with TF32 off: gru_scan at the stream head's batches (B=10,
               14, 40, 56; f32 and bf16) and foa_frontend at a push's
               segment, the right-aligned tail and a short clip, each
@@ -110,7 +129,9 @@ chunk of 8 synthetic 60-s clips and at a stream's three segment shapes
 (beside torch.fft.rfft over the same
 windowed frames, the FFT stage alone), gather_rows at B=256 rows of [300,
 64, 7] (bf16, f32) from 4,000 staged windows, of their labels [60, 48]
-f32, of 30-byte rows, and as the x+y pairs the feed launches. Device-only
+f32, of 30-byte rows, and as the x+y pairs the feed launches, also
+at the f32 rows of a TDM split and the 10- and 17-channel bf16 rows of
+the mic and joint inputs. Device-only
 times come from a CUDA graph of the calls (graph_ms), beside the time per
 call; the build prints each kernel's registers and spills.
 With --kernels-only it stops after phase 3, with no result line; it also
@@ -129,6 +150,7 @@ import subprocess
 import tempfile
 import threading
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -902,7 +924,8 @@ def phase_routes(card):
     """The shapes the kernels do not take run the composed routes on the
     card, as the JAX package composes them with XLA, and match the CPU: a
     biGRU layer at U=6, B=8 and U=384, B=3 (forward and gradients, no GRU
-    kernel launched), FOA features at 40 mels and n_fft 512 (no front-end
+    kernel launched), FOA features at 40 mels and n_fft 512 and mic
+    features (log-mel + GCC-PHAT) at the main path's shape (no front-end
     launch), and one training step of a Conv2DBN stem with pool [5, 4],
     whose fused backward runs stem_dy's generic path (one launch). A biGRU
     at U=384, B=8, where the JAX package runs its Pallas kernel, raises on
@@ -972,6 +995,26 @@ def phase_routes(card):
                   f"(tol {FRONTEND_TOL:.0e}); front-end launches {launched}")
     if got.shape != want.shape or err > FRONTEND_TOL or launched:
         raise SystemExit("the composed front-end route failed")
+
+    # mode "mic" (4 log-mel + 6 GCC-PHAT) runs the plain composition on the
+    # card at every shape: 2 10-s int16 clips of noise, one with a second of
+    # digital silence (unit GCC phase there on both sides)
+    wavs = np.round(rng.randn(2, 4, 240000) * 0.03 * 32767).astype(np.int16)
+    wavs[1, :, 48000:72000] = 0
+    wavs = torch.from_numpy(wavs)
+    want = extract_features_batch(wavs, mode="mic")
+    got = extract_features_batch(wavs.cuda(), mode="mic")
+    torch.cuda.synchronize()
+    err = (got.cpu() - want).abs().max().item()
+    launched = kernels.launch_counts["foa_frontend"]
+    log("routes", f"mic features (log-mel + GCC-PHAT) of 2 10-s clips on "
+                  f"the card vs the CPU: {tuple(got.shape)} max_abs_err "
+                  f"{err:.2e} (tol {FRONTEND_TOL:.0e}); front-end launches "
+                  f"{launched}")
+    if tuple(got.shape) != (2, 501, 64, 10) or err > FRONTEND_TOL \
+            or launched:
+        raise SystemExit("the mic features on the card disagree with the "
+                         "CPU's")
 
     pool = (5, 4)
     if pool in _VEC_WINDOWS:
@@ -1532,20 +1575,26 @@ def phase_kernels_feed(card):
     del padded
 
     # gather_rows: B=256 ids into 4,000 staged windows [300, 64, 7] (bf16,
-    # the path's, and f32), their labels [60, 48] f32, and a row of 30
-    # bytes, which takes the kernel's byte-wise copy; each alone and as the
-    # pairs the feed launches (x and y with one ids row)
+    # the path's, and f32, a TDM split's), their labels [60, 48] f32, and a
+    # row of 30 bytes, which takes the kernel's byte-wise copy; each alone
+    # and as the pairs the feed launches (x and y with one ids row), also
+    # with the mic input's 10-channel and the joint input's 17-channel
+    # rows (bf16: 384,000 and 652,800 bytes)
     ids = torch.randint(0, 4000, (256,), generator=gen, device="cuda",
                         dtype=torch.int32)
     arrays = {name: torch.randn(shape, generator=gen, device="cuda").to(dt)
               for name, shape, dt in (
                   ("x", (4000, 300, 64, 7), torch.bfloat16),
                   ("x f32", (4000, 300, 64, 7), torch.float32),
+                  ("x mic", (4000, 300, 64, 10), torch.bfloat16),
+                  ("x joint", (4000, 300, 64, 17), torch.bfloat16),
                   ("y", (4000, 60, 48), torch.float32),
                   ("bytes", (4000, 3, 5), torch.bfloat16))}
     cases = {name: (a,) for name, a in arrays.items()}
     cases["pair"] = (arrays["x"], arrays["y"])
     cases["pair with bytes"] = (arrays["x"], arrays["bytes"])
+    for name in ("f32", "mic", "joint"):
+        cases[f"pair {name}"] = (arrays[f"x {name}"], arrays["y"])
     rows = {}
     for name, arrs in cases.items():
         got = gather_batch(arrs, ids)
@@ -1598,7 +1647,11 @@ def phase_kernels_feed(card):
                     "pair_plain_ms": pair["plain_ms"],
                     "pair_bound_ms": pair["bound_ms"],
                     "f32_ms": rows["x f32"]["ms"],
-                    "f32_bound_ms": rows["x f32"]["bound_ms"]})
+                    "f32_bound_ms": rows["x f32"]["bound_ms"],
+                    **{f"{name}_pair_{key}": rows[f"pair {name}"][key]
+                       for name in ("f32", "mic", "joint")
+                       for key in ("ms", "device_ms", "plain_ms",
+                                   "library_ms", "bound_ms")}})
     del arrays, cases
     torch.cuda.empty_cache()
     return entries
@@ -1678,36 +1731,67 @@ def gather_host_us(x, y, ids, n=300):
     return out
 
 
-def write_wav_tree(root, clips, seconds, seed=0):
+def _event_rows(rng):
+    """DCASE-style label rows (frame, class, track, azimuth, elevation) for
+    600 frames: a run of events of 10-40 frames, 0-3 frames apart, each
+    with a fixed direction, and a shorter second event of another class
+    over part of about a third of them. Outside the overlaps each event is
+    a single-class run, the stretches TDM banks."""
+    rows, fr = [], 0
+    while fr < 600:
+        length, cls = rng.randint(10, 41), rng.randint(12)
+        azi, ele = rng.randint(-180, 180), rng.randint(-45, 46)
+        rows += [(f, cls, 0, azi, ele) for f in range(fr, min(fr + length,
+                                                              600))]
+        if rng.rand() < 0.3:
+            start = fr + rng.randint(0, length // 2)
+            other = (cls + 1 + rng.randint(11)) % 12
+            azi2 = rng.randint(-180, 180)
+            rows += [(f, other, 1, azi2, 0) for f in range(
+                start, min(start + rng.randint(5, 16), fr + length, 600))]
+        fr += length + rng.randint(0, 4)
+    return sorted(rows)
+
+
+def write_wav_tree(root, clips, seconds, seed=0, mic=False, events=False):
     """`clips` {fold: count} 4-channel 24 kHz int16 wavs of `seconds`
-    under root/foa_dev and DCASE label CSVs (frame, class, track, azimuth,
-    elevation) under root/metadata_dev, an event in most 100-ms frames."""
+    under root/foa_dev (and, with `mic`, root/mic_dev: the same stems,
+    independent noise) and DCASE label CSVs (frame, class, track, azimuth,
+    elevation) under root/metadata_dev: an event in most 100-ms frames,
+    each frame's class drawn anew, or with `events` runs of events
+    (`_event_rows`)."""
     import wave
     rng = np.random.RandomState(seed)
-    for sub in ("foa_dev", "metadata_dev"):
+    dirs = ("foa_dev", "mic_dev") if mic else ("foa_dev",)
+    for sub in dirs + ("metadata_dev",):
         os.makedirs(os.path.join(root, sub))
     n = int(24000 * seconds)
     i = 0
     for fold, count in clips.items():
         for _ in range(count):
             name = f"fold{fold}_room{1 + i % 3}_mix{i:03d}"
-            level = 0.3 * 10.0 ** (-rng.rand())
-            data = np.clip(rng.randn(n, 4) * level * 32767, -32768, 32767)
-            with wave.open(os.path.join(root, "foa_dev", f"{name}.wav"),
-                           "wb") as w:
-                w.setnchannels(4)
-                w.setsampwidth(2)
-                w.setframerate(24000)
-                w.writeframes(data.astype("<i2").tobytes())
+            for sub in dirs:
+                level = 0.3 * 10.0 ** (-rng.rand())
+                data = np.clip(rng.randn(n, 4) * level * 32767, -32768,
+                               32767)
+                with wave.open(os.path.join(root, sub, f"{name}.wav"),
+                               "wb") as w:
+                    w.setnchannels(4)
+                    w.setsampwidth(2)
+                    w.setframerate(24000)
+                    w.writeframes(data.astype("<i2").tobytes())
             # the 600 label frames of a 60-s clip, also for a shorter one
             # (padded): a window without an event has a 0/0 DOA loss
-            frames = np.flatnonzero(rng.rand(600) < 0.7)
+            if events:
+                rows = _event_rows(rng)
+            else:
+                rows = [(fr, rng.randint(12), 0, rng.randint(-180, 180),
+                         rng.randint(-45, 46))
+                        for fr in np.flatnonzero(rng.rand(600) < 0.7)]
             with open(os.path.join(root, "metadata_dev", f"{name}.csv"),
                       "w") as f:
-                for fr in frames:
-                    f.write(f"{fr},{rng.randint(12)},0,"
-                            f"{rng.randint(-180, 180)},"
-                            f"{rng.randint(-45, 46)}\n")
+                for row in rows:
+                    f.write(",".join(str(v) for v in row) + "\n")
             i += 1
 
 
@@ -1749,30 +1833,40 @@ def _feed_run(argv):
     return out, {k: kernels.launch_counts[k] for k in kernels.KERNELS}
 
 
-def _want_counts(steps, epochs, n_train, n_val, n_test, chunk=8):
+def _frontend_chunks(n_train, n_val, n_test, chunk=8):
+    """foa_frontend launches of an FOA extraction of the three splits."""
+    return sum(-(-c // chunk) for c in (n_train, n_val, n_test))
+
+
+def _want_counts(steps, epochs, n_train, n_val, n_test, frontend=None):
     """Exact launches of each kernel for a CLI run of `steps` train steps
     over `epochs` epochs: the front-end once per chunk of each split's
-    clips; one gather launch (x and y) per batch; per train step 2 GRU forwards, 2
-    GRU backwards and 1 stem backward; per eval batch (one clip) 2 GRU
-    forwards."""
+    clips (or `frontend` launches); one gather launch (x and y) per batch;
+    per train step 2 GRU forwards, 2 GRU backwards and 1 stem backward;
+    per eval batch (one clip) 2 GRU forwards."""
     from seld_tpu_torch.data.device_dataset import LAUNCHES_PER_BATCH
     evals = epochs * (n_val + n_test)
-    return {"foa_frontend": sum(-(-c // chunk) for c in (n_train, n_val,
-                                                          n_test)),
+    if frontend is None:
+        frontend = _frontend_chunks(n_train, n_val, n_test)
+    return {"foa_frontend": frontend,
             "gather_rows": LAUNCHES_PER_BATCH * (steps + evals),
             "gru_scan": 2 * (steps + evals), "gru_scan_bwd": 2 * steps,
             "stem_dy": steps}
 
 
-def _feed_variant(root, card, label, flags):
+def _feed_variant(root, card, label, flags, argv=FEED_ARGV, frontend=None,
+                  channels=7, tag="feed"):
     """One training run of the CLI with `flags` (2 epochs) and its
-    --resume; checks the counts, the losses and the resumed epochs, logs
-    each epoch's windows/s and returns (counts, the run's windows/s)."""
+    --resume; checks the counts (the front-end's: `frontend(epochs run)`,
+    else one launch per chunk of each split), the losses, the resumed
+    epochs and the normalizer's width (`channels`), logs each epoch's
+    windows/s and returns (counts, the run's windows/s, the run's result,
+    the resumed run's result)."""
     from seld_tpu_torch.train.checkpoint import latest_best
     clips = FEED_CLIPS
     n_train = sum(c for f, c in clips.items() if f <= 4)
     n_val, n_test = clips[5], clips[6]
-    argv = [*FEED_ARGV, "--abspath", root, *flags]
+    argv = [*argv, "--abspath", root, *flags]
     out, counts = _feed_run(argv)
     trainer = out["trainer"]
     run_dir = os.path.join(root, "saved_model", trainer.config.name)
@@ -1780,46 +1874,53 @@ def _feed_variant(root, card, label, flags):
     with open(best + ".meta.json") as f:
         best_epoch = json.load(f)["epoch"]
     resumed, resumed_counts = _feed_run([*argv, "--resume", "--epoch", "3"])
-    has_normalizer = os.path.exists(os.path.join(run_dir, "normalizer.npz"))
+    norm_path = os.path.join(run_dir, "normalizer.npz")
+    has_normalizer = os.path.exists(norm_path)
+    if has_normalizer:
+        with np.load(norm_path) as norm:
+            has_normalizer = norm["mean"].shape == (1, 64, channels)
     hist, rhist = out["history"], resumed["history"]
     cfg = trainer.config
     per_epoch = n_train * 10 * cfg.loop_time // cfg.batch   # 10 windows/clip
     windows = per_epoch * cfg.batch
     want = _want_counts(trainer.state.step, len(hist), n_train, n_val,
-                        n_test)
+                        n_test, frontend and frontend(len(hist)))
     rtrainer = resumed["trainer"]
     rwant = _want_counts(rtrainer.state.step - (best_epoch + 1) * per_epoch,
-                         len(rhist), n_train, n_val, n_test)
+                         len(rhist), n_train, n_val, n_test,
+                         frontend and frontend(len(rhist)))
     losses = [h[s][k] for h in hist + rhist for s in ("train", "val")
               for k in ("sedLoss", "doaLoss")]
     finite = all(math.isfinite(v) for v in losses)
     resumed_ok = ([h["epoch"] for h in rhist]
                   == list(range(best_epoch + 1, 3))
                   and rtrainer.start_epoch == best_epoch + 1)
-    log("feed", f"{label}: features, normalizer and staging in "
-                f"{out['setup_secs']:.2f} s on the card")
+    log(tag, f"{label}: features, normalizer and staging in "
+             f"{out['setup_secs']:.2f} s on the card; {channels}-channel "
+             f"input {trainer.input_shape == (300, 64, channels)}")
     for h in hist + rhist:
-        log("feed", f"{label} epoch {h['epoch']}: {per_epoch} steps of "
+        log(tag, f"{label} epoch {h['epoch']}: {per_epoch} steps of "
                     f"{cfg.batch} in {h['train_secs']:.3f} s, "
                     f"{windows / h['train_secs']:.1f} windows/s through the "
                     f"feed; train sed/doa loss {h['train']['sedLoss']:.4f}/"
                     f"{h['train']['doaLoss']:.4f}, val seld "
                     f"{h['val']['seldScore']:.4f}; epoch with val and test "
                     f"{h['secs']:.3f} s")
-    log("feed", f"{label}: launches {counts} (want {want}); best "
-                f"checkpoint from epoch {best_epoch}, normalizer.npz "
-                f"{has_normalizer}; resumed epochs "
-                f"{[h['epoch'] for h in rhist]}, launches {resumed_counts} "
-                f"(want {rwant}); losses finite {finite} on {card}")
+    log(tag, f"{label}: launches {counts} (want {want}); best "
+             f"checkpoint from epoch {best_epoch}, normalizer.npz "
+             f"{channels} wide {has_normalizer}; resumed epochs "
+             f"{[h['epoch'] for h in rhist]}, launches {resumed_counts} "
+             f"(want {rwant}); losses finite {finite} on {card}")
     if not (finite and counts == want and resumed_counts == rwant
             and trainer.state.step == cfg.epoch * per_epoch == len(hist)
-            * per_epoch and has_normalizer and resumed_ok):
+            * per_epoch and has_normalizer and resumed_ok
+            and trainer.input_shape == (300, 64, channels)):
         raise SystemExit(f"the wav-native training path ({label}) failed a "
                          "check")
     # the first epoch holds the warm-up (and, with --epoch_scan, the
     # capture): the run's rate is its later epochs'
     later = [h["train_secs"] for h in hist[1:]]
-    return counts, windows * len(later) / sum(later)
+    return counts, windows * len(later) / sum(later), out, resumed
 
 
 def phase_feed(card):
@@ -1838,14 +1939,228 @@ def phase_feed(card):
         os.chdir(root)
         try:
             for label, flags in FEED_VARIANTS:
-                counts[label], rates[label] = _feed_variant(root, card,
-                                                            label, flags)
+                counts[label], rates[label], _, _ = _feed_variant(
+                    root, card, label, flags)
         finally:
             os.chdir(cwd)
     log("feed", "windows/s through the feed after the first epoch: " + ", ".join(
         f"{label} {rate:.1f}" for label, rate in rates.items())
         + f"; phase {time.perf_counter() - t_phase:.1f} s on {card}")
     return counts
+
+
+class FirstBatches:
+    """An augment that records, on the card, the first batch each epoch
+    gathers (the device-side step counter n; epoch n // steps) and passes
+    the batch on unchanged: device ops only, so it runs inside a captured
+    epoch step, and it draws nothing from the generator."""
+
+    def __init__(self, steps, epochs=3):
+        self.steps, self.epochs = steps, epochs
+        self.x = self.y = self.n = None
+
+    def __call__(self, gen, x, y):
+        import torch
+        if self.x is None:       # the first step runs eagerly (warm-up)
+            self.x = x.new_zeros((self.epochs, *x.shape))
+            self.y = y.new_zeros((self.epochs, *y.shape))
+            self.n = torch.zeros(1, dtype=torch.int64, device=x.device)
+        e = torch.clamp(self.n // self.steps, max=self.epochs - 1)
+        first = (self.n % self.steps) == 0
+        for buf, new in ((self.x, x), (self.y, y)):
+            old = torch.index_select(buf, 0, e)[0]
+            buf.index_copy_(0, e, torch.where(first, new, old)[None])
+        self.n.add_(1)
+        return x, y
+
+
+def _tdm_variant(root, card, steps):
+    """--use_tdm --tdm_epoch 1 --epoch_scan: a rebuild and a restage each
+    epoch. Besides _feed_variant's checks: each epoch's first gathered
+    batch (recorded inside the replayed epoch step) equals the host's
+    gather from that epoch's split at the epoch's first index row, and
+    differs from the old split's; each rebuild's seconds by part, its
+    foa_frontend device ms (CUDA events around each launch) and the
+    epoch step's warm-up + capture seconds; the card's allocated bytes
+    before and after each staging."""
+    import torch
+    from seld_tpu_torch.data import tdm_pipeline
+    from seld_tpu_torch.data.transforms import compose
+    from seld_tpu_torch.ops import features
+    from seld_tpu_torch.train import graphs
+    from seld_tpu_torch.train import main as cli
+
+    probes, staged, frontend_ms, captures = [], [], [], []
+    events = []
+
+    def probing_augment(config):
+        probes.append(FirstBatches(steps))
+        real = orig["build_augment"](config)
+        return probes[-1] if real is None else compose(probes[-1], real)
+
+    base = cli.DeviceDataset
+
+    class Recording(base):
+        def __init__(self, x, y, *args, train=True, **kwargs):
+            before = torch.cuda.memory_allocated()
+            super().__init__(x, y, *args, train=train, **kwargs)
+            self.record = None
+            if train:
+                # was the split staged before this one freed first?
+                old_freed = (staged[-1]["staged_x"]() is None
+                             if staged else None)
+                self.record = {"run": len(probes) - 1, "x": x, "y": y,
+                               "before": before,
+                               "after": torch.cuda.memory_allocated(),
+                               "bytes": self.hbm_bytes(),
+                               "staged_x": weakref.ref(self.device_arrays[0]),
+                               "old_freed": old_freed}
+                staged.append(self.record)
+
+        def epoch_index_matrix(self):
+            idx = super().epoch_index_matrix()
+            if self.record is not None:
+                self.record["idx"] = idx.cpu()
+            return idx
+
+    def timed_frontend(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig["fused_foa_frontend"](*args, **kwargs)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    def timed_extract(*args, **kwargs):
+        events.clear()
+        out = orig["extract_clip_features"](*args, **kwargs)
+        torch.cuda.synchronize()
+        frontend_ms.append((len(events), sum(a.elapsed_time(b)
+                                             for a, b in events)))
+        return out
+
+    def timed_capture(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig["capture"](self)
+        torch.cuda.synchronize()
+        captures.append(time.perf_counter() - t0)
+
+    orig = {"build_augment": cli.build_augment,
+            "fused_foa_frontend": features.fused_foa_frontend,
+            "extract_clip_features": tdm_pipeline.extract_clip_features,
+            "capture": graphs.StepGraph._warm_up_and_capture}
+    n_train = sum(c for f, c in FEED_CLIPS.items() if f <= 4)
+    static = _frontend_chunks(n_train, FEED_CLIPS[5], FEED_CLIPS[6])
+    cli.build_augment, cli.DeviceDataset = probing_augment, Recording
+    features.fused_foa_frontend = timed_frontend
+    tdm_pipeline.extract_clip_features = timed_extract
+    graphs.StepGraph._warm_up_and_capture = timed_capture
+    try:
+        result = _feed_variant(
+            root, card, "tdm", ["--name", "smoke_tdm", "--use_tdm",
+                                "--tdm_epoch", "1", "--epoch_scan"],
+            frontend=lambda epochs: static + epochs * -(-n_train // 8),
+            tag="tdm")
+    finally:
+        cli.build_augment, cli.DeviceDataset = orig["build_augment"], base
+        features.fused_foa_frontend = orig["fused_foa_frontend"]
+        tdm_pipeline.extract_clip_features = orig["extract_clip_features"]
+        graphs.StepGraph._warm_up_and_capture = orig["capture"]
+    _, _, out, resumed = result
+
+    # the replayed epochs read the new splits
+    ok, first_run = True, [r for r in staged if r["run"] == 0]
+    for e, rec in enumerate(first_run):
+        ids = rec["idx"][0].long().numpy()
+        got_x = probes[0].x[e].cpu()
+        want_x = torch.as_tensor(rec["x"][ids])
+        same = (torch.equal(got_x, want_x) and torch.equal(
+            probes[0].y[e].cpu(), torch.as_tensor(rec["y"][ids])))
+        stale = e > 0 and torch.equal(
+            got_x, torch.as_tensor(first_run[e - 1]["x"][ids]))
+        ok &= same and not stale and rec["old_freed"] in (None, True)
+        log("tdm", f"epoch {e}: the replayed epoch step's first batch "
+                   f"equals the host's gather from split {e} {same}, from "
+                   f"split {e - 1} {stale if e else 'n/a'}; staged "
+                   f"{rec['bytes'] / 1e9:.3f} GB (x f32 "
+                   f"{tuple(rec['x'].shape)}), the split before it freed "
+                   f"first {rec['old_freed']}, card allocated "
+                   f"{rec['before'] / 1e9:.3f} GB before the staging, "
+                   f"{rec['after'] / 1e9:.3f} GB after")
+    rebuilds = out["tdm_rebuilds"] + resumed["tdm_rebuilds"]
+    hist = out["history"] + resumed["history"]
+    timing = []
+    for r, (launches, ms), cap, h in zip(rebuilds, frontend_ms, captures,
+                                         hist):
+        row = {**r, "foa_frontend_launches": launches,
+               "frontend_device_ms": ms, "capture_s": cap,
+               "train_s": h["train_secs"]}
+        timing.append(row)
+        log("tdm", f"rebuild for epoch {r['epoch']}: paste {r['paste_s']:.3f}"
+                   f" s (host), extract {r['extract_s']:.3f} s (card: "
+                   f"{launches} foa_frontend launches, the front-end "
+                   f"wrapper's device ms (pad, kernel, dB, layout) "
+                   f"{ms:.3f}), "
+                   f"normalize + window {r['normalize_window_s']:.3f} s "
+                   f"(host), restage {r['restage_s']:.3f} s, warm-up + "
+                   f"capture {cap:.3f} s; the epoch's train "
+                   f"{h['train_secs']:.3f} s (capture included) on {card}")
+    counts_ok = (len(rebuilds) == len(frontend_ms) == len(hist)
+                 and len(captures) == len(hist)
+                 and len(first_run) == len(out["history"]) == 2)
+    if not (ok and counts_ok):
+        raise SystemExit("a TDM restage failed its check (the replayed "
+                         "epoch read another split, or a rebuild was "
+                         "missed)")
+    return result[0], result[1], timing
+
+
+def phase_tdm_mic(card):
+    """TDM and the microphone-array inputs through the training CLI at SS5
+    full width: FEED_CLIPS clips of FEED_SECONDS under foa_dev and mic_dev
+    (the same stems, independent noise), labels in runs of events;
+    --use_tdm --tdm_epoch 1 --epoch_scan (a rebuild and a restage each
+    epoch), --from_wav --wav_mode mic (10 channels; no foa_frontend
+    launch) and --use_both --use_acs --epoch_scan (17 channels; the FOA
+    half's foa_frontend launches only), each with its --resume. Returns
+    {variant: (the first run's launch counts, windows/s)} and the TDM
+    rebuilds' timing."""
+    cwd = os.getcwd()
+    t_phase = time.perf_counter()
+    n_train = sum(c for f, c in FEED_CLIPS.items() if f <= 4)
+    flag = {k: int(v) for k, v in zip(FEED_ARGV, FEED_ARGV[1:])
+            if k in ("--batch", "--loop_time")}
+    steps = n_train * 10 * flag["--loop_time"] // flag["--batch"]
+    no_acs = [a for a in FEED_ARGV if a != "--use_acs"]
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_wav_tree(root, FEED_CLIPS, FEED_SECONDS, seed=1, mic=True,
+                       events=True)
+        log("tdm", f"{sum(FEED_CLIPS.values())} clips of {FEED_SECONDS} s "
+                   f"under foa_dev and mic_dev written in "
+                   f"{time.perf_counter() - t0:.1f} s")
+        os.chdir(root)
+        try:
+            counts, rate, timing = _tdm_variant(root, card, steps)
+            out["tdm"] = (counts, rate)
+            for label, flags, argv, channels, frontend in (
+                    ("mic", ["--name", "smoke_mic", "--wav_mode", "mic"],
+                     no_acs, 10, lambda epochs: 0),
+                    ("joint", ["--name", "smoke_joint", "--use_both",
+                               "--epoch_scan"], FEED_ARGV, 17, None)):
+                counts, rate, _, _ = _feed_variant(
+                    root, card, label, flags, argv=argv, frontend=frontend,
+                    channels=channels, tag="mic")
+                out[label] = (counts, rate)
+        finally:
+            os.chdir(cwd)
+    log("tdm", "windows/s through the feed after the first epoch: "
+               + ", ".join(f"{k} {r:.1f}" for k, (_, r) in out.items())
+               + f"; phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out, timing
 
 
 def _max_err(got, want):
@@ -2555,6 +2870,13 @@ def main(argv=None):
     for e in entries:
         e["feed_launches"] = feed_counts["eager"][e["name"]]
     entries += feed_entries
+    tdm_mic, tdm_timing = timed(phase_tdm_mic, smi)
+    for e in entries:
+        for label, (counts, rate) in tdm_mic.items():
+            e[f"{label}_launches"] = counts[e["name"]]
+    entries[-2]["tdm_rebuilds"] = tdm_timing
+    entries[-1]["feed_windows_per_s"] = {
+        label: rate for label, (_, rate) in tdm_mic.items()}
     for e in entries:
         e["graph_launches"] = graph_counts[e["name"]]
         e["epoch_scan_launches"] = feed_counts["epoch_scan"][e["name"]]

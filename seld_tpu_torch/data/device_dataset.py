@@ -20,6 +20,12 @@ an epoch step captured as a CUDA graph over that buffer
 (train/steps.py::make_train_epoch) replays the next epoch with no new
 capture.
 
+A rebuilt split (--use_tdm, every tdm_epoch epochs) is a new
+`DeviceDataset`: the training CLI drops the old one and the epoch step
+captured over it first (`SELDTrainer.release_epoch_program`), so one
+train split is staged at a time, and the epoch step is captured anew over
+the new one.
+
 Capacity: x at [N, 300, 64, 7] is ~269 KB a window in bf16 (~538 KB f32):
 the 4-fold DCASE2021 train split (~4,000 windows) is ~1.1 GB in bf16.
 `hbm_bytes()` reports the footprint.

@@ -1,6 +1,7 @@
 """Host-side data pipeline (seld_tpu/data/loader.py).
 
-  load fold .npy clips or raw wavs (fold digit parsed from the filename)
+  load fold .npy clips (FOA, or FOA+MIC joined: `load_joint_seldnet_data`)
+  or raw wavs (fold digit parsed from the filename)
   -> window into [300-feature / 60-label]-frame samples
   -> per-epoch sample-level shuffle + fixed-size batches (`SeldDataset`)
   -> `DeviceIterator`: pinned host buffers copied to the card on a side
@@ -68,6 +69,27 @@ def load_seldnet_data(feat_path: str, label_path: str, mode: str = "train",
             f.reshape(f.shape[0], -1, n_freq_bins), (0, 2, 1))
             for f in features]
     return features, labels
+
+
+def load_joint_seldnet_data(feat_label_root: str, mode: str = "train",
+                            n_freq_bins: int = 64):
+    """FOA + MIC features concatenated on the channel axis -> 17 channels
+    (4 FOA mel + 3 IV + 4 mic mel + 6 GCC), the `acs_aug` input layout,
+    from feat_label's foa_dev_norm / foa_dev_label and mic_dev_norm /
+    mic_dev_label; FOA's labels."""
+    foa_x, y = load_seldnet_data(
+        os.path.join(feat_label_root, "foa_dev_norm"),
+        os.path.join(feat_label_root, "foa_dev_label"),
+        mode=mode, n_freq_bins=n_freq_bins)
+    mic_x, _ = load_seldnet_data(
+        os.path.join(feat_label_root, "mic_dev_norm"),
+        os.path.join(feat_label_root, "mic_dev_label"),
+        mode=mode, n_freq_bins=n_freq_bins)
+    if len(foa_x) != len(mic_x):
+        raise ValueError(
+            f"foa ({len(foa_x)}) and mic ({len(mic_x)}) clip counts differ")
+    x = [np.concatenate([f, m], axis=-1) for f, m in zip(foa_x, mic_x)]
+    return x, y
 
 
 def read_wav(path: str, pcm: bool = False) -> Tuple[np.ndarray, int]:

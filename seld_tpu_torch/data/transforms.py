@@ -13,16 +13,28 @@ exactly.
                            flips + x/z swap, applied consistently to the
                            FOA channels, the IV channels and the cartesian
                            labels
+  - audio channel swap     `acs_aug` on the joint 17-channel FOA+MIC
+                           input: one of 8 rotations/reflections of the
+                           array (arXiv 2101.02919 Table 1) a sample,
+                           applied to the FOA channels, the IV channels,
+                           the mic mels, the GCC pairs (`mic_gcc_perm`)
+                           and the cartesian labels
   - random gain            `random_ups_and_downs` on the log-mel channels
+                           (0:4, and 7:11 of the joint input)
   - `compose`
+  - `cgmm_mask_aug`        CGMM noise-mask estimation, host-side numpy in
+                           float64; not wired into the trainer, as in the
+                           JAX package
 
-The joint FOA+MIC augments (`acs_aug`, `mic_gcc_perm`) and the CGMM mask
-(`cgmm_mask_aug`) come with the joint input (ROADMAP queue 1, item 8).
+The channel-swap tables live on the batch's device, made at the first
+call (the warm-up of a captured step runs before its capture), so a step
+that applies `acs_aug` makes no host-to-device copy.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -142,6 +154,92 @@ def foa_intensity_vec_aug(gen: torch.Generator, x: torch.Tensor,
     return foa_intensity_vec_aug_apply(x, y, flip, swap)
 
 
+# 8-way channel-swap table (arXiv 2101.02919 Table 1): [[mic perm], [foa code]]
+CHANNEL_LIST = np.asarray([
+    [[1, 3, 0, 2], [0, -3, -2, 1]],
+    [[3, 1, 2, 0], [0, -3, 2, -1]],
+    [[0, 1, 2, 3], [0, 1, 2, 3]],
+    [[1, 0, 3, 2], [0, -1, -2, 3]],
+    [[2, 0, 3, 1], [0, 3, -2, -1]],
+    [[0, 2, 1, 3], [0, 3, 2, 1]],
+    [[3, 2, 1, 0], [0, -1, 2, -3]],
+    [[2, 3, 0, 1], [0, 1, -2, -3]],
+], dtype=np.int32)
+
+# decode_table[m, n] = index of pair (min(m,n), max(m,n)) in the ordered GCC
+# pair list [(0,1),(0,2),(0,3),(1,2),(1,3),(2,3)]
+_GCC_DECODE = np.asarray([[0, 0, 1, 2],
+                          [0, 0, 3, 4],
+                          [1, 3, 0, 5],
+                          [2, 4, 5, 0]], dtype=np.int32)
+_GCC_PAIRS = np.asarray([[0, 1], [0, 2], [0, 3], [1, 2], [1, 3], [2, 3]],
+                        dtype=np.int32)
+
+_TABLES: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+
+def _tables(device) -> Dict[str, torch.Tensor]:
+    """The channel-swap tables as int64 tensors on `device`, made once."""
+    device = torch.device(device)
+    if device not in _TABLES:
+        _TABLES[device] = {
+            name: torch.as_tensor(table, dtype=torch.int64, device=device)
+            for name, table in (("channels", CHANNEL_LIST),
+                                ("decode", _GCC_DECODE),
+                                ("pairs", _GCC_PAIRS))}
+    return _TABLES[device]
+
+
+def mic_gcc_perm(mic_perm: torch.Tensor) -> torch.Tensor:
+    """[B, 4] mic permutation -> [B, 6] GCC-pair permutation."""
+    t = _tables(mic_perm.device)
+    res = mic_perm[:, t["pairs"]]                    # [B, 6, 2] permuted pair
+    return t["decode"][res[..., 0], res[..., 1]]     # [B, 6]
+
+
+def draw_acs(gen: torch.Generator, batch: int, device=None) -> torch.Tensor:
+    """[B] int64 rows of CHANNEL_LIST, in [0, 8)."""
+    return _randint(gen, 0, 8, (batch,), device)
+
+
+def acs_aug_apply(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor):
+    """x [B, T, F, 17] = 4 FOA mel + 3 IV + 4 mic mel + 6 GCC, y [B, T',
+    4C] -> the equally transformed pair, sample b by CHANNEL_LIST[idx[b]]
+    (the draws of `draw_acs`)."""
+    n_classes = y.shape[-1] // 4
+    y4 = y.reshape(*y.shape[:-1], 4, n_classes)
+    iv = x[..., 4:7]
+    cart = y4[..., -3:, :]
+
+    flip = _tables(x.device)["channels"][idx.long()]  # [B, 2, 4]
+    foa_flip = flip[:, 1, 1:]                        # [B, 3]
+    foa_sign = torch.sign(foa_flip)
+    foa_perm = foa_sign * foa_flip - 1               # [B, 3] in {0, 1, 2}
+    correct = torch.arange(3, device=x.device)[None]
+    check = (foa_perm != correct).long().sum(-1, keepdim=True)
+    foa_feat_perm = (foa_perm + check) % 3
+
+    foa_x = _batched_take(x[..., 1:4], foa_perm)
+    iv = _batched_take(iv, foa_feat_perm) \
+        * foa_sign.to(x.dtype)[:, None, None, :]
+    cart = _batched_take(cart.transpose(-1, -2), foa_feat_perm
+                         ).transpose(-1, -2) \
+        * foa_sign.to(y.dtype)[:, None, :, None]
+
+    mic_flip = flip[:, 0, :]
+    gcc = _batched_take(x[..., 11:], mic_gcc_perm(mic_flip))
+    mic_x = _batched_take(x[..., 7:11], mic_flip)
+
+    x = torch.cat([x[..., :1], foa_x, iv, mic_x, gcc], dim=-1)
+    y4 = torch.cat([y4[..., :-3, :], cart], dim=-2)
+    return x, y4.reshape(y.shape)
+
+
+def acs_aug(gen: torch.Generator, x: torch.Tensor, y: torch.Tensor):
+    """Audio-channel-swap augment on the joint FOA+MIC features."""
+    return acs_aug_apply(x, y, draw_acs(gen, x.shape[0], x.device))
+
+
 # ---------------------------------------------------------------------------
 # misc
 # ---------------------------------------------------------------------------
@@ -156,18 +254,18 @@ def draw_gain(gen: torch.Generator, device=None) -> torch.Tensor:
 
 
 def random_ups_and_downs_apply(x: torch.Tensor, y, gain: torch.Tensor):
-    """Add `gain` to the log-mel channels (0:4); IV channels are ratios and
-    stay untouched."""
+    """Add `gain` to the log-mel channels: 0:4, and on the joint 17-channel
+    input the same scene's mic mels 7:11 too (the same gain, or the pairs
+    `acs_aug` and the model see disagree). IV and GCC channels are ratios
+    and correlations and stay untouched."""
+    if x.shape[-1] == 17:
+        return torch.cat([x[..., :4] + gain, x[..., 4:7],
+                          x[..., 7:11] + gain, x[..., 11:]], dim=-1), y
     return torch.cat([x[..., :4] + gain, x[..., 4:]], dim=-1), y
 
 
 def random_ups_and_downs(gen: torch.Generator, x: torch.Tensor, y):
-    """Random global gain offset on the log-mel channels (FOA, 7 channels;
-    the joint 17-channel input is not ported)."""
-    if x.shape[-1] != 7:
-        raise NotImplementedError("random_ups_and_downs takes the 7-channel "
-                                  "FOA input; the joint input is ROADMAP "
-                                  "queue 1, item 8")
+    """Random global gain offset on the log-mel channels."""
     return random_ups_and_downs_apply(x, y, draw_gain(gen, x.device))
 
 
@@ -179,3 +277,81 @@ def compose(*fns: Callable) -> Callable:
             x, y = fn(gen, x, y)
         return x, y
     return augment
+
+
+# ---------------------------------------------------------------------------
+# CGMM mask-estimation aug (host-side, float64)
+# ---------------------------------------------------------------------------
+def cgmm_mask_aug(x: np.ndarray, iterations: int = 3,
+                  theta: float = 1e-6) -> np.ndarray:
+    """CGMM noisy/noise mask estimation (the cgmm-mask-estimator recipe);
+    returns x scaled by the estimated noise mask.
+
+    x: [batch, time, freq, chan] real features. Host-side in float64: the
+    EM repeatedly inverts per-bin covariance matrices, which overflows in
+    float32. The reference defines this augment but wires it into no
+    trainer; neither the JAX package nor the port does.
+    """
+    x = x.astype(np.float64)
+    batch, time, freq, chan = x.shape
+    eye = np.eye(chan)
+
+    def stab(mat):
+        # progressively add jitter until well-conditioned
+        for dd in (1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1):
+            with np.errstate(all="ignore"):
+                cond = np.linalg.cond(mat)
+            bad = ~np.isfinite(cond) | (cond > 1e6)
+            if not bad.any():
+                break
+            mat = mat + bad[..., None, None] * dd * eye
+        return mat
+
+    xt = x.transpose(0, 2, 3, 1)                       # [b, f, c, t]
+    r_noisy = xt @ xt.transpose(0, 1, 3, 2) / time     # [b, f, c, c]
+    r_noise = np.tile(eye, (batch, freq, 1, 1))
+
+    yx = x[..., None]                                  # [b, t, f, c, 1]
+    yyh = yx @ yx.transpose(0, 1, 2, 4, 3)             # [b, t, f, c, c]
+
+    def safe_div(a, b):
+        return a / np.maximum(b, 1e-8)
+
+    r_noisy_inv = np.linalg.inv(stab(r_noisy))
+    r_noise_inv = np.linalg.inv(stab(r_noise))
+    phi_noisy = np.trace(yyh @ r_noisy_inv[:, None], axis1=-2, axis2=-1) / chan
+    phi_noise = np.trace(yyh @ r_noise_inv[:, None], axis1=-2, axis2=-1) / chan
+
+    lambda_noise = np.full((batch, time, freq), 0.5)
+    for _ in range(iterations):
+        r_noisy_s = stab(r_noisy)
+        r_noise_s = stab(r_noise)
+        r_noisy_inv = np.linalg.inv(r_noisy_s)
+        r_noise_inv = np.linalg.inv(r_noise_s)
+
+        def lik(r_inv, r_s, phi):
+            k = (x[..., None, :] @ safe_div(r_inv[:, None],
+                                            phi[..., None, None]))
+            k = (k @ x[..., None])[..., 0, 0]
+            det = np.linalg.det(phi[..., None, None] * r_s[:, None]) * np.pi
+            return safe_div(np.exp(-np.clip(k, -700, 700)), det) + theta
+
+        p_noise = lik(r_noise_inv, r_noise_s, phi_noise)
+        p_noisy = lik(r_noisy_inv, r_noisy_s, phi_noisy)
+
+        lambda_noise = safe_div(p_noise, p_noise + p_noisy)
+        lambda_noisy = safe_div(p_noisy, p_noise + p_noisy)
+
+        phi_noise = np.trace(yyh @ r_noise_inv[:, None],
+                             axis1=-2, axis2=-1) / chan
+        phi_noisy = np.trace(yyh @ r_noisy_inv[:, None],
+                             axis1=-2, axis2=-1) / chan
+
+        acc_noisy = safe_div(lambda_noisy, phi_noisy)[..., None, None] * yyh
+        acc_noise = safe_div(lambda_noise, phi_noise)[..., None, None] * yyh
+        r_noisy = safe_div(acc_noisy.sum(1),
+                           lambda_noisy.sum(1)[..., None, None])
+        r_noise = safe_div(acc_noise.sum(1),
+                           lambda_noise.sum(1)[..., None, None])
+
+    return (x * lambda_noise[..., None]).astype(np.float32)

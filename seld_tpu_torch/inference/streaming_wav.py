@@ -3,7 +3,8 @@
 
 Push raw multichannel PCM or float samples as they arrive and receive final
 SELD label frames. The front-end (centered STFT, reflect padding, mel and
-intensity vectors; ops/features.py) is itself streamed with the same
+intensity vectors, or GCC-PHAT in mode "mic"; ops/features.py) is itself
+streamed with the same
 three-phase pattern as the trunk:
 
   - feature frame t reads samples [t*hop - n_fft//2, t*hop + n_fft//2), so
@@ -14,7 +15,8 @@ three-phase pattern as the trunk:
     end);
   - one `extract_features` call per device step, on the engine's device:
     on the card one launch of the front-end kernel where
-    `frontend_applicable` holds (64 mels, n_fft 1024).
+    `frontend_applicable` holds (64 mels, n_fft 1024; mode "foa"), else the
+    plain composition there.
 
 The front-end's top-dB floor (max - 80 dB) is taken over each extraction,
 as the JAX package takes it: streamed frames equal the offline ones where
@@ -35,7 +37,7 @@ from torch import nn
 
 from seld_tpu_torch.inference.ensemble import _model_device
 from seld_tpu_torch.inference.streaming import StreamingSELD
-from seld_tpu_torch.ops.features import _UNPORTED, extract_features
+from seld_tpu_torch.ops.features import FEATURE_CHANNELS, extract_features
 
 
 class StreamingFrontEnd:
@@ -52,8 +54,8 @@ class StreamingFrontEnd:
                  n_mels: int = 64, n_fft: int = 1024, win_length: int = 960,
                  hop_length: int = 480, chunk_frames: int = 50,
                  device="cuda"):
-        if mode == "mic":
-            raise NotImplementedError(_UNPORTED)
+        if mode not in FEATURE_CHANNELS:
+            raise ValueError(f"invalid mode: {mode!r}")
         self.kw = dict(mode=mode, sample_rate=sample_rate, n_mels=n_mels,
                        n_fft=n_fft, win_length=win_length,
                        hop_length=hop_length)
@@ -172,9 +174,9 @@ class StreamingSELDWav:
             win_length=win_length, hop_length=hop_length,
             chunk_frames=chunk * time_down,
             device=_model_device(model, None))
-        # FOA features: 4 log-mel + 3 intensity-vector channels
+        # 4 log-mel + 3 intensity-vector (foa) or 6 GCC-PHAT (mic) channels
         self.seld = StreamingSELD(
-            model, feat_shape=(n_mels, 7), win_size=win_size,
+            model, feat_shape=(n_mels, FEATURE_CHANNELS[mode]), win_size=win_size,
             step_size=time_down, time_down=time_down, chunk=chunk,
             halo=halo, dtype=dtype)
         self.multiplier = time_down

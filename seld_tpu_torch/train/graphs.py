@@ -105,9 +105,13 @@ class StepLoop:
     def _graph(self, n: int) -> StepGraph:
         graph = self._graphs.get(n)
         if graph is None:
+            # the body holds the step, not the loop: no reference cycle,
+            # so dropping the loop frees what the step holds at once
+            one_step = self.one_step
+
             def body():
                 for _ in range(n):
-                    self.one_step()
+                    one_step()
             graph = self._graphs[n] = StepGraph(body, self.generators,
                                                 self.device)
         return graph

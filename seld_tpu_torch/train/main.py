@@ -8,11 +8,26 @@ The flags are the JAX package's (config/params.py), plus `--device`
 (default cuda; without a card the run refuses to start rather than fall
 back to the CPU). Data sources under --abspath:
   default     DCASE2021/feat_label/foa_dev_norm/*.npy + foa_dev_label/*.npy
+  --use_both  the same plus mic_dev_norm/*.npy: 17 channels, FOA + MIC
   --from_wav  foa_dev/*.wav + metadata_dev/*.csv, through the front-end
-              kernel on the card; the train-split normalizer is written to
-              ./saved_model/<run>/normalizer.npz
+              kernel on the card (7 channels); --wav_mode mic reads
+              mic_dev/*.wav instead (log-mel + GCC-PHAT, 10 channels), and
+              --use_both both directories (17 channels); the train-split
+              normalizer is written to ./saved_model/<run>/normalizer.npz
+Under --use_both, --use_acs is the audio channel swap of the whole joint
+input (`acs_aug`), else the FOA intensity-vector augment; the mic input
+alone takes neither, and --use_acs with it is refused.
 Checkpoints go to ./saved_model/<run>/bestscore_<score>, scalars to
 ./tensorboard_log/<run>/scalars.jsonl, run configs to ./config/.
+
+--use_tdm rebuilds the train split every --tdm_epoch epochs from
+foa_dev's wavs with pasted single-class events (data/tdm_pipeline.py:
+the paste on the host, the features on the card, normalization and
+windows on the host), on the reference's growing-overlap curriculum; each
+rebuild logs its seconds by part. The TDM set is FOA (7 channels), so
+--use_tdm with a 10- or 17-channel input is refused. Without foa_dev or
+metadata_dev under --abspath, TDM falls back to the static train set, as
+the JAX CLI does.
 
 When <ans_path>/dev-test holds ground-truth CSVs, the test split's full
 clips are scored every --eval_every epochs by sliding-window overlap-add
@@ -23,10 +38,9 @@ and after training the SWA average is scored and saved as
 With --device_data, --epoch_scan runs each train epoch as one epoch step
 (gather, augment and update a step, captured once as a CUDA graph and
 replayed a step at a time on the card; a plain loop with --device cpu),
-and --fuse_metrics accumulates the metric inside it.
-
-Flags whose code is not ported raise: --use_tdm, --use_both and
---wav_mode mic.
+and --fuse_metrics accumulates the metric inside it. A TDM rebuild under
+--device_data frees the staged split and the epoch step captured over it
+before it stages the new one, so one train split is staged at a time.
 """
 from __future__ import annotations
 
@@ -41,16 +55,20 @@ import torch
 from seld_tpu_torch.config.params import get_param
 from seld_tpu_torch.data import transforms as T
 from seld_tpu_torch.data.device_dataset import DeviceDataset
-from seld_tpu_torch.data.loader import SeldDataset, load_seldnet_data
+from seld_tpu_torch.data.loader import (SeldDataset, load_joint_seldnet_data,
+                                        load_seldnet_data, load_wav_clips)
 from seld_tpu_torch.train.checkpoint import save_checkpoint
 from seld_tpu_torch.train.trainer import SELDTrainer
 
-# flag -> (value that runs unported code, ROADMAP item that ports it)
-_UNPORTED = {
-    "use_tdm": (True, "TDM mixing (queue 1, item 6)"),
-    "use_both": (True, "the joint FOA+MIC input (queue 1, item 8)"),
-    "wav_mode": ("mic", "the microphone-array features (queue 1, item 8)"),
-}
+
+def input_channels(config) -> int:
+    """17 for the joint FOA+MIC input, 10 for mic wavs, else 7 (FOA)."""
+    if getattr(config, "use_both", False):
+        return 17
+    if (getattr(config, "from_wav", False)
+            and getattr(config, "wav_mode", "foa") == "mic"):
+        return 10
+    return 7
 
 
 def tfm_profile(config):
@@ -64,7 +82,8 @@ def tfm_profile(config):
 
 def build_augment(config):
     """--use_tfm masking as the selected loop does it (v2 adds the random
-    gain); --use_acs is the FOA intensity-vector aug."""
+    gain); --use_acs is the FOA intensity-vector aug, or under --use_both
+    the channel swap of the joint FOA+MIC input."""
     fns = []
     if getattr(config, "use_tfm", False):
         t_size, f_size, t_n, f_n = tfm_profile(config)
@@ -77,7 +96,8 @@ def build_augment(config):
             g, x, axis=-2, max_mask_size=f_size, n_mask=f_n,
             period=config.tfm_period), y))
     if getattr(config, "use_acs", False):
-        fns.append(T.foa_intensity_vec_aug)
+        fns.append(T.acs_aug if getattr(config, "use_both", False)
+                   else T.foa_intensity_vec_aug)
     return T.compose(*fns) if fns else None
 
 
@@ -85,12 +105,18 @@ def build_datasets(config, device):
     """({split: SeldDataset} for train, val and test, the test split's full
     clips for the ensemble evaluation)."""
     feat_dtype = torch.bfloat16 if getattr(config, "bf16", False) else None
+    use_both = getattr(config, "use_both", False)
     if getattr(config, "from_wav", False):
         from seld_tpu_torch.data.wav_pipeline import make_wav_datasets
+        wav_mode = getattr(config, "wav_mode", "foa")
+        wav_dir = os.path.join(config.abspath, "foa_dev" if use_both
+                               or wav_mode == "foa" else "mic_dev")
+        mic_dir = os.path.join(config.abspath, "mic_dev") if use_both \
+            else None
         datasets, splits, stats = make_wav_datasets(
-            os.path.join(config.abspath, "foa_dev"),
-            os.path.join(config.abspath, "metadata_dev"),
-            batch=config.batch, loop_time=config.loop_time, n_classes=12,
+            wav_dir, os.path.join(config.abspath, "metadata_dev"),
+            batch=config.batch, mode=wav_mode, mic_dir=mic_dir,
+            loop_time=config.loop_time, n_classes=12,
             feature_dtype=feat_dtype, device=device)
         # a wav-native checkpoint is unservable without its normalizer
         norm_dir = os.path.join("./saved_model", config.name)
@@ -103,9 +129,12 @@ def build_datasets(config, device):
     datasets = {}
     test_xs = None
     for mode in ("train", "val", "test"):
-        x, y = load_seldnet_data(os.path.join(path, "foa_dev_norm"),
-                                 os.path.join(path, "foa_dev_label"),
-                                 mode=mode, n_freq_bins=64)
+        if use_both:
+            x, y = load_joint_seldnet_data(path, mode=mode, n_freq_bins=64)
+        else:
+            x, y = load_seldnet_data(os.path.join(path, "foa_dev_norm"),
+                                     os.path.join(path, "foa_dev_label"),
+                                     mode=mode, n_freq_bins=64)
         if mode == "test":
             test_xs = x
         datasets[mode] = SeldDataset.from_clips(
@@ -114,11 +143,23 @@ def build_datasets(config, device):
     return datasets, test_xs
 
 
+def _uses_tdm(config) -> bool:
+    return bool(getattr(config, "use_tdm", False)) and config.tdm_epoch != 0
+
+
 def _check_flags(config, device):
-    for flag, (value, what) in _UNPORTED.items():
-        if getattr(config, flag, None) == value:
-            raise NotImplementedError(
-                f"--{flag} runs {what}, which is not ported yet (ROADMAP)")
+    if _uses_tdm(config) and input_channels(config) != 7:
+        raise ValueError(
+            f"--use_tdm rebuilds an FOA (7-channel) train set, and this "
+            f"run's input has {input_channels(config)} channels (--use_both "
+            f"or --from_wav --wav_mode mic): the JAX CLI fails at its first "
+            f"step on this pair")
+    if getattr(config, "use_acs", False) and input_channels(config) == 10:
+        raise ValueError(
+            "--use_acs augments the FOA intensity vectors (7 channels) or, "
+            "with --use_both, swaps the joint FOA+MIC channels (17); the "
+            "10-channel mic input has neither (the JAX CLI fails at its "
+            "first step on this pair)")
     if getattr(config, "epoch_scan", False) and not getattr(
             config, "device_data", False):
         raise ValueError("--epoch_scan requires --device_data (the epoch "
@@ -136,10 +177,54 @@ def _check_flags(config, device):
                          "--device cpu to train on the CPU)")
 
 
+def tdm_provider(config, static_trainset, device):
+    """--use_tdm: a function epoch -> train set that rebuilds the split
+    with pasted events when epoch % tdm_epoch == 0 or nothing is built yet
+    (RandomState(7), the growing-overlap curriculum), and the list it
+    appends each rebuild's seconds by part to; or the static train set and
+    None when foa_dev or metadata_dev is missing."""
+    wav_dir = os.path.join(config.abspath, "foa_dev")
+    meta_dir = os.path.join(config.abspath, "metadata_dev")
+    if not (os.path.isdir(wav_dir) and os.path.isdir(meta_dir)):
+        print(f"use_tdm: raw wav dirs not found under {config.abspath}; "
+              "falling back to the static train set")
+        return static_trainset, None
+    from seld_tpu_torch.data.tdm import build_event_banks
+    from seld_tpu_torch.data.tdm_pipeline import (TDMCurriculum,
+                                                  make_tdm_trainset)
+    wavs, wav_labels = load_wav_clips(wav_dir, meta_dir, "train",
+                                      n_classes=12)
+    banks = build_event_banks(list(zip(wavs, wav_labels)), n_classes=12)
+    curriculum = TDMCurriculum()
+    tdm_rng = np.random.RandomState(7)
+    cache, rebuilds = {}, []
+
+    def trainset(epoch):
+        if epoch % config.tdm_epoch == 0 or "ds" not in cache:
+            curriculum.advance(epoch)
+            timing = {"epoch": epoch}
+            cache.pop("ds", None)
+            cache["ds"] = make_tdm_trainset(
+                wavs, wav_labels, banks, tdm_rng, config.batch, curriculum,
+                loop_time=config.loop_time, device=device, timing=timing)
+            rebuilds.append(timing)
+            print(f"use_tdm: rebuilt the train split for epoch {epoch} "
+                  f"(overlap {curriculum.overlap_num} x "
+                  f"{curriculum.overlap_sec} s): paste "
+                  f"{timing['paste_s']:.3f} s, extract "
+                  f"{timing['extract_s']:.3f} s, normalize + window "
+                  f"{timing['normalize_window_s']:.3f} s")
+        return cache["ds"]
+    return trainset, rebuilds
+
+
 def main(argv=None):
     """Parse the flags, build the datasets and train; returns the fit
-    result with the trainer ("trainer") and the seconds the datasets took
-    to build ("setup_secs")."""
+    result with the trainer ("trainer"), the seconds the datasets took to
+    build ("setup_secs"), the last train split trained on ("trainset")
+    and, under --use_tdm, each rebuild's seconds by part ("tdm_rebuilds":
+    paste_s, extract_s, normalize_window_s and, with --device_data,
+    restage_s)."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
     known, rest = pre.parse_known_args(argv)
@@ -150,7 +235,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     datasets, test_xs = build_datasets(config, device)
     trainer = SELDTrainer(config, model_config, n_classes=12,
-                          input_shape=(300, 64, 7), device=device)
+                          input_shape=(300, 64, input_channels(config)),
+                          device=device)
     trainer.set_augment(build_augment(config))
     if config.resume:
         if not trainer.resume():
@@ -173,7 +259,10 @@ def main(argv=None):
             print(f"ensemble @ {epoch}: ER {mv[0]:.4f} F {mv[1]:.4f} "
                   f"LE {mv[2]:.4f} LR {mv[3]:.4f} SELD {seld:.4f}")
 
-    trainset = datasets["train"]
+    trainset, rebuilds = datasets["train"], None
+    if _uses_tdm(config):
+        trainset, rebuilds = tdm_provider(config, trainset, device)
+    staged = {}
     if getattr(config, "device_data", False):
         # stage every split on the card once; each step then gathers its
         # batch there from a row of the epoch's index matrix
@@ -183,12 +272,36 @@ def main(argv=None):
             print(f"device_data: staged {dev.n_windows} windows "
                   f"({dev.hbm_bytes() / 1e9:.2f} GB) on {device}")
             return dev
-        trainset = to_device(trainset, True)
         for split in ("val", "test"):
             datasets[split] = to_device(datasets[split], False)
+        if callable(trainset):
+            provider = trainset
+
+            def trainset(epoch):
+                ds = provider(epoch)
+                if staged.get("src") is not ds:
+                    # free the old split, and the epoch step captured over
+                    # it, before the new one is staged
+                    staged.pop("dev", None)
+                    trainer.release_epoch_program()
+                    t_stage = time.perf_counter()
+                    staged["src"], staged["dev"] = ds, to_device(ds, True)
+                    rebuilds[-1]["restage_s"] = (time.perf_counter()
+                                                 - t_stage)
+                return staged["dev"]
+        else:
+            trainset = to_device(trainset, True)
     setup_secs = time.perf_counter() - t0
 
-    result = trainer.fit(trainset, datasets["val"], datasets["test"],
+    last = {}
+
+    def tracked(epoch):
+        last.pop("trainset", None)      # no reference outlives its epoch
+        last["trainset"] = trainset(epoch) if callable(trainset) \
+            else trainset
+        return last["trainset"]
+
+    result = trainer.fit(tracked, datasets["val"], datasets["test"],
                          eval_fn=eval_fn, eval_every=config.eval_every)
     print(f"best val seld score: {result['best_score']:.5f}")
 
@@ -202,4 +315,5 @@ def main(argv=None):
                         trainer.state, trainer.swa,
                         params=trainer.swa_params())
         print(f"SWA seld score: {seld:.5f}")
-    return {**result, "trainer": trainer, "setup_secs": setup_secs}
+    return {**result, "trainer": trainer, "setup_secs": setup_secs,
+            "trainset": last.get("trainset"), "tdm_rebuilds": rebuilds}

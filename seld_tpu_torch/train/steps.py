@@ -280,6 +280,14 @@ def make_train_epoch(*,
     again; the first step of the first epoch is its warm-up and runs
     eagerly. On the CPU the same step body runs in a plain loop.
 
+    The program holds the split it was captured over (its closure refers
+    to x_all, y_all and idx_all) until another signature replaces it or
+    `epoch.release()` drops it. A new split (a TDM rebuild, restaged) lies
+    at other addresses and is captured anew; new data written into the
+    same buffers is read by the next replay. The trainer releases the
+    program before a rebuilt split is staged, so one split is on the card
+    at a time.
+
     The augments draw from the `aug_generator` the call is handed, in step
     order: the augment stream is the trainer's eager loop's for the same
     generator. It cannot equal the JAX package's, which splits a key per
@@ -379,6 +387,7 @@ def make_train_epoch(*,
             losses = b["losses"].clone()
         return state, metric_state, (losses[:, 0], losses[:, 1])
 
+    epoch.release = live.clear
     return epoch
 
 

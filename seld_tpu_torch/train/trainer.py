@@ -154,6 +154,12 @@ class SELDTrainer:
                 fuse_metrics=getattr(self.config, "fuse_metrics", False))
         return self._epoch_step
 
+    def release_epoch_program(self) -> None:
+        """Drop the epoch step's captured program and the split it holds
+        (a restaged split is captured anew at its first epoch)."""
+        if self._epoch_step is not None:
+            self._epoch_step.release()
+
     def resume(self) -> bool:
         """Restore the best checkpoint of this run (not the last one, as the
         JAX package does); False when there is none."""
@@ -299,8 +305,12 @@ class SELDTrainer:
 
             epoch_trainset = (trainset(epoch) if callable(trainset)
                               else trainset)
+            t_train = time.time()       # a rebuild of the split is not in it
             train_scalars = self._run_epoch(epoch_trainset, epoch, "train")
-            train_secs = time.time() - t0
+            train_secs = time.time() - t_train
+            # no reference to the split outlives its epoch: a provider
+            # that rebuilds it frees the old one first
+            del epoch_trainset
             score = train_scalars["seldScore"]
             val_scalars = None
             if valset is not None:

@@ -101,3 +101,36 @@ def test_raises_on_unknown_collection(pair):
     _, v = pair
     with pytest.raises(KeyError, match="unknown flax collections"):
         from_flax({**v, "intermediates": {}})
+
+
+@pytest.mark.parametrize("channels", [10, 17])
+def test_stem_kernel_of_mic_and_joint_inputs_crosses(channels):
+    """SS5 at its published widths for the 10-channel mic and 17-channel
+    joint inputs: the stem kernel [7, 7, C, 32] crosses both ways exactly,
+    in the layout the conv reads (the forwards agree)."""
+    shape = (30, 16, channels)
+    cfg = copy.deepcopy(get_model_config("SS5", search_paths=[]))
+    cfg["n_classes"] = 12
+    jm = jax_build_model("conv_temporal", shape, cfg)
+    shapes = jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, *shape)),
+        train=False))
+    rng = np.random.RandomState(channels)
+    v = jax.tree_util.tree_map(
+        lambda s: (rng.randn(*s.shape) * 0.1).astype(np.float32), shapes)
+    v["batch_stats"] = jax.tree_util.tree_map(np.abs, v["batch_stats"])
+    stem = v["params"]["Conv2DBN_0"]["Conv_0"]["kernel"]
+    assert stem.shape == (7, 7, channels, 32)
+    model = build_model("conv_temporal", shape, cfg, device="cpu")
+    model.load_state_dict(from_flax(v, model))
+    back = to_flax(model)
+    np.testing.assert_array_equal(
+        back["params"]["Conv2DBN_0"]["Conv_0"]["kernel"], stem)
+    if channels == 17:
+        x = rng.randn(2, *shape).astype(np.float32)
+        want = jm.apply(v, jnp.asarray(x), train=False)
+        with torch.no_grad():
+            got = model.eval()(torch.from_numpy(x))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                       atol=1e-4)

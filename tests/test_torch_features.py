@@ -1,12 +1,14 @@
 """The port's feature front-end pieces (seld_tpu_torch/ops/{stft,mel,
 features}.py) against the JAX package's (seld_tpu/ops/{stft,mel,
-features}.py) on the same numpy inputs.
+features}.py) on the same numpy inputs: FOA (log-mel + IV), microphone-
+array (log-mel + GCC-PHAT, on noise at a realistic level and on a stretch
+of exact digital silence) and SALSA-lite.
 
 Tolerances: the filterbank and the labels are built by the same numpy code
 and must be equal; the spectra to 1e-4 of their largest magnitude (f32
-FFTs in another order); the features to 1e-4 absolute (dB and IV, as
-tests/test_torch_frontend.py states), the preprocessing, statistics and
-normalizer to f32 rounding.
+FFTs in another order); the features to 1e-4 absolute (dB, IV and GCC,
+as tests/test_torch_frontend.py states); SALSA-lite to 1e-4 of its largest
+magnitude; the preprocessing, statistics and normalizer to f32 rounding.
 """
 import importlib
 import os
@@ -139,16 +141,87 @@ def test_frontend_route_rule(n_mels, n_fft, win_length, takes):
                                         24000, 1e-8)
 
 
-def test_unported_modes_raise():
+def _mic_clip(seed, n=12000, silent=None):
+    """Noise at a realistic level (a few hundredths of full scale), int16
+    PCM, with an optional stretch of exact digital silence."""
+    pcm = _pcm(seed, n, amplitude=0.05)
+    if silent is not None:
+        pcm[:, silent[0]:silent[1]] = 0
+    return pcm
+
+
+def _spec(wav):
+    w = wav.astype(np.float32) / 32768.0
+    got = S.complex_spec(torch.from_numpy(w), n_fft=1024, win_length=960,
+                         hop_length=480)
+    want = JS.complex_spec(jnp.asarray(w), n_fft=1024, win_length=960,
+                           hop_length=480, method="fft")
+    return got, want
+
+
+@pytest.mark.parametrize("silent", [None, (2400, 9600)],
+                         ids=["noise", "silent"])
+def test_gcc_features_match_jax(silent):
+    """GCC-PHAT of every pair; frames wholly inside the digital silence
+    have r = 0 in every bin, so unit phase on both sides: a delta at lag
+    0 (the crop's centre), 1 there and 0 at every other lag."""
+    got_spec, want_spec = _spec(_mic_clip(11, silent=silent))
+    got = Fe.gcc_features(got_spec, n_mels=64).numpy()
+    want = np.asarray(JFe.gcc_features(want_spec, n_mels=64))
+    assert got.shape == want.shape == (6, 64, 26)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    if silent is not None:
+        quiet = got[:, :, 8:16]           # frames 8-15 see only zeros
+        want_delta = np.zeros((6, 64, 8), np.float32)
+        want_delta[:, 32] = 1.0
+        np.testing.assert_allclose(quiet, want_delta, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("silent", [None, (2400, 9600)],
+                         ids=["noise", "silent"])
+def test_mic_extract_features_match_jax(silent):
+    wav = _mic_clip(12, silent=silent)
+    got = Fe.extract_features(torch.from_numpy(wav), mode="mic").numpy()
+    want = np.asarray(JFe.extract_features(jnp.asarray(wav), mode="mic",
+                                           method="fft"))
+    assert got.shape == want.shape == (26, 64, 10)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_mic_extract_features_batch_and_clips_match_jax():
+    clips = [_mic_clip(13), _mic_clip(14, silent=(0, 4800)),
+             _mic_clip(15, n=9600), _mic_clip(16)]
+    batch = np.stack(clips[:2])
+    got = Fe.extract_features_batch(torch.from_numpy(batch),
+                                    mode="mic").numpy()
+    want = np.asarray(JFe.extract_features_batch(jnp.asarray(batch),
+                                                 mode="mic", method="fft"))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    got = Fe.extract_features_clips(clips, chunk_size=2, device="cpu",
+                                    mode="mic")
+    want = JFe.extract_features_clips(clips, chunk_size=2, mode="mic",
+                                      method="fft")
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert got[0].shape == (26, 64, 10) and got[2].shape == (21, 64, 10)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("kw", [{}, {"d_max": 0.02, "freq_clip_hz": 4000.0}])
+def test_salsa_lite_features_match_jax(kw):
+    got_spec, want_spec = _spec(_mic_clip(17, silent=(0, 2400)))
+    got = Fe.salsa_lite_features(got_spec, **kw).numpy()
+    want = np.asarray(JFe.salsa_lite_features(want_spec, **kw))
+    assert got.shape == want.shape == (26, 513, 7)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+
+
+def test_invalid_mode_raises():
     wav = torch.zeros(4, 4800)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Fe.extract_features(wav, mode="mic")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Fe.gcc_features(None, 64)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Fe.salsa_lite_features(None)
     with pytest.raises(ValueError, match="invalid mode"):
         Fe.extract_features(wav, mode="stereo")
+    assert Fe.FEATURE_CHANNELS == {"foa": 7, "mic": 10}
 
 
 def test_extract_labels_equal(tmp_path):

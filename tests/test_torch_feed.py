@@ -1,5 +1,7 @@
 """The port's feed (seld_tpu_torch/data/{loader,device_dataset,
-wav_pipeline}.py) against the JAX package's on the same data.
+wav_pipeline}.py) against the JAX package's on the same data: FOA,
+microphone-array and joint FOA+MIC (17-channel) wav splits, and the
+offline joint source.
 
 Batches, windows, wav loading and labels are copies and must be exactly
 equal (the shuffle is the same numpy RandomState call sequence). The wav
@@ -175,6 +177,103 @@ def _make_wav_tree(root, folds=(1, 1, 5, 6), seconds=1.0):
     return str(wav_dir), str(meta_dir)
 
 
+def _make_mic_dir(root, folds=(1, 1, 5, 6), seconds=1.0, skip=None):
+    """mic_dev beside foa_dev: the same stems, independent noise (the
+    stem at index `skip` left out)."""
+    rng = np.random.RandomState(4)
+    mic_dir = root / "mic_dev"
+    os.makedirs(mic_dir)
+    for i, fold in enumerate(folds):
+        if i != skip:
+            _write_wav(mic_dir / f"fold{fold}_room1_mix{i:03d}.wav",
+                       rng.randn(int(SR * seconds), 4) * 0.05)
+    return str(mic_dir)
+
+
+def test_mic_wav_feature_splits_match_jax(tmp_path):
+    """mode "mic": 4 log-mel + 6 GCC-PHAT channels from mic_dev."""
+    _, meta_dir = _make_wav_tree(tmp_path)
+    mic_dir = _make_mic_dir(tmp_path)
+    kwargs = dict(n_classes=12, max_label_length=50, mode="mic")
+    raw, _ = W.wav_feature_splits(mic_dir, meta_dir, normalize=False,
+                                  device="cpu", **kwargs)
+    want_raw, _ = JW.wav_feature_splits(mic_dir, meta_dir, normalize=False,
+                                        **kwargs)
+    got, stats = W.wav_feature_splits(mic_dir, meta_dir, device="cpu",
+                                      **kwargs)
+    want, want_stats = JW.wav_feature_splits(mic_dir, meta_dir, **kwargs)
+    for mode in ("train", "val", "test"):
+        assert got[mode][0].shape[-1] == 10
+        np.testing.assert_allclose(raw[mode][0], want_raw[mode][0],
+                                   rtol=0, atol=1e-4, err_msg=mode)
+        np.testing.assert_allclose(got[mode][0], np.asarray(want[mode][0]),
+                                   rtol=0, atol=1e-3, err_msg=mode)
+        np.testing.assert_array_equal(got[mode][1], want[mode][1])
+    for g, w in zip(stats, want_stats):
+        assert g.shape == np.asarray(w).shape == (1, 64, 10)
+
+
+def test_joint_wav_feature_splits_match_jax(tmp_path):
+    """foa_dev + mic_dev side by side: FOA's labels, 17 channels, each
+    modality normalised by its own train-split statistics."""
+    wav_dir, meta_dir = _make_wav_tree(tmp_path)
+    mic_dir = _make_mic_dir(tmp_path)
+    kwargs = dict(n_classes=12, max_label_length=50)
+    got, stats = W.joint_wav_feature_splits(wav_dir, mic_dir, meta_dir,
+                                            device="cpu", **kwargs)
+    want, want_stats = JW.joint_wav_feature_splits(wav_dir, mic_dir,
+                                                   meta_dir, **kwargs)
+    foa, _ = W.wav_feature_splits(wav_dir, meta_dir, device="cpu", **kwargs)
+    for mode in ("train", "val", "test"):
+        assert got[mode][0].shape[-1] == 17
+        np.testing.assert_allclose(got[mode][0], want[mode][0], rtol=0,
+                                   atol=1e-3, err_msg=mode)
+        np.testing.assert_array_equal(got[mode][1], want[mode][1])
+        np.testing.assert_array_equal(got[mode][0][..., :7], foa[mode][0])
+    for g, w in zip(stats, want_stats):
+        assert g.shape == w.shape == (1, 64, 17)
+        np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-3)
+
+
+def test_joint_splits_refuse_diverging_clip_stems(tmp_path):
+    wav_dir, meta_dir = _make_wav_tree(tmp_path)
+    mic_dir = _make_mic_dir(tmp_path, skip=1)
+    for fn in (W.joint_wav_feature_splits, JW.joint_wav_feature_splits):
+        kw = {"device": "cpu"} if fn is W.joint_wav_feature_splits else {}
+        with pytest.raises(ValueError, match="diverge at "
+                           "'fold1_room1_mix001' vs None"):
+            fn(wav_dir, mic_dir, meta_dir, n_classes=12, **kw)
+
+
+def test_load_joint_seldnet_data_equal_jax(tmp_path):
+    """The offline --use_both source: feat_label's FOA and MIC .npy
+    features joined on the channel axis, FOA's labels."""
+    rng = np.random.RandomState(5)
+    root = tmp_path / "feat_label"
+    for sub in ("foa_dev_norm", "foa_dev_label", "mic_dev_norm",
+                "mic_dev_label"):
+        os.makedirs(root / sub)
+    for i, fold in enumerate((1, 2, 5, 6)):
+        name = f"fold{fold}_room1_mix{i:03d}.npy"
+        np.save(root / "foa_dev_norm" / name,
+                rng.randn(30, 64 * 7).astype(np.float32))
+        np.save(root / "mic_dev_norm" / name,
+                rng.randn(30, 64 * 10).astype(np.float32))
+        for sub in ("foa_dev_label", "mic_dev_label"):
+            np.save(root / sub / name, rng.rand(6, 48).astype(np.float32))
+    for mode in ("train", "val", "test"):
+        got = L.load_joint_seldnet_data(str(root), mode=mode)
+        want = JL.load_joint_seldnet_data(str(root), mode=mode)
+        assert len(got[0]) == len(want[0]) == (2 if mode == "train" else 1)
+        for g, w in zip(got[0] + got[1], want[0] + want[1]):
+            np.testing.assert_array_equal(g, w)
+        assert got[0][0].shape == (30, 64, 17)
+    os.remove(root / "mic_dev_norm" / "fold2_room1_mix001.npy")
+    os.remove(root / "mic_dev_label" / "fold2_room1_mix001.npy")
+    with pytest.raises(ValueError, match="clip counts differ"):
+        L.load_joint_seldnet_data(str(root), mode="train")
+
+
 @pytest.mark.parametrize("pcm", [False, True])
 def test_load_wav_clips_equal_jax(tmp_path, pcm):
     wav_dir, meta_dir = _make_wav_tree(tmp_path)
@@ -237,9 +336,21 @@ def test_make_wav_datasets_geometry_matches_jax(tmp_path):
     bf16, _, _ = W.make_wav_datasets(wav_dir, meta_dir, device="cpu",
                                      feature_dtype=torch.bfloat16, **kwargs)
     assert bf16["train"].x.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 8"):
-        W.make_wav_datasets(wav_dir, meta_dir, mic_dir=wav_dir, device="cpu",
-                            **kwargs)
+    # the joint 17-channel set from foa_dev + mic_dev (mode is ignored)
+    mic_dir = _make_mic_dir(tmp_path)
+    datasets, splits, stats = W.make_wav_datasets(
+        wav_dir, meta_dir, mic_dir=mic_dir, mode="mic", device="cpu",
+        **kwargs)
+    want_ds, want_splits, want_stats = JW.make_wav_datasets(
+        wav_dir, meta_dir, mic_dir=mic_dir, **kwargs)
+    assert stats[0].shape == stats[1].shape == (1, 64, 17)
+    for mode in ("train", "val", "test"):
+        assert len(datasets[mode]) == len(want_ds[mode])
+        np.testing.assert_allclose(splits[mode][0], want_splits[mode][0],
+                                   rtol=0, atol=1e-3, err_msg=mode)
+        np.testing.assert_array_equal(splits[mode][1], want_splits[mode][1])
+    x, y = next(iter(datasets["train"]))
+    assert x.shape == (2, 300, 64, 17) and y.shape == (2, 60, 48)
 
 
 def test_device_iterator_cpu_path_yields_host_batches_in_order():

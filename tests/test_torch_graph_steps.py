@@ -23,6 +23,7 @@ update sums the same counts in another order than k updates do (1e-6).
 import argparse
 import copy
 import os
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -366,3 +367,36 @@ def test_epoch_index_matrix_reuses_one_buffer():
     second = ds.epoch_index_matrix()
     assert second.data_ptr() == ptr and second.dtype == torch.int32
     np.testing.assert_array_equal(second.numpy(), want[1])
+
+
+def test_epoch_step_reads_a_restaged_split(tmp_path):
+    """A rebuilt split (a TDM rebuild), staged after the trainer released
+    the epoch step built over the old one: nothing holds the old split
+    any more, and the next epoch's first gathered batch is the host's
+    gather from the new split at that epoch's index row (on the card the
+    program is captured anew; chip_smoke's [tdm] checks the replay)."""
+    x_all, y_all, _ = _split()
+    trainer = _trainer(tmp_path, "restage", True, False)
+    seen = []
+
+    def probe(gen, x, y):
+        seen.append((x.clone(), y.clone()))
+        return x, y
+    trainer.set_augment(probe)
+    old = DeviceDataset(x_all, y_all, B, "cpu", seed=0)
+    trainer._run_epoch(old, 0, "train")
+    first_epoch = len(seen)
+    assert first_epoch == N_WINDOWS // B
+    old_x = weakref.ref(old.device_arrays[0])
+    trainer.release_epoch_program()
+    del old
+    assert old_x() is None          # freed at once, with no cycle to collect
+    rng = np.random.RandomState(11)
+    new_x = rng.randn(*x_all.shape).astype(np.float32)
+    new_y = np.abs(rng.randn(*y_all.shape)).astype(np.float32)
+    new = DeviceDataset(new_x, new_y, B, "cpu", seed=1)
+    trainer._run_epoch(new, 1, "train")
+    ids = new._idx[0].numpy()
+    np.testing.assert_array_equal(seen[first_epoch][0].numpy(), new_x[ids])
+    np.testing.assert_array_equal(seen[first_epoch][1].numpy(), new_y[ids])
+    assert trainer.state.step == 2 * N_WINDOWS // B

@@ -54,7 +54,7 @@ def test_port_files_exist():
                  "make_answer.py", "search_best.py", "bench_infer.py",
                  "dress_rehearsal.py", "inference/streaming.py",
                  "inference/streaming_wav.py", "stream_demo.py",
-                 "predict_wav.py"):
+                 "predict_wav.py", "data/tdm.py", "data/tdm_pipeline.py"):
         assert os.path.join("seld_tpu_torch", want) in names
 
 
@@ -104,11 +104,12 @@ def test_registry_copy_equals_original_modulo_package():
 
 @pytest.mark.parametrize("rel", ["config/params.py", "config/manager.py",
                                  "utils/coords.py", "utils/logging.py",
-                                 "utils/io.py", "train/official_metrics.py"])
+                                 "utils/io.py", "train/official_metrics.py",
+                                 "data/tdm.py"])
 def test_copied_modules_equal_originals_modulo_package(rel):
     """The flag table and config store, the coordinate helpers, the scalar
-    logger, the DCASE CSV I/O and the official scorer are copies: code
-    equal to the JAX package's."""
+    logger, the DCASE CSV I/O, the official scorer and TDM's event banks
+    and paste are copies: code equal to the JAX package's."""
     want = _code_without_docstrings(os.path.join(REPO, "seld_tpu", rel),
                                     "seld_tpu.")
     got = _code_without_docstrings(os.path.join(REPO, "seld_tpu_torch", rel),
@@ -137,6 +138,60 @@ def test_copied_constants_equal():
             np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(_padded_window_np(n_fft, win),
                                       np.asarray(want_window(n_fft, win)))
+
+
+def test_copied_channel_swap_tables_equal():
+    """acs_aug's tables (the 8 array rotations and reflections, the GCC
+    pair decoding) are the JAX package's values."""
+    import numpy as np
+    from seld_tpu.data import transforms as want
+    from seld_tpu_torch.data import transforms as got
+    for name in ("CHANNEL_LIST", "_GCC_DECODE", "_GCC_PAIRS"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name))
+        assert getattr(got, name).dtype == getattr(want, name).dtype
+
+
+def _device_defaults(path):
+    """(where, default) of every `--device` flag and every parameter named
+    `device` with a constant default in a file of the port."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(
+                node.func, "attr", "") == "add_argument" and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and node.args[0].value == "--device":
+            for kw in node.keywords:
+                if kw.arg == "default":
+                    yield f"--device at line {node.lineno}", ast.literal_eval(
+                        kw.value)
+        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            args = node.args
+            positional = args.posonlyargs + args.args
+            pairs = list(zip(positional[len(positional)
+                                        - len(args.defaults):],
+                             args.defaults))
+            pairs += [(a, d) for a, d in zip(args.kwonlyargs,
+                                             args.kw_defaults) if d]
+            for arg, default in pairs:
+                if arg.arg == "device" and isinstance(default, ast.Constant):
+                    yield f"{node.name}(device=...)", default.value
+
+
+def test_entry_points_default_to_the_card():
+    """Every command-line entry point's --device defaults to cuda, and no
+    function of the port defaults its device to the CPU: the CPU runs
+    only when the caller asks for it (as the tests do)."""
+    flags, bad = 0, []
+    for path in PORT_FILES:
+        for where, default in _device_defaults(path):
+            flags += where.startswith("--device")
+            if default not in ("cuda", None):
+                bad.append(f"{os.path.relpath(path, REPO)}: {where} "
+                           f"defaults to {default!r}")
+    assert not bad, bad
+    assert flags >= 9
 
 
 def test_common_helpers_equal():

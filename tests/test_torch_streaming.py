@@ -217,8 +217,50 @@ def test_wav_end_to_end_equals_jax_and_offline(ss5):
     assert len(got) == len(want) == 40
     _close(_frames(got), _frames(want))
     _close(_frames(got), _fast(model, (feats - mean) / std))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        StreamingSELDWav(model, mode="mic", **kw)
+
+
+def test_mic_frontend_equals_jax_stream():
+    """Mode "mic" (4 log-mel + 6 GCC-PHAT) streamed in ragged pushes ==
+    JAX's stream == offline extraction (GCC is frame-local, and noise
+    spans less than 80 dB)."""
+    wav = _wav("noise", seed=10)
+    fe_kw = {**FE, "mode": "mic"}
+    fe, jfe = StreamingFrontEnd(chunk_frames=20, device="cpu", **fe_kw), \
+        jsw.StreamingFrontEnd(chunk_frames=20, **fe_kw)
+    got, want = [], []
+    for lo in range(0, 48000, 7000):
+        got.extend(fe.push(wav[:, lo:lo + 7000]))
+        want.extend(jfe.push(wav[:, lo:lo + 7000]))
+    got, want = np.stack(got + fe.finalize()), \
+        np.stack(want + jfe.finalize())
+    assert got.shape == want.shape == (201, 16, 10)
+    np.testing.assert_allclose(got, want, rtol=0, atol=FEATURE_ATOL)
+    offline = extract_features(torch.from_numpy(wav), **fe_kw).numpy()
+    np.testing.assert_allclose(got, offline, rtol=0, atol=FEATURE_ATOL)
+
+
+def test_mic_wav_end_to_end_equals_jax_and_offline():
+    """StreamingSELDWav in mode "mic" on a 10-channel SS5 == JAX's, and
+    == offline extract + crop + normalize + the fast path."""
+    jm, v, model = _pair(shape=(50, 16, 10), seed=2)
+    wav = _wav("noise", seed=12)
+    fe_kw = dict(n_mels=16, n_fft=512, win_length=480, hop_length=240)
+    feats = extract_features(torch.from_numpy(wav), mode="mic",
+                             **fe_kw).numpy()[:200]
+    mean, std = feats.mean(axis=0), feats.std(axis=0) + 1e-6
+    kw = dict(normalizer=(mean, std), mode="mic", win_size=50, time_down=5,
+              chunk=4, halo=4, **fe_kw)
+    sw = StreamingSELDWav(model, **kw)
+    jsw_ = jsw.StreamingSELDWav(jm.apply, v, **kw)
+    assert sw.seld.feat_shape == jsw_.seld.feat_shape == (16, 10)
+    got, want = [], []
+    for lo in range(0, 48000, 9600):
+        got.extend(sw.push(wav[:, lo:lo + 9600]))
+        want.extend(jsw_.push(wav[:, lo:lo + 9600]))
+    got, want = got + sw.finalize(), want + jsw_.finalize()
+    assert len(got) == len(want) == 40
+    _close(_frames(got), _frames(want))
+    _close(_frames(got), _fast(model, (feats - mean) / std))
 
 
 def test_multi_stream_lockstep_equals_independent_and_jax(ss5):

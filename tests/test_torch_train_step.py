@@ -44,6 +44,7 @@ import pytest
 import torch
 from test_torch_model import narrow_ss5, random_variables
 
+from seld_tpu.data import transforms as JT
 from seld_tpu.models import build_model as jax_build_model
 from seld_tpu.nas.complexity import conv_temporal_complexity as jax_cx
 from seld_tpu.train import losses as JL
@@ -55,6 +56,7 @@ from seld_tpu.train.train_state import TrainState as JaxTrainState
 from seld_tpu_torch import bench
 from seld_tpu_torch.bridge import from_flax, to_flax
 from seld_tpu_torch.config import get_model_config
+from seld_tpu_torch.data import transforms as T
 from seld_tpu_torch.models import build_model
 from seld_tpu_torch.nas.complexity import conv_temporal_complexity
 from seld_tpu_torch.ops import dropout as D
@@ -80,11 +82,11 @@ def _config():
     return cfg
 
 
-def _batches(n):
+def _batches(n, shape=INPUT_SHAPE):
     out = []
     for s in range(n):
         rng = np.random.RandomState(100 + s)
-        x = rng.randn(B, *INPUT_SHAPE).astype(np.float32)
+        x = rng.randn(B, *shape).astype(np.float32)
         sed = (rng.rand(B, 12, N_CLASSES) < 0.2).astype(np.float32)
         doa = (np.clip(rng.randn(B, 12, 3 * N_CLASSES), -1, 1)
                * np.repeat(sed, 3, axis=-1)).astype(np.float32)
@@ -100,11 +102,11 @@ def _torch_step(cw, compute_dtype=None, l2=1e-3):
         metric_block_size=BLOCK)
 
 
-def _torch_run(variables, batches, compute_dtype=None, grads=None):
+def _torch_run(variables, batches, compute_dtype=None, grads=None,
+               shape=INPUT_SHAPE):
     """Runs the port's step over `batches`; when `grads` is a dict, it
     receives the first step's raw gradients by parameter name."""
-    model = build_model("conv_temporal", INPUT_SHAPE, _config(),
-                        device="cpu")
+    model = build_model("conv_temporal", shape, _config(), device="cpu")
     model.load_state_dict(from_flax(variables, model))
     state = TrainState(model, adabelief(list(model.parameters()), LR,
                                         agc_clip=0.01))
@@ -213,6 +215,73 @@ def test_f32_trajectory_matches_jax_make_train_step(monkeypatch):
     for key, w in jmetric.items():
         np.testing.assert_allclose(metric[key].numpy(), np.asarray(w),
                                    rtol=1e-5, err_msg=key)
+
+
+def test_joint_input_step_through_acs_aug_matches_jax(monkeypatch):
+    """The joint 17-channel FOA+MIC input: each batch through acs_aug
+    (the port's application on JAX's draws, bitwise equal), then 3 steps
+    on both sides: the losses of every step at LOSS_RTOL and the first
+    step's gradients at GRAD_RTOL (with the null rule), this file's
+    tolerances. The update that follows the gradients is the optimizer's,
+    whatever the input width (test_f32_trajectory_... holds it)."""
+    monkeypatch.setenv("SELD_FUSED_STEM", "always")
+    shape, steps = (60, 16, 17), 3
+    cfg = _config()
+    jm = jax_build_model("conv_temporal", shape, cfg)
+    variables = jax.tree_util.tree_map(np.asarray,
+                                       random_variables(jm, shape))
+    batches = []
+    for s, (x, sed, doa) in enumerate(_batches(steps, shape)):
+        key = jax.random.PRNGKey(40 + s)
+        y = np.concatenate([sed, doa], axis=-1)
+        want_x, want_y = JT.acs_aug(key, jnp.asarray(x), jnp.asarray(y))
+        idx = np.array(jax.random.randint(key, (B,), 0, 8))
+        got_x, got_y = T.acs_aug_apply(torch.from_numpy(x),
+                                       torch.from_numpy(y),
+                                       torch.from_numpy(idx))
+        np.testing.assert_array_equal(got_x.numpy(), np.asarray(want_x))
+        np.testing.assert_array_equal(got_y.numpy(), np.asarray(want_y))
+        batches.append((got_x.numpy(), got_y.numpy()[..., :N_CLASSES],
+                        got_y.numpy()[..., N_CLASSES:]))
+
+    cw = JL.class_weights_from_samples(JL.DCASE2021_TRAIN_SAMPLES)
+    jstate = JaxTrainState.create(
+        apply_fn=jm.apply, params=variables["params"],
+        batch_stats=variables["batch_stats"],
+        tx=optax.chain(_recording(), jax_adabelief(LR, agc_clip=0.01)),
+        rng=jax.random.PRNGKey(0))
+    jstep = jax_make_train_step(
+        sed_loss_fn=lambda y, p: JL.sed_loss_with_weights(y, p, cw),
+        doa_loss_fn=lambda y, p: JL.MMSE_with_cls_weights(y, p, cw),
+        loss_weights=(1.0, 1000.0), l2=1e-3, metric_block_size=BLOCK,
+        donate=False)
+    want_losses = []
+    jmetric = JM.init_state(N_CLASSES)
+    for x, sed, doa in batches:
+        jstate, jmetric, (sl, dl) = jstep(
+            jstate, jmetric, jnp.asarray(x),
+            (jnp.asarray(sed), jnp.asarray(doa)))
+        want_losses.append((float(sl), float(dl)))
+        if len(want_losses) == 1:
+            want_g = _flat(jax.tree_util.tree_map(np.asarray,
+                                                  jstate.opt_state[0]))
+
+    got_g = {}
+    state, _, losses = _torch_run(variables, batches, grads=got_g,
+                                  shape=shape)
+    np.testing.assert_allclose(losses, np.asarray(want_losses),
+                               rtol=LOSS_RTOL)
+    assert state.step == steps
+    assert got_g["Conv2DBN_0.Conv_0.kernel"].shape == (7, 7, 17, 8)
+    assert set(got_g) == set(want_g)
+    null_at = NULL_GRAD * max(np.abs(g).max() for g in want_g.values())
+    for name, w in want_g.items():
+        if np.abs(w).max() < null_at:
+            assert np.abs(got_g[name]).max() < null_at, name
+        else:
+            np.testing.assert_allclose(got_g[name], w, rtol=0,
+                                       atol=GRAD_RTOL * np.abs(w).max(),
+                                       err_msg=name)
 
 
 def test_l2_kernel_penalty_matches_jax_on_bridged_params():

@@ -45,6 +45,7 @@ import copy
 import json
 import os
 import wave
+import weakref
 
 import jax
 import numpy as np
@@ -416,23 +417,34 @@ def test_keep_best_only_and_latest_best(tmp_path, runs):
 # ---------------------------------------------------------------------------
 # the CLI
 # ---------------------------------------------------------------------------
+def _write_wav(path, data):
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(4)
+        w.setsampwidth(2)
+        w.setframerate(24000)
+        w.writeframes(data.tobytes())
+
+
 def _write_wav_tree(root, folds=(1, 2, 5, 6), seconds=1.0):
+    """foa_dev and mic_dev (the same stems, independent noise) and label
+    CSVs. Each train clip's first 10 label frames are one event of class
+    3, a single-class run TDM banks."""
     rng = np.random.RandomState(7)
-    for sub in ("foa_dev", "metadata_dev"):
+    for sub in ("foa_dev", "mic_dev", "metadata_dev"):
         os.makedirs(root / sub)
     for i, fold in enumerate(folds):
         name = f"fold{fold}_room1_mix{i:03d}"
-        data = (rng.uniform(-0.3, 0.3, (int(24000 * seconds), 4))
-                * 32767).astype(np.int16)
-        with wave.open(str(root / "foa_dev" / f"{name}.wav"), "wb") as w:
-            w.setnchannels(4)
-            w.setsampwidth(2)
-            w.setframerate(24000)
-            w.writeframes(data.tobytes())
+        for sub in ("foa_dev", "mic_dev"):
+            _write_wav(root / sub / f"{name}.wav",
+                       (rng.uniform(-0.3, 0.3, (int(24000 * seconds), 4))
+                        * 32767).astype(np.int16))
         # events in every 60-frame label window: a batch without one has a
         # 0/0 DOA loss (MMSE_with_cls_weights, as in the reference)
         with open(root / "metadata_dev" / f"{name}.csv", "w") as f:
-            for fr in range(0, 600, 7):
+            first = 10 if fold <= 4 else 0
+            for fr in range(first):
+                f.write(f"{fr},3,0,{10 * i},{fr - 5}\n")
+            for fr in range(first, 600, 7):
                 f.write(f"{fr},{(i + fr) % 12},0,{10 * i},{fr % 90 - 45}\n")
 
 
@@ -506,11 +518,129 @@ def test_cli_checks_the_epoch_scan_flags(cli_tree, drop, flags, match):
         cli.main(argv)
 
 
-@pytest.mark.parametrize("flag", [
-    ["--use_tdm"], ["--use_both"], ["--wav_mode", "mic"]])
-def test_cli_refuses_unported_flags(cli_tree, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(_argv(cli_tree, *flag))
+def _write_feat_label_tree(root):
+    """feat_label's offline layout for the four clips: FOA (7) and MIC
+    (10) normalised features [3000, 64 * C] and labels [600, 48]."""
+    rng = np.random.RandomState(8)
+    base = root / "DCASE2021" / "feat_label"
+    for i, fold in enumerate((1, 2, 5, 6)):
+        name = f"fold{fold}_room1_mix{i:03d}.npy"
+        labels = np.zeros((600, 48), np.float32)
+        labels[::7, i % 12] = 1.0
+        labels[::7, 12 + i % 12] = 1.0     # a unit DOA vector
+        for kind, channels in (("foa", 7), ("mic", 10)):
+            for sub in (f"{kind}_dev_norm", f"{kind}_dev_label"):
+                os.makedirs(base / sub, exist_ok=True)
+            np.save(base / f"{kind}_dev_norm" / name,
+                    rng.randn(3000, 64 * channels).astype(np.float32))
+            np.save(base / f"{kind}_dev_label" / name, labels)
+
+
+@pytest.mark.parametrize("flags,channels", [
+    (["--use_tdm", "--tdm_epoch", "1", "--epoch_scan"], 7),
+    (["--wav_mode", "mic"], 10),
+    (["--use_both", "--epoch_scan"], 17),
+    (["--use_both", "--offline"], 17)],
+    ids=["tdm_epoch_scan", "mic", "both_epoch_scan", "both_offline"])
+def test_cli_trains_tdm_mic_and_joint_inputs_and_resumes(cli_tree, flags,
+                                                         channels,
+                                                         monkeypatch):
+    """--use_tdm (a rebuild each epoch, restaged under --epoch_scan, the
+    old split freed before the new one is staged), --from_wav --wav_mode
+    mic and --use_both --use_acs (from wavs, and from feat_label's .npy
+    files): finite losses, the model's input width, the normalizer's width
+    and a resumed epoch."""
+    staged = []
+
+    class Recording(cli.DeviceDataset):
+        def __init__(self, *args, train=True, **kwargs):
+            if train:
+                staged.append(all(ref() is None for ref in staged[1::2]))
+            super().__init__(*args, train=train, **kwargs)
+            if train:
+                staged.append(weakref.ref(self.device_arrays[0]))
+    monkeypatch.setattr(cli, "DeviceDataset", Recording)
+    argv = _argv(cli_tree, *flags)
+    if "--offline" in flags:
+        _write_feat_label_tree(cli_tree)
+        argv = [a for a in argv if a not in ("--offline", "--from_wav")]
+    if "mic" in flags:        # the FOA aug takes no mic input
+        argv.remove("--use_acs")
+    out = cli.main(argv)
+    trainer = out["trainer"]
+    assert trainer.input_shape == (300, 64, channels)
+    assert trainer.state.step == 10
+    h = out["history"][0]
+    assert np.isfinite([h["train"]["sedLoss"], h["train"]["doaLoss"],
+                        h["val"]["sedLoss"]]).all()
+    x_all = out["trainset"].device_arrays[0]
+    assert x_all.shape[1:] == (300, 64, channels)
+    run_dir = cli_tree / "saved_model" / trainer.config.name
+    if "--from_wav" in argv:
+        with np.load(run_dir / "normalizer.npz") as norm:
+            assert norm["mean"].shape == (1, 64, channels)
+    freed = staged[::2]
+    assert freed == [True] * len(freed)
+    if "--use_tdm" in flags:
+        assert len(freed) == 1
+        (rebuild,) = out["tdm_rebuilds"]
+        assert set(rebuild) == {"epoch", "paste_s", "extract_s",
+                                "normalize_window_s", "restage_s"}
+        assert x_all.dtype == torch.float32
+    # TDM resumes for two epochs: two rebuilds, the second restaged after
+    # the first split was freed
+    epochs = 3 if "--use_tdm" in flags else 2
+    del staged[:]
+    again = cli.main([*argv, "--resume", "--epoch", str(epochs)])
+    assert [h["epoch"] for h in again["history"]] == list(range(1, epochs))
+    assert again["trainer"].state.step == 10 * epochs
+    assert np.isfinite(again["history"][0]["train"]["sedLoss"])
+    if "--use_tdm" in flags:
+        assert [r["epoch"] for r in again["tdm_rebuilds"]] == [1, 2]
+        assert staged[::2] == [True, True]
+        assert again["trainset"].device_arrays[0] is not x_all
+
+
+def test_tdm_rebuilds_paste_bank_events(cli_tree):
+    """The train clips' single-class runs make a bank, and a rebuild
+    pastes from it into the audible frames without class 3 (2-s clips:
+    frames 10-19): the rebuilt labels differ from the static split's."""
+    from seld_tpu_torch.data.loader import load_wav_clips
+    from seld_tpu_torch.data.tdm import build_event_banks
+    root = cli_tree / "two_seconds"
+    _write_wav_tree(root, seconds=2.0)
+    wavs, labels = load_wav_clips(str(root / "foa_dev"),
+                                  str(root / "metadata_dev"), "train",
+                                  n_classes=12)
+    banks = build_event_banks(list(zip(wavs, labels)), n_classes=12)
+    assert banks[1][3].shape == (20, 48)
+    argv = _argv(root, "--use_tdm", "--tdm_epoch", "1")
+    out = cli.main([a for a in argv if a != "--device_data"])
+    static, _ = cli.build_datasets(out["trainer"].config, "cpu")
+    assert not np.array_equal(out["trainset"].y, static["train"].y)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--use_tdm", "--use_both"], "FOA .7-channel. train set"),
+    (["--use_tdm", "--wav_mode", "mic"], "FOA .7-channel. train set"),
+    (["--wav_mode", "mic"], "the 10-channel mic input has neither")],
+    ids=["tdm_both", "tdm_mic", "acs_mic"])
+def test_cli_refuses_what_the_jax_cli_cannot_train(cli_tree, flags, match):
+    """TDM's set is FOA, and --use_acs is an FOA or joint augment: on
+    these pairs the JAX CLI fails at its first step, the port refuses
+    them up front."""
+    with pytest.raises(ValueError, match=match):
+        cli.main(_argv(cli_tree, *flags))
+
+
+def test_tdm_falls_back_to_the_static_set_without_wavs(cli_tree, capsys):
+    """The JAX CLI's data rule: no foa_dev under --abspath, no TDM."""
+    _write_feat_label_tree(cli_tree)
+    os.rename(cli_tree / "foa_dev", cli_tree / "foa_dev_elsewhere")
+    argv = [a for a in _argv(cli_tree, "--use_tdm") if a != "--from_wav"]
+    out = cli.main(argv)
+    assert "falling back to the static train set" in capsys.readouterr().out
+    assert out["tdm_rebuilds"] is None and out["trainer"].state.step == 10
 
 
 def test_cli_refuses_a_missing_card(cli_tree):
