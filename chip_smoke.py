@@ -110,8 +110,45 @@ Phases, one line each:
               /v1/reload under a live session, the session gauge back to
               0; push latency p50/p99, device ms and idle share a push at
               1 and 4 streams, finalize ms and the real-time factor
+ 14. nas      the architecture search at its full input (300, 64, 7), f32,
+              TF32 off: (a) gru_scan and gru_scan_bwd at D=2, T=60, B=256
+              at every unit count of the search space the kernels take
+              (4, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256; U=6 runs
+              the plain recurrence), each against its plain version, with
+              its time, bound, the plain version's time and (forward)
+              cuDNN's torch.nn.GRU time; stem_dy in f32 at [256, 300, 64,
+              32], pool [5, 2], dpooled as the candidate's step hands it
+              over; (b) one candidate of the 400-480 MFLOP window with
+              biGRU stages (dropout 0) trained 2 steps at B=16 and scored
+              through train_and_eval_candidate on the card and on the CPU
+              from the same weights, both proxies: losses, the four
+              scores, the 12 swept seld values; (c) python -m
+              seld_tpu_torch.nas_search --task seld --device_data --proxy
+              trainer on a synthesized feat_label tree (32 train clips, 2
+              test clips, B=256, --n_repeat 4: 5 train steps and 2 eval
+              batches a candidate), 3 samples, then resumed to 4: exactly
+              one more candidate trains and the earlier entries stay;
+              each candidate's exact launches: stem_dy 1 a train step,
+              gru_scan 1 a GRU layer with U != 6 a train step and an eval
+              batch, gru_scan_bwd 1 such layer a train step, gather_rows 1
+              a batch; its seconds and the fit's windows/s; (d)
+              run_parallel, 2 worker threads on the one card, against the
+              serial run from the same random.seed (cuDNN deterministic):
+              the same configs in order, equal losses; (e) python -m
+              seld_tpu_torch.analyze_nas on the results (no --plots:
+              nothing on the card's path imports matplotlib)
+ 15. vad      voice activity detection: the VAD rehearsal (python -m
+              seld_tpu_torch.vad_rehearsal: 64 + 8 synthesized 8-s clips,
+              prepare_vad's 80-mel features on the card, the bDNN
+              baseline 16 epochs, window and full-sequence AUC); both VAD
+              models' forwards at B=256 and one attention-model train
+              step, card against CPU; nas_search --task vad for two
+              samples on the rehearsal's npz. No kernel of the port runs
+              on this path (checked: no launch)
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
-at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152,
+at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152
+(phase 14 adds f32 B=256 at every NAS unit count, 4 to 256, both GRU
+kernels, and stem_dy in f32),
 printing each call's tile plan, and times every plan at the serving and
 training shapes and U=256 at B=256 bf16, and at the stream head's batches
 B in {10, 14, 40, 56} (f32 and bf16, beside cuDNN's f32 GRU); gru_scan_bwd
@@ -241,6 +278,73 @@ STREAM_CHECK_SECONDS = 15
 STREAM_N = 4
 STREAM_GRU_BATCHES = (10, 14, 40, 56)
 STREAM_REPS = 2
+# [nas]: the search at its full input (300, 64, 7), f32, TF32 off.
+# (a) each GRU kernel at D=2, T=60, B=256 in f32 at every unit count of the
+# search space that the kernels take (GRU_TOL / BWD_TOL); (b) one fixed
+# candidate (NAS_CONFIG: a draw of the default sampler at random.seed(1)
+# in the 400-480 MFLOP window, its dense dropout set to 0) trained and
+# scored on the card against the CPU on the same weights and batches
+# (NAS_B x NAS_STEPS steps, NAS_EVAL_CLIPS eval clips), both proxies:
+# losses to 1e-4 relative; ER, F and DE_F to NAS_COUNT_ATOL = 1e-2 (one
+# thresholded SED decision that lands on the other side moves ER by
+# 1 / Nref); DE to NAS_DE_ATOL = 0.5 degrees and the seld values to
+# NAS_COUNT_ATOL (arccos of a dot product near +-1 and a flipped decision);
+# (c) the command line on a synthesized feat_label tree (NAS_TRAIN_CLIPS
+# train clips, NAS_TEST_CLIPS test clips of 600 label frames), B=256,
+# --n_repeat NAS_REPEAT, --device_data --proxy trainer, NAS_SAMPLES
+# candidates then one more; (d) run_parallel, 2 workers on the one card,
+# against the serial run, both with cuDNN's deterministic algorithms: the
+# configs equal, the losses to NAS_PARALLEL_RTOL = 1e-6 relative. Without
+# them two serial runs differ (a serial run with the default algorithms is
+# printed beside them):
+# cuDNN's convolution backward sums in a run-dependent order, and Adam's
+# and AdaBelief's first steps move an element by ~lr whatever its
+# gradient's size, so a noise-level gradient whose sign flips moves it the
+# other way.
+NAS_CONFIG = {
+    "n_classes": 12, "first_pool_size": [5, 2],
+    "BLOCK0": "mother_stage",
+    "BLOCK0_ARGS": {"depth": 2, "filters0": 48, "filters1": 24,
+                    "filters2": 6, "kernel_size0": 1, "kernel_size1": 5,
+                    "kernel_size2": 3, "connect0": [1], "connect1": [0, 1],
+                    "connect2": [1, 1, 0], "strides": [1, 3]},
+    "BLOCK1": "bidirectional_GRU_stage",
+    "BLOCK1_ARGS": {"depth": 1, "units": 64},
+    "BLOCK2": "simple_dense_stage",
+    "BLOCK2_ARGS": {"depth": 3, "units": 4, "dense_activation": "relu",
+                    "dropout_rate": 0.0},
+    "BLOCK3": "bidirectional_GRU_stage",
+    "BLOCK3_ARGS": {"depth": 2, "units": 12},
+    "SED": "bidirectional_GRU_stage", "SED_ARGS": {"depth": 2, "units": 8},
+    "DOA": "bidirectional_GRU_stage", "DOA_ARGS": {"depth": 2, "units": 16}}
+NAS_B = 16
+NAS_STEPS = 2
+NAS_EVAL_CLIPS = 2
+NAS_LOSS_RTOL = 1e-4
+NAS_COUNT_ATOL = 1e-2
+NAS_DE_ATOL = 0.5
+NAS_TRAIN_CLIPS = 32
+NAS_TEST_CLIPS = 2
+NAS_REPEAT = 4
+NAS_SAMPLES = 3
+NAS_PARALLEL_SAMPLES = 4
+NAS_PARALLEL_RTOL = 1e-6
+# [vad]: the VAD rehearsal on the card (VAD_ARGV), both VAD models'
+# forwards at B=256 card against CPU (VAD_OUT_ATOL, f32, TF32 off), one
+# attention-model train step card against CPU as [train] (a) holds SS5's
+# (loss to 1e-5 relative; gradients to TRAIN_GRAD_RTOL of their largest
+# element, a leaf below VAD_NULL_GRAD of the step's largest element being
+# zero in exact arithmetic; parameters to VAD_PARAM_ATOL = 1% of lr where
+# the gradient is clear: at B=256 a clear element's gradient may differ by
+# ~2e-4 of its leaf's largest, which near AdaBelief's knee (|g| of a few
+# 1e-6) moves its first step by up to ~1e-6 (measured 9.2e-7); else to
+# AdaBelief's first step, 2.3 lr), and the VAD search for two samples on
+# the rehearsal's npz
+VAD_ARGV = ["--clips", "64", "--val_clips", "8", "--seconds", "8",
+            "--epochs", "16", "--batch", "256", "--device", "cuda"]
+VAD_OUT_ATOL = 1e-5
+VAD_PARAM_ATOL = 1e-5
+VAD_NULL_GRAD = 1e-5
 # [answer]: the dress rehearsal at rehearsal scale (4 train, 2 + 2 eval
 # clips of 120 label frames, 5 epochs with SWA from epoch 2 and the
 # ensemble evaluation every 2)
@@ -2781,6 +2885,591 @@ def phase_answer(card):
                   f" s on {card}")
 
 
+def _nas_gru_units():
+    """The unit counts of the search space's GRU stage that the kernels
+    take: every one but 6, which runs the plain recurrence."""
+    from seld_tpu_torch.nas.search import SELD_SEARCH_SPACE_1D
+    from seld_tpu_torch.ops.gru import gru_kernel_applicable
+    units = SELD_SEARCH_SPACE_1D["bidirectional_GRU_stage"]["units"]
+    taken = [u for u in units if gru_kernel_applicable(u)]
+    if [u for u in units if u not in taken] != [6]:
+        raise SystemExit(f"the GRU kernels take {taken} of the NAS space's "
+                         f"{units}; all but 6 expected")
+    return taken
+
+
+def nas_kernels(card):
+    """[nas] (a): gru_scan and gru_scan_bwd against their plain versions at
+    D=2, T=60, B=256 in f32 at every unit count of the search space that
+    they take, each with its time, the plain version's, its bound and (the
+    forward) cuDNN's torch.nn.GRU time."""
+    import torch
+    from seld_tpu_torch.ops.gru import (_bwd_plan, _fwd_plan, gru_scan,
+                                        gru_scan_bwd, gru_scan_bwd_ref,
+                                        gru_scan_ref)
+    rng = np.random.RandomState(11)
+    d, t, b = 2, 60, 256
+    fwd, bwd = {}, {}
+    for u in _nas_gru_units():
+        xp, rk, rb = _gru_inputs(rng, d, t, b, u, "float32")
+        hs = gru_scan(xp, rk, rb)
+        torch.cuda.synchronize()
+        ref = gru_scan_ref(xp, rk, rb)
+        err = (hs - ref).abs().max().item()
+        if err > GRU_TOL["float32"]:
+            raise SystemExit(f"gru_scan disagrees with gru_scan_ref at f32 "
+                             f"B={b} U={u}: {err:.3e}")
+        ms = cuda_ms(lambda: gru_scan(xp, rk, rb), 20)
+        plain_ms = cuda_ms(lambda: gru_scan_ref(xp, rk, rb), 2)
+        library_ms = cuda_ms(cudnn_gru(xp, rk, rb), 20)
+        bound_ms, bound_by = gru_scan_bound(xp, rk, rb)
+        fwd[u] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by,
+                  "max_abs_err": err, "plan": _plan_json(_fwd_plan(d, b, u))}
+        g = torch.from_numpy(rng.randn(d, t, b, u).astype(np.float32)).cuda()
+        got = gru_scan_bwd(xp, rk, rb, hs, g)
+        torch.cuda.synchronize()
+        want = gru_scan_bwd_ref(xp, rk, rb, ref, g)
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        if max(errs) > BWD_TOL["float32"]:
+            raise SystemExit(f"gru_scan_bwd disagrees with gru_scan_bwd_ref "
+                             f"at f32 B={b} U={u}: rel_err {errs}")
+        b_ms = cuda_ms(lambda: gru_scan_bwd(xp, rk, rb, hs, g), 10)
+        b_plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xp, rk, rb, hs, g), 1)
+        b_bound_ms, b_bound_by = gru_bwd_bound(xp, rk, rb, hs, g)
+        bwd[u] = {"ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound_ms,
+                  "bound_by": b_bound_by, "rel_err": max(errs),
+                  "plan": _plan_json(_bwd_plan(d, b, u))}
+        log("nas", f"gru_scan f32 D=2 T=60 B=256 U={u}: max_abs_err "
+                   f"{err:.2e} kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                   f"library_ms (cuDNN GRU) {library_ms:.4f} bound_ms "
+                   f"{bound_ms:.5f} ({bound_by}); gru_scan_bwd rel_err "
+                   f"{max(errs):.2e} kernel_ms {b_ms:.4f} plain_ms "
+                   f"{b_plain_ms:.4f} bound_ms {b_bound_ms:.5f} "
+                   f"({b_bound_by})")
+        del xp, rk, rb, hs, ref, g, got, want
+    return fwd, bwd
+
+
+class _TimedSplit:
+    """A split whose iteration is timed: from the first batch to the end
+    of the device's work for the last (one synchronize at each end)."""
+
+    def __init__(self, split):
+        self.split = split
+        self.device_resident = getattr(split, "device_resident", False)
+        self.batch_size = split.batch_size
+        self.seconds = None
+
+    def __len__(self):
+        return len(self.split)
+
+    def __iter__(self):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield from self.split
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - t0
+
+
+def _nas_clips(root):
+    from seld_tpu_torch.data.loader import load_seldnet_data
+    data = os.path.join(root, "DCASE2021", "feat_label")
+    feat, lab = (os.path.join(data, d) for d in ("foa_dev_norm",
+                                                  "foa_dev_label"))
+    return (load_seldnet_data(feat, lab, mode="train"),
+            load_seldnet_data(feat, lab, mode="test"))
+
+
+def _nas_sets(clips, n_train_clips, n_eval_clips):
+    """Host splits of the first clips: train at NAS_B, eval a clip a batch."""
+    from seld_tpu_torch.data.loader import SeldDataset
+    (xtr, ytr), (xte, yte) = clips
+    return (SeldDataset.from_clips(xtr[:n_train_clips], ytr[:n_train_clips],
+                                   NAS_B),
+            SeldDataset.from_clips(xte[:n_eval_clips], yte[:n_eval_clips],
+                                   NAS_B, train=False))
+
+
+def nas_card_vs_cpu(card, clips):
+    """[nas] (b): NAS_CONFIG trained NAS_STEPS steps and scored through
+    train_and_eval_candidate on the card (cuDNN's deterministic
+    algorithms) and on the CPU, from the same weights on the same batches,
+    with each proxy; returns the layout of the cotangent the card's step
+    handed the stem's backward."""
+    import torch
+    import seld_tpu_torch.models.layers as layers
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.nas.sampler import sample_constraint
+    from seld_tpu_torch.nas.search import train_and_eval_candidate
+    from seld_tpu_torch.train import metrics as M
+
+    if not sample_constraint(400_000_000, 480_000_000)(NAS_CONFIG,
+                                                       (300, 64, 7)):
+        raise SystemExit("NAS_CONFIG lies outside the search's window")
+    n_clips = -(-NAS_B * NAS_STEPS // 10)
+    weights = build_model("conv_temporal", (300, 64, 7), NAS_CONFIG,
+                          device="cpu").state_dict()
+    seen, sweeps = [], []
+    fused, calc = layers.conv_bn_relu_pool, M.calculate_seld_score
+
+    def hooked(*args, **kwargs):
+        out = fused(*args, **kwargs)
+        if out[0].requires_grad and out[0].is_cuda:
+            out[0].register_hook(lambda g: seen.append(
+                (tuple(g.shape), g.stride(), g.dtype)))
+        return out
+
+    def recording(values):
+        out = calc(values)
+        if torch.is_tensor(out) and out.dim():
+            sweeps.append(out.cpu().numpy())
+        return out
+    layers.conv_bn_relu_pool, M.calculate_seld_score = hooked, recording
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for proxy in ("reference", "trainer"):
+            res, times = {}, {}
+            for dev in ("cuda", "cpu"):
+                trainset, testset = _nas_sets(clips, n_clips, NAS_EVAL_CLIPS)
+                if len(trainset) != NAS_STEPS:
+                    raise SystemExit(f"{len(trainset)} train batches")
+                t0 = time.perf_counter()
+                res[dev] = train_and_eval_candidate(
+                    NAS_CONFIG, (300, 64, 7), trainset, testset,
+                    proxy=proxy, device=dev, weights=weights)
+                times[dev] = time.perf_counter() - t0
+            card_v, cpu_v = res["cuda"], res["cpu"]
+            card_sweep, cpu_sweep = sweeps[-2], sweeps[-1]
+            errs = {k: abs(card_v[k] - cpu_v[k]) for k in (
+                "loss", "val_loss", "test_error_rate", "test_f1score",
+                "test_der", "test_derf", "test_seld_score",
+                "test_seld_score_searched")}
+            errs["sweep"] = float(np.abs(card_sweep - cpu_sweep).max())
+            ok = (all(errs[k] <= NAS_LOSS_RTOL * abs(cpu_v[k])
+                      for k in ("loss", "val_loss"))
+                  and all(errs[k] <= NAS_COUNT_ATOL for k in (
+                      "test_error_rate", "test_f1score", "test_derf",
+                      "test_seld_score", "test_seld_score_searched",
+                      "sweep"))
+                  and errs["test_der"] <= NAS_DE_ATOL
+                  and card_sweep.shape == (12,)
+                  and all(np.isfinite(card_v[k]) for k in errs
+                          if k != "sweep"))
+            log("nas", f"candidate card vs CPU, proxy {proxy}, B={NAS_B} x "
+                       f"{NAS_STEPS} steps + {NAS_EVAL_CLIPS} eval clips: "
+                       f"card {times['cuda']:.2f} s, CPU {times['cpu']:.2f} "
+                       f"s; loss {card_v['loss']:.6f} vs {cpu_v['loss']:.6f}, "
+                       f"seld {card_v['test_seld_score']:.5f} vs "
+                       f"{cpu_v['test_seld_score']:.5f}, searched "
+                       f"{card_v['test_seld_score_searched']:.5f} at "
+                       f"{card_v['searched_threshold']:.3f} vs "
+                       f"{cpu_v['test_seld_score_searched']:.5f} at "
+                       f"{cpu_v['searched_threshold']:.3f}; |diff| "
+                       + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                       + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"NAS candidate card vs CPU ({proxy}) "
+                                 f"disagree: {errs}")
+    finally:
+        layers.conv_bn_relu_pool, M.calculate_seld_score = fused, calc
+        torch.backends.cudnn.deterministic = deterministic
+    if len(seen) != 2 * NAS_STEPS:
+        raise SystemExit(f"the stem's pooled output got {len(seen)} "
+                         f"cotangents on the card in {2 * NAS_STEPS} steps")
+    return seen[0]
+
+
+def nas_stem_dy(card, dpooled):
+    """[nas] (a), the stem: stem_dy in f32 at [256, 300, 64, 32], pool
+    [5, 2], dpooled laid out as the candidate's step hands it over."""
+    import torch
+    from seld_tpu_torch.ops.stem_bwd import stem_dy, stem_dy_ref
+    dshape, dstride, ddtype = dpooled
+    dp_order = tuple(sorted(range(4), key=lambda i: -dstride[i]))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    y, dp, p6 = _stem_inputs(gen, "float32", 256, (5, 2), "channels-last",
+                             "main path", dp_order)
+    dy, dbias = stem_dy(y, dp, p6, (5, 2))
+    torch.cuda.synchronize()
+    want_dy, want_db = stem_dy_ref(y, dp, p6, (5, 2))
+    e_dy, e_db = rel_err(dy, want_dy), rel_err(dbias, want_db)
+    err = (dy - want_dy).abs().max().item()
+    if e_dy > BWD_TOL["float32"] or e_db > BWD_TOL["float32"]:
+        raise SystemExit(f"stem_dy f32 disagrees with stem_dy_ref: {e_dy:.2e}"
+                         f" / {e_db:.2e}")
+    del dy, want_dy
+    out = torch.empty_like(y)
+    ms = cuda_ms(lambda: stem_dy(y, dp, p6, (5, 2), out=out), 20)
+    device_ms = graph_ms(lambda: stem_dy(y, dp, p6, (5, 2), out=out), 20)
+    plain_ms = cuda_ms(lambda: stem_dy_ref(y, dp, p6, (5, 2)), 3)
+    nbytes = (2 * y.numel() + dp.numel()) * y.element_size() + p6.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 0)
+    log("nas", f"stem_dy f32 B=256 [256,300,64,32] pool [5,2], dpooled "
+               f"{ddtype} strides {dstride} on {card}: rel_err dy {e_dy:.2e} "
+               f"dbias {e_db:.2e}, kernel_ms {ms:.4f} (device ms "
+               f"{device_ms:.4f}) plain_ms {plain_ms:.4f} bound_ms "
+               f"{bound_ms:.5f} ({bound_by})")
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "dpooled_strides": list(dstride)}
+
+
+def _nas_want_counts(config, n_train, n_eval):
+    """A candidate's launches: stem_dy one a train step; gru_scan one a GRU
+    layer the kernels take (U != 6) a train step and an eval batch;
+    gru_scan_bwd one such layer a train step; gather_rows one a batch."""
+    from seld_tpu_torch.ops.gru import gru_kernel_applicable
+    from seld_tpu_torch.utils import sorted_block_keys
+    layers = 0
+    for key in sorted_block_keys(config) + ["SED", "DOA"]:
+        args = config[f"{key}_ARGS"]
+        if config[key] == "bidirectional_GRU_stage" and \
+                gru_kernel_applicable(args["units"]):
+            layers += args["depth"]
+    want = {"stem_dy": n_train, "gru_scan": layers * (n_train + n_eval),
+            "gru_scan_bwd": layers * n_train,
+            "gather_rows": n_train + n_eval}
+    return {k: v for k, v in want.items() if v}, layers
+
+
+def nas_cli(card, root, results_dir):
+    """[nas] (c): the command line, NAS_SAMPLES candidates, then one more
+    (resumed), each candidate's exact launch counts, its seconds and its
+    fit's windows/s; (e) analyze_nas on the results."""
+    import collections
+    import random
+
+    import torch
+    from seld_tpu_torch import analyze_nas, nas_search
+    from seld_tpu_torch.nas import search as SR
+    from seld_tpu_torch.ops import kernels
+    real = SR.train_and_eval_candidate
+    runs = []
+
+    def counted(model_config, input_shape, trainset, testset, **kw):
+        torch.cuda.synchronize()
+        before = collections.Counter(kernels.launch_counts)
+        timed = _TimedSplit(trainset)
+        t0 = time.perf_counter()
+        perf = real(model_config, input_shape, timed, testset, **kw)
+        torch.cuda.synchronize()
+        runs.append({"config": model_config,
+                     "seconds": time.perf_counter() - t0,
+                     "fit_seconds": timed.seconds,
+                     "counts": dict(collections.Counter(
+                         kernels.launch_counts) - before),
+                     "n_train": len(trainset), "n_eval": len(testset),
+                     "batch": trainset.batch_size})
+        return perf
+
+    argv = ["--task", "seld", "--name", "nas_smoke", "--dataset_path",
+            os.path.join(root, "DCASE2021", "feat_label"), "--results_dir",
+            results_dir, "--batch_size", "256", "--n_repeat",
+            str(NAS_REPEAT), "--proxy", "trainer", "--device_data",
+            "--device", "cuda"]
+    SR.train_and_eval_candidate = counted
+    kernels.launch_counts.clear()
+    try:
+        random.seed(0)
+        search = nas_search.main(argv + ["--n_samples", str(NAS_SAMPLES)])
+        with open(search.path) as f:
+            first = json.load(f)
+        random.seed(1)
+        search = nas_search.main(argv + ["--n_samples",
+                                         str(NAS_SAMPLES + 1)])
+    finally:
+        SR.train_and_eval_candidate = real
+    torch.cuda.synchronize()
+    total = dict(kernels.launch_counts)
+    with open(search.path) as f:
+        after = json.load(f)
+    digits = sorted(k for k in after if k.isdigit())
+    if len(runs) != NAS_SAMPLES + 1 or digits != [
+            f"{i:03}" for i in range(NAS_SAMPLES + 1)] or any(
+            after[k] != first[k] for k in first):
+        raise SystemExit(f"the resumed search trained {len(runs)} "
+                         f"candidates for {NAS_SAMPLES + 1} samples or "
+                         "changed an earlier entry")
+    for i, run in enumerate(runs):
+        want, layers = _nas_want_counts(run["config"], run["n_train"],
+                                        run["n_eval"])
+        perf = after[f"{i:03}"]["perf"]
+        rate = run["n_train"] * run["batch"] / run["fit_seconds"]
+        run.update(windows_per_s=rate, gru_layers=layers,
+                   flops=perf["flops"],
+                   test_seld_score_searched=perf["test_seld_score_searched"])
+        ok = run["counts"] == want and np.isfinite(perf["loss"])
+        which = "the resumed run" if i == NAS_SAMPLES else "run 1"
+        log("nas", f"candidate {i} ({which}): {run['seconds']:.2f} s, fit "
+                   f"{run['n_train']} "
+                   f"steps x B={run['batch']} in {run['fit_seconds']:.3f} s "
+                   f"= {rate:.0f} windows/s, {run['n_eval']} eval batches; "
+                   f"{layers} GRU layers on the kernels; {perf['flops']} "
+                   f"flops; launches {run['counts']} (want {want}) "
+                   f"{'ok' if ok else 'FAIL'}; searched seld "
+                   f"{perf['test_seld_score_searched']:.4f}")
+        if not ok:
+            raise SystemExit(f"NAS candidate {i}: launches {run['counts']} "
+                             f"!= {want} or a non-finite loss")
+    out = analyze_nas.main(["--results", search.path])
+    if out["pairs"] != NAS_SAMPLES + 1:
+        raise SystemExit(f"analyze_nas read {out['pairs']} pairs")
+    return runs, total
+
+
+def nas_parallel(card, clips, results_dir):
+    """[nas] (d): run_parallel with two worker threads on the one card
+    against the serial run from the same random.seed, both with cuDNN's
+    deterministic algorithms."""
+    import random
+
+    import torch
+    from seld_tpu_torch.nas.search import (RandomSearch,
+                                           train_and_eval_candidate)
+
+    def evaluate(model_config, device):
+        # a split of its own a candidate: the shuffle does not depend on
+        # which worker iterates first
+        return train_and_eval_candidate(
+            model_config, (300, 64, 7), *_nas_sets(clips, 4, 1),
+            proxy="trainer", device=device)
+
+    card_dev = torch.device("cuda", 0)
+    stored, secs = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        # "default": the serial run with cuDNN's default algorithms, to
+        # show how far a run moves without determinism (printed, not held)
+        for name in ("default", "serial", "parallel"):
+            torch.backends.cudnn.deterministic = name != "default"
+            random.seed(2)
+            search = RandomSearch(f"nas_{name}", {"proxy": "trainer"},
+                                  results_dir=results_dir)
+            t0 = time.perf_counter()
+            if name != "parallel":
+                search.run(NAS_PARALLEL_SAMPLES,
+                           lambda cfg: evaluate(cfg, card_dev),
+                           verbose=False)
+            else:
+                search.run_parallel(NAS_PARALLEL_SAMPLES, evaluate,
+                                    workers=2, devices=[card_dev],
+                                    verbose=False)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            with open(search.path) as f:
+                stored[name] = json.load(f)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    worst = drift = 0.0
+    for i in range(NAS_PARALLEL_SAMPLES):
+        a, b = stored["serial"][f"{i:03}"], stored["parallel"][f"{i:03}"]
+        c = stored["default"][f"{i:03}"]
+        if a["config"] != b["config"] or a["config"] != c["config"]:
+            raise SystemExit(f"run_parallel drew another config at {i}")
+        for key in ("loss", "val_loss"):
+            if not np.isfinite(b["perf"][key]):
+                raise SystemExit(f"run_parallel candidate {i}: {key} not "
+                                 "finite")
+            worst = max(worst, abs(a["perf"][key] - b["perf"][key])
+                        / abs(a["perf"][key]))
+            drift = max(drift, abs(a["perf"][key] - c["perf"][key])
+                        / abs(a["perf"][key]))
+    log("nas", f"run_parallel, 2 workers on one card: {NAS_PARALLEL_SAMPLES}"
+               f" candidates in {secs['parallel']:.2f} s (serial "
+               f"{secs['serial']:.2f} s), the serial configs in order, "
+               f"losses to {worst:.2e} relative (tol {NAS_PARALLEL_RTOL:.0e},"
+               f" cuDNN deterministic) "
+               f"{'ok' if worst <= NAS_PARALLEL_RTOL else 'FAIL'}; the "
+               f"serial run with cuDNN's default algorithms moves the "
+               f"losses by up to {drift:.2e} relative (not held)")
+    if worst > NAS_PARALLEL_RTOL:
+        raise SystemExit(f"run_parallel losses differ by {worst:.2e}")
+    secs["default_drift"] = drift
+    return secs
+
+
+def phase_nas(card):
+    """The architecture search on the card: (a) the GRU kernels at the
+    space's unit counts and stem_dy in f32, (b) one candidate card vs CPU,
+    (c) the command line with a resume and exact launch counts, (d)
+    run_parallel on two workers, (e) analyze_nas."""
+    from seld_tpu_torch.dress_rehearsal import synthesize_dataset
+    t0 = time.perf_counter()
+    gru_fwd, gru_bwd = nas_kernels(card)
+    secs = {"kernels": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        synthesize_dataset(tmp, NAS_TRAIN_CLIPS, NAS_TEST_CLIPS, 600,
+                           n_classes=12)
+        clips = _nas_clips(tmp)
+        secs["data"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dpooled = nas_card_vs_cpu(card, clips)
+        secs["card_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stem = nas_stem_dy(card, dpooled)
+        secs["stem_dy"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runs, launches = nas_cli(card, tmp, os.path.join(tmp, "results"))
+        secs["cli"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parallel = nas_parallel(card, clips, os.path.join(tmp, "results"))
+        secs["parallel"] = time.perf_counter() - t0
+    log("nas", "seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
+    return {"gru_fwd": gru_fwd, "gru_bwd": gru_bwd, "stem": stem,
+            "launches": launches,
+            "candidates": [{k: r[k] for k in (
+                "seconds", "fit_seconds", "windows_per_s", "n_train",
+                "n_eval", "gru_layers", "flops", "counts")} for r in runs],
+            "parallel_seconds": parallel, "seconds": secs}
+
+
+def phase_vad(card):
+    """Voice activity detection on the card: the VAD rehearsal (prepare,
+    the bDNN baseline, window and full-sequence AUC), both VAD models'
+    forwards and one attention-model train step against the CPU, and the
+    VAD search for two samples on the rehearsal's npz. The VAD path
+    launches none of the port's kernels."""
+    import random
+
+    import torch
+    from seld_tpu_torch import nas_search, vad_rehearsal
+    from seld_tpu_torch.data.vad import VadDataset
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.train.vad import VADTrainer
+
+    kernels.launch_counts.clear()
+    shape = (7, 80, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = os.path.join(tmp, "vad")
+        t0 = time.perf_counter()
+        reh = vad_rehearsal.main(["--workdir", work] + VAD_ARGV)
+        secs = {"rehearsal": time.perf_counter() - t0}
+        log("vad", f"rehearsal on {card}: best window AUC "
+                   f"{reh['best_val_auc']:.5f} after {reh['epochs']} epochs, "
+                   f"full-sequence AUC {reh['sequence']['auc']:.5f} F1 "
+                   f"{reh['sequence']['f1']:.5f}; seconds " + ", ".join(
+                       f"{k} {v:.1f}" for k, v in reh["seconds"].items()))
+        if not 0.5 < reh["best_val_auc"] <= 1.0:
+            raise SystemExit(f"the VAD baseline's AUC is "
+                             f"{reh['best_val_auc']}")
+        pairs = list(np.load(os.path.join(work, "train.npz"),
+                             allow_pickle=True)["pairs"])
+
+        t0 = time.perf_counter()
+        x, y = next(iter(VadDataset(pairs, batch_size=256)))
+        x, y = torch.from_numpy(x), torch.from_numpy(y)
+        models = (("vad_architecture", {
+            "flatten": True, "last_unit": 7, "BLOCK0": "simple_dense_block",
+            "BLOCK0_ARGS": {"units": [512, 512], "dense_activation": "relu",
+                            "dropout_rate": 0.5}}),
+            ("spectro_temporal_attention_based_VAD", {}))
+        for name, cfg in models:
+            cpu = build_model(name, shape, cfg, seed=3, device="cpu")
+            card_m = build_model(name, shape, cfg, seed=3, device="cuda")
+            with torch.no_grad():
+                want, got = cpu(x), card_m(x.cuda())
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            err = max((g.cpu() - w).abs().max().item()
+                      for g, w in zip(got, want))
+            log("vad", f"{name} forward B=256 card vs CPU: max_abs_err "
+                       f"{err:.2e} (tol {VAD_OUT_ATOL:.0e}) "
+                       f"{'ok' if err <= VAD_OUT_ATOL else 'FAIL'}")
+            if err > VAD_OUT_ATOL:
+                raise SystemExit(f"{name}: card and CPU forwards disagree")
+
+        name, cfg, lr = "spectro_temporal_attention_based_VAD", \
+            {"dropout_rate": 0.0}, 1e-3
+        weights = build_model(name, shape, cfg, seed=4,
+                              device="cpu").state_dict()
+        grads, losses, params = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            trainer = VADTrainer(cfg, shape, model_name=name, lr=lr,
+                                 device=dev, weights=weights)
+            names = [k for k, _ in trainer.model.named_parameters()]
+            opt_step = trainer.state.optimizer.step
+
+            def recording_step(ps, gs, dev=dev, names=names,
+                               opt_step=opt_step):
+                grads[dev] = {n: g.detach().cpu().clone()
+                              for n, g in zip(names, gs)}
+                opt_step(ps, gs)
+            trainer.state.optimizer.step = recording_step
+            losses[dev] = trainer.train_step(x.to(dev), y.to(dev)).item()
+            params[dev] = {k: p.detach().cpu() for k, p in
+                           trainer.model.named_parameters()}
+        # as [train] (a): a leaf whose CPU gradient stays below
+        # VAD_NULL_GRAD of the step's largest element is zero in exact
+        # arithmetic (a bias feeding a train-mode BatchNorm); the others'
+        # gradients agree to TRAIN_GRAD_RTOL of their largest element, and
+        # their parameters to VAD_PARAM_ATOL where the gradient stands
+        # above TRAIN_GRAD_RTOL of it; every element moved by <= 2.3 lr
+        gh, gc = grads["cpu"], grads["cuda"]
+        null_at = VAD_NULL_GRAD * max(g.abs().max().item()
+                                      for g in gh.values())
+        null = sorted(k for k, g in gh.items()
+                      if g.abs().max().item() < null_at)
+        grad_err = clear_err = move_err = 0.0
+        for k, g in gh.items():
+            diff = (params["cuda"][k] - params["cpu"][k]).abs()
+            move_err = max(move_err, diff.max().item())
+            if k in null:
+                continue
+            scale = g.abs().max().clamp_min(1e-30)
+            grad_err = max(grad_err, ((gc[k] - g).abs().max()
+                                      / scale).item())
+            clear = g.abs() > TRAIN_GRAD_RTOL * scale
+            if clear.any():
+                clear_err = max(clear_err, diff[clear].max().item())
+        loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        ok = (loss_err <= 1e-5 and grad_err <= TRAIN_GRAD_RTOL
+              and all(k.endswith("bias") for k in null)
+              and clear_err <= VAD_PARAM_ATOL and move_err <= 2.3 * lr)
+        log("vad", f"attention model train step B=256 card vs CPU: loss "
+                   f"{losses['cuda']:.6f} vs {losses['cpu']:.6f} (rel "
+                   f"{loss_err:.1e}); {len(gh) - len(null)} gradients "
+                   f"rel_err {grad_err:.1e} (tol {TRAIN_GRAD_RTOL:.0e}), "
+                   f"{len(null)} zero in exact arithmetic ({', '.join(null)})"
+                   f"; parameters {clear_err:.1e} where the gradient is "
+                   f"clear (tol {VAD_PARAM_ATOL:.0e}), {move_err:.1e} "
+                   f"anywhere (tol {2.3 * lr:.1e}) "
+                   f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the attention VAD's train step disagrees")
+        secs["models"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        random.seed(1)    # a seed whose first VAD draws are quick to accept
+        search = nas_search.main([
+            "--task", "vad", "--name", "vad_smoke", "--vad_pairs",
+            os.path.join(work, "train.npz"), "--results_dir", tmp,
+            "--n_samples", "2", "--batch_size", "256", "--n_repeat", "4",
+            "--min_flops", "500000", "--max_flops", "600000", "--device",
+            "cuda"])
+        aucs = [search.results[f"{i:03}"]["perf"]["val_auc"]
+                for i in range(2)]
+        secs["search"] = time.perf_counter() - t0
+        log("vad", f"VAD search: 2 candidates, val AUC {aucs} in "
+                   f"{secs['search']:.1f} s")
+        if search.n_done != 2 or not all(np.isfinite(aucs)):
+            raise SystemExit(f"the VAD search gave {aucs}")
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    if launches:
+        raise SystemExit(f"the VAD path launched {launches}")
+    log("vad", "seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
+    return {"rehearsal": {k: reh[k] for k in ("best_val_auc", "sequence",
+                                              "epochs", "seconds")},
+            "search_val_auc": aucs, "launches": launches, "seconds": secs}
+
+
 def ptxas_report(text):
     """One line per kernel of an `nvcc -Xptxas -v` log: its name (template
     arguments in brackets), registers and spills."""
@@ -2847,10 +3536,13 @@ def main(argv=None):
                 log("kernels", f"{phase.__name__} FAILED: {e}")
                 failed.append(phase.__name__)
         raise SystemExit(f"failed: {failed}" if failed else 0)
+    phase_seconds = {}
+
     def timed(phase, *args):
         t0 = time.perf_counter()
         out = phase(*args)
-        log("time", f"{phase.__name__} {time.perf_counter() - t0:.1f} s")
+        phase_seconds[phase.__name__] = time.perf_counter() - t0
+        log("time", f"{phase.__name__} {phase_seconds[phase.__name__]:.1f} s")
         return out
 
     entries = [timed(phase_kernels, smi)] + timed(phase_kernels_bwd, smi)
@@ -2895,8 +3587,23 @@ def main(argv=None):
         entries[0][f"clip_{name}_shape"] = m
     entries[0]["stream_timing"] = stream["timing"]
     entries[0]["stream_halo"] = stream["halo"]
+    nas = timed(phase_nas, smi)
+    vad = timed(phase_vad, smi)
+    by_name = {e["name"]: e for e in entries}
+    for e in entries:
+        e["nas_launches"] = nas["launches"].get(e["name"], 0)
+        e["vad_launches"] = vad["launches"].get(e["name"], 0)
+    by_name["gru_scan"]["nas_f32_b256"] = nas["gru_fwd"]
+    by_name["gru_scan_bwd"]["nas_f32_b256"] = nas["gru_bwd"]
+    by_name["stem_dy"]["nas_f32_b256"] = nas["stem"]
+    by_name["gather_rows"]["nas_candidates"] = nas["candidates"]
+    by_name["gather_rows"]["nas_seconds"] = nas["seconds"]
+    by_name["gather_rows"]["nas_parallel"] = nas["parallel_seconds"]
+    by_name["gather_rows"]["vad"] = {k: vad[k] for k in (
+        "rehearsal", "search_val_auc", "seconds")}
 
     log("time", f"all phases {time.perf_counter() - t_start:.1f} s")
+    entries[0]["phase_seconds"] = phase_seconds
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,13 @@ block names dispatch through the port's registry. SELD models output
 (sed [B, T', C], doa [B, T', 3C]).
 
 Ported: conv_temporal (the SS5 challenge model), with its trunk/head split
-for the fast sliding-window inference (`stage=`).
+for the fast sliding-window inference (`stage=`), and the two VAD models,
+vad_architecture (the config-driven MLP/conv the VAD search samples) and
+spectro_temporal_attention_based_VAD.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Sequence
 
 import torch
@@ -16,7 +19,11 @@ from torch import nn
 
 from seld_tpu_torch.config.registry import get_block, get_model, register_model
 from seld_tpu_torch.models import modules  # noqa: F401  (registers blocks)
-from seld_tpu_torch.models.layers import Conv2DBN, Dense, add_child
+from seld_tpu_torch.models.layers import (BatchNorm, Conv2DBN, Dense,
+                                          add_child, force_1d,
+                                          force_1d_shape)
+from seld_tpu_torch.ops.dropout import dropout
+from seld_tpu_torch.ops.pooling import max_pool
 from seld_tpu_torch.utils import sorted_block_keys
 
 
@@ -130,10 +137,154 @@ class ConvTemporal(nn.Module):
         return self.SELDHeads_0(x)
 
 
+class VADArchitecture(nn.Module):
+    """Config-driven VAD MLP/conv (models.py:81-102): the input flattened
+    per window (`flatten`, default) or kept [T, F, C], sorted BLOCK0..N,
+    then Dense(`last_unit`) + sigmoid, squeezed when `last_unit` is 1."""
+
+    def __init__(self, model_config: Dict[str, Any],
+                 input_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cfg = model_config
+        self.model_config = cfg
+        self.flatten = cfg.get("flatten", True)
+        shape = tuple(input_shape)
+        if self.flatten:
+            shape = (math.prod(shape),)
+        self.blocks = []
+        for b in sorted_block_keys(cfg):
+            block = add_child(self, _build_block(cfg[b], cfg[f"{b}_ARGS"],
+                                                 shape, generator))
+            self.blocks.append(block)
+            shape = block.out_shape
+        if len(shape) == 3:
+            shape = force_1d_shape(shape)
+        add_child(self, Dense(shape[-1], cfg.get("last_unit", 1),
+                              generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.flatten:
+            x = x.reshape(x.shape[0], -1)
+        for block in self.blocks:
+            x = block(x)
+        x = torch.sigmoid(self.Dense_0(force_1d(x)))
+        return x[..., 0] if x.shape[-1] == 1 else x
+
+
+class SpectroTemporalAttentionVAD(nn.Module):
+    """Spectro-temporal attention VAD (models.py:105-163): `T` gated conv
+    stages with frequency pooling, a pipe net (its own sigmoid output),
+    temporal attention over the window's frames and a post net.
+
+    forward(x [B, T, F(, 1)]) -> (frame_probs [B, T, 1], pipe_probs
+    [B, T, 1], attention_score [B, T]). Dropout draws from
+    `dropout_generator` (set_dropout_generator)."""
+
+    def __init__(self, model_config: Dict[str, Any],
+                 input_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cfg = model_config
+        self.model_config = cfg
+        stages, nc, fc = cfg.get("T", 4), cfg.get("Nc", 16), cfg.get("fc", 3)
+        np_, nt = cfg.get("Np", 256), cfg.get("Nt", 128)
+        self.heads = cfg.get("H", 4)
+        self.nt = nt
+        self.dropout_rate = cfg.get("dropout_rate", 0.5)
+        self.dropout_generator = None   # set_dropout_generator
+        g = generator
+        shape = tuple(input_shape)
+        if len(shape) == 2:
+            shape = (*shape, 1)
+        # children in the flax module's creation order (its auto-names)
+        self.gated = []
+        for i in range(stages):
+            lin = add_child(self, Conv2DBN(shape, nc * 2 ** i, fc,
+                                           activation=None, generator=g))
+            gate = add_child(self, Conv2DBN(shape, nc * 2 ** i, fc,
+                                            activation="sigmoid",
+                                            generator=g))
+            self.gated.append((lin, gate))
+            t, f, c = lin.out_shape
+            shape = (t, f // 2, c)
+
+        def dense_bn(width, units, use_bias=True):
+            return (add_child(self, Dense(width, units, use_bias=use_bias,
+                                          generator=g)),
+                    add_child(self, BatchNorm(units)))
+
+        width = shape[1] * shape[2]
+        self.pipe = []
+        for _ in range(2):
+            self.pipe.append(dense_bn(width, np_))
+            width = np_
+        pipe_out = add_child(self, Dense(np_, 1, generator=g))
+        self.query = dense_bn(np_, nt, use_bias=False)
+        self.key = dense_bn(np_, nt, use_bias=False)
+        self.value = dense_bn(np_, nt, use_bias=False)
+        self.post = dense_bn(nt, np_)
+        self.outs = (pipe_out, add_child(self, Dense(np_, 1, generator=g)))
+
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.dropout_rate, self.training,
+                       self.dropout_generator)
+
+    def forward(self, x: torch.Tensor):
+        if x.dim() == 3:
+            x = x[..., None]
+        for lin, gate in self.gated:
+            x = max_pool(lin(x) * gate(x), (1, 2), strides=(1, 2))
+        x = x.reshape(x.shape[0], x.shape[1], -1)
+
+        for dense, bn in self.pipe:
+            x = self._drop(torch.relu(bn(dense(x))))
+        pipe_out, post_out = self.outs
+        pipe = torch.sigmoid(pipe_out(x))
+
+        # temporal attention, H heads of Nt // H features
+        def attend(layers, z):
+            dense, bn = layers
+            return torch.sigmoid(bn(dense(z)))
+
+        query = attend(self.query, x.mean(dim=-2))            # [B, Nt]
+        key = attend(self.key, x)                             # [B, T, Nt]
+        value = attend(self.value, x)
+        h = self.heads
+        query = query.reshape(*query.shape[:-1], self.nt // h, h)
+        key = key.reshape(*key.shape[:-1], self.nt // h, h)
+        value = value.reshape(*value.shape[:-1], self.nt // h, h)
+        scale = 1.0 / torch.sqrt(torch.tensor(float(self.nt),
+                                              dtype=x.dtype))
+        score = (query[:, None] * key).sum(dim=-2) * scale.to(x.device)
+        x = value * torch.softmax(score[..., None, :], dim=-3)
+        x = x.reshape(*x.shape[:-2], self.nt)
+        score = torch.softmax(score.sum(dim=-1), dim=-1)      # [B, T]
+
+        dense, bn = self.post
+        x = self._drop(torch.relu(bn(dense(x))))
+        x = torch.sigmoid(post_out(x))
+        return x, pipe, score
+
+
 @register_model("conv_temporal")
 def conv_temporal(input_shape, model_config: dict,
                   generator: Optional[torch.Generator] = None):
     return ConvTemporal(dict(model_config), input_shape, generator)
+
+
+@register_model("vad_architecture")
+def vad_architecture(input_shape, model_config: dict,
+                     generator: Optional[torch.Generator] = None):
+    return VADArchitecture(dict(model_config), input_shape, generator)
+
+
+@register_model("spectro_temporal_attention_based_VAD")
+def spectro_temporal_attention_based_VAD(
+        input_shape, model_config: dict,
+        generator: Optional[torch.Generator] = None):
+    return SpectroTemporalAttentionVAD(dict(model_config), input_shape,
+                                       generator)
 
 
 def build_model(name: str, input_shape: Sequence[int], model_config: dict, *,

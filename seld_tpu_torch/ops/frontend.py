@@ -177,7 +177,7 @@ def _foa_frontend_cuda(wav, n_fft, win_length, hop_length, n_mels,
             tables.fb_weights.data_ptr(), mel.data_ptr(), iv.data_ptr(), n,
             lp, t, hop_length, eps, stream)
     kernels.check(lib, err, "foa_frontend launch")
-    kernels.launch_counts["foa_frontend"] += 1
+    kernels.count_launch("foa_frontend")
     return mel, iv
 
 

@@ -105,7 +105,7 @@ def _gather_batch_cuda(arrays, ids):
     err = lib.seld_gather_batch(ids.data_ptr(), b, *args,
                                 kernels.current_stream(dev))
     kernels.check(lib, err, "gather_rows launch")
-    kernels.launch_counts["gather_rows"] += 1
+    kernels.count_launch("gather_rows")
     return outs
 
 

@@ -411,7 +411,7 @@ def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
                            int(x_proj.dtype == torch.bfloat16), plan.variant,
                            plan.c, kernels.current_stream(dev))
     kernels.check(lib, err, "gru_fwd launch")
-    kernels.launch_counts["gru_scan"] += 1
+    kernels.count_launch("gru_scan")
     return hs
 
 
@@ -444,7 +444,7 @@ def _gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, hs, g, plan=None):
                                plan.variant, plan.c,
                                kernels.current_stream(dev.index))
     kernels.check(lib, err, "gru_bwd launch")
-    kernels.launch_counts["gru_scan_bwd"] += 1
+    kernels.count_launch("gru_scan_bwd")
     return dxp, drk.to(rec_kernel.dtype), drb.to(rec_bias.dtype)
 
 

@@ -8,7 +8,9 @@ hash of the source (an edited source builds anew), and loaded with ctypes.
 the slowest source only.
 
 Every wrapper adds one to `launch_counts[<kernel>]` where it launches its
-kernel, and nowhere else, so a run can show that it went through the kernel.
+kernel, and nowhere else (`count_launch`, under a lock: worker threads that
+share a card, as the NAS search's run_parallel does, lose no count), so a
+run can show that it went through the kernel.
 """
 from __future__ import annotations
 
@@ -34,9 +36,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
 
 _load_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel `name` (a key of KERNELS)."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def _nvcc() -> str:

@@ -179,7 +179,7 @@ def _stem_dy_cuda(y, dpooled, params6, pool, out):
             int(dpooled.dtype == torch.bfloat16), int(vec),
             blocks, kernels.current_stream(y.device.index))
     kernels.check(lib, err, "stem_dy launch")
-    kernels.launch_counts["stem_dy"] += 1
+    kernels.count_launch("stem_dy")
     return out, work[blocks]
 
 

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import copy
 import math
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 
@@ -16,6 +17,30 @@ def dict_add(first: dict, second: dict) -> dict:
         else:
             output[key] = val
     return output
+
+
+def safe_tuple(tuple_or_scalar: Union[int, float, Sequence], length: int = 2) -> Tuple:
+    """Broadcast a scalar or length-1 sequence to a tuple of `length`."""
+    if isinstance(tuple_or_scalar, (int, float)):
+        tuple_or_scalar = (tuple_or_scalar,) * length
+
+    tuple_or_scalar = tuple(tuple_or_scalar)
+    count = len(tuple_or_scalar)
+    if count == 1:
+        tuple_or_scalar = tuple_or_scalar * length
+    elif count != length:
+        raise ValueError("length of input must be one or required length")
+    return tuple_or_scalar
+
+
+def force_1d_shape(shape: Sequence[int]) -> list:
+    """[T, F, C] -> [T, F*C]; passthrough for already-1D feature shapes."""
+    shape = list(shape)
+    if len(shape) == 3:
+        shape = [shape[0], shape[1] * shape[2]]
+    elif len(shape) > 3:
+        raise ValueError(f"invalid shape: {shape}")
+    return shape
 
 
 def sorted_block_keys(cfg) -> list:

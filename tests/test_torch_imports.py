@@ -54,7 +54,11 @@ def test_port_files_exist():
                  "make_answer.py", "search_best.py", "bench_infer.py",
                  "dress_rehearsal.py", "inference/streaming.py",
                  "inference/streaming_wav.py", "stream_demo.py",
-                 "predict_wav.py", "data/tdm.py", "data/tdm_pipeline.py"):
+                 "predict_wav.py", "data/tdm.py", "data/tdm_pipeline.py",
+                 "nas/sampler.py", "nas/analyzer.py", "nas/plots.py",
+                 "nas/search.py", "data/vad.py", "train/vad.py",
+                 "nas_search.py", "analyze_nas.py", "train_vad.py",
+                 "prepare_vad.py", "vad_rehearsal.py"):
         assert os.path.join("seld_tpu_torch", want) in names
 
 
@@ -105,11 +109,14 @@ def test_registry_copy_equals_original_modulo_package():
 @pytest.mark.parametrize("rel", ["config/params.py", "config/manager.py",
                                  "utils/coords.py", "utils/logging.py",
                                  "utils/io.py", "train/official_metrics.py",
-                                 "data/tdm.py"])
+                                 "data/tdm.py", "nas/complexity.py",
+                                 "nas/sampler.py", "nas/analyzer.py",
+                                 "nas/plots.py"])
 def test_copied_modules_equal_originals_modulo_package(rel):
     """The flag table and config store, the coordinate helpers, the scalar
-    logger, the DCASE CSV I/O, the official scorer and TDM's event banks
-    and paste are copies: code equal to the JAX package's."""
+    logger, the DCASE CSV I/O, the official scorer, TDM's event banks
+    and paste, and the NAS complexity table, samplers, result analysis and
+    plots are copies: code equal to the JAX package's."""
     want = _code_without_docstrings(os.path.join(REPO, "seld_tpu", rel),
                                     "seld_tpu.")
     got = _code_without_docstrings(os.path.join(REPO, "seld_tpu_torch", rel),
@@ -195,11 +202,42 @@ def test_entry_points_default_to_the_card():
 
 
 def test_common_helpers_equal():
-    from seld_tpu.utils.common import sorted_block_keys as want
-    from seld_tpu_torch.utils import sorted_block_keys as got
+    from seld_tpu.utils import common as want
+    from seld_tpu_torch import utils as got
     cfg = {f"BLOCK{i}": "x" for i in (0, 2, 10, 1)}
     cfg.update({"BLOCK10_ARGS": {}, "SED": "y"})
-    assert got(cfg) == want(cfg) == ["BLOCK0", "BLOCK1", "BLOCK2", "BLOCK10"]
+    assert got.sorted_block_keys(cfg) == want.sorted_block_keys(cfg) == [
+        "BLOCK0", "BLOCK1", "BLOCK2", "BLOCK10"]
+    for v in (3, 2.0, [4], (1, 2)):
+        assert got.safe_tuple(v) == want.safe_tuple(v)
+    for shape in ([7, 80, 1], [60, 32], [560]):
+        assert got.force_1d_shape(shape) == want.force_1d_shape(shape)
+    assert got.dict_add({"a": 1}, {"a": 2, "b": 3}) == \
+        want.dict_add({"a": 1}, {"a": 2, "b": 3})
+    with pytest.raises(ValueError):
+        got.safe_tuple((1, 2, 3))
+
+
+def test_chip_smoke_imports_no_matplotlib():
+    """The card machine has no matplotlib: nothing that chip_smoke.py
+    imports, nor the NAS and VAD entry points it drives, pulls it in
+    (seld_tpu_torch.nas.plots is imported only under analyze_nas --plots).
+    Checked in a fresh interpreter through sys.modules."""
+    code = ("import sys, chip_smoke\n"
+            "import seld_tpu_torch.nas, seld_tpu_torch.nas.search, "
+            "seld_tpu_torch.nas.analyzer, seld_tpu_torch.nas_search, "
+            "seld_tpu_torch.analyze_nas, seld_tpu_torch.train_vad, "
+            "seld_tpu_torch.prepare_vad, seld_tpu_torch.vad_rehearsal, "
+            "seld_tpu_torch.train.vad, seld_tpu_torch.data.vad\n"
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] == 'matplotlib' "
+            "or m == 'seld_tpu_torch.nas.plots')\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "clean" in proc.stdout, proc.stderr
 
 
 def test_kernel_build_is_lazy_and_keyed_by_source():
