@@ -87,7 +87,8 @@ Phases, one line each:
               tolerances; a served clip artifact's reply against the direct
               call; exact gru_scan launch counts (2 per head forward)
  12. answer   the dress rehearsal (python -m seld_tpu_torch.dress_rehearsal)
-              on the card: train into the SWA window with the periodic
+              on the card, its default seldnet on the JAX rehearsal's tiny
+              config: train into the SWA window with the periodic
               official evaluation, resume to the end, the final SWA
               evaluation and its save, the schedule checks from the run's
               scalars, search_best on dev-val, make_answer on dev-test with
@@ -145,6 +146,24 @@ Phases, one line each:
               step, card against CPU; nas_search --task vad for two
               samples on the rehearsal's npz. No kernel of the port runs
               on this path (checked: no launch)
+ 16. zoo      the model zoo's nine configs (seldnet, seldnet_v1, SS5,
+              dense_gru, resnet_gru, resnet50_gru, xception_gru,
+              Condseldnet, conv_temp) at full width, seeded weights: (a)
+              the eval forward at B=4, f32, card against CPU (sed, doa and
+              the conv body's output; exactly 2 gru_scan launches); (b)
+              one f32 train step at B=2 card against CPU (losses,
+              gradients, updated parameters, running statistics; the null
+              leaves found from the forward's structure); (c) 10 bf16
+              steps at B=256 eagerly, then make_train_multistep(10)'s
+              capture and a timed call of replays: finite losses, exactly
+              gru_scan 2, gru_scan_bwd 2 and stem_dy 1 (conv_temporal) or
+              0 a step, ms/step, windows/s and peak memory; (d) stem_dy at
+              conv_temp's [256, 300, 64, 32] bf16, pool [5, 1], the
+              cotangent as its first res_bottleneck_stage hands it over,
+              against stem_dy_ref on data with ties, its time, bound and
+              path; (e) seldnet and xception_gru as window artifacts
+              behind the server: replies equal the direct call, 2
+              gru_scan launches a dispatch
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
 at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152
 (phase 14 adds f32 B=256 at every NAS unit count, 4 to 256, both GRU
@@ -179,6 +198,7 @@ is non-zero and no result line is printed. Without a CUDA card, or run
 from a directory that holds this file and nothing else of the repository,
 it fails the same way.
 """
+import contextlib
 import copy
 import json
 import math
@@ -345,6 +365,52 @@ VAD_ARGV = ["--clips", "64", "--val_clips", "8", "--seconds", "8",
 VAD_OUT_ATOL = 1e-5
 VAD_PARAM_ATOL = 1e-5
 VAD_NULL_GRAD = 1e-5
+# [zoo]: the model zoo's nine configs (seld_tpu_torch.bench.ZOO_MODELS and
+# zoo_model: tests/test_models.py's model for each, resnet_gru through
+# conv_temporal with first_pool_size [5, 1]) at full width (300, 64, 7),
+# seeded weights, 12 classes (the DCASE2021 class weights).
+# (a) eval forward at B=ZOO_FWD_B, f32, TF32 off, card against CPU:
+# MODEL_TOL absolute on sed/doa, for every config (the convs and products
+# sum in another order; eval BatchNorm is affine, so depth adds no
+# amplification); (b) one f32 step at B=ZOO_STEP_B card against CPU by
+# [train] (a)'s rule (_step_agreement); (c) ZOO_STEPS bf16 steps at
+# B=ZOO_TRAIN_B eager, then one make_train_multistep(ZOO_STEPS) call
+# (warm-up and capture) and one timed call of replays, with exact
+# launches (every family fits at B=256: dense_gru's peak is 60.2 GiB
+# allocated); (d) stem_dy at conv_temp's [256, 300, 64, 32] bf16, pool
+# [5, 1], against stem_dy_ref (BWD_TOL); (e) ZOO_SERVE as window
+# artifacts behind the server, replies against the direct call (REPLY_TOL)
+ZOO_FWD_B = 4
+# seeded weights and unit running variances leave some families' heads
+# saturated in eval mode (dense_gru's doa: std 0.000 on B=4), so (a) also
+# holds the input of the first biGRU (the conv body's output) to
+# ZOO_BODY_RTOL of its largest |value|
+ZOO_BODY_RTOL = 1e-4
+ZOO_STEP_B = 2
+# (b) replays the CPU step's ReLU decisions on the card (relu_decisions):
+# a ReLU input within rounding of zero otherwise moves the gradients
+# upstream of it by up to 1e-1 of their leaves' largest elements. Its null
+# leaves come from the forward's structure (null_leaves): at B=2 and full
+# width the rounding noise of a null gradient reaches 4.1e-5 of the
+# step's largest element (dense_gru's stem bias, CPU f32), where true
+# gradients also lie (its sed_out kernel's largest, 3.4e-5), so no
+# threshold tells them apart. ZOO_NULL_GRAD of the step's largest element
+# is that rounding floor: a null leaf stays below it on the card, and
+# every other gradient agrees to TRAIN_GRAD_RTOL of its leaf's largest
+# element plus it (a BatchNorm scale or a CondConv expert bias whose sum
+# cancels to 1e-4-1e-6 of the step's largest element carries rounding of
+# 1e-7-1e-6 of it: 1e-3-2e-2 of its own largest; CPU f32 with replayed
+# decisions against f64 stays within 0.28 of this tolerance)
+ZOO_NULL_GRAD = 1e-4
+# (b)'s updated parameters: the card's against the CPU optimizer's first
+# step taken from the card's own gradients, to TRAIN_PARAM_ATOL on every
+# element. AGC scales a clipped unit to 0.01 of its weights' norm, which
+# puts many elements at AdaBelief's knee (|g| of a few 1e-6), where the
+# first step moves by ~300 x a gradient's difference: gradients that agree
+# to the rule above left resnet_gru's clear elements 3.2e-5 apart.
+ZOO_TRAIN_B = 256
+ZOO_STEPS = 10
+ZOO_SERVE = ("seldnet", "xception_gru")
 # [answer]: the dress rehearsal at rehearsal scale (4 train, 2 + 2 eval
 # clips of 120 label frames, 5 epochs with SWA from epoch 2 and the
 # ensemble evaluation every 2)
@@ -844,10 +910,11 @@ def _stem_inputs(gen, dtype, b, pool, layout, dp_layout, dp_order):
     return y, dp, p6
 
 
-def main_path_dpooled():
+def main_path_dpooled(**model):
     """(shape, strides, dtype) of the cotangent that the SS5 bf16 training
-    step hands the fused stem's backward: a tensor hook on the stem's pooled
-    output during one step of seld_tpu_torch.bench's step at B=8."""
+    step (or that of `model_name`/`cfg` of bench.build) hands the fused
+    stem's backward: a tensor hook on the stem's pooled output during one
+    step of seld_tpu_torch.bench's step at B=8."""
     import torch
     import seld_tpu_torch.models.layers as layers
     from seld_tpu_torch.bench import build
@@ -862,7 +929,7 @@ def main_path_dpooled():
         return out
     layers.conv_bn_relu_pool = hooked
     try:
-        b = build(batch=8, dtype="bf16", device="cuda")
+        b = build(batch=8, dtype="bf16", device="cuda", **model)
         b.step(b.state, b.metric, b.x, b.y)
         torch.cuda.synchronize()
     finally:
@@ -1302,12 +1369,73 @@ def phase_serve(model, card):
     return launches
 
 
-def _one_step(device):
-    """One f32 bench step at B=8 with dropouts zeroed on `device`; returns
-    (losses, raw gradients, parameters before and after, running stats,
-    learning rate, parameter names)."""
+@contextlib.contextmanager
+def relu_decisions(masks, replay):
+    """torch.relu, inside the block, records each call's decision (input >
+    0) into `masks`, or with `replay` applies the recorded decisions in
+    call order, moved to the input's device: a card step then takes the
+    CPU step's decisions. A ReLU input within f32 rounding of zero (BN
+    outputs of ~1e-7 occur in every deep family at full width) otherwise
+    takes its gradient from the side each device's rounding puts it on,
+    and moves every gradient upstream of it by up to ~1e-1 of its leaf's
+    largest element (conv_temp and dense_gru at B=2; the card against
+    itself under other cuDNN algorithms agrees to 1e-5)."""
+    import torch
+    relu, calls = torch.relu, iter(masks)
+
+    def decided(x):
+        if not replay:
+            masks.append((x > 0).cpu())
+            return relu(x)
+        return torch.where(next(calls).to(x.device), x, 0.0)
+    torch.relu = decided
+    try:
+        yield
+    finally:
+        torch.relu = relu
+
+
+def null_leaves(model):
+    """Register forward hooks that collect into the returned set the names
+    of the parameters whose gradient is zero in exact arithmetic in a
+    train-mode step, from the forward's structure: the bias of a conv whose
+    output a BatchNorm takes directly (the batch mean absorbs it; a
+    Conv2DBN's conv on its fused path too) and attention's key bias
+    (softmax ignores a shift shared by all keys)."""
+    from seld_tpu_torch.models.layers import (BatchNorm, Conv, Conv2DBN,
+                                              MultiHeadAttention)
+    name_of = {m: n for n, m in model.named_modules()}
+    found, conv_out = set(), {}
+
+    def bias(m, leaf="bias"):
+        if getattr(m, leaf, None) is not None:
+            found.add(f"{name_of[m]}.{leaf}".lstrip("."))
+
+    def hook(m, args, out):
+        if isinstance(m, Conv):
+            conv_out[id(out)] = (m, out)    # out kept: its id stays unique
+        elif isinstance(m, BatchNorm) and id(args[0]) in conv_out:
+            bias(conv_out[id(args[0])][0])
+        elif isinstance(m, Conv2DBN) and m.training:
+            bias(m.Conv_0)
+        elif isinstance(m, MultiHeadAttention):
+            bias(m, "k_bias")
+    for m in model.modules():
+        if isinstance(m, (Conv, BatchNorm, Conv2DBN, MultiHeadAttention)):
+            m.register_forward_hook(hook)
+    return found
+
+
+def _one_step(device, batch=8, nulls=None, **model):
+    """One f32 bench step at `batch` (SS5, or `model_name`/`cfg` of
+    bench.build) with dropouts zeroed on `device`; returns (losses, raw
+    gradients, parameters before and after, running stats, learning rate,
+    parameter names). With `nulls` a set, the step's null leaves
+    (`null_leaves`) are added to it."""
     from seld_tpu_torch.bench import build
-    b = build(batch=8, dtype="fp32", device=device, dropout=False)
+    b = build(batch=batch, dtype="fp32", device=device, dropout=False,
+              **model)
+    found = null_leaves(b.state.model) if nulls is not None else set()
     names = list(b.state.params)
     params = list(b.state.model.parameters())
     before = [p.detach().cpu().clone() for p in params]
@@ -1319,10 +1447,87 @@ def _one_step(device):
         step_fn(ps, gs)
     b.state.optimizer.step = recording_step
     _, _, losses = b.step(b.state, b.metric, b.x, b.y)
+    if nulls is not None:
+        nulls |= found
     after = [p.detach().cpu() for p in params]
     stats = [v.detach().cpu() for v in b.state.model.buffers()]
     return [v.item() for v in losses], grads, before, after, stats, \
         b.state.optimizer.lr, names
+
+
+def _cpu_update(params, grads, lr):
+    """The bench's optimizer (AdaBelief, AGC 0.01) taking its first step
+    on the CPU from `params` with `grads`: the parameters it leaves."""
+    from seld_tpu_torch.train.optimizers import adabelief
+    params = [p.clone() for p in params]
+    adabelief(params, lr, agc_clip=0.01).step(params, grads)
+    return params
+
+
+def _step_agreement(card_run, cpu_run, nulls=None,
+                    null_grad=TRAIN_NULL_GRAD):
+    """[train] (a)'s rule on two `_one_step` runs, the card's and the
+    CPU's: (ok, the line's text). The null leaves are those whose CPU
+    gradient stays below null_at = `null_grad` of the step's largest
+    element; the card's must stay below that level. With `nulls` (the
+    names `null_leaves` found), those are the null leaves, null_at is also
+    the rounding floor of every comparison (a gradient agrees to
+    TRAIN_GRAD_RTOL of its leaf's largest element plus null_at), and the
+    card's updated parameters are held to the CPU optimizer's step taken
+    from the card's gradients."""
+    lc, gc, p0, pc, sc, lr, names = card_run
+    lh, gh, _, ph, sh, _, _ = cpu_run
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    null_at = null_grad * max(g.abs().max().item() for g in gh)
+    floor = 0.0 if nulls is None else null_at
+    null = [n in nulls if nulls is not None else
+            g.abs().max().item() < null_at for n, g in zip(names, gh)]
+    null_names = [n for n, z in zip(names, null) if z]
+    grad_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   .item() for a, b, z in zip(gc, gh, null) if not z)
+    grad_share, grad_leaf = max(
+        (((a - b).abs().max() / (TRAIN_GRAD_RTOL * b.abs().max() + floor)
+          .clamp_min(1e-30)).item(), n)
+        for n, a, b, z in zip(names, gc, gh, null) if not z)
+    null_max = max([a.abs().max().item() for a, z in zip(gc, null) if z],
+                   default=0.0)
+    clear_err, move_err = 0.0, 0.0
+    for a, b, g, z in zip(pc, ph, gh, null):
+        clear = g.abs() > TRAIN_GRAD_RTOL * g.abs().max()
+        diff = (a - b).abs()
+        if clear.any() and not z:
+            clear_err = max(clear_err, diff[clear].max().item())
+        move_err = max(move_err, diff.max().item())
+    if nulls is not None:     # the card's step against the CPU's on its grads
+        clear_err = max((a - b).abs().max().item()
+                        for a, b in zip(pc, _cpu_update(p0, gc, lr)))
+    stats_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                    .item() for a, b in zip(sc, sh))
+    moved = max((a - p).abs().max().item() for a, p in zip(pc, p0))
+    ok = (loss_err <= TRAIN_LOSS_RTOL and grad_share <= 1.0
+          and null_max < null_at
+          and all(n.endswith("bias") for n in null_names)
+          and clear_err <= TRAIN_PARAM_ATOL and move_err <= 2.3 * lr
+          and stats_err <= TRAIN_STATS_RTOL and moved > 0.5 * lr)
+    grads = (f"rel_err {grad_err:.2e} (tol {TRAIN_GRAD_RTOL:.0e})"
+             if nulls is None else
+             f"rel_err {grad_err:.2e}, {grad_share:.2e} of the tolerance "
+             f"({TRAIN_GRAD_RTOL:.0e} of the leaf's largest + {floor:.1e}; "
+             f"{grad_leaf})")
+    listed = ", ".join(null_names if nulls is None or len(null_names) < 5
+                       else null_names[:2] + ["..."])
+    update = ("where the gradient is clear" if nulls is None else
+              "against the CPU optimizer's step on the card's gradients")
+    text = (f"losses {lc} rel_err {loss_err:.2e} (tol "
+            f"{TRAIN_LOSS_RTOL:.0e}); {len(gc) - len(null_names)} "
+            f"gradients {grads}; {len(null_names)} zero in exact "
+            f"arithmetic ({listed}) below "
+            f"{null_at:.1e} on the card: {null_max:.1e}; updated "
+            f"params max_abs_err {clear_err:.2e} {update} (tol "
+            f"{TRAIN_PARAM_ATOL:.0e}), {move_err:.2e} "
+            f"anywhere (tol {2.3 * lr:.1e}); running stats rel_err "
+            f"{stats_err:.2e} (tol {TRAIN_STATS_RTOL:.0e})")
+    return ok, text
 
 
 def phase_train(card):
@@ -1333,43 +1538,9 @@ def phase_train(card):
 
     # (a) one f32 step, card against the CPU through the plain versions
     t0 = time.perf_counter()
-    lc, gc, p0, pc, sc, lr, names = _one_step("cuda")
-    lh, gh, _, ph, sh, _, _ = _one_step("cpu")
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
-    null_at = TRAIN_NULL_GRAD * max(g.abs().max().item() for g in gh)
-    null = [g.abs().max().item() < null_at for g in gh]
-    null_names = [n for n, z in zip(names, null) if z]
-    grad_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                   .item() for a, b, z in zip(gc, gh, null) if not z)
-    null_max = max([a.abs().max().item() for a, z in zip(gc, null) if z],
-                   default=0.0)
-    clear_err, move_err = 0.0, 0.0
-    for a, b, g, z in zip(pc, ph, gh, null):
-        clear = g.abs() > TRAIN_GRAD_RTOL * g.abs().max()
-        diff = (a - b).abs()
-        if clear.any() and not z:
-            clear_err = max(clear_err, diff[clear].max().item())
-        move_err = max(move_err, diff.max().item())
-    stats_err = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-                    .item() for a, b in zip(sc, sh))
-    moved = max((a - p).abs().max().item() for a, p in zip(pc, p0))
-    ok = (loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_RTOL
-          and null_max < null_at
-          and all(n.endswith("bias") for n in null_names)
-          and clear_err <= TRAIN_PARAM_ATOL and move_err <= 2.3 * lr
-          and stats_err <= TRAIN_STATS_RTOL and moved > 0.5 * lr)
+    ok, text = _step_agreement(_one_step("cuda"), _one_step("cpu"))
     log("train", f"(a) SS5 full width f32 B=8, one step, card vs cpu: "
-                 f"losses {lc} rel_err {loss_err:.2e} (tol "
-                 f"{TRAIN_LOSS_RTOL:.0e}); {len(gc) - len(null_names)} "
-                 f"gradients rel_err {grad_err:.2e} (tol "
-                 f"{TRAIN_GRAD_RTOL:.0e}); {len(null_names)} zero in exact "
-                 f"arithmetic ({', '.join(null_names)}) below "
-                 f"{null_at:.1e} on the card: {null_max:.1e}; updated "
-                 f"params max_abs_err {clear_err:.2e} where the gradient is "
-                 f"clear (tol {TRAIN_PARAM_ATOL:.0e}), {move_err:.2e} "
-                 f"anywhere (tol {2.3 * lr:.1e}); running stats rel_err "
-                 f"{stats_err:.2e} (tol {TRAIN_STATS_RTOL:.0e}); "
-                 f"{time.perf_counter() - t0:.1f} s "
+                 f"{text}; {time.perf_counter() - t0:.1f} s "
                  f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the f32 train step on the card disagrees with the "
@@ -3470,6 +3641,302 @@ def phase_vad(card):
             "search_val_auc": aucs, "launches": launches, "seconds": secs}
 
 
+def zoo_forward(card):
+    """(a) each config's eval forward, card against CPU, f32."""
+    import torch
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.bench import ZOO_MODELS, zoo_model
+    x = torch.from_numpy(np.random.RandomState(21).randn(
+        ZOO_FWD_B, 300, 64, 7).astype(np.float32))
+    xg = x.cuda()
+    out = {}
+    for name in ZOO_MODELS:
+        model_name, cfg = zoo_model(name)
+        cpu = build_model(model_name, (300, 64, 7), cfg, seed=0,
+                          device="cpu")
+        gpu = build_model(model_name, (300, 64, 7), cfg, seed=0,
+                          device="cuda")
+        body = []              # the first biGRU block's input, each side
+        for m in (gpu, cpu):
+            gru = next(c for c in m.modules()
+                       if type(c).__name__ == "BidirectionalGRUBlock")
+            gru.register_forward_pre_hook(
+                lambda mod, args: body.append(args[0].float().cpu()))
+        kernels.launch_counts.clear()
+        with torch.inference_mode():
+            got = gpu(xg)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts["gru_scan"]
+            want = cpu(x)
+            body_err = rel_err(body[0], body[1])
+            ms = cuda_ms(lambda: gpu(xg), 3)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        err = max((g.cpu() - w).abs().max().item()
+                  for g, w in zip(got, want))
+        spread = float(want[1].std())
+        ok = (finite and err <= MODEL_TOL and launches == 2
+              and body_err <= ZOO_BODY_RTOL
+              and tuple(got[0].shape) == (ZOO_FWD_B, 60, 12))
+        n_params = sum(p.numel() for p in gpu.parameters())
+        log("zoo", f"(a) {name} ({model_name}, {n_params} parameters) "
+                   f"forward B={ZOO_FWD_B} f32 card vs CPU: sed/doa "
+                   f"max_abs_err {err:.2e} (tol {MODEL_TOL:.0e}), doa std "
+                   f"{spread:.3f}; the biGRU's input {tuple(body[1].shape)} "
+                   f"rel_err {body_err:.2e} (tol {ZOO_BODY_RTOL:.0e}); "
+                   f"gru_scan launches {launches} (want 2), {ms:.2f} ms on "
+                   f"the card {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"zoo {name}: the forward on the card "
+                             "disagrees with the CPU or skipped gru_scan")
+        out[name] = {"max_abs_err": err, "body_rel_err": body_err,
+                     "ms_b4": ms, "params": n_params}
+        del cpu, gpu, got, want
+    return out
+
+
+def zoo_train_step(card):
+    """(b) one f32 step at B=ZOO_STEP_B, card against CPU."""
+    from seld_tpu_torch.bench import ZOO_MODELS, zoo_model
+    out = {}
+    for name in ZOO_MODELS:
+        t0 = time.perf_counter()
+        model_name, cfg = zoo_model(name, dropout=False)
+        model = {"model_name": model_name, "cfg": cfg}
+        nulls, masks = set(), []
+        with relu_decisions(masks, replay=False):
+            cpu = _one_step("cpu", ZOO_STEP_B, nulls, **model)
+        with relu_decisions(masks, replay=True):
+            card = _one_step("cuda", ZOO_STEP_B, **model)
+        ok, text = _step_agreement(card, cpu, nulls, ZOO_NULL_GRAD)
+        log("zoo", f"(b) {name} f32 B={ZOO_STEP_B}, one step, card vs cpu "
+                   f"(the CPU's {len(masks)} ReLU decisions replayed): "
+                   f"{text}; {time.perf_counter() - t0:.1f} s "
+                   f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"zoo {name}: the f32 train step on the card "
+                             "disagrees with the CPU")
+        out[name] = text
+    return out
+
+
+def _zoo_bf16_run(model_name, cfg, batch):
+    """ZOO_STEPS eager bf16 steps, then a make_train_multistep(ZOO_STEPS)
+    call that warms up and captures and a timed call of replays: (eager
+    ms/step, graphed ms/step, eager launches, replay launches, losses
+    finite, peak allocated and reserved GiB)."""
+    import torch
+    from seld_tpu_torch.bench import build
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.train.steps import make_train_multistep
+    k = ZOO_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = build(batch=batch, dtype="bf16", device="cuda",
+              model_name=model_name, cfg=cfg)
+    state, metric = b.state, b.metric
+    for _ in range(2):                       # warm up, uncounted
+        state, metric, _ = b.step(state, metric, b.x, b.y)
+    torch.cuda.synchronize()
+    kernels.launch_counts.clear()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(k):
+        state, metric, (sl, dl) = b.step(state, metric, b.x, b.y)
+        losses += [sl, dl]
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / k * 1e3
+    eager = {n: kernels.launch_counts[n] for n in kernels.KERNELS}
+    torch.cuda.empty_cache()      # the graph's pool allocates on its own
+    multistep = make_train_multistep(steps_per_call=k, **b.step_kwargs)
+    xs = b.x.unsqueeze(0).expand(k, *b.x.shape)
+    ys = tuple(y.unsqueeze(0).expand(k, *y.shape) for y in b.y)
+    state, metric, (sl, dl) = multistep(state, metric, xs, ys)
+    losses += [sl, dl]
+    torch.cuda.synchronize()
+    kernels.launch_counts.clear()
+    t0 = time.perf_counter()
+    state, metric, (sl, dl) = multistep(state, metric, xs, ys)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) / k * 1e3
+    losses += [sl, dl]
+    replays = {n: kernels.launch_counts[n] for n in kernels.KERNELS}
+    finite = bool(torch.isfinite(torch.cat(
+        [v.reshape(-1).float() for v in losses])).all())
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.max_memory_reserved() / 2 ** 30)
+    del b, state, metric, multistep, xs, ys
+    return eager_ms, graph_ms, eager, replays, finite, peak
+
+
+def zoo_bf16(card):
+    """(c) bf16 training at B=ZOO_TRAIN_B (or the largest power of two that
+    fits), eager and graphed, with exact launches a step."""
+    from seld_tpu_torch.bench import ZOO_MODELS, zoo_model
+    from seld_tpu_torch.ops import kernels
+    out = {}
+    for name in ZOO_MODELS:
+        model_name, cfg = zoo_model(name)
+        per_step = {"gru_scan": 2, "gru_scan_bwd": 2,
+                    "stem_dy": int(model_name == "conv_temporal")}
+        want = {n: per_step.get(n, 0) * ZOO_STEPS for n in kernels.KERNELS}
+        batch = ZOO_TRAIN_B
+        eager_ms, graph_ms, eager, replays, finite, peak = _zoo_bf16_run(
+            model_name, cfg, batch)
+        ok = finite and eager == want and replays == want
+        log("zoo", f"(c) {name} bf16 B={batch}, {ZOO_STEPS} steps: eager "
+                   f"{eager_ms:.2f} ms/step "
+                   f"({batch * 1e3 / eager_ms:.1f} windows/s), graphed "
+                   f"{graph_ms:.2f} ms/step ({batch * 1e3 / graph_ms:.1f} "
+                   f"windows/s); losses finite {finite}; launches eager "
+                   f"{eager}, graph replays {replays} (want {want} each); "
+                   f"peak allocated {peak[0]:.2f} GiB, reserved "
+                   f"{peak[1]:.2f} GiB on {card} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"zoo {name}: bf16 training gave a non-finite "
+                             "loss or skipped a kernel")
+        out[name] = {"batch": batch, "eager_ms": eager_ms,
+                     "graph_ms": graph_ms, "launches": eager,
+                     "graph_launches": replays, "peak_gib": list(peak)}
+    return out
+
+
+def zoo_stem_dy(card):
+    """(d) stem_dy at conv_temp's training shape, bf16, pool [5, 1], the
+    cotangent as conv_temp's first res_bottleneck_stage hands it over."""
+    import torch
+    from seld_tpu_torch.bench import zoo_model
+    from seld_tpu_torch.ops.stem_bwd import _vector_path, stem_dy, \
+        stem_dy_ref
+    pool = (5, 1)
+    model_name, cfg = zoo_model("conv_temp")
+    dshape, dstride, ddtype = main_path_dpooled(model_name=model_name,
+                                                cfg=cfg)
+    dp_order = tuple(sorted(range(4), key=lambda i: -dstride[i]))
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    y, dp, p6 = _stem_inputs(gen, "bfloat16", 256, pool, "channels-last",
+                             "main path", dp_order)
+    dy, dbias = stem_dy(y, dp, p6, pool)
+    torch.cuda.synchronize()
+    want_dy, want_db = stem_dy_ref(y, dp, p6, pool)
+    e_dy, e_db = rel_err(dy, want_dy), rel_err(dbias, want_db)
+    ties = _tied_windows(y, p6, pool)
+    path = "vector" if _vector_path(y, pool) else "generic"
+    out = torch.empty_like(y)
+    ms = cuda_ms(lambda: stem_dy(y, dp, p6, pool, out=out), 20)
+    device_ms = graph_ms(lambda: stem_dy(y, dp, p6, pool, out=out), 20)
+    plain_ms = cuda_ms(lambda: stem_dy_ref(y, dp, p6, pool), 3)
+    nbytes = (2 * y.numel() + dp.numel()) * y.element_size() + \
+        p6.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 0)
+    ok = (e_dy <= BWD_TOL["bfloat16"] and e_db <= BWD_TOL["float32"]
+          and ties > 0 and tuple(dp.shape[1:]) == tuple(dshape[1:]))
+    log("zoo", f"(d) stem_dy bf16 [256, 300, 64, 32] pool [5, 1], dpooled "
+               f"as conv_temp's step hands it over: shape {dshape} strides "
+               f"{dstride} {ddtype}, dims outermost first {dp_order} "
+               f"({path} path); rel_err dy {e_dy:.2e} dbias {e_db:.2e} (tol "
+               f"{BWD_TOL['bfloat16']:.1e}/{BWD_TOL['float32']:.0e}), {ties} "
+               f"windows with tied positive maxima; kernel_ms {ms:.4f} "
+               f"(device ms {device_ms:.4f}) plain_ms {plain_ms:.4f} "
+               f"bound_ms {bound_ms:.5f} ({bound_by}) on {card} "
+               f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("stem_dy at pool [5, 1] disagrees with stem_dy_ref")
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "path": path,
+            "max_abs_err": (dy.float() - want_dy.float()).abs().max().item(),
+            "dpooled_strides": list(dstride)}
+
+
+def zoo_serve(card):
+    """(e) ZOO_SERVE as window artifacts behind the server: replies against
+    the direct call, 2 gru_scan launches a dispatch."""
+    import torch
+    from seld_tpu_torch.bench import zoo_model
+    from seld_tpu_torch.inference import export_window
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.serving import SELDClient, SELDServer
+    from seld_tpu_torch.serving.server import serve
+
+    rng = np.random.RandomState(23)
+    out = {}
+    for name in ZOO_SERVE:
+        model_name, cfg = zoo_model(name)
+        model = build_model(model_name, (300, 64, 7), cfg, seed=0,
+                            device="cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/{name}_window.npz"
+            export_window(model, path)
+            server = SELDServer(artifact=path, batch_window_ms=2.0,
+                                max_batch=8, device="cuda")
+            httpd = serve(server, "127.0.0.1", 0)
+            thread = threading.Thread(target=httpd.serve_forever,
+                                      daemon=True)
+            thread.start()
+            try:
+                client = SELDClient("127.0.0.1", httpd.server_address[1])
+                slot = server._slots[server.DEFAULT]
+                for b in (1, 4, 8):          # every bucket once, uncounted
+                    server.score(torch.zeros(b, 300, 64, 7))
+                requests = [rng.randn(b, 300, 64, 7).astype(np.float32)
+                            for b in (1, 3, 8, 2, 5, 1)]
+                kernels.launch_counts.clear()
+                dispatches0 = slot.batch_stats["dispatches"]
+                replies = [client.score(x) for x in requests[:3]]
+                with ThreadPoolExecutor(3) as pool:
+                    replies += list(pool.map(client.score, requests[3:]))
+                launches = kernels.launch_counts["gru_scan"]
+                dispatches = slot.batch_stats["dispatches"] - dispatches0
+            finally:
+                httpd.shutdown()
+                server.close()
+                httpd.server_close()
+                thread.join(timeout=10)
+            art = slot.artifact
+            worst = 0.0
+            for x, (sed, doa) in zip(requests, replies):
+                want = art.call(torch.from_numpy(x))
+                worst = max(worst, np.abs(sed - want[0]).max(),
+                            np.abs(doa - want[1]).max())
+            with torch.inference_mode():
+                direct = model(torch.from_numpy(requests[2]).cuda())
+            model_err = max(np.abs(replies[2][i] - direct[i].cpu().numpy())
+                            .max() for i in range(2))
+        ok = (worst <= REPLY_TOL and model_err <= REPLY_TOL
+              and dispatches > 0 and launches == 2 * dispatches)
+        log("zoo", f"(e) {name} window artifact served: {len(requests)} "
+                   f"requests in {dispatches} dispatches, gru_scan launches "
+                   f"{launches} (want {2 * dispatches}); reply vs direct "
+                   f"call max_abs_err {worst:.2e}, vs the model's forward "
+                   f"{model_err:.2e} (tol {REPLY_TOL:.0e}) on {card} "
+                   f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"zoo {name}: a served reply disagrees or a "
+                             "dispatch skipped gru_scan")
+        out[name] = {"dispatches": dispatches, "launches": launches}
+        del model
+    return out
+
+
+def phase_zoo(card):
+    """The zoo's nine configs at full width: (a) forward and (b) one f32
+    train step card against CPU, (c) bf16 training eager and graphed, (d)
+    stem_dy at pool [5, 1], (e) two families served."""
+    secs = {}
+    out = {}
+    for part, fn in (("forward", zoo_forward), ("train_step", zoo_train_step),
+                     ("bf16", zoo_bf16), ("stem_dy", zoo_stem_dy),
+                     ("serve", zoo_serve)):
+        t0 = time.perf_counter()
+        out[part] = fn(card)
+        secs[part] = time.perf_counter() - t0
+    log("zoo", "seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
+    out["seconds"] = secs
+    return out
+
+
 def ptxas_report(text):
     """One line per kernel of an `nvcc -Xptxas -v` log: its name (template
     arguments in brackets), registers and spills."""
@@ -3601,6 +4068,14 @@ def main(argv=None):
     by_name["gather_rows"]["nas_parallel"] = nas["parallel_seconds"]
     by_name["gather_rows"]["vad"] = {k: vad[k] for k in (
         "rehearsal", "search_val_auc", "seconds")}
+    zoo = timed(phase_zoo, smi)
+    for e in entries:
+        e["zoo_launches"] = {n: r["launches"][e["name"]]
+                             for n, r in zoo["bf16"].items()}
+    by_name["gru_scan"]["zoo"] = {n: {**zoo["bf16"][n], **zoo["forward"][n]}
+                                  for n in zoo["bf16"]}
+    by_name["stem_dy"]["zoo_pool_5x1"] = zoo["stem_dy"]
+    by_name["gru_scan"]["zoo_seconds"] = zoo["seconds"]
 
     log("time", f"all phases {time.perf_counter() - t_start:.1f} s")
     entries[0]["phase_seconds"] = phase_seconds

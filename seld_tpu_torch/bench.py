@@ -60,20 +60,45 @@ def ss5_config(dropout: bool = True) -> dict:
     return cfg
 
 
+# every zoo config and the model it builds, as tests/test_models.py pairs
+# them (resnet_gru's BLOCK keys make it a conv_temporal body)
+ZOO_MODELS = {"seldnet": "seldnet", "seldnet_v1": "seldnet_v1",
+              "SS5": "conv_temporal", "dense_gru": "seldnet",
+              "resnet_gru": "conv_temporal", "resnet50_gru": "seldnet",
+              "xception_gru": "seldnet", "Condseldnet": "seldnet",
+              "conv_temp": "conv_temporal"}
+
+
+def zoo_model(name: str, dropout: bool = True):
+    """(model name, config) of zoo config `name` at N_CLASSES classes: SS5
+    as `ss5_config(dropout)`; resnet_gru with first_pool_size [5, 1], as
+    tests/test_models.py builds it. The other configs' dropout rates are
+    all 0."""
+    if name == "SS5":
+        return "conv_temporal", ss5_config(dropout)
+    cfg = copy.deepcopy(get_model_config(name, search_paths=[]))
+    if name == "resnet_gru":
+        cfg.setdefault("first_pool_size", [5, 1])
+    cfg["n_classes"] = N_CLASSES
+    return ZOO_MODELS[name], cfg
+
+
 def build(batch: int = 256, dtype: str = "bf16", device="cuda",
           seed: int = 0, dropout: bool = True, steps_per_call: int = 1,
-          unroll: int = 1) -> SimpleNamespace:
+          unroll: int = 1, model_name: str = "conv_temporal",
+          cfg: dict = None) -> SimpleNamespace:
     """The bench's model, optimizer, step and one synthetic batch.
 
-    Weights come from `seed` (drawn on the CPU, so every device gets the
-    same model) and the batch from numpy seed `seed`; x is pre-cast to the
-    compute dtype, as the JAX package's feed does. With steps_per_call k
-    > 1 the step is `make_train_multistep(k, unroll)` and the batch is k
-    batches stacked [k, B, ...], drawn as the JAX package's bench draws
-    them."""
+    The model is `model_name` on `cfg` (N_CLASSES classes), SS5 by
+    default (`ss5_config(dropout)`). Weights come from `seed` (drawn on
+    the CPU, so every device gets the same model) and the batch from numpy
+    seed `seed`; x is pre-cast to the compute dtype, as the JAX package's
+    feed does. With steps_per_call k > 1 the step is
+    `make_train_multistep(k, unroll)` and the batch is k batches stacked
+    [k, B, ...], drawn as the JAX package's bench draws them."""
     compute_dtype = DTYPES[dtype]
-    cfg = ss5_config(dropout)
-    model = build_model("conv_temporal", INPUT_SHAPE, cfg, seed=seed,
+    cfg = ss5_config(dropout) if cfg is None else cfg
+    model = build_model(model_name, INPUT_SHAPE, cfg, seed=seed,
                         device=device)
     opt = adabelief(list(model.parameters()), 1e-3, agc_clip=0.01)
     state = TrainState(model, opt, seed=seed + 1)

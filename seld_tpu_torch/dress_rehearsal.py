@@ -17,13 +17,13 @@ trainv2.py:240-369) in ONE command, end to end, through the port's CLIs
   5. per-class threshold search on the val split (search_best)
   6. make_answer on dev-test with the searched thresholds
 
-The JAX rehearsal's built-in model is `seldnet`, which the port does not
-have yet (ROADMAP queue 1, item 11): 'tiny' here is SS5's conv_temporal
-with every width cut.
+The model is `--model` (seldnet) on `--model_config`; 'tiny' writes
+TINY_CONFIG, the JAX rehearsal's built-in config (one 16-filter conv
+block, one 16-unit biGRU, 16-unit heads), to ./model_config/tiny.json.
 
     python -m seld_tpu_torch.dress_rehearsal --workdir ./rehearsal \\
         [--clips 24] [--batch 32] [--epoch 14] [--swa_start 6] \\
-        [--device cuda]
+        [--model seldnet] [--model_config tiny] [--device cuda]
 """
 from __future__ import annotations
 
@@ -36,20 +36,14 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def tiny_config() -> dict:
-    """SS5 (config/zoo.py) with every width cut: stem 8, mother 16, dense
-    32, conformer key 8, GRU 16; block types, depths, kernels, strides and
-    the head layout are SS5's."""
-    from seld_tpu_torch.config import get_model_config
-
-    cfg = get_model_config("SS5", search_paths=[])
-    cfg["filters"] = 8
-    cfg["BLOCK0_ARGS"]["filters1"] = 16
-    cfg["BLOCK1_ARGS"]["units"] = 32
-    cfg["BLOCK2_ARGS"]["key_dim"] = 8
-    cfg["SED_ARGS"]["key_dim"] = 8
-    cfg["DOA_ARGS"]["units"] = 16
-    return cfg
+# the JAX rehearsal's built-in model config (scripts/dress_rehearsal.py)
+TINY_CONFIG = {
+    "FIRST": "simple_conv_block",
+    "FIRST_ARGS": {"filters": [16], "pool_size": [[5, 4]]},
+    "SECOND": "bidirectional_GRU_block", "SECOND_ARGS": {"units": [16]},
+    "SED": "simple_dense_block", "SED_ARGS": {"units": [16]},
+    "DOA": "simple_dense_block", "DOA_ARGS": {"units": [16]},
+}
 
 
 def synthesize_dataset(root, n_train, n_eval, label_frames, n_classes,
@@ -179,9 +173,10 @@ def main(argv=None):
                     help="600 = full 60 s DCASE clips")
     ap.add_argument("--signal_gain", type=float, default=3.0)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--model", default="seldnet")
     ap.add_argument("--model_config", default="tiny",
-                    help="'tiny' writes the built-in narrow config; anything "
-                         "else must resolve from ./model_config or the zoo")
+                    help="'tiny' writes TINY_CONFIG; anything else must "
+                         "resolve from ./model_config or the zoo")
     ap.add_argument("--epoch", type=int, default=14)
     ap.add_argument("--swa_start", type=int, default=6)
     ap.add_argument("--swa_freq", type=int, default=2)
@@ -211,9 +206,9 @@ def main(argv=None):
     if args.model_config == "tiny":
         os.makedirs(os.path.join(workdir, "model_config"), exist_ok=True)
         with open(os.path.join(workdir, "model_config/tiny.json"), "w") as f:
-            json.dump(tiny_config(), f)
+            json.dump(TINY_CONFIG, f)
 
-    model = "conv_temporal"
+    model = args.model
     ans_path = os.path.join(data_root, "metadata_dev/")
     feat_label = os.path.join(data_root, "DCASE2021/feat_label")
     phase1_epoch = args.swa_start + args.swa_freq + 1  # inside SWA

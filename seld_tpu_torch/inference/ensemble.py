@@ -14,7 +14,8 @@ only the sequence head; with `clip_batch > 1` it stacks equal-length
 clips. The scoring half (DCASE CSVs, the official metric, the threshold
 search) stays numpy on the host.
 
-`model` is a `ConvTemporal` (models.build_model); `variables`, when given,
+`model` is any SELD model of models.build_model (the fast path: a
+`ConvTemporal`); `variables`, when given,
 are state_dict tensors the forward uses in place of the model's own
 (`torch.func.functional_call`), e.g. the SWA average.
 """
@@ -239,10 +240,11 @@ def ensemble_outputs(model: nn.Module, xs: Sequence,
     device = _model_device(model, variables)
 
     def apply(x, stage="full"):
+        # only conv_temporal takes `stage`; every model runs "full"
+        kwargs = {} if stage == "full" else {"stage": stage}
         if variables is None:
-            return model(x, stage=stage)
-        return torch.func.functional_call(model, variables, (x,),
-                                          {"stage": stage})
+            return model(x, **kwargs)
+        return torch.func.functional_call(model, variables, (x,), kwargs)
 
     was_training = model.training
     model.eval()

@@ -4,10 +4,13 @@ Each model is an nn.Module built from a JSON-style model_config dict whose
 block names dispatch through the port's registry. SELD models output
 (sed [B, T', C], doa [B, T', 3C]).
 
-Ported: conv_temporal (the SS5 challenge model), with its trunk/head split
-for the fast sliding-window inference (`stage=`), and the two VAD models,
-vad_architecture (the config-driven MLP/conv the VAD search samples) and
-spectro_temporal_attention_based_VAD.
+  - seldnet        FIRST -> SECOND body + SED/DOA heads
+  - seldnet_v1     the same, doa gated by the tiled sed, then tanh
+  - conv_temporal  stem conv+pool, sorted BLOCK0..N + heads, with its
+                   trunk/head split for the fast sliding-window inference
+                   (`stage=`)
+  - vad_architecture                      the config-driven VAD MLP/conv
+  - spectro_temporal_attention_based_VAD
 """
 from __future__ import annotations
 
@@ -57,6 +60,31 @@ class SELDHeads(nn.Module):
         if self.gate_doa_with_sed:
             doa = torch.tanh(doa * torch.cat([sed] * 3, dim=-1))
         return sed, doa
+
+
+class SELDNet(nn.Module):
+    """FIRST -> SECOND body + SED/DOA heads (models.py:61-73); n_classes
+    defaults to 14. forward(x) -> (sed, doa)."""
+
+    def __init__(self, model_config: Dict[str, Any],
+                 input_shape: Sequence[int], gate_doa_with_sed: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cfg = model_config
+        self.model_config = cfg
+        self.input_shape = tuple(input_shape)
+        first = add_child(self, _build_block(
+            cfg["FIRST"], cfg["FIRST_ARGS"], self.input_shape, generator))
+        second = add_child(self, _build_block(
+            cfg["SECOND"], cfg["SECOND_ARGS"], first.out_shape, generator))
+        add_child(self, SELDHeads(cfg, cfg.get("n_classes", 14),
+                                  second.out_shape, gate_doa_with_sed,
+                                  generator))
+        self._body = (first, second)
+
+    def forward(self, x: torch.Tensor):
+        first, second = self._body
+        return self.SELDHeads_0(second(first(x)))
 
 
 def _time_local_block(name: str, args: dict) -> bool:
@@ -265,6 +293,18 @@ class SpectroTemporalAttentionVAD(nn.Module):
         x = self._drop(torch.relu(bn(dense(x))))
         x = torch.sigmoid(post_out(x))
         return x, pipe, score
+
+
+@register_model("seldnet")
+def seldnet(input_shape, model_config: dict,
+            generator: Optional[torch.Generator] = None):
+    return SELDNet(dict(model_config), input_shape, False, generator)
+
+
+@register_model("seldnet_v1")
+def seldnet_v1(input_shape, model_config: dict,
+               generator: Optional[torch.Generator] = None):
+    return SELDNet(dict(model_config), input_shape, True, generator)
 
 
 @register_model("conv_temporal")

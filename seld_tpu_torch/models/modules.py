@@ -8,8 +8,11 @@ sampling relies on them) and returns a function
 output shape. Children register under flax's auto-names in flax's creation
 order, so parameter paths equal the JAX package's.
 
-Ported blocks (the SS5 path):
+Ported blocks:
   mother_stage/mother_block            2D -> 2D (NAS super-block)
+  simple_conv_block, cond_conv_block, another_conv_block,
+  res_basic_stage, res_bottleneck_stage, dense_net_block,
+  resnet50_block, xception_block       2D -> 2D (the legacy conv families)
   simple_dense_stage/simple_dense_block
   conformer_encoder_stage/block        unrolled; no or basic-absolute
                                        positional encoding
@@ -28,6 +31,7 @@ from seld_tpu_torch.models.layers import (
     GRU,
     BatchNorm,
     Conv,
+    Conv2DBN,
     Dense,
     LayerNorm,
     MultiHeadAttention,
@@ -38,6 +42,7 @@ from seld_tpu_torch.models.layers import (
     get_activation,
 )
 from seld_tpu_torch.ops.dropout import dropout
+from seld_tpu_torch.ops.pooling import avg_pool, max_pool
 
 
 def _layer_norm(features: int) -> LayerNorm:
@@ -485,3 +490,430 @@ def conformer_encoder_stage(model_config: dict):
                   depth=model_config["depth"],
                   scan_depth=model_config.get("scan_depth", False))
     return functools.partial(_conformer, kwargs)
+
+
+# --------------------------------------------------------------------------
+#                      LEGACY CONV FAMILIES (2D -> 2D)
+# --------------------------------------------------------------------------
+def _pooled(shape, window, strides=None, padding="VALID"):
+    """Per-sample shape after `max_pool` / `avg_pool`."""
+    strides = strides or window
+    t, f, c = shape
+    if padding == "SAME":
+        return (-(-t // strides[0]), -(-f // strides[1]), c)
+    return ((t - window[0]) // strides[0] + 1,
+            (f - window[1]) // strides[1] + 1, c)
+
+
+class SimpleConvBlock(nn.Module):
+    """Classic SELDnet conv stack: [conv3x3-BN-relu-maxpool-dropout] x N
+    (modules.py:771-793). Its Conv2DBNs take no pool, so no fused stem."""
+
+    def __init__(self, filters: Tuple[int, ...],
+                 pool_size: Tuple[Tuple[int, int], ...],
+                 dropout_rate: float, in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        shape = tuple(in_shape)
+        self.layers = []
+        for f, pool in zip(filters, pool_size):
+            conv = add_child(self, Conv2DBN(shape, f, 3, activation="relu",
+                                            generator=generator))
+            self.layers.append((conv, pool))
+            shape = _pooled(conv.out_shape, pool)
+        self.dropout_rate = dropout_rate
+        self.dropout_generator = None   # set_dropout_generator
+        self.out_shape = shape
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv, pool in self.layers:
+            x = max_pool(conv(x), pool, strides=pool)
+            x = dropout(x, self.dropout_rate, self.training,
+                        self.dropout_generator)
+        return x
+
+
+@register_block("simple_conv_block")
+def simple_conv_block(model_config: dict):
+    return functools.partial(
+        SimpleConvBlock, tuple(model_config["filters"]),
+        tuple(_tuple2(p) for p in model_config["pool_size"]),
+        model_config.get("dropout_rate", 0.0))
+
+
+class CondConvBlock(nn.Module):
+    """Conditionally-parameterised conv stack (CondConv, arXiv 1904.04971;
+    modules.py:796-830): per layer, a per-sample sigmoid routing
+    Dense(mean over T, F) mixes the outputs of `num_experts` 3x3 convs
+    (conv is linear, so this is the mix of their kernels), then BN, ReLU,
+    max pool and dropout. Children in flax's order: Dense_l, then the
+    layer's experts Conv_{K l}..Conv_{K l + K - 1}, then BatchNorm_l."""
+
+    def __init__(self, filters: Tuple[int, ...],
+                 pool_size: Tuple[Tuple[int, int], ...],
+                 dropout_rate: float, num_experts: int,
+                 in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        shape = tuple(in_shape)
+        self.layers = []
+        for f, pool in zip(filters, pool_size):
+            route = add_child(self, _dense(shape[-1], num_experts,
+                                           generator=generator))
+            experts = [add_child(self, _conv(shape[-1], f, 3,
+                                             generator=generator))
+                       for _ in range(num_experts)]
+            bn = add_child(self, BatchNorm(f))
+            self.layers.append((route, experts, bn, pool))
+            shape = _pooled(experts[0].out_shape_of(shape), pool)
+        self.dropout_rate = dropout_rate
+        self.dropout_generator = None   # set_dropout_generator
+        self.out_shape = shape
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for route, experts, bn, pool in self.layers:
+            weights = torch.sigmoid(route(x.mean(dim=(1, 2))))   # [B, K]
+            mixed = torch.stack([conv(x) for conv in experts], dim=-1)
+            x = torch.einsum("bhwck,bk->bhwc", mixed, weights)
+            x = max_pool(torch.relu(bn(x)), pool, strides=pool)
+            x = dropout(x, self.dropout_rate, self.training,
+                        self.dropout_generator)
+        return x
+
+
+@register_block("cond_conv_block")
+def cond_conv_block(model_config: dict):
+    return functools.partial(
+        CondConvBlock, tuple(model_config["filters"]),
+        tuple(_tuple2(p) for p in model_config["pool_size"]),
+        model_config.get("dropout_rate", 0.0),
+        model_config.get("num_experts", 4))
+
+
+class AnotherConvBlock(nn.Module):
+    """depth x [conv3x3-BN-relu] then a max pool (modules.py:833-850)."""
+
+    def __init__(self, filters: int, depth: int, pool_size: Tuple[int, int],
+                 in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        shape = tuple(in_shape)
+        for _ in range(depth):
+            shape = add_child(self, Conv2DBN(
+                shape, filters, 3, activation="relu",
+                generator=generator)).out_shape
+        self.pool = pool_size
+        self.out_shape = _pooled(shape, pool_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv in self.children():
+            x = conv(x)
+        return max_pool(x, self.pool, strides=self.pool)
+
+
+@register_block("another_conv_block")
+def another_conv_block(model_config: dict):
+    return functools.partial(AnotherConvBlock, model_config["filters"],
+                             model_config["depth"],
+                             _tuple2(model_config["pool_size"]))
+
+
+class _ResidualStage(nn.Module):
+    """`depth` residual blocks, the first strided: x -> relu(bn(conv(
+    Conv2DBNs(x))) + shortcut(x)), where the shortcut is a strided 1x1 conv
+    + BN only where that shape differs from x's. flax numbers each block's
+    Conv_i and BatchNorm_i in creation order, so a later block's indices
+    depend on whether an earlier one had a projection; `self.blocks`
+    holds (Conv2DBNs, conv, bn, projection or None) in that order."""
+
+    def _add_block(self, shape, convbns, kernel, out_ch, strides,
+                   generator):
+        """Adds the block's last conv + BN after its Conv2DBNs, then the
+        projection where shapes differ; returns the block's out shape."""
+        mid = convbns[-1].out_shape
+        conv = add_child(self, _conv(mid[-1], out_ch, kernel,
+                                     generator=generator))
+        bn = add_child(self, BatchNorm(out_ch))
+        out = conv.out_shape_of(mid)
+        projection = None
+        if tuple(shape) != tuple(out):
+            projection = (add_child(self, _conv(shape[-1], out_ch, 1,
+                                                strides=strides,
+                                                generator=generator)),
+                          add_child(self, BatchNorm(out_ch)))
+        self.blocks.append((convbns, conv, bn, projection))
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for convbns, conv, bn, projection in self.blocks:
+            out = x
+            for layer in convbns:
+                out = layer(out)
+            shortcut = x if projection is None else \
+                projection[1](projection[0](x))
+            x = torch.relu(bn(conv(out)) + shortcut)
+        return x
+
+
+class ResBasicStage(_ResidualStage):
+    """ResNet-v1 basic stage (modules.py:853-878): conv3x3(strided)-BN-relu
+    -> conv3x3-BN, plus the shortcut."""
+
+    def __init__(self, filters: int, depth: int, strides: Tuple[int, int],
+                 in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, shape = generator, tuple(in_shape)
+        self.blocks = []
+        for i in range(depth):
+            s = strides if i == 0 else (1, 1)
+            first = add_child(self, Conv2DBN(shape, filters, 3, strides=s,
+                                             activation="relu", generator=g))
+            shape = self._add_block(shape, [first], 3, filters, s, g)
+        self.out_shape = shape
+
+
+@register_block("res_basic_stage")
+def res_basic_stage(model_config: dict):
+    return functools.partial(ResBasicStage, model_config["filters"],
+                             model_config["depth"],
+                             _tuple2(model_config["strides"]))
+
+
+class ResBottleneckStage(_ResidualStage):
+    """ResNet bottleneck stage (modules.py:881-910): 1x1-BN-relu ->
+    3x3(strided)-BN-relu -> 1x1 (filters x bottleneck_ratio)-BN, plus the
+    shortcut."""
+
+    def __init__(self, filters: int, depth: int, strides: Tuple[int, int],
+                 bottleneck_ratio: int, in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, shape = generator, tuple(in_shape)
+        self.blocks = []
+        for i in range(depth):
+            s = strides if i == 0 else (1, 1)
+            reduce = add_child(self, Conv2DBN(shape, filters, 1,
+                                              activation="relu", generator=g))
+            mid = add_child(self, Conv2DBN(reduce.out_shape, filters, 3,
+                                           strides=s, activation="relu",
+                                           generator=g))
+            shape = self._add_block(shape, [reduce, mid], 1,
+                                    filters * bottleneck_ratio, s, g)
+        self.out_shape = shape
+
+
+@register_block("res_bottleneck_stage")
+def res_bottleneck_stage(model_config: dict):
+    return functools.partial(ResBottleneckStage, model_config["filters"],
+                             model_config["depth"],
+                             _tuple2(model_config["strides"]),
+                             model_config.get("bottleneck_ratio", 4))
+
+
+class DenseNetStage(nn.Module):
+    """One DenseNet stage (modules.py:913-943): depth x [BN-relu-1x1
+    (int(bottleneck_ratio x growth)) -> BN-relu-3x3 (growth), concat], then,
+    unless reduction_ratio is None, a transition BN-relu-1x1
+    (int(channels x reduction_ratio)) and a VALID average pool of window
+    `strides` where that is not (1, 1)."""
+
+    def __init__(self, growth_rate: int, depth: int,
+                 strides: Tuple[int, int], bottleneck_ratio: float,
+                 reduction_ratio: Optional[float], in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        t, f, c = in_shape
+        mid = int(bottleneck_ratio * growth_rate)
+        self.layers = []
+        for _ in range(depth):
+            self.layers.append((
+                add_child(self, BatchNorm(c)),
+                add_child(self, _conv(c, mid, 1, use_bias=False,
+                                      generator=g)),
+                add_child(self, BatchNorm(mid)),
+                add_child(self, _conv(mid, growth_rate, 3, use_bias=False,
+                                      generator=g))))
+            c += growth_rate
+        self.transition = None
+        self.strides = _tuple2(strides)
+        if reduction_ratio is not None:
+            out = int(c * reduction_ratio)
+            self.transition = (add_child(self, BatchNorm(c)),
+                               add_child(self, _conv(c, out, 1,
+                                                     use_bias=False,
+                                                     generator=g)))
+            c = out
+            if self.strides != (1, 1):
+                t, f, _ = _pooled((t, f, c), self.strides)
+        self.out_shape = (t, f, c)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for bn1, conv1, bn2, conv2 in self.layers:
+            out = conv1(torch.relu(bn1(x)))
+            out = conv2(torch.relu(bn2(out)))
+            x = torch.cat([x, out], dim=-1)
+        if self.transition is not None:
+            bn, conv = self.transition
+            x = conv(torch.relu(bn(x)))
+            if self.strides != (1, 1):
+                x = avg_pool(x, self.strides)
+        return x
+
+
+class DenseNetBody(nn.Module):
+    """DenseNet-121-style body (modules.py:946-960): stem conv7x7-BN-relu,
+    max pool (5, 2), len(block_num) DenseNetStages of growth
+    max(filters // 2, 8) with strides (1, 2), the last without its
+    transition, then BN-relu."""
+
+    def __init__(self, filters: int, block_num: Tuple[int, ...],
+                 in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        stem = add_child(self, Conv2DBN(tuple(in_shape), filters, 7,
+                                        activation="relu",
+                                        generator=generator))
+        shape = _pooled(stem.out_shape, (5, 2))
+        growth = max(filters // 2, 8)
+        self.stages = []
+        for i, depth in enumerate(block_num):
+            last = i == len(block_num) - 1
+            stage = add_child(self, DenseNetStage(
+                growth, depth, (1, 2), 4.0, None if last else 0.5, shape,
+                generator))
+            self.stages.append(stage)
+            shape = stage.out_shape
+        add_child(self, BatchNorm(shape[-1]))
+        self.out_shape = shape
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = max_pool(self.Conv2DBN_0(x), (5, 2), strides=(5, 2))
+        for stage in self.stages:
+            x = stage(x)
+        return torch.relu(self.BatchNorm_0(x))
+
+
+@register_block("dense_net_block")
+def dense_net_block(model_config: dict):
+    if "block_num" in model_config:
+        return functools.partial(DenseNetBody, model_config["filters"],
+                                 tuple(model_config["block_num"]))
+    return functools.partial(
+        DenseNetStage, model_config["growth_rate"], model_config["depth"],
+        _tuple2(model_config.get("strides", (1, 1))),
+        model_config.get("bottleneck_ratio", 4.0),
+        model_config.get("reduction_ratio", 0.5))
+
+
+class ResNet50Body(nn.Module):
+    """ResNet50-style body (modules.py:976-995): stem conv7x7-BN-relu, max
+    pool (5, 2), then ResBottleneckStages of filters x 2^i, the first
+    unstrided and the others strided (1, 2)."""
+
+    def __init__(self, filters: int, block_num: Tuple[int, ...],
+                 in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        stem = add_child(self, Conv2DBN(tuple(in_shape), filters, 7,
+                                        activation="relu",
+                                        generator=generator))
+        shape = _pooled(stem.out_shape, (5, 2))
+        self.stages = []
+        for i, depth in enumerate(block_num):
+            stage = add_child(self, ResBottleneckStage(
+                filters * (2 ** i), depth, (1, 1) if i == 0 else (1, 2), 4,
+                shape, generator))
+            self.stages.append(stage)
+            shape = stage.out_shape
+        self.out_shape = shape
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = max_pool(self.Conv2DBN_0(x), (5, 2), strides=(5, 2))
+        for stage in self.stages:
+            x = stage(x)
+        return x
+
+
+@register_block("resnet50_block")
+def resnet50_block(model_config: dict):
+    return functools.partial(ResNet50Body, model_config["filters"],
+                             tuple(model_config["block_num"]))
+
+
+class SeparableConvBN(nn.Module):
+    """Depthwise conv (kernel [k, k, 1, C], C groups) -> pointwise 1x1 ->
+    BN, both convs without bias (modules.py:998-1007)."""
+
+    def __init__(self, filters: int, in_shape: Sequence[int],
+                 kernel_size: int = 3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = in_shape[-1]
+        add_child(self, _conv(c, c, kernel_size, groups=c, use_bias=False,
+                              generator=generator))
+        add_child(self, _conv(c, filters, 1, use_bias=False,
+                              generator=generator))
+        add_child(self, BatchNorm(filters))
+        self.out_shape = (*tuple(in_shape)[:2], filters)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.BatchNorm_0(self.Conv_1(self.Conv_0(x)))
+
+
+class XceptionBody(nn.Module):
+    """Xception-style body (modules.py:1010-1036): stem conv3x3-BN-relu,
+    max pool (5, 2); an entry flow of two reductions, each a strided 1x1
+    conv + BN shortcut added to sepconv-relu-sepconv under the overlapping
+    SAME max pool (1, 3) / (1, 2); `block_num` middle-flow residual blocks
+    of three relu-sepconv; a final ReLU."""
+
+    def __init__(self, filters: int, block_num: int,
+                 in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        stem = add_child(self, Conv2DBN(tuple(in_shape), filters, 3,
+                                        activation="relu", generator=g))
+        shape = _pooled(stem.out_shape, (5, 2))
+        width = filters * 4
+        self.entry = []
+        for f in (filters * 2, width):
+            conv = add_child(self, _conv(shape[-1], f, 1, strides=(1, 2),
+                                         generator=g))
+            bn = add_child(self, BatchNorm(f))
+            sep1 = add_child(self, SeparableConvBN(f, shape, generator=g))
+            sep2 = add_child(self, SeparableConvBN(f, sep1.out_shape,
+                                                   generator=g))
+            self.entry.append((conv, bn, sep1, sep2))
+            shape = _pooled(sep2.out_shape, (1, 3), (1, 2), "SAME")
+        self.middle = []
+        for _ in range(block_num):
+            seps = []
+            for _ in range(3):
+                seps.append(add_child(self, SeparableConvBN(
+                    width, shape, generator=g)))
+                shape = seps[-1].out_shape
+            self.middle.append(seps)
+        self.out_shape = shape
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = max_pool(self.Conv2DBN_0(x), (5, 2), strides=(5, 2))
+        for conv, bn, sep1, sep2 in self.entry:
+            shortcut = bn(conv(x))
+            out = sep2(torch.relu(sep1(x)))
+            out = max_pool(out, (1, 3), strides=(1, 2), padding="SAME")
+            x = out + shortcut
+        for seps in self.middle:
+            out = x
+            for sep in seps:
+                out = sep(torch.relu(out))
+            x = x + out
+        return torch.relu(x)
+
+
+@register_block("xception_block")
+def xception_block(model_config: dict):
+    return functools.partial(XceptionBody, model_config["filters"],
+                             model_config["block_num"])

@@ -1,26 +1,59 @@
-"""Max pooling over channels-last [B, T, F, C] (seld_tpu/ops/pooling.py).
+"""Max and average pooling over channels-last [B, T, F, C]
+(seld_tpu/ops/pooling.py, flax.linen.avg_pool).
 
-Forward only, VALID and non-overlapping (window == strides), as the
-conv_temporal stem uses it: a trailing remainder that fills no window is
-dropped, so 300x64 under [5, 2] gives 60x32.
+`max_pool` is `lax.reduce_window(x, -inf, max, ...)`: VALID drops a
+trailing remainder that fills no window (300x64 under [5, 2] gives 60x32);
+SAME gives ceil(n / stride) outputs and pads with -inf as XLA splits the
+pad, the odd cell at the END (F=32 under window 3, stride 2: pad (0, 1),
+16 outputs), which F.max_pool2d's symmetric `padding=` cannot express.
+Non-overlapping VALID windows (the stems' pools) reduce a window-split
+view with `amax`, whose gradient splits evenly over tied maxima; every
+other window (XceptionBody's overlapping SAME (1, 3) / (1, 2)) runs
+F.max_pool2d, whose gradient goes to one maximum per window, as XLA's
+select-and-scatter does.
+
+`avg_pool` is flax's VALID average pool with strides equal to the window
+(the window's mean, a trailing remainder dropped), as DenseNetStage's
+strided transition calls it.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
+
+
+def _windows(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
+    """[B, T, F, C] -> [B, T', wt, F', wf, C]: the non-overlapping windows,
+    a trailing remainder dropped."""
+    b, t, f, c = x.shape
+    wt, wf = window
+    nt, nf = t // wt, f // wf
+    return x[:, :nt * wt, :nf * wf].reshape(b, nt, wt, nf, wf, c)
 
 
 def max_pool(x: torch.Tensor, window: Sequence[int],
              strides: Sequence[int] = None, padding: str = "VALID"
              ) -> torch.Tensor:
+    from seld_tpu_torch.models.layers import same_padding
     window = tuple(window)
     strides = tuple(strides) if strides is not None else window
-    if strides != window or padding.upper() != "VALID":
-        raise NotImplementedError(
-            "only VALID non-overlapping max pooling is ported")
-    b, t, f, c = x.shape
-    wt, wf = window
-    nt, nf = t // wt, f // wf
-    x = x[:, :nt * wt, :nf * wf].reshape(b, nt, wt, nf, wf, c)
-    return x.amax(dim=(2, 4))
+    padding = padding.upper()
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"unknown padding {padding!r}")
+    if padding == "VALID" and strides == window:
+        return _windows(x, window).amax(dim=(2, 4))
+    t, f = x.shape[1:3]
+    x = x.movedim(-1, 1)                       # [B, C, T, F], a view
+    if padding == "SAME":
+        (t0, t1), (f0, f1) = (same_padding(t, window[0], strides[0]),
+                              same_padding(f, window[1], strides[1]))
+        if t0 or t1 or f0 or f1:
+            x = F.pad(x, (f0, f1, t0, t1), value=float("-inf"))
+    return F.max_pool2d(x, window, strides).movedim(1, -1)
+
+
+def avg_pool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
+    """VALID average pool over non-overlapping windows (strides = window)."""
+    return _windows(x, window).mean(dim=(2, 4))

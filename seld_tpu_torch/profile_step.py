@@ -1,10 +1,11 @@
-"""Where the SS5 training step's time goes on one NVIDIA card.
+"""Where a training step's time goes on one NVIDIA card.
 
     python -m seld_tpu_torch.profile_step
 
 Builds the bench's step with its defaults (`seld_tpu_torch.bench.build`:
-SS5 full width, B=256, bf16 compute over f32 masters, dropout on), warms it
-up, times STEPS (10) steps on the host clock (ended by
+SS5 full width, B=256, bf16 compute over f32 masters, dropout on), or
+with BENCH_CONFIG=<zoo config> (`bench.zoo_model`: seldnet, dense_gru,
+...) another model of the zoo at full width, warms it up, times STEPS (10) steps on the host clock (ended by
 `torch.cuda.synchronize()`), then traces as many more under
 `torch.profiler` and prints ONE JSON line. BENCH_SPC=k (and
 BENCH_SPC_UNROLL), as the bench reads them, profiles the k-step call
@@ -33,12 +34,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import torch
 
 from seld_tpu_torch.bench import (build, card_name_and_power_limit,
-                                  steps_per_call_from_env)
+                                  steps_per_call_from_env, zoo_model)
 
 STEPS = 10            # steps per timed and per traced run
 # one stream runs the step's kernels one after another, so their summed
@@ -82,7 +84,10 @@ def main(argv=None) -> None:
     spc, unroll = steps_per_call_from_env()
     calls = -(-STEPS // spc)
     steps = calls * spc
-    b = build(device="cuda", steps_per_call=spc, unroll=unroll)
+    config = os.environ.get("BENCH_CONFIG", "SS5")
+    model_name, cfg = zoo_model(config)
+    b = build(device="cuda", steps_per_call=spc, unroll=unroll,
+              model_name=model_name, cfg=cfg)
     state, mstate = b.state, b.metric
 
     def run():
@@ -123,8 +128,8 @@ def main(argv=None) -> None:
                          "counts some device time twice")
     top = sorted(per_step.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        "metric": "ss5_train_step_breakdown",
-        "batch": b.batch, "compute_dtype": b.dtype, "steps": steps,
+        "metric": "train_step_breakdown",
+        "config": config, "model": model_name, "batch": b.batch, "compute_dtype": b.dtype, "steps": steps,
         "steps_per_call": spc, "unroll": unroll,
         "ms_per_step": ms_step,
         "traced_ms_per_step": traced_ms,

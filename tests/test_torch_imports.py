@@ -85,6 +85,19 @@ def test_model_configs_equal():
     assert got == want
 
 
+def test_rehearsal_tiny_config_equals_the_jax_rehearsal():
+    """The port's dress rehearsal writes the JAX rehearsal's TINY_CONFIG
+    (scripts/dress_rehearsal.py, read by its AST: the script configures
+    JAX at import)."""
+    from seld_tpu_torch.dress_rehearsal import TINY_CONFIG
+    with open(os.path.join(REPO, "scripts", "dress_rehearsal.py")) as f:
+        tree = ast.parse(f.read())
+    want = [ast.literal_eval(node.value) for node in tree.body
+            if isinstance(node, ast.Assign)
+            and [t.id for t in node.targets] == ["TINY_CONFIG"]]
+    assert want == [TINY_CONFIG]
+
+
 def _code_without_docstrings(path, package):
     with open(path) as f:
         tree = ast.parse(f.read().replace(package, "PKG"))

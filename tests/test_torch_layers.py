@@ -1,5 +1,7 @@
 """The port's primitive layers (seld_tpu_torch/models/layers.py, ops/) against
-seld_tpu's flax layers on the same numpy inputs and bridged weights.
+seld_tpu's flax layers on the same numpy inputs and bridged weights; the
+pools against `seld_tpu.ops.pooling.max_pool` and flax's avg_pool, forward
+and backward, on data with ties.
 
 Tolerance: 1e-5 abs in f32 — same formulas, different summation order.
 """
@@ -15,7 +17,7 @@ from seld_tpu.ops.pooling import max_pool as jax_max_pool
 from seld_tpu_torch.bridge import from_flax
 from seld_tpu_torch.models import layers as tl
 from seld_tpu_torch.ops.dropout import dropout
-from seld_tpu_torch.ops.pooling import max_pool
+from seld_tpu_torch.ops.pooling import avg_pool, max_pool
 
 torch.set_num_threads(1)
 ATOL = 1e-5
@@ -180,9 +182,80 @@ def test_max_pool_valid(shape, window):
     np.testing.assert_array_equal(got, want)
 
 
-def test_max_pool_refuses_overlap():
-    with pytest.raises(NotImplementedError):
-        max_pool(torch.zeros(1, 4, 4, 1), (2, 2), strides=(1, 1))
+def _tied(shape, seed):
+    """Values on a coarse grid: windows hold exact ties."""
+    rng = np.random.RandomState(seed)
+    return (rng.randint(-3, 4, shape) / 2.0).astype(np.float32)
+
+
+def _vjp_jax(fn, x, g):
+    y, vjp = jax.vjp(fn, jnp.asarray(x))
+    return np.asarray(y), np.asarray(vjp(jnp.asarray(g))[0])
+
+
+def _vjp_torch(fn, x, g):
+    xt = torch.from_numpy(x).requires_grad_()
+    y = fn(xt)
+    y.backward(torch.from_numpy(g))
+    return y.detach().numpy(), xt.grad.numpy()
+
+
+@pytest.mark.parametrize("shape,window,strides,padding", [
+    ((1, 4, 4, 1), (2, 2), (1, 1), "VALID"),   # once refused: overlapping
+    ((2, 5, 6, 3), (2, 2), (1, 1), "SAME"),
+    ((2, 6, 32, 5), (1, 3), (1, 2), "SAME"),   # XceptionBody, even F
+    ((2, 6, 31, 5), (1, 3), (1, 2), "SAME"),   # odd F
+    ((2, 6, 7, 4), (1, 3), (1, 2), "SAME"),
+    ((2, 7, 9, 2), (3, 3), (2, 2), "VALID"),
+], ids=["overlap-valid", "overlap-same", "xception-f32", "xception-f31",
+        "xception-f7", "strided-valid"])
+def test_max_pool_overlapping_matches_jax(shape, window, strides, padding):
+    """Forward equal, and the backward equal on data with ties: F.max_pool2d
+    and XLA's select-and-scatter both route a window's cotangent to its
+    first maximum (the SAME pad cell, -inf, never wins)."""
+    x = _tied(shape, 13)
+    want_y, vjp = jax.vjp(lambda a: jax_max_pool(a, window, strides,
+                                                  padding), jnp.asarray(x))
+    g = np.random.RandomState(14).randn(*want_y.shape).astype(np.float32)
+    want_dx = np.asarray(vjp(jnp.asarray(g))[0])
+    got_y, got_dx = _vjp_torch(lambda a: max_pool(a, window, strides,
+                                                   padding), x, g)
+    np.testing.assert_array_equal(got_y, np.asarray(want_y))
+    np.testing.assert_allclose(got_dx, want_dx, rtol=0, atol=1e-6)
+
+
+def test_max_pool_valid_ties_route_the_same_total():
+    """The non-overlapping VALID pool (amax) splits a window's cotangent
+    evenly over tied maxima, where XLA's select-and-scatter gives it all to
+    one: the forward is equal and each window routes the same total."""
+    x = _tied((2, 10, 8, 3), 15)
+    g = np.random.RandomState(16).randn(2, 2, 4, 3).astype(np.float32)
+    want_y, want_dx = _vjp_jax(lambda a: jax_max_pool(a, (5, 2), (5, 2)),
+                               x, g)
+    got_y, got_dx = _vjp_torch(lambda a: max_pool(a, (5, 2), (5, 2)), x, g)
+    np.testing.assert_array_equal(got_y, want_y)
+
+    def per_window(d):
+        return d.reshape(2, 2, 5, 4, 2, 3).sum(axis=(2, 4))
+    np.testing.assert_allclose(per_window(got_dx), per_window(want_dx),
+                               rtol=0, atol=1e-6)
+    assert not np.array_equal(got_dx, want_dx)    # ties split
+
+
+@pytest.mark.parametrize("shape,window", [
+    ((2, 6, 8, 5), (1, 2)), ((2, 6, 7, 5), (1, 2)), ((2, 10, 9, 3), (5, 2))],
+    ids=["even-f", "odd-f", "5x2-odd"])
+def test_avg_pool_matches_flax(shape, window):
+    """flax.linen.avg_pool, VALID (DenseNetStage's transition): forward and
+    backward, a trailing remainder dropped."""
+    x = np.random.RandomState(17).randn(*shape).astype(np.float32)
+    out = (shape[0], shape[1] // window[0], shape[2] // window[1], shape[3])
+    g = np.random.RandomState(18).randn(*out).astype(np.float32)
+    want_y, want_dx = _vjp_jax(lambda a: fnn.avg_pool(a, window,
+                                                      strides=window), x, g)
+    got_y, got_dx = _vjp_torch(lambda a: avg_pool(a, window), x, g)
+    np.testing.assert_allclose(got_y, want_y, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got_dx, want_dx, rtol=0, atol=1e-7)
 
 
 @pytest.mark.parametrize("name", ["relu", "sigmoid", "tanh", "swish", "silu",

@@ -1,6 +1,8 @@
 """The port's config-driven blocks (seld_tpu_torch/models/modules.py) against
 seld_tpu's flax blocks, built from the same config dicts, on the same numpy
-inputs with bridged weights (BatchNorm running stats randomised).
+inputs with bridged weights (BatchNorm running stats randomised). The
+legacy conv families run in eval mode and in train mode (the outputs and
+the updated running statistics).
 
 Tolerance: 1e-5 abs in f32 — same formulas, different summation order.
 """
@@ -194,3 +196,106 @@ def test_tuple2_matches_reference():
 def test_unknown_block():
     with pytest.raises(KeyError, match="unknown block type"):
         get_block("no_such_block")
+
+
+def _compare_legacy(block_name, args, x, train, atol=ATOL):
+    """As `_compare`, with the JAX side jitted and the variables drawn as
+    flax's init draws them (glorot-uniform kernels, zero biases, unit
+    BatchNorm scales) from the tree's shapes, which compiles no init, in
+    eval mode or in train mode: then the output from batch statistics and
+    every updated running statistic."""
+    jblock = jax_get_block(block_name)(args)
+    shapes = jax.eval_shape(lambda: jblock.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, *x.shape[1:])),
+        train=False))
+    rng = np.random.RandomState(12)
+
+    def draw(path, a):
+        name = path[-1].key
+        if name == "kernel":
+            fan = np.prod(a.shape[:-2]) * (a.shape[-2] + a.shape[-1])
+            return rng.uniform(-1, 1, a.shape).astype(np.float32) * \
+                np.float32(np.sqrt(6.0 / fan))
+        return np.full(a.shape, name in ("scale", "var"), np.float32)
+    v = _random_stats(jax.tree_util.tree_map_with_path(draw, shapes))
+    want, updated = jax.jit(lambda v, x: jblock.apply(
+        v, x, train=train, mutable=["batch_stats"]))(v, jnp.asarray(x))
+    block = get_block(block_name)(args)(x.shape[1:])
+    block.load_state_dict(from_flax(v, block))
+    block.train(train)
+    assert tuple(block.out_shape) == want.shape[1:]
+    with torch.no_grad():
+        got = block(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=atol)
+    stats = {k: v for k, v in block.state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    want_stats = from_flax({"batch_stats": jax.tree_util.tree_map(
+        np.asarray, updated["batch_stats"])})
+    assert set(stats) == set(want_stats)
+    for k, w in want_stats.items():
+        np.testing.assert_allclose(stats[k].numpy(), w.numpy(), rtol=0,
+                                   atol=atol, err_msg=k)
+
+# (block, args, input shape): narrowed widths; pools, strides and the
+# conditional projections of the zoo's families
+LEGACY_BLOCKS = {
+    "simple_conv": ("simple_conv_block",
+                    {"filters": [4, 6], "pool_size": [[5, 2], [1, 2]]},
+                    (2, 10, 8, 3)),
+    "cond_conv": ("cond_conv_block",
+                  {"filters": [4, 6], "pool_size": [[5, 2], [1, 2]],
+                   "num_experts": 3}, (2, 10, 8, 3)),
+    "another_conv": ("another_conv_block",
+                     {"filters": 6, "depth": 2, "pool_size": [1, 4]},
+                     (2, 6, 9, 4)),
+    "res_basic_strided": ("res_basic_stage",
+                          {"filters": 6, "depth": 2, "strides": [1, 2]},
+                          (2, 6, 7, 4)),
+    "res_basic_identity": ("res_basic_stage",
+                           {"filters": 4, "depth": 2, "strides": [1, 1]},
+                           (2, 6, 8, 4)),
+    "res_bottleneck_strided": ("res_bottleneck_stage",
+                               {"filters": 2, "depth": 3, "strides": [1, 2]},
+                               (2, 6, 8, 4)),
+    "res_bottleneck_identity": ("res_bottleneck_stage",
+                                {"filters": 2, "depth": 2, "strides": [1, 1],
+                                 "bottleneck_ratio": 2}, (2, 6, 8, 4)),
+    "dense_stage": ("dense_net_block",
+                    {"growth_rate": 4, "depth": 2, "strides": [1, 2],
+                     "bottleneck_ratio": 2, "reduction_ratio": 0.5},
+                    (2, 6, 7, 6)),
+    "dense_stage_last": ("dense_net_block",
+                         {"growth_rate": 4, "depth": 2, "strides": [1, 2],
+                          "reduction_ratio": None}, (2, 6, 8, 5)),
+    "dense_body": ("dense_net_block", {"filters": 8, "block_num": [2, 2]},
+                   (2, 10, 16, 3)),
+    # two stages (the second strided): at block_num [1, 2] the ten
+    # train-mode BatchNorms in series leave either f32 side up to 1.6e-5
+    # from an f64 run, beyond this file's tolerance
+    "resnet50": ("resnet50_block", {"filters": 2, "block_num": [1, 1]},
+                 (2, 10, 16, 3)),
+    "xception": ("xception_block", {"filters": 2, "block_num": 1},
+                 (2, 10, 14, 3)),
+}
+
+
+@pytest.mark.parametrize("mode", ["eval", "train"])
+@pytest.mark.parametrize("case", sorted(LEGACY_BLOCKS))
+def test_legacy_conv_block_matches_jax(case, mode):
+    name, args, shape = LEGACY_BLOCKS[case]
+    _compare_legacy(name, args, _x(*shape, seed=11), train=mode == "train")
+
+
+def test_legacy_block_names_follow_flax_creation_order():
+    """A bottleneck stage's projection exists only where shapes differ, and
+    flax numbers Conv_i/BatchNorm_i in creation order: the strided first
+    block takes Conv_0/Conv_1 (main, projection), the later ones Conv_2, 3."""
+    block = get_block("res_bottleneck_stage")(
+        {"filters": 2, "depth": 3, "strides": [1, 2]})((6, 8, 4))
+    convs = sorted(k for k in block.state_dict() if k.startswith("Conv_"))
+    assert convs == ["Conv_0.bias", "Conv_0.kernel", "Conv_1.bias",
+                     "Conv_1.kernel", "Conv_2.bias", "Conv_2.kernel",
+                     "Conv_3.bias", "Conv_3.kernel"]
+    assert block.Conv_1.kernel.shape == (1, 1, 4, 8)       # the projection
+    assert block.Conv_2.kernel.shape == (1, 1, 2, 8)
+    assert block.out_shape == (6, 4, 8)
