@@ -19,7 +19,12 @@ Phases, one line each:
               Conv2DBN stem with pool [5, 4] (one
               train step), whose backward runs stem_dy's generic path
               once; and a biGRU at U=384, B=8, which raises on the card
-              (the JAX package runs its kernel there; the port has none)
+              (the JAX package runs its kernel there; the port has none);
+              GRU dropout's routes on a biGRU U=128 (the same numpy masks
+              on the card and the CPU): input dropout keeps gru_scan,
+              recurrent dropout takes the masked route with no GRU
+              launch; the equality max-pool backward
+              (SELD_EQ_MAXPOOL_BWD=1) on a tied [5, 2] pool
   5. model    full-width SS5 (seeded weights), B=32, on the card against the
               same model on the CPU with the plain kernels, TF32 off
   6. serve    export a window artifact, serve it with micro-batching on an
@@ -164,6 +169,21 @@ Phases, one line each:
               path; (e) seldnet and xception_gru as window artifacts
               behind the server: replies equal the direct call, 2
               gru_scan launches a dispatch
+ 17. blocks   path A, accdoa on SS5's config, and path B, SS5 with BLOCK2
+              swapped for each 1-D block (transformer, attention with RFF
+              and GLU, the relative scanned conformer, RNN_stage LSTM,
+              GRU and GRU with dropout 0.2, tcn_stage, identity_block) at
+              full width, seeded weights: (a) the eval forward at B=4, f32,
+              card against CPU (sed, doa and BLOCK2's output; exact
+              gru_scan launches); (b) one f32 train step at B=2 card
+              against CPU by [zoo] (b)'s rule; (c) 10 bf16 steps at B=256
+              eagerly, then make_train_multistep(10)'s capture and a timed
+              call of replays: finite losses, exactly stem_dy 1, gru_scan
+              and gru_scan_bwd 2 (+2 for the GRU RNN_stage; none from the
+              masked route; accdoa 0) a step, ms/step, windows/s and peak
+              memory; (d) --model accdoa through the training CLI on
+              [feed]'s wav tree with --epoch_scan and a resume: sedLoss 0.0
+              throughout, exact launches of all five kernels
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
 at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152
 (phase 14 adds f32 B=256 at every NAS unit count, 4 to 256, both GRU
@@ -411,6 +431,33 @@ ZOO_NULL_GRAD = 1e-4
 ZOO_TRAIN_B = 256
 ZOO_STEPS = 10
 ZOO_SERVE = ("seldnet", "xception_gru")
+# [blocks]: path A, accdoa on SS5's config, and path B, SS5 with BLOCK2
+# swapped for each 1-D block at SS5's conformer widths
+# (seld_tpu_torch.bench.BLOCK_ROWS), full width (300, 64, 7), seeded
+# weights, 12 classes. (a) eval forward at B=BLOCKS_FWD_B, f32, TF32 off,
+# card against CPU: sed/doa to MODEL_TOL and the swapped block's output
+# to ZOO_BODY_RTOL of its largest |value|; (b) one f32 step at
+# B=BLOCKS_STEP_B card against CPU by [zoo] (b)'s rule (the CPU's ReLU
+# decisions replayed, null leaves from the forward, the update against the
+# CPU optimizer's step on the card's gradients), dropouts zeroed but
+# rnn_gru_dropout's RNN_stage, whose recurrent and input dropout draw the
+# same numpy keep masks on both sides; (c) BLOCKS_STEPS bf16
+# steps at B=256 eager, then one make_train_multistep(BLOCKS_STEPS) call
+# (warm-up, capture) and a timed call of replays, the rows' dropout rates
+# on (rnn_gru_dropout's recurrent dropout takes the masked route, no
+# kernel), exact launches: stem_dy 1 a step, gru_scan and gru_scan_bwd 2
+# (SS5's DOA biGRU) + 2 (rnn_gru's RNN_stage) a step, accdoa 0; (d)
+# --model accdoa through the training CLI on [feed]'s seeded wav tree,
+# --epoch_scan, 2 epochs and a resume, sedLoss 0.0 on every history line,
+# exact launches of all five kernels
+BLOCKS_FWD_B = 4
+BLOCKS_STEP_B = 2
+BLOCKS_STEPS = 10
+BLOCKS_FEED_ARGV = ["--model", "accdoa", "--model_config", "SS5",
+                    "--doa_loss", "MSE", "--from_wav", "--device_data",
+                    "--bf16", "--batch", "64", "--loop_time", "5",
+                    "--epoch", "2", "--swa_start", "1", "--swa_freq", "1",
+                    "--eval_every", "0"]
 # [answer]: the dress rehearsal at rehearsal scale (4 train, 2 + 2 eval
 # clips of 120 label frames, 5 epochs with SWA from epoch 2 and the
 # ensemble evaluation every 2)
@@ -1232,6 +1279,94 @@ def phase_routes(card):
     if max(errs.values()) > TRAIN_GRAD_RTOL or null_max >= null_at or \
             stats_err > TRAIN_STATS_RTOL or launched != 1:
         raise SystemExit("the [5, 4] stem failed on the card")
+    routes_dropout(card, rng)
+
+
+def routes_dropout(card, rng):
+    """GRU dropout's two routes and the equality max-pool backward on the
+    card. A biGRU U=128 (B=8, T=60, f32) with the same numpy masks on the
+    card and the CPU: input dropout alone keeps gru_scan (one forward, one
+    backward launch); recurrent dropout takes the masked route, a plain
+    recurrence under autograd, and launches no GRU kernel; output and
+    gradients to TRAIN_GRAD_RTOL. SELD_EQ_MAXPOOL_BWD=1: a SAME [5, 2] pool
+    (which without the knob sends each window's cotangent to one maximum) of
+    a tied input routes each window's cotangent to its tied maxima split
+    by their count (the JAX package's rule, computed here in numpy)."""
+    import torch
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.ops.gru import gru_forward, gru_route
+    from seld_tpu_torch.ops.pooling import max_pool
+
+    b, t, i, u = 8, 60, 64, 128
+    gen = torch.Generator().manual_seed(u)
+    kernel = 0.1 * torch.randn(2, i, 3 * u, generator=gen)
+    rk = 0.1 * torch.randn(2, u, 3 * u, generator=gen)
+    bias = 0.1 * torch.randn(2, 2, 3 * u, generator=gen)
+    x = torch.from_numpy(rng.randn(b, t, i).astype(np.float32))
+    w = torch.from_numpy(rng.randn(b, t, u).astype(np.float32))
+    gate = torch.from_numpy((rng.rand(2, 3, b, 1, i) >= 0.2) / 0.8).float()
+    rec = torch.from_numpy((rng.rand(2, 3, b, u) >= 0.2) / 0.8).float()
+
+    def run(device, gate_masks, rec_masks):
+        args = [a.detach().clone().to(device).requires_grad_()
+                for a in (x, kernel, rk, bias)]
+        out = gru_forward(*args, bidirectional=True,
+                          gate_masks=gate_masks.to(device),
+                          rec_masks=None if rec_masks is None
+                          else rec_masks.to(device))
+        (out * w.to(device)).sum().backward()
+        return [out] + [a.grad for a in args]
+
+    for label, rec_masks, route, launches in (
+            ("input dropout", None, "kernel", 1),
+            ("input + recurrent dropout", rec, "masked", 0)):
+        if gru_route(b, u, "cuda", masked=rec_masks is not None) != route:
+            raise SystemExit(f"{label} should take the {route} route")
+        want = run("cpu", gate, rec_masks)
+        kernels.launch_counts.clear()
+        got = run("cuda", gate, rec_masks)
+        torch.cuda.synchronize()
+        counts = {k: kernels.launch_counts[k] for k in ("gru_scan",
+                                                        "gru_scan_bwd")}
+        err = max(_grads_err(got, want))
+        ok = err <= TRAIN_GRAD_RTOL and set(counts.values()) == {launches}
+        log("routes", f"biGRU U={u} B={b} T={t} f32 with {label} (the same "
+                      f"numpy masks), the {route} route: output and "
+                      f"gradients card vs CPU rel_err {err:.2e} (tol "
+                      f"{TRAIN_GRAD_RTOL:.0e}); GRU kernel launches {counts}"
+                      f" (want {launches} each) on {card} "
+                      f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the GRU {route} route with {label} failed")
+
+    pool = (5, 2)
+    xp = np.round(rng.randn(4, 300, 64, 8) * 2) / 2      # many ties
+    g = rng.randn(4, 60, 32, 8).astype(np.float32)
+    x6 = xp.reshape(4, 60, 5, 32, 2, 8)
+    y6 = x6.max(axis=(2, 4), keepdims=True)
+    eq = (x6 == y6).astype(np.float32)
+    want = (eq * g.reshape(4, 60, 1, 32, 1, 8)
+            / eq.sum(axis=(2, 4), keepdims=True)).reshape(xp.shape)
+    xt = torch.from_numpy(xp.astype(np.float32)).cuda().requires_grad_()
+    old = os.environ.get("SELD_EQ_MAXPOOL_BWD")
+    os.environ["SELD_EQ_MAXPOOL_BWD"] = "1"
+    try:
+        out = max_pool(xt, pool, strides=pool, padding="SAME")
+    finally:
+        if old is None:
+            del os.environ["SELD_EQ_MAXPOOL_BWD"]
+        else:
+            os.environ["SELD_EQ_MAXPOOL_BWD"] = old
+    out.backward(torch.from_numpy(g).cuda())
+    err = np.abs(xt.grad.cpu().numpy() - want).max()
+    tied = int(((eq.sum(axis=(2, 4))) > 1).sum())
+    ok = err <= 1e-6 and tied > 0
+    log("routes", f"SELD_EQ_MAXPOOL_BWD=1: SAME max pool [5, 2] of [4, 300, "
+                  f"64, 8] with {tied} tied windows: the gradient "
+                  f"against count-normalised tie routing max_abs_err "
+                  f"{err:.1e} (tol 1e-6) on {card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the equality max-pool backward failed on the card")
 
 
 def phase_model(card):
@@ -1395,6 +1530,25 @@ def relu_decisions(masks, replay):
         torch.relu = relu
 
 
+@contextlib.contextmanager
+def numpy_keep_masks(seed):
+    """The recurrent layers' dropout keep masks (`keep_mask`) drawn from
+    numpy seed `seed` in call order, so a card step and a CPU step take the
+    same masks."""
+    import torch
+    from seld_tpu_torch.models import layers
+    real, rng = layers.keep_mask, np.random.RandomState(seed)
+
+    def drawn(shape, keep, generator, device, dtype):
+        m = (rng.rand(*shape) < keep).astype(np.float32) / keep
+        return torch.from_numpy(m).to(device=device, dtype=dtype)
+    layers.keep_mask = drawn
+    try:
+        yield
+    finally:
+        layers.keep_mask = real
+
+
 def null_leaves(model):
     """Register forward hooks that collect into the returned set the names
     of the parameters whose gradient is zero in exact arithmetic in a
@@ -1477,7 +1631,7 @@ def _step_agreement(card_run, cpu_run, nulls=None,
     from the card's gradients."""
     lc, gc, p0, pc, sc, lr, names = card_run
     lh, gh, _, ph, sh, _, _ = cpu_run
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    loss_err = _max_rel(lc, lh)      # accdoa's SED loss is 0 on both
     null_at = null_grad * max(g.abs().max().item() for g in gh)
     floor = 0.0 if nulls is None else null_at
     null = [n in nulls if nulls is not None else
@@ -2113,24 +2267,26 @@ def _frontend_chunks(n_train, n_val, n_test, chunk=8):
     return sum(-(-c // chunk) for c in (n_train, n_val, n_test))
 
 
-def _want_counts(steps, epochs, n_train, n_val, n_test, frontend=None):
+def _want_counts(steps, epochs, n_train, n_val, n_test, frontend=None,
+                 gru_layers=2):
     """Exact launches of each kernel for a CLI run of `steps` train steps
     over `epochs` epochs: the front-end once per chunk of each split's
     clips (or `frontend` launches); one gather launch (x and y) per batch;
-    per train step 2 GRU forwards, 2 GRU backwards and 1 stem backward;
-    per eval batch (one clip) 2 GRU forwards."""
+    per train step `gru_layers` GRU forwards and backwards (SS5's DOA
+    biGRU: 2; accdoa has none) and 1 stem backward; per eval batch (one
+    clip) `gru_layers` GRU forwards."""
     from seld_tpu_torch.data.device_dataset import LAUNCHES_PER_BATCH
     evals = epochs * (n_val + n_test)
     if frontend is None:
         frontend = _frontend_chunks(n_train, n_val, n_test)
     return {"foa_frontend": frontend,
             "gather_rows": LAUNCHES_PER_BATCH * (steps + evals),
-            "gru_scan": 2 * (steps + evals), "gru_scan_bwd": 2 * steps,
-            "stem_dy": steps}
+            "gru_scan": gru_layers * (steps + evals),
+            "gru_scan_bwd": gru_layers * steps, "stem_dy": steps}
 
 
 def _feed_variant(root, card, label, flags, argv=FEED_ARGV, frontend=None,
-                  channels=7, tag="feed"):
+                  channels=7, tag="feed", gru_layers=2):
     """One training run of the CLI with `flags` (2 epochs) and its
     --resume; checks the counts (the front-end's: `frontend(epochs run)`,
     else one launch per chunk of each split), the losses, the resumed
@@ -2159,11 +2315,11 @@ def _feed_variant(root, card, label, flags, argv=FEED_ARGV, frontend=None,
     per_epoch = n_train * 10 * cfg.loop_time // cfg.batch   # 10 windows/clip
     windows = per_epoch * cfg.batch
     want = _want_counts(trainer.state.step, len(hist), n_train, n_val,
-                        n_test, frontend and frontend(len(hist)))
+                        n_test, frontend and frontend(len(hist)), gru_layers)
     rtrainer = resumed["trainer"]
     rwant = _want_counts(rtrainer.state.step - (best_epoch + 1) * per_epoch,
                          len(rhist), n_train, n_val, n_test,
-                         frontend and frontend(len(rhist)))
+                         frontend and frontend(len(rhist)), gru_layers)
     losses = [h[s][k] for h in hist + rhist for s in ("train", "val")
               for k in ("sedLoss", "doaLoss")]
     finite = all(math.isfinite(v) for v in losses)
@@ -3720,16 +3876,15 @@ def zoo_train_step(card):
     return out
 
 
-def _zoo_bf16_run(model_name, cfg, batch):
-    """ZOO_STEPS eager bf16 steps, then a make_train_multistep(ZOO_STEPS)
-    call that warms up and captures and a timed call of replays: (eager
-    ms/step, graphed ms/step, eager launches, replay launches, losses
-    finite, peak allocated and reserved GiB)."""
+def _zoo_bf16_run(model_name, cfg, batch, k=ZOO_STEPS):
+    """k eager bf16 steps, then a make_train_multistep(k) call that warms
+    up and captures and a timed call of replays: (eager ms/step, graphed
+    ms/step, eager launches, replay launches, losses finite, peak
+    allocated and reserved GiB)."""
     import torch
     from seld_tpu_torch.bench import build
     from seld_tpu_torch.ops import kernels
     from seld_tpu_torch.train.steps import make_train_multistep
-    k = ZOO_STEPS
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     b = build(batch=batch, dtype="bf16", device="cuda",
@@ -3937,6 +4092,185 @@ def phase_zoo(card):
     return out
 
 
+def _block_rows():
+    """Path A and every row of path B, in order."""
+    from seld_tpu_torch.bench import BLOCK_ROWS
+    return ("accdoa", *BLOCK_ROWS)
+
+
+def _row_gru_layers(row, train):
+    """GRU kernel layers `row` runs a forward: SS5's DOA biGRU (2), none in
+    accdoa, 2 more in rnn_gru's RNN_stage and, in eval, in
+    rnn_gru_dropout's (in training its recurrent dropout takes the masked
+    route, no kernel)."""
+    if row == "rnn_gru_dropout":
+        return 2 if train else 4
+    return {"accdoa": 0, "rnn_gru": 4}.get(row, 2)
+
+
+def blocks_forward(card):
+    """(a) each row's eval forward, card against CPU, f32."""
+    import torch
+    from seld_tpu_torch.bench import block_row
+    from seld_tpu_torch.models import build_model
+    from seld_tpu_torch.ops import kernels
+    x = torch.from_numpy(np.random.RandomState(31).randn(
+        BLOCKS_FWD_B, 300, 64, 7).astype(np.float32))
+    xg = x.cuda()
+    out = {}
+    for row in _block_rows():
+        model_name, cfg = block_row(row)
+        cpu = build_model(model_name, (300, 64, 7), cfg, seed=0,
+                          device="cpu")
+        gpu = build_model(model_name, (300, 64, 7), cfg, seed=0,
+                          device="cuda")
+        body = []              # the swapped block's (BLOCK2's) output
+        for m in (gpu, cpu):
+            m.blocks[2].register_forward_hook(
+                lambda mod, args, y: body.append(y.float().cpu()))
+        kernels.launch_counts.clear()
+        with torch.inference_mode():
+            got = gpu(xg)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts["gru_scan"]
+            want = cpu(x)
+            body_err = rel_err(body[0], body[1])
+            ms = cuda_ms(lambda: gpu(xg), 3)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        err = max((g.cpu() - w).abs().max().item()
+                  for g, w in zip(got, want))
+        want_launches = _row_gru_layers(row, train=False)
+        ok = (finite and err <= MODEL_TOL and launches == want_launches
+              and body_err <= ZOO_BODY_RTOL
+              and tuple(got[0].shape) == (BLOCKS_FWD_B, 60, 12)
+              and tuple(got[1].shape) == (BLOCKS_FWD_B, 60, 36))
+        n_params = sum(p.numel() for p in gpu.parameters())
+        log("blocks", f"(a) {row} ({model_name}, {cfg['BLOCK2']}, "
+                      f"{n_params} parameters) forward B={BLOCKS_FWD_B} f32 "
+                      f"card vs CPU: sed/doa max_abs_err {err:.2e} (tol "
+                      f"{MODEL_TOL:.0e}), doa std {float(want[1].std()):.3f}"
+                      f"; BLOCK2's output {tuple(body[1].shape)} rel_err "
+                      f"{body_err:.2e} (tol {ZOO_BODY_RTOL:.0e}); gru_scan "
+                      f"launches {launches} (want {want_launches}), "
+                      f"{ms:.2f} ms on the card {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"blocks {row}: the forward on the card "
+                             "disagrees with the CPU or skipped gru_scan")
+        out[row] = {"max_abs_err": err, "body_rel_err": body_err,
+                    "ms_b4": ms, "params": n_params}
+        del cpu, gpu, got, want
+    return out
+
+
+def blocks_train_step(card):
+    """(b) one f32 step at B=BLOCKS_STEP_B, card against CPU, dropouts
+    zeroed but rnn_gru_dropout's RNN_stage, which keeps its rate and takes
+    the same numpy keep masks on both (the masked route on the card)."""
+    from seld_tpu_torch.bench import BLOCK_ROWS, block_row
+    out = {}
+    for row in _block_rows():
+        t0 = time.perf_counter()
+        model_name, cfg = block_row(row, dropout=False)
+        rate = BLOCK_ROWS.get(row, (None, {}))[1].get("dropout_rate", 0.0)
+        if rate:
+            cfg["BLOCK2_ARGS"]["dropout_rate"] = rate
+        model = {"model_name": model_name, "cfg": cfg}
+        nulls, masks = set(), []
+        with relu_decisions(masks, replay=False), numpy_keep_masks(7):
+            cpu = _one_step("cpu", BLOCKS_STEP_B, nulls, **model)
+        with relu_decisions(masks, replay=True), numpy_keep_masks(7):
+            card_run = _one_step("cuda", BLOCKS_STEP_B, **model)
+        ok, text = _step_agreement(card_run, cpu, nulls, ZOO_NULL_GRAD)
+        kept = f", RNN_stage dropout {rate} on the same masks" if rate else ""
+        log("blocks", f"(b) {row} f32 B={BLOCKS_STEP_B}{kept}, one step, "
+                      f"card vs cpu (the CPU's {len(masks)} ReLU decisions "
+                      f"replayed): {text}; {time.perf_counter() - t0:.1f} s "
+                      f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"blocks {row}: the f32 train step on the card "
+                             "disagrees with the CPU")
+        out[row] = text
+    return out
+
+
+def blocks_bf16(card):
+    """(c) bf16 training at B=ZOO_TRAIN_B, eager and graphed, with exact
+    launches a step."""
+    from seld_tpu_torch.bench import block_row
+    from seld_tpu_torch.ops import kernels
+    out = {}
+    for row in _block_rows():
+        model_name, cfg = block_row(row)
+        gru = _row_gru_layers(row, train=True)
+        per_step = {"gru_scan": gru, "gru_scan_bwd": gru, "stem_dy": 1}
+        want = {n: per_step.get(n, 0) * BLOCKS_STEPS
+                for n in kernels.KERNELS}
+        batch = ZOO_TRAIN_B
+        eager_ms, graph_ms, eager, replays, finite, peak = _zoo_bf16_run(
+            model_name, cfg, batch, BLOCKS_STEPS)
+        ok = finite and eager == want and replays == want
+        log("blocks", f"(c) {row} bf16 B={batch}, {BLOCKS_STEPS} steps: "
+                      f"eager {eager_ms:.2f} ms/step "
+                      f"({batch * 1e3 / eager_ms:.1f} windows/s), graphed "
+                      f"{graph_ms:.2f} ms/step "
+                      f"({batch * 1e3 / graph_ms:.1f} windows/s); losses "
+                      f"finite {finite}; launches eager {eager}, graph "
+                      f"replays {replays} (want {want} each); peak "
+                      f"allocated {peak[0]:.2f} GiB, reserved "
+                      f"{peak[1]:.2f} GiB on {card} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"blocks {row}: bf16 training gave a "
+                             "non-finite loss or skipped a kernel")
+        out[row] = {"batch": batch, "eager_ms": eager_ms,
+                    "graph_ms": graph_ms, "launches": eager,
+                    "graph_launches": replays, "peak_gib": list(peak)}
+    return out
+
+
+def blocks_cli(card):
+    """(d) --model accdoa through the training CLI on the seeded wav tree,
+    --epoch_scan, 2 epochs and a resume: exact launches of all five
+    kernels (no GRU: accdoa has no DOA head), sedLoss 0.0 throughout."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        write_wav_tree(root, FEED_CLIPS, FEED_SECONDS)
+        os.chdir(root)
+        try:
+            counts, rate, out, resumed = _feed_variant(
+                root, card, "accdoa --epoch_scan",
+                ["--name", "smoke_accdoa", "--epoch_scan"],
+                argv=BLOCKS_FEED_ARGV, tag="blocks", gru_layers=0)
+        finally:
+            os.chdir(cwd)
+    hist = out["history"] + resumed["history"]
+    sed = [h[s]["sedLoss"] for h in hist for s in ("train", "val")]
+    weights = out["trainer"].loss_weights
+    ok = all(v == 0.0 for v in sed) and weights[0] == 0.0
+    log("blocks", f"(d) accdoa CLI: sedLoss on every history line {sed}, "
+                  f"loss weights {weights}; {rate:.1f} windows/s after the "
+                  f"first epoch {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the accdoa CLI trained its derived SED output")
+    return {"launches": counts, "windows_per_s": rate}
+
+
+def phase_blocks(card):
+    """The block rows at full width: (a) forward and (b) one f32 train step
+    card against CPU, (c) bf16 training eager and graphed, (d) accdoa
+    through the training CLI."""
+    secs, out = {}, {}
+    for part, fn in (("forward", blocks_forward),
+                     ("train_step", blocks_train_step),
+                     ("bf16", blocks_bf16), ("cli", blocks_cli)):
+        t0 = time.perf_counter()
+        out[part] = fn(card)
+        secs[part] = time.perf_counter() - t0
+    log("blocks", "seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
+    out["seconds"] = secs
+    return out
+
+
 def ptxas_report(text):
     """One line per kernel of an `nvcc -Xptxas -v` log: its name (template
     arguments in brackets), registers and spills."""
@@ -4076,6 +4410,17 @@ def main(argv=None):
                                   for n in zoo["bf16"]}
     by_name["stem_dy"]["zoo_pool_5x1"] = zoo["stem_dy"]
     by_name["gru_scan"]["zoo_seconds"] = zoo["seconds"]
+    blocks = timed(phase_blocks, smi)
+    for e in entries:
+        e["blocks_launches"] = {n: r["launches"][e["name"]]
+                                for n, r in blocks["bf16"].items()}
+        e["blocks_cli_launches"] = blocks["cli"]["launches"][e["name"]]
+    by_name["gru_scan"]["blocks"] = {
+        n: {**blocks["bf16"][n], **blocks["forward"][n]}
+        for n in blocks["bf16"]}
+    by_name["gru_scan"]["blocks_cli_windows_per_s"] = \
+        blocks["cli"]["windows_per_s"]
+    by_name["gru_scan"]["blocks_seconds"] = blocks["seconds"]
 
     log("time", f"all phases {time.perf_counter() - t_start:.1f} s")
     entries[0]["phase_seconds"] = phase_seconds

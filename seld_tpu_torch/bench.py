@@ -40,6 +40,7 @@ from seld_tpu_torch.train import metrics as M
 from seld_tpu_torch.train.optimizers import adabelief
 from seld_tpu_torch.train.steps import make_train_multistep, make_train_step
 from seld_tpu_torch.train.train_state import TrainState
+from seld_tpu_torch.train.trainer import accdoa_objective
 
 INPUT_SHAPE = (300, 64, 7)
 N_CLASSES = 12
@@ -83,6 +84,51 @@ def zoo_model(name: str, dropout: bool = True):
     return ZOO_MODELS[name], cfg
 
 
+# SS5 with BLOCK2 swapped for each 1-D block beyond SS5's own, at SS5's
+# conformer widths (d_model 192, T 60): block name and arguments
+BLOCK_ROWS = {
+    "transformer": ("transformer_encoder_stage", {
+        "depth": 2, "n_head": 4, "key_dim": 24, "ff_multiplier": 2,
+        "kernel_size": 3}),
+    "attention": ("attention_stage", {
+        "depth": 2, "key_dim": 24, "n_head": 4, "kernel_size": 24,
+        "ff_kernel_size": 1, "ff_multiplier": 2, "ff_factor0": 0.5,
+        "ff_factor1": 0.5, "pos_encoding": "rff", "use_glu": True}),
+    "conformer_relative_scan": ("conformer_encoder_stage", {
+        "depth": 2, "key_dim": 24, "n_head": 4, "kernel_size": 24,
+        "multiplier": 2, "pos_encoding": "basic", "pos_mode": "relative",
+        "scan_depth": True}),
+    "rnn_lstm": ("RNN_stage", {"depth": 2, "units": 128,
+                               "rnn_type": "LSTM"}),
+    "rnn_gru": ("RNN_stage", {"depth": 2, "units": 128, "rnn_type": "GRU"}),
+    "rnn_gru_dropout": ("RNN_stage", {"depth": 2, "units": 128,
+                                      "rnn_type": "GRU",
+                                      "dropout_rate": 0.2}),
+    "tcn": ("tcn_stage", {"filters": 192, "depth": 3}),
+    "identity": ("identity_block", {}),
+}
+
+
+# the accdoa row's objective flags: --doa_loss MSE and the training CLI's
+# default --loss_weight
+ACCDOA_ARGS = SimpleNamespace(doa_loss="MSE", loss_weight="1,1000")
+
+
+def block_row(name: str, dropout: bool = True):
+    """(model name, config) of a row: "accdoa" is the accdoa model on
+    `ss5_config(dropout)` (it reads SS5's stem and BLOCKs, not its heads);
+    any other is `ss5_config(dropout)` with BLOCK2 = BLOCK_ROWS[name],
+    every dropout rate 0 without `dropout`."""
+    cfg = ss5_config(dropout)
+    if name == "accdoa":
+        return "accdoa", cfg
+    block, args = BLOCK_ROWS[name]
+    cfg["BLOCK2"], cfg["BLOCK2_ARGS"] = block, dict(args)
+    if not dropout:
+        cfg["BLOCK2_ARGS"]["dropout_rate"] = 0.0
+    return "conv_temporal", cfg
+
+
 def build(batch: int = 256, dtype: str = "bf16", device="cuda",
           seed: int = 0, dropout: bool = True, steps_per_call: int = 1,
           unroll: int = 1, model_name: str = "conv_temporal",
@@ -90,7 +136,9 @@ def build(batch: int = 256, dtype: str = "bf16", device="cuda",
     """The bench's model, optimizer, step and one synthetic batch.
 
     The model is `model_name` on `cfg` (N_CLASSES classes), SS5 by
-    default (`ss5_config(dropout)`). Weights come from `seed` (drawn on
+    default (`ss5_config(dropout)`); accdoa trains on the trainer's
+    objective under ACCDOA_ARGS, as `--model accdoa --doa_loss MSE` does.
+    Weights come from `seed` (drawn on
     the CPU, so every device gets the same model) and the batch from numpy
     seed `seed`; x is pre-cast to the compute dtype, as the JAX package's
     feed does. With steps_per_call k > 1 the step is
@@ -107,6 +155,10 @@ def build(batch: int = 256, dtype: str = "bf16", device="cuda",
         sed_loss_fn=lambda y, p: L.sed_loss_with_weights(y, p, cw),
         doa_loss_fn=lambda y, p: L.MMSE_with_cls_weights(y, p, cw),
         loss_weights=(1.0, 1000.0), l2=1e-3, compute_dtype=compute_dtype)
+    if model_name == "accdoa":
+        sed_loss_fn, doa_loss_fn, weights = accdoa_objective(ACCDOA_ARGS)
+        kwargs.update(sed_loss_fn=sed_loss_fn, doa_loss_fn=doa_loss_fn,
+                      loss_weights=weights)
     if steps_per_call > 1:
         step = make_train_multistep(steps_per_call=steps_per_call,
                                     unroll=unroll, **kwargs)

@@ -1,9 +1,12 @@
 """Primitive layers (seld_tpu/models/layers.py) as torch nn.Modules.
 
 Parameters keep flax's names and shapes — conv kernels HWIO ([*k, in/groups,
-out]), Dense [I, O], MHA [H, I, S] / [H, S, O], GRU kernel [D, I, 3U],
-recurrent_kernel [D, U, 3U], bias [D, 2, 3U], BatchNorm scale/bias plus the
-running mean/var as buffers — and every child module is registered under
+out]), Dense [I, O], MHA [H, I, S] / [H, S, O] (relative-position MHA adds
+pos_kernel [H, P, S] and pos_bias_u/v [H, S]), the RFF encoding's w
+[1, 1, d/2], GRU kernel [D, I, 3U], recurrent_kernel [D, U, 3U], bias
+[D, 2, 3U], LSTM kernel [D, I, 4U], recurrent_kernel [D, U, 4U], bias
+[D, 4U], BatchNorm scale/bias plus the running mean/var as buffers — and
+every child module is registered under
 flax's auto-name `<Class>_<n>` (`add_child`). A flax variable tree then maps
 onto `state_dict()` by joining its path with "." (seld_tpu_torch.bridge).
 Convs permute their kernel to OIHW at call time.
@@ -27,8 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from seld_tpu_torch.ops.dropout import dropout
-from seld_tpu_torch.ops.gru import gru_forward
+from seld_tpu_torch.ops.dropout import dropout, keep_mask
+from seld_tpu_torch.ops.gru import (gru_forward, in_scan_order,
+                                   input_projection)
 from seld_tpu_torch.ops.pooling import max_pool
 from seld_tpu_torch.ops.stem import conv_bn_relu_pool, fused_stem_applicable
 
@@ -150,27 +154,59 @@ def basic_pos_encoding_on(time: int, d_model: int, device: torch.device,
                           dtype: torch.dtype) -> torch.Tensor:
     """`basic_pos_encoding` on `device` in `dtype`, made once: a forward
     that adds it makes no host-to-device copy, which the capture of a CUDA
-    graph refuses. Callers must not write into it."""
-    return basic_pos_encoding(time, d_model).to(device=device, dtype=dtype)
+    graph refuses. Made outside inference mode, so that a training step can
+    save it for backward (relative-position attention does) after an
+    inference forward made it first. Callers must not write into it."""
+    with torch.inference_mode(False):
+        return basic_pos_encoding(time, d_model).to(device=device,
+                                                    dtype=dtype)
 
 
 # ---------------------------------------------------------------- layers
 
+class RFFPosEncoding(nn.Module):
+    """Random-Fourier-feature encoding [1, time, d_model]: cos and sin of
+    w * t, concatenated. `w` [1, 1, d_model // 2] ~ N(0, 1) is a parameter
+    that the forward reads detached, as JAX's stop_gradient: no gradient
+    reaches it (the train step gives it zeros, as jax.grad does), so no
+    optimizer moves it."""
+
+    unused_parameters = ("w",)
+
+    def __init__(self, d_model: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.w = nn.Parameter(torch.randn(
+            (1, 1, d_model // 2), generator=_generator(generator)))
+
+    def forward(self, time: int, dtype: torch.dtype) -> torch.Tensor:
+        w = self.w.detach().to(dtype)
+        t = torch.arange(time, device=w.device, dtype=dtype).reshape(1, -1, 1)
+        return torch.cat([torch.cos(w * t), torch.sin(w * t)], dim=-1)
+
+
 class Conv(nn.Module):
     """Channels-last 1D/2D conv; parameters `kernel` [*k, in/groups, out]
-    and `bias` [out], padding computed as XLA's "SAME" or "VALID"."""
+    and `bias` [out], padding computed as XLA's "SAME" or "VALID" on the
+    dilated kernel (`kernel_dilation`, flax nn.Conv's)."""
 
     def __init__(self, in_features: int, features: int,
                  kernel_size: Tuple[int, ...],
                  strides: Optional[Tuple[int, ...]] = None,
                  padding: str = "SAME", feature_group_count: int = 1,
                  use_bias: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 kernel_dilation: Optional[Tuple[int, ...]] = None):
         super().__init__()
         g = _generator(generator)
         self.kernel_size = tuple(kernel_size)
         self.strides = (tuple(strides) if strides
                         else (1,) * len(self.kernel_size))
+        self.dilation = (tuple(kernel_dilation) if kernel_dilation
+                         else (1,) * len(self.kernel_size))
+        # the extent of each dilated kernel, which the padding sees
+        self.span = tuple((k - 1) * d + 1 for k, d in
+                          zip(self.kernel_size, self.dilation))
         self.padding = padding.upper()
         if self.padding not in ("SAME", "VALID"):
             raise ValueError(f"unknown padding {padding!r}")
@@ -186,7 +222,7 @@ class Conv(nn.Module):
             spatial = [-(-n // s) for n, s in zip(spatial, self.strides)]
         else:
             spatial = [(n - k) // s + 1 for n, k, s in
-                       zip(spatial, self.kernel_size, self.strides)]
+                       zip(spatial, self.span, self.strides)]
         return (*spatial, self.kernel.shape[-1])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -196,14 +232,15 @@ class Conv(nn.Module):
         if self.padding == "SAME":
             pads = []
             for i in reversed(range(nsp)):          # F.pad: last dim first
-                pads += same_padding(x.shape[2 + i], self.kernel_size[i],
+                pads += same_padding(x.shape[2 + i], self.span[i],
                                      self.strides[i])
             if any(pads):
                 x = F.pad(x, pads)
         w = self.kernel.to(dt).permute(nsp + 1, nsp, *range(nsp))  # OI(H)W
         b = self.bias.to(dt) if self.bias is not None else None
         conv = F.conv2d if nsp == 2 else F.conv1d
-        y = conv(x, w, b, stride=self.strides, groups=self.groups)
+        y = conv(x, w, b, stride=self.strides, dilation=self.dilation,
+                 groups=self.groups)
         return y.movedim(1, -1)
 
 
@@ -362,7 +399,7 @@ class MultiHeadAttention(nn.Module):
             self.v_bias = nn.Parameter(torch.zeros(h, s))
             self.projection_bias = nn.Parameter(torch.zeros(out))
 
-    def forward(self, query, key, value):
+    def _qkv(self, query, key, value):
         q = torch.einsum("...ni,hio->...hno", query, self.query_kernel)
         k = torch.einsum("...mi,hio->...hmo", key, self.key_kernel)
         v = torch.einsum("...mi,hio->...hmo", value, self.value_kernel)
@@ -370,8 +407,15 @@ class MultiHeadAttention(nn.Module):
             q = q + self.q_bias[:, None]
             k = k + self.k_bias[:, None]
             v = v + self.v_bias[:, None]
+        return q, k, v
+
+    def forward(self, query, key, value):
+        q, k, v = self._qkv(query, key, value)
         q = q / math.sqrt(self.head_size)
         logits = torch.einsum("...hno,...hmo->...hnm", q, k)
+        return self._attend(logits, v)
+
+    def _attend(self, logits, v):
         attn = torch.softmax(logits, dim=-1)
         attn = dropout(attn, self.dropout, self.training,
                        self.dropout_generator)
@@ -380,6 +424,47 @@ class MultiHeadAttention(nn.Module):
         if self.use_bias:
             out = out + self.projection_bias
         return out
+
+
+class RelPositionMultiHeadAttention(MultiHeadAttention):
+    """Transformer-XL-style relative-position MHA: forward(query, key,
+    value, pos) with pos [1, T_pos, P]. Logits = (q + u)·k +
+    rel_shift((q + v)·(pos W_pos)), scaled by 1/sqrt(S) after the sum
+    (the absolute MHA scales the query before its product); the shifted
+    term keeps its first M key columns."""
+
+    def __init__(self, query_features: int, key_features: int,
+                 value_features: int, pos_features: int, num_heads: int,
+                 head_size: int, output_size: Optional[int] = None,
+                 dropout: float = 0.0, use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        g = _generator(generator)
+        super().__init__(query_features, key_features, value_features,
+                         num_heads, head_size, output_size, dropout,
+                         use_bias, g)
+        h, s = num_heads, head_size
+        self.pos_kernel = nn.Parameter(glorot_uniform((h, pos_features, s),
+                                                      g))
+        self.pos_bias_u = nn.Parameter(glorot_uniform((h, s), g))
+        self.pos_bias_v = nn.Parameter(glorot_uniform((h, s), g))
+
+    @staticmethod
+    def relative_shift(x: torch.Tensor) -> torch.Tensor:
+        """[B, H, N, M] -> shifted so diagonal indexing becomes relative."""
+        b, h, n, m = x.shape
+        x = F.pad(x, (1, 0)).reshape(b, h, m + 1, n)
+        return x[:, :, 1:, :].reshape(b, h, n, m)
+
+    def forward(self, query, key, value, pos):
+        q, k, v = self._qkv(query, key, value)
+        p = torch.einsum("...mi,hio->...hmo", pos, self.pos_kernel)
+        logits_u = torch.einsum("...hno,...hmo->...hnm",
+                                q + self.pos_bias_u[:, None], k)
+        logits_v = torch.einsum("...hno,...hmo->...hnm",
+                                q + self.pos_bias_v[:, None], p)
+        logits_v = self.relative_shift(logits_v)
+        logits = logits_u + logits_v[..., :logits_u.shape[-1]]
+        return self._attend(logits / math.sqrt(self.head_size), v)
 
 
 class GRU(nn.Module):
@@ -394,9 +479,18 @@ class GRU(nn.Module):
     kernel that the port lacks. Direction 1 runs in descending time with
     its states at their real t, which equals the JAX scan path's
     reverse-and-flip.
-    Input and recurrent dropout in training are not yet ported (every
-    shipped config uses 0.0).
+
+    Dropout in training follows Keras implementation=1, as the JAX layer
+    does: `dropout` draws one keep mask per gate, direction and batch row
+    over the input features ([D, 3, B, 1, I], constant over time) and
+    applies it to that gate's input projection, which `gru_scan` then
+    runs; `recurrent_dropout` draws masks [D, 3, B, U] for h_{t-1} inside
+    the step, which takes the "masked" route (a plain recurrence, as the
+    JAX layer leaves its kernel for `lax.scan`). Masks come from
+    `dropout_generator` (set_dropout_generator).
     """
+
+    n_gates = 3
 
     def __init__(self, in_features: int, units: int,
                  bidirectional: bool = False, merge_mode: str = "mul",
@@ -408,17 +502,94 @@ class GRU(nn.Module):
         self.units, self.bidirectional = units, bidirectional
         self.merge_mode = merge_mode
         self.dropout, self.recurrent_dropout = dropout, recurrent_dropout
-        # per-direction glorot fans ([I, 3U]), as Keras Bidirectional
+        self.dropout_generator = None   # set_dropout_generator
+        k = self.n_gates * units
+        # per-direction glorot fans ([I, kU]), as Keras Bidirectional
         self.kernel = nn.Parameter(glorot_uniform(
-            (dirs, in_features, 3 * units), g, batch_axis=(0,)))
-        self.recurrent_kernel = nn.Parameter(
-            orthogonal((dirs, units, 3 * units), g))
-        self.bias = nn.Parameter(torch.zeros(dirs, 2, 3 * units))
+            (dirs, in_features, k), g, batch_axis=(0,)))
+        self.recurrent_kernel = nn.Parameter(orthogonal((dirs, units, k), g))
+        self.bias = nn.Parameter(self._initial_bias(dirs, units))
+
+    @staticmethod
+    def _initial_bias(dirs: int, units: int) -> torch.Tensor:
+        return torch.zeros(dirs, 2, 3 * units)
+
+    def _masks(self, x: torch.Tensor, dtype: torch.dtype):
+        """(gate_masks [D, G, B, 1, I] or None, rec_masks [D, G, B, U] or
+        None) for this call, the input's first (the JAX layer's order)."""
+        dirs, g = self.kernel.shape[0], self.n_gates
+        gate_masks = rec_masks = None
+        if self.training and self.dropout > 0.0:
+            gate_masks = keep_mask((dirs, g, x.shape[0], 1, x.shape[-1]),
+                                   1.0 - self.dropout,
+                                   self.dropout_generator, x.device, dtype)
+        if self.training and self.recurrent_dropout > 0.0:
+            rec_masks = keep_mask((dirs, g, x.shape[0], self.units),
+                                  1.0 - self.recurrent_dropout,
+                                  self.dropout_generator, x.device, dtype)
+        return gate_masks, rec_masks
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and (self.dropout > 0 or self.recurrent_dropout > 0):
-            raise NotImplementedError("GRU dropout in training is not yet "
-                                      "ported")
+        dt = torch.promote_types(x.dtype, self.kernel.dtype)
+        gate_masks, rec_masks = self._masks(x, dt)
         return gru_forward(x, self.kernel, self.recurrent_kernel, self.bias,
                            bidirectional=self.bidirectional,
-                           merge_mode=self.merge_mode)
+                           merge_mode=self.merge_mode,
+                           gate_masks=gate_masks, rec_masks=rec_masks)
+
+
+def lstm_recurrence(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
+                    rec_masks: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """The LSTM recurrence (Keras gate order i|f|c|o) under torch's
+    autograd, both directions a step, f32 gate math: x_proj [D, T, B, 4U]
+    (input projection and bias), rec_kernel [D, U, 4U], rec_masks
+    [D, 4, B, U] or None -> hs [D, T, B, U] in x_proj's dtype; d=1 runs in
+    descending time with its states at their real t. The JAX package
+    composes it with `lax.scan` and has no kernel for it."""
+    d_dirs, t_steps, b, k = x_proj.shape
+    u = k // 4
+    rk = rec_kernel.float()
+    xs = in_scan_order(x_proj)
+    h = x_proj.new_zeros((d_dirs, b, u), dtype=torch.float32)
+    c = torch.zeros_like(h)
+    hs = []
+    for p in range(t_steps):
+        if rec_masks is None:
+            hp = torch.bmm(h, rk)
+        else:
+            hp = torch.einsum("dgbu,dugk->dbgk",
+                              h[:, None] * rec_masks.float(),
+                              rk.reshape(d_dirs, u, 4, u)).reshape(
+                                  d_dirs, b, k)
+        gi, gf, gc, go = (xs[:, p].float() + hp).split(u, dim=-1)
+        c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gc)
+        h = torch.sigmoid(go) * torch.tanh(c)
+        hs.append(h)
+    return in_scan_order(torch.stack(hs, dim=1)).to(x_proj.dtype)
+
+
+class LSTM(GRU):
+    """(Bi)directional LSTM over [B, T, I], Keras gate order (i|f|c|o):
+    kernel [D, I, 4U] (per-direction glorot fans), recurrent_kernel
+    [D, U, 4U] (orthogonal), bias [D, 4U] with the unit forget bias. The
+    recurrence is `lstm_recurrence` on every device (the JAX package
+    composes it too). Dropout as GRU's, with 4 gates."""
+
+    n_gates = 4
+
+    @staticmethod
+    def _initial_bias(dirs: int, units: int) -> torch.Tensor:
+        bias = torch.zeros(dirs, 4 * units)
+        bias[:, units:2 * units] = 1.0
+        return bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.kernel.dtype)
+        gate_masks, rec_masks = self._masks(x, dt)
+        x_proj = input_projection(x, self.kernel, self.bias, gate_masks)
+        hs = lstm_recurrence(x_proj, self.recurrent_kernel.to(dt),
+                             rec_masks).transpose(1, 2)     # [D, B, T, U]
+        if not self.bidirectional:
+            return hs[0]
+        return merge_bidirectional(hs[0], hs[1], self.merge_mode)

@@ -11,6 +11,8 @@ block names dispatch through the port's registry. SELD models output
                    (`stage=`)
   - vad_architecture                      the config-driven VAD MLP/conv
   - spectro_temporal_attention_based_VAD
+  - accdoa         stem conv+pool, sorted BLOCK0..N, one activity-coupled
+                   vector head (sed = its clipped norms, doa = the vectors)
 """
 from __future__ import annotations
 
@@ -293,6 +295,54 @@ class SpectroTemporalAttentionVAD(nn.Module):
         x = self._drop(torch.relu(bn(dense(x))))
         x = torch.sigmoid(post_out(x))
         return x, pipe, score
+
+
+class ACCDOA(nn.Module):
+    """Activity-coupled cartesian DOA model (arXiv 2006.12014;
+    models.py:245-293): the stem Conv2DBN with its pool (the fused stem in
+    training, whose backward is stem_dy on the card), the BLOCKs in numeric
+    order, then `accdoa_out` Dense(3C) + tanh. forward(x) -> (sed, doa):
+    doa the vectors [B, T', 3C] (x|y|z blocks of C, the DCASE label
+    layout), sed = min(||v_c||, 1) over each class's 3-vector. Its
+    objective is MSE on doa alone (the trainer's ACCDOA branch)."""
+
+    def __init__(self, model_config: Dict[str, Any],
+                 input_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cfg = model_config
+        self.model_config = cfg
+        self.input_shape = tuple(input_shape)
+        self.n_classes = cfg.get("n_classes", 14)
+        stem = add_child(self, Conv2DBN(
+            self.input_shape, cfg.get("filters", 32),
+            cfg.get("first_kernel_size", 7), padding="SAME",
+            activation="relu", pool=tuple(cfg.get("first_pool_size", [5, 1])),
+            generator=generator))
+        shape = stem.out_shape
+        self.blocks = []
+        for b in sorted_block_keys(cfg):
+            block = add_child(self, _build_block(cfg[b], cfg[f"{b}_ARGS"],
+                                                 shape, generator))
+            self.blocks.append(block)
+            shape = block.out_shape
+        add_child(self, Dense(force_1d_shape(shape)[-1], 3 * self.n_classes,
+                              generator=generator), name="accdoa_out")
+
+    def forward(self, x: torch.Tensor):
+        x = self.Conv2DBN_0(x)
+        for block in self.blocks:
+            x = block(x)
+        vec = torch.tanh(self.accdoa_out(force_1d(x)))
+        v3 = vec.reshape(*vec.shape[:-1], 3, self.n_classes)
+        sed = torch.clamp_max(torch.linalg.vector_norm(v3, dim=-2), 1.0)
+        return sed, vec
+
+
+@register_model("accdoa")
+def accdoa(input_shape, model_config: dict,
+           generator: Optional[torch.Generator] = None):
+    return ACCDOA(dict(model_config), input_shape, generator)
 
 
 @register_model("seldnet")

@@ -8,15 +8,24 @@ sampling relies on them) and returns a function
 output shape. Children register under flax's auto-names in flax's creation
 order, so parameter paths equal the JAX package's.
 
-Ported blocks:
-  mother_stage/mother_block            2D -> 2D (NAS super-block)
+Blocks (all 24 of the JAX package's registry):
+  mother_stage/mother_block            2D -> 2D (NAS super-block, with
+                                       bn_pair_batch's one wide BatchNorm)
   simple_conv_block, cond_conv_block, another_conv_block,
   res_basic_stage, res_bottleneck_stage, dense_net_block,
   resnet50_block, xception_block       2D -> 2D (the legacy conv families)
+  bidirectional_GRU_stage/block, RNN_stage/block (GRU or LSTM)
   simple_dense_stage/simple_dense_block
-  conformer_encoder_stage/block        unrolled; no or basic-absolute
-                                       positional encoding
-  bidirectional_GRU_stage/block
+  transformer_encoder_stage/block      post-LN, Conv1D FFN
+  conformer_encoder_stage/block        absolute or relative positional
+                                       encoding (basic or RFF), unrolled or
+                                       `scan_depth` (stacked parameters)
+  attention_stage/block
+  tcn_stage, identity_block
+
+Reference quirks kept (seld_tpu/models/modules.py:24-30): attention_block
+applies its FF convs to `x`, not the pre-LayerNormed branch, and adds a
+zeros encoding where pos_encoding is None.
 """
 from __future__ import annotations
 
@@ -29,12 +38,15 @@ from torch import nn
 from seld_tpu_torch.config.registry import register_block
 from seld_tpu_torch.models.layers import (
     GRU,
+    LSTM,
     BatchNorm,
     Conv,
     Conv2DBN,
     Dense,
     LayerNorm,
     MultiHeadAttention,
+    RelPositionMultiHeadAttention,
+    RFFPosEncoding,
     add_child,
     basic_pos_encoding_on,
     force_1d,
@@ -114,9 +126,15 @@ class MotherBlock(nn.Module):
     The wiring is resolved at construction from the input shape into
     `self.layers`, one entry per conv layer:
       ("conv", conv, bn, [(i, skip_conv, skip_bn)])  bn(conv(prev)) + skips
+      ("pair", conv, wide_bn, [(i, skip_conv)])      bn_pair_batch's layer 2
       ("concat", [(i, skip_conv)])                   concat of outputs[i]
       ("pass",)                                      the previous output
-    where a skip_conv of None means the identity.
+    where a skip_conv of None means the identity. With `bn_pair_batch`,
+    layer 2 normalises its conv and every projected skip with ONE
+    BatchNorm over their concatenated channels (per-channel statistics are
+    those of separate BatchNorms; only the parameter layout differs):
+    the main conv, the projections, then the wide BatchNorm, in flax's
+    order.
     """
 
     def __init__(self, config: Dict[str, Any], strides: Tuple[int, int],
@@ -124,9 +142,6 @@ class MotherBlock(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         c = config
-        if c.get("bn_pair_batch", False):
-            raise NotImplementedError("mother_block bn_pair_batch is not yet "
-                                      "ported")
         f0, f1, f2 = c["filters0"], c["filters1"], c["filters2"]
         k0, k1, k2 = c["kernel_size0"], c["kernel_size1"], c["kernel_size2"]
         connect0, connect1, connect2 = (c["connect0"], c["connect1"],
@@ -157,6 +172,18 @@ class MotherBlock(nn.Module):
                         skips.append((i, None, None))
             return ("conv", main, main_bn, skips), out
 
+        def pair_layer(prev, f, k, s, connect, shapes):
+            main, out = conv(prev, f, k, s)
+            skips = []
+            for i in range(len(connect)):
+                if connect[i] == 1:
+                    sc = None
+                    if tuple(shapes[i]) != tuple(out):
+                        sc, _ = conv(shapes[i], f, 1, s)
+                    skips.append((i, sc))
+            wide = 1 + sum(sc is not None for _, sc in skips)
+            return ("pair", main, bn(f * wide), skips), out
+
         shapes = [tuple(in_shape)]
         self.layers = []
         # first layer (never strided)
@@ -169,7 +196,10 @@ class MotherBlock(nn.Module):
         shapes.append(out)
 
         # second layer (applies strides)
-        if f1 > 0:
+        if f1 > 0 and c.get("bn_pair_batch", False):
+            layer, out = pair_layer(shapes[-1], f1, k1, strides, connect1,
+                                    shapes)
+        elif f1 > 0:
             layer, out = conv_layer(shapes[-1], f1, k1, strides, connect1,
                                     shapes, lambda i: strides)
         else:
@@ -220,6 +250,18 @@ class MotherBlock(nn.Module):
                     if sc is not None:
                         skip = sbn(sc(skip))
                     out = out + skip
+                out = self.act(out)
+            elif layer[0] == "pair":
+                _, main, wide_bn, skips = layer
+                raws = [main(outputs[-1])] + [sc(outputs[i])
+                                              for i, sc in skips
+                                              if sc is not None]
+                parts = iter(wide_bn(torch.cat(raws, dim=-1)).chunk(
+                    len(raws), dim=-1))
+                # added in the unrolled layer's index order
+                out = next(parts)
+                for i, sc in skips:
+                    out = out + (outputs[i] if sc is None else next(parts))
                 out = self.act(out)
             else:
                 out = torch.cat([outputs[i] if sc is None else sc(outputs[i])
@@ -308,6 +350,58 @@ def bidirectional_GRU_stage(model_config: dict):
         model_config.get("dropout_rate", 0.0))
 
 
+class RNNBlock(nn.Module):
+    """force_1d then `depth` (bi)directional GRU or LSTM layers
+    (modules.py:299-343), each with recurrent_dropout = dropout_rate, as
+    the reference passes it."""
+
+    def __init__(self, units: int, in_shape: Sequence[int],
+                 bidirectional: bool = True, merge_mode: str = "mul",
+                 rnn_type: str = "GRU", dropout_rate: float = 0.0,
+                 depth: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        t, i = force_1d_shape(in_shape)
+        cls = GRU if rnn_type == "GRU" else LSTM
+        for _ in range(depth):
+            add_child(self, cls(i, units, bidirectional=bidirectional,
+                                merge_mode=merge_mode, dropout=dropout_rate,
+                                recurrent_dropout=dropout_rate,
+                                generator=generator))
+            i = 2 * units if bidirectional and merge_mode == "concat" \
+                else units
+        self.out_shape = (t, i)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = force_1d(x)
+        for rnn in self.children():
+            x = rnn(x)
+        return x
+
+
+def _rnn_kwargs(model_config: dict) -> dict:
+    return dict(units=model_config["units"],
+                bidirectional=model_config.get("bidirectional", True),
+                merge_mode=model_config.get("merge_mode", "mul"),
+                rnn_type=model_config.get("rnn_type", "GRU"),
+                dropout_rate=model_config.get("dropout_rate", 0.0))
+
+
+def _rnn(kwargs, in_shape, generator=None):
+    return RNNBlock(in_shape=in_shape, generator=generator, **kwargs)
+
+
+@register_block("RNN_block")
+def RNN_block(model_config: dict):
+    return functools.partial(_rnn, _rnn_kwargs(model_config))
+
+
+@register_block("RNN_stage")
+def RNN_stage(model_config: dict):
+    return functools.partial(_rnn, dict(_rnn_kwargs(model_config),
+                                        depth=model_config["depth"]))
+
+
 class SimpleDenseBlock(nn.Module):
     """Dense for 2D inputs, Conv1D for 3D (modules.py:350-376)."""
 
@@ -371,11 +465,136 @@ def _simple_dense(units, kernel_size, activation, dropout_rate, in_shape,
 # --------------------------------------------------------------------------
 #                       ATTENTION-FAMILY 1D BLOCKS
 # --------------------------------------------------------------------------
-class ConformerEncoderBlock(nn.Module):
+class _Drop:
+    """Dropout at the block's rate from its generator (set_dropout_generator)
+    in training; the identity in eval."""
+
+    def _drop(self, x):
+        return dropout(x, self.dropout_rate, self.training,
+                       self.dropout_generator)
+
+
+class TransformerEncoderBlock(_Drop, nn.Module):
+    """Post-LN transformer encoder with a Conv1D FFN (modules.py:398-454):
+    per layer x = LN(x + drop(MHA(x))), x = LN(x + drop(conv2(drop(act(
+    conv1(x)))))); children MultiHeadAttention_i, LayerNorm, Conv, Conv,
+    LayerNorm in flax's order."""
+
+    def __init__(self, in_shape: Sequence[int], n_head: int, key_dim: int,
+                 ff_multiplier: float, kernel_size: int,
+                 activation: str = "relu", dropout_rate: float = 0.1,
+                 depth: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        t, d = force_1d_shape(in_shape)
+        hidden = int(ff_multiplier * d)
+        g = generator
+        self.act = get_activation(activation)
+        self.dropout_rate = dropout_rate
+        self.dropout_generator = None   # set_dropout_generator
+        self.layers = []
+        for _ in range(depth):
+            self.layers.append(tuple(add_child(self, m) for m in (
+                MultiHeadAttention(d, d, d, n_head, key_dim, output_size=d,
+                                   dropout=dropout_rate, use_bias=True,
+                                   generator=g),
+                _layer_norm(d),
+                _conv1d(d, hidden, kernel_size, generator=g),
+                _conv1d(hidden, d, kernel_size, generator=g),
+                _layer_norm(d))))
+        self.out_shape = (t, d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = force_1d(x)
+        for mha, ln1, conv1, conv2, ln2 in self.layers:
+            x = ln1(x + self._drop(mha(x, x, x)))
+            ffn = self._drop(conv2(self._drop(self.act(conv1(x)))))
+            x = ln2(x + ffn)
+        return x
+
+
+def _transformer(kwargs, in_shape, generator=None):
+    return TransformerEncoderBlock(in_shape, generator=generator, **kwargs)
+
+
+def _transformer_kwargs(model_config: dict) -> dict:
+    return dict(n_head=model_config["n_head"],
+                key_dim=model_config["key_dim"],
+                ff_multiplier=model_config["ff_multiplier"],
+                kernel_size=model_config["kernel_size"],
+                activation=model_config.get("activation", "relu"),
+                dropout_rate=model_config.get("dropout_rate", 0.1))
+
+
+@register_block("transformer_encoder_block")
+def transformer_encoder_block(model_config: dict):
+    return functools.partial(_transformer, _transformer_kwargs(model_config))
+
+
+@register_block("transformer_encoder_stage")
+def transformer_encoder_stage(model_config: dict):
+    return functools.partial(_transformer, dict(
+        _transformer_kwargs(model_config), depth=model_config["depth"]))
+
+
+class ScanBody(nn.Module):
+    """flax `nn.scan`'s parameter layout (variable_axes params and
+    batch_stats on axis 0): the children of one layer, every parameter and
+    buffer stacked over `copies` on a leading depth axis.
+
+    forward(x, step) runs `step(x)` once a layer, in order, with the
+    children holding layer i's slices (`torch.func.functional_call`): the
+    gradient of a slice lands in its stacked parameter, and a BatchNorm's
+    running statistics update in their slice, in place. `step` reads the
+    children through the first copy's references, which are this module's
+    children."""
+
+    def __init__(self, copies: Sequence[nn.Module]):
+        super().__init__()
+        first = copies[0]
+        for name, child in first.named_children():
+            self.add_module(name, child)
+        params = {n: torch.stack([c.get_parameter(n).detach()
+                                  for c in copies])
+                  for n, _ in first.named_parameters()}
+        buffers = {n: torch.stack([c.get_buffer(n) for c in copies])
+                   for n, _ in first.named_buffers()}
+        for n, t in params.items():
+            owner, leaf = self._owner(n)
+            setattr(owner, leaf, nn.Parameter(t))
+        for n, t in buffers.items():
+            owner, leaf = self._owner(n)
+            owner.register_buffer(leaf, t)
+        self.depth = len(copies)
+        self._names = [*params, *buffers]
+
+    def _owner(self, name: str):
+        *path, leaf = name.split(".")
+        return self.get_submodule(".".join(path)), leaf
+
+    def forward(self, x: torch.Tensor, step, layer: Optional[int] = None):
+        if layer is not None:
+            return step(x)
+        for i in range(self.depth):
+            # the tensors in place now (a caller's functional_call may have
+            # swapped in cast copies), sliced at layer i
+            sliced = {n: getattr(*self._owner(n))[i] for n in self._names}
+            x = torch.func.functional_call(self, sliced, (x, step),
+                                           {"layer": i})
+        return x
+
+
+class ConformerEncoderBlock(_Drop, nn.Module):
     """Conformer block: FFN/2 -> MHSA -> GLU+depthwise conv -> FFN/2
-    (modules.py:410-508), unrolled over `depth`. Positional encoding: none
-    or "basic" in absolute mode; relative mode, RFF encodings and
-    `scan_depth` are not yet ported."""
+    (modules.py:457-616), `depth` iterations. Positional encoding
+    `pos_encoding` None, "basic" (sinusoidal) or "rff" (RFFPosEncoding, a
+    child of each iteration), added to x in `pos_mode` "absolute" or fed
+    to a RelPositionMultiHeadAttention in "relative" mode (ValueError
+    without an encoding). Unrolled, each iteration's children register on
+    the block in flax's order; with `scan_depth` (also at depth 1) one
+    iteration's children register under `scan` with every parameter and
+    batch statistic stacked over the depth (ScanBody), flax nn.scan's
+    tree."""
 
     def __init__(self, in_shape: Sequence[int], key_dim: int = 36,
                  n_head: int = 4, kernel_size: int = 32,
@@ -386,35 +605,39 @@ class ConformerEncoderBlock(nn.Module):
                  depth: int = 1, scan_depth: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if scan_depth:
-            raise NotImplementedError("conformer scan_depth is not yet ported")
-        if pos_mode != "absolute" or pos_encoding not in (None, "basic"):
-            raise NotImplementedError(
-                f"conformer pos_encoding={pos_encoding!r}, "
-                f"pos_mode={pos_mode!r} is not yet ported")
+        if pos_mode == "relative" and pos_encoding not in ("basic", "rff"):
+            raise ValueError(
+                "relative pos mode requires a positional encoding")
         self.act = get_activation(activation)
         self.dropout_rate, self.ffn_factor = dropout_rate, ffn_factor
-        self.pos_encoding = pos_encoding
+        self.pos_encoding, self.pos_mode = pos_encoding, pos_mode
         self.dropout_generator = None   # set_dropout_generator
         time, emb = force_1d_shape(in_shape)
         hidden = int(multiplier * emb)
         g = generator
 
-        def child(m):
-            return add_child(self, m)
+        def iteration(parent):
+            """One iteration's children on `parent`, in flax's order."""
+            def child(m):
+                return add_child(parent, m)
 
-        def ffn():
-            return (child(_layer_norm(emb)),
-                    child(_dense(emb, hidden, generator=g)),
-                    child(_dense(hidden, emb, generator=g)))
+            def ffn():
+                return (child(_layer_norm(emb)),
+                        child(_dense(emb, hidden, generator=g)),
+                        child(_dense(hidden, emb, generator=g)))
 
-        # one dict of children per iteration, created in flax's order
-        self.iters = []
-        for _ in range(depth):
-            it = {"ffn1": ffn(), "attn_ln": child(_layer_norm(emb))}
-            it["mha"] = child(MultiHeadAttention(
-                emb, emb, emb, n_head, key_dim, dropout=dropout_rate,
-                use_bias=use_bias, generator=g))
+            it = {"ffn1": ffn()}
+            if pos_encoding == "rff":
+                it["rff"] = child(RFFPosEncoding(emb, generator=g))
+            it["attn_ln"] = child(_layer_norm(emb))
+            if pos_mode == "relative":
+                it["mha"] = child(RelPositionMultiHeadAttention(
+                    emb, emb, emb, emb, n_head, key_dim,
+                    dropout=dropout_rate, use_bias=use_bias, generator=g))
+            else:
+                it["mha"] = child(MultiHeadAttention(
+                    emb, emb, emb, n_head, key_dim, dropout=dropout_rate,
+                    use_bias=use_bias, generator=g))
             it["conv_ln"] = child(_layer_norm(emb))
             it["glu"] = child(_conv1d(emb, 2 * emb, 1, generator=g))
             it["depthwise"] = child(_conv1d(emb, emb, kernel_size,
@@ -423,40 +646,61 @@ class ConformerEncoderBlock(nn.Module):
             it["pointwise"] = child(_conv1d(emb, emb, 1, generator=g))
             it["ffn2"] = ffn()
             it["out_ln"] = child(_layer_norm(emb))
-            self.iters.append(it)
-        self.out_shape = (time, emb)
+            return it
 
-    def _drop(self, x):
-        return dropout(x, self.dropout_rate, self.training,
-                       self.dropout_generator)
+        if scan_depth:
+            copies, its = [], []
+            for _ in range(depth):
+                copies.append(nn.Module())
+                its.append(iteration(copies[-1]))
+            add_child(self, ScanBody(copies), name="scan")
+            self.iters = its[:1]      # the scan body's children
+        else:
+            self.iters = [iteration(self) for _ in range(depth)]
+        self.scan_depth = scan_depth
+        self.out_shape = (time, emb)
 
     def _ffn(self, x, layers):
         ln, d1, d2 = layers
         return self._drop(d2(self._drop(self.act(d1(ln(x))))))
 
+    def _iteration(self, x: torch.Tensor, it: dict) -> torch.Tensor:
+        x = x + self.ffn_factor * self._ffn(x, it["ffn1"])
+        encoding = None
+        if self.pos_encoding == "basic":
+            encoding = basic_pos_encoding_on(x.shape[-2], x.shape[-1],
+                                             x.device, x.dtype)
+        elif self.pos_encoding == "rff":
+            encoding = it["rff"](x.shape[-2], x.dtype)
+        if self.pos_mode == "absolute" and encoding is not None:
+            x = x + encoding
+
+        attn_in = it["attn_ln"](x)
+        if self.pos_mode == "relative":
+            attn = it["mha"](attn_in, attn_in, attn_in, encoding)
+        else:
+            attn = it["mha"](attn_in, attn_in, attn_in)
+        x = self._drop(attn) + x
+
+        # conv module: pointwise-GLU -> depthwise -> BN -> swish -> pointwise
+        conv = it["glu"](it["conv_ln"](x))
+        conv_1, conv_2 = conv.chunk(2, dim=-1)
+        conv = conv_1 * torch.sigmoid(conv_2)
+        conv = torch.nn.functional.silu(it["bn"](it["depthwise"](conv)))
+        conv = self._drop(it["pointwise"](conv))
+        conv = conv + x
+
+        # final half-step FFN off the conv output, residual to pre-conv x
+        ffn = self._ffn(conv, it["ffn2"])
+        return it["out_ln"](x + self.ffn_factor * ffn)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = force_1d(x)
+        if self.scan_depth:
+            return self.scan(x, functools.partial(self._iteration,
+                                                  it=self.iters[0]))
         for it in self.iters:
-            x = x + self.ffn_factor * self._ffn(x, it["ffn1"])
-            if self.pos_encoding == "basic":
-                x = x + basic_pos_encoding_on(x.shape[-2], x.shape[-1],
-                                              x.device, x.dtype)
-
-            attn_in = it["attn_ln"](x)
-            attn = it["mha"](attn_in, attn_in, attn_in)
-            x = self._drop(attn) + x
-
-            # conv module: pointwise-GLU -> depthwise -> BN -> swish -> pointwise
-            conv = it["glu"](it["conv_ln"](x))
-            conv_1, conv_2 = conv.chunk(2, dim=-1)
-            conv = conv_1 * torch.sigmoid(conv_2)
-            conv = torch.nn.functional.silu(it["bn"](it["depthwise"](conv)))
-            conv = self._drop(it["pointwise"](conv))
-            conv = conv + x
-
-            # final half-step FFN off the conv output, residual to pre-conv x
-            ffn = self._ffn(conv, it["ffn2"])
-            x = it["out_ln"](x + self.ffn_factor * ffn)
+            x = self._iteration(x, it)
         return x
 
 
@@ -490,6 +734,199 @@ def conformer_encoder_stage(model_config: dict):
                   depth=model_config["depth"],
                   scan_depth=model_config.get("scan_depth", False))
     return functools.partial(_conformer, kwargs)
+
+
+class AttentionBlock(_Drop, nn.Module):
+    """Generalised attention block (modules.py:619-715): per layer an
+    optional first FF (two Conv1Ds), MHSA (absolute: the encoding added to
+    the residual after the attention's input is taken; relative: the
+    encoding fed to a RelPositionMultiHeadAttention), an optional GLU, an
+    optional depthwise conv module and an optional second FF; LayerNorm
+    after each part (post-LN) or before the attention, GLU and depthwise
+    parts (`layer_norm_in_front`). The FF convs read `x`, not a pre-LN
+    branch, and pos_encoding None gives a zeros encoding (the reference's
+    quirks); a kernel_size of 0 replaces x with the GLU branch."""
+
+    def __init__(self, in_shape: Sequence[int], key_dim: int, n_head: int,
+                 kernel_size: int, ff_kernel_size: int,
+                 ff_multiplier: float, ff_factor0: float, ff_factor1: float,
+                 activation: str = "swish",
+                 pos_encoding: Optional[str] = "basic",
+                 abs_pos_encoding: bool = False,
+                 layer_norm_in_front: bool = False, use_glu: bool = False,
+                 use_bias: bool = False, dropout_rate: float = 0.1,
+                 depth: int = 1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        t, d = force_1d_shape(in_shape)
+        g, pre = generator, layer_norm_in_front
+        hidden = int(ff_multiplier * d)
+        self.act = get_activation(activation)
+        self.ff_factors = (ff_factor0, ff_factor1)
+        self.pos_encoding, self.abs_pos_encoding = pos_encoding, \
+            abs_pos_encoding
+        self.pre, self.use_glu, self.kernel_size = pre, use_glu, kernel_size
+        self.dropout_rate = dropout_rate
+        self.dropout_generator = None   # set_dropout_generator
+
+        def child(m):
+            return add_child(self, m)
+
+        def ff():
+            return (child(_conv1d(d, hidden, ff_kernel_size, generator=g)),
+                    child(_conv1d(hidden, d, ff_kernel_size, generator=g)))
+
+        # one dict of children per layer, created in flax's order
+        self.iters = []
+        for _ in range(depth):
+            it = {}
+            if ff_factor0 > 0:
+                it["ff0"] = ff()
+                if not pre:
+                    it["ff0_ln"] = child(_layer_norm(d))
+            if pos_encoding == "rff":
+                it["rff"] = child(RFFPosEncoding(d, generator=g))
+            if pre:
+                it["attn_ln"] = child(_layer_norm(d))
+            if abs_pos_encoding:
+                it["mha"] = child(MultiHeadAttention(
+                    d, d, d, n_head, key_dim, dropout=dropout_rate,
+                    use_bias=use_bias, generator=g))
+            else:
+                it["mha"] = child(RelPositionMultiHeadAttention(
+                    d, d, d, d, n_head, key_dim, dropout=dropout_rate,
+                    use_bias=use_bias, generator=g))
+            if not pre:
+                it["attn_post_ln"] = child(_layer_norm(d))
+            if use_glu:
+                if pre:
+                    it["glu_ln"] = child(_layer_norm(d))
+                it["glu"] = child(_conv1d(d, 2 * d, 1, generator=g))
+            if kernel_size > 0:
+                if pre and not use_glu:
+                    it["dw_ln"] = child(_layer_norm(d))
+                it["depthwise"] = child(_conv1d(d, d, kernel_size, groups=d,
+                                                generator=g))
+                it["bn"] = child(BatchNorm(d))
+                it["pointwise"] = child(_conv1d(d, d, 1, generator=g))
+                if not pre:
+                    it["dw_post_ln"] = child(_layer_norm(d))
+            if ff_factor1 > 0:
+                it["ff1"] = ff()
+                if not pre:
+                    it["ff1_ln"] = child(_layer_norm(d))
+            self.iters.append(it)
+        self.out_shape = (t, d)
+
+    def _ff(self, x, convs):
+        conv1, conv2 = convs
+        return self._drop(conv2(self._drop(self.act(conv1(x)))))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = force_1d(x)
+        time, d = x.shape[-2:]
+        for it in self.iters:
+            if "ff0" in it:
+                x = x + self.ff_factors[0] * self._ff(x, it["ff0"])
+                if not self.pre:
+                    x = it["ff0_ln"](x)
+
+            if self.pos_encoding == "basic":
+                encoding = basic_pos_encoding_on(time, d, x.device, x.dtype)
+            elif self.pos_encoding == "rff":
+                encoding = it["rff"](time, x.dtype)
+            else:
+                encoding = x.new_zeros((1, time, d))
+
+            attn_in = it["attn_ln"](x) if self.pre else x
+            if self.abs_pos_encoding:
+                x = x + encoding
+                attn = it["mha"](attn_in, attn_in, attn_in)
+            else:
+                attn = it["mha"](attn_in, attn_in, attn_in, encoding)
+            x = self._drop(attn) + x
+            if not self.pre:
+                x = it["attn_post_ln"](x)
+
+            conv = x
+            if self.use_glu:
+                if self.pre:
+                    conv = it["glu_ln"](conv)
+                conv_1, conv_2 = it["glu"](conv).chunk(2, dim=-1)
+                conv = conv_1 * torch.sigmoid(conv_2)
+
+            if self.kernel_size > 0:
+                if self.pre and not self.use_glu:
+                    conv = it["dw_ln"](conv)
+                conv = torch.nn.functional.silu(
+                    it["bn"](it["depthwise"](conv)))
+                x = x + self._drop(it["pointwise"](conv))
+                if not self.pre:
+                    x = it["dw_post_ln"](x)
+            else:
+                x = conv
+
+            if "ff1" in it:
+                x = x + self.ff_factors[1] * self._ff(x, it["ff1"])
+                if not self.pre:
+                    x = it["ff1_ln"](x)
+        return x
+
+
+def _attention_kwargs(model_config: dict) -> dict:
+    """The attention block's arguments, with the reference's ValueErrors
+    (NAS rejection sampling relies on them)."""
+    ff_factor0 = model_config["ff_factor0"]
+    ff_factor1 = model_config["ff_factor1"]
+    ff_kernel_size = model_config["ff_kernel_size"]
+    ff_multiplier = model_config["ff_multiplier"]
+    pos_encoding = model_config.get("pos_encoding", "basic")
+    abs_pos_encoding = model_config.get("abs_pos_encoding", False)
+
+    if ff_factor0 < 0 or ff_factor1 < 0:
+        raise ValueError("ff_factor0, ff_factor1 >= 0 must hold")
+    if ff_factor0 == 0 and ff_factor1 == 0:
+        if ff_kernel_size > 0:
+            raise ValueError("if FF modules are not used, "
+                             "ff_kernel must be set to 0")
+        if ff_multiplier > 0:
+            raise ValueError("if FF modules are not used, "
+                             "ff_multiplier must be set to 0")
+    if not abs_pos_encoding and pos_encoding is None:
+        raise ValueError("relative pos encoding demands any types of encoding "
+                         "except the null one")
+
+    return dict(
+        key_dim=model_config["key_dim"],
+        n_head=model_config["n_head"],
+        kernel_size=model_config["kernel_size"],
+        ff_kernel_size=ff_kernel_size,
+        ff_multiplier=ff_multiplier,
+        ff_factor0=ff_factor0,
+        ff_factor1=ff_factor1,
+        activation=model_config.get("activation", "swish"),
+        pos_encoding=pos_encoding,
+        abs_pos_encoding=abs_pos_encoding,
+        layer_norm_in_front=model_config.get("layer_norm_in_front", False),
+        use_glu=model_config.get("use_glu", False),
+        use_bias=model_config.get("use_bias", False),
+        dropout_rate=model_config.get("dropout_rate", 0.1),
+    )
+
+
+def _attention(kwargs, in_shape, generator=None):
+    return AttentionBlock(in_shape, generator=generator, **kwargs)
+
+
+@register_block("attention_block")
+def attention_block(model_config: dict):
+    return functools.partial(_attention, _attention_kwargs(model_config))
+
+
+@register_block("attention_stage")
+def attention_stage(model_config: dict):
+    return functools.partial(_attention, dict(
+        _attention_kwargs(model_config), depth=model_config["depth"]))
 
 
 # --------------------------------------------------------------------------
@@ -917,3 +1354,81 @@ class XceptionBody(nn.Module):
 def xception_block(model_config: dict):
     return functools.partial(XceptionBody, model_config["filters"],
                              model_config["block_num"])
+
+
+# --------------------------------------------------------------------------
+#                      TEMPORAL CONV (SELD-TCN) AND IDENTITY
+# --------------------------------------------------------------------------
+class TCNStage(_Drop, nn.Module):
+    """Dilated temporal-conv stage (SELD-TCN, arXiv 2003.01609;
+    modules.py:1047-1093): a 1x1 projection where the width is not
+    `filters`, then `depth` x [SAME Conv1D of 2 x filters, dilation 2^i ->
+    BN -> tanh x sigmoid gate -> dropout -> a 1x1 residual conv added to x
+    and a 1x1 skip conv summed], output relu(sum of skips). The last
+    residual conv reaches no output (`unused_parameters`): the train step
+    gives it zeros, as jax.grad does."""
+
+    def __init__(self, filters: int, in_shape: Sequence[int],
+                 depth: int = 3, kernel_size: int = 3,
+                 dropout_rate: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        t, c = force_1d_shape(in_shape)
+        g = generator
+        # in a list: a module attribute would register it a second time
+        self.proj = ([add_child(self, _conv1d(c, filters, 1, generator=g))]
+                     if c != filters else [])
+        self.layers = []
+        for i in range(depth):
+            self.layers.append(tuple(add_child(self, m) for m in (
+                Conv(filters, 2 * filters, (kernel_size,), padding="SAME",
+                     kernel_dilation=(2 ** i,), generator=g),
+                BatchNorm(2 * filters),
+                _conv1d(filters, filters, 1, generator=g),
+                _conv1d(filters, filters, 1, generator=g))))
+        self.dropout_rate = dropout_rate
+        self.dropout_generator = None   # set_dropout_generator
+        self.out_shape = (t, filters)
+        # the last residual conv reaches no output
+        last_res = self.layers[-1][2] if self.layers else None
+        self.unused_parameters = tuple(
+            f"{n}.{p}" for n, m in self.named_children() if m is last_res
+            for p, _ in m.named_parameters())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = force_1d(x)
+        for proj in self.proj:
+            x = proj(x)
+        skips = 0.0
+        for conv, bn, res, skip in self.layers:
+            gate_in, gate = bn(conv(x)).chunk(2, dim=-1)
+            h = self._drop(torch.tanh(gate_in) * torch.sigmoid(gate))
+            skips = skips + skip(h)
+            x = x + res(h)
+        return torch.relu(skips)
+
+
+@register_block("tcn_stage")
+def tcn_stage(model_config: dict):
+    return functools.partial(
+        TCNStage, model_config["filters"],
+        depth=model_config.get("depth", 3),
+        kernel_size=model_config.get("kernel_size", 3),
+        dropout_rate=model_config.get("dropout_rate", 0.0))
+
+
+class Identity(nn.Module):
+    """The identity block (modules.py:1096-1104)."""
+
+    def __init__(self, in_shape: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.out_shape = tuple(in_shape)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+@register_block("identity_block")
+def identity_block(model_config: dict):
+    return Identity

@@ -31,6 +31,16 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
                                                        device=x.device))
 
 
+def keep_mask(shape, keep: float, generator: Optional[torch.Generator],
+              device, dtype: torch.dtype) -> torch.Tensor:
+    """A Bernoulli(keep) mask of `shape` scaled by 1 / keep, in `dtype`:
+    the per-gate masks of the recurrent layers (Keras implementation=1),
+    drawn from `generator` on `device`."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return (u < keep).to(dtype) / keep
+
+
 def set_dropout_generator(model: nn.Module,
                           generator: Optional[torch.Generator]) -> None:
     """Point every submodule that draws dropout masks (it has a

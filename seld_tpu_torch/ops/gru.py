@@ -16,11 +16,15 @@ of U. `gru_kernel_applicable` holds where both plans exist (U % 4 == 0,
 space but 6). `gru_route` sends any other U through the plain recurrence
 under torch's autograd where the JAX package composes it too (`lax.scan`),
 and raises on the card where the JAX package runs its Pallas kernel and
-the port has none (B % 8 == 0, U % 128 == 0, U > 256).
+the port has none (B % 8 == 0, U % 128 == 0, U > 256). Recurrent dropout
+(masks on h_{t-1} inside the step) takes the "masked" route,
+`gru_scan_masked` under torch's autograd, at any U: the JAX layer leaves
+its kernel for `lax.scan` there too.
 
 The input projection `x @ kernel + bias[:, 0]` stays one large
-`torch.einsum` (`gru_forward`), and so does its backward, as the JAX
-package leaves both to XLA; only the recurrence is the kernel.
+`torch.einsum` (`input_projection`, with the per-gate input-dropout masks
+where given), and so does its backward, as the JAX package leaves both to
+XLA; only the recurrence is the kernel.
 """
 from __future__ import annotations
 
@@ -201,13 +205,18 @@ def tpu_kernel_applicable(batch: int, units: int) -> bool:
     return batch % 8 == 0 and units % 128 == 0
 
 
-def gru_route(batch: int, units: int, device_type: str) -> str:
-    """How `gru_forward` runs the recurrence: "kernel" (`gru_scan`) where
-    `gru_kernel_applicable` holds, else "plain" (`gru_scan_ref` under
-    torch's autograd) on the CPU or where the JAX package composes the
-    recurrence too. Raises NotImplementedError on the card where the JAX
-    package runs a kernel that the port lacks (B % 8 == 0, U % 128 == 0,
-    U > 256)."""
+def gru_route(batch: int, units: int, device_type: str,
+              masked: bool = False) -> str:
+    """How `gru_forward` runs the recurrence: "masked" (`gru_scan_masked`
+    under torch's autograd) with recurrent-dropout masks, on every device
+    and at every U, as the JAX layer runs `lax.scan` there; else "kernel"
+    (`gru_scan`) where `gru_kernel_applicable` holds, else "plain"
+    (`gru_scan_ref` under torch's autograd) on the CPU or where the JAX
+    package composes the recurrence too. Raises NotImplementedError on the
+    card where the JAX package runs a kernel that the port lacks
+    (B % 8 == 0, U % 128 == 0, U > 256)."""
+    if masked:
+        return "masked"
     if gru_kernel_applicable(units):
         return "kernel"
     if device_type == "cuda" and tpu_kernel_applicable(batch, units):
@@ -223,10 +232,10 @@ def _step_order(d: int, t_steps: int) -> range:
 
 
 def _gates(xp: torch.Tensor, hp: torch.Tensor, u: int):
-    z = torch.sigmoid(xp[:, :u] + hp[:, :u])
-    r = torch.sigmoid(xp[:, u:2 * u] + hp[:, u:2 * u])
-    hcand = torch.tanh(xp[:, 2 * u:] + r * hp[:, 2 * u:])
-    return z, r, hcand, hp[:, 2 * u:]
+    z = torch.sigmoid(xp[..., :u] + hp[..., :u])
+    r = torch.sigmoid(xp[..., u:2 * u] + hp[..., u:2 * u])
+    hcand = torch.tanh(xp[..., 2 * u:] + r * hp[..., 2 * u:])
+    return z, r, hcand, hp[..., 2 * u:]
 
 
 def gru_scan_ref(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
@@ -251,6 +260,40 @@ def gru_scan_ref(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
             h = z * h + (1.0 - z) * hcand
             hs[d, t] = h
     return hs.to(x_proj.dtype)
+
+
+def in_scan_order(a: torch.Tensor) -> torch.Tensor:
+    """[D, T, ...] in real time -> in scan order (d=1 reversed); its own
+    inverse."""
+    if a.shape[0] == 1:
+        return a
+    return torch.stack([a[0], a[1].flip(0)])
+
+
+def gru_scan_masked(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
+                    rec_bias: torch.Tensor, rec_masks: torch.Tensor
+                    ) -> torch.Tensor:
+    """`gru_scan_ref` with recurrent dropout: each gate's product
+    h_{t-1} @ Rk[:, gate] takes h_{t-1} times that gate's mask
+    (rec_masks [D, 3, B, U], constant over time), as the JAX layer's
+    `lax.scan` step does (seld_tpu/models/layers.py:504-512). Plain
+    PyTorch under autograd on every device, both directions a step, f32
+    gate math; hs [D, T, B, U] in x_proj's dtype at real t."""
+    d_dirs, t_steps, b, k = x_proj.shape
+    u = k // 3
+    rk = rec_kernel.float().reshape(d_dirs, u, 3, u)
+    rb = rec_bias.float()[:, None]
+    masks = rec_masks.float()
+    xs = in_scan_order(x_proj)
+    h = x_proj.new_zeros((d_dirs, b, u), dtype=torch.float32)
+    hs = []
+    for p in range(t_steps):
+        hp = torch.einsum("dgbu,dugk->dbgk", h[:, None] * masks,
+                          rk).reshape(d_dirs, b, k) + rb
+        z, _, hcand, _ = _gates(xs[:, p].float(), hp, u)
+        h = z * h + (1.0 - z) * hcand
+        hs.append(h)
+    return in_scan_order(torch.stack(hs, dim=1)).to(x_proj.dtype)
 
 
 def gru_scan_bwd_ref(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
@@ -504,25 +547,50 @@ def gru_scan(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
     return _GRUScan.apply(x_proj, rec_kernel, rec_bias)
 
 
+def input_projection(x: torch.Tensor, kernel: torch.Tensor,
+                     in_bias: torch.Tensor, gate_masks=None) -> torch.Tensor:
+    """x [B, T, I] @ kernel [D, I, G*U] + in_bias [D, G*U] -> x_proj
+    [D, T, B, G*U], contiguous, in the promoted dtype: one product for all
+    timesteps and directions. With gate_masks [D, G, B, 1, I] (per-gate
+    input dropout, constant over time), gate g of direction d projects
+    x * gate_masks[d, g] (seld_tpu/ops/pallas/gru.py:365-390)."""
+    dt = torch.promote_types(x.dtype, kernel.dtype)
+    x, kernel = x.to(dt), kernel.to(dt)
+    if gate_masks is None:
+        x_proj = torch.einsum("bti,dik->dtbk", x, kernel)
+    else:
+        d, g, i = kernel.shape[0], gate_masks.shape[1], kernel.shape[1]
+        x_proj = torch.einsum(
+            "dgbti,digu->dtbgu", x * gate_masks.to(dt),
+            kernel.reshape(d, i, g, -1)).flatten(-2)
+    return (x_proj + in_bias[:, None, None].to(dt)).contiguous()
+
+
 def gru_forward(x: torch.Tensor, kernel: torch.Tensor,
                 rec_kernel: torch.Tensor, bias: torch.Tensor, *,
-                bidirectional: bool, merge_mode: str = "mul") -> torch.Tensor:
+                bidirectional: bool, merge_mode: str = "mul",
+                gate_masks=None, rec_masks=None) -> torch.Tensor:
     """Full GRU layer forward.
 
-    x [B, T, I]; kernel [D, I, 3U]; rec_kernel [D, U, 3U]; bias [D, 2, 3U].
-    Returns [B, T, U*dirs] ('concat') or [B, T, U] (other merges), matching
-    seld_tpu.models.layers.GRU. The recurrence runs as `gru_route` says:
-    `gru_scan`, or `gru_scan_ref` under torch's autograd.
+    x [B, T, I]; kernel [D, I, 3U]; rec_kernel [D, U, 3U]; bias [D, 2, 3U];
+    gate_masks [D, 3, B, 1, I] and rec_masks [D, 3, B, U] or None (Keras
+    input and recurrent dropout). Returns [B, T, U*dirs] ('concat') or
+    [B, T, U] (other merges), matching seld_tpu.models.layers.GRU. The
+    recurrence runs as `gru_route` says: `gru_scan`, `gru_scan_ref` or
+    `gru_scan_masked` under torch's autograd.
     """
     from seld_tpu_torch.models.layers import merge_bidirectional
 
-    dt = torch.promote_types(x.dtype, kernel.dtype)
-    # one large product for all timesteps/directions; bias[:, 0] = input
-    x_proj = torch.einsum("bti,dik->dtbk", x.to(dt), kernel.to(dt))
-    x_proj = (x_proj + bias[:, None, None, 0].to(dt)).contiguous()
-    route = gru_route(x.shape[0], rec_kernel.shape[-2], x.device.type)
-    scan = gru_scan if route == "kernel" else gru_scan_ref
-    hs = scan(x_proj, rec_kernel, bias[:, 1].contiguous())    # [D,T,B,U]
+    # bias[:, 0] is the input bias, bias[:, 1] the recurrent one
+    x_proj = input_projection(x, kernel, bias[:, 0], gate_masks)
+    route = gru_route(x.shape[0], rec_kernel.shape[-2], x.device.type,
+                      masked=rec_masks is not None)
+    rec_bias = bias[:, 1].contiguous()
+    if route == "masked":
+        hs = gru_scan_masked(x_proj, rec_kernel, rec_bias, rec_masks)
+    else:
+        scan = gru_scan if route == "kernel" else gru_scan_ref
+        hs = scan(x_proj, rec_kernel, rec_bias)               # [D,T,B,U]
     hs = hs.transpose(1, 2)                                   # [D,B,T,U]
     if not bidirectional:
         return hs[0]

@@ -12,16 +12,35 @@ other window (XceptionBody's overlapping SAME (1, 3) / (1, 2)) runs
 F.max_pool2d, whose gradient goes to one maximum per window, as XLA's
 select-and-scatter does.
 
+With SELD_EQ_MAXPOOL_BWD=1 (the JAX package's opt-in knob, read at call
+time), a non-overlapping pool whose window divides T and F takes the
+`amax` path whatever its padding (SAME pads nothing there): amax's
+gradient is the JAX package's equality backward
+(seld_tpu/ops/pooling.py:31-99), the cotangent sent to every element equal
+to its window's maximum, divided by their count.
+
 `avg_pool` is flax's VALID average pool with strides equal to the window
 (the window's mean, a trailing remainder dropped), as DenseNetStage's
 strided transition calls it.
 """
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+
+def _use_eq_bwd() -> bool:
+    """SELD_EQ_MAXPOOL_BWD=1 selects the equality backward."""
+    return os.environ.get("SELD_EQ_MAXPOOL_BWD", "0") == "1"
+
+
+def _eq_bwd_applicable(shape, window, strides) -> bool:
+    """A non-overlapping pool whose window divides T and F."""
+    return (tuple(window) == tuple(strides) and shape[1] % window[0] == 0
+            and shape[2] % window[1] == 0)
 
 
 def _windows(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
@@ -42,7 +61,8 @@ def max_pool(x: torch.Tensor, window: Sequence[int],
     padding = padding.upper()
     if padding not in ("SAME", "VALID"):
         raise ValueError(f"unknown padding {padding!r}")
-    if padding == "VALID" and strides == window:
+    if (padding == "VALID" and strides == window) or (
+            _use_eq_bwd() and _eq_bwd_applicable(x.shape, window, strides)):
         return _windows(x, window).amax(dim=(2, 4))
     t, f = x.shape[1:3]
     x = x.movedim(-1, 1)                       # [B, C, T, F], a view

@@ -53,6 +53,25 @@ def l2_kernel_penalty(params: Dict[str, torch.Tensor],
     return l2 * torch.stack(squares).sum()
 
 
+def _zeros_for_unused(model, params, grads):
+    """`grads` with zeros for the leaves the loss does not reach, as
+    jax.grad gives them. Only a leaf that its module declares may go unused
+    (`unused_parameters`: names under that module, as RFFPosEncoding's
+    stop-gradient `w` and tcn_stage's last residual conv) may be one: any
+    other is a wiring fault and raises."""
+    if all(g is not None for g in grads):
+        return grads
+    declared = {f"{prefix}.{n}" if prefix else n
+                for prefix, m in model.named_modules()
+                for n in getattr(m, "unused_parameters", ())}
+    stray = [k for k, g in zip(params, grads)
+             if g is None and k not in declared]
+    if stray:
+        raise RuntimeError(f"no gradient reaches {stray}")
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params.values(), grads)]
+
+
 def _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
                       compute_dtype):
     """The single-batch update: (state, x, y) -> ((sed_p, doa_p),
@@ -80,7 +99,9 @@ def _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
             dloss = doa_loss_fn(doa_y, doa_p)
             loss = (w_sed * sloss + w_doa * dloss
                     + l2_kernel_penalty(params, l2))
-            grads = torch.autograd.grad(loss, list(params.values()))
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True)
+        grads = _zeros_for_unused(model, params, grads)
         state.optimizer.step(list(params.values()), grads)
         return (sed_p.detach(), doa_p.detach()), (sloss.detach(),
                                                   dloss.detach())

@@ -44,6 +44,21 @@ from seld_tpu_torch.train.train_state import SWAState, TrainState
 from seld_tpu_torch.utils.logging import ScalarLogger
 
 
+def accdoa_objective(config):
+    """ACCDOA's (sed_loss, doa_loss, loss_weights)
+    (seld_tpu/train/trainer.py:96-107). ACCDOA (arXiv 2006.12014) has one
+    activity-coupled vector head; the model emits (clipped vector norms,
+    vectors), so the metric works unchanged, and the objective is
+    `config.doa_loss` (MSE by default) on the vectors alone: the derived
+    "sed" gets no loss. The weights are (0, 1), or (0, w1) of
+    `config.loss_weight` "w0,w1" where the config has one, as the CLI's
+    always does."""
+    doa_loss = L.get_doa_loss(getattr(config, "doa_loss", "MSE") or "MSE")
+    w_doa = (float(str(config.loss_weight).split(",")[1])
+             if hasattr(config, "loss_weight") else 1.0)
+    return (lambda y, p: p.new_zeros(())), doa_loss, (0.0, w_doa)
+
+
 class SELDTrainer:
     def __init__(self, config, model_config: dict, *,
                  n_classes: Optional[int] = None,
@@ -96,6 +111,9 @@ class SELDTrainer:
         self.loss_weights = tuple(
             float(w) for w in str(getattr(config, "loss_weight", "1,1000")
                                   ).split(","))
+        if getattr(config, "model", "") == "accdoa":
+            self.sed_loss, self.doa_loss, self.loss_weights = \
+                accdoa_objective(config)
         agc = getattr(config, "agc", True)
         self.agc_clip = (0.01 if agc is True else float(agc)) if agc else None
         self.l2 = float(getattr(config, "l2", 1e-3))

@@ -137,11 +137,17 @@ def test_gru_layer_matches_jax_layer_both_paths(bidirectional, merge):
 
 
 def test_gru_layer_dropout_in_training_is_not_ported():
-    layer = GRU(4, 8, bidirectional=True, dropout=0.1).train()
-    with pytest.raises(NotImplementedError):
-        layer(torch.zeros(2, 3, 4))
+    """GRU dropout in training is ported: masks change the training
+    output, eval ignores them (tests/test_torch_blocks.py holds the masks
+    against the JAX layer's)."""
+    layer = GRU(4, 8, bidirectional=True, dropout=0.5,
+                recurrent_dropout=0.5).train()
+    x = torch.randn(2, 3, 4, generator=torch.Generator().manual_seed(0))
+    assert layer(x).shape == (2, 3, 8)
+    drop = layer(x)
     layer.eval()
-    assert layer(torch.zeros(2, 3, 4)).shape == (2, 3, 8)
+    assert layer(x).shape == (2, 3, 8)
+    assert not torch.equal(drop, layer(x))
 
 
 def _fwd_writes(plan, d, b, u):

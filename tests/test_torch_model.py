@@ -115,7 +115,12 @@ def test_unknown_model_and_unported_stage_blocks():
     from seld_tpu_torch.config import get_model
     with pytest.raises(KeyError, match="unknown model"):
         get_model("seldnet_not_here")
+    # scan_depth, once refused, builds flax's nn.scan tree (one body under
+    # `scan`, its leaves stacked over the depth)
     cfg = narrow_ss5()
     cfg["BLOCK2_ARGS"]["scan_depth"] = True
-    with pytest.raises(NotImplementedError):
-        build_model("conv_temporal", (60, 16, 7), cfg, device="cpu")
+    model = build_model("conv_temporal", (60, 16, 7), cfg, device="cpu")
+    depth = cfg["BLOCK2_ARGS"]["depth"]
+    scanned = {k: v for k, v in model.state_dict().items()
+               if k.startswith("ConformerEncoderBlock_0.scan.")}
+    assert scanned and all(v.shape[0] == depth for v in scanned.values())

@@ -123,9 +123,14 @@ def test_validate_mother_config_messages(override, message):
 
 
 def test_mother_bn_pair_batch_not_ported():
+    """bn_pair_batch is ported: one wide BatchNorm over the main conv and
+    the projected skips, the eval forward equal to the JAX block's
+    (tests/test_torch_blocks.py holds train mode and a step)."""
     cfg = dict(_MOTHER_BASE, bn_pair_batch=True)
-    with pytest.raises(NotImplementedError):
-        get_block("mother_stage")(cfg)((8, 12, 5))
+    _compare("mother_stage", cfg, _x(2, 8, 12, 5, seed=1))
+    block = get_block("mother_stage")(cfg)((8, 12, 5))
+    # layer 2: its conv and two strided skip projections, one BatchNorm
+    assert block.MotherBlock_0.BatchNorm_2.scale.shape == (3 * 12,)
 
 
 def test_simple_dense_stage_is_linear_for_ss5():
@@ -172,9 +177,11 @@ def test_conformer_block_on_2d_input():
     {"scan_depth": True}, {"pos_encoding": "rff"},
     {"pos_encoding": "basic", "pos_mode": "relative"}])
 def test_conformer_unported_options_raise(kw):
-    args = dict(SS5["SED_ARGS"], **kw)
-    with pytest.raises(NotImplementedError):
-        get_block("conformer_encoder_stage")(args)((10, 32))
+    """The three options once refused are ported: each builds and its eval
+    forward equals the JAX block's."""
+    args = _narrow_conformer(SS5["SED_ARGS"], key_dim=8, **kw)
+    got, _ = _compare("conformer_encoder_stage", args, _x(4, 10, 32, seed=5))
+    assert got.shape == (4, 10, 32)
 
 
 def test_bidirectional_gru_stage():
