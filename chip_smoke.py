@@ -12,14 +12,15 @@ Phases, one line each:
               (none for stem_dy)
   4. routes   the shapes the kernels do not take, on the card against the
               CPU through the composed routes, with no kernel launched: a
-              biGRU at U=6 (B=8) and U=384 (B=3), FOA features at 40
+              biGRU at U=6 (B=8) and U=390 (B=3), FOA features at 40
               mels and n_fft 512, microphone-array features (log-mel +
               GCC-PHAT, mode "mic", never the front-end kernel) of two
               10-s clips, one with a second of digital silence; a
               Conv2DBN stem with pool [5, 4] (one
               train step), whose backward runs stem_dy's generic path
-              once; and a biGRU at U=384, B=8, which raises on the card
-              (the JAX package runs its kernel there; the port has none);
+              once; a biGRU at U=384 and U=512, B=8, through the
+              streamed GRU kernels (the JAX package runs its kernel
+              there), forward and gradients against the CPU;
               GRU dropout's routes on a biGRU U=128 (the same numpy masks
               on the card and the CPU): input dropout keeps gru_scan,
               recurrent dropout takes the masked route with no GRU
@@ -184,8 +185,33 @@ Phases, one line each:
               memory; (d) --model accdoa through the training CLI on
               [feed]'s wav tree with --epoch_scan and a resume: sedLoss 0.0
               throughout, exact launches of all five kernels
+ 18. dp       data-parallel training: (a) 2 ranks sharing the card over
+              gloo, full-width SS5 bf16, 128 of a global batch of 256
+              windows each, 3 steps through make_train_step fed from
+              each rank's shard of a sharded DeviceDataset, against one
+              process's 3 steps at B=256 on the same global batches
+              (losses, running statistics, parameter updates; the ranks
+              equal bit for bit; exactly gru_scan 2, gru_scan_bwd 2,
+              stem_dy 1 and gather_rows 1 a step on each rank); (b) the
+              training CLI on [feed]'s wavs under torch.distributed.run
+              as an NCCL group of one rank, --mesh data:-1 --epoch_scan
+              (the all-reduces captured in the epoch graph), against the
+              CLI without a group, then its checkpoint resumed without a
+              group; (c) (a) over NCCL with a card a rank, and the CLI
+              started plainly over two cards (it spawns the ranks)
+              against the CLI on one card, where the machine has two
+              cards (else one line says it did not run). The second
+              shard's windows are scaled and offset, so local and global
+              BatchNorm statistics differ; every CLI run is bounded in
+              time. --dp faults runs (a) alone and then with each planted
+              fault (local BatchNorm statistics; the stem's backward on
+              the local count), each of which (a) must catch; --dp cards
+              runs (c) alone. Neither prints a result line.
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
-at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152
+at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152,
+both GRU kernels' streamed variants (U > 256) at ragged tiles, U=388,
+1024 and 2056 and timed at B=256, U in {384, 512}, bf16 and f32, beside
+cuDNN (gru_wide)
 (phase 14 adds f32 B=256 at every NAS unit count, 4 to 256, both GRU
 kernels, and stem_dy in f32),
 printing each call's tile plan, and times every plan at the serving and
@@ -224,6 +250,8 @@ import json
 import math
 import os
 import subprocess
+import sys
+import signal
 import tempfile
 import threading
 import time
@@ -545,11 +573,11 @@ def _gru_inputs(rng, d, t, b, u, dtype):
 
 def phase_kernels(card):
     import torch
-    from seld_tpu_torch.ops.gru import (_FWD_VARIANTS, _fwd_plan,
+    from seld_tpu_torch.ops.gru import (_FWD_VARIANTS, _STREAM, _fwd_plan,
                                         _gru_scan_cuda, gru_scan,
                                         gru_scan_ref, library_variants)
 
-    if library_variants() != _FWD_VARIANTS:
+    if library_variants() != (_FWD_VARIANTS, _STREAM):
         raise SystemExit(f"csrc/gru_fwd.cu's variants {library_variants()} "
                          f"differ from ops/gru.py's {_FWD_VARIANTS}")
     rng = np.random.RandomState(0)
@@ -790,12 +818,12 @@ def cudnn_gru_train(x_proj, rec_kernel, rec_bias, g):
 
 def phase_kernels_bwd(card):
     import torch
-    from seld_tpu_torch.ops.gru import (_BWD_VARIANTS, _bwd_plan,
+    from seld_tpu_torch.ops.gru import (_BWD_VARIANTS, _STREAM, _bwd_plan,
                                         _gru_scan_bwd_cuda, gru_scan_bwd,
                                         gru_scan_bwd_ref, gru_scan_ref,
                                         library_bwd_variants)
 
-    if library_bwd_variants() != _BWD_VARIANTS:
+    if library_bwd_variants() != (_BWD_VARIANTS, _STREAM):
         raise SystemExit(f"csrc/gru_bwd.cu's variants "
                          f"{library_bwd_variants()} differ from ops/gru.py's "
                          f"{_BWD_VARIANTS}")
@@ -911,6 +939,84 @@ def phase_kernels_bwd(card):
                 "u256_plan": _plan_json(wide_plan)}]
 
     return entries + [kernels_stem_dy(card)]
+
+
+# the streamed GRU variants (U > 256): correctness at ragged tiles, a
+# cluster of 4 (U = 388), and a CTA of more units than threads (U = 2056:
+# 257 a CTA, walked in two passes); then the timed rows at B = 256
+GRU_WIDE_CHECKS = (("float32", 3, 388), ("bfloat16", 17, 384),
+                   ("float32", 8, 1024), ("float32", 3, 2056))
+GRU_WIDE_ROWS = tuple((dtype, 256, u) for u in (384, 512)
+                      for dtype in ("bfloat16", "float32"))
+
+
+def gru_wide(card):
+    """gru_scan and gru_scan_bwd past U = 256 (the streamed variants), each
+    against its plain version on the card (GRU_TOL, BWD_TOL), then at
+    D=2, T=60, B=256, U=384 and 512, bf16 and f32: kernel ms, plain ms,
+    bound ms, cuDNN's torch.nn.GRU ms at the same shape (forward: its
+    training forward; backward: forward + backward less the forward) and
+    the plan. Returns ({row: forward numbers}, {row: backward numbers})."""
+    import torch
+    from seld_tpu_torch.ops.gru import (_bwd_plan, _fwd_plan, gru_scan,
+                                        gru_scan_bwd, gru_scan_bwd_ref,
+                                        gru_scan_ref)
+    rng = np.random.RandomState(14)
+    d, t = 2, 60
+    fwd_rows, bwd_rows = {}, {}
+    for dtype, b, u in GRU_WIDE_CHECKS + GRU_WIDE_ROWS:
+        xp, rk, rb = _gru_inputs(rng, d, t, b, u, dtype)
+        hs = gru_scan(xp, rk, rb)
+        ref = gru_scan_ref(xp, rk, rb)
+        err = (hs.float() - ref.float()).abs().max().item()
+        g = torch.from_numpy(rng.randn(d, t, b, u).astype(
+            np.float32)).cuda().to(xp.dtype)
+        got = gru_scan_bwd(xp, rk, rb, ref, g)
+        want = gru_scan_bwd_ref(xp, rk, rb, ref, g)
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        tols = [BWD_TOL[dtype], BWD_TOL["float32"], BWD_TOL["float32"]]
+        fplan, bplan = _fwd_plan(d, b, u), _bwd_plan(d, b, u)
+        ok = err <= GRU_TOL[dtype] and hs.dtype == xp.dtype and \
+            all(e <= tl for e, tl in zip(errs, tols))
+        log("kernels", f"gru_scan/gru_scan_bwd {dtype} B={b} U={u} "
+                       f"(streamed): forward max_abs_err {err:.3e} (tol "
+                       f"{GRU_TOL[dtype]:.1e}), backward rel_err dx_proj "
+                       f"{errs[0]:.2e} dRk {errs[1]:.2e} dRb {errs[2]:.2e} "
+                       f"(tol {tols[0]:.1e}/{tols[1]:.0e}) "
+                       f"{'ok' if ok else 'FAIL'}; {_plan_text(fplan)}")
+        if not ok:
+            raise SystemExit(f"the streamed GRU kernels disagree with their "
+                             f"plain versions at {dtype} B={b} U={u}")
+        if (dtype, b, u) not in GRU_WIDE_ROWS:
+            continue
+        ms = cuda_ms(lambda: gru_scan(xp, rk, rb), 10)
+        plain_ms = cuda_ms(lambda: gru_scan_ref(xp, rk, rb), 2)
+        bound_ms, bound_by = gru_scan_bound(xp, rk, rb)
+        bwd_ms = cuda_ms(lambda: gru_scan_bwd(xp, rk, rb, ref, g), 5)
+        bwd_plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xp, rk, rb, ref, g), 1)
+        bwd_bound_ms, bwd_bound_by = gru_bwd_bound(xp, rk, rb, ref, g)
+        lib_fwd, lib_both = cudnn_gru_train(xp, rk, rb, g)
+        lib_ms = cuda_ms(lib_fwd, 10)
+        lib_bwd_ms = cuda_ms(lib_both, 10) - lib_ms
+        key = f"{dtype}_B{b}_U{u}"
+        fwd_rows[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib_ms,
+                         "max_abs_err": err, "plan": _plan_json(fplan)}
+        bwd_rows[key] = {"ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                         "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
+                         "library_ms": lib_bwd_ms, "rel_err": max(errs),
+                         "plan": _plan_json(bplan)}
+        log("kernels", f"gru_scan {dtype} D=2 T=60 B={b} U={u} on {card}: "
+                       f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                       f"library_ms (cuDNN GRU training forward) "
+                       f"{lib_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}); "
+                       f"{_plan_text(fplan)}")
+        log("kernels", f"gru_scan_bwd {dtype} D=2 T=60 B={b} U={u} on "
+                       f"{card}: kernel_ms {bwd_ms:.4f} plain_ms "
+                       f"{bwd_plain_ms:.4f} library_ms (cuDNN GRU backward) "
+                       f"{lib_bwd_ms:.4f} bound_ms {bwd_bound_ms:.5f} "
+                       f"({bwd_bound_by}); {_plan_text(bplan)}")
+    return fwd_rows, bwd_rows
 
 
 # stem_dy cases: (dtype, B, pool, y layout, dpooled layout); a layout is
@@ -1141,13 +1247,14 @@ def _grads_err(got, want):
 def phase_routes(card):
     """The shapes the kernels do not take run the composed routes on the
     card, as the JAX package composes them with XLA, and match the CPU: a
-    biGRU layer at U=6, B=8 and U=384, B=3 (forward and gradients, no GRU
+    biGRU layer at U=6, B=8 and U=390, B=3 (forward and gradients, no GRU
     kernel launched), FOA features at 40 mels and n_fft 512 and mic
     features (log-mel + GCC-PHAT) at the main path's shape (no front-end
     launch), and one training step of a Conv2DBN stem with pool [5, 4],
     whose fused backward runs stem_dy's generic path (one launch). A biGRU
-    at U=384, B=8, where the JAX package runs its Pallas kernel, raises on
-    the card before any launch."""
+    at U=384 and U=512, B=8, where the JAX package runs its Pallas kernel,
+    runs the streamed GRU kernels (one forward, one backward launch) and
+    matches the CPU."""
     import torch
     from seld_tpu_torch.models.layers import GRU, Conv2DBN
     from seld_tpu_torch.ops import kernels
@@ -1174,31 +1281,30 @@ def phase_routes(card):
         return layer
 
     gru_counts = ("gru_scan", "gru_scan_bwd")
-    for u, b in ((6, 8), (384, 3)):
-        if gru_route(b, u, "cuda") != "plain":
-            raise SystemExit(f"U={u}, B={b} should take the composed route")
+    # U % 4 != 0: the composed route, as the JAX package's lax.scan; U = 384
+    # and 512 at B = 8 (the JAX package's Pallas shapes): the streamed
+    # kernels, one forward and one backward launch a layer
+    for u, b in ((6, 8), (390, 3), (384, 8), (512, 8)):
+        route = "plain" if u % 4 else "kernel"
+        if gru_route(u) != route:
+            raise SystemExit(f"U={u}, B={b} should take the {route} route")
         x = torch.from_numpy(rng.randn(b, 60, 64).astype(np.float32))
         w = torch.from_numpy(rng.randn(b, 60, u).astype(np.float32))
         layer = gru_layer(u)
         want, _ = step(layer, x, w, "cpu")
+        kernels.launch_counts.clear()
         got, _ = step(layer, x, w, "cuda")
         err = max(_grads_err(got, want))
         counts = {k: kernels.launch_counts[k] for k in gru_counts}
-        log("routes", f"biGRU U={u} B={b} T=60 f32 on the card vs the CPU: "
-                      f"output and gradients rel_err {err:.2e} (tol "
-                      f"{TRAIN_GRAD_RTOL:.0e}); GRU kernel launches {counts}")
-        if err > TRAIN_GRAD_RTOL or any(counts.values()):
-            raise SystemExit(f"the composed GRU route failed at U={u}")
-    try:
-        gru_layer(384).cuda()(torch.zeros(8, 60, 64, device="cuda"))
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
-    counts = {k: kernels.launch_counts[k] for k in gru_counts}
-    log("routes", f"biGRU U=384 B=8 on the card (the JAX package's kernel "
-                  f"shape): raised {raised!r}; GRU kernel launches {counts}")
-    if raised is None or any(counts.values()):
-        raise SystemExit("a biGRU at U=384, B=8 should raise on the card")
+        log("routes", f"biGRU U={u} B={b} T=60 f32 on the card vs the CPU "
+                      f"({route} route): output and gradients rel_err "
+                      f"{err:.2e} (tol {TRAIN_GRAD_RTOL:.0e}); GRU kernel "
+                      f"launches {counts}")
+        launches = 1 if route == "kernel" else 0
+        if err > TRAIN_GRAD_RTOL or \
+                any(n != launches for n in counts.values()):
+            raise SystemExit(f"the {route} GRU route failed at U={u}")
+    kernels.launch_counts.clear()
 
     wavs = torch.from_numpy(np.round(rng.uniform(-0.5, 0.5, (2, 4, 48000))
                                      * 32767).astype(np.int16))
@@ -1320,7 +1426,7 @@ def routes_dropout(card, rng):
     for label, rec_masks, route, launches in (
             ("input dropout", None, "kernel", 1),
             ("input + recurrent dropout", rec, "masked", 0)):
-        if gru_route(b, u, "cuda", masked=rec_masks is not None) != route:
+        if gru_route(u, masked=rec_masks is not None) != route:
             raise SystemExit(f"{label} should take the {route} route")
         want = run("cpu", gate, rec_masks)
         kernels.launch_counts.clear()
@@ -1539,7 +1645,7 @@ def numpy_keep_masks(seed):
     from seld_tpu_torch.models import layers
     real, rng = layers.keep_mask, np.random.RandomState(seed)
 
-    def drawn(shape, keep, generator, device, dtype):
+    def drawn(shape, keep, generator, device, dtype, batch_dim=0):
         m = (rng.rand(*shape) < keep).astype(np.float32) / keep
         return torch.from_numpy(m).to(device=device, dtype=dtype)
     layers.keep_mask = drawn
@@ -4271,6 +4377,509 @@ def phase_blocks(card):
     return out
 
 
+# [dp]: data-parallel training. (a) and (c): 2 ranks, each 128 of a global
+# batch of 256 windows, full-width SS5 bf16 with dropout and cuDNN's
+# deterministic algorithms, 3 steps through make_train_step fed from each
+# rank's shard of one sharded DeviceDataset, against one process's 3 steps
+# at B=256 on the same global batches. The second shard's windows are the
+# first's distribution scaled by DP_SHARD_SCALE and offset by
+# DP_SHARD_OFFSET, so a rank's own BatchNorm statistics lie far from the
+# global batch's. The ranks run the same kernels on
+# half the rows, which differs from the one-process step only in the
+# order of the sums (the BatchNorm sums of two halves, the gradients' sum
+# of two backwards, and the library kernels' algorithms at another batch
+# size) rounded at bf16: the losses DP_LOSS_RTOL relative; the running
+# statistics DP_STATS_RTOL of each tensor's largest element plus
+# DP_STATS_ATOL, (1 - 0.99) x 2 x 1.2 lr x steps: a conv bias before a
+# BatchNorm has a null gradient, AdaBelief moves it by ~lr either way on
+# each side, and the batch mean carries the drift (the stem's running
+# mean is ~1e-5, all drift); the
+# parameters' updates (after - before) DP_UPDATE_RTOL relative in norm
+# over all leaves (AdaBelief moves an element whose gradient is rounding
+# noise by ~lr either way, so no single element is held); the first
+# step's all-reduced gradients DP_GRAD_RTOL relative in norm for each leaf
+# whose gradient norm is at least DP_GRAD_FLOOR of the largest leaf's (the
+# others, conv biases before a BatchNorm, are null in exact arithmetic):
+# bf16 rounds each value to ~4e-3 and the halves' library kernels round
+# apart, while a fault in one layer's backward moves its leaf by O(1);
+# and each rank's parameters, statistics and losses equal the other
+# rank's bit for bit.
+# (b): the training CLI under torch.distributed.run as an NCCL group of
+# one rank (--epoch_scan: its all-reduces captured in the epoch graph)
+# against the same CLI without a group, deterministic cuDNN in both:
+# every logged loss DP_CLI_RTOL relative (the BatchNorm statistics from
+# sums instead of means, over 2 epochs of bf16 steps). (c) also starts the
+# CLI plainly over two cards (--mesh data:-1, CUDA_VISIBLE_DEVICES 0,1: a
+# spawned NCCL rank a card, --epoch_scan) against the CLI on one card, to
+# DP_CLI_RTOL; every CLI run must end within DP_CLI_TIMEOUT seconds (its
+# whole process group is killed after).
+# --dp faults plants each of DP_FAULTS in both ranks' processes and
+# requires (a)'s comparison to fail: "local_stats", every BatchNorm and
+# the fused stem on its rank's own statistics (no global BatchNorm);
+# "local_n", the fused stem's backward forming stem_dy's params6 with its
+# rank's count instead of the global batch's.
+DP_WINDOWS = 1024
+DP_BATCH = 256
+DP_STEPS = 3
+DP_LOSS_RTOL = 1e-2
+DP_STATS_RTOL = 1e-2
+DP_STATS_ATOL = (1 - 0.99) * 2 * 1.2 * 1e-3 * DP_STEPS
+DP_UPDATE_RTOL = 0.25
+DP_GRAD_RTOL, DP_GRAD_FLOOR = 1e-1, 1e-2
+DP_CLI_RTOL = 2e-2
+DP_CLI_TIMEOUT = 300
+DP_SHARD_SCALE, DP_SHARD_OFFSET = 2.0, 1.0
+DP_FAULTS = ("local_stats", "local_n")
+
+
+def _dp_split():
+    """The seeded global split: x [DP_WINDOWS, 300, 64, 7] bf16 (the second
+    shard's windows scaled and offset), labels [DP_WINDOWS, 60, 48] with an
+    event in every window."""
+    import torch
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn((DP_WINDOWS, 300, 64, 7), generator=gen)
+    x[DP_WINDOWS // 2:].mul_(DP_SHARD_SCALE).add_(DP_SHARD_OFFSET)
+    x = x.to(torch.bfloat16)
+    sed = (torch.rand((DP_WINDOWS, 60, 12), generator=gen) < 0.1).float()
+    sed[:, 0, 0] = 1.0
+    doa = (torch.rand((DP_WINDOWS, 60, 36), generator=gen) * 2 - 1) * \
+        sed.repeat(1, 1, 3)
+    return x, torch.cat([sed, doa], -1)
+
+
+def _dp_run(device, mesh, batches):
+    """DP_STEPS bench steps (SS5 bf16, dropout on, seeded) on `batches` of
+    (x, y) on the card; (losses, state, launch counts, ms a step of the
+    last two)."""
+    import torch
+    from seld_tpu_torch.bench import build
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.train import steps
+    b = build(batch=8, dtype="bf16", device=device, mesh=mesh)
+    before = {k: v.detach().float().cpu() for k, v in b.state.params.items()}
+    losses, marks, first = [], [], []
+    reduce = steps._all_reduce_grads
+
+    def recorded(grads):
+        # the first step's gradients, as the optimizer receives them
+        out = reduce(grads)
+        if not first:
+            first.extend(g.detach().float().cpu() for g in out)
+        return out
+    steps._all_reduce_grads = recorded
+    kernels.launch_counts.clear()
+    try:
+        for x, y in batches():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            b.state, b.metric, (sl, dl) = b.step(b.state, b.metric, x,
+                                                 (y[..., :12], y[..., 12:]))
+            losses.append(torch.stack([sl, dl]))
+    finally:
+        steps._all_reduce_grads = reduce
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    counts = {k: kernels.launch_counts[k] for k in kernels.KERNELS}
+    ms = marks[1].elapsed_time(end) / (len(marks) - 1)
+    return {"losses": torch.stack(losses).cpu().numpy().tolist(),
+            "before": before, "grads": dict(zip(b.state.params, first)),
+            "params": {k: v.detach().float().cpu()
+                       for k, v in b.state.params.items()},
+            "stats": {k: v.float().cpu()
+                      for k, v in b.state.batch_stats.items()},
+            "counts": counts, "ms": ms}
+
+
+def _plant(fault):
+    """Plant one of DP_FAULTS in this process (--dp faults)."""
+    from seld_tpu_torch.models import layers
+    from seld_tpu_torch.ops import stem
+    from seld_tpu_torch.parallel import collectives
+
+    def unmeshed(fn):
+        def run(*args):
+            mesh = collectives.active()
+            collectives._state.mesh = None
+            try:
+                return fn(*args)
+            finally:
+                collectives._state.mesh = mesh
+        return run
+    forward = stem._ConvBNReLUPool.forward
+    if fault == "local_stats":
+        layers.BatchNorm.forward = unmeshed(layers.BatchNorm.forward)
+        stem._ConvBNReLUPool.forward = staticmethod(unmeshed(forward))
+    elif fault == "local_n":
+        def local_n(ctx, *args):
+            out = forward(ctx, *args)
+            ctx.n //= collectives.world()
+            return out
+        stem._ConvBNReLUPool.forward = staticmethod(local_n)
+    else:
+        raise ValueError(f"no fault {fault!r}")
+
+
+def dp_worker(rank, world, port, backend, out, fault="none"):
+    """One rank of [dp] (a) or (c): its shard of the sharded DeviceDataset,
+    DP_STEPS steps under the group's mesh, with `fault` planted unless
+    "none"; writes its result to `out`."""
+    import torch
+    import torch.distributed as dist
+    from seld_tpu_torch.data.device_dataset import DeviceDataset
+    from seld_tpu_torch.parallel.mesh import make_mesh
+    if fault != "none":
+        _plant(fault)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh("data:-1", device)
+        x, y = _dp_split()
+        ds = DeviceDataset(x, y, DP_BATCH, device, seed=14, mesh=mesh)
+        del x, y
+
+        def batches():
+            it = iter(ds)
+            for _ in range(DP_STEPS):
+                yield next(it)
+        result = _dp_run(device, mesh, batches)
+        result["device"] = str(device)
+        result["backend"] = dist.get_backend()
+        torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _package_root():
+    """The directory that holds the seld_tpu_torch package this script
+    imported: the subprocesses' PYTHONPATH."""
+    import seld_tpu_torch
+    return os.path.dirname(os.path.dirname(os.path.abspath(
+        seld_tpu_torch.__file__)))
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(world, backend, workdir, fault="none"):
+    """Start `world` dp_worker processes and wait for every one; their
+    results by rank."""
+    import torch
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": _package_root()}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         str(world), str(port), backend,
+         os.path.join(workdir, f"rank{r}.pt"), fault], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise SystemExit(f"[dp] rank {r} of {world} over {backend} "
+                             f"failed:\n{text[-4000:]}")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def _dp_reference(device):
+    """One process's DP_STEPS steps at B=256 on the global batches the two
+    ranks' shards make (each rank's local ids into its half of the
+    split)."""
+    import torch
+    from seld_tpu_torch.data.device_dataset import DeviceDataset
+    from seld_tpu_torch.ops.gather import gather_batch
+    from seld_tpu_torch.parallel.mesh import Mesh
+    x, y = _dp_split()
+    shard = DP_WINDOWS // 2
+    idx = []
+    for r in range(2):
+        view = Mesh(axes={"data": 2}, world=2, rank=r, data_size=2,
+                    data_index=r, device=torch.device("cpu"))
+        ds = DeviceDataset(x, y, DP_BATCH, "cpu", seed=14, mesh=view)
+        idx.append(torch.from_numpy(ds._epoch_order()) + r * shard)
+        del ds
+    ids = torch.cat(idx, 1).to(device)
+    xd, yd = x.to(device), y.to(device)
+    del x, y
+
+    def batches():
+        for i in range(DP_STEPS):
+            yield gather_batch((xd, yd), ids[i])
+    return _dp_run(device, None, batches)
+
+
+def _dp_compare(got, want):
+    """(loss rel err, (the largest statistic's error as a share of its
+    tolerance, its name), update err, (the largest first-step gradient
+    error of a leaf above DP_GRAD_FLOOR, its name)) of a rank against the
+    one-process run."""
+    import torch
+    loss = _max_rel(np.ravel(got["losses"]).tolist(),
+                    np.ravel(want["losses"]).tolist())
+    stats = max((((got["stats"][k] - w).abs().max()
+                  / (DP_STATS_RTOL * w.abs().max() + DP_STATS_ATOL)).item(),
+                 k) for k, w in want["stats"].items())
+    du = torch.cat([(got["params"][k] - got["before"][k]
+                     - (w - want["before"][k])).ravel()
+                    for k, w in want["params"].items()])
+    ref = torch.cat([(w - want["before"][k]).ravel()
+                     for k, w in want["params"].items()])
+    norms = {k: w.norm().item() for k, w in want["grads"].items()}
+    floor = DP_GRAD_FLOOR * max(norms.values())
+    grad = max(((got["grads"][k] - w).norm().item() / norms[k], k)
+               for k, w in want["grads"].items() if norms[k] >= floor)
+    return loss, stats, (du.norm() / ref.norm()).item(), grad
+
+
+def dp_ranks(card, world, backend, label, faults=()):
+    """[dp] (a)/(c): `world` ranks over `backend` against one process;
+    then the same with each of `faults` planted, each of which the
+    comparison must catch."""
+    import torch
+    per_step = {"gru_scan": 2, "gru_scan_bwd": 2, "stem_dy": 1,
+                "gather_rows": 1}
+    want_counts = {n: per_step.get(n, 0) * DP_STEPS
+                   for n in ("gru_scan", "gru_scan_bwd", "stem_dy",
+                             "foa_frontend", "gather_rows")}
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        ranks = _run_ranks(world, backend, workdir)
+        secs = time.perf_counter() - t0
+        planted = {f: _run_ranks(world, backend, workdir, f)[0]
+                   for f in faults}
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = _dp_reference(torch.device("cuda", 0))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = all(r["losses"] == ranks[0]["losses"] and all(
+        torch.equal(r[part][k], ranks[0][part][k])
+        for part in ("params", "stats") for k in r[part])
+        for r in ranks[1:])
+    loss_err, (stats_err, stats_key), update_err, (grad_err, grad_key) = \
+        _dp_compare(ranks[0], want)
+    counts_ok = all(r["counts"] == want_counts for r in ranks)
+    finite = all(math.isfinite(v) for r in ranks
+                 for v in np.ravel(r["losses"]))
+    log("dp", f"({label}) {world} ranks over {ranks[0]['backend']} on "
+              f"{sorted({r['device'] for r in ranks})}, {DP_BATCH // world} "
+              f"of a global batch of {DP_BATCH} windows each, SS5 full "
+              f"width bf16, {DP_STEPS} steps from a sharded DeviceDataset "
+              f"of {DP_WINDOWS} windows, against one process at B="
+              f"{DP_BATCH}: losses rel_err {loss_err:.2e} (tol "
+              f"{DP_LOSS_RTOL:.0e}), running statistics at "
+              f"{stats_err:.2f} of their tolerance (worst {stats_key}; "
+              f"{DP_STATS_RTOL:.0e} of the largest + {DP_STATS_ATOL:.1e}), "
+              f"parameter updates {update_err:.2e}"
+              f" in norm (tol {DP_UPDATE_RTOL}), first-step gradients "
+              f"{grad_err:.2e} (worst leaf {grad_key}; tol {DP_GRAD_RTOL:.0e}"
+              f" in norm a leaf); ranks equal bit for bit "
+              f"{same}; launches a rank {[r['counts'] for r in ranks]} (want "
+              f"{want_counts}); ms a step {[round(r['ms'], 4) for r in ranks]}"
+              f" (one process at B={DP_BATCH} {want['ms']:.4f}); ranks' "
+              f"processes {secs:.1f} s, on {card}")
+    if not (same and counts_ok and finite and loss_err <= DP_LOSS_RTOL
+            and stats_err <= 1.0 and update_err <= DP_UPDATE_RTOL
+            and grad_err <= DP_GRAD_RTOL):
+        raise SystemExit(f"[dp] ({label}) the {world}-rank step disagrees "
+                         "with the one-process step")
+    caught = {}
+    for fault, got in planted.items():
+        f_loss, (f_stats, f_key), f_update, (f_grad, f_gkey) = \
+            _dp_compare(got, want)
+        caught[fault] = {"loss_rel_err": f_loss, "stats_err": f_stats,
+                         "update_err": f_update, "grad_err": f_grad}
+        log("dp", f"({label}) planted {fault}: losses rel_err {f_loss:.3e} "
+                  f"(sound {loss_err:.3e}), running statistics at "
+                  f"{f_stats:.3f} of their tolerance (worst {f_key}; sound "
+                  f"{stats_err:.3f}), parameter updates {f_update:.3e} in "
+                  f"norm (sound {update_err:.3e}), first-step gradients "
+                  f"{f_grad:.3e} (worst leaf {f_gkey}; sound {grad_err:.3e})")
+        if not (f_loss > DP_LOSS_RTOL or f_stats > 1.0
+                or f_update > DP_UPDATE_RTOL or f_grad > DP_GRAD_RTOL):
+            raise SystemExit(f"[dp] ({label}) the planted fault {fault} "
+                             "passed the comparison")
+    return {"launches": ranks[0]["counts"], "ms": [r["ms"] for r in ranks],
+            "one_process_ms": want["ms"], "loss_rel_err": loss_err,
+            "stats_err": stats_err, "update_err": update_err,
+            "grad_err": grad_err, "backend": ranks[0]["backend"],
+            "faults": caught}
+
+
+# the training CLI with cuDNN's deterministic algorithms and no TF32; the
+# __main__ guard lets the CLI spawn its ranks from it
+DP_CLI_SCRIPT = """import sys
+import torch
+from seld_tpu_torch.train.main import main
+if __name__ == "__main__":
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    main(sys.argv[1:])
+"""
+
+
+def _dp_scalars(root, name):
+    path = os.path.join(root, "tensorboard_log",
+                        f"conv_temporal_SS5_MMSE_{name}_v_0", "scalars.jsonl")
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    return {(r["tag"], r["step"]): r["value"] for r in rows
+            if r["tag"].split("/")[-1].split("_")[-1] in ("sedLoss",
+                                                          "doaLoss")}
+
+
+def _run_cli(cmd, root, cards, part, label):
+    """Run one training CLI command in `root` on the cards `cards` (a
+    CUDA_VISIBLE_DEVICES value); its stdout once it has ended within
+    DP_CLI_TIMEOUT, else its whole process group is killed and [dp] fails."""
+    env = {**os.environ, "PYTHONPATH": _package_root(),
+           "CUDA_VISIBLE_DEVICES": cards}
+    proc = subprocess.Popen(cmd, cwd=root, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=DP_CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        stdout, stderr = proc.communicate()
+        raise SystemExit(f"[dp] ({part}) the {label} CLI run did not end "
+                         f"within {DP_CLI_TIMEOUT} s:\n"
+                         f"{(stdout + stderr)[-4000:]}")
+    if proc.returncode != 0:
+        raise SystemExit(f"[dp] ({part}) the {label} CLI run failed:\n"
+                         f"{(stdout + stderr)[-4000:]}")
+    return stdout
+
+
+def _cli_root(root):
+    """[feed]'s seeded wavs and the CLI script in `root`; the script's
+    path."""
+    write_wav_tree(root, FEED_CLIPS, FEED_SECONDS)
+    script = os.path.join(root, "dp_cli.py")
+    with open(script, "w") as f:
+        f.write(DP_CLI_SCRIPT)
+    return script
+
+
+def dp_cli(card):
+    """[dp] (b): the training CLI on the first card as an NCCL group of one
+    rank under torch.distributed.run (--mesh data:-1 --epoch_scan) against
+    the same CLI without a group, then its checkpoint resumed without a
+    group."""
+    with tempfile.TemporaryDirectory() as root:
+        script = _cli_root(root)
+        argv = [*FEED_ARGV, "--abspath", root, "--epoch_scan", "--mesh",
+                "data:-1"]
+        runs = {
+            "plain": [sys.executable, script, *argv, "--name", "plain"],
+            "nccl": [sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc_per_node", "1", script,
+                     *argv, "--name", "nccl"],
+            "resumed": [sys.executable, script, *argv, "--name", "nccl",
+                        "--resume", "--epoch", "3"]}
+        out, secs = {}, {}
+        for label, cmd in runs.items():
+            t0 = time.perf_counter()
+            out[label] = _run_cli(cmd, root, "0", "b", label)
+            secs[label] = time.perf_counter() - t0
+        plain, nccl = _dp_scalars(root, "plain"), _dp_scalars(root, "nccl")
+    group = "data parallel: 1 rank(s) over nccl" in out["nccl"]
+    no_group = "data parallel" not in out["plain"] + out["resumed"]
+    resumed = "resumed from epoch" in out["resumed"]
+    epochs = sorted({k[1] for k in nccl})
+    first = {k: v for k, v in nccl.items() if k[1] in epochs[:2]}
+    err = _max_rel([first[k] for k in sorted(first)],
+                   [plain[k] for k in sorted(first)])
+    finite = all(math.isfinite(v) for v in nccl.values())
+    log("dp", f"(b) the training CLI (--device_data --epoch_scan --mesh "
+              f"data:-1, [feed]'s wavs) as an NCCL group of one rank under "
+              f"torch.distributed.run: group {group}, losses of epochs "
+              f"{epochs[:2]} against the run without a group rel_err "
+              f"{err:.2e} (tol {DP_CLI_RTOL:.0e}); resumed without a group "
+              f"{resumed and no_group}, epochs logged {epochs}, finite "
+              f"{finite}; seconds {', '.join(f'{k} {v:.1f}' for k, v in secs.items())} on {card}")
+    if not (group and no_group and resumed and finite and err <= DP_CLI_RTOL
+            and len(epochs) == 3 and set(first) == set(plain)):
+        raise SystemExit("[dp] (b) the NCCL group of one rank failed a check")
+    return {"loss_rel_err": err, "seconds": secs}
+
+
+def dp_cli_cards(card):
+    """[dp] (c): the training CLI started plainly over two cards (--mesh
+    data:-1 --epoch_scan: it spawns an NCCL rank a card and captures their
+    all-reduces in the epoch graph) against the same CLI on one card; each
+    must end within DP_CLI_TIMEOUT."""
+    with tempfile.TemporaryDirectory() as root:
+        script = _cli_root(root)
+        argv = [sys.executable, script, *FEED_ARGV, "--abspath", root,
+                "--epoch_scan", "--mesh", "data:-1"]
+        out, secs = {}, {}
+        for label, cards in (("one", "0"), ("two", "0,1")):
+            t0 = time.perf_counter()
+            out[label] = _run_cli([*argv, "--name", label], root, cards,
+                                  "c", f"{label}-card")
+            secs[label] = time.perf_counter() - t0
+        one, two = _dp_scalars(root, "one"), _dp_scalars(root, "two")
+    group = "data parallel: 2 rank(s) over nccl" in out["two"]
+    no_group = "data parallel" not in out["one"]
+    err = _max_rel([two[k] for k in sorted(one)],
+                   [one[k] for k in sorted(one)]) if set(one) == set(two) \
+        else math.inf
+    finite = all(math.isfinite(v) for v in two.values())
+    log("dp", f"(c) the training CLI (--device_data --epoch_scan --mesh "
+              f"data:-1, [feed]'s wavs) on two cards: 2 spawned NCCL ranks "
+              f"{group}, losses of epochs {sorted({k[1] for k in two})} "
+              f"against the CLI on one card rel_err {err:.2e} (tol "
+              f"{DP_CLI_RTOL:.0e}), finite {finite}, ended within "
+              f"{DP_CLI_TIMEOUT} s; seconds "
+              f"{', '.join(f'{k} {v:.1f}' for k, v in secs.items())} on "
+              f"{card}")
+    if not (group and no_group and finite and err <= DP_CLI_RTOL):
+        raise SystemExit("[dp] (c) the CLI over two cards failed a check")
+    return {"loss_rel_err": err, "seconds": secs}
+
+
+def phase_dp(card, only=None):
+    """Data-parallel training: (a) 2 gloo ranks sharing the card, (b) an
+    NCCL group of one rank through the CLI, (c) NCCL over 2 cards, steps
+    and the CLI, where there are two. `only`: "faults", (a) alone with
+    each of DP_FAULTS planted after it; "cards", (c) alone."""
+    import torch
+    out = {}
+    if only in (None, "faults"):
+        out["gloo_one_card"] = dp_ranks(card, 2, "gloo", "a",
+                                        DP_FAULTS if only else ())
+    if only is None:
+        out["nccl_cli"] = dp_cli(card)
+    if only in (None, "cards"):
+        if torch.cuda.device_count() >= 2:
+            out["nccl_two_cards"] = dp_ranks(card, 2, "nccl", "c")
+            out["cli_two_cards"] = dp_cli_cards(card)
+        else:
+            log("dp", f"(c) NCCL over two cards: not run, this machine has "
+                      f"{torch.cuda.device_count()} card")
+    return out
+
+
 def ptxas_report(text):
     """One line per kernel of an `nvcc -Xptxas -v` log: its name (template
     arguments in brackets), registers and spills."""
@@ -4301,7 +4910,22 @@ def main(argv=None):
         "--kernels-only", action="store_true",
         help="build, check and time the kernels (phase 3, every kernel "
              "even after one fails), then stop with no result line")
-    kernels_only = parser.parse_args(argv).kernels_only
+    parser.add_argument(
+        "--dp", choices=("faults", "cards"), default=None,
+        help="build the kernels, then run only [dp] (a) and after it each "
+             "planted fault, which (a)'s comparison must catch (faults), "
+             "or only [dp] (c), NCCL steps and the CLI over two cards "
+             "(cards); no result line")
+    parser.add_argument("--dp-worker", nargs=6, default=None,
+                        metavar=("RANK", "WORLD", "PORT", "BACKEND", "OUT",
+                                 "FAULT"),
+                        help="internal: one rank of the [dp] phase")
+    args = parser.parse_args(argv)
+    if args.dp_worker:
+        rank, world, port, backend, out, fault = args.dp_worker
+        return dp_worker(int(rank), int(world), int(port), backend, out,
+                         fault)
+    kernels_only = args.kernels_only
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -4330,13 +4954,18 @@ def main(argv=None):
     if kernels_only:
         failed = []
         for phase in (phase_sass, phase_kernels, phase_kernels_bwd,
-                      phase_kernels_feed):
+                      gru_wide, phase_kernels_feed):
             try:
                 phase(smi)
             except SystemExit as e:
                 log("kernels", f"{phase.__name__} FAILED: {e}")
                 failed.append(phase.__name__)
         raise SystemExit(f"failed: {failed}" if failed else 0)
+    if args.dp:
+        t0 = time.perf_counter()
+        phase_dp(smi, only=args.dp)
+        log("time", f"phase_dp ({args.dp}) {time.perf_counter() - t0:.1f} s")
+        raise SystemExit(0)
     phase_seconds = {}
 
     def timed(phase, *args):
@@ -4347,6 +4976,7 @@ def main(argv=None):
         return out
 
     entries = [timed(phase_kernels, smi)] + timed(phase_kernels_bwd, smi)
+    entries[0]["wide"], entries[1]["wide"] = timed(gru_wide, smi)
     feed_entries = timed(phase_kernels_feed, smi)
     timed(phase_routes, smi)
     model = timed(phase_model, smi)
@@ -4421,6 +5051,10 @@ def main(argv=None):
     by_name["gru_scan"]["blocks_cli_windows_per_s"] = \
         blocks["cli"]["windows_per_s"]
     by_name["gru_scan"]["blocks_seconds"] = blocks["seconds"]
+    dp = timed(phase_dp, smi)
+    for e in entries:
+        e["dp_launches"] = dp["gloo_one_card"]["launches"][e["name"]]
+    by_name["gru_scan"]["dp"] = dp
 
     log("time", f"all phases {time.perf_counter() - t_start:.1f} s")
     entries[0]["phase_seconds"] = phase_seconds

@@ -132,7 +132,7 @@ def block_row(name: str, dropout: bool = True):
 def build(batch: int = 256, dtype: str = "bf16", device="cuda",
           seed: int = 0, dropout: bool = True, steps_per_call: int = 1,
           unroll: int = 1, model_name: str = "conv_temporal",
-          cfg: dict = None) -> SimpleNamespace:
+          cfg: dict = None, mesh=None) -> SimpleNamespace:
     """The bench's model, optimizer, step and one synthetic batch.
 
     The model is `model_name` on `cfg` (N_CLASSES classes), SS5 by
@@ -143,7 +143,9 @@ def build(batch: int = 256, dtype: str = "bf16", device="cuda",
     seed `seed`; x is pre-cast to the compute dtype, as the JAX package's
     feed does. With steps_per_call k > 1 the step is
     `make_train_multistep(k, unroll)` and the batch is k batches stacked
-    [k, B, ...], drawn as the JAX package's bench draws them."""
+    [k, B, ...], drawn as the JAX package's bench draws them. `mesh`
+    (parallel/mesh.py) makes the step data parallel: `batch` is then this
+    rank's share."""
     compute_dtype = DTYPES[dtype]
     cfg = ss5_config(dropout) if cfg is None else cfg
     model = build_model(model_name, INPUT_SHAPE, cfg, seed=seed,
@@ -154,7 +156,8 @@ def build(batch: int = 256, dtype: str = "bf16", device="cuda",
     kwargs = dict(
         sed_loss_fn=lambda y, p: L.sed_loss_with_weights(y, p, cw),
         doa_loss_fn=lambda y, p: L.MMSE_with_cls_weights(y, p, cw),
-        loss_weights=(1.0, 1000.0), l2=1e-3, compute_dtype=compute_dtype)
+        loss_weights=(1.0, 1000.0), l2=1e-3, compute_dtype=compute_dtype,
+        mesh=mesh)
     if model_name == "accdoa":
         sed_loss_fn, doa_loss_fn, weights = accdoa_objective(ACCDOA_ARGS)
         kwargs.update(sed_loss_fn=sed_loss_fn, doa_loss_fn=doa_loss_fn,

@@ -48,6 +48,18 @@
 //      (16, 4, 8, 2) takes U up to 256: 96 Rk values a lane, and at U = 256
 //      a cluster of 8 CTAs of 256 threads whose double-buffered dhp rows
 //      fill the 48 KB of static shared memory.
+//      Past U = 256 the streamed recurrence (gru_bwd_stream_kernel) takes
+//      every U % 4 == 0: a CTA's Rk rows fit no register file, so each
+//      step reads them from device memory (L2) as Rk^T [D, 3U, U]
+//      (gru_bwd_transpose_kernel, once a call; coalesced over a warp's
+//      units). A thread of CTA c owns one of its units for all kStreamBT
+//      rows of the tile; its carry (dh z, then + dhp @ Rk^T) lives in a
+//      workspace [D, B, U] f32 and its dRb sums in the per-tile buffer;
+//      up to kStreamSplits groups of threads split the product's j range
+//      and add their partial sums through shared memory.
+//      dhp goes through the workspace (written over hp, as above) and ONE
+//      cluster barrier a step orders it; the product then reads the full
+//      dhp rows in chunks staged in shared memory (ld.global.cg).
 //   3. gru_bwd_drk_kernel: dRk[d] = sum over the T B rows of h_prev^T dhp,
 //      as pass 1's tile product over fixed slices of the rows, no float
 //      atomics; gru_bwd_finalize_kernel adds the slices (dRk) and the tiles
@@ -95,6 +107,17 @@ constexpr bool weights_fit(int i) {
           weights_fit(i + 1));
 }
 static_assert(weights_fit(0), "a variant holds more Rk than registers allow");
+
+// the streamed recurrence (U > 256), mirrored by ops/gru.py::_STREAM:
+// batch rows per tile, most threads a block, dhp values staged a chunk
+constexpr int kStreamBT = 16;
+constexpr int kStreamThreads = 256;
+constexpr int kStreamChunk = 128;
+constexpr int kStreamSplits = 4;     // most groups splitting a chunk's j
+// the groups' partial sums: (KS - 1) x BT x UW floats, largest at KS = 4,
+// UW = 64
+constexpr int kStreamPartials = 3 * kStreamBT * 64;
+constexpr int kRegisterUnits = 256;  // the widest U of kVariants
 
 // passes 1 and 3: 128 x 128 output tiles, 16-deep k chunks, 8 x 8 a thread
 constexpr int kTile = 128;
@@ -179,6 +202,10 @@ __device__ __forceinline__ void st_cluster_run(uint32_t addr,
   else
     asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v[0])
                  : "memory");
+}
+// ask L2 for the line of p ahead of its load
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release;" ::: "memory");
@@ -567,6 +594,186 @@ gru_bwd_rec_kernel(const T* __restrict__ xp, const float* __restrict__ rk,
   }
 }
 
+// Rk^T for the streamed recurrence: rkt[d][j][u] = rk[d][u][j]
+__global__ void gru_bwd_transpose_kernel(const float* __restrict__ rk,
+                                         float* __restrict__ rkt, int n_dirs,
+                                         int units) {
+  const int U = units, K = 3 * units;
+  const size_t n = static_cast<size_t>(n_dirs) * U * K;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t d = i / (static_cast<size_t>(U) * K);
+    const size_t r = i % (static_cast<size_t>(U) * K);
+    const size_t j = r / U, u = r % U;  // output order: coalesced writes
+    rkt[i] = rk[(d * U + u) * K + j];
+  }
+}
+
+// Pass 2, streamed; grid (tiles * C, D), clusters of C CTAs along x. As
+// gru_bwd_rec_kernel: hp_dhp holds hp on entry and dhp on exit, dbias
+// [D, tiles, 3U] gets each tile's dhp summed over T (in step order) and its
+// rows (in row order); carry [D, B, U] is scratch. The block is KS groups
+// of UW threads (stream_split): group 0's thread l forms the states of CTA
+// unit base + l, and in the product thread (ks, l) takes the ks-th of KS
+// slices of each staged chunk of j; groups 1 .. KS-1 leave their partial
+// sums in shared memory and group 0 adds them in group order.
+template <typename T>
+__global__ void __launch_bounds__(kStreamThreads)
+gru_bwd_stream_kernel(const T* __restrict__ xp, const float* __restrict__ rkt,
+                      const T* __restrict__ hs, const T* __restrict__ g,
+                      T* __restrict__ dxp, float* __restrict__ hp_dhp,
+                      float* __restrict__ dbias, float* __restrict__ carry,
+                      int steps, int batch, int units, int cluster,
+                      int splits) {
+  constexpr int BT = kStreamBT, KC = kStreamChunk;
+  __shared__ __align__(16) float d_s[BT][KC];
+  __shared__ float part[kStreamPartials];  // [KS - 1][BT][UW]
+  const int U = units;
+  const int K = 3 * units;
+  const int uc = units / cluster;
+  const int uw = blockDim.x / splits;
+  const int ks = threadIdx.x / uw, lane = threadIdx.x % uw;
+  const int jslice = KC / splits;          // a multiple of 4
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int d = blockIdx.y;
+  const int tile = blockIdx.x / cluster;
+  const int b0 = tile * BT;
+  const int rows = min(BT, batch - b0);
+  const float* rkt_d = rkt + static_cast<size_t>(d) * K * U;
+  float* db = dbias + (static_cast<size_t>(d) * (gridDim.x / cluster) + tile) * K;
+  float* cr = carry + (static_cast<size_t>(d) * batch + b0) * U;
+  const size_t bstride = static_cast<size_t>(batch);
+
+  for (int s = 0; s < steps; ++s) {
+    const int t = d == 0 ? steps - 1 - s : s;
+    const size_t row0 = (static_cast<size_t>(d) * steps + t) * bstride + b0;
+    // this step's states: dh, dx_proj, dhp, the carry's dh z and dRb's sums
+    for (int base = 0; ks == 0 && base < uc; base += uw) {
+      const int uu = base + lane;
+      if (uu >= uc) continue;
+      const int u = rank * uc + uu;
+      float bs[3];
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) bs[gt] = s > 0 ? db[gt * U + u] : 0.0f;
+#pragma unroll
+      for (int b = 0; b < BT; ++b) {
+        if (b >= rows) break;
+        const size_t row = row0 + b;
+        float x[3], h[3];
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) {
+          x[gt] = to_f32(xp[row * K + gt * U + u]);
+          h[gt] = hp_dhp[row * K + gt * U + u];
+        }
+        const float h_prev =
+            s + 1 < steps
+                ? to_f32(hs[(d == 0 ? row - bstride : row + bstride) * U + u])
+                : 0.0f;
+        const float z = sigmoid(x[0] + h[0]);
+        const float r = sigmoid(x[1] + h[1]);
+        const float c = tanh_fast(x[2] + r * h[2]);
+        const float ah = (1.0f - z) * (1.0f - c * c);
+        const float dh = (s > 0 ? cr[b * U + u] : 0.0f) +
+                         to_f32(g[row * U + u]);
+        const float dz = dh * (h_prev - c) * z * (1.0f - z);
+        const float dr = dh * ah * h[2] * r * (1.0f - r);
+        const float dhh = dh * ah;
+        const float dhp[3] = {dz, dr, dhh * r};
+        const float dx[3] = {dz, dr, dhh};
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) {
+          const float one[1] = {dx[gt]};
+          store_run<1>(dxp + row * K + gt * U + u, one);
+          hp_dhp[row * K + gt * U + u] = dhp[gt];
+          bs[gt] += dhp[gt];
+        }
+        cr[b * U + u] = dh * z;
+      }
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) db[gt * U + u] = bs[gt];
+    }
+    if (s + 1 == steps) break;
+    // every CTA's dhp of this step is written before any CTA reads it
+    cluster_arrive();
+    cluster_wait();
+    // carry += dhp @ Rk^T for this CTA's units
+    for (int base = 0; base < uc; base += uw) {
+      const int uu = base + lane;
+      const bool live = uu < uc;
+      const int u = rank * uc + (live ? uu : 0);
+      float acc[BT];
+#pragma unroll
+      for (int b = 0; b < BT; ++b) acc[b] = 0.0f;
+      // the next step's rows into L2 while the product runs (x_proj, hp,
+      // g, h_prev): each group asks for its share of the rows
+      const int tn = d == 0 ? t - 1 : t + 1;
+      const size_t next0 = (static_cast<size_t>(d) * steps + tn) * bstride + b0;
+      for (int b = ks; live && b < rows; b += splits) {
+        const size_t row = next0 + b;
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) {
+          prefetch_l2(xp + row * K + gt * U + u);
+          prefetch_l2(hp_dhp + row * K + gt * U + u);
+        }
+        prefetch_l2(g + row * U + u);
+        if (s + 2 < steps)
+          prefetch_l2(hs + (d == 0 ? row - bstride : row + bstride) * U + u);
+      }
+      for (int j0 = 0; j0 < K; j0 += KC) {
+        __syncthreads();                 // the previous chunk is consumed
+        for (int i = threadIdx.x; i < BT * KC; i += blockDim.x) {
+          const int b = i / KC, j = i % KC;
+          d_s[b][j] = b < rows && j0 + j < K
+                          ? __ldcg(hp_dhp + (row0 + b) * K + j0 + j)
+                          : 0.0f;
+        }
+        __syncthreads();
+        const int j_lo = ks * jslice;
+        const int j_hi = min(j_lo + jslice, K - j0);
+        if (!live || j_lo >= j_hi) continue;
+        const float* col = rkt_d + static_cast<size_t>(j0) * U + u;
+        float w[4], wn[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          w[q] = __ldg(col + static_cast<size_t>(j_lo + q) * U);
+        for (int j = j_lo; j < j_hi; j += 4) {
+          const bool more = j + 4 < j_hi;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            wn[q] = more ? __ldg(col + static_cast<size_t>(j + 4 + q) * U)
+                         : 0.0f;
+#pragma unroll
+          for (int b = 0; b < BT; ++b) {
+            const float4 d4 = *reinterpret_cast<const float4*>(&d_s[b][j]);
+            acc[b] = fmaf(d4.x, w[0], acc[b]);
+            acc[b] = fmaf(d4.y, w[1], acc[b]);
+            acc[b] = fmaf(d4.z, w[2], acc[b]);
+            acc[b] = fmaf(d4.w, w[3], acc[b]);
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) w[q] = wn[q];
+        }
+      }
+      if (ks > 0) {
+#pragma unroll
+        for (int b = 0; b < BT; ++b)
+          part[((ks - 1) * BT + b) * uw + lane] = acc[b];
+      }
+      __syncthreads();
+      if (ks == 0 && live) {
+        for (int p = 1; p < splits; ++p)
+#pragma unroll
+          for (int b = 0; b < BT; ++b)
+            acc[b] += part[((p - 1) * BT + b) * uw + lane];
+#pragma unroll
+        for (int b = 0; b < BT; ++b)
+          if (b < rows) cr[b * U + u] += acc[b];
+      }
+      __syncthreads();                   // part is read before it is reused
+    }
+  }
+}
+
 // Pass 3: part[sl][d][u][j] = sum over rows n of slice sl of h_prev[d, n, u]
 // dhp[d, n, j]; grid (ceil(3U / 128), ceil(U / 128), D * slices). Thread
 // tid loads column tid % 128 of rows tid / 128 + 2 i of each chunk.
@@ -672,10 +879,70 @@ size_t hp_floats(int D, int N, int U) {
   return static_cast<size_t>(D) * N * 3 * U;
 }
 
+// ... and, past U = 256 (the streamed recurrence), the carry [D, B, U] and
+// Rk^T [D, 3U, U]
+size_t stream_floats(int D, int B, int U) {
+  return U > kRegisterUnits
+             ? static_cast<size_t>(D) * B * U + static_cast<size_t>(D) * 3 * U * U
+             : 0;
+}
+
 size_t workspace_floats(int D, int T_steps, int B, int U) {
   const int N = T_steps * B;
   return hp_floats(D, N, U) + hp_floats(D, B, U) +
-         static_cast<size_t>(reduce_slices(D, N, U)) * D * U * 3 * U;
+         static_cast<size_t>(reduce_slices(D, N, U)) * D * U * 3 * U +
+         stream_floats(D, B, U);
+}
+
+// the cluster size of the streamed recurrence: the largest of 8, 4 dividing U
+int stream_cluster(int U) { return U % 8 == 0 ? 8 : 4; }
+
+// The streamed recurrence's block: KS groups of UW threads, UW the CTA's
+// units rounded up to whole warps (at most kStreamThreads), KS as many
+// groups as fill kStreamThreads (at most kStreamSplits): returns KS, writes
+// UW
+int stream_split(int units_per_cta, int* uw) {
+  const int w = (units_per_cta + 31) / 32 * 32;
+  *uw = w < kStreamThreads ? w : kStreamThreads;
+  const int ks = kStreamThreads / *uw;
+  return ks < kStreamSplits ? ks : kStreamSplits;
+}
+
+template <typename T>
+cudaError_t launch_stream(const void* xp, const float* rk, const void* hs,
+                          const void* g, void* dxp, float* hp_dhp,
+                          float* dbias, float* carry, float* rkt, int D,
+                          int T_steps, int B, int U, int cluster,
+                          cudaStream_t stream) {
+  if (U <= kRegisterUnits || U % 4 || cluster != stream_cluster(U))
+    return cudaErrorInvalidValue;
+  const size_t n = static_cast<size_t>(D) * 3 * U * U;
+  gru_bwd_transpose_kernel<<<static_cast<unsigned>(
+                                 n / 256 < 4096 ? (n + 255) / 256 : 4096),
+                             256, 0, stream>>>(rk, rkt, D, U);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  int uw;
+  const int splits = stream_split(U / cluster, &uw);
+  const int threads = uw * splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((B + kStreamBT - 1) / kStreamBT * cluster, D, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, gru_bwd_stream_kernel<T>, static_cast<const T*>(xp),
+      static_cast<const float*>(rkt), static_cast<const T*>(hs),
+      static_cast<const T*>(g), static_cast<T*>(dxp), hp_dhp, dbias, carry,
+      T_steps, B, U, cluster, splits);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int V, typename T>
@@ -738,6 +1005,8 @@ cudaError_t launch(const void* xp, const float* rk, const float* rb,
   float* hp_dhp = workspace;
   float* dbias = hp_dhp + hp_floats(D, N, U);
   float* part = dbias + hp_floats(D, B, U);
+  const bool streamed = variant == kNumVariants;
+  if (streamed != (U > kRegisterUnits)) return cudaErrorInvalidValue;
 
   gru_bwd_hp_kernel<T><<<dim3((K + kTile - 1) / kTile, (N + kTile - 1) / kTile,
                               D),
@@ -746,12 +1015,20 @@ cudaError_t launch(const void* xp, const float* rk, const float* rb,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = dispatch_rec<T>(variant, xp, rk, hs, g, dxp, hp_dhp, dbias, D,
-                        T_steps, B, U, cluster, stream);
-  if (err != cudaSuccess) return err;
-  const int bt = kVariants[variant].bt;  // a valid variant: it launched
-
   const int slices = reduce_slices(D, N, U);
+  if (streamed) {
+    float* carry = part + static_cast<size_t>(slices) * D * U * K;
+    err = launch_stream<T>(xp, rk, hs, g, dxp, hp_dhp, dbias, carry,
+                           carry + static_cast<size_t>(D) * B * U, D, T_steps,
+                           B, U, cluster, stream);
+  } else {
+    err = dispatch_rec<T>(variant, xp, rk, hs, g, dxp, hp_dhp, dbias, D,
+                          T_steps, B, U, cluster, stream);
+  }
+  if (err != cudaSuccess) return err;
+  // a valid variant: it launched
+  const int bt = streamed ? kStreamBT : kVariants[variant].bt;
+
   const dim3 grid((K + kTile - 1) / kTile, (U + kTile - 1) / kTile,
                   D * slices);
   gru_bwd_drk_kernel<T><<<grid, kGemmThreads, 0, stream>>>(
@@ -785,6 +1062,17 @@ int seld_gru_bwd_variants(int* out, int cap) {
   return kNumVariants;
 }
 
+// Writes the streamed recurrence's constants (kStreamBT, kStreamThreads,
+// kStreamChunk, kStreamSplits) into out and returns their number
+int seld_gru_bwd_stream_params(int* out, int cap) {
+  if (cap < 4) return 0;
+  out[0] = kStreamBT;
+  out[1] = kStreamThreads;
+  out[2] = kStreamChunk;
+  out[3] = kStreamSplits;
+  return 4;
+}
+
 // Bytes of scratch one call needs (hp/dhp and pass 3's partials); the
 // wrapper allocates them as one flat buffer, whose layout is this file's.
 size_t seld_gru_bwd_workspace_bytes(int D, int T_steps, int B, int U) {
@@ -794,7 +1082,8 @@ size_t seld_gru_bwd_workspace_bytes(int D, int T_steps, int B, int U) {
 // Returns a cudaError_t (0 on success). is_bf16 selects the storage type of
 // x_proj, hs, g and dx_proj; rk, rb, drk and drb are f32; workspace holds
 // seld_gru_bwd_workspace_bytes(D, T_steps, B, U) bytes; variant and cluster
-// come from the wrapper's plan.
+// come from the wrapper's plan (variant kNumVariants is the streamed
+// recurrence, the one variant past U = 256).
 int seld_gru_bwd(const void* xp, const void* rk, const void* rb,
                  const void* hs, const void* g, void* dxp, void* workspace,
                  void* drk, void* drb, int D, int T_steps, int B, int U,

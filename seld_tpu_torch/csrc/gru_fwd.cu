@@ -34,8 +34,9 @@
 //     the lanes of its padding units compute on zero weights and store
 //     nothing.
 // Four variants (S, NI, BT) take U % 4 == 0 up to 256 where a cluster
-// size splits U evenly (kVariants); the plan,
-// seld_tpu_torch/ops/gru.py::_fwd_plan, picks the variant and C.
+// size splits U evenly (kVariants), the streamed one (below) every
+// U % 4 == 0 past 256; the plan, seld_tpu_torch/ops/gru.py::_fwd_plan,
+// picks the variant and C.
 // At small B the latency variant (4, 8, 4) spreads a tile of 4 rows over a
 // cluster of 8 CTAs of 64 threads (B = 32: 128 CTAs); at large B the batch
 // variant (4, 8, 8) packs a tile of 8 rows into 2 CTAs of 256 threads (B =
@@ -43,6 +44,27 @@
 // latency). The wide variant (4, 9, 8) takes U up to 144, and the widest
 // (8, 8, 8) U up to 256: 8 lanes a unit keep 96 Rk values a lane, and at
 // U = 256 a cluster of 8 CTAs of 256 threads.
+//
+// Past U = 256 the streamed variant (gru_fwd_stream_kernel) takes every
+// U % 4 == 0: a CTA's slice of Rk (U x 3U/C f32, 221 KB at U = 384 on 8
+// CTAs) fits neither the registers nor, beside h, the shared memory of one
+// SM. So each step streams the slice from device memory (L2: both
+// directions' Rk stay resident up to U ~ 1,400) and h goes through memory
+// too:
+//   - a cluster of C CTAs (the largest of 8, 4 dividing U) per (direction,
+//     tile of kStreamBT rows); a thread owns one unit of its CTA for all
+//     the tile's rows and all three gates (a CTA of more than
+//     kStreamThreads units walks them in passes), and where a CTA has few
+//     units, up to kStreamSplits groups of threads split each chunk's k
+//     range and add their partial sums through shared memory;
+//   - the previous step's f32 states are read from a double-buffered
+//     workspace [2, D, B, U] (ld.global.cg: L2, never a stale L1 line), in
+//     chunks of kStreamChunk k-values staged in shared memory, and each
+//     thread reads its Rk column (coalesced over the units of a warp,
+//     loaded a chunk of 4 k ahead of its FMAs);
+//   - the new states go to the workspace and to hs; ONE cluster barrier a
+//     step (arrive.release, wait.acquire) makes them visible to the
+//     cluster's other CTAs before the next step reads them.
 //
 // What bounds it: the f32 FMAs of h @ Rk at 67 TFLOP/s (the reference
 // multiplies in f32, so neither bf16 nor single-pass TF32 tensor-core
@@ -72,6 +94,16 @@ constexpr Variant kVariants[] = {{4, 8, 8, 256}, {4, 8, 4, 256},
                                  {4, 9, 8, 256}, {8, 8, 8, 256}};
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
 constexpr int kMaxCluster = 8;    // the portable cluster size
+// the streamed variant (U > 256), mirrored by ops/gru.py::_STREAM: batch
+// rows per tile, most threads a block, h values staged a chunk
+constexpr int kStreamBT = 16;
+constexpr int kStreamThreads = 256;
+constexpr int kStreamChunk = 128;
+constexpr int kStreamSplits = 4;     // most groups splitting a chunk's k
+// the groups' partial sums: (KS - 1) x 3 x BT x UW floats, largest at
+// KS = 4, UW = 64
+constexpr int kStreamPartials = 3 * 3 * kStreamBT * 64;
+constexpr int kRegisterUnits = 256;  // the widest U of kVariants
 constexpr int kGroup = 8;         // h rows read ahead of their FMAs
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -107,6 +139,10 @@ __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
 __device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
                : "memory");
+}
+// ask L2 for the line of p ahead of its load
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release;" ::: "memory");
@@ -287,6 +323,188 @@ gru_fwd_kernel(const T* __restrict__ xp, const float* __restrict__ rk,
   }
 }
 
+// The streamed variant; grid (tiles * C, D), clusters of C CTAs along x.
+// hbuf [2, D, B, U] f32: the states of scan step s in buffer s & 1. The
+// block is KS groups of UW threads (stream_split): thread (ks, l) owns
+// CTA unit base + l, base = 0, UW, ..., and the ks-th of KS slices of
+// each staged chunk of k; groups 1 .. KS-1 leave their partial sums in
+// shared memory and group 0 adds them in group order and applies the gates.
+template <typename T>
+__global__ void __launch_bounds__(kStreamThreads)
+gru_fwd_stream_kernel(const T* __restrict__ xp, const float* __restrict__ rk,
+                      const float* __restrict__ rb, T* __restrict__ hs,
+                      float* __restrict__ hbuf, int steps, int batch,
+                      int units, int cluster, int splits) {
+  constexpr int BT = kStreamBT, KC = kStreamChunk;
+  __shared__ __align__(16) float h_s[BT][KC];
+  __shared__ float part[kStreamPartials];  // [KS - 1][3][BT][UW]
+  const int U = units;
+  const int K = 3 * units;
+  const int uc = units / cluster;
+  const int uw = blockDim.x / splits;
+  const int ks = threadIdx.x / uw, lane = threadIdx.x % uw;
+  const int kslice = KC / splits;          // a multiple of 4
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int d = blockIdx.y;
+  const int b0 = (blockIdx.x / cluster) * BT;
+  const int rows = min(BT, batch - b0);
+  const size_t step_elems = static_cast<size_t>(batch) * K;
+  const T* xp_d = xp + static_cast<size_t>(d) * steps * step_elems +
+                  static_cast<size_t>(b0) * K;
+  const float* rk_d = rk + static_cast<size_t>(d) * U * K;
+  const float* rb_d = rb + static_cast<size_t>(d) * K;
+  const size_t hb_stride = static_cast<size_t>(gridDim.y) * batch * U;
+  float* hb_d = hbuf + (static_cast<size_t>(d) * batch + b0) * U;
+
+  for (int s = 0; s < steps; ++s) {
+    const int t = d == 0 ? s : steps - 1 - s;
+    const float* hprev = hb_d + ((s + 1) & 1) * hb_stride;  // step s - 1
+    float* hnext = hb_d + (s & 1) * hb_stride;
+    T* hs_t = hs + ((static_cast<size_t>(d) * steps + t) * batch + b0) * U;
+    const T* xp_t = xp_d + static_cast<size_t>(t) * step_elems;
+    for (int base = 0; base < uc; base += uw) {
+      const int uu = base + lane;
+      const bool live = uu < uc;
+      const int u = rank * uc + (live ? uu : 0);
+      float acc[3][BT];
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int b = 0; b < BT; ++b) acc[g][b] = 0.0f;
+      // the gates' x_proj rows into L2 while the product runs: each group
+      // asks for its share of the rows
+      for (int b = ks; live && b < rows; b += splits)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          prefetch_l2(xp_t + static_cast<size_t>(b) * K + g * U + u);
+      for (int k0 = 0; s > 0 && k0 < U; k0 += KC) {
+        __syncthreads();                 // the previous chunk is consumed
+        for (int i = threadIdx.x; i < BT * KC; i += blockDim.x) {
+          const int b = i / KC, k = i % KC;
+          h_s[b][k] = b < rows && k0 + k < U
+                          ? __ldcg(hprev + static_cast<size_t>(b) * U + k0 + k)
+                          : 0.0f;
+        }
+        __syncthreads();
+        const int k_lo = ks * kslice;
+        const int k_hi = min(k_lo + kslice, U - k0);
+        if (!live || k_lo >= k_hi) continue;
+        const float* col = rk_d + static_cast<size_t>(k0) * K + u;
+        float w[3][4], wn[3][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            w[g][q] = __ldg(col + static_cast<size_t>(k_lo + q) * K + g * U);
+        for (int k = k_lo; k < k_hi; k += 4) {
+          const bool more = k + 4 < k_hi;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int g = 0; g < 3; ++g)
+              wn[g][q] = more ? __ldg(col + static_cast<size_t>(k + 4 + q) * K +
+                                      g * U)
+                              : 0.0f;
+#pragma unroll
+          for (int b = 0; b < BT; ++b) {
+            const float4 h4 = *reinterpret_cast<const float4*>(&h_s[b][k]);
+#pragma unroll
+            for (int g = 0; g < 3; ++g) {
+              acc[g][b] = fmaf(h4.x, w[g][0], acc[g][b]);
+              acc[g][b] = fmaf(h4.y, w[g][1], acc[g][b]);
+              acc[g][b] = fmaf(h4.z, w[g][2], acc[g][b]);
+              acc[g][b] = fmaf(h4.w, w[g][3], acc[g][b]);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int g = 0; g < 3; ++g) w[g][q] = wn[g][q];
+        }
+      }
+      // the groups' partial sums, added by group 0 in group order
+      if (ks > 0) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+#pragma unroll
+          for (int b = 0; b < BT; ++b)
+            part[(((ks - 1) * 3 + g) * BT + b) * uw + lane] = acc[g][b];
+      }
+      __syncthreads();
+      if (ks == 0 && live) {
+        for (int p = 1; p < splits; ++p)
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+#pragma unroll
+            for (int b = 0; b < BT; ++b)
+              acc[g][b] += part[(((p - 1) * 3 + g) * BT + b) * uw + lane];
+        const float bz = rb_d[u], br = rb_d[U + u], bh = rb_d[2 * U + u];
+#pragma unroll
+        for (int b = 0; b < BT; ++b) {
+          if (b >= rows) break;
+          const T* x = xp_t + static_cast<size_t>(b) * K + u;
+          const float h = s > 0
+                              ? __ldcg(hprev + static_cast<size_t>(b) * U + u)
+                              : 0.0f;
+          const float z = sigmoid(to_f32(x[0]) + (acc[0][b] + bz));
+          const float r = sigmoid(to_f32(x[U]) + (acc[1][b] + br));
+          const float c = tanh_fast(to_f32(x[2 * U]) + r * (acc[2][b] + bh));
+          const float hn = z * h + (1.0f - z) * c;
+          hnext[static_cast<size_t>(b) * U + u] = hn;
+          store(hs_t + static_cast<size_t>(b) * U + u, hn);
+        }
+      }
+      __syncthreads();                   // part is read before it is reused
+    }
+    // the next step reads every CTA's states
+    if (s + 1 < steps) {
+      cluster_arrive();
+      cluster_wait();
+    }
+  }
+}
+
+// the cluster size of the streamed variant: the largest of 8, 4 dividing U
+int stream_cluster(int U) { return U % 8 == 0 ? 8 : 4; }
+
+// The streamed variant's block: KS groups of UW threads, UW the CTA's units
+// rounded up to whole warps (at most kStreamThreads), KS as many groups as
+// fill kStreamThreads (at most kStreamSplits): returns KS, writes UW
+int stream_split(int units_per_cta, int* uw) {
+  const int w = (units_per_cta + 31) / 32 * 32;
+  *uw = w < kStreamThreads ? w : kStreamThreads;
+  const int ks = kStreamThreads / *uw;
+  return ks < kStreamSplits ? ks : kStreamSplits;
+}
+
+template <typename T>
+cudaError_t launch_stream(const void* xp, const float* rk, const float* rb,
+                          void* hs, float* hbuf, int D, int T_steps, int B,
+                          int U, int cluster, cudaStream_t stream) {
+  if (U <= kRegisterUnits || U % 4 || cluster != stream_cluster(U) ||
+      hbuf == nullptr)
+    return cudaErrorInvalidValue;
+  int uw;
+  const int splits = stream_split(U / cluster, &uw);
+  const int threads = uw * splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((B + kStreamBT - 1) / kStreamBT * cluster, D, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gru_fwd_stream_kernel<T>, static_cast<const T*>(xp), rk, rb,
+      static_cast<T*>(hs), hbuf, T_steps, B, U, cluster, splits);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <int V, typename T>
 cudaError_t launch(const void* xp, const float* rk, const float* rb, void* hs,
                    int D, int T_steps, int B, int U, int cluster,
@@ -317,9 +535,12 @@ cudaError_t launch(const void* xp, const float* rk, const float* rb, void* hs,
 
 template <typename T>
 cudaError_t dispatch(int variant, const void* xp, const float* rk,
-                     const float* rb, void* hs, int D, int T_steps, int B,
-                     int U, int cluster, cudaStream_t st) {
+                     const float* rb, void* hs, float* ws, int D, int T_steps,
+                     int B, int U, int cluster, cudaStream_t st) {
   switch (variant) {
+    case kNumVariants:
+      return launch_stream<T>(xp, rk, rb, hs, ws, D, T_steps, B, U, cluster,
+                              st);
     case 0: return launch<0, T>(xp, rk, rb, hs, D, T_steps, B, U, cluster, st);
     case 1: return launch<1, T>(xp, rk, rb, hs, D, T_steps, B, U, cluster, st);
     case 2: return launch<2, T>(xp, rk, rb, hs, D, T_steps, B, U, cluster, st);
@@ -346,19 +567,41 @@ int seld_gru_fwd_variants(int* out, int cap) {
   return kNumVariants;
 }
 
+// Writes the streamed variant's constants (kStreamBT, kStreamThreads,
+// kStreamChunk, kStreamSplits) into out and returns their number
+int seld_gru_fwd_stream_params(int* out, int cap) {
+  if (cap < 4) return 0;
+  out[0] = kStreamBT;
+  out[1] = kStreamThreads;
+  out[2] = kStreamChunk;
+  out[3] = kStreamSplits;
+  return 4;
+}
+
+// Bytes of scratch one call needs: the streamed variant's double-buffered
+// f32 states (variant kNumVariants), none for the register variants.
+size_t seld_gru_fwd_workspace_bytes(int D, int B, int U, int variant) {
+  return variant == kNumVariants
+             ? sizeof(float) * 2 * static_cast<size_t>(D) * B * U
+             : 0;
+}
+
 // Returns a cudaError_t (0 on success). is_bf16 selects the storage type of
-// x_proj and hs; variant and cluster come from the wrapper's plan.
+// x_proj and hs; variant and cluster come from the wrapper's plan (variant
+// kNumVariants is the streamed one); workspace holds
+// seld_gru_fwd_workspace_bytes(D, B, U, variant) bytes.
 int seld_gru_fwd(const void* xp, const void* rk, const void* rb, void* hs,
-                 int D, int T_steps, int B, int U, int is_bf16, int variant,
-                 int cluster, void* stream) {
+                 void* workspace, int D, int T_steps, int B, int U,
+                 int is_bf16, int variant, int cluster, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* rkf = static_cast<const float*>(rk);
   const auto* rbf = static_cast<const float*>(rb);
+  auto* ws = static_cast<float*>(workspace);
   const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(variant, xp, rkf, rbf, hs, D, T_steps,
-                                        B, U, cluster, st)
-              : dispatch<float>(variant, xp, rkf, rbf, hs, D, T_steps, B, U,
-                                cluster, st);
+      is_bf16 ? dispatch<__nv_bfloat16>(variant, xp, rkf, rbf, hs, ws, D,
+                                        T_steps, B, U, cluster, st)
+              : dispatch<float>(variant, xp, rkf, rbf, hs, ws, D, T_steps, B,
+                                U, cluster, st);
   return static_cast<int>(err);
 }
 

@@ -188,26 +188,47 @@ def cast_clips(features: Sequence, feature_dtype) -> list:
 
 
 class SeldDataset:
-    """In-memory windowed dataset with epoch iteration (single process).
+    """In-memory windowed dataset with epoch iteration.
 
     train=True : sample-shuffled fixed batches, dropping the ragged tail
     train=False: one full clip per batch (windows_per_clip consecutive
                  windows), deterministic order
+
+    Several processes (seld_tpu/data/loader.py:190-226): with
+    process_count > 1 each keeps the strided slice x[process_index::
+    process_count] of the whole split it was handed, iterates batch_size
+    rows of it a step, and draws from RandomState(seed + process_index).
+    The step count derives from the global window count floor-divided over
+    the processes, so every process runs as many steps (a longer slice
+    drops its surplus from the tail of each epoch's permutation). Eval
+    batches are whole clips, which a strided slice would break: eval takes
+    process_count 1 (every process holds the whole eval split).
     """
 
     def __init__(self, x, y, batch_size: int, train: bool = True,
                  loop_time: int = 1, windows_per_clip: int = 10,
-                 seed: int = 0):
+                 seed: int = 0, process_index: int = 0,
+                 process_count: int = 1):
+        if process_count > 1 and not train:
+            raise ValueError(
+                "process-strided sharding is train-only: eval batches are "
+                "whole clips; build the eval dataset with process_count=1 "
+                "(every process evaluates the full set)")
+        common_n = x.shape[0] // process_count
+        if process_count > 1:
+            x = x[process_index::process_count]
+            y = y[process_index::process_count]
         self.x, self.y = x, y
+        self._common_n = common_n
         self.batch_size = batch_size if train else windows_per_clip
         self.train = train
         self.loop_time = loop_time if train else 1
-        self._rng = np.random.RandomState(seed)
+        self._rng = np.random.RandomState(seed + process_index)
 
     @classmethod
     def from_clips(cls, features, labels, batch_size, train=True,
                    label_window_size=60, loop_time=1, seed=0,
-                   feature_dtype=None):
+                   process_index=0, process_count=1, feature_dtype=None):
         """feature_dtype: cast the features once at build, clip by clip
         (e.g. torch.bfloat16 for bf16 training). Labels stay f32."""
         total_length = labels[0].shape[0]
@@ -216,11 +237,12 @@ class SeldDataset:
         x, y = window_clips(features, labels, label_window_size)
         return cls(x, y, batch_size, train=train, loop_time=loop_time,
                    windows_per_clip=total_length // label_window_size,
-                   seed=seed)
+                   seed=seed, process_index=process_index,
+                   process_count=process_count)
 
     def __len__(self):
         if self.train:
-            return (self.x.shape[0] * self.loop_time) // self.batch_size
+            return (self._common_n * self.loop_time) // self.batch_size
         n = self.x.shape[0] * self.loop_time
         return int(np.ceil(n / self.batch_size))
 

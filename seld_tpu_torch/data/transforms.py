@@ -26,6 +26,10 @@ exactly.
                            float64; not wired into the trainer, as in the
                            JAX package
 
+Inside a data-parallel step every draw is made at the global batch's size
+and each rank keeps its rows, so a row's augment does not depend on the
+rank count.
+
 The channel-swap tables live on the batch's device, made at the first
 call (the warm-up of a captured step runs before its capture), so a step
 that applies `acs_aug` makes no host-to-device copy.
@@ -37,10 +41,18 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from seld_tpu_torch.parallel import collectives
+
 
 def _randint(gen: torch.Generator, low: int, high: int, shape,
              device) -> torch.Tensor:
-    return torch.randint(low, high, shape, generator=gen, device=device)
+    """Integers in [low, high) of `shape`, whose leading dim runs over the
+    batch's rows; inside a data-parallel step drawn for the global batch,
+    this rank's rows kept (parallel/collectives.py)."""
+    draw = torch.randint(low, high,
+                         (collectives.global_rows(shape[0]), *shape[1:]),
+                         generator=gen, device=device)
+    return collectives.rows_of(draw, 0, shape[0])
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ DEFAULT_CLASS_THRESHOLDS = np.asarray(
     dtype=np.float32)
 
 _NO_MESH = ("ensemble_outputs(mesh=...) shards windows over several "
-            "devices, which is not ported yet (ROADMAP queue 1, item 14)")
+            "devices, which is not ported yet (ROADMAP queue 1, item 14b)")
 
 
 def _frame_index(n: int, length: int, step: int, device) -> torch.Tensor:

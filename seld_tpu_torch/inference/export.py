@@ -34,7 +34,7 @@ The stream unit is a BUNDLE, a directory (`export_streaming`):
   <dir>/weights.npz  the weights, stored as an artifact's
 
 served by `StreamingSELD.from_exported(dir, device=...)`. Not yet ported:
-data-parallel artifacts (ROADMAP queue 1, item 14).
+data-parallel artifacts (ROADMAP queue 1, item 14b).
 """
 from __future__ import annotations
 

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 _UNPORTED_DP = ("--data_parallel exports a data-parallel artifact, which "
-                "is not ported yet (ROADMAP queue 1, item 14)")
+                "is not ported yet (ROADMAP queue 1, item 14b)")
 
 
 def _members(args):

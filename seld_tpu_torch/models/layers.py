@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from seld_tpu_torch.ops.dropout import dropout, keep_mask
+from seld_tpu_torch.parallel import collectives
 from seld_tpu_torch.ops.gru import (gru_forward, in_scan_order,
                                    input_projection)
 from seld_tpu_torch.ops.pooling import max_pool
@@ -248,7 +249,10 @@ class BatchNorm(nn.Module):
     """BatchNorm with Keras defaults (momentum 0.99, epsilon 1e-3) over the
     last axis: f32 math, result cast back to the promoted input/param dtype.
     Training mode uses biased batch statistics and updates the running
-    stats as ra = m * ra + (1 - m) * batch."""
+    stats as ra = m * ra + (1 - m) * batch. Inside a data-parallel step
+    (parallel/collectives.py) the statistics are the global batch's: the
+    sums of x and x^2 are all-reduced, E[x^2] - E[x]^2 over the global
+    count."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3):
@@ -263,8 +267,16 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dims)
-            var = xf.square().mean(dims) - mean.square()
+            if collectives.active() is None:
+                mean = xf.mean(dims)
+                var = xf.square().mean(dims) - mean.square()
+            else:
+                # data parallel: the global batch's sums, count and moments
+                sums = collectives.global_sum(
+                    torch.stack([xf.sum(dims), xf.square().sum(dims)]))
+                n = collectives.global_rows(xf.numel() // xf.shape[-1])
+                mean = sums[0] / n
+                var = sums[1] / n - mean.square()
             self.update_running(mean, var)
         else:
             mean, var = self.mean, self.var
@@ -520,13 +532,16 @@ class GRU(nn.Module):
         dirs, g = self.kernel.shape[0], self.n_gates
         gate_masks = rec_masks = None
         if self.training and self.dropout > 0.0:
+            # the batch at dim 2 of both masks (keep_mask's batch_dim)
             gate_masks = keep_mask((dirs, g, x.shape[0], 1, x.shape[-1]),
                                    1.0 - self.dropout,
-                                   self.dropout_generator, x.device, dtype)
+                                   self.dropout_generator, x.device, dtype,
+                                   2)
         if self.training and self.recurrent_dropout > 0.0:
             rec_masks = keep_mask((dirs, g, x.shape[0], self.units),
                                   1.0 - self.recurrent_dropout,
-                                  self.dropout_generator, x.device, dtype)
+                                  self.dropout_generator, x.device, dtype,
+                                  2)
         return gate_masks, rec_masks
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

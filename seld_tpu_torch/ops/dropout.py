@@ -5,7 +5,10 @@ The mask is drawn with `torch.rand(..., generator=)` from an explicit
 drops the one generator of its `TrainState` (`set_dropout_generator`), so
 a seed fixes the masks. The JAX package draws its own uint16 bits on the
 TPU (seld_tpu/ops/dropout.py); random streams cannot match across
-frameworks, so parity is checked in eval mode or at rate 0.
+frameworks, so parity is checked in eval mode or at rate 0. Inside a
+data-parallel step (parallel/collectives.py) a mask is drawn at the global
+batch's size and each rank keeps its rows, so a row's mask does not depend
+on the rank count.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from seld_tpu_torch.parallel import collectives
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -25,19 +30,25 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device,
-                   dtype=torch.float32)
+    u = collectives.rows_of(torch.rand(
+        (collectives.global_rows(x.shape[0]), *x.shape[1:]),
+        generator=generator, device=x.device, dtype=torch.float32))
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
 
 def keep_mask(shape, keep: float, generator: Optional[torch.Generator],
-              device, dtype: torch.dtype) -> torch.Tensor:
+              device, dtype: torch.dtype, batch_dim: int = 0
+              ) -> torch.Tensor:
     """A Bernoulli(keep) mask of `shape` scaled by 1 / keep, in `dtype`:
     the per-gate masks of the recurrent layers (Keras implementation=1),
-    drawn from `generator` on `device`."""
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
+    drawn from `generator` on `device`; `shape[batch_dim]` is the batch."""
+    shape = list(shape)
+    rows = shape[batch_dim]
+    shape[batch_dim] = collectives.global_rows(rows)
+    u = collectives.rows_of(
+        torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32), batch_dim, rows)
     return (u < keep).to(dtype) / keep
 
 

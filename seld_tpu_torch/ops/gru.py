@@ -11,12 +11,14 @@ tensor. There is no fallback from a kernel to its plain version: a CUDA
 tensor the kernel does not take raises. Both kernels run each (direction,
 batch tile) as a thread block cluster; `_fwd_plan` and `_bwd_plan` pick the
 tile, cluster size and variant; each CTA of a cluster owns an equal share
-of U. `gru_kernel_applicable` holds where both plans exist (U % 4 == 0,
-4 <= U <= 256, split evenly: every U of the shipped configs and of the NAS
-space but 6). `gru_route` sends any other U through the plain recurrence
-under torch's autograd where the JAX package composes it too (`lax.scan`),
-and raises on the card where the JAX package runs its Pallas kernel and
-the port has none (B % 8 == 0, U % 128 == 0, U > 256). Recurrent dropout
+of U. Up to U = 256 the variants hold Rk in registers; past it a streamed
+variant of each kernel reads Rk from device memory every step and takes
+every U % 4 == 0. `gru_kernel_applicable` holds where both plans exist
+(U % 4 == 0, and up to 256 split evenly: every U of the shipped configs
+and of the NAS space but 6, and every U the JAX package's Pallas kernel
+takes). `gru_route` sends any other U through the plain recurrence under
+torch's autograd; the JAX package composes it there too (`lax.scan`,
+U % 128 != 0). Recurrent dropout
 (masks on h_{t-1} inside the step) takes the "masked" route,
 `gru_scan_masked` under torch's autograd, at any U: the JAX layer leaves
 its kernel for `lax.scan` there too.
@@ -43,8 +45,13 @@ _BWD_SOURCE = "gru_bwd.cu"
 # have); variant v takes U <= 4 * S * NI
 _FWD_VARIANTS = ((4, 8, 8, 256), (4, 8, 4, 256), (4, 9, 8, 256),
                  (8, 8, 8, 256))
-_FWD_BATCH, _FWD_LATENCY, _FWD_WIDE, _FWD_WIDEST = 0, 1, 2, 3
-_MAX_UNITS = 256              # the widest variants of both kernels
+_FWD_BATCH, _FWD_LATENCY, _FWD_WIDE, _FWD_WIDEST, _FWD_STREAM = range(5)
+_MAX_UNITS = 256              # the widest register variants of both kernels
+# csrc/gru_{fwd,bwd}.cu's streamed variant, past _MAX_UNITS: (kStreamBT
+# batch rows per tile, kStreamThreads most threads a block, kStreamChunk
+# values staged a chunk, kStreamSplits most thread groups splitting a
+# chunk); its plan index follows the register variants
+_STREAM = (16, 256, 128, 4)
 _CLUSTERS = (1, 2, 4, 8)      # portable thread block cluster sizes
 _SMS = 132                    # H100 SXM
 # the latency variant while its warps average at most 4 per SM
@@ -84,6 +91,35 @@ class FwdPlan(NamedTuple):
         return self.grid[0] * self.grid[1]
 
 
+def _stream_cluster(u: int) -> int:
+    """The streamed variant's cluster: the largest of 8, 4 dividing U."""
+    return 8 if u % 8 == 0 else 4
+
+
+def _stream_split(units_per_cta: int) -> Tuple[int, int]:
+    """(KS, UW) of the .cu's `stream_split`: UW threads a group, the CTA's
+    units in whole warps up to kStreamThreads (more are walked in passes),
+    and KS groups, as many as fill kStreamThreads, at most
+    kStreamSplits."""
+    _, maxt, _, most = _STREAM
+    uw = min(maxt, _warps(units_per_cta))
+    return min(maxt // uw, most), uw
+
+
+def _stream_plan(plan_type, variant: int, d: int, b: int, u: int):
+    """The streamed variant's plan (both kernels): a cluster of
+    `_stream_cluster(u)` CTAs per (direction, tile of kStreamBT rows), of
+    KS x UW threads (`_stream_split`)."""
+    bt = _STREAM[0]
+    c = _stream_cluster(u)
+    ks, uw = _stream_split(u // c)
+    return plan_type(variant, bt, c, ks * uw, (-(-b // bt) * c, d))
+
+
+def _takes_streamed(u: int) -> bool:
+    return u > _MAX_UNITS and u % 4 == 0
+
+
 @functools.lru_cache(maxsize=None)
 def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
     """The forward kernel's tile plan for D directions, B rows, U units.
@@ -93,14 +129,20 @@ def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
     batch variant (BT = 8), or the wide one past U = 128, packs each tile
     into the smallest cluster whose blocks fit the variant's thread limit
     (at U = 128, B = 256: 2 CTAs of 256 threads, 128 CTAs in all), and the
-    widest past U = 144. `variant` forces one. Raises on a U no variant
-    takes."""
+    widest past U = 144, the streamed one past U = 256. `variant` forces
+    one. Raises on a U no variant takes."""
+    if _takes_streamed(u):
+        if variant not in (None, _FWD_STREAM):
+            raise ValueError(f"variant {variant} does not take U={u}")
+        return _stream_plan(FwdPlan, _FWD_STREAM, d, b, u)
+    if variant == _FWD_STREAM:
+        raise ValueError(f"variant {variant} does not take U={u}")
     takes = [v for v in range(len(_FWD_VARIANTS)) if _fwd_clusters(v, u)]
     if u < 4 or u % 4 or not takes:
         raise ValueError(
-            f"U={u}: the GRU forward kernel takes U % 4 == 0 and 4 <= U <= "
-            f"{max(4 * s * ni for s, ni, _, _ in _FWD_VARIANTS)} that a "
-            "cluster size splits evenly within a block's threads")
+            f"U={u}: the GRU forward kernel takes U % 4 == 0 with either "
+            f"4 <= U <= {_MAX_UNITS} that a cluster size splits evenly "
+            f"within a block's threads, or U > {_MAX_UNITS}")
 
     def plan(v):
         s, _, bt, _ = _FWD_VARIANTS[v]
@@ -127,7 +169,7 @@ def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
 # to 160) and the widest (up to 256) 2.
 _BWD_VARIANTS = ((16, 2, 8, 4, 256), (16, 2, 4, 4, 256), (8, 5, 8, 2, 256),
                  (16, 4, 8, 2, 256))
-_BWD_BATCH, _BWD_LATENCY, _BWD_WIDE, _BWD_WIDEST = 0, 1, 2, 3
+_BWD_BATCH, _BWD_LATENCY, _BWD_WIDE, _BWD_WIDEST, _BWD_STREAM = range(5)
 _BWD_MAX_WEIGHTS = 128   # kMaxWeights: Rk values one lane holds in registers
 
 
@@ -161,15 +203,22 @@ def _bwd_plan(d: int, b: int, u: int, variant: int = None) -> BwdPlan:
     units, by `_fwd_plan`'s rule: a variant of 4-row tiles over the largest
     cluster that takes U, while its threads fit `_LATENCY_THREADS`; else
     the first variant that takes U (8-row tiles) over the smallest cluster
-    that does (U = 128, B = 256: 2 CTAs of 256 threads, 128 CTAs in all).
-    `variant` forces one. Raises on a U no variant takes."""
+    that does (U = 128, B = 256: 2 CTAs of 256 threads, 128 CTAs in all);
+    past U = 256 the streamed recurrence. `variant` forces one. Raises on a
+    U no variant takes."""
+    if _takes_streamed(u):
+        if variant not in (None, _BWD_STREAM):
+            raise ValueError(f"variant {variant} does not take U={u}")
+        return _stream_plan(BwdPlan, _BWD_STREAM, d, b, u)
+    if variant == _BWD_STREAM:
+        raise ValueError(f"variant {variant} does not take U={u}")
     takes = [v for v in range(len(_BWD_VARIANTS)) if _bwd_clusters(v, u)]
     if u < 4 or u % 4 or not takes:
         raise ValueError(
-            f"U={u}: the GRU backward kernel takes U % 4 == 0 and 4 <= U <= "
-            f"{max(4 * s * ni for s, ni, _, _, _ in _BWD_VARIANTS)} that a "
-            "cluster size splits into whole lane groups evenly within a "
-            "block's threads")
+            f"U={u}: the GRU backward kernel takes U % 4 == 0 with either "
+            f"4 <= U <= {_MAX_UNITS} that a cluster size splits into whole "
+            "lane groups evenly within a block's threads, or "
+            f"U > {_MAX_UNITS}")
 
     def plan(v):
         s, _, bt, nu, _ = _BWD_VARIANTS[v]
@@ -191,38 +240,28 @@ def _bwd_plan(d: int, b: int, u: int, variant: int = None) -> BwdPlan:
 
 def gru_kernel_applicable(units: int) -> bool:
     """Whether the GRU kernels take U units (any batch): what `_fwd_plan`
-    and `_bwd_plan` both plan for, U % 4 == 0 and 4 <= U <= 256 where a
-    cluster size splits U evenly within a variant's threads."""
+    and `_bwd_plan` both plan for, U % 4 == 0 with 4 <= U <= 256 where a
+    cluster size splits U evenly within a variant's threads, or U > 256."""
+    if _takes_streamed(units):
+        return True
     return units >= 4 and units % 4 == 0 and \
         any(_fwd_clusters(v, units) for v in range(len(_FWD_VARIANTS))) and \
         any(_bwd_clusters(v, units) for v in range(len(_BWD_VARIANTS)))
 
 
-def tpu_kernel_applicable(batch: int, units: int) -> bool:
-    """Where the JAX package runs its Pallas GRU kernels (a copy of
-    seld_tpu/ops/pallas/gru.py::pallas_gru_applicable): B % 8 == 0 and
-    U % 128 == 0; elsewhere it runs `lax.scan`."""
-    return batch % 8 == 0 and units % 128 == 0
-
-
-def gru_route(batch: int, units: int, device_type: str,
-              masked: bool = False) -> str:
+def gru_route(units: int, masked: bool = False) -> str:
     """How `gru_forward` runs the recurrence: "masked" (`gru_scan_masked`
     under torch's autograd) with recurrent-dropout masks, on every device
     and at every U, as the JAX layer runs `lax.scan` there; else "kernel"
     (`gru_scan`) where `gru_kernel_applicable` holds, else "plain"
-    (`gru_scan_ref` under torch's autograd) on the CPU or where the JAX
-    package composes the recurrence too. Raises NotImplementedError on the
-    card where the JAX package runs a kernel that the port lacks
-    (B % 8 == 0, U % 128 == 0, U > 256)."""
+    (`gru_scan_ref` under torch's autograd). The plain route takes no U
+    that the JAX package's Pallas kernel takes (B % 8 == 0, U % 128 == 0,
+    seld_tpu/ops/pallas/gru.py::pallas_gru_applicable): every such U has
+    both plans, at any batch and on any device."""
     if masked:
         return "masked"
     if gru_kernel_applicable(units):
         return "kernel"
-    if device_type == "cuda" and tpu_kernel_applicable(batch, units):
-        raise NotImplementedError(
-            f"U={units}, B={batch}: the JAX package runs its GRU kernel "
-            f"here; the port's kernels take U <= {_MAX_UNITS}")
     return "plain"
 
 
@@ -368,8 +407,8 @@ def _check_cuda_args(x_proj, rec_kernel, rec_bias):
                              f"{x_proj.device}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if u % 4 or k > 1024:
-        raise ValueError(f"U={u}: the kernel needs U % 4 == 0 and 3U <= 1024")
+    if u % 4:
+        raise ValueError(f"U={u}: the kernel needs U % 4 == 0")
 
 
 def _check_cuda_bwd_args(x_proj, rec_kernel, rec_bias, hs, g):
@@ -394,20 +433,30 @@ def _check_cuda_bwd_args(x_proj, rec_kernel, rec_bias, hs, g):
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = kernels.load(_SOURCE)
-    lib.seld_gru_fwd.argtypes = [ctypes.c_void_p] * 4 + \
+    lib.seld_gru_fwd.argtypes = [ctypes.c_void_p] * 5 + \
         [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.seld_gru_fwd.restype = ctypes.c_int
-    lib.seld_gru_fwd_variants.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.seld_gru_fwd_variants.restype = ctypes.c_int
+    lib.seld_gru_fwd_workspace_bytes.argtypes = [ctypes.c_int] * 4
+    lib.seld_gru_fwd_workspace_bytes.restype = ctypes.c_size_t
+    for fn in (lib.seld_gru_fwd_variants, lib.seld_gru_fwd_stream_params):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
     return lib
 
 
+def _stream_params(fn) -> tuple:
+    buf = (ctypes.c_int * 8)()
+    return tuple(buf[:fn(buf, 8)])
+
+
 def library_variants() -> tuple:
-    """The variant table compiled into csrc/gru_fwd.cu, to hold
-    `_FWD_VARIANTS` against (loads the library)."""
+    """The variant table compiled into csrc/gru_fwd.cu and its streamed
+    variant's constants, to hold `_FWD_VARIANTS` and `_STREAM` against
+    (loads the library)."""
     buf = (ctypes.c_int * 64)()
     n = _library().seld_gru_fwd_variants(buf, 64)
-    return tuple(tuple(buf[4 * i:4 * i + 4]) for i in range(n))
+    return (tuple(tuple(buf[4 * i:4 * i + 4]) for i in range(n)),
+            _stream_params(_library().seld_gru_fwd_stream_params))
 
 
 @functools.lru_cache(maxsize=None)
@@ -418,17 +467,20 @@ def _bwd_library() -> ctypes.CDLL:
     lib.seld_gru_bwd.restype = ctypes.c_int
     lib.seld_gru_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 4
     lib.seld_gru_bwd_workspace_bytes.restype = ctypes.c_size_t
-    lib.seld_gru_bwd_variants.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.seld_gru_bwd_variants.restype = ctypes.c_int
+    for fn in (lib.seld_gru_bwd_variants, lib.seld_gru_bwd_stream_params):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        fn.restype = ctypes.c_int
     return lib
 
 
 def library_bwd_variants() -> tuple:
-    """The variant table compiled into csrc/gru_bwd.cu, to hold
-    `_BWD_VARIANTS` against (loads the library)."""
+    """The variant table compiled into csrc/gru_bwd.cu and its streamed
+    recurrence's constants, to hold `_BWD_VARIANTS` and `_STREAM` against
+    (loads the library)."""
     buf = (ctypes.c_int * 64)()
     n = _bwd_library().seld_gru_bwd_variants(buf, 64)
-    return tuple(tuple(buf[5 * i:5 * i + 5]) for i in range(n))
+    return (tuple(tuple(buf[5 * i:5 * i + 5]) for i in range(n)),
+            _stream_params(_bwd_library().seld_gru_bwd_stream_params))
 
 
 def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
@@ -449,8 +501,17 @@ def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
     rk = rec_kernel.float().contiguous()
     rb = rec_bias.float().contiguous()
     lib = _library()
+    workspace = None
+    if plan.variant == _FWD_STREAM:
+        # the streamed variant's f32 states, exchanged between a cluster's
+        # CTAs
+        workspace = torch.empty(
+            lib.seld_gru_fwd_workspace_bytes(d, b, u, plan.variant),
+            dtype=torch.uint8, device=x_proj.device)
     err = lib.seld_gru_fwd(x_proj.data_ptr(), rk.data_ptr(), rb.data_ptr(),
-                           hs.data_ptr(), d, t, b, u,
+                           hs.data_ptr(),
+                           0 if workspace is None else workspace.data_ptr(),
+                           d, t, b, u,
                            int(x_proj.dtype == torch.bfloat16), plan.variant,
                            plan.c, kernels.current_stream(dev))
     kernels.check(lib, err, "gru_fwd launch")
@@ -472,8 +533,9 @@ def _gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, hs, g, plan=None):
     rk = rec_kernel.float().contiguous()
     rb = rec_bias.float().contiguous()
     lib = _bwd_library()
-    # scratch of the three passes (hp, then dhp, and the dRk partials), laid
-    # out by csrc/gru_bwd.cu
+    # scratch of the three passes (hp, then dhp, and the dRk partials; past
+    # U = 256 the streamed recurrence's carry and Rk^T), laid out by
+    # csrc/gru_bwd.cu
     workspace = torch.empty(lib.seld_gru_bwd_workspace_bytes(d, t, b, u),
                             dtype=torch.uint8, device=dev)
     drk = torch.empty((d, u, k), dtype=torch.float32, device=dev)
@@ -583,8 +645,7 @@ def gru_forward(x: torch.Tensor, kernel: torch.Tensor,
 
     # bias[:, 0] is the input bias, bias[:, 1] the recurrent one
     x_proj = input_projection(x, kernel, bias[:, 0], gate_masks)
-    route = gru_route(x.shape[0], rec_kernel.shape[-2], x.device.type,
-                      masked=rec_masks is not None)
+    route = gru_route(rec_kernel.shape[-2], masked=rec_masks is not None)
     rec_bias = bias[:, 1].contiguous()
     if route == "masked":
         hs = gru_scan_masked(x_proj, rec_kernel, rec_bias, rec_masks)

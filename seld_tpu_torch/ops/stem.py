@@ -20,6 +20,14 @@ gradients:
     (torch.nn.grad), as the JAX package leaves them to XLA. The input
     gradient is computed only when the input needs one.
 
+Inside a data-parallel step (parallel/collectives.py) the statistics are
+the global batch's: the forward all-reduces [sum y, sum y^2], and the
+backward all-reduces [dgamma, dbeta] before it forms stem_dy's params6
+with the global count, so stem_dy computes this rank's dy from global
+terms. The returned dgamma, dbeta and dbias stay this rank's: the step's
+gradient all-reduce sums each of them once (the JAX package's one psum of
+dbias, seld_tpu/ops/pallas/stem_bwd.py:152-155).
+
 Pool ties split the window's cotangent equally among the tied maxima
 (count-normalised), instead of the first-match routing of a composed max
 pool; the routed total per window is the same.
@@ -37,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from seld_tpu_torch.ops.stem_bwd import bn_affine, stem_dy
+from seld_tpu_torch.parallel import collectives
 
 
 def _pad_same(x_cf: torch.Tensor, ksize: Sequence[int]):
@@ -58,8 +67,16 @@ class _ConvBNReLUPool(torch.autograd.Function):
         y = F.conv2d(x_pad, w) + bias.to(x.dtype)[:, None, None]
         b, c, t, f = y.shape
         yf = y.float()
-        mean = yf.mean(dim=(0, 2, 3))
-        var = yf.square().mean(dim=(0, 2, 3)) - mean.square()
+        if collectives.active() is None:
+            mean = yf.mean(dim=(0, 2, 3))
+            var = yf.square().mean(dim=(0, 2, 3)) - mean.square()
+        else:
+            # data parallel: [sum y, sum y^2] over the global batch
+            sums = collectives.all_reduce_(torch.stack(
+                [yf.sum(dim=(0, 2, 3)), yf.square().sum(dim=(0, 2, 3))]))
+            n = collectives.global_rows(b) * t * f
+            mean = sums[0] / n
+            var = sums[1] / n - mean.square()
         del yf
         inv = torch.rsqrt(var + eps)
         scale, shift = bn_affine(mean, inv, gamma, beta, y.dtype)
@@ -71,6 +88,11 @@ class _ConvBNReLUPool(torch.autograd.Function):
                               m_bno)
         ctx.pool, ctx.eps, ctx.pads = (pt, pf), eps, pads
         ctx.bias_dtype = bias.dtype
+        # the batch's count, read here: the backward may run on another
+        # thread (the autograd engine's, for a card's tensors), which does
+        # not see this thread's data-parallel step
+        ctx.dp = collectives.active() is not None
+        ctx.n = collectives.global_rows(b) * t * f
         ctx.mark_non_differentiable(mean, var)
         return pooled.movedim(1, -1), mean, var
 
@@ -78,8 +100,8 @@ class _ConvBNReLUPool(torch.autograd.Function):
     def backward(ctx, dpooled, _dmean, _dvar):
         # mean/var feed the running statistics only: no gradient
         x_pad, kernel, y, mean, var, gamma, beta, m_bno = ctx.saved_tensors
-        b, c, t, f = y.shape
-        n = b * t * f
+        t, f = y.shape[2:]
+        n = ctx.n
         inv = torch.rsqrt(var + ctx.eps)
         gamma_f, beta_f = gamma.float(), beta.float()
 
@@ -94,8 +116,15 @@ class _ConvBNReLUPool(torch.autograd.Function):
         dgamma = (g * xhat_max).sum(dim=(0, 2, 3))
         del g, xhat_max
 
-        params6 = torch.stack([mean, inv, gamma_f, beta_f, dgamma / n,
-                               dbeta / n])
+        dgamma_n, dbeta_n = dgamma, dbeta
+        if ctx.dp:
+            # the global batch's dgamma and dbeta enter every row's dy; the
+            # returned gradients stay this rank's: the step's gradient
+            # all-reduce sums them, and dbias, once
+            dgamma_n, dbeta_n = collectives.all_reduce_(
+                torch.stack([dgamma, dbeta])).unbind(0)
+        params6 = torch.stack([mean, inv, gamma_f, beta_f, dgamma_n / n,
+                               dbeta_n / n])
         # dy overwrites y: y is dead after this pass. A second backward
         # through the same graph then finds y's version moved and raises.
         y_cl = y.movedim(1, -1)

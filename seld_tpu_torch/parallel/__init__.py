@@ -1,0 +1,2 @@
+"""Data parallelism over several cards, one process a card
+(seld_tpu/parallel/)."""

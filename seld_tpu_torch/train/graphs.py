@@ -8,8 +8,10 @@ the generators it draws from, a device-side step counter and the output
 buffers it writes at that counter. Its host-side effects are the kernel
 wrappers' launch counts, nothing else.
 
-`StepGraph(body, generators)` runs such a body once a call:
-  - On the CPU it calls the body: the plain loop.
+`StepGraph(body, generators, device, capture)` runs such a body once a
+call:
+  - On the CPU, or with capture=False (a body whose collectives run on
+    gloo, which a graph cannot hold), it calls the body: the plain loop.
   - On a CUDA device its first call is the warm-up, a real run of the body
     on a side stream, which builds the kernels (ops/kernels.py builds at
     first use) and creates cuBLAS's and cuDNN's handles and workspaces for
@@ -30,9 +32,9 @@ wrappers' launch counts, nothing else.
   - A capture that fails raises: on a CUDA tensor there is no eager
     fallback.
 
-`StepLoop(one_step, generators, device, unroll)` runs a one-step body
-`steps` times a call: `unroll` steps to a graph, and the rest of a call
-(steps % unroll) through a second graph of that many steps, so the
+`StepLoop(one_step, generators, device, unroll, capture)` runs a one-step
+body `steps` times a call: `unroll` steps to a graph, and the rest of a
+call (steps % unroll) through a second graph of that many steps, so the
 result does not depend on `unroll`.
 """
 from __future__ import annotations
@@ -47,15 +49,17 @@ from seld_tpu_torch.ops import kernels
 
 class StepGraph:
     def __init__(self, body: Callable[[], None],
-                 generators: Sequence[torch.Generator], device):
+                 generators: Sequence[torch.Generator], device,
+                 capture: bool = True):
         self.body = body
         self.generators = tuple(generators)
         self.device = torch.device(device)
+        self.capture = capture
         self.graph = None
         self.launches: collections.Counter = collections.Counter()
 
     def __call__(self) -> None:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or not self.capture:
             self.body()
         elif self.graph is None:
             self._warm_up_and_capture()
@@ -88,11 +92,12 @@ class StepGraph:
 class StepLoop:
     def __init__(self, one_step: Callable[[], None],
                  generators: Sequence[torch.Generator], device,
-                 unroll: int = 1):
+                 unroll: int = 1, capture: bool = True):
         self.one_step = one_step
         self.generators = tuple(generators)
         self.device = torch.device(device)
         self.unroll = int(unroll)
+        self.capture = capture
         self._graphs: Dict[int, StepGraph] = {}
 
     def run(self, steps: int) -> None:
@@ -113,5 +118,5 @@ class StepLoop:
                 for _ in range(n):
                     one_step()
             graph = self._graphs[n] = StepGraph(body, self.generators,
-                                                self.device)
+                                                self.device, self.capture)
         return graph

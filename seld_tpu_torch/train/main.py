@@ -35,6 +35,19 @@ against the official scorer (ENS_T/* scalars, CSVs under --output_path),
 and after training the SWA average is scored and saved as
 ./saved_model/<run>/SWA_best_<score>.
 
+Several cards (--mesh, the JAX CLI's flag; default data:-1, every visible
+card): one process a card, each a rank of a torch.distributed group.
+Under torchrun / python -m torch.distributed.run (RANK and WORLD_SIZE
+set) each process joins that group; started plainly with a mesh of more
+than one rank, the CLI spawns one worker a rank itself (tcp://localhost).
+A spec that asks for more cards than are visible raises. The backend is
+NCCL on the card (one rank a card) and gloo on the CPU. Every rank
+builds the whole split (the wav front-end on its own card) and keeps its
+shard: the staged shard under --device_data, else its strided slice of
+the train split (eval splits are sharded a batch at a time). Rank 0 alone
+writes the config's checkpoints, normalizer, scalars and the ensemble
+evaluation. On one card data:-1 is one rank and no group: the path above.
+
 With --device_data, --epoch_scan runs each train epoch as one epoch step
 (gather, augment and update a step, captured once as a CUDA graph and
 replayed a step at a time on the card; a plain loop with --device cpu),
@@ -45,7 +58,9 @@ before it stages the new one, so one train split is staged at a time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import sys
 import time
 from glob import glob
 
@@ -57,6 +72,7 @@ from seld_tpu_torch.data import transforms as T
 from seld_tpu_torch.data.device_dataset import DeviceDataset
 from seld_tpu_torch.data.loader import (SeldDataset, load_joint_seldnet_data,
                                         load_seldnet_data, load_wav_clips)
+from seld_tpu_torch.parallel.mesh import make_mesh, parse_mesh_spec
 from seld_tpu_torch.train.checkpoint import save_checkpoint
 from seld_tpu_torch.train.trainer import SELDTrainer
 
@@ -101,9 +117,10 @@ def build_augment(config):
     return T.compose(*fns) if fns else None
 
 
-def build_datasets(config, device):
+def build_datasets(config, device, chief=True):
     """({split: SeldDataset} for train, val and test, the test split's full
-    clips for the ensemble evaluation)."""
+    clips for the ensemble evaluation); only the `chief` writes the
+    normalizer."""
     feat_dtype = torch.bfloat16 if getattr(config, "bf16", False) else None
     use_both = getattr(config, "use_both", False)
     if getattr(config, "from_wav", False):
@@ -119,10 +136,11 @@ def build_datasets(config, device):
             loop_time=config.loop_time, n_classes=12,
             feature_dtype=feat_dtype, device=device)
         # a wav-native checkpoint is unservable without its normalizer
-        norm_dir = os.path.join("./saved_model", config.name)
-        os.makedirs(norm_dir, exist_ok=True)
-        np.savez(os.path.join(norm_dir, "normalizer.npz"),
-                 mean=np.asarray(stats[0]), std=np.asarray(stats[1]))
+        if chief:
+            norm_dir = os.path.join("./saved_model", config.name)
+            os.makedirs(norm_dir, exist_ok=True)
+            np.savez(os.path.join(norm_dir, "normalizer.npz"),
+                     mean=np.asarray(stats[0]), std=np.asarray(stats[1]))
         return datasets, list(splits["test"][0])
 
     path = os.path.join(config.abspath, "DCASE2021/feat_label/")
@@ -218,25 +236,116 @@ def tdm_provider(config, static_trainset, device):
     return trainset, rebuilds
 
 
+def _world_of(spec: str, device) -> int:
+    """The ranks a run asks for: the mesh spec over the visible cards, or,
+    on the CPU, over the spec's own sizes (data:-1 is then one rank)."""
+    if torch.device(device).type == "cuda":
+        n = torch.cuda.device_count()
+    else:
+        sizes = [part.partition(":")[2] for part in spec.split(",")]
+        n = int(np.prod([int(v) for v in sizes if v not in ("", "-1")]))
+    return int(np.prod(list(parse_mesh_spec(spec, n).values())))
+
+
+def _rank_device(device, local_rank: int) -> torch.device:
+    """A rank's device: the card local_rank, or the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.device("cuda", local_rank)
+    return device
+
+
+def _join_group(device, init_method, rank, world) -> None:
+    """Join the group: NCCL on the card, gloo on the CPU."""
+    import torch.distributed as dist
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo",
+        init_method=init_method, rank=rank, world_size=world)
+
+
+def _train_rank(rank, config, model_config, device):
+    """`train` on this rank of the joined group: ranks other than 0 print
+    nothing, and the scalar log is closed before the process ends."""
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(
+            null if rank else sys.stdout):
+        out = train(config, model_config, device)
+    out["trainer"].logger.close()
+    return out
+
+
+def _spawned(rank, world, port, config, model_config, device):
+    """One worker of a run the CLI spawned: joins the group, trains."""
+    import torch.distributed as dist
+    device = _rank_device(device, rank)
+    _join_group(device, f"tcp://localhost:{port}", rank, world)
+    try:
+        _train_rank(rank, config, model_config, device)
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None):
-    """Parse the flags, build the datasets and train; returns the fit
-    result with the trainer ("trainer"), the seconds the datasets took to
-    build ("setup_secs"), the last train split trained on ("trainset")
-    and, under --use_tdm, each rebuild's seconds by part ("tdm_rebuilds":
-    paste_s, extract_s, normalize_window_s and, with --device_data,
-    restage_s)."""
+    """Parse the flags and train on the ranks --mesh asks for (one process
+    a rank): see `train` for what a run returns. A run the CLI spawns over
+    several ranks returns {"ranks": N} once every worker has ended."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
     known, rest = pre.parse_known_args(argv)
-    device = known.device
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        # a torchrun worker: join its group; rank 0 writes the run config
+        # first, the others then find it
+        import torch.distributed as dist
+        rank = int(os.environ["RANK"])
+        device = _rank_device(known.device,
+                              int(os.environ.get("LOCAL_RANK", rank)))
+        _join_group(device, "env://", rank, int(os.environ["WORLD_SIZE"]))
+        try:
+            if rank == 0:
+                config, model_config = get_param(rest)
+            dist.all_reduce(torch.zeros(1, device=device))    # a barrier
+            if rank != 0:
+                config, model_config = get_param(rest)
+            return _train_rank(rank, config, model_config, device)
+        finally:
+            dist.destroy_process_group()
     config, model_config = get_param(rest)
+    _check_flags(config, known.device)
+    world = _world_of(config.mesh, known.device)
+    if world == 1:
+        return train(config, model_config, known.device)
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mp.spawn(_spawned, args=(world, port, config, model_config,
+                             known.device), nprocs=world)
+    return {"ranks": world}
+
+
+def train(config, model_config, device):
+    """Build the datasets and train on this process's rank of the current
+    group (one rank without one); returns the fit result with the trainer
+    ("trainer"), the seconds the datasets took to build ("setup_secs"),
+    the last train split trained on ("trainset") and, under --use_tdm,
+    each rebuild's seconds by part ("tdm_rebuilds": paste_s, extract_s,
+    normalize_window_s and, with --device_data, restage_s)."""
     _check_flags(config, device)
+    mesh = make_mesh(config.mesh, device)
+    chief = mesh.rank == 0
+    if mesh.distributed and chief:
+        import torch.distributed as dist
+        print(f"data parallel: {mesh.world} rank(s) over "
+              f"{dist.get_backend()}, mesh {mesh.axes}")
 
     t0 = time.perf_counter()
-    datasets, test_xs = build_datasets(config, device)
+    datasets, test_xs = build_datasets(config, device, chief)
     trainer = SELDTrainer(config, model_config, n_classes=12,
                           input_shape=(300, 64, input_channels(config)),
-                          device=device)
+                          device=device, mesh=mesh)
     trainer.set_augment(build_augment(config))
     if config.resume:
         if not trainer.resume():
@@ -249,7 +358,7 @@ def main(argv=None):
     # periodic full-clip ensemble eval against the official scorer
     gt_dir = os.path.join(config.ans_path, "dev-test")
     eval_fn = None
-    if os.path.exists(gt_dir):
+    if os.path.exists(gt_dir) and chief:
         names = sorted(os.path.splitext(os.path.basename(f))[0]
                        for f in glob(os.path.join(gt_dir, "*.csv")))
 
@@ -266,14 +375,28 @@ def main(argv=None):
     if getattr(config, "device_data", False):
         # stage every split on the card once; each step then gathers its
         # batch there from a row of the epoch's index matrix
-        def to_device(ds, train):
-            dev = DeviceDataset(ds.x, ds.y, ds.batch_size, device,
-                                train=train, loop_time=ds.loop_time)
+        def to_device(ds, train, batch=None):
+            dev = DeviceDataset(ds.x, ds.y, batch or ds.batch_size, device,
+                                train=train, loop_time=ds.loop_time,
+                                mesh=mesh)
             print(f"device_data: staged {dev.n_windows} windows "
                   f"({dev.hbm_bytes() / 1e9:.2f} GB) on {device}")
             return dev
         for split in ("val", "test"):
-            datasets[split] = to_device(datasets[split], False)
+            # whole clips a batch, as many as make it divide over the
+            # shards (the JAX CLI's grouping); else the split stays
+            # host-fed and each batch is padded (scripts/train.py:247-265)
+            ds = datasets[split]
+            clip, n = ds.batch_size, ds.x.shape[0]
+            eval_b = clip
+            while eval_b % mesh.data_size and eval_b < n:
+                eval_b += clip
+            if eval_b % mesh.data_size == 0 and n % eval_b == 0:
+                datasets[split] = to_device(ds, False, eval_b)
+            else:
+                print(f"device_data: {split} eval stays host-fed ({n} "
+                      f"windows not batchable as a multiple of {clip} "
+                      f"windows a clip over {mesh.data_size} shards)")
         if callable(trainset):
             provider = trainset
 
@@ -291,6 +414,23 @@ def main(argv=None):
                 return staged["dev"]
         else:
             trainset = to_device(trainset, True)
+    elif mesh.distributed:
+        # the host feed: this rank's strided slice of each train split
+        def strided(ds):
+            return SeldDataset(ds.x, ds.y, ds.batch_size // mesh.data_size,
+                               loop_time=ds.loop_time,
+                               process_index=mesh.data_index,
+                               process_count=mesh.data_size)
+        if callable(trainset):
+            provider = trainset
+
+            def trainset(epoch):
+                ds = provider(epoch)
+                if staged.get("src") is not ds:
+                    staged["src"], staged["dev"] = ds, strided(ds)
+                return staged["dev"]
+        else:
+            trainset = strided(trainset)
     setup_secs = time.perf_counter() - t0
 
     last = {}
@@ -301,19 +441,27 @@ def main(argv=None):
             else trainset
         return last["trainset"]
 
-    result = trainer.fit(tracked, datasets["val"], datasets["test"],
-                         eval_fn=eval_fn, eval_every=config.eval_every)
-    print(f"best val seld score: {result['best_score']:.5f}")
+    try:
+        result = trainer.fit(tracked, datasets["val"], datasets["test"],
+                             eval_fn=eval_fn, eval_every=config.eval_every)
+        print(f"best val seld score: {result['best_score']:.5f}")
 
-    # final SWA evaluation + save (trainv2.py:362-369)
-    if trainer.swa.count > 0 and eval_fn is not None:
-        seld, _ = trainer.evaluate_ensemble(
-            test_xs, names, gt_dir, config.output_path,
-            result["last_epoch"], params=trainer.swa_params(),
-            batch_stats=trainer.swa_batch_stats())
-        save_checkpoint(trainer.workdir, f"SWA_best_{seld:.5f}",
-                        trainer.state, trainer.swa,
-                        params=trainer.swa_params())
-        print(f"SWA seld score: {seld:.5f}")
+        # final SWA evaluation + save (trainv2.py:362-369), on rank 0
+        if trainer.swa.count > 0 and eval_fn is not None:
+            seld, _ = trainer.evaluate_ensemble(
+                test_xs, names, gt_dir, config.output_path,
+                result["last_epoch"], params=trainer.swa_params(),
+                batch_stats=trainer.swa_batch_stats())
+            save_checkpoint(trainer.workdir, f"SWA_best_{seld:.5f}",
+                            trainer.state, trainer.swa,
+                            params=trainer.swa_params())
+            print(f"SWA seld score: {seld:.5f}")
+    finally:
+        if mesh.distributed:
+            # drop the epoch step's captured program, on success and on
+            # failure alike, before the caller destroys the group: NCCL
+            # cannot destroy a communicator whose collectives a live CUDA
+            # graph holds (destroy_process_group waits for ever)
+            trainer.release_epoch_program()
     return {**result, "trainer": trainer, "setup_secs": setup_secs,
             "trainset": last.get("trainset"), "tdm_rebuilds": rebuilds}

@@ -2,7 +2,9 @@
 
 The block dimension is folded into the batch, so one update is a few
 vector ops on the device and nothing leaves it during an epoch. State is a
-plain dict of scalars / [C] tensors; `merge` adds two states.
+plain dict of scalars / [C] tensors; `merge` adds two states, and
+`update_global` adds the global batch's sums inside a data-parallel step
+(one all-reduce of this rank's).
 
 Semantics per block (reference metrics.py:77-154):
   detection  : class-in-block presence; ER from S/D/I counts
@@ -32,6 +34,32 @@ def init_state(n_classes: int = 14, device="cuda") -> State:
 
 def merge(a: State, b: State) -> State:
     return {k: a[k] + b[k] for k in a}
+
+
+def all_reduce_(state: State) -> State:
+    """Sum every rank's state into each rank's, in place, as one all-reduce
+    of the flattened sums (JAX's psum of the state over the data axis)."""
+    from seld_tpu_torch.parallel import collectives
+    flat = collectives.all_reduce_(
+        torch.cat([v.reshape(-1) for v in state.values()]))
+    for v, part in zip(state.values(),
+                       flat.split([v.numel() for v in state.values()])):
+        v.copy_(part.view_as(v))
+    return state
+
+
+def update_global(state: State, y_true, y_pred, **kw) -> State:
+    """`update` with this rank's batch inside a data-parallel step
+    (parallel/collectives.py): the batch's sums are all-reduced before they
+    are added, so every rank holds the global batch's state (a rank that
+    replicates another's rows adds zeros). Outside one, `update` itself."""
+    from seld_tpu_torch.parallel import collectives
+    mesh = collectives.active()
+    if mesh is None:
+        return update(state, y_true, y_pred, **kw)
+    zeros = {k: torch.zeros_like(v) for k, v in state.items()}
+    mine = update(zeros, y_true, y_pred, **kw) if mesh.primary else zeros
+    return merge(state, all_reduce_(mine))
 
 
 def distance_between_cartesian_coordinates(xyz0: torch.Tensor,

@@ -17,6 +17,21 @@ the same update as a captured CUDA graph on a CUDA device and as a plain
 loop on the CPU (train/graphs.py): each step reads its batch at a
 device-side counter and writes its outputs there, so the graph holds no
 per-step value of the host.
+
+Data parallelism (`mesh=` of parallel/mesh.py under a process group):
+each rank holds its rows of the global batch, and a step on N ranks
+computes what one rank computes on the whole batch, up to the order of
+the sums. Inside the step (parallel/collectives.py): BatchNorm's and the
+fused stem's statistics are the global batch's; dropout masks and augment
+draws are drawn at the global batch's size and sliced; the losses read the
+gathered global predictions and labels, so each loss (the SED means, the
+masked MSE's sum over the global mask) is the one-rank formula on the
+global batch; the L2 penalty is added once over the ranks (1/N each); the
+gradients are summed by one all-reduce of a flat buffer, so AGC and the
+optimizer see the same gradients on every rank; the metric adds the
+all-reduced sums of this rank's rows (`metrics.update_global`). With NCCL
+the all-reduces are captured in the step's CUDA graph; gloo cannot be
+captured, so a gloo group runs the steps eagerly on any device.
 """
 from __future__ import annotations
 
@@ -25,6 +40,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from seld_tpu_torch.ops.gather import gather_batch
+from seld_tpu_torch.parallel import collectives
 from seld_tpu_torch.train import metrics as M
 from seld_tpu_torch.train.graphs import StepLoop
 from seld_tpu_torch.train.train_state import TrainState
@@ -72,13 +88,51 @@ def _zeros_for_unused(model, params, grads):
             for p, g in zip(params.values(), grads)]
 
 
+def _gathered(y, preds):
+    """The global batch's labels and predictions on every rank of the
+    active data-parallel step (one all-reduce; the predictions keep their
+    gradient), or (y, preds) outside one."""
+    if collectives.active() is None:
+        return y, preds
+    parts = (*preds, *y)
+    widths = [p.shape[-1] for p in parts]
+    packed = collectives.gather_rows(
+        torch.cat([p.float() for p in parts], dim=-1))
+    out = [o.to(p.dtype) for o, p in zip(packed.split(widths, dim=-1),
+                                         parts)]
+    return tuple(out[len(preds):]), tuple(out[:len(preds)])
+
+
+def _all_reduce_grads(grads):
+    """The gradients summed over the ranks of the active step: one
+    all-reduce of a flat buffer (none outside a step)."""
+    if collectives.active() is None:
+        return grads
+    flat = collectives.all_reduce_(
+        torch.cat([g.reshape(-1).float() for g in grads]))
+    return [part.view_as(g).to(g.dtype)
+            for part, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def _uses_graphs(mesh) -> bool:
+    """Whether a multi-step or epoch program may be captured: not under a
+    gloo group, whose collectives a CUDA graph cannot hold."""
+    if mesh is None or not mesh.distributed:
+        return True
+    import torch.distributed as dist
+    return dist.get_backend() != "gloo"
+
+
 def _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
-                      compute_dtype):
+                      compute_dtype, mesh=None):
     """The single-batch update: (state, x, y) -> ((sed_p, doa_p),
     (sed_loss, doa_loss)). It updates the parameters, the moments and the
     statistics in place and touches nothing on the host: the caller counts
-    `state.step`."""
+    `state.step`. Under a mesh of several ranks x and y are this rank's
+    rows, the predictions returned are too, and the losses are the global
+    batch's (the module docstring)."""
     w_sed, w_doa = loss_weights
+    ranks = mesh.world if mesh is not None and mesh.distributed else 1
 
     def cast(p: torch.Tensor) -> torch.Tensor:
         if compute_dtype is not None and p.dtype == torch.float32:
@@ -86,8 +140,11 @@ def _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
         return p
 
     def update(state: TrainState, x, y):
+        with collectives.data_parallel(mesh):
+            return _update(state, x, y)
+
+    def _update(state: TrainState, x, y):
         model = state.model.train()
-        sed_y, doa_y = y
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         params = state.params
@@ -95,13 +152,15 @@ def _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
             sed_p, doa_p = torch.func.functional_call(
                 model, {k: cast(p) for k, p in params.items()}, (x,))
             sed_p, doa_p = sed_p.float(), doa_p.float()
-            sloss = sed_loss_fn(sed_y, sed_p)
-            dloss = doa_loss_fn(doa_y, doa_p)
+            (sed_y, doa_y), (sed_g, doa_g) = _gathered(y, (sed_p, doa_p))
+            sloss = sed_loss_fn(sed_y, sed_g)
+            dloss = doa_loss_fn(doa_y, doa_g)
+            penalty = l2_kernel_penalty(params, l2)
             loss = (w_sed * sloss + w_doa * dloss
-                    + l2_kernel_penalty(params, l2))
+                    + (penalty if ranks == 1 else penalty / ranks))
             grads = torch.autograd.grad(loss, list(params.values()),
                                         allow_unused=True)
-        grads = _zeros_for_unused(model, params, grads)
+        grads = _all_reduce_grads(_zeros_for_unused(model, params, grads))
         state.optimizer.step(list(params.values()), grads)
         return (sed_p.detach(), doa_p.detach()), (sloss.detach(),
                                                   dloss.detach())
@@ -116,24 +175,27 @@ def make_train_step(*,
                     l2: float = 0.0,
                     doa_threshold: float = 20.0,
                     metric_block_size: int = 10,
-                    compute_dtype=None):
+                    compute_dtype=None,
+                    mesh=None):
     """Build a train step.
 
     sed_loss_fn(y, p) and doa_loss_fn(y, p) return scalars. Step signature:
     (state, metric_state, x, y) -> (state, metric_state, (sed_loss,
     doa_loss)) with y = (sed, doa); the state is updated in place and
-    returned.
+    returned. Under a `mesh` of several ranks x and y are this rank's rows
+    of the global batch, and the losses and the metric state are the
+    global batch's on every rank.
     """
     update = _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
-                               compute_dtype)
+                               compute_dtype, mesh)
 
     def step(state: TrainState, metric_state, x, y):
         preds, losses = update(state, x, y)
         state.step += 1
-        with torch.no_grad():
-            metric_state = M.update(metric_state, y, preds,
-                                    doa_threshold=doa_threshold,
-                                    block_size=metric_block_size)
+        with torch.no_grad(), collectives.data_parallel(mesh):
+            metric_state = M.update_global(metric_state, y, preds,
+                                           doa_threshold=doa_threshold,
+                                           block_size=metric_block_size)
         return state, metric_state, losses
 
     return step
@@ -187,7 +249,8 @@ def make_train_multistep(*,
                          metric_block_size: int = 10,
                          compute_dtype=None,
                          donate: bool = True,
-                         unroll: int = 1):
+                         unroll: int = 1,
+                         mesh=None):
     """k optimizer updates a call (seld_tpu/train/steps.py:141-200).
 
     Batches arrive stacked: xs [k, B, ...], ys = (sed [k, B, ...], doa
@@ -204,7 +267,8 @@ def make_train_multistep(*,
     warms up (its first `unroll` steps run eagerly) and captures. On the
     CPU the same step body runs in a plain loop. `unroll` does not change
     the result. `donate` is accepted for the JAX signature: the port
-    always updates the state in place.
+    always updates the state in place. `mesh`: as `make_train_step`; under
+    a gloo group the steps run in the plain loop on any device.
 
     Returns step(state, metric_state, xs, ys) -> (state, metric_state,
     (sed_losses [k], doa_losses [k])).
@@ -215,7 +279,8 @@ def make_train_multistep(*,
         raise ValueError(f"unroll={unroll!r} must be in [1, steps_per_call]")
     k, unroll = int(steps_per_call), int(unroll)
     update = _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
-                               compute_dtype)
+                               compute_dtype, mesh)
+    capture = _uses_graphs(mesh)
     live = {}      # the one program of the last signature
 
     def build(state, xs, sed, doa):
@@ -236,7 +301,8 @@ def make_train_multistep(*,
             slots.put("losses", torch.stack([sl, dl]))
             slots.counter.add_(1)
 
-        loop = StepLoop(one_step, [state.generator], xs.device, unroll)
+        loop = StepLoop(one_step, [state.generator], xs.device, unroll,
+                        capture=capture)
         return state, slots, loop
 
     def step(state: TrainState, metric_state, xs, ys):
@@ -259,8 +325,8 @@ def make_train_multistep(*,
             slots.counter.zero_()
         loop.run(k)
         state.step += k
-        with torch.no_grad():
-            metric_state = M.update(
+        with torch.no_grad(), collectives.data_parallel(mesh):
+            metric_state = M.update_global(
                 metric_state, (_fold(sed), _fold(doa)),
                 (_fold(b["sed_p"]), _fold(b["doa_p"])),
                 doa_threshold=doa_threshold, block_size=metric_block_size)
@@ -317,20 +383,24 @@ def make_train_epoch(*,
     As in JAX, with fuse_metrics=False the (post-augment) labels and the
     predictions of every step are stacked and ONE metric update folds them
     in after the last step; with fuse_metrics=True the metric state is
-    updated inside every step. One card: `mesh` must be None (several cards
-    are ROADMAP queue 1, item 14); `axis` and `donate` are accepted for the
+    updated inside every step. `axis` and `donate` are accepted for the
     JAX signature (the port updates the state in place).
+
+    Under a `mesh` of several ranks (the JAX package's shard_map gather),
+    x_all and y_all are this rank's shard of the split and idx_all holds
+    local row numbers [steps, B / N] (`DeviceDataset(mesh=...)`): each rank
+    gathers its rows from its own shard, and the update and the metric are
+    `make_train_step`'s under the mesh. With NCCL the step's all-reduces
+    are captured in its CUDA graph (the warm-up step has run them once
+    before the capture); under gloo the epoch runs the plain loop.
 
     Returns epoch(state, metric_state, x_all, y_all, idx_all,
     aug_generator) -> (state, metric_state, (sed_losses [steps],
     doa_losses [steps])).
     """
-    if mesh is not None:
-        raise NotImplementedError("make_train_epoch runs on one card; a "
-                                  "mesh of several is not ported yet "
-                                  "(ROADMAP queue 1, item 14)")
     update = _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
-                               compute_dtype)
+                               compute_dtype, mesh)
+    capture = _uses_graphs(mesh)
     c = n_classes
     live = {}      # the one program of the last signature
 
@@ -350,14 +420,15 @@ def make_train_epoch(*,
         def one_step():
             xb, yb = gather_batch((x_all, y_all), slots.row(idx_all))
             if augment_fn is not None:
-                xb, yb = augment_fn(aug_generator, xb, yb)
+                with collectives.data_parallel(mesh):
+                    xb, yb = augment_fn(aug_generator, xb, yb)
             y = (yb[..., :c], yb[..., c:])
             preds, (sl, dl) = update(state, xb, y)
-            with torch.no_grad():
+            with torch.no_grad(), collectives.data_parallel(mesh):
                 if fuse_metrics:
-                    new = M.update(metric, y, preds,
-                                   doa_threshold=doa_threshold,
-                                   block_size=metric_block_size)
+                    new = M.update_global(metric, y, preds,
+                                          doa_threshold=doa_threshold,
+                                          block_size=metric_block_size)
                     for name, t in metric.items():
                         t.copy_(new[name])
                 else:
@@ -369,7 +440,7 @@ def make_train_epoch(*,
                 slots.counter.add_(1)
 
         gens = [state.generator] + ([aug_generator] if augment_fn else [])
-        loop = StepLoop(one_step, gens, x_all.device)
+        loop = StepLoop(one_step, gens, x_all.device, capture=capture)
         return (state, aug_generator), slots, loop, metric
 
     def epoch(state: TrainState, metric_state, x_all, y_all, idx_all,
@@ -396,11 +467,11 @@ def make_train_epoch(*,
         loop.run(steps)
         state.step += steps
         b = slots.bufs
-        with torch.no_grad():
+        with torch.no_grad(), collectives.data_parallel(mesh):
             if metric is not None:
                 metric_state = {k: v.clone() for k, v in metric.items()}
             else:
-                metric_state = M.update(
+                metric_state = M.update_global(
                     metric_state, (_fold(b["sed"]), _fold(b["doa"])),
                     (_fold(b["sed_p"]), _fold(b["doa_p"])),
                     doa_threshold=doa_threshold,
@@ -418,7 +489,8 @@ def make_eval_step(*,
                    doa_threshold: float = 20.0,
                    metric_block_size: int = 10,
                    return_preds: bool = False,
-                   compute_dtype=None):
+                   compute_dtype=None,
+                   mesh=None):
     """Build an eval step: (state, metric_state, x, y[, n_valid]) ->
     (metric_state, (sed_loss, doa_loss)[, preds]).
 
@@ -426,24 +498,45 @@ def make_eval_step(*,
     `compute_dtype`, x is first rounded to it, and the forward then runs in
     f32, as the JAX package's eval step promotes a bf16 input against f32
     parameters. With `n_valid`, predictions and labels are cut to the first
-    n_valid rows before the losses and the metric.
+    n_valid rows before the losses and the metric. Under a `mesh` of
+    several ranks x and y are this rank's rows of a global batch whose
+    first n_valid rows count: the losses (and `preds`) are the global
+    batch's, and the metric adds the all-reduced sums of this rank's valid
+    rows.
     """
     def step(state: TrainState, metric_state, x, y, n_valid=None):
-        sed_y, doa_y = y
+        with torch.no_grad(), collectives.data_parallel(mesh):
+            return _step(state, metric_state, x, y, n_valid)
+
+    def _step(state, metric_state, x, y, n_valid):
         if compute_dtype is not None:
             x = x.to(compute_dtype)
-        with torch.no_grad():
-            sed_p, doa_p = state.model.eval()(x.float())
-            sed_p, doa_p = sed_p.float(), doa_p.float()
-            if n_valid is not None:
-                sed_p, doa_p = sed_p[:n_valid], doa_p[:n_valid]
-                sed_y, doa_y = sed_y[:n_valid], doa_y[:n_valid]
-            sloss = sed_loss_fn(sed_y, sed_p)
-            dloss = doa_loss_fn(doa_y, doa_p)
-            metric_state = M.update(metric_state, (sed_y, doa_y),
-                                    (sed_p, doa_p),
-                                    doa_threshold=doa_threshold,
-                                    block_size=metric_block_size)
+        sed_p, doa_p = state.model.eval()(x.float())
+        preds = (sed_p.float(), doa_p.float())
+        if collectives.active() is None or n_valid is None:
+            mine = n_valid
+            (sed_y, doa_y), (sed_p, doa_p) = _gathered(y, preds)
+            sed_p, doa_p = sed_p[:n_valid], doa_p[:n_valid]
+            sed_y, doa_y = sed_y[:n_valid], doa_y[:n_valid]
+        else:
+            # this rank's rows lie at its data index in the padded global
+            # batch; the gathered rows are kept where they are valid (ranks
+            # that replicate hold the same rows)
+            rows = x.shape[0]
+            mine = min(max(n_valid - mesh.data_index * rows, 0), rows)
+            valid = (torch.arange(rows, device=x.device) < mine).float()
+            valid = valid[:, None, None].expand(*y[0].shape[:2], 1)
+            (sed_y, doa_y, keep), (sed_p, doa_p) = _gathered(
+                (*y, valid), preds)
+            keep = keep[:, 0, 0] > 0
+            sed_p, doa_p, sed_y, doa_y = (a[keep] for a in
+                                          (sed_p, doa_p, sed_y, doa_y))
+        metric_state = M.update_global(
+            metric_state, tuple(a[:mine] for a in y),
+            tuple(a[:mine] for a in preds),
+            doa_threshold=doa_threshold, block_size=metric_block_size)
+        sloss = sed_loss_fn(sed_y, sed_p)
+        dloss = doa_loss_fn(doa_y, doa_p)
         if return_preds:
             return metric_state, (sloss, dloss), (sed_p, doa_p)
         return metric_state, (sloss, dloss)

@@ -17,6 +17,18 @@ device-resident split runs as one epoch step instead
 a CUDA graph on the card), with the metric inside it under
 `--fuse_metrics`. Checkpoints carry the whole training state
 (train/checkpoint.py), so a resumed run continues exactly.
+
+Data parallel (`mesh=`, parallel/mesh.py; the default is the mesh of the
+current process group in `config.mesh`'s axes, world 1 without one): the
+parameters and statistics are broadcast from rank 0, every step runs under
+the mesh (train/steps.py), a device-resident split is this rank's shard,
+and a host split is this rank's strided slice (train) or the whole split
+(eval: each batch is padded to the shard count, this rank takes its rows,
+and the pad is cut off before the losses and the metric, as
+seld_tpu/train/trainer.py:236-262). Every rank holds the same state and
+scalars; rank 0 alone writes checkpoints, logs and scalars, after a
+barrier (an all-reduce of a scalar), so a checkpoint saved on N ranks
+resumes on any rank count.
 `evaluate_ensemble` scores full clips by sliding-window overlap-add against
 the official DCASE scorer (the recipe's periodic evaluation, `eval_fn`).
 """
@@ -33,6 +45,9 @@ import torch
 from seld_tpu_torch.bridge import from_flax, load_npz
 from seld_tpu_torch.data.loader import DeviceIterator
 from seld_tpu_torch.models import build_model
+from seld_tpu_torch.parallel import collectives
+from seld_tpu_torch.parallel.mesh import (batch_shard_count, make_mesh,
+                                          replicate, shard_batch)
 from seld_tpu_torch.train import losses as L
 from seld_tpu_torch.train import metrics as M
 from seld_tpu_torch.train.checkpoint import (latest_best, restore_checkpoint,
@@ -59,11 +74,22 @@ def accdoa_objective(config):
     return (lambda y, p: p.new_zeros(())), doa_loss, (0.0, w_doa)
 
 
+class _NoLogger:
+    """The scalar sink of a rank other than 0: it writes nothing."""
+
+    def add_scalar(self, tag, value, step) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class SELDTrainer:
     def __init__(self, config, model_config: dict, *,
                  n_classes: Optional[int] = None,
                  input_shape=(300, 64, 7),
                  device="cuda",
+                 mesh=None,
                  optimizer: str = "adabelief",
                  use_class_weights: bool = True,
                  train_samples: Optional[np.ndarray] = None,
@@ -76,8 +102,12 @@ class SELDTrainer:
         self.model_config["n_classes"] = self.n_classes
         self.input_shape = tuple(input_shape)
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            getattr(config, "mesh", "data:-1"), self.device)
+        self.is_chief = self.mesh.rank == 0
         self.workdir = os.path.join(workdir, config.name)
-        self.logger = ScalarLogger(os.path.join(logdir, config.name))
+        self.logger = (ScalarLogger(os.path.join(logdir, config.name))
+                       if self.is_chief else _NoLogger())
         self.metric_block_size = metric_block_size
 
         # losses (trainv2.py:291-297)
@@ -129,6 +159,7 @@ class SELDTrainer:
         self.state = TrainState(
             self.model, opt_factory(list(self.model.parameters()), lr,
                                     agc_clip=self.agc_clip), seed=seed + 1)
+        replicate(self.model, self.mesh)
         self.swa = SWAState(self.state.params, self.state.batch_stats)
 
         compute_dtype = (torch.bfloat16 if getattr(config, "bf16", False)
@@ -138,11 +169,13 @@ class SELDTrainer:
             sed_loss_fn=self.sed_loss, doa_loss_fn=self.doa_loss,
             loss_weights=self.loss_weights, l2=self.l2,
             doa_threshold=getattr(config, "lad_doa_thresh", 20),
-            metric_block_size=metric_block_size, compute_dtype=compute_dtype)
+            metric_block_size=metric_block_size, compute_dtype=compute_dtype,
+            mesh=self.mesh)
         self.eval_step = make_eval_step(
             sed_loss_fn=self.sed_loss, doa_loss_fn=self.doa_loss,
             doa_threshold=getattr(config, "lad_doa_thresh", 20),
-            metric_block_size=metric_block_size, compute_dtype=compute_dtype)
+            metric_block_size=metric_block_size, compute_dtype=compute_dtype,
+            mesh=self.mesh)
 
         self.best_score = np.inf
         self.start_epoch = 0
@@ -169,7 +202,8 @@ class SELDTrainer:
                 doa_threshold=getattr(self.config, "lad_doa_thresh", 20),
                 metric_block_size=self.metric_block_size,
                 compute_dtype=self.compute_dtype, augment_fn=self._augment,
-                fuse_metrics=getattr(self.config, "fuse_metrics", False))
+                fuse_metrics=getattr(self.config, "fuse_metrics", False),
+                mesh=self.mesh)
         return self._epoch_step
 
     def release_epoch_program(self) -> None:
@@ -204,6 +238,18 @@ class SELDTrainer:
         c = self.n_classes
         return y[..., :c], y[..., c:]
 
+    def _eval_shards(self, dataset):
+        """A host eval split's (whole-clip) batches as this rank's rows,
+        each zero-padded to a multiple of the shard count."""
+        n = batch_shard_count(self.mesh)
+        for batch in dataset:
+            x, y = (torch.as_tensor(a) for a in batch)
+            pad = -x.shape[0] % n
+            if pad:
+                x, y = (torch.cat([a, a.new_zeros((pad, *a.shape[1:]))])
+                        for a in (x, y))
+            yield shard_batch((x, y), self.mesh)
+
     def _run_epoch(self, dataset, epoch: int, mode: str) -> Dict[str, float]:
         train = mode == "train"
         if (train and self._use_epoch_scan
@@ -211,17 +257,24 @@ class SELDTrainer:
             return self._run_epoch_scan(dataset, epoch, mode)
         mstate = M.init_state(self.n_classes, self.device)
         slosses, dlosses = [], []
-        feed = (dataset if getattr(dataset, "device_resident", False)
-                else DeviceIterator(dataset, self.device))
+        resident = getattr(dataset, "device_resident", False)
+        source, n_valid = dataset, None
+        if self.mesh.distributed and not train and not resident:
+            source = self._eval_shards(dataset)
+            if dataset.batch_size % batch_shard_count(self.mesh):
+                n_valid = dataset.batch_size      # the rows before the pad
+        feed = source if resident else DeviceIterator(source, self.device)
         for x, y in feed:
             if train and self._augment is not None:
-                x, y = self._augment(self.aug_generator, x, y)
+                with collectives.data_parallel(self.mesh):
+                    x, y = self._augment(self.aug_generator, x, y)
             y = self._split_labels(y)
             if train:
                 self.state, mstate, (sl, dl) = self.train_step(
                     self.state, mstate, x, y)
             else:
-                mstate, (sl, dl) = self.eval_step(self.state, mstate, x, y)
+                mstate, (sl, dl) = self.eval_step(self.state, mstate, x, y,
+                                                  n_valid)
             slosses.append(sl)
             dlosses.append(dl)
         n = len(slosses)
@@ -282,6 +335,20 @@ class SELDTrainer:
             self.logger.add_scalar(f"ENS_T/{tag}", float(val), epoch)
         self.logger.add_scalar("ENS_T/seldScore", seld, epoch)
         return seld, metric_values
+
+    def barrier(self) -> None:
+        """Every rank reaches this point before any goes on (an all-reduce
+        of a scalar; nothing at one rank)."""
+        if self.mesh.distributed:
+            collectives.all_reduce_(torch.zeros(1, device=self.device))
+
+    def save(self, name: str, **kw) -> None:
+        """`save_checkpoint` of the trainer's state and SWA average under
+        its workdir, by rank 0 alone after a barrier (every rank holds the
+        same state)."""
+        self.barrier()
+        if self.is_chief:
+            save_checkpoint(self.workdir, name, self.state, self.swa, **kw)
 
     def swa_params(self):
         return self.swa.avg_params
@@ -357,12 +424,11 @@ class SELDTrainer:
             if score < self.best_score:
                 self.best_score = score
                 early_stop, lr_decay_wait = 0, 0
-                save_checkpoint(
-                    self.workdir, f"bestscore_{self.best_score:.5f}",
-                    self.state, self.swa,
-                    extra={"best_score": float(self.best_score),
-                           "epoch": epoch},
-                    keep_best_only=True, aug_generator=self.aug_generator)
+                self.save(f"bestscore_{self.best_score:.5f}",
+                          extra={"best_score": float(self.best_score),
+                                 "epoch": epoch},
+                          keep_best_only=True,
+                          aug_generator=self.aug_generator)
             else:
                 if (lr_decay_wait >= lr_patience and decay != 1
                         and (not use_swa or epoch < swa_start)):

@@ -482,8 +482,8 @@ def test_gru_dropout_routes(monkeypatch):
         tl.GRU(4, 8, bidirectional=True, dropout=rate,
                recurrent_dropout=rec).train()(x)
         assert seen == [want]
-    assert tgru.gru_route(8, 384, "cuda", masked=True) == "masked"
-    assert tgru.gru_route(8, 128, "cuda", masked=True) == "masked"
+    assert tgru.gru_route(384, masked=True) == "masked"
+    assert tgru.gru_route(128, masked=True) == "masked"
 
 
 def test_dropout_masks_are_per_gate_direction_and_row_and_follow_the_generator():

@@ -78,8 +78,15 @@ def test_eval_batches_equal_jax():
                           want)
     with pytest.raises(ValueError, match="whole number"):
         DeviceDataset(x, y, 7, "cpu", train=False)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DeviceDataset(x, y, 10, ["cpu", "cpu"])
+    # sharded over two ranks: each stages half of every clip, and the
+    # ranks' rows of a batch, in rank order, are the whole clip
+    from seld_tpu_torch.parallel.mesh import Mesh
+    shards = [list(DeviceDataset(x, y, 10, "cpu", train=False, mesh=Mesh(
+        axes={"data": 2}, world=2, rank=r, data_size=2, data_index=r,
+        device=torch.device("cpu")))) for r in range(2)]
+    _assert_batches_equal(
+        [tuple(torch.cat(parts) for parts in zip(*batches))
+         for batches in zip(*shards)], want)
 
 
 def test_from_clips_bf16_and_index_matrix():

@@ -337,9 +337,23 @@ def test_multistep_refuses_what_jax_refuses(k, unroll):
 
 
 def test_epoch_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_train_epoch(n_classes=N_CLASSES, mesh=object(),
-                         **_port_kwargs())
+    """make_train_epoch takes a mesh (several ranks: the two-rank epoch of
+    tests/test_torch_dp.py). A mesh without a process group is the
+    single-card path: the epoch equals the one without a mesh, bit for
+    bit."""
+    from seld_tpu_torch.parallel.mesh import make_mesh
+    x_all, y_all, idx = (torch.from_numpy(a) for a in _split())
+    runs = []
+    for mesh in (None, make_mesh("data:-1", "cpu")):
+        state = _port_state(None)
+        epoch = make_train_epoch(n_classes=N_CLASSES, mesh=mesh,
+                                 **_port_kwargs())
+        runs.append(epoch(state, TM.init_state(N_CLASSES, "cpu"), x_all,
+                          y_all, idx, torch.Generator()))
+    (a, ma, la), (b, mb, lb) = runs
+    _assert_same_state(a, b)
+    assert all(torch.equal(ma[k], mb[k]) for k in ma)
+    assert all(torch.equal(u, v) for u, v in zip(la, lb))
 
 
 @pytest.mark.parametrize("steps,unroll", [(6, 1), (6, 3), (7, 3), (2, 3)])

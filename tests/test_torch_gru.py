@@ -155,7 +155,9 @@ def _fwd_writes(plan, d, b, u):
     write on `plan`, by csrc/gru_fwd.cu's own index arithmetic: CTA
     (blockIdx.x, d) is rank blockIdx.x % C of tile blockIdx.x // C; thread
     tid is lane tid % S of CTA unit tid // S; lane l finishes rows
-    [l R, (l + 1) R), R = BT / S."""
+    [l R, (l + 1) R), R = BT / S. The streamed variant: `_stream_writes`."""
+    if plan.variant == gru._FWD_STREAM:
+        return _stream_writes(plan, b, u)
     s, ni, bt, maxt = gru._FWD_VARIANTS[plan.variant]
     assert plan.bt == bt and u <= 4 * s * ni and bt % s == 0
     assert plan.threads % 32 == 0 and plan.threads <= maxt
@@ -174,7 +176,33 @@ def _fwd_writes(plan, d, b, u):
     return writes
 
 
-@pytest.mark.parametrize("u", [64, 128, 152, 192, 200, 256])
+def _stream_writes(plan, b, u):
+    """The states the streamed variant's threads finish (both kernels), by
+    csrc/gru_{fwd,bwd}.cu's index arithmetic: CTA (blockIdx.x, d) is rank
+    blockIdx.x % C of tile blockIdx.x // C of kStreamBT rows; its threads
+    are KS groups of UW (tid = ks UW + l); group 0's thread l finishes CTA
+    units base + l, base = 0, UW, ..., below U / C, the other groups only
+    hand it partial sums."""
+    bt, maxt, kc, most = gru._STREAM
+    uc = u // plan.c
+    ks, uw = gru._stream_split(uc)
+    assert plan.bt == bt and plan.threads == ks * uw <= maxt
+    assert uw % 32 == 0 and ks <= most and kc % (4 * ks) == 0
+    writes = []
+    for dd in range(plan.grid[1]):
+        for bx in range(plan.grid[0]):
+            rank, b0 = bx % plan.c, (bx // plan.c) * bt
+            rows = min(bt, b - b0)
+            for base in range(0, uc, uw):
+                for tid in range(plan.threads):
+                    group, lane = divmod(tid, uw)
+                    if group == 0 and base + lane < uc:
+                        writes += [(dd, b0 + j, rank * uc + base + lane)
+                                   for j in range(rows)]
+    return writes
+
+
+@pytest.mark.parametrize("u", [64, 128, 152, 192, 200, 256, 384, 388, 2056])
 @pytest.mark.parametrize("b", [1, 3, 17, 32, 256])
 def test_fwd_plan_covers_every_state_exactly_once(b, u):
     """Every (direction, row, unit) once, on clusters of at most 8 CTAs
@@ -210,7 +238,7 @@ def test_fwd_plan_takes_every_u_the_kernel_takes(u):
         assert len(set(_fwd_writes(plan, 2, b, u))) == 2 * b * u
 
 
-@pytest.mark.parametrize("u", [2, 6, 148, 260, 384])
+@pytest.mark.parametrize("u", [2, 6, 148, 262, 386])
 def test_fwd_plan_raises_on_a_u_it_cannot_take(u):
     """Before any library load: the wrapper's checks and the plan run on
     CPU tensors here."""
@@ -223,6 +251,9 @@ def test_fwd_plan_raises_on_a_u_it_cannot_take(u):
     assert kernels._libs == loaded
     with pytest.raises(ValueError, match="does not take"):
         gru._fwd_plan(2, 8, 132, variant=gru._FWD_LATENCY)
+    for v, w in ((gru._FWD_STREAM, 256), (gru._FWD_WIDEST, 384)):
+        with pytest.raises(ValueError, match="does not take"):
+            gru._fwd_plan(2, 8, w, variant=v)
 
 
 def _has_plan(plan, u):
@@ -235,19 +266,23 @@ def _has_plan(plan, u):
 
 @pytest.mark.parametrize("u,takes", [(2, False), (4, True), (6, False),
                                      (128, True), (148, False), (200, False),
-                                     (208, True), (256, True), (260, False),
-                                     (384, False)])
+                                     (208, True), (256, True), (260, True),
+                                     (384, True)])
 def test_gru_kernel_applicable_is_what_the_plans_take(u, takes):
     """The route rule holds exactly where both kernels have a plan (U = 200
     has a forward plan only: 100 lane groups of the backward split evenly
-    over no cluster within 256 threads)."""
+    over no cluster within 256 threads; past 256 the streamed variants take
+    every U % 4 == 0)."""
     assert gru.gru_kernel_applicable(u) == takes
     assert (_has_plan(gru._fwd_plan, u) and _has_plan(gru._bwd_plan, u)) \
         == takes
 
 
 def test_every_u_the_rule_takes_has_both_plans():
-    for u in range(1, 400):
+    """Up to U = 1024: below 257 the register variants' rule, above it
+    every U % 4 == 0."""
+    for u in range(1, 1025):
+        assert gru.gru_kernel_applicable(u) or u % 4 or u <= 256
         if gru.gru_kernel_applicable(u):
             for b in (1, 3, 64, 256):
                 gru._fwd_plan(2, b, u)
@@ -263,24 +298,21 @@ def test_the_rule_takes_every_nas_and_shipped_unit_but_6():
     assert [u for u in nas if not gru.gru_kernel_applicable(u)] == [6]
 
 
-@pytest.mark.parametrize("b,u,device,route", [
-    (8, 128, "cuda", "kernel"), (3, 256, "cuda", "kernel"),
-    (8, 6, "cuda", "plain"), (8, 148, "cuda", "plain"),
-    (3, 384, "cuda", "plain"), (12, 512, "cuda", "plain"),
-    (8, 384, "cpu", "plain"), (8, 384, "cuda", None),
-    (16, 512, "cuda", None)])
-def test_gru_route(b, u, device, route):
-    """The plain route on the card only where the JAX package composes the
-    recurrence too (B % 8 or U % 128); where it runs its Pallas kernel and
-    the port's kernels do not take U, the card raises."""
-    if route is None:
-        with pytest.raises(NotImplementedError, match="GRU kernel"):
-            gru.gru_route(b, u, device)
-    else:
-        assert gru.gru_route(b, u, device) == route
+@pytest.mark.parametrize("u,route", [
+    (128, "kernel"), (256, "kernel"), (6, "plain"), (148, "plain"),
+    (384, "kernel"), (512, "kernel"), (4, "kernel"), (1024, "kernel"),
+    (390, "plain")])
+def test_gru_route(u, route):
+    """The plain route only where the JAX package composes the recurrence
+    too (U % 128 != 0: here U % 4 != 0, or a U <= 256 that no register
+    variant splits); every U % 128 == 0 takes the kernels, at any B and on
+    any device (their plain versions on the CPU). Recurrent-dropout masks
+    take the masked route at every U."""
+    assert gru.gru_route(u) == route
+    assert gru.gru_route(u, masked=True) == "masked"
 
 
-@pytest.mark.parametrize("u", [192, 256])
+@pytest.mark.parametrize("u", [192, 256, 384])
 def test_gru_scan_ref_matches_pallas_interpret_at_wide_units(u):
     xp, rk, rb = _scan_inputs(2, t=5, u=u, seed=7)
     with pltpu.force_tpu_interpret_mode():

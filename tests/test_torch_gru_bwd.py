@@ -124,7 +124,7 @@ def test_cuda_bwd_wrapper_checks_raise(case, exc, match):
     """The backward wrapper's argument checks and its plan run before any
     library load or launch; they are plain tensor checks, exercised here on
     CPU tensors."""
-    u = {"u_odd": 18, "u_too_wide": 260}.get(case, 16)
+    u = {"u_odd": 18, "u_too_wide": 164}.get(case, 16)
     xp = torch.zeros(2, 5, 8, 3 * u)
     rk, rb = torch.zeros(2, u, 3 * u), torch.zeros(2, 3 * u)
     hs, g = torch.zeros(2, 5, 8, u), torch.zeros(2, 5, 8, u)
@@ -193,7 +193,20 @@ def _bwd_states(plan, d, b, u):
     (blockIdx.x, d) is rank blockIdx.x % C of tile blockIdx.x // C; thread
     tid is lane tid % S of group tid // S, which owns the CTA's units
     [NU grp, NU (grp + 1)); lane l finishes entries e in [l R, (l + 1) R),
-    R = NU BT / S: row e // NU of the tile, unit e % NU of the group."""
+    R = NU BT / S: row e // NU of the tile, unit e % NU of the group. The
+    streamed recurrence: thread tid of pass p owns CTA unit p threads + tid
+    for all the tile's kStreamBT rows."""
+    if plan.variant == gru._BWD_STREAM:
+        # group 0's thread l of KS groups of UW: CTA units l, l + UW, ...
+        bt, maxt = gru._STREAM[:2]
+        uc = u // plan.c
+        ks, uw = gru._stream_split(uc)
+        assert plan.bt == bt and plan.threads == ks * uw <= maxt
+        return [(dd, (bx // plan.c) * bt + j, bx % plan.c * uc + base + l)
+                for dd in range(plan.grid[1]) for bx in range(plan.grid[0])
+                for base in range(0, uc, uw) for l in range(uw)
+                if base + l < uc
+                for j in range(min(bt, b - (bx // plan.c) * bt))]
     s, ni, bt, nu, maxt = gru._BWD_VARIANTS[plan.variant]
     assert plan.bt == bt and u <= 4 * s * ni and (nu * bt) % s == 0
     uc, r = u // plan.c, nu * bt // s
@@ -232,6 +245,21 @@ def test_bwd_plan_covers_every_state_exactly_once(b, u):
     assert len(states) == len(set(states)) == 2 * b * u
 
 
+@pytest.mark.parametrize("u", [260, 384, 388, 512, 2056])
+@pytest.mark.parametrize("b", [1, 17, 256])
+def test_streamed_bwd_plan_covers_every_state_exactly_once(b, u):
+    """Past U = 256 the streamed recurrence: clusters of 8 (or 4 where
+    8 does not divide U), a thread per CTA unit up to kStreamThreads
+    (U = 2056: 257 units a CTA, walked in two passes)."""
+    plan = gru._bwd_plan(2, b, u)
+    assert plan.variant == gru._BWD_STREAM
+    assert plan.c == (8 if u % 8 == 0 else 4) and u % plan.c == 0
+    uw = min(256, -(-(u // plan.c) // 32) * 32)
+    assert plan.threads == uw * min(256 // uw, 4)
+    states = _bwd_states(plan, 2, b, u)
+    assert len(states) == len(set(states)) == 2 * b * u
+
+
 def test_bwd_plan_at_the_path_shapes():
     """Training (B=256) one CTA a SM in 2-CTA clusters of 256 threads, as
     the forward; the feed's B=64 and small B on the latency variant."""
@@ -252,7 +280,7 @@ def test_bwd_plan_at_the_path_shapes():
         gru._bwd_plan(2, 8, 144, variant=gru._BWD_LATENCY)
 
 
-@pytest.mark.parametrize("u", [2, 6, 164, 200, 260, 384])
+@pytest.mark.parametrize("u", [2, 6, 164, 200, 262, 386])
 def test_bwd_plan_raises_on_a_u_it_cannot_take(u):
     with pytest.raises(ValueError, match="U % 4"):
         gru._bwd_plan(2, 8, u)
@@ -279,6 +307,11 @@ def test_variant_tables_equal_their_cuda_sources():
     assert _cuda_table("gru_bwd.cu", "kVariants") == gru._BWD_VARIANTS
     assert _cuda_table("gru_bwd.cu", "kMaxWeights") == gru._BWD_MAX_WEIGHTS
     assert _cuda_table("gru_fwd.cu", "kVariants") == gru._FWD_VARIANTS
+    for source in ("gru_fwd.cu", "gru_bwd.cu"):
+        assert tuple(_cuda_table(source, name) for name in (
+            "kStreamBT", "kStreamThreads", "kStreamChunk",
+            "kStreamSplits")) == gru._STREAM
+        assert _cuda_table(source, "kRegisterUnits") == gru._MAX_UNITS
 
 
 def _bwd_model(xp, rk, rb, hs, g):
@@ -347,7 +380,7 @@ def test_every_bwd_variant_covers_every_state_where_it_takes_u(b):
             assert len(states) == len(set(states)) == 2 * b * u
 
 
-@pytest.mark.parametrize("u", [192, 256])
+@pytest.mark.parametrize("u", [192, 256, 384])
 def test_gru_scan_bwd_ref_matches_pallas_interpret_at_wide_units(u):
     xp, rk, rb, hs, g = _bwd_inputs(2, t=5, u=u, seed=9)
     with pltpu.force_tpu_interpret_mode():

@@ -58,7 +58,8 @@ def test_port_files_exist():
                  "nas/sampler.py", "nas/analyzer.py", "nas/plots.py",
                  "nas/search.py", "data/vad.py", "train/vad.py",
                  "nas_search.py", "analyze_nas.py", "train_vad.py",
-                 "prepare_vad.py", "vad_rehearsal.py"):
+                 "prepare_vad.py", "vad_rehearsal.py", "parallel/mesh.py",
+                 "parallel/collectives.py"):
         assert os.path.join("seld_tpu_torch", want) in names
 
 
@@ -135,6 +136,30 @@ def test_copied_modules_equal_originals_modulo_package(rel):
     got = _code_without_docstrings(os.path.join(REPO, "seld_tpu_torch", rel),
                                    "seld_tpu_torch.")
     assert got == want
+
+
+def _function_ast(path, name):
+    """A top-level function's signature and body, its docstring and its
+    `if n_devices is None:` default (which asks its own framework for the
+    device count) left out."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    body = [st for st in fn.body[1:]
+            if not (isinstance(st, ast.If) and "n_devices is None"
+                    in ast.unparse(st.test))]
+    return ast.dump(fn.args) + "".join(ast.dump(st) for st in body)
+
+
+def test_parse_mesh_spec_copy_equals_original():
+    """seld_tpu_torch/parallel/mesh.py::parse_mesh_spec is a copy of the
+    JAX package's; only where `data:-1` counts the devices differs (the
+    group's ranks or the visible cards, `visible_devices`)."""
+    rel = os.path.join("parallel", "mesh.py")
+    assert _function_ast(os.path.join(REPO, "seld_tpu_torch", rel),
+                         "parse_mesh_spec") == _function_ast(
+        os.path.join(REPO, "seld_tpu", rel), "parse_mesh_spec")
 
 
 def test_copied_constants_equal():
