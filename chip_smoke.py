@@ -19,7 +19,7 @@ Phases, one line each:
               Conv2DBN stem with pool [5, 4] (one
               train step), whose backward runs stem_dy's generic path
               once; a biGRU at U=384 and U=512, B=8, through the
-              streamed GRU kernels (the JAX package runs its kernel
+              resident GRU kernels (the JAX package runs its kernel
               there), forward and gradients against the CPU;
               GRU dropout's routes on a biGRU U=128 (the same numpy masks
               on the card and the CPU): input dropout keeps gru_scan,
@@ -209,9 +209,14 @@ Phases, one line each:
               runs (c) alone. Neither prints a result line.
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
 at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152,
-both GRU kernels' streamed variants (U > 256) at ragged tiles, U=388,
-1024 and 2056 and timed at B=256, U in {384, 512}, bf16 and f32, beside
-cuDNN (gru_wide)
+both GRU kernels past U = 256 (gru_wide): the resident variants at
+U=260, 384, 388, 512 (ragged tiles, uneven CTA shares) and the streamed
+ones at U=1024, 2056, each call twice and bit-equal, both timed at B=256,
+U in {384, 512}, bf16 and f32, beside cuDNN, each plan printed with its
+register/shared split and cudaOccupancyMaxActiveClusters, the backward by
+pass, then SS5 with a 384-unit DOA biGRU graphed at B=256 (ms a step,
+windows/s, the GRU kernels' share; --gru-wide all runs gru_wide alone,
+--gru-wide step its SS5 step alone, neither with a result line)
 (phase 14 adds f32 B=256 at every NAS unit count, 4 to 256, both GRU
 kernels, and stem_dy in f32),
 printing each call's tile plan, and times every plan at the serving and
@@ -573,13 +578,15 @@ def _gru_inputs(rng, d, t, b, u, dtype):
 
 def phase_kernels(card):
     import torch
-    from seld_tpu_torch.ops.gru import (_FWD_VARIANTS, _STREAM, _fwd_plan,
+    from seld_tpu_torch.ops.gru import (_FWD_RESIDENT, _FWD_VARIANTS,
+                                        _RESIDENT_UNITS, _STREAM, _fwd_plan,
                                         _gru_scan_cuda, gru_scan,
                                         gru_scan_ref, library_variants)
 
-    if library_variants() != (_FWD_VARIANTS, _STREAM):
+    mirror = (_FWD_VARIANTS, _STREAM, (_FWD_RESIDENT, _RESIDENT_UNITS))
+    if library_variants() != mirror:
         raise SystemExit(f"csrc/gru_fwd.cu's variants {library_variants()} "
-                         f"differ from ops/gru.py's {_FWD_VARIANTS}")
+                         f"differ from ops/gru.py's {mirror}")
     rng = np.random.RandomState(0)
     d, t = 2, 60
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -818,15 +825,17 @@ def cudnn_gru_train(x_proj, rec_kernel, rec_bias, g):
 
 def phase_kernels_bwd(card):
     import torch
-    from seld_tpu_torch.ops.gru import (_BWD_VARIANTS, _STREAM, _bwd_plan,
+    from seld_tpu_torch.ops.gru import (_BWD_RESIDENT, _BWD_VARIANTS,
+                                        _RESIDENT_UNITS, _STREAM, _bwd_plan,
                                         _gru_scan_bwd_cuda, gru_scan_bwd,
                                         gru_scan_bwd_ref, gru_scan_ref,
                                         library_bwd_variants)
 
-    if library_bwd_variants() != (_BWD_VARIANTS, _STREAM):
+    mirror = (_BWD_VARIANTS, _STREAM, (_BWD_RESIDENT, _RESIDENT_UNITS))
+    if library_bwd_variants() != mirror:
         raise SystemExit(f"csrc/gru_bwd.cu's variants "
                          f"{library_bwd_variants()} differ from ops/gru.py's "
-                         f"{_BWD_VARIANTS}")
+                         f"{mirror}")
     rng = np.random.RandomState(4)
     d, t = 2, 60
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -941,82 +950,251 @@ def phase_kernels_bwd(card):
     return entries + [kernels_stem_dy(card)]
 
 
-# the streamed GRU variants (U > 256): correctness at ragged tiles, a
-# cluster of 4 (U = 388), and a CTA of more units than threads (U = 2056:
-# 257 a CTA, walked in two passes); then the timed rows at B = 256
-GRU_WIDE_CHECKS = (("float32", 3, 388), ("bfloat16", 17, 384),
+# the GRU kernels past U = 256: the resident variants (U <= 512) at B =
+# 256, bf16 and f32 (GRU_WIDE_ROWS, timed), at ragged tiles and uneven CTA
+# shares (U = 260: 36 units a CTA, the last 8; U = 388: 28 a CTA on 16, two
+# CTAs empty), each called twice (the second call bit-equal); the streamed
+# variants where they still run (U = 1024, 2056: 257 units a CTA, walked in
+# two passes) and, forced, at the timed rows beside the resident ones
+GRU_WIDE_CHECKS = (("float32", 3, 260), ("bfloat16", 17, 384),
+                   ("float32", 17, 388), ("bfloat16", 3, 512),
                    ("float32", 8, 1024), ("float32", 3, 2056))
 GRU_WIDE_ROWS = tuple((dtype, 256, u) for u in (384, 512)
                       for dtype in ("bfloat16", "float32"))
+# [gru_wide]'s full-width path: SS5 with its DOA biGRU at 384 units, B =
+# 256, bf16, make_train_multistep(WIDE_STEPS) replayed
+WIDE_UNITS = 384
+WIDE_STEPS = 8
+
+
+def _plan_wide(plan, d, b, u):
+    """A plan past U = 256 with its register/shared split and, for a
+    resident plan, cudaOccupancyMaxActiveClusters and its waves."""
+    from seld_tpu_torch.ops.gru import max_active_clusters
+    text = f"variant {plan.variant} C={plan.c} Bt={plan.bt} " \
+           f"threads={plan.threads} CTAs={plan.ctas}"
+    out = {"variant": plan.variant, "c": plan.c, "bt": plan.bt,
+           "threads": plan.threads, "ctas": plan.ctas}
+    if plan.smem:
+        active = max_active_clusters(plan, d, b, u)
+        clusters = plan.ctas // plan.c
+        waves = -(-clusters // active)
+        text += (f", Rk {plan.rk_reg / 1024:.0f} KiB in registers + "
+                 f"{plan.rk_smem / 1024:.0f} KiB in shared memory a CTA, "
+                 f"{plan.smem} B shared; cudaOccupancyMaxActiveClusters "
+                 f"{active}: {clusters} clusters in {waves} wave(s)")
+        out.update(rk_reg=plan.rk_reg, rk_smem=plan.rk_smem, smem=plan.smem,
+                   max_active_clusters=active, waves=waves)
+    return text, out
+
+
+def _wide_check(xp, rk, rb, g, fplan, bplan):
+    """The kernels on (fplan, bplan) against their plain versions, each
+    called twice: (forward max_abs_err, backward rel_errs, bit-equal)."""
+    import torch
+    from seld_tpu_torch.ops.gru import (_gru_scan_bwd_cuda, _gru_scan_cuda,
+                                        gru_scan_bwd_ref, gru_scan_ref)
+    ref = gru_scan_ref(xp, rk, rb)
+    hs = _gru_scan_cuda(xp, rk, rb, plan=fplan)
+    hs2 = _gru_scan_cuda(xp, rk, rb, plan=fplan)
+    got = _gru_scan_bwd_cuda(xp, rk, rb, ref, g, plan=bplan)
+    got2 = _gru_scan_bwd_cuda(xp, rk, rb, ref, g, plan=bplan)
+    torch.cuda.synchronize()
+    want = gru_scan_bwd_ref(xp, rk, rb, ref, g)
+    err = (hs.float() - ref.float()).abs().max().item()
+    errs = [rel_err(a, w) for a, w in zip(got, want)]
+    if hs.dtype != xp.dtype or got[0].dtype != xp.dtype:
+        raise SystemExit(f"the GRU kernels returned {hs.dtype} / "
+                         f"{got[0].dtype} for {xp.dtype} inputs")
+    same = torch.equal(hs, hs2) and all(
+        torch.equal(a, b) for a, b in zip(got, got2))
+    return err, errs, same
 
 
 def gru_wide(card):
-    """gru_scan and gru_scan_bwd past U = 256 (the streamed variants), each
-    against its plain version on the card (GRU_TOL, BWD_TOL), then at
-    D=2, T=60, B=256, U=384 and 512, bf16 and f32: kernel ms, plain ms,
-    bound ms, cuDNN's torch.nn.GRU ms at the same shape (forward: its
-    training forward; backward: forward + backward less the forward) and
-    the plan. Returns ({row: forward numbers}, {row: backward numbers})."""
+    """gru_scan and gru_scan_bwd past U = 256 against their plain versions
+    on the card (GRU_TOL, BWD_TOL), each call twice and bit-equal, on the
+    default plans (resident up to U = 512) and, at the timed rows, on the
+    streamed plans too; at D=2, T=60, B=256, U=384 and 512, bf16 and f32:
+    kernel ms of both, plain ms, bound ms, cuDNN's torch.nn.GRU ms at the
+    same shape (forward: its training forward; backward: forward +
+    backward less the forward) and the backward's device ms by pass; each
+    plan with its split and cudaOccupancyMaxActiveClusters. Then the
+    full-width path through the resident kernels (`wide_step`). Returns
+    ({row: forward numbers}, {row: backward numbers})."""
     import torch
-    from seld_tpu_torch.ops.gru import (_bwd_plan, _fwd_plan, gru_scan,
-                                        gru_scan_bwd, gru_scan_bwd_ref,
+    from seld_tpu_torch.ops.gru import (_BWD_STREAM, _FWD_STREAM,
+                                        _RESIDENT_UNITS, _bwd_plan,
+                                        _fwd_plan, _gru_scan_bwd_cuda,
+                                        _gru_scan_cuda, gru_scan_bwd_ref,
                                         gru_scan_ref)
     rng = np.random.RandomState(14)
     d, t = 2, 60
     fwd_rows, bwd_rows = {}, {}
     for dtype, b, u in GRU_WIDE_CHECKS + GRU_WIDE_ROWS:
         xp, rk, rb = _gru_inputs(rng, d, t, b, u, dtype)
-        hs = gru_scan(xp, rk, rb)
-        ref = gru_scan_ref(xp, rk, rb)
-        err = (hs.float() - ref.float()).abs().max().item()
         g = torch.from_numpy(rng.randn(d, t, b, u).astype(
             np.float32)).cuda().to(xp.dtype)
-        got = gru_scan_bwd(xp, rk, rb, ref, g)
-        want = gru_scan_bwd_ref(xp, rk, rb, ref, g)
-        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        timed = (dtype, b, u) in GRU_WIDE_ROWS
+        plans = [(_fwd_plan(d, b, u), _bwd_plan(d, b, u))]
+        if timed:
+            plans.append((_fwd_plan(d, b, u, variant=_FWD_STREAM),
+                          _bwd_plan(d, b, u, variant=_BWD_STREAM)))
         tols = [BWD_TOL[dtype], BWD_TOL["float32"], BWD_TOL["float32"]]
-        fplan, bplan = _fwd_plan(d, b, u), _bwd_plan(d, b, u)
-        ok = err <= GRU_TOL[dtype] and hs.dtype == xp.dtype and \
-            all(e <= tl for e, tl in zip(errs, tols))
-        log("kernels", f"gru_scan/gru_scan_bwd {dtype} B={b} U={u} "
-                       f"(streamed): forward max_abs_err {err:.3e} (tol "
-                       f"{GRU_TOL[dtype]:.1e}), backward rel_err dx_proj "
-                       f"{errs[0]:.2e} dRk {errs[1]:.2e} dRb {errs[2]:.2e} "
-                       f"(tol {tols[0]:.1e}/{tols[1]:.0e}) "
-                       f"{'ok' if ok else 'FAIL'}; {_plan_text(fplan)}")
-        if not ok:
-            raise SystemExit(f"the streamed GRU kernels disagree with their "
-                             f"plain versions at {dtype} B={b} U={u}")
-        if (dtype, b, u) not in GRU_WIDE_ROWS:
+        want = "streamed" if u > _RESIDENT_UNITS else "resident"
+        if (plans[0][0].variant == _FWD_STREAM) != (want == "streamed"):
+            raise SystemExit(f"U={u}: the plan {plans[0][0]} is not {want}")
+        for fplan, bplan in plans:
+            kind = "streamed" if fplan.variant == _FWD_STREAM else "resident"
+            err, errs, same = _wide_check(xp, rk, rb, g, fplan, bplan)
+            ok = same and err <= GRU_TOL[dtype] and \
+                all(e <= tl for e, tl in zip(errs, tols))
+            ftext, fjson = _plan_wide(fplan, d, b, u)
+            btext, bjson = _plan_wide(bplan, d, b, u)
+            log("kernels", f"gru_scan/gru_scan_bwd {dtype} B={b} U={u} "
+                           f"({kind}): forward max_abs_err {err:.3e} (tol "
+                           f"{GRU_TOL[dtype]:.1e}), backward rel_err dx_proj "
+                           f"{errs[0]:.2e} dRk {errs[1]:.2e} dRb "
+                           f"{errs[2]:.2e} (tol {tols[0]:.1e}/{tols[1]:.0e}),"
+                           f" a second call bit-equal {same} "
+                           f"{'ok' if ok else 'FAIL'}; forward plan {ftext}; "
+                           f"backward plan {btext}")
+            if not ok:
+                raise SystemExit(f"the {kind} GRU kernels disagree with "
+                                 f"their plain versions (or with themselves) "
+                                 f"at {dtype} B={b} U={u}")
+            if not timed:
+                continue
+            ref = gru_scan_ref(xp, rk, rb)
+            ms = cuda_ms(lambda: _gru_scan_cuda(xp, rk, rb, plan=fplan), 10)
+            bwd_ms = cuda_ms(lambda: _gru_scan_bwd_cuda(
+                xp, rk, rb, ref, g, plan=bplan), 5)
+            passes = kernel_split_ms(lambda: _gru_scan_bwd_cuda(
+                xp, rk, rb, ref, g, plan=bplan), 5, "gru_bwd_")
+            key = f"{dtype}_B{b}_U{u}" + ("" if kind == "resident"
+                                           else "_streamed")
+            fwd_rows[key] = {"ms": ms, "max_abs_err": err, "plan": fjson}
+            bwd_rows[key] = {"ms": bwd_ms, "rel_err": max(errs),
+                             "passes_ms": passes, "plan": bjson}
+            log("kernels", f"gru_scan {dtype} D=2 T=60 B={b} U={u} ({kind})"
+                           f" on {card}: kernel_ms {ms:.4f}")
+            log("kernels", f"gru_scan_bwd {dtype} D=2 T=60 B={b} U={u} "
+                           f"({kind}) on {card}: kernel_ms {bwd_ms:.4f}; "
+                           f"device ms by pass (profiler): "
+                           + _split_text(passes))
+        if not timed:
             continue
-        ms = cuda_ms(lambda: gru_scan(xp, rk, rb), 10)
+        ref = gru_scan_ref(xp, rk, rb)
+        key = f"{dtype}_B{b}_U{u}"
         plain_ms = cuda_ms(lambda: gru_scan_ref(xp, rk, rb), 2)
         bound_ms, bound_by = gru_scan_bound(xp, rk, rb)
-        bwd_ms = cuda_ms(lambda: gru_scan_bwd(xp, rk, rb, ref, g), 5)
         bwd_plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xp, rk, rb, ref, g), 1)
         bwd_bound_ms, bwd_bound_by = gru_bwd_bound(xp, rk, rb, ref, g)
         lib_fwd, lib_both = cudnn_gru_train(xp, rk, rb, g)
         lib_ms = cuda_ms(lib_fwd, 10)
         lib_bwd_ms = cuda_ms(lib_both, 10) - lib_ms
-        key = f"{dtype}_B{b}_U{u}"
-        fwd_rows[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "library_ms": lib_ms,
-                         "max_abs_err": err, "plan": _plan_json(fplan)}
-        bwd_rows[key] = {"ms": bwd_ms, "plain_ms": bwd_plain_ms,
-                         "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
-                         "library_ms": lib_bwd_ms, "rel_err": max(errs),
-                         "plan": _plan_json(bplan)}
+        fwd_rows[key].update(plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms)
+        bwd_rows[key].update(plain_ms=bwd_plain_ms, bound_ms=bwd_bound_ms,
+                             bound_by=bwd_bound_by, library_ms=lib_bwd_ms)
         log("kernels", f"gru_scan {dtype} D=2 T=60 B={b} U={u} on {card}: "
-                       f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                       f"library_ms (cuDNN GRU training forward) "
-                       f"{lib_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}); "
-                       f"{_plan_text(fplan)}")
+                       f"resident {fwd_rows[key]['ms']:.4f} ms, streamed "
+                       f"{fwd_rows[key + '_streamed']['ms']:.4f}; plain_ms "
+                       f"{plain_ms:.4f} library_ms (cuDNN GRU training "
+                       f"forward) {lib_ms:.4f} bound_ms {bound_ms:.5f} "
+                       f"({bound_by})")
         log("kernels", f"gru_scan_bwd {dtype} D=2 T=60 B={b} U={u} on "
-                       f"{card}: kernel_ms {bwd_ms:.4f} plain_ms "
-                       f"{bwd_plain_ms:.4f} library_ms (cuDNN GRU backward) "
-                       f"{lib_bwd_ms:.4f} bound_ms {bwd_bound_ms:.5f} "
-                       f"({bwd_bound_by}); {_plan_text(bplan)}")
+                       f"{card}: resident {bwd_rows[key]['ms']:.4f} ms, "
+                       f"streamed {bwd_rows[key + '_streamed']['ms']:.4f}; "
+                       f"plain_ms {bwd_plain_ms:.4f} library_ms (cuDNN GRU "
+                       f"backward) {lib_bwd_ms:.4f} bound_ms "
+                       f"{bwd_bound_ms:.5f} ({bwd_bound_by})")
+    fwd_rows["wide_step"] = wide_step(card)
     return fwd_rows, bwd_rows
+
+
+def _device_ms_by(fn, pattern):
+    """(device ms a call, device ms a call of the kernels whose name
+    matches `pattern`) over one call of fn, from torch.profiler; (None,
+    None) if it recorded no device time."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = part = 0.0
+    for avg in prof.key_averages():
+        if avg.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(avg, "self_device_time_total", None)
+        us = avg.self_cuda_time_total if us is None else us
+        total += us / 1e3
+        if re.search(pattern, avg.key):
+            part += us / 1e3
+    return (total, part) if total > 0 else (None, None)
+
+
+def wide_step(card):
+    """SS5 with its DOA biGRU at WIDE_UNITS units (a user config; the JAX
+    package runs it through its Pallas GRU), B=256, bf16, dropout on:
+    make_train_multistep(WIDE_STEPS) warmed up and captured, then a timed
+    call of replays: ms a step, windows/s, finite losses, exact launches
+    (gru_scan 2, gru_scan_bwd 2, stem_dy 1 a step), and the GRU kernels'
+    share of the device time of one replayed call (torch.profiler)."""
+    import torch
+    from seld_tpu_torch.bench import build, ss5_config
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.train.steps import make_train_multistep
+    cfg = ss5_config(True)
+    cfg["DOA_ARGS"] = dict(cfg["DOA_ARGS"], units=WIDE_UNITS)
+    torch.cuda.empty_cache()
+    b = build(batch=256, dtype="bf16", device="cuda", cfg=cfg)
+    k = WIDE_STEPS
+    multistep = make_train_multistep(steps_per_call=k, **b.step_kwargs)
+    xs = b.x.unsqueeze(0).expand(k, *b.x.shape)
+    ys = tuple(y.unsqueeze(0).expand(k, *y.shape) for y in b.y)
+    state, metric = b.state, b.metric
+    state, metric, _ = multistep(state, metric, xs, ys)   # warm up, capture
+    torch.cuda.synchronize()
+    kernels.launch_counts.clear()
+    times, losses = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, metric, (sl, dl) = multistep(state, metric, xs, ys)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / k * 1e3)
+        losses += [sl, dl]
+    launches = {n: kernels.launch_counts[n] for n in kernels.KERNELS}
+    want = {n: {"gru_scan": 2, "gru_scan_bwd": 2, "stem_dy": 1}.get(n, 0)
+            * 3 * k for n in kernels.KERNELS}
+
+    def call():
+        multistep(state, metric, xs, ys)
+    total, gru = _device_ms_by(call, r"gru_(fwd|bwd)_")
+    finite = bool(torch.isfinite(torch.cat(
+        [v.reshape(-1).float() for v in losses])).all())
+    ms = min(times)
+    ok = finite and launches == want
+    share = "not measured" if total is None else \
+        f"{gru / k:.4f} of {total / k:.4f} device ms a step " \
+        f"({100 * gru / total:.1f}%)"
+    log("kernels", f"SS5 DOA biGRU U={WIDE_UNITS} bf16 B=256 graphed "
+                   f"(make_train_multistep({k}), 3 calls): "
+                   + ", ".join(f"{x:.3f}" for x in times)
+                   + f" ms/step, best {256e3 / ms:.1f} windows/s; GRU "
+                   f"kernels {share}; losses finite {finite}; launches "
+                   f"{launches} (want {want}) on {card} "
+                   f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the U=384 SS5 step gave a non-finite loss or "
+                         "skipped a kernel")
+    return {"ms": times, "windows_per_s": 256e3 / ms,
+            "device_ms": None if total is None else total / k,
+            "gru_device_ms": None if total is None else gru / k}
 
 
 # stem_dy cases: (dtype, B, pool, y layout, dpooled layout); a layout is
@@ -1253,13 +1431,14 @@ def phase_routes(card):
     launch), and one training step of a Conv2DBN stem with pool [5, 4],
     whose fused backward runs stem_dy's generic path (one launch). A biGRU
     at U=384 and U=512, B=8, where the JAX package runs its Pallas kernel,
-    runs the streamed GRU kernels (one forward, one backward launch) and
+    runs the resident GRU kernels (one forward, one backward launch) and
     matches the CPU."""
     import torch
     from seld_tpu_torch.models.layers import GRU, Conv2DBN
     from seld_tpu_torch.ops import kernels
     from seld_tpu_torch.ops.features import extract_features_batch
-    from seld_tpu_torch.ops.gru import gru_route
+    from seld_tpu_torch.ops.gru import (_BWD_RES, _FWD_RES, _bwd_plan,
+                                        _fwd_plan, gru_route)
     from seld_tpu_torch.ops.stem_bwd import _VEC_WINDOWS
 
     def step(module, x, w, device):
@@ -1282,7 +1461,7 @@ def phase_routes(card):
 
     gru_counts = ("gru_scan", "gru_scan_bwd")
     # U % 4 != 0: the composed route, as the JAX package's lax.scan; U = 384
-    # and 512 at B = 8 (the JAX package's Pallas shapes): the streamed
+    # and 512 at B = 8 (the JAX package's Pallas shapes): the resident
     # kernels, one forward and one backward launch a layer
     for u, b in ((6, 8), (390, 3), (384, 8), (512, 8)):
         route = "plain" if u % 4 else "kernel"
@@ -1296,12 +1475,17 @@ def phase_routes(card):
         got, _ = step(layer, x, w, "cuda")
         err = max(_grads_err(got, want))
         counts = {k: kernels.launch_counts[k] for k in gru_counts}
+        # past U = 256 the plans pick the resident variants
+        resident = route == "kernel" and \
+            _fwd_plan(2, b, u).variant in _FWD_RES and \
+            _bwd_plan(2, b, u).variant in _BWD_RES
+        kind = ", resident kernels" if resident else ""
         log("routes", f"biGRU U={u} B={b} T=60 f32 on the card vs the CPU "
-                      f"({route} route): output and gradients rel_err "
+                      f"({route} route{kind}): output and gradients rel_err "
                       f"{err:.2e} (tol {TRAIN_GRAD_RTOL:.0e}); GRU kernel "
                       f"launches {counts}")
         launches = 1 if route == "kernel" else 0
-        if err > TRAIN_GRAD_RTOL or \
+        if err > TRAIN_GRAD_RTOL or (route == "kernel") != resident or \
                 any(n != launches for n in counts.values()):
             raise SystemExit(f"the {route} GRU route failed at U={u}")
     kernels.launch_counts.clear()
@@ -4916,6 +5100,11 @@ def main(argv=None):
              "planted fault, which (a)'s comparison must catch (faults), "
              "or only [dp] (c), NCCL steps and the CLI over two cards "
              "(cards); no result line")
+    parser.add_argument(
+        "--gru-wide", choices=("all", "step"), default=None,
+        help="build the kernels, then run only gru_wide (all: the GRU "
+             "kernels past U = 256 and the U=384 SS5 step) or only its SS5 "
+             "step (step); no result line")
     parser.add_argument("--dp-worker", nargs=6, default=None,
                         metavar=("RANK", "WORLD", "PORT", "BACKEND", "OUT",
                                  "FAULT"),
@@ -4961,6 +5150,12 @@ def main(argv=None):
                 log("kernels", f"{phase.__name__} FAILED: {e}")
                 failed.append(phase.__name__)
         raise SystemExit(f"failed: {failed}" if failed else 0)
+    if args.gru_wide:
+        t0 = time.perf_counter()
+        (gru_wide if args.gru_wide == "all" else wide_step)(smi)
+        log("time", f"gru_wide ({args.gru_wide}) "
+                    f"{time.perf_counter() - t0:.1f} s")
+        raise SystemExit(0)
     if args.dp:
         t0 = time.perf_counter()
         phase_dp(smi, only=args.dp)

@@ -48,9 +48,33 @@
 //      (16, 4, 8, 2) takes U up to 256: 96 Rk values a lane, and at U = 256
 //      a cluster of 8 CTAs of 256 threads whose double-buffered dhp rows
 //      fill the 48 KB of static shared memory.
-//      Past U = 256 the streamed recurrence (gru_bwd_stream_kernel) takes
-//      every U % 4 == 0: a CTA's Rk rows fit no register file, so each
-//      step reads them from device memory (L2) as Rk^T [D, 3U, U]
+//      From U = 260 to 512 the resident recurrence (gru_bwd_res_kernel)
+//      keeps a CTA's slice of Rk on chip for all T steps, split between
+//      registers and shared memory as in the forward's resident variants
+//      (csrc/gru_fwd.cu). Replicating dhp as the register variants do would
+//      take 2 x BT x 3U f32 a CTA (288 KiB at BT = 32, U = 384), so the
+//      product is split by dhp instead of by output unit: CTA `rank` owns
+//      units [rank ucw, rank ucw + ucw), forms their states and their dhp
+//      (dloc, [BT, 3 ucw] in its own shared memory: no exchange), and
+//      multiplies that dhp by the matching columns of Rk^T for EVERY output
+//      unit, Rk[u'][g U + rank ucw + unit] (3 ucw x C ucw f32, the same
+//      216 KiB as the forward's slice at U = 384). Its partial sums go to
+//      each unit's owner through st.shared::cluster.v4 into slots [2, C,
+//      BT, ucw] (double-buffered: one cluster barrier a step), and the owner
+//      adds the C partial sums in rank order: the exchange is BT x U values
+//      a CTA a step, as the forward's. A lane group of S lanes owns 4
+//      output units and splits the CTA's k' = g ucw + unit; a pass of RP
+//      rows ends in a reduce-scatter over the S lanes. A thread finishes
+//      the states of one unit in rows tid / ucw + 8 i; their next step's
+//      loads are issued between the barrier's arrive and its wait. At
+//      B = 256 tiles of 40 rows make 14 clusters: one wave at U <= 384 (C =
+//      8, 144 KiB of Rk in registers and 72 in shared memory beside 120 of
+//      slots and 22 of dloc), two at U <= 512 (C = 16: 144 + 48, beside 160
+//      and 15); the card runs at most 15 clusters of 8 and 7 of 16 at once.
+//      The streamed recurrence (gru_bwd_stream_kernel) takes every U % 4 ==
+//      0 past 256 and is the plan's past 512: a CTA's Rk rows fit no
+//      register file, so each step reads them from device memory (L2) as
+//      Rk^T [D, 3U, U]
 //      (gru_bwd_transpose_kernel, once a call; coalesced over a warp's
 //      units). A thread of CTA c owns one of its units for all kStreamBT
 //      rows of the tile; its carry (dh z, then + dhp @ Rk^T) lives in a
@@ -66,7 +90,11 @@
 //      (dRb) in a fixed order, so the result does not depend on block
 //      scheduling.
 //
-// What bounds it. At the training shape (D = 2, T = 60, B = 256, U = 128,
+// What bounds it. Pass 2 of every variant: the f32 FMAs of dhp @ Rk^T at
+// 67 TFLOP/s, then the per-step cluster barrier on the chain of T steps;
+// the resident recurrence reads Rk from registers and shared memory only
+// and exchanges the partial sums alone, once a step.
+// At the training shape (D = 2, T = 60, B = 256, U = 128,
 // bf16 storage) the three B x U x 3U products per step and direction are
 // 9.06 GFLOP, 0.135 ms at the f32 rate outside the tensor cores (67
 // TFLOP/s); the reference multiplies in f32, so neither bf16 nor one-pass
@@ -118,6 +146,35 @@ constexpr int kStreamSplits = 4;     // most groups splitting a chunk's j
 // UW = 64
 constexpr int kStreamPartials = 3 * kStreamBT * 64;
 constexpr int kRegisterUnits = 256;  // the widest U of kVariants
+
+struct Resident {
+  int c;   // CTAs a cluster (16: a non-portable size)
+  int s;   // lanes that split a group's k' range (the CTA's dhp)
+  int nr;  // 4-wide k' chunks a lane holds in registers
+  int ns;  // ... and in shared memory
+  int bt;  // most batch rows a tile
+  int rp;  // rows a pass
+};
+// the resident recurrence (U in (256, kResidentUnits]), mirrored by
+// seld_tpu_torch/ops/gru.py::_BWD_RESIDENT: a lane group owns 4 output
+// units, each CTA ucw = 4 ceil(U / 4c) units of dhp; variant i takes
+// 3 ucw <= 4 s (nr + ns)
+constexpr Resident kResident[] = {{8, 4, 6, 3, 40, 4}, {16, 2, 9, 3, 40, 4}};
+constexpr int kNumResident = sizeof(kResident) / sizeof(kResident[0]);
+constexpr int kResidentUnits = 512;  // the widest U of kResident
+constexpr int kGroupUnits = 4;       // output units of a lane group
+__host__ __device__ constexpr int res_k(const Resident& v) {
+  return 4 * v.s * (v.nr + v.ns);  // k' extent of a dhp row, 3 ucw <= it
+}
+__host__ __device__ constexpr int res_threads(const Resident& v) {
+  return res_k(v) / 3 * v.c / kGroupUnits * v.s;
+}
+static_assert(res_k(kResident[kNumResident - 1]) / 3 *
+                      kResident[kNumResident - 1].c ==
+                  kResidentUnits,
+              "kResidentUnits is the last variant's widest U");
+// a CTA's units: a multiple of 4, so that C of them cover U
+int res_cta_units(int U, int c) { return 4 * ((U + 4 * c - 1) / (4 * c)); }
 
 // passes 1 and 3: 128 x 128 output tiles, 16-deep k chunks, 8 x 8 a thread
 constexpr int kTile = 128;
@@ -774,6 +831,277 @@ gru_bwd_stream_kernel(const T* __restrict__ xp, const float* __restrict__ rkt,
   }
 }
 
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float a, float b,
+                                              float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+// acc[o][b] += sum over q of a[b][q] w[o][q] for the RP rows of a pass: one
+// 4-wide k' chunk of this lane; a points at the chunk in the pass's first
+// dhp row, the rows `stride` floats apart
+template <int NO, int RP>
+__device__ __forceinline__ void fma_chunk(float (&acc)[NO][RP],
+                                          const float* a, int stride,
+                                          const float (&w)[NO][4]) {
+  float4 a4[RP];
+#pragma unroll
+  for (int b = 0; b < RP; ++b)
+    a4[b] = *reinterpret_cast<const float4*>(a + b * stride);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+#pragma unroll
+      for (int b = 0; b < RP; ++b) {
+        const float aq = q == 0 ? a4[b].x : q == 1 ? a4[b].y
+                       : q == 2 ? a4[b].z : a4[b].w;
+        acc[o][b] = fmaf(aq, w[o][q], acc[o][b]);
+      }
+    }
+  }
+}
+
+// Adds up the partial sums of the S lanes of a group and leaves lane l the
+// totals of rows [l RP / S, (l + 1) RP / S) of every output in acc[o][0, ..).
+// Round by round (lane bit M from S / 2 down to 1; N rows in each half), a
+// lane keeps the half of its rows that its bit selects and adds its
+// partner's copy of that half.
+template <int M, int N, int NO, int RP>
+__device__ __forceinline__ void reduce_rows(float (&acc)[NO][RP], int lane) {
+  if constexpr (M >= 1) {
+    const bool upper = (lane & M) != 0;
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float send = upper ? acc[o][j] : acc[o][j + N];
+        const float keep = upper ? acc[o][j + N] : acc[o][j];
+        acc[o][j] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+      }
+    }
+    reduce_rows<M / 2, N / 2, NO, RP>(acc, lane);
+  }
+}
+
+// One state's loads: x_proj's and hp's gates, h_prev and g
+struct RawState {
+  float x[3], h[3], h_prev, g;
+};
+
+// Pass 2, resident; grid (tiles * C, D), clusters of C CTAs along x, blocks
+// of 8 ucw threads, dynamic shared memory res_bwd_smem(V, blockDim.x, ucw,
+// bt). As gru_bwd_rec_kernel: hp_dhp holds hp on entry and dhp on exit,
+// dbias [D, tiles, 3U] gets each tile's dhp summed over T (in step order),
+// over a thread's rows (in order) and over the threads of a unit (in
+// order). CTA `rank` owns units [rank ucw, rank ucw + ucw) below U:
+//   - thread tid finishes the states of unit tid % ucw in rows tid / ucw +
+//     8 i: dh = z dh' + (the C CTAs' partial sums, in rank order) + g, then
+//     dx_proj and dhp; dhp also into dloc[b][g ucw + unit], the CTA's dhp
+//     rows (k' = g ucw + unit);
+//   - in the product, lane l of group tid / S holds Rk[u'][g U + rank ucw +
+//     unit] for its 4 output units u' (of all C ucw) and its k' chunks, NR
+//     in registers and NS in shared memory as w_s[i - NR][o][tid]; a pass of
+//     RP rows: the partial sums over the CTA's k', a reduce-scatter over the
+//     S lanes, and each lane's rows, 4 units at a time, into the slots of
+//     the units' owner: slots[buf][rank][row][unit] (st.shared::cluster.v4);
+//   - ONE cluster barrier a step orders the slots (double-buffered); the
+//     next step's loads are issued between its arrive and its wait.
+template <int C, int S, int NR, int NS, int RP, int NST, int MAXT,
+          typename T>
+__global__ void __launch_bounds__(MAXT, 1)
+gru_bwd_res_kernel(const T* __restrict__ xp, const float* __restrict__ rk,
+                   const T* __restrict__ hs, const T* __restrict__ g,
+                   T* __restrict__ dxp, float* __restrict__ hp_dhp,
+                   float* __restrict__ dbias, int steps, int batch,
+                   int units, int ucw, int bt) {
+  constexpr int NO = kGroupUnits;
+  constexpr int KPB = 4 * S * (NR + NS);  // k' extent of a dhp row
+  constexpr int R = RP / S;               // rows a lane finishes a pass
+  static_assert(C * S == 32, "8 ucw threads: 8 rows of states at a time");
+  static_assert(RP % S == 0, "a pass splits over S lanes");
+  extern __shared__ __align__(16) float smem[];
+  const int nt = blockDim.x;                          // 8 ucw
+  float4* w_s = reinterpret_cast<float4*>(smem);      // [NS][NO][nt]
+  float* slots = smem + 4 * NS * NO * nt;             // [2][C][bt][ucw]
+  float* dloc = slots + 2 * C * bt * ucw;             // [bt][KPB]
+
+  const int U = units;
+  const int K = 3 * units;
+  const int tid = threadIdx.x;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int uc = max(0, min(ucw, U - rank * ucw));  // units of this CTA
+  const int d = blockIdx.y;
+  const int tile = blockIdx.x / C;
+  const int b0 = tile * bt;
+  const int rows = min(bt, batch - b0);
+  const int passes = (rows + RP - 1) / RP;
+
+  // the product: group tid / S owns output units uo0 .. uo0 + 3
+  const int lane = tid % S;
+  const int uo0 = NO * (tid / S);
+  const float* rk_d = rk + static_cast<size_t>(d) * U * K;
+  auto weight = [&](int i, int q, int o) {
+    const int kk = 4 * (S * i + lane) + q;
+    const int gt = kk / ucw, uk = kk % ucw;
+    return gt < 3 && uk < uc && uo0 + o < U
+               ? rk_d[static_cast<size_t>(uo0 + o) * K + gt * U +
+                      rank * ucw + uk]
+               : 0.0f;
+  };
+  float w[NR][NO][4];
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int o = 0; o < NO; ++o)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[i][o][q] = weight(i, q, o);
+  for (int i = 0; i < NS; ++i)
+    for (int o = 0; o < NO; ++o)
+      w_s[(i * NO + o) * nt + tid] =
+          make_float4(weight(NR + i, 0, o), weight(NR + i, 1, o),
+                      weight(NR + i, 2, o), weight(NR + i, 3, o));
+  for (int i = tid; i < bt * KPB; i += nt) dloc[i] = 0.0f;
+  const uint32_t slots_local =
+      static_cast<uint32_t>(__cvta_generic_to_shared(slots));
+  // where this group's sums go: the owner of its units, their first unit
+  const int owner = uo0 / ucw, oslot = uo0 % ucw;
+  const bool sends = uo0 < U;
+
+  // the states: unit uu of rows brow + 8 i
+  const int uu = tid % ucw, brow = tid / ucw;
+  const int u = rank * ucw + uu;
+  const bool live = uu < uc;
+  const size_t bstride = static_cast<size_t>(batch);
+  auto row_of = [&](int s, int b) {  // x_proj / workspace row of step s
+    const int t = d == 0 ? steps - 1 - s : s;
+    return (static_cast<size_t>(d) * steps + t) * bstride + b0 + b;
+  };
+  RawState raw[NST];
+  auto fetch = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < NST; ++i) {
+      const int b = brow + 8 * i;
+      if (!live || b >= rows) continue;
+      const size_t row = row_of(s, b);
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        raw[i].x[gt] = to_f32(xp[row * K + gt * U + u]);
+        raw[i].h[gt] = hp_dhp[row * K + gt * U + u];
+      }
+      raw[i].g = to_f32(g[row * U + u]);
+      raw[i].h_prev =
+          s + 1 < steps
+              ? to_f32(hs[(d == 0 ? row - bstride : row + bstride) * U + u])
+              : 0.0f;  // the scan start
+    }
+  };
+  float zdh[NST], bsum[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < NST; ++i) zdh[i] = 0.0f;
+  fetch(0);
+  // every CTA's dloc is zero, and every CTA runs, before any slot is written
+  cluster_arrive();
+  cluster_wait();
+
+  for (int s = 0; s < steps; ++s) {
+    // this step's states, from the previous step's slots
+    const float* in = slots + ((s + 1) & 1) * C * bt * ucw;
+#pragma unroll
+    for (int i = 0; i < NST; ++i) {
+      const int b = brow + 8 * i;
+      if (b >= bt) break;
+      const bool ok = live && b < rows;
+      float dhp[3] = {0.0f, 0.0f, 0.0f};
+      if (ok) {
+        float sum = 0.0f;
+        for (int c = 0; s > 0 && c < C; ++c) sum += in[(c * bt + b) * ucw + uu];
+        const RawState& w8 = raw[i];
+        const float z = sigmoid(w8.x[0] + w8.h[0]);
+        const float r = sigmoid(w8.x[1] + w8.h[1]);
+        const float hh = w8.h[2];
+        const float c = tanh_fast(w8.x[2] + r * hh);
+        const float ah = (1.0f - z) * (1.0f - c * c);
+        const float az = (w8.h_prev - c) * z * (1.0f - z);
+        const float ar = ah * hh * r * (1.0f - r);
+        const float dh = (zdh[i] + sum) + w8.g;
+        const float dx[3] = {dh * az, dh * ar, dh * ah};
+        dhp[0] = dx[0];
+        dhp[1] = dx[1];
+        dhp[2] = dh * (ah * r);
+        zdh[i] = dh * z;
+        const size_t row = row_of(s, b);
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) {
+          const float one[1] = {dx[gt]};
+          store_run<1>(dxp + row * K + gt * U + u, one);
+          hp_dhp[row * K + gt * U + u] = dhp[gt];
+          bsum[gt] += dhp[gt];
+        }
+      }
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) dloc[b * KPB + gt * ucw + uu] = dhp[gt];
+    }
+    __syncthreads();  // dloc holds this step's dhp
+    if (s + 1 == steps) break;
+    const int buf = s & 1;
+    for (int p = 0; p < passes; ++p) {
+      float acc[NO][RP];
+#pragma unroll
+      for (int o = 0; o < NO; ++o)
+#pragma unroll
+        for (int b = 0; b < RP; ++b) acc[o][b] = 0.0f;
+      const float* arow = dloc + p * RP * KPB;
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+        fma_chunk<NO, RP>(acc, arow + 4 * (S * i + lane), KPB, w[i]);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        float ws[NO][4];
+#pragma unroll
+        for (int o = 0; o < NO; ++o) {
+          const float4 f = w_s[(i * NO + o) * nt + tid];
+          ws[o][0] = f.x;
+          ws[o][1] = f.y;
+          ws[o][2] = f.z;
+          ws[o][3] = f.w;
+        }
+        fma_chunk<NO, RP>(acc, arow + 4 * (S * (NR + i) + lane), KPB, ws);
+      }
+      reduce_rows<S / 2, RP / 2, NO, RP>(acc, lane);
+      if (sends) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int row = p * RP + lane * R + j;
+          const uint32_t off = static_cast<uint32_t>(
+              (((buf * C + rank) * bt + row) * ucw + oslot) * sizeof(float));
+          st_cluster_v4(map_rank(slots_local + off, owner), acc[0][j],
+                        acc[1][j], acc[2][j], acc[3][j]);
+        }
+      }
+    }
+    cluster_arrive();
+    fetch(s + 1);  // the next step's loads while peers arrive
+    cluster_wait();
+  }
+  // this tile's dRb: each thread's sums, then the 8 threads of a unit in
+  // order (dloc is free: the last step runs no product)
+  float* part = dloc;  // [8][3][ucw]
+#pragma unroll
+  for (int gt = 0; gt < 3; ++gt) part[(brow * 3 + gt) * ucw + uu] = bsum[gt];
+  __syncthreads();
+  if (brow == 0 && live) {
+    float* out = dbias + (static_cast<size_t>(d) * (gridDim.x / C) + tile) * K;
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) {
+      float sum = 0.0f;
+      for (int m = 0; m < 8; ++m) sum += part[(m * 3 + gt) * ucw + uu];
+      out[gt * U + u] = sum;
+    }
+  }
+}
+
 // Pass 3: part[sl][d][u][j] = sum over rows n of slice sl of h_prev[d, n, u]
 // dhp[d, n, j]; grid (ceil(3U / 128), ceil(U / 128), D * slices). Thread
 // tid loads column tid % 128 of rows tid / 128 + 2 i of each chunk.
@@ -995,18 +1323,111 @@ cudaError_t dispatch_rec(int variant, const void* xp, const float* rk,
 }
 static_assert(kNumVariants == 4, "dispatch_rec() names every variant");
 
+// Dynamic shared memory of resident variant V for blocks of `threads`
+// threads, CTAs of ucw units and tiles of bt rows: its Rk chunks, the
+// double-buffered slots, the dhp rows.
+size_t res_bwd_smem(int V, int threads, int ucw, int bt) {
+  const Resident& v = kResident[V];
+  return sizeof(float) *
+         (static_cast<size_t>(4) * kGroupUnits * v.ns * threads +
+          static_cast<size_t>(2) * v.c * bt * ucw +
+          static_cast<size_t>(bt) * res_k(v));
+}
+
+// The launch configuration of resident variant V (clusters of C CTAs of
+// 8 ucw threads, grid (tiles * C, D)); false where it does not take U or bt.
+bool res_config(int V, int D, int B, int U, int cluster, int bt,
+                cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const Resident& v = kResident[V];
+  const int ucw = res_cta_units(U, v.c);
+  if (U <= kRegisterUnits || U % 4 || cluster != v.c ||
+      3 * ucw > res_k(v) || bt < 8 || bt > v.bt || bt % 8 || B < 1)
+    return false;
+  const int threads = v.c * ucw / kGroupUnits * v.s;
+  *cfg = {};
+  cfg->gridDim = dim3((B + bt - 1) / bt * v.c, D, 1);
+  cfg->blockDim = dim3(threads, 1, 1);
+  cfg->dynamicSmemBytes = res_bwd_smem(V, threads, ucw, bt);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = v.c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return true;
+}
+
+// variant V's kernel for storage type T
+template <int V, typename T>
+auto res_kernel() {
+  constexpr Resident v = kResident[V];
+  return gru_bwd_res_kernel<v.c, v.s, v.nr, v.ns, v.rp, v.bt / 8,
+                            res_threads(v), T>;
+}
+
+// Opens variant V's kernel to its shared memory and cluster size.
+template <int V, typename T>
+cudaError_t res_attributes(const cudaLaunchConfig_t& cfg) {
+  auto* kern = res_kernel<V, T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(cfg.dynamicSmemBytes));
+  if (err == cudaSuccess && kResident[V].c > kMaxCluster)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+template <int V, typename T>
+cudaError_t launch_res(const void* xp, const float* rk, const void* hs,
+                       const void* g, void* dxp, float* hp_dhp, float* dbias,
+                       int D, int T_steps, int B, int U, int cluster, int bt,
+                       cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  if (!res_config(V, D, B, U, cluster, bt, &cfg, attr))
+    return cudaErrorInvalidValue;
+  cfg.stream = stream;
+  cudaError_t err = res_attributes<V, T>(cfg);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, res_kernel<V, T>(),
+                           static_cast<const T*>(xp), rk,
+                           static_cast<const T*>(hs),
+                           static_cast<const T*>(g), static_cast<T*>(dxp),
+                           hp_dhp, dbias, T_steps, B, U,
+                           res_cta_units(U, kResident[V].c), bt);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// cudaOccupancyMaxActiveClusters of variant V at this launch, into *out
+template <int V>
+cudaError_t res_max_clusters(int D, int B, int U, int bt, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  if (!res_config(V, D, B, U, kResident[V].c, bt, &cfg, attr))
+    return cudaErrorInvalidValue;
+  cudaError_t err = res_attributes<V, float>(cfg);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(out, res_kernel<V, float>(), &cfg);
+}
+static_assert(kNumResident == 2, "launch() names every resident variant");
+
 template <typename T>
 cudaError_t launch(const void* xp, const float* rk, const float* rb,
                    const void* hs, const void* g, void* dxp, float* workspace,
                    float* drk, float* drb, int D, int T_steps, int B, int U,
-                   int variant, int cluster, cudaStream_t stream) {
+                   int variant, int cluster, int res_bt,
+                   cudaStream_t stream) {
   const int K = 3 * U;
   const int N = T_steps * B;
   float* hp_dhp = workspace;
   float* dbias = hp_dhp + hp_floats(D, N, U);
   float* part = dbias + hp_floats(D, B, U);
   const bool streamed = variant == kNumVariants;
-  if (streamed != (U > kRegisterUnits)) return cudaErrorInvalidValue;
+  const bool resident = variant > kNumVariants;
+  if ((streamed || resident) != (U > kRegisterUnits) ||
+      variant > kNumVariants + kNumResident)
+    return cudaErrorInvalidValue;
 
   gru_bwd_hp_kernel<T><<<dim3((K + kTile - 1) / kTile, (N + kTile - 1) / kTile,
                               D),
@@ -1016,7 +1437,13 @@ cudaError_t launch(const void* xp, const float* rk, const float* rb,
   if (err != cudaSuccess) return err;
 
   const int slices = reduce_slices(D, N, U);
-  if (streamed) {
+  if (resident) {
+    err = variant == kNumVariants + 1
+              ? launch_res<0, T>(xp, rk, hs, g, dxp, hp_dhp, dbias, D,
+                                 T_steps, B, U, cluster, res_bt, stream)
+              : launch_res<1, T>(xp, rk, hs, g, dxp, hp_dhp, dbias, D,
+                                 T_steps, B, U, cluster, res_bt, stream);
+  } else if (streamed) {
     float* carry = part + static_cast<size_t>(slices) * D * U * K;
     err = launch_stream<T>(xp, rk, hs, g, dxp, hp_dhp, dbias, carry,
                            carry + static_cast<size_t>(D) * B * U, D, T_steps,
@@ -1027,7 +1454,8 @@ cudaError_t launch(const void* xp, const float* rk, const float* rb,
   }
   if (err != cudaSuccess) return err;
   // a valid variant: it launched
-  const int bt = streamed ? kStreamBT : kVariants[variant].bt;
+  const int bt = resident ? res_bt
+                 : streamed ? kStreamBT : kVariants[variant].bt;
 
   const dim3 grid((K + kTile - 1) / kTile, (U + kTile - 1) / kTile,
                   D * slices);
@@ -1073,6 +1501,33 @@ int seld_gru_bwd_stream_params(int* out, int cap) {
   return 4;
 }
 
+// Writes the resident recurrence's table as (C, S, NR, NS, BT, RP)
+// sextuples and kResidentUnits after them into out; returns the number of
+// variants
+int seld_gru_bwd_resident(int* out, int cap) {
+  if (cap < 6 * kNumResident + 1) return 0;
+  for (int i = 0; i < kNumResident; ++i) {
+    const Resident& v = kResident[i];
+    const int row[6] = {v.c, v.s, v.nr, v.ns, v.bt, v.rp};
+    for (int j = 0; j < 6; ++j) out[6 * i + j] = row[j];
+  }
+  out[6 * kNumResident] = kResidentUnits;
+  return kNumResident;
+}
+
+// cudaOccupancyMaxActiveClusters of the resident recurrence `variant` (plan
+// index kNumVariants + 1 + i) at D, B, U and tiles of bt rows, into *out;
+// returns a cudaError_t
+int seld_gru_bwd_max_clusters(int D, int B, int U, int variant, int bt,
+                              int* out) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (variant == kNumVariants + 1)
+    err = res_max_clusters<0>(D, B, U, bt, out);
+  else if (variant == kNumVariants + 2)
+    err = res_max_clusters<1>(D, B, U, bt, out);
+  return static_cast<int>(err);
+}
+
 // Bytes of scratch one call needs (hp/dhp and pass 3's partials); the
 // wrapper allocates them as one flat buffer, whose layout is this file's.
 size_t seld_gru_bwd_workspace_bytes(int D, int T_steps, int B, int U) {
@@ -1081,13 +1536,15 @@ size_t seld_gru_bwd_workspace_bytes(int D, int T_steps, int B, int U) {
 
 // Returns a cudaError_t (0 on success). is_bf16 selects the storage type of
 // x_proj, hs, g and dx_proj; rk, rb, drk and drb are f32; workspace holds
-// seld_gru_bwd_workspace_bytes(D, T_steps, B, U) bytes; variant and cluster
-// come from the wrapper's plan (variant kNumVariants is the streamed
-// recurrence, the one variant past U = 256).
+// seld_gru_bwd_workspace_bytes(D, T_steps, B, U) bytes; variant, cluster
+// and bt (the resident recurrence's tile rows) come from the wrapper's plan
+// (variant kNumVariants is the streamed recurrence, kNumVariants + 1 + i
+// resident variant i; both only past U = 256).
 int seld_gru_bwd(const void* xp, const void* rk, const void* rb,
                  const void* hs, const void* g, void* dxp, void* workspace,
                  void* drk, void* drb, int D, int T_steps, int B, int U,
-                 int is_bf16, int variant, int cluster, void* stream) {
+                 int is_bf16, int variant, int cluster, int bt,
+                 void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* rkf = static_cast<const float*>(rk);
   const auto* rbf = static_cast<const float*>(rb);
@@ -1097,9 +1554,9 @@ int seld_gru_bwd(const void* xp, const void* rk, const void* rb,
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(xp, rkf, rbf, hs, g, dxp, ws, drkf,
                                       drbf, D, T_steps, B, U, variant,
-                                      cluster, st)
+                                      cluster, bt, st)
               : launch<float>(xp, rkf, rbf, hs, g, dxp, ws, drkf, drbf, D,
-                              T_steps, B, U, variant, cluster, st);
+                              T_steps, B, U, variant, cluster, bt, st);
   return static_cast<int>(err);
 }
 

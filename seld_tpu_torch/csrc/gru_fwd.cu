@@ -34,9 +34,10 @@
 //     the lanes of its padding units compute on zero weights and store
 //     nothing.
 // Four variants (S, NI, BT) take U % 4 == 0 up to 256 where a cluster
-// size splits U evenly (kVariants), the streamed one (below) every
-// U % 4 == 0 past 256; the plan, seld_tpu_torch/ops/gru.py::_fwd_plan,
-// picks the variant and C.
+// size splits U evenly (kVariants), the two resident ones (below) every
+// U % 4 == 0 in (256, 512], the streamed one every U % 4 == 0 past 256
+// (the plan's past 512); the plan, seld_tpu_torch/ops/gru.py::_fwd_plan,
+// picks the variant, C and, for a resident variant, BT.
 // At small B the latency variant (4, 8, 4) spreads a tile of 4 rows over a
 // cluster of 8 CTAs of 64 threads (B = 32: 128 CTAs); at large B the batch
 // variant (4, 8, 8) packs a tile of 8 rows into 2 CTAs of 256 threads (B =
@@ -45,10 +46,46 @@
 // (8, 8, 8) U up to 256: 8 lanes a unit keep 96 Rk values a lane, and at
 // U = 256 a cluster of 8 CTAs of 256 threads.
 //
-// Past U = 256 the streamed variant (gru_fwd_stream_kernel) takes every
-// U % 4 == 0: a CTA's slice of Rk (U x 3U/C f32, 221 KB at U = 384 on 8
-// CTAs) fits neither the registers nor, beside h, the shared memory of one
-// SM. So each step streams the slice from device memory (L2: both
+// From U = 260 to 512 the resident variants (gru_fwd_res_kernel, also a
+// replacement of _fwd_kernel) keep a CTA's slice of Rk on chip for all T
+// steps. The slice (U x 3 ucw f32, 216 KiB at U = 384 on 8 CTAs) fits
+// neither the registers nor the shared memory alone, so it is split: a
+// lane holds its chunks i < NR in registers and the NS others in shared
+// memory, read each pass as float4 (a warp's reads are contiguous). Beside
+// them each CTA keeps the double-buffered h rows of the tile, replicated
+// ([2, BT, 4 S (NR + NS)] f32), and, as the register variants, the new h
+// goes to every CTA of the cluster through st.shared::cluster with ONE
+// cluster barrier a step. Tiles are of BT <= 40 rows, walked in passes of
+// RP rows (a reduce-scatter over the S lanes leaves lane l one row a pass)
+// so that the accumulators fit beside the held Rk.
+//   Why this layout: the streamed step at U = 384, B = 256, bf16 took
+// 59.4 us; without Rk's loads 42.3, without the h staging 46.8, without
+// the cluster barrier 60.2 (python -m seld_tpu_torch.gru_probe, H100 SXM):
+// the Rk reads and h's round trip through L2 were the cost, the barrier
+// was not. The card runs at most 15 one-CTA-a-SM clusters of 8 and 7 of
+// 16 at once (cudaOccupancyMaxActiveClusters), and every cluster walks all
+// T steps, so a second wave doubles the time: at B = 256 tiles of 40 rows
+// make 14 clusters, one wave at U <= 384 (C = 8, 216 KiB of Rk a CTA: 126
+// KiB in registers, 90 in shared memory beside 120 of h), two at U <= 512
+// (C = 16, a non-portable size: 192 KiB of Rk, 132 in registers, 60 in
+// shared memory beside 160 of h). At U = 512, one wave would need 3 tiles
+// of 86 rows: 344 KiB of replicated h rows. A CTA owns ucw = 4 ceil(U /
+// 4C) units (the last CTAs fewer, or none), so every U % 4 == 0 splits.
+//   What bounds it on the card: a lane uses each h value it reads from
+// shared memory for 3 FMAs (its unit's three gates), and shared memory
+// hands out 32 lane-words a clock, so the h reads allow 3 of the SM's 4
+// FMA instructions a clock. Measured at U = 384, B = 256 (gru_probe
+// --kernel resident): 21.1 us a step, 12.8 without the h reads, 19.4
+// without the exchange or without the shared-memory Rk chunks, 20.4
+// without the barrier; the FMAs alone need 9.8. A lane holding two units
+// would halve the h reads, but its Rk share then needs more registers than
+// a thread may have beside its accumulators.
+//
+// The streamed variant (gru_fwd_stream_kernel) takes every U % 4 == 0 past
+// 256 and is the plan's past 512: a CTA's slice of Rk (U x 3U/C f32, 221 KB
+// at U = 384 on 8 CTAs) fits neither the registers nor, beside h, the
+// shared memory of one SM. So each step streams the slice from device
+// memory (L2: both
 // directions' Rk stay resident up to U ~ 1,400) and h goes through memory
 // too:
 //   - a cluster of C CTAs (the largest of 8, 4 dividing U) per (direction,
@@ -66,13 +103,16 @@
 //     step (arrive.release, wait.acquire) makes them visible to the
 //     cluster's other CTAs before the next step reads them.
 //
-// What bounds it: the f32 FMAs of h @ Rk at 67 TFLOP/s (the reference
-// multiplies in f32, so neither bf16 nor single-pass TF32 tensor-core
-// products may stand in), then the per-step cluster barrier on the serial
-// chain of T steps. At B = 256 each SM issues 8 x 192 x 128 FMAs a step,
+// What bounds every variant: the f32 FMAs of h @ Rk at 67 TFLOP/s (the
+// reference multiplies in f32, so neither bf16 nor single-pass TF32
+// tensor-core products may stand in), then the per-step cluster barrier on
+// the serial chain of T steps. The resident variants meet the first by
+// reading Rk from registers and shared memory only, and the second by one
+// barrier a step whose exchange is the new h alone. In the register
+// variants at U = 128, B = 256 each SM issues 8 x 192 x 128 FMAs a step,
 // ~1,536 cycles of its f32 lanes; at small B a step is short and the
 // exchange (DSMEM stores and the barrier) and the gates are most of it.
-// The previous design kept all of Rk[d] (192 KB) in shared memory and
+// Their previous design kept all of Rk[d] (192 KB) in shared memory and
 // streamed it through every step for 4 batch rows (~1,500 shared-memory
 // wavefronts a step, two block barriers, 16 of 132 SMs busy at B = 32);
 // here Rk never moves after its first load, and a step reads only h
@@ -105,6 +145,31 @@ constexpr int kStreamSplits = 4;     // most groups splitting a chunk's k
 constexpr int kStreamPartials = 3 * 3 * kStreamBT * 64;
 constexpr int kRegisterUnits = 256;  // the widest U of kVariants
 constexpr int kGroup = 8;         // h rows read ahead of their FMAs
+
+struct Resident {
+  int c;   // CTAs a cluster (16: a non-portable size)
+  int s;   // lanes that split one unit's k-range
+  int nr;  // 4-row k chunks a lane holds in registers
+  int ns;  // ... and in shared memory
+  int bt;  // most batch rows a tile
+  int rp;  // rows a pass
+};
+// the resident variants (U in (256, kResidentUnits]), mirrored by
+// seld_tpu_torch/ops/gru.py::_FWD_RESIDENT: variant i takes U <= 4 s (nr +
+// ns), each CTA ucw = 4 ceil(U / 4c) units (the last ones fewer)
+constexpr Resident kResident[] = {{8, 8, 7, 5, 40, 8}, {16, 8, 11, 5, 40, 8}};
+constexpr int kNumResident = sizeof(kResident) / sizeof(kResident[0]);
+constexpr int kResidentUnits = 512;  // the widest U of kResident
+__host__ __device__ constexpr int res_units(const Resident& v) {
+  return 4 * v.s * (v.nr + v.ns);
+}
+__host__ __device__ constexpr int res_threads(const Resident& v) {
+  return res_units(v) / v.c * v.s;
+}
+static_assert(res_units(kResident[kNumResident - 1]) == kResidentUnits,
+              "kResidentUnits is the last variant's widest U");
+// a CTA's units: a multiple of 4, so that C of them cover U
+int res_cta_units(int U, int c) { return 4 * ((U + 4 * c - 1) / (4 * c)); }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -464,8 +529,253 @@ gru_fwd_stream_kernel(const T* __restrict__ xp, const float* __restrict__ rk,
   }
 }
 
+// acc[g][b] += sum over q of a[b][q] w[g][q] for the RP rows of a pass: one
+// 4-row k chunk of this lane; a points at the chunk in the pass's first h
+// row, the rows `stride` floats apart; G rows' float4 reads are issued before
+// their 12 G FMAs
+template <int RP, int G>
+__device__ __forceinline__ void fma_chunk(float (&acc)[3][RP],
+                                          const float* a, int stride,
+                                          const float (&w)[3][4]) {
+#pragma unroll
+  for (int b0 = 0; b0 < RP; b0 += G) {
+    float4 h4[G];
+#pragma unroll
+    for (int b = 0; b < G; ++b)
+      h4[b] = *reinterpret_cast<const float4*>(a + (b0 + b) * stride);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+#pragma unroll
+        for (int b = 0; b < G; ++b) {
+          const float hq = q == 0 ? h4[b].x : q == 1 ? h4[b].y
+                         : q == 2 ? h4[b].z : h4[b].w;
+          acc[g][b0 + b] = fmaf(hq, w[g][q], acc[g][b0 + b]);
+        }
+      }
+    }
+  }
+}
+
+// The resident variant V; grid (tiles * C, D), clusters of C CTAs along x,
+// dynamic shared memory res_fwd_smem(V, blockDim.x, bt). CTA `rank` owns
+// units [rank ucw, rank ucw + ucw) below U; thread tid is lane tid % S of
+// CTA unit tid / S. Its Rk chunks i < NR live in registers, the NS others in
+// shared memory as w_s[i - NR][g][tid] (float4 over q: a warp's reads are
+// 512 contiguous bytes). A step walks the tile's rows in passes of RP:
+// products, a reduce-scatter that leaves lane l row l RP / S + j, the gates
+// and the exchange of that row's new state.
+template <int C, int S, int NR, int NS, int RP, int MAXT, typename T>
+__global__ void __launch_bounds__(MAXT, 1)
+gru_fwd_res_kernel(const T* __restrict__ xp, const float* __restrict__ rk,
+                   const float* __restrict__ rb, T* __restrict__ hs,
+                   int steps, int batch, int units, int ucw, int bt) {
+  constexpr int KP = 4 * S * (NR + NS);  // k extent of an h row, 0 from U on
+  constexpr int R = RP / S;         // rows a lane finishes a pass
+  constexpr int G = RP < 4 ? RP : 4;
+  static_assert(RP % S == 0 && RP % G == 0, "a pass splits over S lanes");
+  extern __shared__ __align__(16) float smem[];
+  const int nt = blockDim.x;
+  float4* w_s = reinterpret_cast<float4*>(smem);  // [NS][3][nt]
+  float* h_flat = smem + 4 * NS * 3 * nt;         // [2][bt][KP]
+
+  const int U = units;
+  const int K = 3 * units;
+  const int tid = threadIdx.x;
+  const int lane = tid % S, uu = tid / S;
+  const int rank = static_cast<int>(cluster_ctarank());
+  const int uc = max(0, min(ucw, U - rank * ucw));  // units of this CTA
+  const bool live = uu < uc;  // not a padding unit
+  const int u = rank * ucw + uu;
+  const int d = blockIdx.y;
+  const int b0 = (blockIdx.x / C) * bt;
+  const int rows = min(bt, batch - b0);
+  const int passes = (rows + RP - 1) / RP;
+
+  // this lane's slice of Rk[d], on chip for the whole loop
+  const float* rk_d = rk + static_cast<size_t>(d) * U * K;
+  auto weight = [&](int i, int q, int g) {
+    const int k = 4 * (S * i + lane) + q;
+    return live && k < U ? rk_d[static_cast<size_t>(k) * K + g * U + u]
+                         : 0.0f;
+  };
+  float w[NR][3][4];
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int g = 0; g < 3; ++g) w[i][g][q] = weight(i, q, g);
+  for (int i = 0; i < NS; ++i)
+    for (int g = 0; g < 3; ++g)
+      w_s[(i * 3 + g) * nt + tid] =
+          make_float4(weight(NR + i, 0, g), weight(NR + i, 1, g),
+                      weight(NR + i, 2, g), weight(NR + i, 3, g));
+  float bias[3];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+    bias[g] = live ? rb[static_cast<size_t>(d) * K + g * U + u] : 0.0f;
+  for (int i = tid; i < 2 * bt * KP; i += nt) h_flat[i] = 0.0f;
+  const uint32_t h_local =
+      static_cast<uint32_t>(__cvta_generic_to_shared(h_flat));
+
+  const size_t step_elems = static_cast<size_t>(batch) * K;  // one t
+  const T* xp_d = xp + static_cast<size_t>(d) * steps * step_elems +
+                  static_cast<size_t>(b0) * K;
+  // every CTA's h buffers are zero before any peer writes into them
+  cluster_arrive();
+  cluster_wait();
+
+  for (int s = 0; s < steps; ++s) {
+    const int t = d == 0 ? s : steps - 1 - s;
+    const float* hc = h_flat + (s & 1) * bt * KP;
+    const bool exchange = s + 1 < steps;
+    const int nxt = (s & 1) ^ 1;
+    const T* xp_t = xp_d + static_cast<size_t>(t) * step_elems;
+    T* hs_t = hs + ((static_cast<size_t>(d) * steps + t) * batch + b0) * U;
+    for (int p = 0; p < passes; ++p) {
+      const int first = p * RP + lane * R;
+      // the gates' x_proj values, read while the products run
+      float x[3][R];
+      load_x<R>(x, xp_t, K, U, u, first, rows, live);
+      float acc[3][RP];
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int b = 0; b < RP; ++b) acc[g][b] = 0.0f;
+      const float* hrow = hc + p * RP * KP;
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+        fma_chunk<RP, G>(acc, hrow + 4 * (S * i + lane), KP, w[i]);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        float ws[3][4];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const float4 f = w_s[(i * 3 + g) * nt + tid];
+          ws[g][0] = f.x;
+          ws[g][1] = f.y;
+          ws[g][2] = f.z;
+          ws[g][3] = f.w;
+        }
+        fma_chunk<RP, G>(acc, hrow + 4 * (S * (NR + i) + lane), KP, ws);
+      }
+      reduce_scatter<S / 2, RP / 2, RP>(acc, lane);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int row = first + j;
+        // the previous state: every CTA's buffer holds every unit's
+        const float h = hc[row * KP + u];
+        const float z = sigmoid(x[0][j] + (acc[0][j] + bias[0]));
+        const float r = sigmoid(x[1][j] + (acc[1][j] + bias[1]));
+        const float c = tanh_fast(x[2][j] + r * (acc[2][j] + bias[2]));
+        const float hn = z * h + (1.0f - z) * c;
+        if (live && row < rows)
+          store(hs_t + static_cast<size_t>(row) * U + u, hn);
+        if (live && exchange) {
+          const uint32_t off = static_cast<uint32_t>(
+              ((nxt * bt + row) * KP + u) * sizeof(float));
+#pragma unroll
+          for (int peer = 0; peer < C; ++peer)
+            st_cluster(map_rank(h_local + off, peer), hn);
+        }
+      }
+    }
+    if (exchange) {
+      cluster_arrive();
+      cluster_wait();
+    }
+  }
+}
+
 // the cluster size of the streamed variant: the largest of 8, 4 dividing U
 int stream_cluster(int U) { return U % 8 == 0 ? 8 : 4; }
+
+// Dynamic shared memory of resident variant V for blocks of `threads`
+// threads and tiles of bt rows: its Rk chunks, then the double-buffered h
+// rows.
+size_t res_fwd_smem(int V, int threads, int bt) {
+  const Resident& v = kResident[V];
+  return sizeof(float) * (static_cast<size_t>(4) * 3 * v.ns * threads +
+                          static_cast<size_t>(2) * bt * res_units(v));
+}
+
+// The launch configuration of resident variant V (clusters of C CTAs of
+// ucw S threads, grid (tiles * C, D)); false where the variant does not
+// take U or bt.
+bool res_config(int V, int D, int B, int U, int cluster, int bt,
+                cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const Resident& v = kResident[V];
+  const int ucw = res_cta_units(U, v.c);
+  if (U <= kRegisterUnits || U % 4 || cluster != v.c ||
+      ucw * v.c > res_units(v) || bt < 8 || bt > v.bt || bt % 8 || B < 1)
+    return false;
+  *cfg = {};
+  cfg->gridDim = dim3((B + bt - 1) / bt * v.c, D, 1);
+  cfg->blockDim = dim3(ucw * v.s, 1, 1);
+  cfg->dynamicSmemBytes = res_fwd_smem(V, ucw * v.s, bt);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = v.c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return true;
+}
+
+// variant V's kernel for storage type T
+template <int V, typename T>
+auto res_kernel() {
+  constexpr Resident v = kResident[V];
+  return gru_fwd_res_kernel<v.c, v.s, v.nr, v.ns, v.rp, res_threads(v), T>;
+}
+
+// Opens variant V's kernel to its shared memory and cluster size.
+template <int V, typename T>
+cudaError_t res_attributes(const cudaLaunchConfig_t& cfg) {
+  constexpr Resident v = kResident[V];
+  auto* kern = res_kernel<V, T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(cfg.dynamicSmemBytes));
+  if (err == cudaSuccess && v.c > kMaxCluster)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+template <int V, typename T>
+cudaError_t launch_res(const void* xp, const float* rk, const float* rb,
+                       void* hs, int D, int T_steps, int B, int U,
+                       int cluster, int bt, cudaStream_t stream) {
+  constexpr Resident v = kResident[V];
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  if (!res_config(V, D, B, U, cluster, bt, &cfg, attr))
+    return cudaErrorInvalidValue;
+  cfg.stream = stream;
+  cudaError_t err = res_attributes<V, T>(cfg);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, res_kernel<V, T>(),
+                           static_cast<const T*>(xp), rk, rb,
+                           static_cast<T*>(hs), T_steps, B, U,
+                           res_cta_units(U, v.c), bt);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// cudaOccupancyMaxActiveClusters of variant V at this launch, into *out
+template <int V>
+cudaError_t res_max_clusters(int D, int B, int U, int bt, int* out) {
+  constexpr Resident v = kResident[V];
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  if (!res_config(V, D, B, U, v.c, bt, &cfg, attr))
+    return cudaErrorInvalidValue;
+  cudaError_t err = res_attributes<V, float>(cfg);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(out, res_kernel<V, float>(), &cfg);
+}
 
 // The streamed variant's block: KS groups of UW threads, UW the CTA's units
 // rounded up to whole warps (at most kStreamThreads), KS as many groups as
@@ -536,10 +846,16 @@ cudaError_t launch(const void* xp, const float* rk, const float* rb, void* hs,
 template <typename T>
 cudaError_t dispatch(int variant, const void* xp, const float* rk,
                      const float* rb, void* hs, float* ws, int D, int T_steps,
-                     int B, int U, int cluster, cudaStream_t st) {
+                     int B, int U, int cluster, int bt, cudaStream_t st) {
   switch (variant) {
     case kNumVariants:
       return launch_stream<T>(xp, rk, rb, hs, ws, D, T_steps, B, U, cluster,
+                              st);
+    case kNumVariants + 1:
+      return launch_res<0, T>(xp, rk, rb, hs, D, T_steps, B, U, cluster, bt,
+                              st);
+    case kNumVariants + 2:
+      return launch_res<1, T>(xp, rk, rb, hs, D, T_steps, B, U, cluster, bt,
                               st);
     case 0: return launch<0, T>(xp, rk, rb, hs, D, T_steps, B, U, cluster, st);
     case 1: return launch<1, T>(xp, rk, rb, hs, D, T_steps, B, U, cluster, st);
@@ -548,7 +864,8 @@ cudaError_t dispatch(int variant, const void* xp, const float* rk,
     default: return cudaErrorInvalidValue;
   }
 }
-static_assert(kNumVariants == 4, "dispatch() names every variant");
+static_assert(kNumVariants == 4 && kNumResident == 2,
+              "dispatch() names every variant");
 
 }  // namespace
 
@@ -578,6 +895,32 @@ int seld_gru_fwd_stream_params(int* out, int cap) {
   return 4;
 }
 
+// Writes the resident variants' table as (C, S, NR, NS, BT, RP) sextuples
+// and kResidentUnits after them into out; returns the number of variants
+int seld_gru_fwd_resident(int* out, int cap) {
+  if (cap < 6 * kNumResident + 1) return 0;
+  for (int i = 0; i < kNumResident; ++i) {
+    const Resident& v = kResident[i];
+    const int row[6] = {v.c, v.s, v.nr, v.ns, v.bt, v.rp};
+    for (int j = 0; j < 6; ++j) out[6 * i + j] = row[j];
+  }
+  out[6 * kNumResident] = kResidentUnits;
+  return kNumResident;
+}
+
+// cudaOccupancyMaxActiveClusters of resident variant `variant` (plan index
+// kNumVariants + 1 + i) at D, B, U and tiles of bt rows, into *out; returns
+// a cudaError_t
+int seld_gru_fwd_max_clusters(int D, int B, int U, int variant, int bt,
+                              int* out) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (variant == kNumVariants + 1)
+    err = res_max_clusters<0>(D, B, U, bt, out);
+  else if (variant == kNumVariants + 2)
+    err = res_max_clusters<1>(D, B, U, bt, out);
+  return static_cast<int>(err);
+}
+
 // Bytes of scratch one call needs: the streamed variant's double-buffered
 // f32 states (variant kNumVariants), none for the register variants.
 size_t seld_gru_fwd_workspace_bytes(int D, int B, int U, int variant) {
@@ -587,21 +930,23 @@ size_t seld_gru_fwd_workspace_bytes(int D, int B, int U, int variant) {
 }
 
 // Returns a cudaError_t (0 on success). is_bf16 selects the storage type of
-// x_proj and hs; variant and cluster come from the wrapper's plan (variant
-// kNumVariants is the streamed one); workspace holds
+// x_proj and hs; variant, cluster and bt (the resident variants' tile rows)
+// come from the wrapper's plan (variant kNumVariants is the streamed one,
+// kNumVariants + 1 + i resident variant i); workspace holds
 // seld_gru_fwd_workspace_bytes(D, B, U, variant) bytes.
 int seld_gru_fwd(const void* xp, const void* rk, const void* rb, void* hs,
                  void* workspace, int D, int T_steps, int B, int U,
-                 int is_bf16, int variant, int cluster, void* stream) {
+                 int is_bf16, int variant, int cluster, int bt,
+                 void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* rkf = static_cast<const float*>(rk);
   const auto* rbf = static_cast<const float*>(rb);
   auto* ws = static_cast<float*>(workspace);
   const cudaError_t err =
       is_bf16 ? dispatch<__nv_bfloat16>(variant, xp, rkf, rbf, hs, ws, D,
-                                        T_steps, B, U, cluster, st)
+                                        T_steps, B, U, cluster, bt, st)
               : dispatch<float>(variant, xp, rkf, rbf, hs, ws, D, T_steps, B,
-                                U, cluster, st);
+                                U, cluster, bt, st);
   return static_cast<int>(err);
 }
 

@@ -11,9 +11,12 @@ tensor. There is no fallback from a kernel to its plain version: a CUDA
 tensor the kernel does not take raises. Both kernels run each (direction,
 batch tile) as a thread block cluster; `_fwd_plan` and `_bwd_plan` pick the
 tile, cluster size and variant; each CTA of a cluster owns an equal share
-of U. Up to U = 256 the variants hold Rk in registers; past it a streamed
-variant of each kernel reads Rk from device memory every step and takes
-every U % 4 == 0. `gru_kernel_applicable` holds where both plans exist
+of U. Up to U = 256 the variants hold Rk in registers; from there to
+U = 512 the resident variants hold each CTA's slice of Rk in registers and
+shared memory (clusters of 8 CTAs up to U = 384, of 16 past it), and past
+U = 512 a streamed variant of each kernel reads Rk from device memory every
+step. Past U = 256 every U % 4 == 0 has a plan. `gru_kernel_applicable`
+holds where both plans exist
 (U % 4 == 0, and up to 256 split evenly: every U of the shipped configs
 and of the NAS space but 6, and every U the JAX package's Pallas kernel
 takes). `gru_route` sends any other U through the plain recurrence under
@@ -47,6 +50,22 @@ _FWD_VARIANTS = ((4, 8, 8, 256), (4, 8, 4, 256), (4, 9, 8, 256),
                  (8, 8, 8, 256))
 _FWD_BATCH, _FWD_LATENCY, _FWD_WIDE, _FWD_WIDEST, _FWD_STREAM = range(5)
 _MAX_UNITS = 256              # the widest register variants of both kernels
+# csrc/gru_fwd.cu's kResident: (C CTAs a cluster, S lanes splitting a
+# unit's k-range, NR and NS 4-row k chunks a lane holds in registers and in
+# shared memory, BT the most rows a tile, RP rows a pass); plan indices 5
+# and 6. Variant v takes 256 < U <= 4 S (NR + NS), U % 4 == 0; a CTA owns
+# 4 ceil(U / 4C) units.
+_FWD_RESIDENT = ((8, 8, 7, 5, 40, 8), (16, 8, 11, 5, 40, 8))
+_FWD_RES = (5, 6)
+# the widest U of each: an h row's 4 S (NR + NS) values
+_FWD_RES_UNITS = tuple(4 * s * (nr + ns) for _, s, nr, ns, _, _ in
+                       _FWD_RESIDENT)
+_RESIDENT_UNITS = 512         # kResidentUnits of both sources
+# cudaOccupancyMaxActiveClusters of one-CTA-a-SM clusters on the H100 SXM
+# (python -m seld_tpu_torch.gru_probe; chip_smoke prints each resident
+# plan's own): the plans keep a call's clusters within these where B allows
+_ACTIVE_CLUSTERS = {8: 15, 16: 7}
+_SMEM_BLOCK = 232448          # shared memory a block may have (227 KiB)
 # csrc/gru_{fwd,bwd}.cu's streamed variant, past _MAX_UNITS: (kStreamBT
 # batch rows per tile, kStreamThreads most threads a block, kStreamChunk
 # values staged a chunk, kStreamSplits most thread groups splitting a
@@ -79,12 +98,18 @@ def _fwd_clusters(v: int, u: int) -> list:
 class FwdPlan(NamedTuple):
     """How csrc/gru_fwd.cu runs one call: a cluster of `c` CTAs of
     `threads` threads per (direction, tile of `bt` batch rows); grid
-    (tiles * c, D); each CTA owns U / c units."""
+    (tiles * c, D); each CTA owns U / c units (a resident plan: 4 ceil(U /
+    4c)). A resident plan holds `rk_reg` bytes of a CTA's Rk slice in
+    registers and `rk_smem` in shared memory, of `smem` dynamic shared
+    bytes a CTA."""
     variant: int
     bt: int
     c: int
     threads: int
     grid: Tuple[int, int]
+    rk_reg: int = 0
+    rk_smem: int = 0
+    smem: int = 0
 
     @property
     def ctas(self) -> int:
@@ -120,6 +145,32 @@ def _takes_streamed(u: int) -> bool:
     return u > _MAX_UNITS and u % 4 == 0
 
 
+def _res_cta_units(u: int, c: int) -> int:
+    """A resident CTA's units (the .cu's `res_cta_units`): a multiple of 4
+    that C of them cover U with."""
+    return 4 * -(-u // (4 * c))
+
+
+def _res_bt(b: int, most: int) -> int:
+    """Rows a resident tile: as few tiles of at most `most` rows as cover
+    B, evened out and rounded up to a multiple of 8 (B = 256, most 40: 7
+    tiles of 40)."""
+    tiles = -(-b // most)
+    return 8 * -(-(-(-b // tiles)) // 8)
+
+
+def _res_variant(widest, first: int, u: int, variant):
+    """The resident variant (plan index `first` + i) that takes U:
+    `variant` if it does, else the first whose `widest[i]` is at least U;
+    None where none does or U is no resident U."""
+    if not _takes_streamed(u):
+        return None
+    takes = [first + i for i, w in enumerate(widest) if u <= w]
+    if variant is not None:
+        return variant if variant in takes else None
+    return takes[0] if takes else None
+
+
 @functools.lru_cache(maxsize=None)
 def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
     """The forward kernel's tile plan for D directions, B rows, U units.
@@ -130,12 +181,18 @@ def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
     into the smallest cluster whose blocks fit the variant's thread limit
     (at U = 128, B = 256: 2 CTAs of 256 threads, 128 CTAs in all), and the
     widest past U = 144, the streamed one past U = 256. `variant` forces
-    one. Raises on a U no variant takes."""
+    one. Raises on a U no variant takes. Past U = 256 the resident variants
+    (`_fwd_res_plan`) up to U = 512, the streamed one past it."""
     if _takes_streamed(u):
-        if variant not in (None, _FWD_STREAM):
+        if variant == _FWD_STREAM:
+            return _stream_plan(FwdPlan, _FWD_STREAM, d, b, u)
+        res = _res_variant(_FWD_RES_UNITS, _FWD_RES[0], u, variant)
+        if res is not None:
+            return _fwd_res_plan(res, d, b, u)
+        if variant is not None:
             raise ValueError(f"variant {variant} does not take U={u}")
         return _stream_plan(FwdPlan, _FWD_STREAM, d, b, u)
-    if variant == _FWD_STREAM:
+    if variant == _FWD_STREAM or variant in _FWD_RES:
         raise ValueError(f"variant {variant} does not take U={u}")
     takes = [v for v in range(len(_FWD_VARIANTS)) if _fwd_clusters(v, u)]
     if u < 4 or u % 4 or not takes:
@@ -161,6 +218,19 @@ def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
     return plan(variant)
 
 
+def _fwd_res_plan(variant: int, d: int, b: int, u: int) -> FwdPlan:
+    """A forward resident plan: clusters of C CTAs of ucw S threads per
+    (direction, tile of `_res_bt` rows); Rk's chunks i < NR of a lane in
+    registers, the NS others and the double-buffered h rows [2, BT, 4 S (NR
+    + NS)] f32 in shared memory."""
+    c, s, nr, ns, most, _ = _FWD_RESIDENT[variant - _FWD_RES[0]]
+    threads = _res_cta_units(u, c) * s
+    bt = _res_bt(b, most)
+    rk_reg, rk_smem = (threads * n * 3 * 4 * 4 for n in (nr, ns))
+    return FwdPlan(variant, bt, c, threads, (-(-b // bt) * c, d), rk_reg,
+                   rk_smem, rk_smem + 2 * bt * 4 * s * (nr + ns) * 4)
+
+
 # csrc/gru_bwd.cu's kVariants: (S lanes splitting a group's k-range, NI
 # 4-wide k chunks per lane and gate, BT batch rows per tile, NU units per
 # lane group, most threads a block may have); variant v takes U <= 4 * S * NI
@@ -171,18 +241,35 @@ _BWD_VARIANTS = ((16, 2, 8, 4, 256), (16, 2, 4, 4, 256), (8, 5, 8, 2, 256),
                  (16, 4, 8, 2, 256))
 _BWD_BATCH, _BWD_LATENCY, _BWD_WIDE, _BWD_WIDEST, _BWD_STREAM = range(5)
 _BWD_MAX_WEIGHTS = 128   # kMaxWeights: Rk values one lane holds in registers
+# csrc/gru_bwd.cu's kResident, as _FWD_RESIDENT: (C, S lanes splitting a
+# group's k' range of the CTA's 3 ucw dhp values, NR and NS 4-wide k'
+# chunks a lane holds in registers and in shared memory, BT the most rows a
+# tile, RP rows a pass); a lane group owns 4 output units (kGroupUnits), a
+# block 8 ucw threads. Plan indices 5 and 6.
+_BWD_RESIDENT = ((8, 4, 6, 3, 40, 4), (16, 2, 9, 3, 40, 4))
+_BWD_RES = (5, 6)
+_GROUP_UNITS = 4
+# the widest U of each: C CTAs of the most units (a multiple of 4) whose 3
+# ucw dhp values fit a row of 4 S (NR + NS)
+_BWD_RES_UNITS = tuple(c * 4 * (4 * s * (nr + ns) // 12)
+                       for c, s, nr, ns, _, _ in _BWD_RESIDENT)
 
 
 class BwdPlan(NamedTuple):
     """How csrc/gru_bwd.cu's recurrence runs one call: a cluster of `c`
     CTAs of `threads` threads per (direction, tile of `bt` batch rows);
     grid (tiles * c, D); each CTA owns U / NU / c groups of NU units, each
-    group S lanes."""
+    group S lanes. A resident plan: each CTA owns 4 ceil(U / 4c) units and
+    holds `rk_reg` bytes of its Rk slice in registers and `rk_smem` in
+    shared memory, of `smem` dynamic shared bytes."""
     variant: int
     bt: int
     c: int
     threads: int
     grid: Tuple[int, int]
+    rk_reg: int = 0
+    rk_smem: int = 0
+    smem: int = 0
 
     @property
     def ctas(self) -> int:
@@ -204,13 +291,19 @@ def _bwd_plan(d: int, b: int, u: int, variant: int = None) -> BwdPlan:
     cluster that takes U, while its threads fit `_LATENCY_THREADS`; else
     the first variant that takes U (8-row tiles) over the smallest cluster
     that does (U = 128, B = 256: 2 CTAs of 256 threads, 128 CTAs in all);
-    past U = 256 the streamed recurrence. `variant` forces one. Raises on a
-    U no variant takes."""
+    past U = 256 the resident recurrence (`_bwd_res_plan`) up to U = 512,
+    the streamed one past it. `variant` forces one. Raises on a U no
+    variant takes."""
     if _takes_streamed(u):
-        if variant not in (None, _BWD_STREAM):
+        if variant == _BWD_STREAM:
+            return _stream_plan(BwdPlan, _BWD_STREAM, d, b, u)
+        res = _res_variant(_BWD_RES_UNITS, _BWD_RES[0], u, variant)
+        if res is not None:
+            return _bwd_res_plan(res, d, b, u)
+        if variant is not None:
             raise ValueError(f"variant {variant} does not take U={u}")
         return _stream_plan(BwdPlan, _BWD_STREAM, d, b, u)
-    if variant == _BWD_STREAM:
+    if variant == _BWD_STREAM or variant in _BWD_RES:
         raise ValueError(f"variant {variant} does not take U={u}")
     takes = [v for v in range(len(_BWD_VARIANTS)) if _bwd_clusters(v, u)]
     if u < 4 or u % 4 or not takes:
@@ -236,6 +329,22 @@ def _bwd_plan(d: int, b: int, u: int, variant: int = None) -> BwdPlan:
     elif variant not in takes:
         raise ValueError(f"variant {variant} does not take U={u}")
     return plan(variant)
+
+
+def _bwd_res_plan(variant: int, d: int, b: int, u: int) -> BwdPlan:
+    """A backward resident plan: clusters of C CTAs of 8 ucw threads per
+    (direction, tile of `_res_bt` rows); a lane's k' chunks i < NR in
+    registers (4 output units each), the NS others, the double-buffered
+    slots [2, C, BT, ucw] and the dhp rows [BT, 4 S (NR + NS)] f32 in shared
+    memory."""
+    c, s, nr, ns, most, _ = _BWD_RESIDENT[variant - _BWD_RES[0]]
+    ucw = _res_cta_units(u, c)
+    threads = c * ucw // _GROUP_UNITS * s
+    bt = _res_bt(b, most)
+    rk_reg, rk_smem = (threads * n * _GROUP_UNITS * 4 * 4 for n in (nr, ns))
+    smem = rk_smem + (2 * c * bt * ucw + bt * 4 * s * (nr + ns)) * 4
+    return BwdPlan(variant, bt, c, threads, (-(-b // bt) * c, d), rk_reg,
+                   rk_smem, smem)
 
 
 def gru_kernel_applicable(units: int) -> bool:
@@ -434,14 +543,42 @@ def _check_cuda_bwd_args(x_proj, rec_kernel, rec_bias, hs, g):
 def _library() -> ctypes.CDLL:
     lib = kernels.load(_SOURCE)
     lib.seld_gru_fwd.argtypes = [ctypes.c_void_p] * 5 + \
-        [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.seld_gru_fwd.restype = ctypes.c_int
     lib.seld_gru_fwd_workspace_bytes.argtypes = [ctypes.c_int] * 4
     lib.seld_gru_fwd_workspace_bytes.restype = ctypes.c_size_t
-    for fn in (lib.seld_gru_fwd_variants, lib.seld_gru_fwd_stream_params):
+    _declare_tables(lib, "seld_gru_fwd")
+    return lib
+
+
+def _declare_tables(lib, prefix: str) -> None:
+    for name in ("variants", "stream_params", "resident"):
+        fn = getattr(lib, f"{prefix}_{name}")
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
         fn.restype = ctypes.c_int
-    return lib
+    fn = getattr(lib, f"{prefix}_max_clusters")
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+
+
+def _resident_table(fn) -> tuple:
+    """(the kResident rows, kResidentUnits) a library was built with."""
+    buf = (ctypes.c_int * 64)()
+    n = fn(buf, 64)
+    return (tuple(tuple(buf[6 * i:6 * i + 6]) for i in range(n)),
+            buf[6 * n])
+
+
+def max_active_clusters(plan, d: int, b: int, u: int) -> int:
+    """cudaOccupancyMaxActiveClusters of a resident plan's launch
+    (`FwdPlan` or `BwdPlan`), read on the current card."""
+    lib = _library() if isinstance(plan, FwdPlan) else _bwd_library()
+    fn = lib.seld_gru_fwd_max_clusters if isinstance(plan, FwdPlan) else \
+        lib.seld_gru_bwd_max_clusters
+    out = ctypes.c_int(-1)
+    kernels.check(lib, fn(d, b, u, plan.variant, plan.bt, ctypes.byref(out)),
+                  "cudaOccupancyMaxActiveClusters")
+    return out.value
 
 
 def _stream_params(fn) -> tuple:
@@ -450,37 +587,39 @@ def _stream_params(fn) -> tuple:
 
 
 def library_variants() -> tuple:
-    """The variant table compiled into csrc/gru_fwd.cu and its streamed
-    variant's constants, to hold `_FWD_VARIANTS` and `_STREAM` against
-    (loads the library)."""
+    """The variant table compiled into csrc/gru_fwd.cu, its streamed
+    variant's constants and its resident table with kResidentUnits, to hold
+    `_FWD_VARIANTS`, `_STREAM` and (`_FWD_RESIDENT`, `_RESIDENT_UNITS`)
+    against (loads the library)."""
     buf = (ctypes.c_int * 64)()
     n = _library().seld_gru_fwd_variants(buf, 64)
     return (tuple(tuple(buf[4 * i:4 * i + 4]) for i in range(n)),
-            _stream_params(_library().seld_gru_fwd_stream_params))
+            _stream_params(_library().seld_gru_fwd_stream_params),
+            _resident_table(_library().seld_gru_fwd_resident))
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_library() -> ctypes.CDLL:
     lib = kernels.load(_BWD_SOURCE)
     lib.seld_gru_bwd.argtypes = [ctypes.c_void_p] * 9 + \
-        [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.seld_gru_bwd.restype = ctypes.c_int
     lib.seld_gru_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 4
     lib.seld_gru_bwd_workspace_bytes.restype = ctypes.c_size_t
-    for fn in (lib.seld_gru_bwd_variants, lib.seld_gru_bwd_stream_params):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        fn.restype = ctypes.c_int
+    _declare_tables(lib, "seld_gru_bwd")
     return lib
 
 
 def library_bwd_variants() -> tuple:
-    """The variant table compiled into csrc/gru_bwd.cu and its streamed
-    recurrence's constants, to hold `_BWD_VARIANTS` and `_STREAM` against
-    (loads the library)."""
+    """The variant table compiled into csrc/gru_bwd.cu, its streamed
+    recurrence's constants and its resident table with kResidentUnits, to
+    hold `_BWD_VARIANTS`, `_STREAM` and (`_BWD_RESIDENT`, `_RESIDENT_UNITS`)
+    against (loads the library)."""
     buf = (ctypes.c_int * 64)()
     n = _bwd_library().seld_gru_bwd_variants(buf, 64)
     return (tuple(tuple(buf[5 * i:5 * i + 5]) for i in range(n)),
-            _stream_params(_bwd_library().seld_gru_bwd_stream_params))
+            _stream_params(_bwd_library().seld_gru_bwd_stream_params),
+            _resident_table(_bwd_library().seld_gru_bwd_resident))
 
 
 def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
@@ -513,7 +652,7 @@ def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
                            0 if workspace is None else workspace.data_ptr(),
                            d, t, b, u,
                            int(x_proj.dtype == torch.bfloat16), plan.variant,
-                           plan.c, kernels.current_stream(dev))
+                           plan.c, plan.bt, kernels.current_stream(dev))
     kernels.check(lib, err, "gru_fwd launch")
     kernels.count_launch("gru_scan")
     return hs
@@ -546,7 +685,7 @@ def _gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, hs, g, plan=None):
                                dxp.data_ptr(), workspace.data_ptr(),
                                drk.data_ptr(), drb.data_ptr(), d, t, b, u,
                                int(x_proj.dtype == torch.bfloat16),
-                               plan.variant, plan.c,
+                               plan.variant, plan.c, plan.bt,
                                kernels.current_stream(dev.index))
     kernels.check(lib, err, "gru_bwd launch")
     kernels.count_launch("gru_scan_bwd")

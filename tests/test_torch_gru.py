@@ -155,9 +155,12 @@ def _fwd_writes(plan, d, b, u):
     write on `plan`, by csrc/gru_fwd.cu's own index arithmetic: CTA
     (blockIdx.x, d) is rank blockIdx.x % C of tile blockIdx.x // C; thread
     tid is lane tid % S of CTA unit tid // S; lane l finishes rows
-    [l R, (l + 1) R), R = BT / S. The streamed variant: `_stream_writes`."""
+    [l R, (l + 1) R), R = BT / S. The streamed variant: `_stream_writes`;
+    the resident ones: `_resident_writes`."""
     if plan.variant == gru._FWD_STREAM:
         return _stream_writes(plan, b, u)
+    if plan.variant in gru._FWD_RES:
+        return _resident_writes(plan, b, u)
     s, ni, bt, maxt = gru._FWD_VARIANTS[plan.variant]
     assert plan.bt == bt and u <= 4 * s * ni and bt % s == 0
     assert plan.threads % 32 == 0 and plan.threads <= maxt
@@ -202,13 +205,45 @@ def _stream_writes(plan, b, u):
     return writes
 
 
-@pytest.mark.parametrize("u", [64, 128, 152, 192, 200, 256, 384, 388, 2056])
+def _resident_writes(plan, b, u):
+    """The states a resident variant's lanes finish, by csrc/gru_fwd.cu's
+    index arithmetic: CTA (blockIdx.x, d) is rank blockIdx.x % C of tile
+    blockIdx.x // C of `plan.bt` rows and owns units [rank ucw, rank ucw +
+    ucw) below U, ucw = 4 ceil(U / 4C); thread tid is lane tid % S of CTA
+    unit tid // S; a step walks the tile's rows in passes of RP, and lane l
+    finishes rows p RP + l RP / S + j of pass p."""
+    c, s, nr, ns, most, rp = gru._FWD_RESIDENT[plan.variant - gru._FWD_RES[0]]
+    ucw = gru._res_cta_units(u, c)
+    assert plan.c == c and plan.threads == ucw * s and plan.threads % 32 == 0
+    assert c * ucw <= 4 * s * (nr + ns) and rp % s == 0
+    assert plan.bt % 8 == 0 and plan.bt <= most and plan.bt % rp == 0
+    r = rp // s
+    writes = []
+    for dd in range(plan.grid[1]):
+        for bx in range(plan.grid[0]):
+            rank, b0 = bx % c, (bx // c) * plan.bt
+            rows = min(plan.bt, b - b0)
+            uc = max(0, min(ucw, u - rank * ucw))
+            for p in range(-(-rows // rp)):
+                for tid in range(plan.threads):
+                    lane, uu = tid % s, tid // s
+                    for j in range(r):
+                        row = p * rp + lane * r + j
+                        if uu < uc and row < rows:
+                            writes.append((dd, b0 + row, rank * ucw + uu))
+    return writes
+
+
+@pytest.mark.parametrize("u", [64, 128, 152, 192, 200, 256, 260, 384, 388,
+                               512, 2056])
 @pytest.mark.parametrize("b", [1, 3, 17, 32, 256])
 def test_fwd_plan_covers_every_state_exactly_once(b, u):
     """Every (direction, row, unit) once, on clusters of at most 8 CTAs
-    that split U evenly."""
+    that split U evenly (the resident variants, U in (256, 512]: clusters
+    of 8 or 16 CTAs of 4 ceil(U / 4C) units, the last ones fewer)."""
     plan = gru._fwd_plan(2, b, u)
-    assert u % plan.c == 0 and plan.c in gru._CLUSTERS
+    if plan.variant not in gru._FWD_RES:
+        assert u % plan.c == 0 and plan.c in gru._CLUSTERS
     assert plan.grid[0] % plan.c == 0
     writes = _fwd_writes(plan, 2, b, u)
     assert len(writes) == len(set(writes)) == 2 * b * u
@@ -229,6 +264,46 @@ def test_fwd_plan_fills_the_card_at_the_path_shapes():
     assert gru._fwd_plan(2, 8, 132).variant == gru._FWD_WIDE
     for u in (152, 192, 256):
         assert gru._fwd_plan(2, 256, u).variant == gru._FWD_WIDEST
+
+
+def _thread_registers(threads: int) -> int:
+    """Registers a thread may have in a block of `threads` (one block a
+    SM): 65,536 shared out in steps of 8, at most 255."""
+    return min(255, 65536 // threads // 8 * 8)
+
+
+@pytest.mark.parametrize("u", [260, 292, 384, 388, 448, 512])
+def test_resident_plans_fit_the_card(u):
+    """Past U = 256 up to U = 512 both kernels plan a resident variant
+    whose dynamic shared memory fits a block (227 KiB) and whose Rk
+    registers leave a thread at least 40% of its registers; at B = 256 and
+    U = 384 each call's clusters fit the card at once (one wave, by
+    `_ACTIVE_CLUSTERS`), at U = 512 in two; the split is the kernels'."""
+    for b in (3, 17, 256):
+        for plan, res in ((gru._fwd_plan(2, b, u), gru._FWD_RES),
+                          (gru._bwd_plan(2, b, u), gru._BWD_RES)):
+            assert plan.variant in res
+            assert plan.c == (8 if u <= 384 else 16)
+            assert 0 < plan.smem <= gru._SMEM_BLOCK
+            assert plan.rk_smem < plan.smem
+            per_thread = plan.rk_reg // plan.threads // 4
+            assert per_thread <= 0.6 * _thread_registers(plan.threads)
+            # the whole slice of Rk: U x 3 ucw f32 a CTA
+            ucw = gru._res_cta_units(u, plan.c)
+            assert plan.rk_reg + plan.rk_smem >= u * 3 * ucw * 4
+            waves = -(-plan.ctas // plan.c // gru._ACTIVE_CLUSTERS[plan.c])
+            if b == 256:
+                assert waves == (1 if u <= 384 else 2)
+    assert max(gru._FWD_RES_UNITS) == max(gru._BWD_RES_UNITS) == \
+        gru._RESIDENT_UNITS
+    for u_wide in (516, 1024, 2056):
+        assert gru._fwd_plan(2, 256, u_wide).variant == gru._FWD_STREAM
+        assert gru._bwd_plan(2, 256, u_wide).variant == gru._BWD_STREAM
+    # the streamed variants stay forcible where the resident ones run
+    assert gru._fwd_plan(2, 256, u, variant=gru._FWD_STREAM).variant == \
+        gru._FWD_STREAM
+    assert gru._bwd_plan(2, 256, u, variant=gru._BWD_STREAM).variant == \
+        gru._BWD_STREAM
 
 
 @pytest.mark.parametrize("u", [4, 12, 20, 100, 124, 132, 144, 152, 248])

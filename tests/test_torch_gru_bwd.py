@@ -195,7 +195,10 @@ def _bwd_states(plan, d, b, u):
     [NU grp, NU (grp + 1)); lane l finishes entries e in [l R, (l + 1) R),
     R = NU BT / S: row e // NU of the tile, unit e % NU of the group. The
     streamed recurrence: thread tid of pass p owns CTA unit p threads + tid
-    for all the tile's kStreamBT rows."""
+    for all the tile's kStreamBT rows. The resident one:
+    `_resident_states`."""
+    if plan.variant in gru._BWD_RES:
+        return _resident_states(plan, b, u)[0]
     if plan.variant == gru._BWD_STREAM:
         # group 0's thread l of KS groups of UW: CTA units l, l + UW, ...
         bt, maxt = gru._STREAM[:2]
@@ -226,6 +229,50 @@ def _bwd_states(plan, d, b, u):
     return states
 
 
+def _resident_states(plan, b, u):
+    """The resident recurrence by csrc/gru_bwd.cu's index arithmetic:
+    (the states whose dh its threads finish, the slot writes its lanes make,
+    the slot reads its states make). CTA (blockIdx.x, d) is rank
+    blockIdx.x % C of tile blockIdx.x // C and owns units [rank ucw, rank
+    ucw + ucw) below U; thread tid finishes unit tid % ucw of rows tid //
+    ucw + 8 i and reads slots[c][row][unit] of every rank c; in the
+    product, lane tid % S of group tid // S sums output units 4 (tid // S)
+    .. + 3 over the CTA's k' and writes rows p RP + l RP / S + j of each
+    pass p into the owner's slots[rank][row][unit]."""
+    c, s, nr, ns, most, rp = gru._BWD_RESIDENT[plan.variant - gru._BWD_RES[0]]
+    ucw = gru._res_cta_units(u, c)
+    nt = c * ucw // gru._GROUP_UNITS * s
+    assert plan.c == c and plan.threads == nt == 8 * ucw and nt % 32 == 0
+    assert 3 * ucw <= 4 * s * (nr + ns) and rp % s == 0
+    assert plan.bt % 8 == 0 and plan.bt <= most
+    r = rp // s
+    states, writes, reads = [], [], []
+    for dd in range(plan.grid[1]):
+        for bx in range(plan.grid[0]):
+            rank, tile = bx % c, bx // c
+            b0 = tile * plan.bt
+            rows = min(plan.bt, b - b0)
+            uc = max(0, min(ucw, u - rank * ucw))
+            for tid in range(nt):
+                uu, brow = tid % ucw, tid // ucw
+                for i in range(most // 8):
+                    row = brow + 8 * i
+                    if row < plan.bt and uu < uc and row < rows:
+                        states.append((dd, b0 + row, rank * ucw + uu))
+                        reads += [(dd, tile, src, rank, row, uu)
+                                  for src in range(c)]
+                lane, uo0 = tid % s, gru._GROUP_UNITS * (tid // s)
+                if uo0 >= u:
+                    continue
+                for p in range(-(-rows // rp)):
+                    for j in range(r):
+                        row = p * rp + lane * r + j
+                        writes += [(dd, tile, rank, (uo0 + o) // ucw, row,
+                                    (uo0 + o) % ucw)
+                                   for o in range(gru._GROUP_UNITS)]
+    return states, writes, reads
+
+
 @pytest.mark.parametrize("u", [16, 64, 128, 144, 152, 192, 208, 256])
 @pytest.mark.parametrize("b", [1, 3, 8, 17, 32, 64, 256])
 def test_bwd_plan_covers_every_state_exactly_once(b, u):
@@ -248,16 +295,96 @@ def test_bwd_plan_covers_every_state_exactly_once(b, u):
 @pytest.mark.parametrize("u", [260, 384, 388, 512, 2056])
 @pytest.mark.parametrize("b", [1, 17, 256])
 def test_streamed_bwd_plan_covers_every_state_exactly_once(b, u):
-    """Past U = 256 the streamed recurrence: clusters of 8 (or 4 where
-    8 does not divide U), a thread per CTA unit up to kStreamThreads
-    (U = 2056: 257 units a CTA, walked in two passes)."""
-    plan = gru._bwd_plan(2, b, u)
+    """The streamed recurrence (the plan past U = 512, forced below it):
+    clusters of 8 (or 4 where 8 does not divide U), a thread per CTA unit
+    up to kStreamThreads (U = 2056: 257 units a CTA, walked in two
+    passes)."""
+    plan = gru._bwd_plan(2, b, u, variant=gru._BWD_STREAM)
     assert plan.variant == gru._BWD_STREAM
+    assert (gru._bwd_plan(2, b, u).variant == gru._BWD_STREAM) == (u > 512)
     assert plan.c == (8 if u % 8 == 0 else 4) and u % plan.c == 0
     uw = min(256, -(-(u // plan.c) // 32) * 32)
     assert plan.threads == uw * min(256 // uw, 4)
     states = _bwd_states(plan, 2, b, u)
     assert len(states) == len(set(states)) == 2 * b * u
+
+
+@pytest.mark.parametrize("u", [260, 384, 388, 512])
+@pytest.mark.parametrize("b", [3, 17, 256])
+def test_resident_bwd_plan_covers_every_state_exactly_once(b, u):
+    """Past U = 256 up to 512 the resident recurrence: every (direction,
+    row, unit) state once, and every slot a state reads (one a rank of its
+    cluster) written exactly once a step, and no other."""
+    plan = gru._bwd_plan(2, b, u)
+    assert plan.variant in gru._BWD_RES
+    states, writes, reads = _resident_states(plan, b, u)
+    assert len(states) == len(set(states)) == 2 * b * u
+    assert len(writes) == len(set(writes))
+    assert set(reads) <= set(writes) and len(reads) == len(set(reads))
+    # the rest are padding rows of a ragged tile or padding units
+    extra = set(writes) - set(reads)
+    assert all(row >= min(plan.bt, b - tile * plan.bt) or
+               owner * gru._res_cta_units(u, plan.c) + unit >= u
+               for _, tile, _, owner, row, unit in extra)
+
+
+def _resident_model(xp, rk, rb, hs, g, c):
+    """Plain-torch model of the resident recurrence's product: CTA `rank`
+    of c (4 ceil(U / 4c) units each, the last ones fewer) sums dhp @ Rk^T
+    over its own units' dhp only (k' = gate ucw + unit), for every output
+    unit, and each unit's owner adds the c partial sums in rank order, as
+    csrc/gru_bwd.cu's slots do. Returns dx_proj; tests only."""
+    d_dirs, t_steps, b, k = xp.shape
+    u = k // 3
+    ucw = gru._res_cta_units(u, c)
+    dxp = torch.empty_like(xp)
+    for d in range(d_dirs):
+        order = list(gru._step_order(d, t_steps))
+        # W[rank][k', u'] = Rk[u'][gate U + rank ucw + unit]
+        w = torch.zeros(c, 3 * ucw, u)
+        for rank in range(c):
+            for gate in range(3):
+                for unit in range(min(ucw, u - rank * ucw)):
+                    w[rank, gate * ucw + unit] = \
+                        rk[d, :, gate * u + rank * ucw + unit]
+        zdh = torch.zeros(b, u)
+        parts = torch.zeros(c, b, u)
+        for p in range(t_steps - 1, -1, -1):
+            t = order[p]
+            h_prev = hs[d, order[p - 1]] if p > 0 else torch.zeros(b, u)
+            hp = h_prev @ rk[d] + rb[d]
+            z, r, hcand, hh = gru._gates(xp[d, t], hp, u)
+            acc = torch.zeros(b, u)
+            for rank in range(c):
+                acc = acc + parts[rank]
+            dh = (zdh + acc) + g[d, t]
+            ah = (1 - z) * (1 - hcand * hcand)
+            az = (h_prev - hcand) * z * (1 - z)
+            ar = ah * hh * r * (1 - r)
+            dxp[d, t] = torch.cat([dh * az, dh * ar, dh * ah], -1)
+            dhp = torch.cat([dh * az, dh * ar, dh * (ah * r)], -1)
+            zdh = dh * z
+            for rank in range(c):
+                own = torch.zeros(b, 3 * ucw)
+                for gate in range(3):
+                    n = max(0, min(ucw, u - rank * ucw))
+                    own[:, gate * ucw:gate * ucw + n] = \
+                        dhp[:, gate * u + rank * ucw:gate * u + rank * ucw + n]
+                parts[rank] = own @ w[rank]
+    return dxp
+
+
+@pytest.mark.parametrize("u,c", [(20, 4), (24, 8), (36, 2)])
+def test_resident_decomposition_matches_the_plain_version(u, c):
+    """The resident recurrence's split of dhp @ Rk^T into per-CTA
+    partial sums over each CTA's own dhp (uneven shares: U = 20 on 4 CTAs
+    of 8 units, the last none), modelled on the CPU, holds
+    `gru_scan_bwd_ref`'s dx_proj in f32."""
+    xp, rk, rb, hs, g = map(torch.from_numpy,
+                            _bwd_inputs(2, t=9, b=5, u=u, seed=7))
+    got = _resident_model(xp, rk, rb, hs, g, c)
+    want = gru.gru_scan_bwd_ref(xp, rk, rb, hs, g)[0]
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
 def test_bwd_plan_at_the_path_shapes():
@@ -312,6 +439,10 @@ def test_variant_tables_equal_their_cuda_sources():
             "kStreamBT", "kStreamThreads", "kStreamChunk",
             "kStreamSplits")) == gru._STREAM
         assert _cuda_table(source, "kRegisterUnits") == gru._MAX_UNITS
+        assert _cuda_table(source, "kResidentUnits") == gru._RESIDENT_UNITS
+    assert _cuda_table("gru_fwd.cu", "kResident") == gru._FWD_RESIDENT
+    assert _cuda_table("gru_bwd.cu", "kResident") == gru._BWD_RESIDENT
+    assert _cuda_table("gru_bwd.cu", "kGroupUnits") == gru._GROUP_UNITS
 
 
 def _bwd_model(xp, rk, rb, hs, g):
