@@ -205,14 +205,27 @@ Phases, one line each:
               BatchNorm statistics differ; every CLI run is bounded in
               time. --dp faults runs (a) alone and then with each planted
               fault (local BatchNorm statistics; the stem's backward on
-              the local count), each of which (a) must catch; --dp cards
-              runs (c) alone. Neither prints a result line.
+              the local count), each of which (a) must catch. (d) clip
+              scoring and serving over ranks: (d1) two gloo ranks sharing
+              the card run ensemble_outputs(mesh=...) on four seeded 60-s
+              clips at full width (exact at batch 512, fast, fast at
+              clip_batch 4; f32) against one process on the card, with
+              exact gru_scan launches a rank; (d2) a data-parallel window
+              artifact for one card more than the machine has is
+              exported and its load must refuse; (d3) where there are two
+              cards, NCCL ranks on cards 0,1 score the same clips against
+              one card, a two-card artifact is served against the live
+              model for requests of 1, 3 and 4 windows, and ms a 60-s clip
+              and served windows/s are printed at one card and two (else
+              one line says (d3) did not run). --dp cards runs (c) and
+              (d3) alone. Neither prints a result line.
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
 at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152,
 both GRU kernels past U = 256 (gru_wide): the resident variants at
 U=260, 384, 388, 512 (ragged tiles, uneven CTA shares) and the streamed
 ones at U=1024, 2056, each call twice and bit-equal, both timed at B=256,
-U in {384, 512}, bf16 and f32, beside cuDNN, each plan printed with its
+U in {384, 512}, and the streamed ones at U=1024, bf16 and f32, beside
+cuDNN, each plan printed with its
 register/shared split and cudaOccupancyMaxActiveClusters, the backward by
 pass, then SS5 with a 384-unit DOA biGRU graphed at B=256 (ms a step,
 windows/s, the GRU kernels' share; --gru-wide all runs gru_wide alone,
@@ -959,7 +972,9 @@ def phase_kernels_bwd(card):
 GRU_WIDE_CHECKS = (("float32", 3, 260), ("bfloat16", 17, 384),
                    ("float32", 17, 388), ("bfloat16", 3, 512),
                    ("float32", 8, 1024), ("float32", 3, 2056))
-GRU_WIDE_ROWS = tuple((dtype, 256, u) for u in (384, 512)
+# timed rows: the resident plans (and the streamed forced beside them) at
+# U = 384 and 512, the streamed plans alone at U = 1024
+GRU_WIDE_ROWS = tuple((dtype, 256, u) for u in (384, 512, 1024)
                       for dtype in ("bfloat16", "float32"))
 # [gru_wide]'s full-width path: SS5 with its DOA biGRU at 384 units, B =
 # 256, bf16, make_train_multistep(WIDE_STEPS) replayed
@@ -1018,7 +1033,8 @@ def gru_wide(card):
     streamed plans too; at D=2, T=60, B=256, U=384 and 512, bf16 and f32:
     kernel ms of both, plain ms, bound ms, cuDNN's torch.nn.GRU ms at the
     same shape (forward: its training forward; backward: forward +
-    backward less the forward) and the backward's device ms by pass; each
+    backward less the forward) and the backward's device ms by pass; at
+    U = 1024 the same numbers of the streamed plans, the only ones; each
     plan with its split and cudaOccupancyMaxActiveClusters. Then the
     full-width path through the resident kernels (`wide_step`). Returns
     ({row: forward numbers}, {row: backward numbers})."""
@@ -1037,7 +1053,7 @@ def gru_wide(card):
             np.float32)).cuda().to(xp.dtype)
         timed = (dtype, b, u) in GRU_WIDE_ROWS
         plans = [(_fwd_plan(d, b, u), _bwd_plan(d, b, u))]
-        if timed:
+        if timed and u <= _RESIDENT_UNITS:
             plans.append((_fwd_plan(d, b, u, variant=_FWD_STREAM),
                           _bwd_plan(d, b, u, variant=_BWD_STREAM)))
         tols = [BWD_TOL[dtype], BWD_TOL["float32"], BWD_TOL["float32"]]
@@ -1085,7 +1101,8 @@ def gru_wide(card):
         if not timed:
             continue
         ref = gru_scan_ref(xp, rk, rb)
-        key = f"{dtype}_B{b}_U{u}"
+        key = f"{dtype}_B{b}_U{u}" + ("_streamed" if u > _RESIDENT_UNITS
+                                      else "")
         plain_ms = cuda_ms(lambda: gru_scan_ref(xp, rk, rb), 2)
         bound_ms, bound_by = gru_scan_bound(xp, rk, rb)
         bwd_plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xp, rk, rb, ref, g), 1)
@@ -1097,17 +1114,22 @@ def gru_wide(card):
                              bound_by=bound_by, library_ms=lib_ms)
         bwd_rows[key].update(plain_ms=bwd_plain_ms, bound_ms=bwd_bound_ms,
                              bound_by=bwd_bound_by, library_ms=lib_bwd_ms)
+        base = f"{dtype}_B{b}_U{u}"
+        kinds = [(k, r) for k, r in (("resident", base),
+                                     ("streamed", base + "_streamed"))
+                 if r in fwd_rows]
         log("kernels", f"gru_scan {dtype} D=2 T=60 B={b} U={u} on {card}: "
-                       f"resident {fwd_rows[key]['ms']:.4f} ms, streamed "
-                       f"{fwd_rows[key + '_streamed']['ms']:.4f}; plain_ms "
-                       f"{plain_ms:.4f} library_ms (cuDNN GRU training "
-                       f"forward) {lib_ms:.4f} bound_ms {bound_ms:.5f} "
-                       f"({bound_by})")
+                       + ", ".join(f"{k} {fwd_rows[r]['ms']:.4f} ms"
+                                   for k, r in kinds)
+                       + f"; plain_ms {plain_ms:.4f} library_ms (cuDNN GRU "
+                       f"training forward) {lib_ms:.4f} bound_ms "
+                       f"{bound_ms:.5f} ({bound_by})")
         log("kernels", f"gru_scan_bwd {dtype} D=2 T=60 B={b} U={u} on "
-                       f"{card}: resident {bwd_rows[key]['ms']:.4f} ms, "
-                       f"streamed {bwd_rows[key + '_streamed']['ms']:.4f}; "
-                       f"plain_ms {bwd_plain_ms:.4f} library_ms (cuDNN GRU "
-                       f"backward) {lib_bwd_ms:.4f} bound_ms "
+                       f"{card}: "
+                       + ", ".join(f"{k} {bwd_rows[r]['ms']:.4f} ms"
+                                   for k, r in kinds)
+                       + f"; plain_ms {bwd_plain_ms:.4f} library_ms (cuDNN "
+                       f"GRU backward) {lib_bwd_ms:.4f} bound_ms "
                        f"{bwd_bound_ms:.5f} ({bwd_bound_by})")
     fwd_rows["wide_step"] = wide_step(card)
     return fwd_rows, bwd_rows
@@ -4756,20 +4778,22 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _run_ranks(world, backend, workdir, fault="none"):
-    """Start `world` dp_worker processes and wait for every one; their
-    results by rank."""
+def _run_ranks(world, backend, workdir, fault="none", worker="--dp-worker",
+               timeout=600):
+    """Start `world` dp_worker (or `worker`) processes and wait for every
+    one, each within `timeout` seconds; their results by rank."""
     import torch
     port = _free_port()
     env = {**os.environ, "PYTHONPATH": _package_root()}
+    extra = [fault] if worker == "--dp-worker" else []
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+        [sys.executable, os.path.abspath(__file__), worker, str(r),
          str(world), str(port), backend,
-         os.path.join(workdir, f"rank{r}.pt"), fault], env=env,
+         os.path.join(workdir, f"rank{r}.pt"), *extra], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     try:
-        logs = [p.communicate(timeout=600)[0] for p in procs]
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -5042,11 +5066,312 @@ def dp_cli_cards(card):
     return {"loss_rel_err": err, "seconds": secs}
 
 
+# [dp] (d): clip scoring over ranks, SS5 full width f32 (TF32 off) on
+# CLIP_COUNT seeded 60-s clips, each path against one process on card 0:
+# the ranks' rows ran in batches of another size (REPLY_TOL). The ranks
+# gather the same rows bit for bit, but each overlap-adds them itself,
+# and index_add_ on CUDA sums a label frame's up to 60 window
+# contributions in no fixed order: the ranks agree to DP_RANKS_TOL. The
+# served data-parallel artifact's replies are checked at a static batch
+# of DP_ART_BATCH windows and its windows/s timed at DP_ART_BATCHES.
+DP_INFER_MODES = {"exact": {}, "fast": {"fast": True},
+                  "fast_clip_batch4": {"fast": True,
+                                       "clip_batch": CLIP_COUNT}}
+DP_INFER_REPS = 2
+DP_RANKS_TOL = 1e-5
+DP_INFER_TIMEOUT = 300
+DP_ART_BATCH = 64
+DP_ART_BATCHES = (64, 512)
+DP_ART_REPS = 20
+
+
+def _infer_clips():
+    rng = np.random.RandomState(16)
+    return [rng.randn(CLIP_FRAMES, 64, 7).astype(np.float32)
+            for _ in range(CLIP_COUNT)]
+
+
+def _infer_model(device):
+    from seld_tpu_torch.config import get_model_config
+    from seld_tpu_torch.models import build_model
+    cfg = get_model_config("SS5", search_paths=[])
+    cfg["n_classes"] = 12
+    return build_model("conv_temporal", (300, 64, 7), cfg, seed=0,
+                       device=device)
+
+
+def _infer_run(device, mesh):
+    """Each of DP_INFER_MODES on the seeded clips on `device` (split over
+    `mesh`): its outputs, its launches (counted on a first run) and its ms
+    a clip (host clock, the best of DP_INFER_REPS later runs)."""
+    import torch
+    from seld_tpu_torch.inference import ensemble_outputs
+    from seld_tpu_torch.ops import kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _infer_model(device)
+    clips = [torch.from_numpy(c).to(device) for c in _infer_clips()]
+    out = {}
+    for mode, kw in DP_INFER_MODES.items():
+        def run():
+            return ensemble_outputs(model, clips, batch_size=CLIP_BATCH,
+                                    time_down=5, mesh=mesh, **kw)
+        kernels.launch_counts.clear()
+        got = run()
+        torch.cuda.synchronize()
+        counts = {k: kernels.launch_counts[k] for k in kernels.KERNELS}
+        times = []
+        for _ in range(DP_INFER_REPS):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / len(clips))
+        out[mode] = {"outputs": [(a.cpu(), b.cpu()) for a, b in got],
+                     "counts": counts, "ms_per_clip": min(times)}
+    return out
+
+
+def infer_worker(rank, world, port, backend, out):
+    """One rank of [dp] (d1)/(d3): DP_INFER_MODES over the group's mesh;
+    writes its result to `out`."""
+    import torch
+    import torch.distributed as dist
+    from seld_tpu_torch.parallel.mesh import make_mesh
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        result = _infer_run(device, make_mesh("data:-1", device))
+        result["device"] = str(device)
+        result["backend"] = dist.get_backend()
+        torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _infer_want_counts():
+    """gru_scan launches a run of each mode: a biGRU (2) a chunk; the exact
+    path's 541 windows in chunks of CLIP_BATCH, the fast path's in one
+    chunk a clip, clip_batch's in one for all the clips."""
+    n_win = (CLIP_FRAMES - 300) // 5 + 1
+    chunks = {"exact": -(-n_win // CLIP_BATCH) * CLIP_COUNT,
+              "fast": CLIP_COUNT, "fast_clip_batch4": 1}
+    return {m: {k: 2 * chunks[m] if k == "gru_scan" else 0
+                for k in ("gru_scan", "gru_scan_bwd", "stem_dy",
+                          "foa_frontend", "gather_rows")}
+            for m in DP_INFER_MODES}
+
+
+def dp_infer_ranks(card, world, backend, label, ref):
+    """[dp] (d1)/(d3): `world` ranks over `backend` score the clips against
+    one process's `ref`; every rank's launches exact, the ranks agree."""
+    want_counts = _infer_want_counts()
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        ranks = _run_ranks(world, backend, workdir, worker="--infer-worker",
+                           timeout=DP_INFER_TIMEOUT)
+        secs = time.perf_counter() - t0
+    out = {}
+    for mode in DP_INFER_MODES:
+        between = max(_max_err(r[mode]["outputs"],
+                               ranks[0][mode]["outputs"])
+                      for r in ranks[1:])
+        err = _max_err(ranks[0][mode]["outputs"], ref[mode]["outputs"])
+        finite = all(bool(a.isfinite().all() and b.isfinite().all())
+                     for a, b in ranks[0][mode]["outputs"])
+        counts = [r[mode]["counts"] for r in ranks]
+        ok = (between <= DP_RANKS_TOL and finite and err <= REPLY_TOL
+              and all(c == want_counts[mode] for c in counts))
+        ms = [r[mode]["ms_per_clip"] for r in ranks]
+        log("dp", f"({label}) {world} ranks over {ranks[0]['backend']} on "
+                  f"{sorted({r['device'] for r in ranks})}, "
+                  f"ensemble_outputs(mesh=...) {mode} on {CLIP_COUNT} 60-s "
+                  f"clips, SS5 full width f32, against one process on "
+                  f"cuda:0: max_abs_err {err:.3e} (tol {REPLY_TOL:.0e}), "
+                  f"between the ranks {between:.3e} (tol "
+                  f"{DP_RANKS_TOL:.0e}), finite {finite}; "
+                  f"launches a rank {[c['gru_scan'] for c in counts]} "
+                  f"gru_scan (want {want_counts[mode]['gru_scan']}, no other "
+                  f"kernel); ms a clip a rank "
+                  f"{', '.join(f'{m:.2f}' for m in ms)} (one process "
+                  f"{ref[mode]['ms_per_clip']:.2f}; host clock, best of "
+                  f"{DP_INFER_REPS}); on {card} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"[dp] ({label}) the {world}-rank {mode} clip "
+                             "scoring disagrees with one process")
+        out[mode] = {"max_abs_err": err, "ranks_max_abs_err": between,
+                     "ms_per_clip": ms,
+                     "one_card_ms_per_clip": ref[mode]["ms_per_clip"],
+                     "launches": counts[0]["gru_scan"]}
+    log("dp", f"({label}) ranks' processes {secs:.1f} s")
+    return out
+
+
+def dp_artifact_refused(card):
+    """[dp] (d2): a data-parallel window artifact for one card more than
+    the machine has: its load must refuse with the device counts."""
+    import torch
+    from seld_tpu_torch.inference import export_window, load_exported
+    n = torch.cuda.device_count() + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = export_window(_infer_model("cuda"), f"{tmp}/dp.npz",
+                             batch=DP_ART_BATCH * n, nr_devices=n)
+        try:
+            load_exported(path, device="cuda")
+            message = None
+        except ValueError as e:
+            message = str(e)
+    want = f"artifact wants {n} devices; {n - 1} visible"
+    log("dp", f"(d2) a data-parallel window artifact, nr_devices {n}, "
+              f"loaded on {n - 1} card(s): refused {message!r} (want "
+              f"{want!r}) on {card}")
+    if message != want:
+        raise SystemExit("[dp] (d2) the load of a data-parallel artifact "
+                         "for too many cards did not refuse")
+    return message
+
+
+def _best_rate(fn, rows, reps):
+    """Windows/s of fn() on `rows` windows, the best of `reps` timed calls
+    after one warm-up (host clock: each call ends with its copy back)."""
+    fn()
+    best = math.inf
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return rows / best
+
+
+def _in_turn(art):
+    """The two-card artifact's blocks queued on the cards in turn from the
+    calling thread, then copied back (the design its call does not use):
+    a function of x."""
+    import torch
+
+    def run(x):
+        with torch.inference_mode():
+            outs = [art._launch(i, rows) for i, rows in
+                    enumerate(x.chunk(art.nr_devices))]
+            return [(s.cpu(), d.cpu()) for s, d in outs]
+    return run
+
+
+def dp_serve_cards(card):
+    """[dp] (d3), serving: a two-card artifact (static batch DP_ART_BATCH)
+    served against the live model on card 0 for requests of 1, 3 and 4
+    windows; then windows/s of full requests at DP_ART_BATCHES (in
+    process, through SELDServer) at one card and two, and the two cards'
+    blocks queued in turn from one thread instead."""
+    import torch
+    from seld_tpu_torch.inference import export_window
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.serving import SELDClient, SELDServer
+    from seld_tpu_torch.serving.server import serve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _infer_model("cuda")
+    rng = np.random.RandomState(17)
+    errs, counts, rates = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        two = export_window(model, f"{tmp}/two.npz", batch=DP_ART_BATCH,
+                            nr_devices=2)
+        svc = SELDServer(artifact=two, batch_window_ms=2.0,
+                         max_batch=DP_ART_BATCH, device="cuda")
+        httpd = serve(svc, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            client = SELDClient("127.0.0.1", httpd.server_address[1],
+                                timeout=300)
+            health = client.health()
+            for b in (1, 3, 4):
+                x = rng.randn(b, 300, 64, 7).astype(np.float32)
+                kernels.launch_counts.clear()
+                sed, doa = client.score(x)
+                counts[b] = kernels.launch_counts["gru_scan"]
+                with torch.inference_mode():
+                    ws, wd = model(torch.from_numpy(x).cuda())
+                errs[b] = max(np.abs(sed - ws.cpu().numpy()).max(),
+                              np.abs(doa - wd.cpu().numpy()).max())
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            svc.close()
+            thread.join(timeout=10)
+        nr = svc.nr_devices
+        for batch in DP_ART_BATCHES:
+            full = torch.from_numpy(rng.randn(batch, 300, 64, 7)
+                                    .astype(np.float32))
+            one = SELDServer(artifact=export_window(
+                model, f"{tmp}/one{batch}.npz", batch=batch), device="cuda")
+            both = SELDServer(artifact=export_window(
+                model, f"{tmp}/two{batch}.npz", batch=batch, nr_devices=2),
+                device="cuda")
+            in_turn = _in_turn(both._default_slot.artifact)
+            rates[batch] = {
+                "one_card": _best_rate(lambda: one.score(full), batch,
+                                       DP_ART_REPS),
+                "two_cards": _best_rate(lambda: both.score(full), batch,
+                                        DP_ART_REPS),
+                "two_cards_in_turn": _best_rate(lambda: in_turn(full),
+                                                batch, DP_ART_REPS)}
+            del one, both, in_turn
+    ok = (max(errs.values()) <= REPLY_TOL and nr == 2
+          and health["artifact_meta"].get("nr_devices") == 2
+          and all(c == 4 for c in counts.values()))
+    log("dp", f"(d3) a two-card window artifact (static batch "
+              f"{DP_ART_BATCH}, a replica on cuda:0 and cuda:1) served over "
+              f"HTTP against the live model on cuda:0: requests of 1, 3, 4 "
+              f"windows max_abs_err "
+              f"{', '.join(f'{e:.3e}' for e in errs.values())} (tol "
+              f"{REPLY_TOL:.0e}), gru_scan launches a request "
+              f"{list(counts.values())} (want 4: a biGRU a card), /healthz "
+              f"nr_devices {health['artifact_meta'].get('nr_devices')}; "
+              f"served windows/s of full requests (in process, best of "
+              f"{DP_ART_REPS}): "
+              + "; ".join(f"B={b} one card {r['one_card']:.1f}, two cards "
+                          f"{r['two_cards']:.1f} (the artifact's call: a "
+                          f"worker thread a card), "
+                          f"{r['two_cards_in_turn']:.1f} (the cards in "
+                          f"turn from one thread)" for b, r in rates.items())
+              + f" on {card} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[dp] (d3) the two-card artifact disagrees with "
+                         "the live model")
+    return {"max_abs_err": max(errs.values()), "windows_per_s": rates}
+
+
+def dp_infer(card, cards_only=False):
+    """[dp] (d): clip scoring and serving over ranks; (d1) and (d2) on any
+    machine (unless `cards_only`), (d3) where there are two cards."""
+    import torch
+    ref = _infer_run(torch.device("cuda", 0), None)
+    want = _infer_want_counts()
+    for mode, r in ref.items():
+        if r["counts"] != want[mode]:
+            raise SystemExit(f"[dp] (d) one process's {mode} launches "
+                             f"{r['counts']} (want {want[mode]})")
+    out = {}
+    if not cards_only:
+        out["gloo_one_card"] = dp_infer_ranks(card, 2, "gloo", "d1", ref)
+        out["refused"] = dp_artifact_refused(card)
+    if torch.cuda.device_count() >= 2:
+        out["nccl_two_cards"] = dp_infer_ranks(card, 2, "nccl", "d3", ref)
+        out["serve_two_cards"] = dp_serve_cards(card)
+    else:
+        log("dp", f"(d3) clip scoring and serving over two cards: not run, "
+                  f"this machine has {torch.cuda.device_count()} card")
+    return out
+
+
 def phase_dp(card, only=None):
     """Data-parallel training: (a) 2 gloo ranks sharing the card, (b) an
     NCCL group of one rank through the CLI, (c) NCCL over 2 cards, steps
-    and the CLI, where there are two. `only`: "faults", (a) alone with
-    each of DP_FAULTS planted after it; "cards", (c) alone."""
+    and the CLI, where there are two; (d) clip scoring and serving over
+    ranks (`dp_infer`). `only`: "faults", (a) alone with each of
+    DP_FAULTS planted after it; "cards", (c) and (d3) alone."""
     import torch
     out = {}
     if only in (None, "faults"):
@@ -5061,6 +5386,7 @@ def phase_dp(card, only=None):
         else:
             log("dp", f"(c) NCCL over two cards: not run, this machine has "
                       f"{torch.cuda.device_count()} card")
+        out["infer"] = dp_infer(card, cards_only=only == "cards")
     return out
 
 
@@ -5098,8 +5424,8 @@ def main(argv=None):
         "--dp", choices=("faults", "cards"), default=None,
         help="build the kernels, then run only [dp] (a) and after it each "
              "planted fault, which (a)'s comparison must catch (faults), "
-             "or only [dp] (c), NCCL steps and the CLI over two cards "
-             "(cards); no result line")
+             "or only [dp] (c) and (d3), NCCL steps, the CLI, clip scoring "
+             "and serving over two cards (cards); no result line")
     parser.add_argument(
         "--gru-wide", choices=("all", "step"), default=None,
         help="build the kernels, then run only gru_wide (all: the GRU "
@@ -5109,11 +5435,17 @@ def main(argv=None):
                         metavar=("RANK", "WORLD", "PORT", "BACKEND", "OUT",
                                  "FAULT"),
                         help="internal: one rank of the [dp] phase")
+    parser.add_argument("--infer-worker", nargs=5, default=None,
+                        metavar=("RANK", "WORLD", "PORT", "BACKEND", "OUT"),
+                        help="internal: one rank of [dp] (d1)/(d3)")
     args = parser.parse_args(argv)
     if args.dp_worker:
         rank, world, port, backend, out, fault = args.dp_worker
         return dp_worker(int(rank), int(world), int(port), backend, out,
                          fault)
+    if args.infer_worker:
+        rank, world, port, backend, out = args.infer_worker
+        return infer_worker(int(rank), int(world), int(port), backend, out)
     kernels_only = args.kernels_only
     t_start = time.perf_counter()
     import torch
@@ -5247,8 +5579,12 @@ def main(argv=None):
         blocks["cli"]["windows_per_s"]
     by_name["gru_scan"]["blocks_seconds"] = blocks["seconds"]
     dp = timed(phase_dp, smi)
+    infer_launches = {m: r["launches"] for m, r in
+                      dp["infer"]["gloo_one_card"].items()}
     for e in entries:
         e["dp_launches"] = dp["gloo_one_card"]["launches"][e["name"]]
+        e["dp_infer_launches"] = (infer_launches if e["name"] == "gru_scan"
+                                  else {m: 0 for m in infer_launches})
     by_name["gru_scan"]["dp"] = dp
 
     log("time", f"all phases {time.perf_counter() - t_start:.1f} s")

@@ -14,6 +14,15 @@ only the sequence head; with `clip_batch > 1` it stacks equal-length
 clips. The scoring half (DCASE CSVs, the official metric, the threshold
 search) stays numpy on the host.
 
+Over several cards (`mesh`, parallel/mesh.py: one process a card, every
+rank holding the same weights and the same clips) each padded chunk of
+windows is split over the `data` axis: a rank runs its `data_index`-th
+slice and `collectives.gather_rows` puts the chunk back together in rank
+order, so every rank returns every clip's full result. The fast path runs
+the trunk whole on every rank (it is time-local and cheap) and splits only
+the head's window batch. Without a process group nothing is split or
+communicated.
+
 `model` is any SELD model of models.build_model (the fast path: a
 `ConvTemporal`); `variables`, when given,
 are state_dict tensors the forward uses in place of the model's own
@@ -28,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from seld_tpu_torch.parallel import collectives
 from seld_tpu_torch.train.metrics import calculate_seld_score
 from seld_tpu_torch.train.official_metrics import SELDMetricsOfficial
 from seld_tpu_torch.utils import io
@@ -37,10 +47,6 @@ from seld_tpu_torch.utils import io
 DEFAULT_CLASS_THRESHOLDS = np.asarray(
     [0.35, 0.35, 0.3, 0.4, 0.65, 0.6, 0.45, 0.55, 0.3, 0.3, 0.45, 0.3],
     dtype=np.float32)
-
-_NO_MESH = ("ensemble_outputs(mesh=...) shards windows over several "
-            "devices, which is not ported yet (ROADMAP queue 1, item 14b)")
-
 
 def _frame_index(n: int, length: int, step: int, device) -> torch.Tensor:
     """[n, length] frame indices of n frames of `length` at stride `step`."""
@@ -84,6 +90,53 @@ def _chunked_windows_forward(source: torch.Tensor, twin: int, tstep: int,
     return torch.cat(seds)[:n_win], torch.cat(doas)[:n_win]
 
 
+def _shards(mesh) -> int:
+    """How many ways a window batch splits: the `data` axis's size under a
+    process group, else 1 (a rank without a group computes alone)."""
+    return mesh.data_size if mesh is not None and mesh.distributed else 1
+
+
+def _data_ranks(mesh) -> List[int]:
+    """The rank that holds each shard of the `data` axis (index 0 on every
+    other axis), in shard order."""
+    names = tuple(mesh.axes)
+    sizes = tuple(mesh.axes[n] for n in names)
+    d = names.index("data")
+    return [int(np.ravel_multi_index(
+        tuple(i if k == d else 0 for k in range(len(names))), sizes))
+        for i in range(mesh.data_size)]
+
+
+def _sharded(forward, mesh):
+    """`forward` on this rank's rows of a window batch, every rank's rows
+    gathered back in order (on every rank); `forward` itself without a
+    process group. A batch the `data` axis does not divide raises on every
+    rank alike, before any collective."""
+    if mesh is None or not mesh.distributed:
+        return forward
+    n, i = mesh.data_size, mesh.data_index
+    ranks = _data_ranks(mesh)
+
+    def run(windows):
+        b = windows.shape[0]
+        if b % n:
+            raise ValueError(f"a batch of {b} windows does not shard evenly "
+                             f"over the {n}-way data axis")
+        rows = b // n
+        sed, doa = forward(windows[i * rows:(i + 1) * rows])
+        c = sed.shape[-1]
+        # one collective for both heads, in f32 (what the overlap-add
+        # takes; every backend sums f32)
+        with collectives.data_parallel(mesh):
+            both = collectives.gather_rows(torch.cat([sed, doa], -1).float())
+        if ranks != list(range(mesh.world)):
+            # another axis replicates: keep one slot of each data shard
+            both = both.view(mesh.world, rows, *both.shape[1:])[ranks]
+            both = both.flatten(0, 1)
+        return both[..., :c], both[..., c:]
+    return run
+
+
 def _overlap_add_normalized(sed: torch.Tensor, doa: torch.Tensor,
                             win_size: int, step_size: int):
     """Validate the feature/label geometry and overlap-add with count
@@ -117,17 +170,18 @@ def _check_fast_geometry(win_size: int, step_size: int, time_down: int):
 
 
 def _predict_clip(apply: Callable, x: torch.Tensor, *, win_size: int,
-                  step_size: int, batch_size: int):
+                  step_size: int, batch_size: int, mesh=None):
     """One full clip [T_f, F, C] -> overlap-added (sed [T_l, C],
-    doa [T_l, 3C])."""
+    doa [T_l, 3C]); each chunk split over `mesh`'s data axis."""
     n_win = (x.shape[0] - win_size) // step_size + 1
     sed, doa = _chunked_windows_forward(x, win_size, step_size, n_win,
-                                        batch_size, apply)
+                                        batch_size, _sharded(apply, mesh))
     return _overlap_add_normalized(sed, doa, win_size, step_size)
 
 
 def _predict_clip_fast(apply: Callable, x: torch.Tensor, *, win_size: int,
-                       step_size: int, batch_size: int, time_down: int):
+                       step_size: int, batch_size: int, time_down: int,
+                       mesh=None):
     """Fast sliding window: the time-local trunk (stem + conv body) runs
     ONCE over the full clip; only the sequence blocks + heads slide.
 
@@ -155,19 +209,20 @@ def _predict_clip_fast(apply: Callable, x: torch.Tensor, *, win_size: int,
     # the head is a tail of small ops whose cost a clip grows with the
     # number of chunks more than with the number of windows: run all of a
     # clip's windows in one chunk when they fit (a 60-s clip: 541 windows,
-    # padded to 544)
+    # padded to 544), padded to a multiple of 8 a shard
     eff_batch = batch_size
     if n_win <= max(batch_size, 1024):
-        eff_batch = -(-n_win // 8) * 8
+        pad_to = 8 * _shards(mesh)
+        eff_batch = -(-n_win // pad_to) * pad_to
     sed, doa = _chunked_windows_forward(
         trunk, win_size // time_down, step_size // time_down, n_win,
-        eff_batch, head)
+        eff_batch, _sharded(head, mesh))
     return _overlap_add_normalized(sed, doa, win_size, step_size)
 
 
 def _predict_clips_fast_batched(apply: Callable, xs: torch.Tensor, *,
                                 win_size: int, step_size: int,
-                                time_down: int):
+                                time_down: int, mesh=None):
     """Multi-clip fast path: trunks batched over clips, then ALL clips'
     windows run through the sequence head as ONE chunk.
 
@@ -189,10 +244,10 @@ def _predict_clips_fast_batched(apply: Callable, xs: torch.Tensor, *,
                        trunks.device)
     windows = trunks[:, idx]                           # [N, n_win, twin, ..]
     flat = windows.reshape(n * n_win, *windows.shape[2:])
-    pad = (-flat.shape[0]) % 8
+    pad = (-flat.shape[0]) % (8 * _shards(mesh))
     if pad:  # zero rows (not a slice of flat: flat may have < pad rows)
         flat = torch.cat([flat, flat.new_zeros((pad, *flat.shape[1:]))])
-    sed, doa = apply(flat, stage="head")
+    sed, doa = _sharded(lambda w: apply(w, stage="head"), mesh)(flat)
     sed = sed[: n * n_win].reshape(n, n_win, *sed.shape[1:])
     doa = doa[: n * n_win].reshape(n, n_win, *doa.shape[1:])
     return [_overlap_add_normalized(s, d, win_size, step_size)
@@ -232,11 +287,21 @@ def ensemble_outputs(model: nn.Module, xs: Sequence,
     stride); near-exact (see `_predict_clip_fast`). The exact path stays
     the default and the parity baseline. clip_batch > 1 (with fast) stacks
     consecutive equal-length clips with all their windows in one head
-    chunk. `mesh` (sharding the windows over several devices) is not
-    ported.
+    chunk.
+
+    `mesh` (parallel.mesh.make_mesh under a process group; every rank calls
+    this with the same weights and clips) splits each window batch over
+    its `data` axis and gathers the rows back: every rank returns the full
+    result. A `batch_size` the axis does not divide raises (as
+    `shard_batch` does), on the exact path and for a fast-path clip too
+    long for one chunk; the fast path's one-chunk head batch (and
+    clip_batch's stacked one) is padded to a multiple of 8 x the axis's
+    size, so it always divides. Without a process group (world 1) this
+    is the single-card path, bit for bit.
     """
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    if mesh is not None and data_axis != "data":
+        raise ValueError(f"data_axis {data_axis!r}: the port's meshes shard "
+                         "batches over 'data' alone")
     device = _model_device(model, variables)
 
     def apply(x, stage="full"):
@@ -251,13 +316,14 @@ def ensemble_outputs(model: nn.Module, xs: Sequence,
     try:
         with torch.inference_mode():
             return _ensemble_outputs(apply, xs, device, win_size, step_size,
-                                     batch_size, fast, time_down, clip_batch)
+                                     batch_size, fast, time_down, clip_batch,
+                                     mesh)
     finally:
         model.train(was_training)
 
 
 def _ensemble_outputs(apply, xs, device, win_size, step_size, batch_size,
-                      fast, time_down, clip_batch):
+                      fast, time_down, clip_batch, mesh):
     if fast and clip_batch > 1:
         # group consecutive equal-shape clips into stacked batches
         outs: List = [None] * len(xs)
@@ -272,13 +338,13 @@ def _ensemble_outputs(apply, xs, device, win_size, step_size, batch_size,
                 outs[i] = _predict_clip_fast(
                     apply, _clip_on(xs[i], device), win_size=win_size,
                     step_size=step_size, batch_size=batch_size,
-                    time_down=time_down)
+                    time_down=time_down, mesh=mesh)
             else:
                 stacked = torch.stack([_clip_on(xs[j], device)
                                        for j in group])
                 batched = _predict_clips_fast_batched(
                     apply, stacked, win_size=win_size, step_size=step_size,
-                    time_down=time_down)
+                    time_down=time_down, mesh=mesh)
                 for j, out in zip(group, batched):
                     outs[j] = out
             i += len(group)
@@ -287,7 +353,8 @@ def _ensemble_outputs(apply, xs, device, win_size, step_size, batch_size,
     predict = _predict_clip_fast if fast else _predict_clip
     kwargs = {"time_down": time_down} if fast else {}
     return [predict(apply, _clip_on(x, device), win_size=win_size,
-                    step_size=step_size, batch_size=batch_size, **kwargs)
+                    step_size=step_size, batch_size=batch_size, mesh=mesh,
+                    **kwargs)
             for x in xs]
 
 

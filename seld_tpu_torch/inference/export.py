@@ -17,7 +17,12 @@ directory and no training code — as two files:
 and loads its weights, dequantised on the device. Two units:
 
 - ``window``: ``[b, win, F, C] -> (sed [b, t, C], doa [b, t, 3C])`` for any
-  b (or b == batch when exported with a static batch).
+  b (or b == batch when exported with a static batch). A data-parallel
+  window artifact (`nr_devices` N > 1, a static batch N divides) loads one
+  replica of its members on each of N devices; a call splits the batch
+  into N row blocks in order, runs each on its device from a worker
+  thread of its own (on the device's own stream) and returns the rows in
+  order.
 - ``clip`` (conv_temporal only): ``[T, F, C] -> (sed [L, C], doa
   [L, 3C])``, the trunk-once fast sliding-window predictor
   (inference/ensemble.py) for a fixed clip length `clip_frames` (DCASE 60-s
@@ -33,13 +38,14 @@ The stream unit is a BUNDLE, a directory (`export_streaming`):
                      the member and the quantisation
   <dir>/weights.npz  the weights, stored as an artifact's
 
-served by `StreamingSELD.from_exported(dir, device=...)`. Not yet ported:
-data-parallel artifacts (ROADMAP queue 1, item 14b).
+served by `StreamingSELD.from_exported(dir, device=...)`.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -154,7 +160,7 @@ def _export(models: Sequence[nn.Module], path: str, unit: str,
 
 def export_window(model: nn.Module, path: str, *, dtype: str = "float32",
                   batch: Optional[int] = None,
-                  quantize: Optional[str] = None,
+                  quantize: Optional[str] = None, nr_devices: int = 1,
                   extra_meta: Optional[Dict[str, Any]] = None) -> str:
     """Write `model` (from `models.build_model`) as a window artifact.
 
@@ -163,9 +169,22 @@ def export_window(model: nn.Module, path: str, *, dtype: str = "float32",
     batch: None serves every batch size; an int N makes the server
       pad-and-chunk every dispatch to exactly N rows.
     quantize: None (f32 weights), "int8" or "bfloat16" (quantize.py).
+    nr_devices: > 1 writes a data-parallel artifact: it needs a static
+      `batch` that nr_devices divides, and a load places one replica on
+      each of nr_devices devices (one dispatch spans them all).
     """
-    return export_window_ensemble([model], path, dtype=dtype, batch=batch,
-                                  quantize=quantize, extra_meta=extra_meta)
+    if nr_devices > 1:
+        if not batch:
+            raise ValueError("a data-parallel export needs a static batch "
+                             "(a batch of any size cannot split over the "
+                             "devices)")
+        if batch % nr_devices:
+            raise ValueError(f"batch {batch} must divide over the "
+                             f"{nr_devices}-device mesh")
+    return _export([model], path, "window", model.input_shape, dtype=dtype,
+                   quantize=quantize,
+                   geometry={"batch": batch, "nr_devices": int(nr_devices)},
+                   extra_meta=extra_meta)
 
 
 def export_window_ensemble(models: Sequence[nn.Module], path: str, *,
@@ -179,7 +198,8 @@ def export_window_ensemble(models: Sequence[nn.Module], path: str, *,
     (make_answer.py:133-140). Members may differ in architecture but take
     the same window shape."""
     return _export(models, path, "window", models[0].input_shape,
-                   dtype=dtype, quantize=quantize, geometry={"batch": batch},
+                   dtype=dtype, quantize=quantize,
+                   geometry={"batch": batch, "nr_devices": 1},
                    extra_meta=extra_meta)
 
 
@@ -227,7 +247,8 @@ def export_clip_fast_ensemble(models: Sequence[nn.Module], path: str,
                    geometry={"clip_frames": clip_frames,
                              "win_size": win_size, "step_size": step_size,
                              "time_downs": [int(t) for t in time_downs],
-                             "time_down": int(time_downs[0])},
+                             "time_down": int(time_downs[0]),
+                             "nr_devices": 1},
                    extra_meta=extra_meta)
 
 
@@ -299,47 +320,106 @@ def load_stream_bundle(path: str, device="cuda"
     return model, meta
 
 
-class LoadedArtifact:
-    """A loaded window or clip artifact: `call(x)` on its device, plus
-    meta."""
+def _devices(device, n: int) -> List[torch.device]:
+    """The n devices an artifact of `nr_devices` n runs on: the first n
+    cards for a CUDA device (raises when fewer are visible), n replicas on
+    the CPU for the CPU."""
+    device = torch.device(device)
+    if n == 1:
+        return [device]
+    if device.type == "cpu":
+        return [device] * n
+    visible = torch.cuda.device_count()
+    if visible < n:
+        raise ValueError(f"artifact wants {n} devices; {visible} visible")
+    return [torch.device(device.type, i) for i in range(n)]
 
-    def __init__(self, models: List[nn.Module], meta: Dict[str, Any],
-                 device):
-        self.models = models
+
+class LoadedArtifact:
+    """A loaded window or clip artifact: `call(x)` on its device(s), plus
+    meta. A data-parallel artifact holds one replica of its members a
+    device (`replicas[i]` on `devices[i]`; `models` is the first)."""
+
+    def __init__(self, replicas: List[List[nn.Module]], meta: Dict[str, Any],
+                 devices: Sequence):
+        self.replicas = replicas
+        self.models = replicas[0]
         self.meta = meta
         self.unit: str = meta["unit"]
-        self.device = torch.device(device)
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
+        self.nr_devices = len(self.devices)
         self.input_shape: Tuple[int, ...] = tuple(meta["input_shape"])
         self.dtype = INPUT_DTYPES[meta["input_dtype"]]
         self.batch: Optional[int] = meta.get("batch")
+        self._pool = self._streams = None
+        if self.nr_devices > 1:
+            self._pool = ThreadPoolExecutor(
+                self.nr_devices, thread_name_prefix="seld-replica")
+            self._streams = [torch.cuda.Stream(d) if d.type == "cuda"
+                             else None for d in self.devices]
 
-    def _member_outputs(self, x: torch.Tensor):
+    def _member_outputs(self, models, x: torch.Tensor):
         if self.unit == "window":
-            return [m(x) for m in self.models]
+            return [m(x) for m in models]
         from seld_tpu_torch.inference.ensemble import _predict_clip_fast
         return [_predict_clip_fast(
                     m, x, win_size=self.meta["win_size"],
                     step_size=self.meta["step_size"], batch_size=1 << 30,
                     time_down=td)
-                for m, td in zip(self.models, self.meta["time_downs"])]
+                for m, td in zip(models, self.meta["time_downs"])]
+
+    def _launch(self, i: int, x: torch.Tensor):
+        """Replica i's members' average (f32) of rows x, queued on its
+        device and not waited for."""
+        device = self.devices[i]
+        with (torch.cuda.device(device) if device.type == "cuda"
+              else contextlib.nullcontext()):
+            x = x.to(device=device, dtype=self.dtype)
+            outs = self._member_outputs(self.replicas[i], x)
+            n = float(len(outs))
+            return (sum(s.float() for s, _ in outs) / n,
+                    sum(d.float() for _, d in outs) / n)
+
+    def _block(self, i: int, x: torch.Tensor):
+        """Replica i's rows x on a worker thread, copied back: inference
+        mode and the current stream are per thread, so each is set
+        here (the card's own stream)."""
+        stream = self._streams[i]
+        with torch.inference_mode(), (
+                torch.cuda.stream(stream) if stream is not None
+                else contextlib.nullcontext()):
+            sed, doa = self._launch(i, x)
+            return sed.cpu(), doa.cpu()
 
     @torch.inference_mode()
     def call(self, x: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
         """window: [b, *input_shape]; clip: [*input_shape] (any host or
         device tensor) -> (sed, doa) as float32 numpy arrays, the members'
-        average (the copy back waits for the device)."""
-        x = x.to(device=self.device, dtype=self.dtype)
-        outs = self._member_outputs(x)
-        n = float(len(outs))
-        sed = sum(s.float() for s, _ in outs) / n
-        doa = sum(d.float() for _, d in outs) / n
-        return sed.cpu().numpy(), doa.cpu().numpy()
+        average (the copy back waits for the device). A data-parallel
+        artifact splits b into nr_devices row blocks in order and runs
+        them at once, a worker thread a card (faster than queueing the
+        cards in turn from one thread at 256 rows a card on two cards,
+        slower at 32, where one card beats two either way; PERF.md)."""
+        if self.nr_devices == 1:
+            sed, doa = self._launch(0, x)
+            return sed.cpu().numpy(), doa.cpu().numpy()
+        if x.shape[0] % self.nr_devices:
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                             f"over the artifact's {self.nr_devices} "
+                             "devices")
+        outs = list(self._pool.map(self._block, range(self.nr_devices),
+                                   x.chunk(self.nr_devices)))
+        return (torch.cat([s for s, _ in outs]).numpy(),
+                torch.cat([d for _, d in outs]).numpy())
 
 
 def load_exported(path: str, device="cuda") -> LoadedArtifact:
-    """A window or clip artifact on `device`. A stream bundle (a directory,
-    or a meta whose unit is "stream") is refused: it loads through
-    `StreamingSELD.from_exported`."""
+    """A window or clip artifact on `device`: a data-parallel artifact
+    (`nr_devices` N > 1) on the first N cards of a CUDA device (raises when
+    fewer are visible) or as N replicas on the CPU. A stream bundle (a
+    directory, or a meta whose unit is "stream") is refused: it loads
+    through `StreamingSELD.from_exported`."""
     meta_path = (os.path.join(path, _BUNDLE_META) if os.path.isdir(path)
                  else path + _META_SUFFIX)
     with open(meta_path) as f:
@@ -351,6 +431,13 @@ def load_exported(path: str, device="cuda") -> LoadedArtifact:
     if meta.get("format") != FORMAT or unit not in UNITS:
         raise ValueError(f"{path}: not a {FORMAT} window or clip artifact "
                          f"(format {meta.get('format')!r}, unit {unit!r})")
+    n = int(meta.get("nr_devices", 1))
+    if n > 1 and (unit != "window" or not meta.get("batch")
+                  or meta["batch"] % n):
+        raise ValueError(f"{path}: nr_devices {n} needs a window artifact "
+                         f"whose static batch {n} divides (unit {unit!r}, "
+                         f"batch {meta.get('batch')})")
+    devices = _devices(device, n)
     with np.load(path) as weights:
-        models = _build_members(meta, weights, device)
-    return LoadedArtifact(models, meta, device)
+        replicas = [_build_members(meta, weights, d) for d in devices]
+    return LoadedArtifact(replicas, meta, devices)

@@ -19,6 +19,11 @@
     python -m seld_tpu_torch.inference.export_model --model_config SS5 \
         --unit stream --n_streams 4 --out ss5_stream --verify
 
+    # a data-parallel window artifact: a static batch of 64 split over two
+    # cards (one replica a card), checked against the live model:
+    python -m seld_tpu_torch.inference.export_model --model_config SS5 \
+        --batch 64 --data_parallel 2 --out ss5_dp.npz --verify
+
 Comma lists in --variables, --seed, --model_config and --model make an
 ensemble: one artifact whose call returns the members' average (a list of
 one value is broadcast over the members).
@@ -32,9 +37,6 @@ import argparse
 
 import numpy as np
 import torch
-
-_UNPORTED_DP = ("--data_parallel exports a data-parallel artifact, which "
-                "is not ported yet (ROADMAP queue 1, item 14b)")
 
 
 def _members(args):
@@ -161,15 +163,14 @@ def main(argv=None):
                          "batch (the server pads and chunks each dispatch "
                          "to N rows)")
     ap.add_argument("--data_parallel", type=int, default=0,
-                    help="window unit: shard over this many devices (not "
-                         "ported yet)")
+                    help="window unit, one member: split the static --batch "
+                         "over this many devices (a replica a device, one "
+                         "dispatch spanning them)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--verify", action="store_true",
                     help="reload the artifact and check it matches the live "
                          "model(s) on random input")
     args = ap.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(_UNPORTED_DP)
     members = _members(args)
     if args.unit in ("clip", "stream") and \
             {m for m, *_ in members} != {"conv_temporal"}:
@@ -178,6 +179,17 @@ def main(argv=None):
     if args.unit == "stream" and len(members) > 1:
         raise SystemExit("--unit stream serves one engine per model; "
                          "export each member separately")
+    if args.data_parallel and args.unit != "window":
+        raise SystemExit(f"--data_parallel is a window-unit option; "
+                         f"--unit {args.unit} artifacts are single-device")
+    if args.data_parallel:
+        if len(members) > 1:
+            raise SystemExit("--data_parallel supports single-model "
+                             "window exports")
+        if torch.device(args.device).type == "cuda" and \
+                torch.cuda.device_count() < args.data_parallel:
+            raise SystemExit(f"--data_parallel {args.data_parallel}: only "
+                             f"{torch.cuda.device_count()} devices visible")
 
     from seld_tpu_torch.bridge import from_flax, load_npz
     from seld_tpu_torch.config import resolve_model_config
@@ -204,7 +216,11 @@ def main(argv=None):
     if args.unit == "stream":
         _export_stream(args, models[0], time_downs[0], quantize)
         return
-    if args.unit == "window":
+    if args.unit == "window" and args.data_parallel:
+        E.export_window(models[0], args.out, dtype=args.dtype,
+                        batch=args.batch or None, quantize=quantize,
+                        nr_devices=args.data_parallel, extra_meta=extra)
+    elif args.unit == "window":
         E.export_window_ensemble(models, args.out, dtype=args.dtype,
                                  batch=args.batch or None, quantize=quantize,
                                  extra_meta=extra)
@@ -231,7 +247,11 @@ def main(argv=None):
     xin = x.to(args.device, art.dtype)
     with torch.inference_mode():
         if args.unit == "window":
-            outs = [m(xin) for m in models]
+            # a data-parallel artifact runs row blocks: the live model runs
+            # the same blocks, so both pick the same library algorithms
+            blocks = xin.chunk(max(args.data_parallel, 1))
+            outs = [tuple(torch.cat(o) for o in zip(*(m(b) for b in blocks)))
+                    for m in models]
         else:
             outs = [_predict_clip_fast(
                         m, xin, win_size=args.win_size,

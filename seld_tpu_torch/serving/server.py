@@ -31,9 +31,13 @@ ml_dtypes needed).
 
 Streaming sessions are created on first push; each shares the bundle's
 model (copy.copy of a template engine + reset(), which gives the session
-state tensors of its own), so a new session costs microseconds. One device
-serves every request: a global dispatch lock serializes device work across
-the threaded server's handlers (HTTP parsing/serialization still overlaps).
+state tensors of its own), so a new session costs microseconds. A global
+dispatch lock serializes device work across the threaded server's
+handlers (HTTP parsing/serialization still overlaps). A data-parallel
+window artifact (export_model --data_parallel N) holds a replica on each
+of N cards, and one dispatch spans all N under that lock: the artifact
+splits the (padded) static batch into N row blocks and runs them at
+once, a worker thread a card.
 
 Dynamic micro-batching (batch_window_ms > 0, window artifacts): concurrent
 /v1/score requests
@@ -195,12 +199,14 @@ class _Pending:
 
 
 class _SlotState:
-    """One loaded artifact + its content hash, swapped as ONE reference."""
-    __slots__ = ("artifact", "meta", "content_hash")
+    """One loaded artifact, the number of devices it spans and its content
+    hash, swapped as ONE reference."""
+    __slots__ = ("artifact", "meta", "nr_devices", "content_hash")
 
-    def __init__(self, artifact, meta, content_hash):
+    def __init__(self, artifact, meta, nr_devices, content_hash):
         self.artifact = artifact
         self.meta = meta
+        self.nr_devices = nr_devices
         self.content_hash = content_hash
 
 
@@ -239,14 +245,20 @@ class _ScoreSlot:
     def meta(self) -> dict:
         return self._state.meta
 
+    @property
+    def nr_devices(self) -> int:
+        return self._state.nr_devices
+
     def _load_state(self) -> _SlotState:
         import hashlib
 
         from seld_tpu_torch.inference.export import load_exported
         with open(self.path, "rb") as f:
             digest = hashlib.sha1(f.read()).hexdigest()
+        # a data-parallel artifact builds its replicas on every card here,
+        # before a reload publishes it
         art = load_exported(self.path, device=self.device)
-        return _SlotState(art, dict(art.meta), digest)
+        return _SlotState(art, dict(art.meta), art.nr_devices, digest)
 
     def prepare_reload(self) -> _SlotState:
         """Phase 1: load + validate the new artifact WITHOUT publishing."""
@@ -479,6 +491,11 @@ class SELDServer:
     def batch_stats(self) -> dict:
         s = self._default_slot
         return s.batch_stats if s is not None else {}
+
+    @property
+    def nr_devices(self) -> int:
+        s = self._default_slot
+        return s.nr_devices if s is not None else 1
 
     # ---- service methods (HTTP-agnostic; raise HTTPError) ----
 

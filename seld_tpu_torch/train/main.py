@@ -355,10 +355,12 @@ def train(config, model_config, device):
         trainer.init_from(config.init_from)
         print(f"initialized params from {config.init_from}")
 
-    # periodic full-clip ensemble eval against the official scorer
+    # periodic full-clip ensemble eval against the official scorer: every
+    # rank scores its share of the windows (the same clips, the same
+    # epochs), rank 0 alone writes the CSVs and logs
     gt_dir = os.path.join(config.ans_path, "dev-test")
     eval_fn = None
-    if os.path.exists(gt_dir) and chief:
+    if os.path.exists(gt_dir):
         names = sorted(os.path.splitext(os.path.basename(f))[0]
                        for f in glob(os.path.join(gt_dir, "*.csv")))
 
@@ -446,16 +448,18 @@ def train(config, model_config, device):
                              eval_fn=eval_fn, eval_every=config.eval_every)
         print(f"best val seld score: {result['best_score']:.5f}")
 
-        # final SWA evaluation + save (trainv2.py:362-369), on rank 0
+        # final SWA evaluation (every rank) + save (trainv2.py:362-369),
+        # on rank 0
         if trainer.swa.count > 0 and eval_fn is not None:
             seld, _ = trainer.evaluate_ensemble(
                 test_xs, names, gt_dir, config.output_path,
                 result["last_epoch"], params=trainer.swa_params(),
                 batch_stats=trainer.swa_batch_stats())
-            save_checkpoint(trainer.workdir, f"SWA_best_{seld:.5f}",
-                            trainer.state, trainer.swa,
-                            params=trainer.swa_params())
-            print(f"SWA seld score: {seld:.5f}")
+            if chief:
+                save_checkpoint(trainer.workdir, f"SWA_best_{seld:.5f}",
+                                trainer.state, trainer.swa,
+                                params=trainer.swa_params())
+                print(f"SWA seld score: {seld:.5f}")
     finally:
         if mesh.distributed:
             # drop the epoch step's captured program, on success and on

@@ -315,7 +315,12 @@ class SELDTrainer:
                           thresholds=0.5, params=None, batch_stats=None):
         """Full-clip sliding-window eval + official scoring
         (trainv2.py:195-237), logged as ENS_T/*. `params`/`batch_stats`
-        score other weights than the model's own (the SWA average)."""
+        score other weights than the model's own (the SWA average).
+
+        Under a process group every rank must call this with the same clips:
+        the windows are split over the trainer's mesh, the chief alone
+        scores them (the CSVs under `output_dir`, the ENS_T scalars), and
+        its (seld, metric values) reach every rank by a broadcast."""
         from seld_tpu_torch.inference.ensemble import (
             ensemble_outputs, evaluate_clips_official)
         variables = None
@@ -327,14 +332,22 @@ class SELDTrainer:
         outs = ensemble_outputs(
             self.model, test_xs,
             batch_size=batch_size or getattr(self.config, "batch", 256),
-            variables=variables)
-        seld, metric_values = evaluate_clips_official(
-            outs, label_names, gt_dir, output_dir,
-            thresholds=thresholds, n_classes=self.n_classes)
-        for tag, val in zip(("ER", "F", "DER", "DERF"), metric_values):
-            self.logger.add_scalar(f"ENS_T/{tag}", float(val), epoch)
-        self.logger.add_scalar("ENS_T/seldScore", seld, epoch)
-        return seld, metric_values
+            mesh=self.mesh, variables=variables)
+        scores = torch.zeros(5, dtype=torch.float64)
+        if self.is_chief:
+            seld, metric_values = evaluate_clips_official(
+                outs, label_names, gt_dir, output_dir,
+                thresholds=thresholds, n_classes=self.n_classes)
+            for tag, val in zip(("ER", "F", "DER", "DERF"), metric_values):
+                self.logger.add_scalar(f"ENS_T/{tag}", float(val), epoch)
+            self.logger.add_scalar("ENS_T/seldScore", seld, epoch)
+            if not self.mesh.distributed:
+                return seld, metric_values
+            scores = torch.tensor([seld, *metric_values],
+                                  dtype=torch.float64)
+        # the chief's score, so that every rank takes the same branches
+        scores = collectives.broadcast_(scores.to(self.device)).cpu()
+        return float(scores[0]), tuple(float(v) for v in scores[1:])
 
     def barrier(self) -> None:
         """Every rank reaches this point before any goes on (an all-reduce

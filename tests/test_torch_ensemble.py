@@ -181,8 +181,10 @@ def test_the_geometry_errors(pair):
 
 def test_refuses_a_mesh_and_a_clip_on_another_device(pair):
     _, _, model = pair
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        tens.ensemble_outputs(model, _clips(1), mesh=object())
+    from seld_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="'data' alone"):
+        tens.ensemble_outputs(model, _clips(1), data_axis="batch",
+                              mesh=make_mesh("data:-1", "cpu"))
     with pytest.raises(ValueError, match="meta"):
         tens.ensemble_outputs(model, [torch.zeros(200, 16, 7,
                                                   device="meta")],

@@ -544,7 +544,7 @@ def test_export_cli_clip_ensemble_quantized_and_refusals(tmp_path):
     with pytest.raises(SystemExit, match="one engine per model"):
         export_model.main(common + ["--out", bundle, "--unit", "stream",
                                     "--seed", "0,1"])
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(ValueError, match="static batch"):
         export_model.main(common + ["--out", out, "--data_parallel", "2"])
     with pytest.raises(SystemExit, match="2 values for 3 members"):
         export_model.main(common + ["--out", out, "--seed", "0,1",
