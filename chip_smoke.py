@@ -38,7 +38,12 @@ Phases, one line each:
               (losses, every gradient, the updated parameters, the running
               statistics); (b) 20 bf16 steps at B=256 with dropout through
               seld_tpu_torch.bench's step: finite losses and exactly 2
-              gru_scan, 2 gru_scan_bwd and 1 stem_dy launches per step
+              gru_scan, 2 gru_scan_bwd and 1 stem_dy launches per step;
+              (c) the fused single step (make_train_step(fuse_metrics=
+              True): the update and the metric as one CUDA graph), 3 calls
+              against 3 unfused steps from the same seed (losses, state,
+              metric, the dropout generator, equal launches), then ms a
+              step of each in turns
   8. graph    the k-step call (make_train_multistep, k=8: a CUDA graph of
               one step replayed k times) at SS5 full width, B=256, bf16,
               dropout on: (a) one call against 8 eager steps from the same
@@ -217,8 +222,27 @@ Phases, one line each:
               one card, a two-card artifact is served against the live
               model for requests of 1, 3 and 4 windows, and ms a 60-s clip
               and served windows/s are printed at one card and two (else
-              one line says (d3) did not run). --dp cards runs (c) and
-              (d3) alone. Neither prints a result line.
+              one line says (d3) did not run). --dp cards runs (c), (d3)
+              and [tp] (b) alone. Neither prints a result line.
+ 19. tp       tensor parallelism over a model axis (parallel/
+              partitioning.py): SS5 full width bf16, dropout off, the
+              bench's batch of 256 windows, 3 steps on a data:1,model:2
+              mesh, each rank holding half of every sharded kernel (the
+              stem's 32 filters, the attention heads, the dense and conv
+              outputs), against one process's steps by [dp] (a)'s rule
+              (the shards put back together); exactly gru_scan 2,
+              gru_scan_bwd 2 and stem_dy 1 a step on each rank. (a) two
+              gloo ranks sharing the card; (b) two NCCL ranks on two cards
+              with ms a step, where there are two cards
+ 20. tools    the tooling twins on the card: (a) python -m
+              seld_tpu_torch.smoke, exact launches; (b) extract_features on
+              10 seeded 60-s wavs (two front-end launches) against the
+              kernel's plain version; (c) bench_frontend on 16 clips;
+              (d) profile_train --trace (SS5 B=256 bf16), the trace's card
+              kernels grouped by utils/trace_analysis.py; (e) a seeded
+              SS5's weights as Keras-named layers through the h5 import's
+              mapping onto other weights, saved, loaded and served as a
+              window artifact against the seeded model
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
 at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152,
 both GRU kernels past U = 256 (gru_wide): the resident variants at
@@ -325,6 +349,10 @@ GRAPH_CALLS = 2          # timed calls of k steps a run
 GRAPH_LOSS_RTOL = 1e-5
 GRAPH_STATE_ATOL = 1e-6
 GRAPH_METRIC_RTOL = 1e-5
+# [train] (c): the fused single step's calls checked against unfused steps
+# (GRAPH_*'s tolerances), then timed steps of each in turns
+FUSED_CALLS = 3
+FUSED_TIMED = 10
 # foa_frontend against its plain version, f32 with TF32 off, on the dB and
 # IV channels: the 1024-term DFT sums run in another order, and the dB step
 # and the IV normalisation amplify relative error where energy is low
@@ -2047,7 +2075,75 @@ def phase_train(card):
     if not finite or counts != want:
         raise SystemExit("bf16 training produced a non-finite loss or "
                          "skipped a kernel")
-    return counts
+    return counts, train_fused(card)
+
+
+def train_fused(card):
+    """[train] (c): make_train_step(fuse_metrics=True), the single step
+    with the metric inside (one CUDA graph: the first call warms up and
+    captures, the rest replay), FUSED_CALLS calls against as many unfused
+    steps from the same seed on the same batch, SS5 full width bf16 B=256
+    dropout on, cuDNN deterministic; then FUSED_TIMED steps of each in
+    turns. Returns the fused calls' launch counts."""
+    import torch
+    from seld_tpu_torch.bench import build
+    from seld_tpu_torch.ops import kernels
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {"fused": build(batch=256, dtype="bf16", device="cuda",
+                               fuse_metrics=True),
+                "unfused": build(batch=256, dtype="bf16", device="cuda")}
+        losses, launches = {}, {}
+        for name, r in runs.items():
+            kernels.launch_counts.clear()
+            losses[name] = []
+            for _ in range(FUSED_CALLS):
+                r.state, r.metric, (sl, dl) = r.step(r.state, r.metric,
+                                                     r.x, r.y)
+                losses[name] += [sl.item(), dl.item()]
+            launches[name] = {k: kernels.launch_counts[k]
+                              for k in kernels.KERNELS}
+        f, u = runs["fused"], runs["unfused"]
+        loss_err = _max_rel(losses["fused"], losses["unfused"])
+        param_err, stats_err = _state_err(f.state, u.state)
+        metric_err = _max_rel([float(f.metric[n].sum()) for n in f.metric],
+                              [float(u.metric[n].sum()) for n in u.metric])
+        same_gen = torch.equal(f.state.generator.get_state(),
+                               u.state.generator.get_state())
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want = {"gru_scan": 2 * FUSED_CALLS, "gru_scan_bwd": 2 * FUSED_CALLS,
+            "stem_dy": FUSED_CALLS, "foa_frontend": 0, "gather_rows": 0}
+    ms = {"unfused": [], "fused": []}
+    for name in ("unfused", "fused", "fused", "unfused"):
+        r = runs[name]
+
+        def run():
+            for _ in range(FUSED_TIMED):
+                r.state, r.metric, _ = r.step(r.state, r.metric, r.x, r.y)
+        ms[name].append(_step_ms(run, FUSED_TIMED))
+    ok = (loss_err <= GRAPH_LOSS_RTOL and param_err <= GRAPH_STATE_ATOL
+          and stats_err <= GRAPH_STATE_ATOL and metric_err
+          <= GRAPH_METRIC_RTOL and same_gen
+          and launches["fused"] == launches["unfused"] == want)
+    log("train", f"(c) make_train_step(fuse_metrics=True), SS5 full width "
+                 f"bf16 B=256 dropout on, {FUSED_CALLS} calls (warm-up and "
+                 f"capture, then replays of one graph) against as many "
+                 f"unfused steps: losses rel_err {loss_err:.2e}, params "
+                 f"max_abs_err {param_err:.2e}, running stats "
+                 f"{stats_err:.2e} (tol {GRAPH_LOSS_RTOL:.0e} rel, "
+                 f"{GRAPH_STATE_ATOL:.0e} abs), metric sums rel_err "
+                 f"{metric_err:.2e} (tol {GRAPH_METRIC_RTOL:.0e}), dropout "
+                 f"generators equal {same_gen}; launches fused "
+                 f"{launches['fused']}, unfused {launches['unfused']} (want "
+                 f"{want}); ms a step in turns ({FUSED_TIMED} steps a run): "
+                 f"unfused {ms['unfused'][0]:.2f}/{ms['unfused'][1]:.2f}, "
+                 f"fused {ms['fused'][0]:.2f}/{ms['fused'][1]:.2f} on {card} "
+                 f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[train] (c) the fused single step disagrees with "
+                         "the unfused step")
+    return {"launches": launches["fused"], "ms": ms}
 
 
 def _max_rel(a, b):
@@ -4801,7 +4897,8 @@ def _run_ranks(world, backend, workdir, fault="none", worker="--dp-worker",
                 p.wait()
     for r, (p, text) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
-            raise SystemExit(f"[dp] rank {r} of {world} over {backend} "
+            raise SystemExit(f"[{'tp' if worker == '--tp-worker' else 'dp'}]"
+                             f" rank {r} of {world} over {backend} "
                              f"failed:\n{text[-4000:]}")
     return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                        weights_only=False) for r in range(world)]
@@ -5091,12 +5188,12 @@ def _infer_clips():
             for _ in range(CLIP_COUNT)]
 
 
-def _infer_model(device):
+def _infer_model(device, seed=0):
     from seld_tpu_torch.config import get_model_config
     from seld_tpu_torch.models import build_model
     cfg = get_model_config("SS5", search_paths=[])
     cfg["n_classes"] = 12
-    return build_model("conv_temporal", (300, 64, 7), cfg, seed=0,
+    return build_model("conv_temporal", (300, 64, 7), cfg, seed=seed,
                        device=device)
 
 
@@ -5387,6 +5484,465 @@ def phase_dp(card, only=None):
             log("dp", f"(c) NCCL over two cards: not run, this machine has "
                       f"{torch.cuda.device_count()} card")
         out["infer"] = dp_infer(card, cards_only=only == "cards")
+    if only == "cards":
+        out["tp"] = phase_tp(card, cards_only=True)
+    return out
+
+
+# [tp]: tensor parallelism over a model axis, SS5 full width bf16, dropout
+# off, TP_STEPS steps of the bench's batch of TP_BATCH windows (every rank
+# holds all of them: data:1,model:2) from the bench's seeded weights, each
+# rank holding half of every sharded kernel (parallel/partitioning.py),
+# against one process's steps: [dp] (a)'s tolerances on the losses, the
+# running statistics and the parameter updates (the shards put back
+# together). Two gloo ranks share the card in the main run; --dp cards
+# adds two NCCL ranks, a card each, and their ms a step.
+TP_BATCH = 256
+TP_STEPS = 3
+TP_SPEC = "data:1,model:2"
+
+
+def _tp_run(device, mesh):
+    """TP_STEPS bench steps (SS5 bf16, dropout off) on the bench's batch,
+    the model sharded over `mesh`'s model axis (whole without one); the
+    losses, this rank's parameters and their shard dims, the statistics,
+    launch counts and ms a step of the last TP_STEPS - 1."""
+    import torch
+    from seld_tpu_torch.bench import build
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.parallel.partitioning import shard_tree
+    from seld_tpu_torch.train.optimizers import adabelief
+    from seld_tpu_torch.train.train_state import TrainState
+    b = build(batch=TP_BATCH, dtype="bf16", device=device, dropout=False,
+              mesh=mesh)
+    before = {k: v.detach().float().cpu() for k, v in b.state.params.items()}
+    if mesh is not None:
+        # the bench's optimizer and state over this rank's shards
+        model = shard_tree(b.state.model, mesh)
+        b.state = TrainState(model, adabelief(list(model.parameters()),
+                                              1e-3, agc_clip=0.01), seed=1)
+    kernels.launch_counts.clear()
+    losses, marks = [], []
+    for _ in range(TP_STEPS):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        b.state, b.metric, (sl, dl) = b.step(b.state, b.metric, b.x, b.y)
+        losses.append(torch.stack([sl, dl]))
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    return {"losses": torch.stack(losses).cpu().numpy().tolist(),
+            "before": before,
+            "params": {k: v.detach().float().cpu()
+                       for k, v in b.state.params.items()},
+            "dims": dict(getattr(b.state.model, "tensor_parallel", {})),
+            "model_index": 0 if mesh is None else mesh.model_index,
+            "stats": {k: v.float().cpu()
+                      for k, v in b.state.batch_stats.items()},
+            "counts": {k: kernels.launch_counts[k] for k in kernels.KERNELS},
+            "ms": marks[1].elapsed_time(end) / (len(marks) - 1)}
+
+
+def tp_worker(rank, world, port, backend, out):
+    """One rank of [tp]: TP_SPEC's mesh over the group; writes its result
+    to `out`."""
+    import torch
+    import torch.distributed as dist
+    from seld_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        result = _tp_run(device, make_mesh(TP_SPEC, device))
+        result["device"] = str(device)
+        result["backend"] = dist.get_backend()
+        torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_whole(ranks, key):
+    """A parameter put back together from the model ranks' shards."""
+    import torch
+    d = ranks[0]["dims"].get(key)
+    if d is None:
+        return ranks[0]["params"][key]
+    return torch.cat([r["params"][key] for r in
+                      sorted(ranks, key=lambda r: r["model_index"])], d)
+
+
+def tp_ranks(card, backend, label, want):
+    """[tp] over two ranks of `backend` against one process's `want`."""
+    import torch
+    per_step = {"gru_scan": 2, "gru_scan_bwd": 2, "stem_dy": 1}
+    want_counts = {n: per_step.get(n, 0) * TP_STEPS
+                   for n in ("gru_scan", "gru_scan_bwd", "stem_dy",
+                             "foa_frontend", "gather_rows")}
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        ranks = _run_ranks(2, backend, workdir, worker="--tp-worker")
+        secs = time.perf_counter() - t0
+    loss_err = max(_max_rel(np.ravel(r["losses"]).tolist(),
+                            np.ravel(want["losses"]).tolist())
+                   for r in ranks)
+    stats_err, stats_key = max(
+        (((r["stats"][k] - w).abs().max()
+          / (DP_STATS_RTOL * w.abs().max() + DP_STATS_ATOL)).item(), k)
+        for r in ranks for k, w in want["stats"].items())
+    du = torch.cat([(_tp_whole(ranks, k) - want["before"][k]
+                     - (w - want["before"][k])).ravel()
+                    for k, w in want["params"].items()])
+    ref = torch.cat([(w - want["before"][k]).ravel()
+                     for k, w in want["params"].items()])
+    update_err = (du.norm() / ref.norm()).item()
+    dims = ranks[0]["dims"]
+    sharded = sum(1 for k in dims)
+    halves = all(ranks[0]["params"][k].shape[d] * 2
+                 == want["params"][k].shape[d] for k, d in dims.items())
+    stem = "Conv2DBN_0.Conv_0.kernel" in dims
+    counts_ok = all(r["counts"] == want_counts for r in ranks)
+    finite = all(math.isfinite(v) for r in ranks
+                 for v in np.ravel(r["losses"]))
+    ok = (counts_ok and finite and halves and stem and sharded
+          and loss_err <= DP_LOSS_RTOL and stats_err <= 1.0
+          and update_err <= DP_UPDATE_RTOL)
+    log("tp", f"({label}) {TP_SPEC} over {ranks[0]['backend']} on "
+              f"{sorted({r['device'] for r in ranks})}: SS5 full width bf16 "
+              f"B={TP_BATCH} dropout off, {TP_STEPS} steps, {sharded} "
+              f"parameters sharded in halves {halves} (the stem's 32 "
+              f"filters {stem}), against one process: losses rel_err "
+              f"{loss_err:.2e} (tol {DP_LOSS_RTOL:.0e}), running statistics "
+              f"at {stats_err:.2f} of their tolerance (worst {stats_key}), "
+              f"parameter updates {update_err:.2e} in norm (tol "
+              f"{DP_UPDATE_RTOL}); launches a rank "
+              f"{[r['counts'] for r in ranks]} (want {want_counts}); ms a "
+              f"step {[round(r['ms'], 4) for r in ranks]} (one process "
+              f"{want['ms']:.4f}); ranks' processes {secs:.1f} s, on {card} "
+              f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[tp] ({label}) the sharded step disagrees with "
+                         "the one-process step")
+    return {"launches": [r["counts"] for r in ranks],
+            "ms": [r["ms"] for r in ranks], "one_process_ms": want["ms"],
+            "loss_rel_err": loss_err, "stats_err": stats_err,
+            "update_err": update_err, "backend": ranks[0]["backend"]}
+
+
+def phase_tp(card, cards_only=False):
+    """[tp]: two gloo ranks sharing the card (unless `cards_only`), then
+    two NCCL ranks on two cards where there are two."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = _tp_run(torch.device("cuda", 0), None)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out = {}
+    if not cards_only:
+        out["gloo_one_card"] = tp_ranks(card, "gloo", "a", want)
+    if torch.cuda.device_count() >= 2:
+        out["nccl_two_cards"] = tp_ranks(card, "nccl", "b", want)
+    else:
+        log("tp", f"(b) NCCL over two cards: not run, this machine has "
+                  f"{torch.cuda.device_count()} card")
+    return out
+
+
+# [tools]: the tooling twins on the card. TOOLS_CLIPS seeded 60-s wavs
+# through extract_features (chunks of 8: a front-end launch each), held
+# to the kernel's plain version on the card (FRONTEND_TOL); bench_frontend at
+# TOOLS_BENCH_CLIPS clips; profile_train (SS5 B=256 bf16) with a trace
+# parsed by trace_analysis; a seeded SS5's weights as Keras-named layers
+# through the h5 import's mapping, saved, loaded and served.
+TOOLS_CLIPS = 10
+# the IV channels are unit vectors of the FOA intensity, ill-conditioned
+# in bins where it vanishes: there the CLI's features are held to the
+# function in float64, no farther than this factor of the plain
+# version's own distance
+TOOLS_IV_FACTOR = 2.0
+TOOLS_BENCH_CLIPS = 16
+TOOLS_PROFILE_STEPS = 5
+SMOKE_STEPS, SMOKE_CHUNKS = 10, 3      # smoke.py: 41 windows, batch 16
+
+
+def _want(**counts):
+    """Launch counts of every kernel (0 where not given)."""
+    from seld_tpu_torch.ops import kernels
+    return {k: counts.get(k, 0) for k in kernels.KERNELS}
+
+
+def _launched(fn):
+    """(fn(), every kernel's launches while it ran)."""
+    out, counts = _counted(fn)
+    return out, _want(**counts)
+
+
+def _plain_features(wavs):
+    """The features [T, 64, 7] of equal-length wavs through the front-end
+    kernel's plain version (`foa_frontend_ref`) on the card, with
+    `fused_foa_frontend`'s padding, dB step and layout, and the IV [T, 64,
+    3] of the function in float64 (`frontend_f64`), a clip each."""
+    import torch
+    from seld_tpu_torch.ops.frontend import foa_frontend_ref
+    from seld_tpu_torch.ops.mel import amplitude_to_db
+    from seld_tpu_torch.ops.stft import reflect_pad
+    out = []
+    for i in range(0, len(wavs), 8):
+        batch = torch.from_numpy(np.stack(wavs[i:i + 8])).cuda()
+        padded = reflect_pad(batch, 512).contiguous()
+        mel, iv = foa_frontend_ref(padded)
+        feats = torch.cat([amplitude_to_db(mel, clip_dims=1), iv],
+                          dim=1).permute(0, 2, 3, 1).cpu().numpy()
+        iv64 = frontend_f64(padded)[1].permute(0, 2, 3, 1).cpu().numpy()
+        out += list(zip(feats, iv64))
+    return out
+
+
+def tools_extract(card):
+    """extract_features on TOOLS_CLIPS seeded 60-s wavs on the card against
+    the features of the kernel's plain version from the same wavs."""
+    import contextlib
+    import io as io_mod
+    from seld_tpu_torch import extract_features
+    from seld_tpu_torch.data.loader import read_wav
+    from seld_tpu_torch.ops.features import preprocess_features_labels
+    with tempfile.TemporaryDirectory() as root:
+        write_wav_tree(root, {1: TOOLS_CLIPS}, FEED_SECONDS, seed=17)
+        wav_dir = os.path.join(root, "foa_dev")
+        argv = ["--wav_dir", wav_dir, "--label_dir",
+                os.path.join(root, "metadata_dev"), "--out_dir",
+                os.path.join(root, "feat"), "--label_out_dir",
+                os.path.join(root, "label"), "--n_classes", "12"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io_mod.StringIO()):
+            _, counts = _launched(lambda: extract_features.main(argv))
+        secs = time.perf_counter() - t0
+        names = sorted(os.listdir(wav_dir))
+        wavs = [read_wav(os.path.join(wav_dir, n))[0] for n in names]
+        db_err = iv_err = iv64_err = plain64_err = 0.0
+        for name, (p, iv64) in zip(names, _plain_features(wavs)):
+            got = np.load(os.path.join(root, "feat",
+                                       name.replace(".wav", ".npy")))
+            want, _ = preprocess_features_labels(
+                p, np.zeros((600, 48), np.float32))
+            db_err = max(db_err, float(np.abs(got[..., :4]
+                                              - want[..., :4]).max()))
+            iv_err = max(iv_err, float(np.abs(got[..., 4:]
+                                              - want[..., 4:]).max()))
+            t = min(len(iv64), len(got))
+            iv64_err = max(iv64_err, float(np.abs(got[:t, ..., 4:]
+                                                  - iv64[:t]).max()))
+            plain64_err = max(plain64_err, float(np.abs(p[:t, ..., 4:]
+                                                        - iv64[:t]).max()))
+            labels = np.load(os.path.join(root, "label",
+                                          name.replace(".wav", ".npy")))
+            assert labels.shape == (600, 48), labels.shape
+    want_counts = _want(foa_frontend=-(-TOOLS_CLIPS // 8))
+    ok = (db_err <= FRONTEND_TOL and counts == want_counts
+          and iv64_err <= TOOLS_IV_FACTOR * max(plain64_err, FRONTEND_TOL))
+    log("tools", f"(b) python -m seld_tpu_torch.extract_features on "
+                 f"{TOOLS_CLIPS} seeded 60-s wavs: {secs:.2f} s, features "
+                 f"[3000, 64, 7] against foa_frontend_ref's on the card: "
+                 f"log-mel max_abs_err {db_err:.2e} (tol "
+                 f"{FRONTEND_TOL:.0e}), IV {iv_err:.2e}; IV against the "
+                 f"function in float64: the CLI's {iv64_err:.2e}, the plain "
+                 f"version's {plain64_err:.2e} (tol {TOOLS_IV_FACTOR} x the "
+                 f"plain version's, at least {FRONTEND_TOL:.0e}); launches "
+                 f"{counts} (want {want_counts}) on {card} "
+                 f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[tools] (b) extract_features disagrees with the "
+                         "plain front-end or skipped its kernel")
+    return {"launches": counts, "seconds": secs,
+            "max_abs_err": max(db_err, iv_err)}
+
+
+def _keras_layers(model, x):
+    """The model's weights as the layers of a Keras legacy file would hold
+    them (per-base auto-names, `compat.keras_h5.H5Layer`), in application
+    order."""
+    from seld_tpu_torch.compat.keras_h5 import H5Layer, call_order
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    counts, layers = {}, []
+    for kind, path in call_order(model, x):
+        p = {k[len(path) + 1:]: v for k, v in sd.items()
+             if k.startswith(path + ".") and "." not in k[len(path) + 1:]}
+        if kind in ("conv", "dense"):
+            base = {"dense": "dense", "conv": "conv2d"
+                    if p["kernel"].ndim == 4 else "conv1d"}[kind]
+            ws = [(n, p[n]) for n in ("kernel", "bias") if n in p]
+        elif kind == "bn":
+            base = "batch_normalization"
+            ws = [("gamma", p["scale"]), ("beta", p["bias"]),
+                  ("moving_mean", p["mean"]), ("moving_variance", p["var"])]
+        elif kind == "ln":
+            base, ws = "layer_normalization", [("gamma", p["scale"]),
+                                               ("beta", p["bias"])]
+        elif kind == "rnn":
+            cell = "gru" if p["recurrent_kernel"].shape[2] \
+                == 3 * p["recurrent_kernel"].shape[1] else "lstm"
+            base = "bidirectional" if p["kernel"].shape[0] == 2 else cell
+            ws = [(f"{d}_{cell}/{cell}_cell/{n}", p[n][i])
+                  for i, d in enumerate(("forward", "backward")[
+                      :p["kernel"].shape[0]])
+                  for n in ("kernel", "recurrent_kernel", "bias")]
+        else:
+            base = ("rel_position_multi_head_attention"
+                    if "pos_kernel" in p else "multi_head_attention_")
+            ws = list(p.items())
+        n = counts.get(base, 0)
+        counts[base] = n + 1
+        name = base if n == 0 else f"{base}_{n}"
+        layers.append(H5Layer(name, [(f"{name}/{w}", a) for w, a in ws]))
+    return layers
+
+
+def tools_import(card):
+    """A seeded SS5's weights, as a Keras checkpoint's layers, mapped onto
+    a model of other weights by the h5 import (`align_entries`,
+    `set_mapped_weights`; the card machine has no h5py, so the layers
+    reach the importer as `H5Layer`s rather than through a file, whose
+    reading tests/test_torch_keras_h5.py checks on the CPU), saved with
+    `save_variables`, loaded by `load_variables` and served as a window
+    artifact: the reply equals the seeded model's forward."""
+    import torch
+    from seld_tpu_torch.compat.keras_h5 import (align_entries, call_order,
+                                                set_mapped_weights)
+    from seld_tpu_torch.inference import export_window
+    from seld_tpu_torch.serving import SELDClient, SELDServer
+    from seld_tpu_torch.serving.server import serve
+    from seld_tpu_torch.train.checkpoint import (load_variables,
+                                                 save_variables)
+    source = _infer_model("cuda")
+    x0 = torch.zeros(1, 300, 64, 7, device="cuda")
+    layers = _keras_layers(source, x0)
+    target = _infer_model("cuda", seed=5)
+
+    def mapped():
+        order = call_order(target, x0)
+        return set_mapped_weights(target.state_dict(), order,
+                                  align_entries(target, order,
+                                                list(reversed(layers))))
+    sd, import_counts = _launched(mapped)
+    target.load_state_dict(sd)
+    rng = np.random.RandomState(21)
+    x = rng.randn(2, 300, 64, 7).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_variables(os.path.join(tmp, "imported"), target,
+                              {"imported_from": "seeded SS5 layers"})
+        served = load_variables(ckpt, _infer_model("cuda", seed=9))
+        svc = SELDServer(artifact=export_window(
+            served, os.path.join(tmp, "w.npz"), batch=2),
+            batch_window_ms=2.0, max_batch=2, device="cuda")
+        httpd = serve(svc, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            client = SELDClient("127.0.0.1", httpd.server_address[1],
+                                timeout=300)
+            (sed, doa), serve_counts = _launched(lambda: client.score(x))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            svc.close()
+            thread.join(timeout=10)
+    with torch.inference_mode():
+        ws, wd = source(torch.from_numpy(x).cuda())
+    err = max(np.abs(sed - ws.cpu().numpy()).max(),
+              np.abs(doa - wd.cpu().numpy()).max())
+    exact = all(torch.equal(sd[k], v) for k, v in
+                source.state_dict().items())
+    ok = (exact and err <= REPLY_TOL and import_counts == _want(gru_scan=2)
+          and serve_counts == _want(gru_scan=2))
+    log("tools", f"(e) a seeded SS5's {len(layers)} layers, Keras-named "
+                 f"and listed in reverse, imported onto other weights: "
+                 f"every tensor equal {exact}; saved, loaded and served as "
+                 f"a window artifact: reply max_abs_err {err:.3e} (tol "
+                 f"{REPLY_TOL:.0e}) against the seeded model; launches of "
+                 f"the import's forward {import_counts}, of the request "
+                 f"{serve_counts} (want 2 gru_scan each) on {card} "
+                 f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[tools] (e) the imported weights do not serve as "
+                         "the source model")
+    return {"launches": {k: import_counts[k] + serve_counts[k]
+                         for k in import_counts}, "max_abs_err": err}
+
+
+def phase_tools(card):
+    """[tools]: (a) the smoke twin, (b) extract_features, (c)
+    bench_frontend, (d) profile_train with a trace, (e) the h5 import
+    served; returns the launches by part."""
+    import contextlib
+    import io as io_mod
+    from seld_tpu_torch import bench_frontend, profile_train, smoke
+    from seld_tpu_torch.utils.trace_analysis import analyze_trace
+    out = {}
+    text = io_mod.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        code, counts = _launched(lambda: smoke.main([]))
+    want = _want(gru_scan=SMOKE_STEPS + SMOKE_CHUNKS,
+                 gru_scan_bwd=SMOKE_STEPS)
+    ok = code == 0 and "SMOKE PASS" in text.getvalue() and counts == want
+    log("tools", f"(a) python -m seld_tpu_torch.smoke: "
+                 f"{text.getvalue().strip().splitlines()[-1]!r} in "
+                 f"{time.perf_counter() - t0:.1f} s; launches {counts} "
+                 f"(want {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[tools] (a) the smoke twin failed")
+    out["smoke"] = counts
+
+    out["extract_features"] = tools_extract(card)
+
+    with contextlib.redirect_stdout(io_mod.StringIO()):
+        times, counts = _launched(lambda: bench_frontend.main(
+            ["--clips", str(TOOLS_BENCH_CLIPS)]))
+    chunks = -(-TOOLS_BENCH_CLIPS // 8)
+    want = _want(foa_frontend=2 + 1 + 2 * chunks + TOOLS_BENCH_CLIPS)
+    ok = counts == want and all(v > 0 for v in times.values())
+    log("tools", f"(c) python -m seld_tpu_torch.bench_frontend, "
+                 f"{TOOLS_BENCH_CLIPS} 60-s clips: batched int16 "
+                 f"{times['batched_pcm_s']:.3f} s, batched float32 "
+                 f"{times['batched_float_s']:.3f} s, per clip "
+                 f"{times['per_clip_float_s']:.3f} s "
+                 f"({times['per_clip_float_s'] / times['batched_pcm_s']:.2f}x"
+                 f"); launches {counts} (want {want}) on {card} "
+                 f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[tools] (c) bench_frontend failed")
+    out["bench_frontend"] = {"launches": counts, "seconds": times}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(io_mod.StringIO()):
+            summary, counts = _launched(lambda: profile_train.main(
+                ["--steps", str(TOOLS_PROFILE_STEPS), "--trace", tmp]))
+        report = analyze_trace(tmp)
+    steps = 1 + 2 + TOOLS_PROFILE_STEPS
+    want = _want(gru_scan=2 * steps, gru_scan_bwd=2 * steps, stem_dy=steps)
+    families = {key: ms for ms, _, _, key in report["ops"]}
+    ok = (counts == want and {"gru_scan", "gru_scan_bwd", "stem_dy", "conv",
+                              "gemm", "elementwise"} <= set(families))
+    log("tools", f"(d) python -m seld_tpu_torch.profile_train --trace (SS5 "
+                 f"B=256 bf16): p50 {summary['p50_s'] * 1e3:.2f} ms, p90 "
+                 f"{summary['p90_s'] * 1e3:.2f} ms, "
+                 f"{summary['windows_per_sec']:.1f} windows/s; the trace's "
+                 f"card kernels {report['total_ms']:.2f} ms over "
+                 f"{report['n_events']} events by family "
+                 + ", ".join(f"{k} {v:.2f}" for k, v in families.items())
+                 + f"; launches {counts} (want {want}) on {card} "
+                 f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[tools] (d) profile_train or its trace failed")
+    out["profile_train"] = {"launches": counts, "summary": summary,
+                            "families_ms": families}
+
+    out["import"] = tools_import(card)
     return out
 
 
@@ -5425,7 +5981,8 @@ def main(argv=None):
         help="build the kernels, then run only [dp] (a) and after it each "
              "planted fault, which (a)'s comparison must catch (faults), "
              "or only [dp] (c) and (d3), NCCL steps, the CLI, clip scoring "
-             "and serving over two cards (cards); no result line")
+             "and serving over two cards, and [tp] (b), the sharded step "
+             "over two NCCL cards (cards); no result line")
     parser.add_argument(
         "--gru-wide", choices=("all", "step"), default=None,
         help="build the kernels, then run only gru_wide (all: the GRU "
@@ -5438,6 +5995,9 @@ def main(argv=None):
     parser.add_argument("--infer-worker", nargs=5, default=None,
                         metavar=("RANK", "WORLD", "PORT", "BACKEND", "OUT"),
                         help="internal: one rank of [dp] (d1)/(d3)")
+    parser.add_argument("--tp-worker", nargs=5, default=None,
+                        metavar=("RANK", "WORLD", "PORT", "BACKEND", "OUT"),
+                        help="internal: one rank of [tp]")
     args = parser.parse_args(argv)
     if args.dp_worker:
         rank, world, port, backend, out, fault = args.dp_worker
@@ -5446,6 +6006,9 @@ def main(argv=None):
     if args.infer_worker:
         rank, world, port, backend, out = args.infer_worker
         return infer_worker(int(rank), int(world), int(port), backend, out)
+    if args.tp_worker:
+        rank, world, port, backend, out = args.tp_worker
+        return tp_worker(int(rank), int(world), int(port), backend, out)
     kernels_only = args.kernels_only
     t_start = time.perf_counter()
     import torch
@@ -5509,7 +6072,7 @@ def main(argv=None):
     model = timed(phase_model, smi)
     entries[0]["launches"] = timed(phase_serve, model, smi)
     del model
-    train_counts = timed(phase_train, smi)
+    train_counts, fused = timed(phase_train, smi)
     entries[0]["train_launches"] = train_counts["gru_scan"]
     for e in entries[1:]:
         e["launches"] = train_counts[e["name"]]
@@ -5586,6 +6149,21 @@ def main(argv=None):
         e["dp_infer_launches"] = (infer_launches if e["name"] == "gru_scan"
                                   else {m: 0 for m in infer_launches})
     by_name["gru_scan"]["dp"] = dp
+    tp = timed(phase_tp, smi)
+    tools = timed(phase_tools, smi)
+    for e in entries:
+        e["train_fused_launches"] = fused["launches"][e["name"]]
+        e["tp_launches"] = [c[e["name"]] for c in
+                            tp["gloo_one_card"]["launches"]]
+        e["tools_launches"] = {
+            part: (r if part == "smoke" else r["launches"])[e["name"]]
+            for part, r in tools.items()}
+    by_name["gru_scan"]["train_fused_ms"] = fused["ms"]
+    by_name["gru_scan"]["tp"] = tp
+    by_name["foa_frontend"]["tools"] = {
+        "extract_features": tools["extract_features"],
+        "bench_frontend_seconds": tools["bench_frontend"]["seconds"]}
+    by_name["stem_dy"]["profile_train"] = tools["profile_train"]
 
     log("time", f"all phases {time.perf_counter() - t_start:.1f} s")
     entries[0]["phase_seconds"] = phase_seconds

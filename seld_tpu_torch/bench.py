@@ -12,7 +12,9 @@ the card's name and power limit. Without a CUDA card it exits non-zero.
 
 Environment: BENCH_BATCH (256), BENCH_STEPS (steps per timed window, 400,
 as the JAX package's bench), BENCH_DTYPE (bf16 | fp32), BENCH_SPC (steps
-per call, 1) and BENCH_SPC_UNROLL (1). With BENCH_SPC=k > 1 each call is
+per call, 1), BENCH_SPC_UNROLL (1) and BENCH_FUSE_METRICS (0; 1: the
+single step with the metric inside, one captured CUDA graph a step, as
+the JAX package's bench reads it). With BENCH_SPC=k > 1 each call is
 `make_train_multistep(steps_per_call=k, unroll=BENCH_SPC_UNROLL)` on a
 stacked [k, B, ...] batch: k updates replayed as a captured CUDA graph of
 `unroll` steps, then one metric update, as the JAX package's bench runs
@@ -132,7 +134,8 @@ def block_row(name: str, dropout: bool = True):
 def build(batch: int = 256, dtype: str = "bf16", device="cuda",
           seed: int = 0, dropout: bool = True, steps_per_call: int = 1,
           unroll: int = 1, model_name: str = "conv_temporal",
-          cfg: dict = None, mesh=None) -> SimpleNamespace:
+          cfg: dict = None, mesh=None,
+          fuse_metrics: bool = False) -> SimpleNamespace:
     """The bench's model, optimizer, step and one synthetic batch.
 
     The model is `model_name` on `cfg` (N_CLASSES classes), SS5 by
@@ -145,7 +148,8 @@ def build(batch: int = 256, dtype: str = "bf16", device="cuda",
     `make_train_multistep(k, unroll)` and the batch is k batches stacked
     [k, B, ...], drawn as the JAX package's bench draws them. `mesh`
     (parallel/mesh.py) makes the step data parallel: `batch` is then this
-    rank's share."""
+    rank's share. `fuse_metrics`: the single step's
+    `make_train_step(fuse_metrics=True)`."""
     compute_dtype = DTYPES[dtype]
     cfg = ss5_config(dropout) if cfg is None else cfg
     model = build_model(model_name, INPUT_SHAPE, cfg, seed=seed,
@@ -166,7 +170,7 @@ def build(batch: int = 256, dtype: str = "bf16", device="cuda",
         step = make_train_multistep(steps_per_call=steps_per_call,
                                     unroll=unroll, **kwargs)
     else:
-        step = make_train_step(**kwargs)
+        step = make_train_step(fuse_metrics=fuse_metrics, **kwargs)
 
     rng = np.random.RandomState(seed)
     lead = (steps_per_call, batch) if steps_per_call > 1 else (batch,)
@@ -236,7 +240,9 @@ def main(argv=None) -> None:
                          f"{sorted(DTYPES)}")
     spc, unroll = steps_per_call_from_env()
     n_calls = max(1, n_steps // spc)
-    b = build(batch, dtype, "cuda", steps_per_call=spc, unroll=unroll)
+    fused = os.environ.get("BENCH_FUSE_METRICS", "0") == "1"
+    b = build(batch, dtype, "cuda", steps_per_call=spc, unroll=unroll,
+              fuse_metrics=fused)
     state, mstate = b.state, b.metric
 
     # warmup: builds the kernels (and captures the graph), and ends in a
@@ -270,6 +276,7 @@ def main(argv=None) -> None:
         "compute_dtype": dtype,
         "steps_per_call": spc,
         "unroll": unroll,
+        "fuse_metrics": fused,
         "ms_per_step": dt / n_steps * 1e3,
         "warmup_anomaly": bool(anomaly),
         "window_times_sec": window_times,

@@ -129,8 +129,9 @@ def _sharded(forward, mesh):
         # takes; every backend sums f32)
         with collectives.data_parallel(mesh):
             both = collectives.gather_rows(torch.cat([sed, doa], -1).float())
-        if ranks != list(range(mesh.world)):
-            # another axis replicates: keep one slot of each data shard
+        if both.shape[0] != n * rows:
+            # another axis replicates over the whole group: keep one slot
+            # of each data shard
             both = both.view(mesh.world, rows, *both.shape[1:])[ranks]
             both = both.flatten(0, 1)
         return both[..., :c], both[..., c:]

@@ -212,6 +212,7 @@ class Conv(nn.Module):
         if self.padding not in ("SAME", "VALID"):
             raise ValueError(f"unknown padding {padding!r}")
         self.groups = feature_group_count
+        self.features = features
         self.kernel = nn.Parameter(glorot_uniform(
             (*self.kernel_size, in_features // self.groups, features), g))
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
@@ -224,12 +225,38 @@ class Conv(nn.Module):
         else:
             spatial = [(n - k) // s + 1 for n, k, s in
                        zip(spatial, self.span, self.strides)]
-        return (*spatial, self.kernel.shape[-1])
+        return (*spatial, self.features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, self.kernel.dtype)
+        if self.kernel.shape[-1] != self.features:
+            return self._sharded(x.to(dt), dt)
+        return self._conv(x.to(dt), self.kernel.to(dt), self.bias,
+                          self.groups)
+
+    def _sharded(self, x: torch.Tensor, dt) -> torch.Tensor:
+        """The kernel is this rank's shard of the output channels (tensor
+        parallelism, parallel/collectives.py): this rank's channels from
+        the whole input (a grouped conv's from its groups' inputs), put
+        back together, then the bias."""
+        index, size = collectives.shard_index()
+        groups = self.groups
+        x = collectives.enter_shards(x)
+        if groups > 1:
+            if groups % size:
+                raise ValueError(f"a conv of {groups} groups does not "
+                                 f"shard over {size} ranks")
+            n = x.shape[-1] // size
+            x = x.narrow(-1, index * n, n)
+            groups //= size
+        y = collectives.gather_shards(self._conv(
+            x, self.kernel.to(dt), None, groups))
+        return y + self.bias.to(dt) if self.bias is not None else y
+
+    def _conv(self, x, kernel, bias, groups) -> torch.Tensor:
+        dt = x.dtype
         nsp = len(self.kernel_size)
-        x = x.to(dt).movedim(-1, 1)                 # channels first
+        x = x.movedim(-1, 1)                        # channels first
         if self.padding == "SAME":
             pads = []
             for i in reversed(range(nsp)):          # F.pad: last dim first
@@ -237,11 +264,11 @@ class Conv(nn.Module):
                                      self.strides[i])
             if any(pads):
                 x = F.pad(x, pads)
-        w = self.kernel.to(dt).permute(nsp + 1, nsp, *range(nsp))  # OI(H)W
-        b = self.bias.to(dt) if self.bias is not None else None
+        w = kernel.permute(nsp + 1, nsp, *range(nsp))   # OI(H)W
+        b = bias.to(dt) if bias is not None else None
         conv = F.conv2d if nsp == 2 else F.conv1d
         y = conv(x, w, b, stride=self.strides, dilation=self.dilation,
-                 groups=self.groups)
+                 groups=groups)
         return y.movedim(1, -1)
 
 
@@ -335,9 +362,22 @@ class Conv2DBN(nn.Module):
                 x.shape, self.pool, conv.strides, conv.padding, conv.groups,
                 self.activation):
             dt = torch.promote_types(x.dtype, conv.kernel.dtype)
+            x, bias, gamma, beta = x.to(dt), conv.bias, bn.scale, bn.bias
+            sharded = conv.kernel.shape[-1] != conv.features
+            if sharded:
+                # this rank's filters (tensor parallelism): their own
+                # statistics, stem_dy on this rank's channels
+                x = collectives.enter_shards(x)
+                bias, gamma, beta = (collectives.take_shard(t)
+                                     for t in (bias, gamma, beta))
             pooled, mean, var = conv_bn_relu_pool(
-                x.to(dt), conv.kernel.to(dt), conv.bias.to(dt), bn.scale,
-                bn.bias, self.pool, bn.epsilon)
+                x, conv.kernel.to(dt), bias.to(dt), gamma, beta, self.pool,
+                bn.epsilon)
+            if sharded:
+                pooled = collectives.gather_shards(pooled)
+                with torch.no_grad():
+                    mean, var = (collectives.gather_shards(t)
+                                 for t in (mean, var))
             bn.update_running(mean, var)
             return pooled
         x = bn(conv(x))
@@ -355,6 +395,7 @@ class Dense(nn.Module):
                  use_bias: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.features = features
         self.kernel = nn.Parameter(
             glorot_uniform((in_features, features), _generator(generator)))
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
@@ -362,7 +403,13 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, self.kernel.dtype)
-        y = x.to(dt) @ self.kernel.to(dt)
+        kernel = self.kernel.to(dt)
+        if kernel.shape[-1] == self.features:
+            y = x.to(dt) @ kernel
+        else:
+            # this rank's columns (tensor parallelism), put back together
+            y = collectives.gather_shards(
+                collectives.enter_shards(x.to(dt)) @ kernel)
         return y + self.bias.to(dt) if self.bias is not None else y
 
 
@@ -398,7 +445,7 @@ class MultiHeadAttention(nn.Module):
         g = _generator(generator)
         h, s = num_heads, head_size
         out = output_size or value_features
-        self.head_size, self.dropout = head_size, dropout
+        self.num_heads, self.head_size, self.dropout = h, head_size, dropout
         self.dropout_generator = None   # set_dropout_generator
         self.query_kernel = nn.Parameter(glorot_uniform((h, query_features, s), g))
         self.key_kernel = nn.Parameter(glorot_uniform((h, key_features, s), g))
@@ -411,14 +458,31 @@ class MultiHeadAttention(nn.Module):
             self.v_bias = nn.Parameter(torch.zeros(h, s))
             self.projection_bias = nn.Parameter(torch.zeros(out))
 
+    @property
+    def _sharded(self) -> bool:
+        """The head kernels hold this rank's heads (tensor parallelism,
+        parallel/collectives.py)."""
+        return self.query_kernel.shape[0] != self.num_heads
+
+    def _heads(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's heads of a replicated per-head leaf [H, ...]."""
+        return collectives.take_shard(t) if self._sharded else t
+
     def _qkv(self, query, key, value):
+        if self._sharded:
+            # one gradient sum an input, also where query is key is value
+            entered = {}
+            for t in (query, key, value):
+                if id(t) not in entered:
+                    entered[id(t)] = collectives.enter_shards(t)
+            query, key, value = (entered[id(t)] for t in (query, key, value))
         q = torch.einsum("...ni,hio->...hno", query, self.query_kernel)
         k = torch.einsum("...mi,hio->...hmo", key, self.key_kernel)
         v = torch.einsum("...mi,hio->...hmo", value, self.value_kernel)
         if self.use_bias:
-            q = q + self.q_bias[:, None]
-            k = k + self.k_bias[:, None]
-            v = v + self.v_bias[:, None]
+            q = q + self._heads(self.q_bias)[:, None]
+            k = k + self._heads(self.k_bias)[:, None]
+            v = v + self._heads(self.v_bias)[:, None]
         return q, k, v
 
     def forward(self, query, key, value):
@@ -429,10 +493,14 @@ class MultiHeadAttention(nn.Module):
 
     def _attend(self, logits, v):
         attn = torch.softmax(logits, dim=-1)
+        sharded = self._sharded
         attn = dropout(attn, self.dropout, self.training,
-                       self.dropout_generator)
+                       self.dropout_generator,
+                       shard_dim=-3 if sharded else None)
         out = torch.einsum("...hnm,...hmi->...hni", attn, v)
         out = torch.einsum("...hni,hio->...no", out, self.projection_kernel)
+        if sharded:
+            out = collectives.reduce_shards(out)    # the other ranks' heads
         if self.use_bias:
             out = out + self.projection_bias
         return out
@@ -469,11 +537,13 @@ class RelPositionMultiHeadAttention(MultiHeadAttention):
 
     def forward(self, query, key, value, pos):
         q, k, v = self._qkv(query, key, value)
+        if self._sharded:
+            pos = collectives.enter_shards(pos)
         p = torch.einsum("...mi,hio->...hmo", pos, self.pos_kernel)
         logits_u = torch.einsum("...hno,...hmo->...hnm",
-                                q + self.pos_bias_u[:, None], k)
+                                q + self._heads(self.pos_bias_u)[:, None], k)
         logits_v = torch.einsum("...hno,...hmo->...hnm",
-                                q + self.pos_bias_v[:, None], p)
+                                q + self._heads(self.pos_bias_v)[:, None], p)
         logits_v = self.relative_shift(logits_v)
         logits = logits_u + logits_v[..., :logits_u.shape[-1]]
         return self._attend(logits / math.sqrt(self.head_size), v)

@@ -21,18 +21,27 @@ from seld_tpu_torch.parallel import collectives
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            shard_dim: Optional[int] = None) -> torch.Tensor:
     """Zero each element with probability `rate` and scale the rest by
     1 / (1 - rate). `generator` must live on x's device; None draws from
-    torch's default generator of that device."""
+    torch's default generator of that device. `shard_dim`: x holds this
+    rank's shard along it (tensor parallelism): the mask is drawn whole and
+    this rank's shard kept."""
     if not training or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
+    shape = [collectives.global_rows(x.shape[0]), *x.shape[1:]]
+    if shard_dim is not None:
+        index, size = collectives.shard_index()
+        shape[shard_dim] *= size
     u = collectives.rows_of(torch.rand(
-        (collectives.global_rows(x.shape[0]), *x.shape[1:]),
-        generator=generator, device=x.device, dtype=torch.float32))
+        shape, generator=generator, device=x.device, dtype=torch.float32))
+    if shard_dim is not None:
+        n = x.shape[shard_dim]
+        u = u.narrow(shard_dim, index * n, n)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 

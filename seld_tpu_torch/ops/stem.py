@@ -26,7 +26,10 @@ backward all-reduces [dgamma, dbeta] before it forms stem_dy's params6
 with the global count, so stem_dy computes this rank's dy from global
 terms. The returned dgamma, dbeta and dbias stay this rank's: the step's
 gradient all-reduce sums each of them once (the JAX package's one psum of
-dbias, seld_tpu/ops/pallas/stem_bwd.py:152-155).
+dbias, seld_tpu/ops/pallas/stem_bwd.py:152-155). Under tensor
+parallelism (parallel/partitioning.py) a rank holds half the filters:
+these sums run over the data sub-group, and each rank's statistics,
+stem_dy and gradients are its own channels'.
 
 Pool ties split the window's cotangent equally among the tied maxima
 (count-normalised), instead of the first-match routing of a composed max
@@ -72,7 +75,7 @@ class _ConvBNReLUPool(torch.autograd.Function):
             var = yf.square().mean(dim=(0, 2, 3)) - mean.square()
         else:
             # data parallel: [sum y, sum y^2] over the global batch
-            sums = collectives.all_reduce_(torch.stack(
+            sums = collectives.batch_reduce_(torch.stack(
                 [yf.sum(dim=(0, 2, 3)), yf.square().sum(dim=(0, 2, 3))]))
             n = collectives.global_rows(b) * t * f
             mean = sums[0] / n
@@ -92,6 +95,7 @@ class _ConvBNReLUPool(torch.autograd.Function):
         # thread (the autograd engine's, for a card's tensors), which does
         # not see this thread's data-parallel step
         ctx.dp = collectives.active() is not None
+        ctx.group = collectives.batch_group()
         ctx.n = collectives.global_rows(b) * t * f
         ctx.mark_non_differentiable(mean, var)
         return pooled.movedim(1, -1), mean, var
@@ -122,7 +126,7 @@ class _ConvBNReLUPool(torch.autograd.Function):
             # returned gradients stay this rank's: the step's gradient
             # all-reduce sums them, and dbias, once
             dgamma_n, dbeta_n = collectives.all_reduce_(
-                torch.stack([dgamma, dbeta])).unbind(0)
+                torch.stack([dgamma, dbeta]), ctx.group).unbind(0)
         params6 = torch.stack([mean, inv, gamma_f, beta_f, dgamma_n / n,
                                dbeta_n / n])
         # dy overwrites y: y is dead after this pass. A second backward

@@ -1,2 +1,2 @@
-"""Data parallelism over several cards, one process a card
+"""Data and tensor parallelism over several cards, one process a card
 (seld_tpu/parallel/)."""

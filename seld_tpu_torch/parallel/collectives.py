@@ -21,15 +21,36 @@ process group (`mesh.distributed`, of any size):
     of a row do not depend on the rank count.
 Each rank is one slot of the global batch, in rank order; ranks that
 replicate (another mesh axis than `data`) hold the same rows in their
-slots, which leaves every mean of the batch unchanged.
+slots, which leaves every mean of the batch unchanged. A mesh with a
+`model` axis larger than 1 (parallel/mesh.py) runs these over its `data`
+sub-group instead: a slot a data index, no row twice.
+
+Tensor parallelism over the `model` axis (parallel/partitioning.py): a
+layer whose kernel is this rank's shard computes its shard of the output
+from the whole input and puts the output back together over the `model`
+sub-group:
+  - `enter_shards(x)` is x; its gradient is summed over the model group
+    (each rank's shard of the layer sees only its part of dx);
+  - `gather_shards(t, dim)` stacks every model rank's shard of t along
+    dim; its gradient is this rank's slice;
+  - `take_shard(t, dim)` is this rank's slice of a replicated t (a bias
+    or scale of sharded channels, heads); its gradient is every rank's
+    slice put together, so a replicated leaf's gradient is whole on every
+    rank;
+  - `reduce_shards(t)` sums partial results over the model group (the
+    attention's projection from this rank's heads); its gradient passes.
+Downstream of each gather every model rank computes the same activations,
+so their cotangents agree and the sums above are exact.
+
 Outside the context, or without a group, every function here is the
-identity.
+identity. An autograd function keeps the group it ran in: the backward may
+run on another thread (the autograd engine's, for a card's tensors).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -57,16 +78,50 @@ def active():
     return getattr(_state, "mesh", None)
 
 
-def world() -> int:
+def batch_group():
+    """The process group over which the active step's batch is spread
+    (None: the default group, also outside a step)."""
     mesh = active()
-    return 1 if mesh is None else mesh.world
+    return None if mesh is None else mesh.data_group
 
 
-def all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """Sum `t` over the ranks, in place."""
+def _slot() -> Tuple[int, int]:
+    """(this rank's slot, the slots) of the active step's global batch."""
+    mesh = active()
+    if mesh.data_group is None:
+        return mesh.rank, mesh.world
+    return mesh.data_index, mesh.data_size
+
+
+def world() -> int:
+    """The slots of the active step's global batch (1 outside one)."""
+    return 1 if active() is None else _slot()[1]
+
+
+def primary() -> bool:
+    """Whether this rank's rows count once in the active step's batch sums
+    (a rank that replicates another's rows adds zeros)."""
+    mesh = active()
+    return mesh is None or mesh.data_group is not None or mesh.primary
+
+
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `t` over the ranks of `group` (the default group: all), in
+    place."""
     import torch.distributed as dist
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     return t
+
+
+def _fresh(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t to reduce in place (NCCL takes contiguous
+    tensors only; a gradient may arrive with any strides)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def batch_reduce_(t: torch.Tensor) -> torch.Tensor:
+    """Sum `t` over the ranks of the active step's batch, in place."""
+    return all_reduce_(t, batch_group())
 
 
 def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -78,42 +133,51 @@ def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
 
 class _GlobalSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t):
-        return all_reduce_(t.clone())
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce_(_fresh(t), group)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_(g.clone())
+        return all_reduce_(_fresh(g), ctx.group), None
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """t summed over the ranks of the active step (t itself outside one),
-    differentiable."""
-    return t if active() is None else _GlobalSum.apply(t)
+    """t summed over the ranks of the active step's batch (t itself
+    outside one), differentiable."""
+    return t if active() is None else _GlobalSum.apply(t, batch_group())
+
+
+def _stack(t: torch.Tensor, dim: int, index: int, n: int, group):
+    """Every rank's t (equal shapes) side by side along dim at its index:
+    one all-reduce of a zero-filled buffer (gloo has no all-gather for
+    CUDA tensors)."""
+    shape = list(t.shape)
+    shape[dim] *= n
+    out = t.new_zeros(shape)
+    out.narrow(dim, index * t.shape[dim], t.shape[dim]).copy_(t)
+    return all_reduce_(out, group)
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, rank: int, n: int):
+    def forward(ctx, t, rank: int, n: int, group):
         rows = t.shape[0]
-        out = t.new_zeros((n * rows, *t.shape[1:]))
-        out[rank * rows:(rank + 1) * rows] = t
         ctx.span = (rank * rows, (rank + 1) * rows)
-        return all_reduce_(out)
+        return _stack(t, 0, rank, n, group)
 
     @staticmethod
     def backward(ctx, g):
         lo, hi = ctx.span
-        return g[lo:hi], None, None
+        return g[lo:hi], None, None, None
 
 
 def gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of t (equal counts), in rank order, on every rank
+    """Every rank's rows of t (equal counts), in slot order, on every rank
     of the active step; t itself outside one. Differentiable."""
-    mesh = active()
-    if mesh is None:
+    if active() is None:
         return t
-    return _GatherRows.apply(t, mesh.rank, mesh.world)
+    return _GatherRows.apply(t, *_slot(), batch_group())
 
 
 def global_rows(rows: int) -> int:
@@ -125,8 +189,97 @@ def rows_of(draw: torch.Tensor, dim: int = 0,
             rows: Optional[int] = None) -> torch.Tensor:
     """This rank's slice along `dim` of a draw made for the global batch
     (`global_rows` of it); the draw itself outside a step."""
-    mesh = active()
-    if mesh is None:
+    if active() is None:
         return draw
-    rows = draw.shape[dim] // mesh.world if rows is None else rows
-    return draw.narrow(dim, mesh.rank * rows, rows)
+    slot, n = _slot()
+    rows = draw.shape[dim] // n if rows is None else rows
+    return draw.narrow(dim, slot * rows, rows)
+
+
+# ---------------------------------------------------------------- model axis
+
+def shard_index() -> Tuple[int, int]:
+    """(this rank's index, the size) of the active step's model axis; a
+    sharded layer outside such a step raises."""
+    mesh = active()
+    if mesh is None or mesh.model_group is None:
+        raise RuntimeError("a layer holds a shard of its kernel outside a "
+                           "step over a mesh with a model axis "
+                           "(parallel/partitioning.py)")
+    return mesh.model_index, mesh.model_size
+
+
+def _model():
+    index, size = shard_index()
+    return index, size, active().model_group
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(_fresh(g), ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, index, size, group):
+        ctx.span = (dim, index * t.shape[dim], t.shape[dim])
+        return _stack(t, dim, index, size, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(*ctx.span), None, None, None, None
+
+
+class _Take(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, index, size, group):
+        n = t.shape[dim] // size
+        ctx.dims = (dim, index, size, group)
+        return t.narrow(dim, index * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _stack(g, *ctx.dims), None, None, None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce_(_fresh(t), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def enter_shards(x: torch.Tensor) -> torch.Tensor:
+    """x, whose gradient is summed over the model group."""
+    return _Enter.apply(x, _model()[2])
+
+
+def gather_shards(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Every model rank's shard of t along dim, in rank order;
+    differentiable."""
+    return _Gather.apply(t, dim % t.dim(), *_model())
+
+
+def take_shard(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This model rank's slice of a replicated t along dim;
+    differentiable."""
+    return _Take.apply(t, dim % t.dim(), *_model())
+
+
+def reduce_shards(t: torch.Tensor) -> torch.Tensor:
+    """t summed over the model group; its gradient passes."""
+    return _Reduce.apply(t, _model()[2])
+
+
+def model_sum_(t: torch.Tensor) -> torch.Tensor:
+    """Sum `t` over the active step's model group, in place."""
+    return all_reduce_(t, _model()[2])

@@ -12,6 +12,15 @@ on the `data` axis. Batches are sharded over `data` alone, as the JAX
 trainer shards them; ranks that differ only on another axis take the same
 rows (that axis replicates).
 
+Tensor parallelism over a `model` axis (parallel/partitioning.py) needs
+two families of process sub-groups, which `make_groups` makes (every rank
+calls it, as `shard_tree` does): the `data` group of a rank holds the
+ranks that differ from it only on the data axis (its batch collectives run
+there), and the `model` group the ranks that differ only on the model axis
+(the activation collectives of sharded layers). A mesh without them keeps
+every batch collective on the whole group, where ranks that replicate hold
+the same rows.
+
 `shard_batch` takes this rank's rows of a global batch, `replicate`
 broadcasts tensors from rank 0. Without a process group (world size 1)
 both are the identity and nothing is communicated: the single-card path
@@ -20,8 +29,8 @@ backend, as the NCCL group of one in chip_smoke's [dp]).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -74,7 +83,10 @@ class Mesh:
     initialised, so the steps' batch reductions go through its
     collectives (at one rank too); `primary`: the first of the ranks that
     hold its rows (index 0 on every other axis), whose rows a count (the
-    metric) takes once."""
+    metric) takes once; `model_size` and `model_index`: the `model` axis
+    and this rank's place on it; `data_group` and `model_group`: this
+    rank's sub-groups along each axis, once `make_groups` has made them
+    (None before)."""
     axes: Dict[str, int]
     world: int
     rank: int
@@ -83,6 +95,42 @@ class Mesh:
     device: torch.device
     distributed: bool = False
     primary: bool = True
+    model_size: int = 1
+    model_index: int = 0
+    groups: Dict[str, Any] = field(default_factory=dict, compare=False,
+                                   repr=False)
+
+    @property
+    def data_group(self):
+        return self.groups.get("data")
+
+    @property
+    def model_group(self):
+        return self.groups.get("model")
+
+    def make_groups(self) -> "Mesh":
+        """Make this rank's data and model sub-groups (a collective call:
+        every rank of the group makes every sub-group, in the same order);
+        nothing without a process group or a model axis. Returns the
+        mesh."""
+        if self.distributed and self.model_size > 1 and not self.groups:
+            import torch.distributed as dist
+            for axis in ("data", "model"):
+                self.groups[axis], _ = dist.new_subgroups_by_enumeration(
+                    _lines_along(self.axes, axis))
+        return self
+
+
+def _lines_along(axes: Dict[str, int], axis: str) -> List[List[int]]:
+    """The rank lists that differ only on `axis` (one a line of the rank
+    grid; each rank alone where the mesh has no such axis)."""
+    sizes = tuple(axes.values())
+    grid = np.arange(int(np.prod(sizes))).reshape(sizes)
+    if axis not in axes:
+        return [[int(r)] for r in grid.ravel()]
+    k = tuple(axes).index(axis)
+    return [[int(r) for r in line] for line in
+            np.moveaxis(grid, k, -1).reshape(-1, sizes[k])]
 
 
 def make_mesh(spec: str = "data:-1", device=None) -> Mesh:
@@ -96,6 +144,7 @@ def make_mesh(spec: str = "data:-1", device=None) -> Mesh:
     names = tuple(axes)
     position = np.unravel_index(rank, tuple(axes[n] for n in names))
     data = names.index("data") if "data" in names else None
+    model = names.index("model") if "model" in names else None
     return Mesh(axes=axes, world=world, rank=rank,
                 data_size=axes["data"] if data is not None else 1,
                 data_index=int(position[data]) if data is not None else 0,
@@ -103,7 +152,10 @@ def make_mesh(spec: str = "data:-1", device=None) -> Mesh:
                                     "cuda"),
                 distributed=grouped,
                 primary=all(int(p) == 0 for i, p in enumerate(position)
-                            if i != data))
+                            if i != data),
+                model_size=axes["model"] if model is not None else 1,
+                model_index=int(position[model]) if model is not None
+                else 0)
 
 
 def batch_shard_count(mesh: Optional[Mesh]) -> int:

@@ -23,9 +23,11 @@ run is ceil(STEPS / k) calls, and every number below is per step.
                         OVERLAP_NOISE, which would mean device time was
                         counted twice
   port_kernels          ms per step and share of device time of each
-                        hand-written kernel (gru_scan, gru_scan_bwd, stem_dy)
-  groups                device ms per step of library GEMMs, convolutions
-                        and everything else
+                        hand-written kernel (gru_scan, gru_scan_bwd,
+                        stem_dy, foa_frontend, gather_rows)
+  groups                device ms per step of library GEMMs, convolutions,
+                        elementwise and reduction passes, and everything
+                        else (utils/trace_analysis.py's families)
   top                   the largest kernels by device time
 
 Without a CUDA card it exits non-zero.
@@ -41,35 +43,18 @@ import torch
 
 from seld_tpu_torch.bench import (build, card_name_and_power_limit,
                                   steps_per_call_from_env, zoo_model)
+from seld_tpu_torch.utils.trace_analysis import PORT_KERNELS, _classify
 
 STEPS = 10            # steps per timed and per traced run
 # one stream runs the step's kernels one after another, so their summed
 # device time cannot exceed the host's step; past this share of it, the
 # trace double-counts
 OVERLAP_NOISE = 0.02
-# substrings of the demangled names of the port's own kernels
-PORT_KERNELS = {"gru_scan": ("gru_fwd_kernel",),
-                "gru_scan_bwd": ("gru_bwd_",),
-                "stem_dy": ("stem_dy_",)}
-GEMM_WORDS = ("gemm", "xmma", "cutlass", "cublas", "matmul")
-CONV_WORDS = ("conv", "cudnn", "implicit", "winograd", "wgrad", "dgrad")
 
 
 def _device_us(avg) -> float:
     t = getattr(avg, "self_device_time_total", None)
     return float(avg.self_cuda_time_total if t is None else t)
-
-
-def _group(name: str) -> str:
-    low = name.lower()
-    for kernel, parts in PORT_KERNELS.items():
-        if any(p in name for p in parts):
-            return kernel
-    if any(w in low for w in CONV_WORDS):
-        return "conv"
-    if any(w in low for w in GEMM_WORDS):
-        return "gemm"
-    return "other"
 
 
 def main(argv=None) -> None:
@@ -116,7 +101,7 @@ def main(argv=None) -> None:
     device_ms = sum(per_step.values())
     groups = {}
     for name, ms in per_step.items():
-        g = _group(name)
+        g = _classify(name)
         groups[g] = groups.get(g, 0.0) + ms
     port = {k: {"ms_per_step": groups.get(k, 0.0),
                 "share_of_device": groups.get(k, 0.0) / device_ms}
@@ -136,7 +121,8 @@ def main(argv=None) -> None:
         "device_ms_per_step": device_ms,
         "idle_share": idle_share,
         "port_kernels": port,
-        "groups": {k: groups.get(k, 0.0) for k in ("gemm", "conv", "other")},
+        "groups": {k: groups.get(k, 0.0)
+                   for k in ("gemm", "conv", "elementwise", "other")},
         "top": [{"kernel": k[:120], "ms_per_step": v,
                  "share_of_device": v / device_ms} for k, v in top],
         "device": torch.cuda.get_device_name(0),

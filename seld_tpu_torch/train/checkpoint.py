@@ -142,6 +142,23 @@ def restore_checkpoint(path: str, state: TrainState,
     return state, swa, extra
 
 
+def save_variables(path: str, model: torch.nn.Module,
+                   extra: Optional[Dict[str, Any]] = None) -> str:
+    """A checkpoint of the model's variables alone (parameters and
+    BatchNorm statistics, no optimizer state), as `load_variables` reads
+    it: the directory `path` holding `state.pt`, and `extra` in
+    `path.meta.json`; returns the absolute path."""
+    path = os.path.abspath(path)
+    os.makedirs(path)
+    torch.save({"params": _cpu(dict(model.named_parameters())),
+                "batch_stats": _cpu(dict(model.named_buffers()))},
+               os.path.join(path, _STATE_FILE))
+    if extra:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(extra, f)
+    return path
+
+
 def load_variables(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load only a checkpoint's model variables (parameters and BatchNorm
     statistics) into `model`, for inference tooling that has no optimizer

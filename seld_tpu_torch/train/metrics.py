@@ -38,9 +38,10 @@ def merge(a: State, b: State) -> State:
 
 def all_reduce_(state: State) -> State:
     """Sum every rank's state into each rank's, in place, as one all-reduce
-    of the flattened sums (JAX's psum of the state over the data axis)."""
+    of the flattened sums over the active step's batch (JAX's psum of the
+    state over the data axis)."""
     from seld_tpu_torch.parallel import collectives
-    flat = collectives.all_reduce_(
+    flat = collectives.batch_reduce_(
         torch.cat([v.reshape(-1) for v in state.values()]))
     for v, part in zip(state.values(),
                        flat.split([v.numel() for v in state.values()])):
@@ -54,11 +55,11 @@ def update_global(state: State, y_true, y_pred, **kw) -> State:
     are added, so every rank holds the global batch's state (a rank that
     replicates another's rows adds zeros). Outside one, `update` itself."""
     from seld_tpu_torch.parallel import collectives
-    mesh = collectives.active()
-    if mesh is None:
+    if collectives.active() is None:
         return update(state, y_true, y_pred, **kw)
     zeros = {k: torch.zeros_like(v) for k, v in state.items()}
-    mine = update(zeros, y_true, y_pred, **kw) if mesh.primary else zeros
+    mine = update(zeros, y_true, y_pred, **kw) if collectives.primary() \
+        else zeros
     return merge(state, all_reduce_(mine))
 
 

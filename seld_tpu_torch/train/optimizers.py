@@ -25,31 +25,52 @@ reads back the value last set (a Python float, as it was given) and
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 
-def unitwise_norm(x: torch.Tensor) -> torch.Tensor:
-    if x.dim() <= 1:
-        return x.square().sum().sqrt()
-    if x.dim() in (2, 3):
-        return x.square().sum(dim=0, keepdim=True).sqrt()
-    if x.dim() == 4:
-        return x.square().sum(dim=(0, 1, 2), keepdim=True).sqrt()
+def _unit_dims(ndim: int) -> Tuple[int, ...]:
+    """The dims a unit-wise norm sums over."""
+    if ndim <= 1:
+        return tuple(range(ndim))
+    if ndim in (2, 3):
+        return (0,)
+    if ndim == 4:
+        return (0, 1, 2)
     raise ValueError(f"Got a parameter with shape not in [1, 2, 3, 4]: "
-                     f"{tuple(x.shape)}")
+                     f"{ndim} dims")
+
+
+def unitwise_norm(x: torch.Tensor,
+                  shard_dim: Optional[int] = None) -> torch.Tensor:
+    """The unit-wise norm of x; where x is this rank's shard along
+    `shard_dim` (tensor parallelism) and the norm sums over that dim, the
+    squared sums are summed over the model group first."""
+    dims = _unit_dims(x.dim())
+    if x.dim() <= 1:
+        sq = x.square().sum()
+    else:
+        sq = x.square().sum(dim=dims, keepdim=True)
+    if shard_dim is not None and shard_dim in dims:
+        from seld_tpu_torch.parallel import collectives
+        sq = collectives.model_sum_(sq)
+    return sq.sqrt()
 
 
 def adaptive_clip_grad(params: Sequence[torch.Tensor],
                        grads: Sequence[torch.Tensor],
-                       clip_factor: float = 0.01, eps: float = 1e-3
+                       clip_factor: float = 0.01, eps: float = 1e-3,
+                       shard_dims: Optional[Sequence[Optional[int]]] = None
                        ) -> List[torch.Tensor]:
-    """AGC over matching parameter/gradient lists."""
+    """AGC over matching parameter/gradient lists; `shard_dims`: the dim
+    each parameter is sharded along over the model axis, or None."""
     out = []
-    for p, g in zip(params, grads):
-        max_norm = unitwise_norm(p).clamp_min(eps) * clip_factor
-        g_norm = unitwise_norm(g)
+    if shard_dims is None:
+        shard_dims = [None] * len(params)
+    for p, g, d in zip(params, grads, shard_dims):
+        max_norm = unitwise_norm(p, d).clamp_min(eps) * clip_factor
+        g_norm = unitwise_norm(g, d)
         clipped = g * (max_norm / g_norm.clamp_min(1e-6))
         out.append(torch.where(g_norm < max_norm, g, clipped))
     return out
@@ -87,11 +108,14 @@ class _Optimizer:
 
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor],
-             grads: Sequence[torch.Tensor]) -> None:
-        """One update of `params` in place from `grads`."""
+             grads: Sequence[torch.Tensor],
+             shard_dims: Optional[Sequence[Optional[int]]] = None) -> None:
+        """One update of `params` in place from `grads`; `shard_dims` as
+        `adaptive_clip_grad` takes them."""
         grads = list(grads)
         if self.agc_clip is not None:
-            grads = adaptive_clip_grad(params, grads, self.agc_clip)
+            grads = adaptive_clip_grad(params, grads, self.agc_clip,
+                                       shard_dims=shard_dims)
         self._count.add_(1)
         scaled = self._scale(grads)
         # params + (-lr) * update, as optax's scale_by_learning_rate and

@@ -32,6 +32,14 @@ optimizer see the same gradients on every rank; the metric adds the
 all-reduced sums of this rank's rows (`metrics.update_global`). With NCCL
 the all-reduces are captured in the step's CUDA graph; gloo cannot be
 captured, so a gloo group runs the steps eagerly on any device.
+
+Tensor parallelism (a mesh with a `model` axis, the model's kernels
+sharded by parallel/partitioning.py's `shard_tree`): the batch's
+collectives above run over the data sub-group; each sharded layer puts
+its output together over the model sub-group (models/layers.py), so the
+losses, the metric and every replicated leaf's gradient are whole on
+every rank; a sharded leaf's gradient is its shard's, and AGC's unit
+norms over a sharded dim sum over the model group.
 """
 from __future__ import annotations
 
@@ -42,7 +50,7 @@ import torch
 from seld_tpu_torch.ops.gather import gather_batch
 from seld_tpu_torch.parallel import collectives
 from seld_tpu_torch.train import metrics as M
-from seld_tpu_torch.train.graphs import StepLoop
+from seld_tpu_torch.train.graphs import StepGraph, StepLoop
 from seld_tpu_torch.train.train_state import TrainState
 
 
@@ -108,7 +116,7 @@ def _all_reduce_grads(grads):
     all-reduce of a flat buffer (none outside a step)."""
     if collectives.active() is None:
         return grads
-    flat = collectives.all_reduce_(
+    flat = collectives.batch_reduce_(
         torch.cat([g.reshape(-1).float() for g in grads]))
     return [part.view_as(g).to(g.dtype)
             for part, g in zip(flat.split([g.numel() for g in grads]), grads)]
@@ -132,7 +140,6 @@ def _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
     rows, the predictions returned are too, and the losses are the global
     batch's (the module docstring)."""
     w_sed, w_doa = loss_weights
-    ranks = mesh.world if mesh is not None and mesh.distributed else 1
 
     def cast(p: torch.Tensor) -> torch.Tensor:
         if compute_dtype is not None and p.dtype == torch.float32:
@@ -155,13 +162,23 @@ def _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
             (sed_y, doa_y), (sed_g, doa_g) = _gathered(y, (sed_p, doa_p))
             sloss = sed_loss_fn(sed_y, sed_g)
             dloss = doa_loss_fn(doa_y, doa_g)
+            # this rank's share, once the gradient all-reduce sums it (a
+            # shard's own kernels only: its value never leaves the step)
             penalty = l2_kernel_penalty(params, l2)
+            ranks = collectives.world()
             loss = (w_sed * sloss + w_doa * dloss
                     + (penalty if ranks == 1 else penalty / ranks))
             grads = torch.autograd.grad(loss, list(params.values()),
                                         allow_unused=True)
         grads = _all_reduce_grads(_zeros_for_unused(model, params, grads))
-        state.optimizer.step(list(params.values()), grads)
+        shards = getattr(model, "tensor_parallel", None)
+        if shards:
+            # AGC's unit norms over a sharded dim are summed over the model
+            # group (parallel/partitioning.py)
+            state.optimizer.step(list(params.values()), grads,
+                                 shard_dims=[shards.get(k) for k in params])
+        else:
+            state.optimizer.step(list(params.values()), grads)
         return (sed_p.detach(), doa_p.detach()), (sloss.detach(),
                                                   dloss.detach())
 
@@ -176,7 +193,8 @@ def make_train_step(*,
                     doa_threshold: float = 20.0,
                     metric_block_size: int = 10,
                     compute_dtype=None,
-                    mesh=None):
+                    mesh=None,
+                    fuse_metrics: bool = False):
     """Build a train step.
 
     sed_loss_fn(y, p) and doa_loss_fn(y, p) return scalars. Step signature:
@@ -185,9 +203,19 @@ def make_train_step(*,
     returned. Under a `mesh` of several ranks x and y are this rank's rows
     of the global batch, and the losses and the metric state are the
     global batch's on every rank.
+
+    With fuse_metrics=True (seld_tpu/train/steps.py:117-123, one jit of
+    the update and the metric) the metric update runs inside the step, and
+    on a CUDA device the whole step is one captured CUDA graph
+    (train/graphs.py), replayed once a call: x, y and the metric state are
+    copied into the graph's buffers, the first call on a state warms up
+    and captures. Its result equals the unfused step's. Under a gloo group
+    it runs eagerly.
     """
     update = _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
                                compute_dtype, mesh)
+    if fuse_metrics:
+        return _fused_step(update, mesh, doa_threshold, metric_block_size)
 
     def step(state: TrainState, metric_state, x, y):
         preds, losses = update(state, x, y)
@@ -197,6 +225,53 @@ def make_train_step(*,
                                            doa_threshold=doa_threshold,
                                            block_size=metric_block_size)
         return state, metric_state, losses
+
+    return step
+
+
+def _fused_step(update, mesh, doa_threshold, metric_block_size):
+    """`make_train_step(fuse_metrics=True)`'s step."""
+    live = {}      # the one program of the last signature
+
+    def build(state, x, y, metric_state):
+        bufs = {"x": torch.empty_like(x), "sed": torch.empty_like(y[0]),
+                "doa": torch.empty_like(y[1]),
+                "losses": torch.empty(2, device=x.device)}
+        metric = {k: torch.empty_like(v) for k, v in metric_state.items()}
+
+        def body():
+            yb = (bufs["sed"], bufs["doa"])
+            preds, (sl, dl) = update(state, bufs["x"], yb)
+            with torch.no_grad(), collectives.data_parallel(mesh):
+                new = M.update_global(metric, yb, preds,
+                                      doa_threshold=doa_threshold,
+                                      block_size=metric_block_size)
+                for name, t in metric.items():
+                    t.copy_(new[name])
+                bufs["losses"].copy_(torch.stack([sl, dl]))
+
+        graph = StepGraph(body, [state.generator], x.device,
+                          capture=_uses_graphs(mesh))
+        return state, bufs, metric, graph
+
+    def step(state: TrainState, metric_state, x, y):
+        key = (_state_key(state), _tensor_key(x), _tensor_key(y[0]),
+               _tensor_key(y[1]), tuple(sorted(metric_state)))
+        if key not in live:
+            live.clear()
+            live[key] = build(state, x, y, metric_state)
+        _, bufs, metric, graph = live[key]
+        with torch.no_grad():
+            bufs["x"].copy_(x)
+            bufs["sed"].copy_(y[0])
+            bufs["doa"].copy_(y[1])
+            for name, t in metric.items():
+                t.copy_(metric_state[name])
+        graph()
+        state.step += 1
+        losses = bufs["losses"].clone()
+        return (state, {k: v.clone() for k, v in metric.items()},
+                (losses[0], losses[1]))
 
     return step
 

@@ -269,6 +269,37 @@ def test_multistep_equals_k_single_steps_with_dropout(unroll):
     assert torch.equal(torch.stack(after_a), torch.stack(after_b))
 
 
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_single_step_equals_the_unfused_step(dtype):
+    """make_train_step(fuse_metrics=True), the JAX package's single step
+    with the metric inside (seld_tpu/train/steps.py:117-123), dropout on:
+    K calls leave the state, the losses and the metric state exactly where
+    K unfused steps leave them, and a further unfused step continues the
+    same stream."""
+    cfg = narrow_ss5()
+    cfg["n_classes"] = N_CLASSES
+    xs, sed, doa = (torch.from_numpy(a) for a in _stacked())
+    kw = dict(_port_kwargs(), compute_dtype=dtype)
+    plain, fused = make_train_step(**kw), make_train_step(fuse_metrics=True,
+                                                          **kw)
+    a = _port_state(None, cfg, seed=5)
+    b = _port_state(None, cfg, seed=5)
+    b.model.load_state_dict(a.model.state_dict())
+    ma, mb = TM.init_state(N_CLASSES, "cpu"), TM.init_state(N_CLASSES, "cpu")
+    for i in range(K):
+        a, ma, la = plain(a, ma, xs[i], (sed[i], doa[i]))
+        b, mb, lb = fused(b, mb, xs[i], (sed[i], doa[i]))
+        assert torch.equal(torch.stack(la), torch.stack(lb))
+    assert a.step == b.step == K
+    _assert_same_state(a, b)
+    for key in ma:
+        assert torch.equal(ma[key], mb[key]), key
+    _, _, after_a = plain(a, ma, xs[0], (sed[0], doa[0]))
+    _, _, after_b = plain(b, mb, xs[0], (sed[0], doa[0]))
+    assert torch.equal(torch.stack(after_a), torch.stack(after_b))
+
+
 def _augment():
     """The CLI's --use_tfm --use_acs augments at this test's 60 frames."""
     return T.compose(

@@ -59,7 +59,11 @@ def test_port_files_exist():
                  "nas/search.py", "data/vad.py", "train/vad.py",
                  "nas_search.py", "analyze_nas.py", "train_vad.py",
                  "prepare_vad.py", "vad_rehearsal.py", "parallel/mesh.py",
-                 "parallel/collectives.py"):
+                 "parallel/collectives.py", "parallel/partitioning.py",
+                 "compat/keras_h5.py", "import_tf_weights.py",
+                 "utils/profiling.py", "utils/trace_analysis.py",
+                 "profile_train.py", "extract_features.py",
+                 "bench_frontend.py", "smoke.py"):
         assert os.path.join("seld_tpu_torch", want) in names
 
 
@@ -160,6 +164,60 @@ def test_parse_mesh_spec_copy_equals_original():
     assert _function_ast(os.path.join(REPO, "seld_tpu_torch", rel),
                          "parse_mesh_spec") == _function_ast(
         os.path.join(REPO, "seld_tpu", rel), "parse_mesh_spec")
+
+
+def _top_level_ast(path, name):
+    """A top-level class's or function's code, docstrings left out."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    node = next(n for n in tree.body
+                if isinstance(n, (ast.ClassDef, ast.FunctionDef))
+                and n.name == name)
+    for sub in ast.walk(node):
+        body = getattr(sub, "body", None)
+        if isinstance(body, list) and body and isinstance(
+                body[0], ast.Expr) and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            sub.body = body[1:]
+    return ast.dump(node)
+
+
+@pytest.mark.parametrize("name", ["H5Layer", "read_legacy_h5", "_decode",
+                                  "_is_init_ln"])
+def test_keras_h5_parsing_copy_equals_original(name):
+    """compat/keras_h5.py's parsing of the legacy file is a copy of the JAX
+    package's: the same code, docstrings apart."""
+    rel = os.path.join("compat", "keras_h5.py")
+    assert _top_level_ast(os.path.join(REPO, "seld_tpu_torch", rel),
+                          name) == _top_level_ast(
+        os.path.join(REPO, "seld_tpu", rel), name)
+
+
+def test_keras_h5_tables_equal():
+    from seld_tpu.compat import keras_h5 as want
+    from seld_tpu_torch.compat import keras_h5 as got
+    assert got._BASE_KIND == want._BASE_KIND
+    assert got._NAME_RE.pattern == want._NAME_RE.pattern
+    # the port's module classes carry flax's names, kind for kind
+    assert got.FLAX_KIND == want.FLAX_KIND
+
+
+@pytest.mark.parametrize("xla,cuda", [
+    ("%fusion.12 = f32[256,64]{1,0} fusion(f32[256,64]{1,0} %p0)",
+     "void at::native::vectorized_elementwise_kernel<4, ...>"),
+    ("%convolution.3 = bf16[256,60,32,32]{3,2,1,0} convolution(%a, %b)",
+     "cudnn::engines_precompiled::conv2d_grouped_direct_kernel"),
+    ("%dot.7 = f32[256,128]{1,0} dot(f32[256,64]{1,0} %a, %b)",
+     "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n")])
+def test_trace_classes_correspond_to_the_jax_classes(xla, cuda):
+    """utils/trace_analysis.py's `_classify` keeps the JAX package's
+    classes where a torch trace can name them: XLA's fusions, convolutions
+    and dots are the port's elementwise passes, convolutions and GEMMs."""
+    from seld_tpu.utils.trace_analysis import _classify as want
+    from seld_tpu_torch.utils.trace_analysis import _classify as got
+    families = {"fusion": "elementwise", "convolution": "conv",
+                "dot": "gemm"}
+    assert got(cuda) == families[want(xla).split(":")[0]]
 
 
 def test_copied_constants_equal():
