@@ -246,13 +246,16 @@ Phases, one line each:
 Phase 3 holds gru_scan at B in {1, 3, 17, 32, 256} (U=128, f32 and bf16),
 at U=64, at U in {192, 256} (B in {3, 32, 256}, f32 and bf16) and U=152,
 both GRU kernels past U = 256 (gru_wide): the resident variants at
-U=260, 384, 388, 512 (ragged tiles, uneven CTA shares) and the streamed
-ones at U=1024, 2056, each call twice and bit-equal, both timed at B=256,
-U in {384, 512}, and the streamed ones at U=1024, bf16 and f32, beside
-cuDNN, each plan printed with its
-register/shared split and cudaOccupancyMaxActiveClusters, the backward by
-pass, then SS5 with a 384-unit DOA biGRU graphed at B=256 (ms a step,
-windows/s, the GRU kernels' share; --gru-wide all runs gru_wide alone,
+U=260, 384, 388, 512 (ragged tiles, uneven CTA shares), the streamed
+ones at U=1024, 2056 and the grid-resident ones (Rk in bf16) at U=544,
+640, 1024, each call twice and bit-equal, all timed at B=256, U in {384,
+512, 1024}, with Rk in bf16 and f32, beside the streamed recurrences
+where the plan is another, in turns, and cuDNN and the f32 and
+tensor-core bounds, each plan printed with its register/shared split and
+residency, the backward by pass, the grid-resident kernels at U=1024
+also replayed from a CUDA graph, then SS5 with a 384-unit DOA biGRU
+graphed at B=256 (ms a step, windows/s, the GRU kernels' share;
+--gru-wide all runs gru_wide alone,
 --gru-wide step its SS5 step alone, neither with a result line)
 (phase 14 adds f32 B=256 at every NAS unit count, 4 to 256, both GRU
 kernels, and stem_dy in f32),
@@ -304,6 +307,7 @@ import numpy as np
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, SXM data sheet
+H100_BF16_FLOPS = 989e12     # bf16 on the tensor cores, dense, SXM data sheet
 
 GRU_TOL = {"float32": 1e-4,
            # both sides carry h in f32 and round once to bf16: at most one
@@ -760,15 +764,65 @@ def gru_scan_bound(xp, rk, rb):
     return bound(nbytes, flops)
 
 
+def _bwd_bytes(xp, rk, rb, hs, g):
+    """x_proj, hs and g read and dx_proj written in x_proj's dtype, the
+    weights read and their gradients written in their own."""
+    return ((xp.numel() * 2 + hs.numel() + g.numel()) * xp.element_size()
+            + (rk.numel() * rk.element_size() + rb.numel() * 4) * 2)
+
+
 def gru_bwd_bound(xp, rk, rb, hs, g):
-    """gru_scan_bwd's bound: x_proj, hs and g read and dx_proj written in
-    x_proj's dtype, the f32 weights read and their gradients written; the
-    three B x U x 3U products a step and direction."""
+    """gru_scan_bwd's bound: its bytes (`_bwd_bytes`); the three B x U x 3U
+    products a step and direction at the f32 rate outside the tensor
+    cores."""
     d, t, b, k = xp.shape
     u = k // 3
-    nbytes = ((xp.numel() * 2 + hs.numel() + g.numel()) * xp.element_size()
-              + (rk.numel() + rb.numel()) * 4 * 2)
-    return bound(nbytes, 3 * 2 * d * t * b * u * 3 * u)
+    return bound(_bwd_bytes(xp, rk, rb, hs, g), 3 * 2 * d * t * b * u * 3 * u)
+
+
+def _split_products(a_dtype, b_dtype):
+    """bf16 products a split product takes (csrc/gru_bwd.cu): 1 for bf16 x
+    bf16, 3 with one side f32 (three parts), 6 with both."""
+    import torch
+    pa, pb = (1 if dt == torch.bfloat16 else 3 for dt in (a_dtype, b_dtype))
+    return pa * pb if min(pa, pb) == 1 else 6
+
+
+def gru_bwd_bound_tc(xp, rk, rb, hs, g, grid=False):
+    """gru_scan_bwd's bound at the rates of the scheme its kernels run: the
+    hp and dRk products as `_split_products` bf16 products at 989 TFLOP/s
+    on the tensor cores; the recurrence's product in f32 outside them (67
+    TFLOP/s), or, on the grid-resident plan, as 3 bf16 products; bytes as
+    `gru_bwd_bound`. Operations add up: the passes run one after another."""
+    import torch
+    d, t, b, k = xp.shape
+    u = k // 3
+    prod = 2 * d * t * b * u * 3 * u
+    tc = _split_products(hs.dtype, rk.dtype) + \
+        _split_products(hs.dtype, torch.float32) + (3 if grid else 0)
+    ops_ms = prod * tc / H100_BF16_FLOPS * 1e3 + \
+        (0.0 if grid else prod / H100_F32_FLOPS * 1e3)
+    bytes_ms = _bwd_bytes(xp, rk, rb, hs, g) / H100_BYTES_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms
+                                   else "operations")
+
+
+def gru_scan_bound_tc(xp, rk, rb, grid=False):
+    """gru_scan's bound at its scheme's rate: on the grid-resident plan the
+    product as `_GRID_H_PARTS` bf16 products at 989 TFLOP/s; on the others
+    in f32 (gru_scan_bound)."""
+    from seld_tpu_torch.ops.gru import _GRID_H_PARTS
+    if not grid:
+        return gru_scan_bound(xp, rk, rb)
+    d, t, b, k = xp.shape
+    u = k // 3
+    nbytes = ((xp.numel() + d * t * b * u) * xp.element_size()
+              + rk.numel() * rk.element_size() + rb.numel() * 4)
+    ops_ms = 2 * d * t * b * u * 3 * u * _GRID_H_PARTS / \
+        H100_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms
+                                   else "operations")
 
 
 def bound(nbytes, flops):
@@ -866,17 +920,23 @@ def cudnn_gru_train(x_proj, rec_kernel, rec_bias, g):
 
 def phase_kernels_bwd(card):
     import torch
-    from seld_tpu_torch.ops.gru import (_BWD_RESIDENT, _BWD_VARIANTS,
-                                        _RESIDENT_UNITS, _STREAM, _bwd_plan,
-                                        _gru_scan_bwd_cuda, gru_scan_bwd,
-                                        gru_scan_bwd_ref, gru_scan_ref,
-                                        library_bwd_variants)
+    from seld_tpu_torch.ops.gru import (_BWD_GRID, _BWD_RESIDENT,
+                                        _BWD_VARIANTS, _FWD_GRID, _GRID_BWD,
+                                        _GRID_FWD, _RESIDENT_UNITS, _STREAM,
+                                        _bwd_plan, _gru_scan_bwd_cuda,
+                                        gru_scan_bwd, gru_scan_bwd_ref,
+                                        gru_scan_ref, library_bwd_variants,
+                                        library_grid)
 
     mirror = (_BWD_VARIANTS, _STREAM, (_BWD_RESIDENT, _RESIDENT_UNITS))
     if library_bwd_variants() != mirror:
         raise SystemExit(f"csrc/gru_bwd.cu's variants "
                          f"{library_bwd_variants()} differ from ops/gru.py's "
                          f"{mirror}")
+    grid = (_GRID_FWD + (_FWD_GRID,), _GRID_BWD + (_BWD_GRID,))
+    if library_grid() != grid:
+        raise SystemExit(f"the grid-resident constants {library_grid()} "
+                         f"differ from ops/gru.py's {grid}")
     rng = np.random.RandomState(4)
     d, t = 2, 60
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -934,7 +994,6 @@ def phase_kernels_bwd(card):
                    f"{wide_ms:.4f} (device ms {wide_device_ms:.4f}; "
                    f"{_plan_text(wide_plan)}) bound_ms {wide_bound_ms:.5f} "
                    f"({wide_bound_by})")
-    del wide
 
     # the training path's shape: D=2, T=60, B=256, U=128, bf16 storage
     xp, rk, rb, hs, g, got = timing
@@ -975,6 +1034,10 @@ def phase_kernels_bwd(card):
                          f"{v_ms:.4f} ms (rel_err {err:.1e})")
         log("kernels", f"gru_scan_bwd plans at B={bb} bf16: "
                        + "; ".join(times))
+    rk_rows = {"u128": bwd_rk_row(card, (xp, rk, rb, hs, g), library_ms),
+               "u256": bwd_rk_row(card, wide)}
+    del wide
+    bound_tc_ms, bound_tc_by = gru_bwd_bound_tc(xp, rk, rb, hs, g)
     entries = [{"name": "gru_scan_bwd", "route": "cuda",
                 "source": "seld_tpu_torch/csrc/gru_bwd.cu",
                 "replaces": "seld_tpu/ops/pallas/gru.py:209",
@@ -983,6 +1046,8 @@ def phase_kernels_bwd(card):
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
                 "device_ms": device_ms, "passes_ms": passes,
+                "bound_tc_ms": bound_tc_ms, "bound_tc_by": bound_tc_by,
+                "rk_rows": rk_rows,
                 "plan": _plan_json(_bwd_plan(d, b, u)),
                 "u256_ms": wide_ms, "u256_device_ms": wide_device_ms,
                 "u256_bound_ms": wide_bound_ms, "u256_bound_by": wide_bound_by,
@@ -991,34 +1056,116 @@ def phase_kernels_bwd(card):
     return entries + [kernels_stem_dy(card)]
 
 
-# the GRU kernels past U = 256: the resident variants (U <= 512) at B =
-# 256, bf16 and f32 (GRU_WIDE_ROWS, timed), at ragged tiles and uneven CTA
-# shares (U = 260: 36 units a CTA, the last 8; U = 388: 28 a CTA on 16, two
-# CTAs empty), each called twice (the second call bit-equal); the streamed
-# variants where they still run (U = 1024, 2056: 257 units a CTA, walked in
-# two passes) and, forced, at the timed rows beside the resident ones
-GRU_WIDE_CHECKS = (("float32", 3, 260), ("bfloat16", 17, 384),
-                   ("float32", 17, 388), ("bfloat16", 3, 512),
-                   ("float32", 8, 1024), ("float32", 3, 2056))
-# timed rows: the resident plans (and the streamed forced beside them) at
-# U = 384 and 512, the streamed plans alone at U = 1024
-GRU_WIDE_ROWS = tuple((dtype, 256, u) for u in (384, 512, 1024)
-                      for dtype in ("bfloat16", "float32"))
+def _bwd_tols(dtype, rk):
+    """BWD_TOL of each output: dx_proj in x_proj's dtype, dRk in Rk's, dRb
+    in f32."""
+    return [BWD_TOL[dtype], BWD_TOL[str(rk.dtype).split(".")[-1]],
+            BWD_TOL["float32"]]
+
+
+def bwd_rk_row(card, args, library_ms=None):
+    """gru_scan_bwd at one [kernels] row (D=2, T=60, B=256, bf16 storage)
+    with Rk in f32 and in bf16 (as the training step hands it over), timed
+    in turns: each held against the plain version (BWD_TOL) and called
+    twice (bit-equal); device ms by pass (profiler: the tensor-core hp and
+    dRk passes, the recurrence); cuDNN's bf16 backward at the shape; the f32
+    and the tensor-core bounds."""
+    import torch
+    from seld_tpu_torch.ops.gru import _gru_scan_bwd_cuda, gru_scan_bwd_ref
+    xp, rk32, rb, hs, g = args
+    u = xp.shape[-1] // 3
+    dtype = str(xp.dtype).split(".")[-1]
+    if library_ms is None:
+        lib_fwd, lib_both = cudnn_gru_train(xp, rk32, rb, g)
+        library_ms = cuda_ms(lib_both, 20) - cuda_ms(lib_fwd, 20)
+    out = {"library_ms": library_ms}
+    rks = {"f32": rk32, "bf16": rk32.to(torch.bfloat16)}
+    for rk_name, rk in rks.items():
+        want = gru_scan_bwd_ref(xp, rk, rb, hs, g)
+        tols = _bwd_tols(dtype, rk)
+        got = _gru_scan_bwd_cuda(xp, rk, rb, hs, g)
+        got2 = _gru_scan_bwd_cuda(xp, rk, rb, hs, g)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        same = all(torch.equal(a, c) for a, c in zip(got, got2))
+        if not same or any(e > tl for e, tl in zip(errs, tols)):
+            raise SystemExit(f"gru_scan_bwd (Rk {rk_name}) at U={u}: rel_err "
+                             f"{errs} (tol {tols}), bit-equal {same}")
+        b32, by32 = gru_bwd_bound(xp, rk, rb, hs, g)
+        btc, bytc = gru_bwd_bound_tc(xp, rk, rb, hs, g)
+        out[rk_name] = {"rel_err": errs, "ms": [], "passes_ms":
+                        kernel_split_ms(lambda: _gru_scan_bwd_cuda(
+                            xp, rk, rb, hs, g), 10, "gru_bwd_"),
+                        "bound_ms": b32, "bound_by": by32,
+                        "bound_tc_ms": btc, "bound_tc_by": bytc}
+    for rk_name in ("f32", "bf16", "bf16", "f32"):
+        rk = rks[rk_name]
+        out[rk_name]["ms"].append(cuda_ms(
+            lambda: _gru_scan_bwd_cuda(xp, rk, rb, hs, g), 20))
+    for rk_name in rks:
+        row = out[rk_name]
+        log("kernels", f"gru_scan_bwd bf16 D=2 T=60 B=256 U={u} Rk "
+                       f"{rk_name} on {card}: "
+                       + "/".join(f"{m:.4f}" for m in row["ms"])
+                       + " ms (" + _split_text(row["passes_ms"])
+                       + f"); cuDNN GRU backward {library_ms:.4f}; bound "
+                       f"f32 {row['bound_ms']:.5f} ({row['bound_by']}), "
+                       f"tensor-core {row['bound_tc_ms']:.5f} "
+                       f"({row['bound_tc_by']}); rel_err dRk "
+                       f"{row['rel_err'][1]:.2e} (tol "
+                       f"{_bwd_tols(dtype, rks[rk_name])[1]:.0e}), a second "
+                       f"call bit-equal")
+    return out
+
+
+# the GRU kernels past U = 256: (dtype, B, U, Rk's dtype). The resident
+# variants (U <= 512) at ragged tiles and uneven CTA shares (U = 260: 36
+# units a CTA, the last 8; U = 388: 28 a CTA on 16, two CTAs empty); the
+# streamed ones where Rk is f32 past U = 512 (U = 1024, 2056: 257 units a
+# CTA, walked in two passes); the grid-resident ones where Rk comes in bf16
+# (U = 1024 at B = 8: 64-row blocks; f32 storage at B = 100, U = 640; the
+# forward alone at U = 544, whose backward, wanting U % 128 == 0, is
+# streamed). Each called twice (the second call bit-equal).
+GRU_WIDE_CHECKS = (("float32", 3, 260, "float32"),
+                   ("bfloat16", 17, 384, "float32"),
+                   ("float32", 17, 388, "float32"),
+                   ("bfloat16", 3, 512, "float32"),
+                   ("float32", 8, 1024, "float32"),
+                   ("float32", 3, 2056, "float32"),
+                   ("bfloat16", 8, 1024, "bfloat16"),
+                   ("float32", 100, 640, "bfloat16"),
+                   ("bfloat16", 17, 544, "bfloat16"))
+# timed rows, B = 256: bf16 storage with Rk in bf16 (as the training step
+# hands it over) and in f32, f32 storage with f32 Rk; each beside the
+# streamed recurrences in turns where the plan is another
+GRU_WIDE_ROWS = tuple((dtype, 256, u, rk) for u in (384, 512, 1024)
+                      for dtype, rk in (("bfloat16", "bfloat16"),
+                                        ("bfloat16", "float32"),
+                                        ("float32", "float32")))
 # [gru_wide]'s full-width path: SS5 with its DOA biGRU at 384 units, B =
 # 256, bf16, make_train_multistep(WIDE_STEPS) replayed
 WIDE_UNITS = 384
 WIDE_STEPS = 8
 
 
-def _plan_wide(plan, d, b, u):
+def _plan_wide(plan, d, b, u, dtype):
     """A plan past U = 256 with its register/shared split and, for a
-    resident plan, cudaOccupancyMaxActiveClusters and its waves."""
-    from seld_tpu_torch.ops.gru import max_active_clusters
+    resident plan, cudaOccupancyMaxActiveClusters and its waves; for a
+    grid-resident one, the CTAs the card holds at once against those it
+    needs."""
+    from seld_tpu_torch.ops.gru import (_BWD_GRID, _FWD_GRID, grid_residency,
+                                        max_active_clusters)
     text = f"variant {plan.variant} C={plan.c} Bt={plan.bt} " \
            f"threads={plan.threads} CTAs={plan.ctas}"
     out = {"variant": plan.variant, "c": plan.c, "bt": plan.bt,
            "threads": plan.threads, "ctas": plan.ctas}
-    if plan.smem:
+    if plan.variant in (_FWD_GRID, _BWD_GRID):
+        held, need = grid_residency(plan, d, b, u, dtype)
+        text += (f", grid-resident: Rk {plan.rk_smem / 1024:.0f} KiB in "
+                 f"shared memory a CTA, {plan.smem} B shared; {held} CTAs "
+                 f"resident at once for {need}")
+        out.update(rk_smem=plan.rk_smem, smem=plan.smem, resident=held)
+    elif plan.smem:
         active = max_active_clusters(plan, d, b, u)
         clusters = plan.ctas // plan.c
         waves = -(-clusters // active)
@@ -1054,18 +1201,66 @@ def _wide_check(xp, rk, rb, g, fplan, bplan):
     return err, errs, same
 
 
+def _graph_check(xp, rk, rb, g, ref, tols):
+    """gru_scan and gru_scan_bwd on their default plans captured in one
+    CUDA graph (a grid-resident kernel's cooperative launch and the memset
+    that zeroes its counters become graph nodes), warmed up on the
+    capturing stream first; the outputs zeroed, then replayed, twice.
+    Returns (each replay bit-equal to the eager calls, forward max_abs_err,
+    backward rel_errs), the errors against the plain versions."""
+    import torch
+    from seld_tpu_torch.ops.gru import (_gru_scan_bwd_cuda, _gru_scan_cuda,
+                                        gru_scan_bwd_ref)
+
+    def both():
+        return (_gru_scan_cuda(xp, rk, rb),) + tuple(
+            _gru_scan_bwd_cuda(xp, rk, rb, ref, g))
+    eager = both()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        both()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = both()
+    same = True
+    for _ in range(2):
+        for o in out:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(o, e) for o, e in zip(out, eager))
+    want = gru_scan_bwd_ref(xp, rk, rb, ref, g)
+    err = (out[0].float() - ref.float()).abs().max().item()
+    errs = [rel_err(o, w) for o, w in zip(out[1:], want)]
+    del graph
+    return same, err, errs
+
+
+def _kind(plan):
+    from seld_tpu_torch.ops.gru import (_BWD_GRID, _BWD_STREAM, _FWD_GRID,
+                                        _FWD_STREAM)
+    if plan.variant in (_FWD_GRID, _BWD_GRID):
+        return "grid"
+    return "streamed" if plan.variant in (_FWD_STREAM, _BWD_STREAM) \
+        else "resident"
+
+
 def gru_wide(card):
     """gru_scan and gru_scan_bwd past U = 256 against their plain versions
     on the card (GRU_TOL, BWD_TOL), each call twice and bit-equal, on the
-    default plans (resident up to U = 512) and, at the timed rows, on the
-    streamed plans too; at D=2, T=60, B=256, U=384 and 512, bf16 and f32:
-    kernel ms of both, plain ms, bound ms, cuDNN's torch.nn.GRU ms at the
-    same shape (forward: its training forward; backward: forward +
-    backward less the forward) and the backward's device ms by pass; at
-    U = 1024 the same numbers of the streamed plans, the only ones; each
-    plan with its split and cudaOccupancyMaxActiveClusters. Then the
-    full-width path through the resident kernels (`wide_step`). Returns
-    ({row: forward numbers}, {row: backward numbers})."""
+    default plans for Rk's dtype (resident up to U = 512; past it
+    grid-resident with Rk in bf16, else streamed), and at the timed rows
+    (GRU_WIDE_ROWS) on the streamed plans too where the default is
+    another; there kernel ms of each in turns, the backward's device ms by pass, plain ms, the f32 and the
+    tensor-core bounds, cuDNN's torch.nn.GRU at the same shape (forward:
+    its training forward; backward: forward + backward less the forward);
+    each plan with its split and residency. At U = 1024, B = 256 with Rk
+    in bf16 the grid-resident kernels also replay from a CUDA graph
+    (`_graph_check`). Then the full-width path through the resident
+    kernels (`wide_step`). Returns ({row: forward
+    numbers}, {row: backward numbers})."""
     import torch
     from seld_tpu_torch.ops.gru import (_BWD_STREAM, _FWD_STREAM,
                                         _RESIDENT_UNITS, _bwd_plan,
@@ -1075,90 +1270,124 @@ def gru_wide(card):
     rng = np.random.RandomState(14)
     d, t = 2, 60
     fwd_rows, bwd_rows = {}, {}
-    for dtype, b, u in GRU_WIDE_CHECKS + GRU_WIDE_ROWS:
+    for dtype, b, u, rk_dtype in GRU_WIDE_CHECKS + GRU_WIDE_ROWS:
         xp, rk, rb = _gru_inputs(rng, d, t, b, u, dtype)
+        rk = rk.to(getattr(torch, rk_dtype))
+        rk_bf16 = rk.dtype == torch.bfloat16
         g = torch.from_numpy(rng.randn(d, t, b, u).astype(
             np.float32)).cuda().to(xp.dtype)
-        timed = (dtype, b, u) in GRU_WIDE_ROWS
-        plans = [(_fwd_plan(d, b, u), _bwd_plan(d, b, u))]
-        if timed and u <= _RESIDENT_UNITS:
-            plans.append((_fwd_plan(d, b, u, variant=_FWD_STREAM),
-                          _bwd_plan(d, b, u, variant=_BWD_STREAM)))
-        tols = [BWD_TOL[dtype], BWD_TOL["float32"], BWD_TOL["float32"]]
-        want = "streamed" if u > _RESIDENT_UNITS else "resident"
-        if (plans[0][0].variant == _FWD_STREAM) != (want == "streamed"):
-            raise SystemExit(f"U={u}: the plan {plans[0][0]} is not {want}")
-        for fplan, bplan in plans:
-            kind = "streamed" if fplan.variant == _FWD_STREAM else "resident"
+        timed = (dtype, b, u, rk_dtype) in GRU_WIDE_ROWS
+        new = (_fwd_plan(d, b, u, rk_bf16=rk_bf16),
+               _bwd_plan(d, b, u, rk_bf16=rk_bf16))
+        if u <= _RESIDENT_UNITS:
+            want = ("resident", "resident")
+        else:
+            want = ("grid" if rk_bf16 else "streamed",
+                    "grid" if rk_bf16 and u % 128 == 0 else "streamed")
+        if (_kind(new[0]), _kind(new[1])) != want:
+            raise SystemExit(f"U={u} Rk {rk_dtype}: the plans {new} are "
+                             f"not {want}")
+        runs = [("new", new)]
+        if timed and want != ("streamed", "streamed"):
+            runs.append(("streamed", (
+                _fwd_plan(d, b, u, variant=_FWD_STREAM),
+                _bwd_plan(d, b, u, variant=_BWD_STREAM))))
+        tols = _bwd_tols(dtype, rk)
+        key = f"{dtype}_B{b}_U{u}_Rk_{rk_dtype}"
+        ref = gru_scan_ref(xp, rk, rb)
+        if timed:
+            fwd_rows[key], bwd_rows[key] = {}, {}
+        for label, (fplan, bplan) in runs:
             err, errs, same = _wide_check(xp, rk, rb, g, fplan, bplan)
             ok = same and err <= GRU_TOL[dtype] and \
                 all(e <= tl for e, tl in zip(errs, tols))
-            ftext, fjson = _plan_wide(fplan, d, b, u)
-            btext, bjson = _plan_wide(bplan, d, b, u)
-            log("kernels", f"gru_scan/gru_scan_bwd {dtype} B={b} U={u} "
-                           f"({kind}): forward max_abs_err {err:.3e} (tol "
+            ftext, fjson = _plan_wide(fplan, d, b, u, xp.dtype)
+            btext, bjson = _plan_wide(bplan, d, b, u, xp.dtype)
+            log("kernels", f"gru_scan/gru_scan_bwd {dtype} B={b} U={u} Rk "
+                           f"{rk_dtype} ({label}: {_kind(fplan)} / "
+                           f"{_kind(bplan)}): forward "
+                           f"max_abs_err {err:.3e} (tol "
                            f"{GRU_TOL[dtype]:.1e}), backward rel_err dx_proj "
                            f"{errs[0]:.2e} dRk {errs[1]:.2e} dRb "
-                           f"{errs[2]:.2e} (tol {tols[0]:.1e}/{tols[1]:.0e}),"
-                           f" a second call bit-equal {same} "
+                           f"{errs[2]:.2e} (tol {tols[0]:.1e}/{tols[1]:.0e}/"
+                           f"{tols[2]:.0e}), a second call bit-equal {same} "
                            f"{'ok' if ok else 'FAIL'}; forward plan {ftext}; "
                            f"backward plan {btext}")
             if not ok:
-                raise SystemExit(f"the {kind} GRU kernels disagree with "
+                raise SystemExit(f"the {label} GRU kernels disagree with "
                                  f"their plain versions (or with themselves) "
-                                 f"at {dtype} B={b} U={u}")
-            if not timed:
-                continue
-            ref = gru_scan_ref(xp, rk, rb)
-            ms = cuda_ms(lambda: _gru_scan_cuda(xp, rk, rb, plan=fplan), 10)
-            bwd_ms = cuda_ms(lambda: _gru_scan_bwd_cuda(
-                xp, rk, rb, ref, g, plan=bplan), 5)
-            passes = kernel_split_ms(lambda: _gru_scan_bwd_cuda(
-                xp, rk, rb, ref, g, plan=bplan), 5, "gru_bwd_")
-            key = f"{dtype}_B{b}_U{u}" + ("" if kind == "resident"
-                                           else "_streamed")
-            fwd_rows[key] = {"ms": ms, "max_abs_err": err, "plan": fjson}
-            bwd_rows[key] = {"ms": bwd_ms, "rel_err": max(errs),
-                             "passes_ms": passes, "plan": bjson}
-            log("kernels", f"gru_scan {dtype} D=2 T=60 B={b} U={u} ({kind})"
-                           f" on {card}: kernel_ms {ms:.4f}")
-            log("kernels", f"gru_scan_bwd {dtype} D=2 T=60 B={b} U={u} "
-                           f"({kind}) on {card}: kernel_ms {bwd_ms:.4f}; "
-                           f"device ms by pass (profiler): "
-                           + _split_text(passes))
+                                 f"at {dtype} B={b} U={u} Rk {rk_dtype}")
+            if timed:
+                fwd_rows[key][label] = {"kind": _kind(fplan), "ms": [],
+                                        "max_abs_err": err, "plan": fjson}
+                bwd_rows[key][label] = {
+                    "kind": _kind(bplan), "ms": [], "rel_err": max(errs),
+                    "plan": bjson, "passes_ms": kernel_split_ms(
+                        lambda: _gru_scan_bwd_cuda(xp, rk, rb, ref, g,
+                                                   plan=bplan),
+                        3, "gru_bwd_")}
         if not timed:
             continue
-        ref = gru_scan_ref(xp, rk, rb)
-        key = f"{dtype}_B{b}_U{u}" + ("_streamed" if u > _RESIDENT_UNITS
-                                      else "")
+        labels = [lb for lb, _ in runs]
+        for label in labels + labels[::-1]:      # in turns
+            fplan, bplan = dict(runs)[label]
+            fwd_rows[key][label]["ms"].append(cuda_ms(
+                lambda: _gru_scan_cuda(xp, rk, rb, plan=fplan), 5))
+            bwd_rows[key][label]["ms"].append(cuda_ms(
+                lambda: _gru_scan_bwd_cuda(xp, rk, rb, ref, g, plan=bplan),
+                3))
+        grid = (_kind(new[0]) == "grid", _kind(new[1]) == "grid")
+        if all(grid) and (dtype, u) == ("bfloat16", 1024):
+            same, err, errs = _graph_check(xp, rk, rb, g, ref, tols)
+            ok = same and err <= GRU_TOL[dtype] and \
+                all(e <= tl for e, tl in zip(errs, tols))
+            log("kernels", f"gru_scan + gru_scan_bwd {dtype} B={b} U={u} Rk "
+                           f"{rk_dtype} (grid / grid) in one CUDA graph, "
+                           f"replayed twice: each replay bit-equal to the "
+                           f"eager calls {same}; forward max_abs_err "
+                           f"{err:.3e}, backward rel_err dx_proj "
+                           f"{errs[0]:.2e} dRk {errs[1]:.2e} dRb "
+                           f"{errs[2]:.2e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the grid-resident GRU kernels replayed "
+                                 f"from a CUDA graph at {key} differ from "
+                                 f"their eager calls or plain versions")
+            fwd_rows[key]["graph"] = {"bit_equal": same, "max_abs_err": err,
+                                      "rel_err": errs}
         plain_ms = cuda_ms(lambda: gru_scan_ref(xp, rk, rb), 2)
-        bound_ms, bound_by = gru_scan_bound(xp, rk, rb)
         bwd_plain_ms = cuda_ms(lambda: gru_scan_bwd_ref(xp, rk, rb, ref, g), 1)
-        bwd_bound_ms, bwd_bound_by = gru_bwd_bound(xp, rk, rb, ref, g)
-        lib_fwd, lib_both = cudnn_gru_train(xp, rk, rb, g)
+        lib_fwd, lib_both = cudnn_gru_train(xp, rk.float(), rb, g)
         lib_ms = cuda_ms(lib_fwd, 10)
         lib_bwd_ms = cuda_ms(lib_both, 10) - lib_ms
-        fwd_rows[key].update(plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=lib_ms)
-        bwd_rows[key].update(plain_ms=bwd_plain_ms, bound_ms=bwd_bound_ms,
-                             bound_by=bwd_bound_by, library_ms=lib_bwd_ms)
-        base = f"{dtype}_B{b}_U{u}"
-        kinds = [(k, r) for k, r in (("resident", base),
-                                     ("streamed", base + "_streamed"))
-                 if r in fwd_rows]
-        log("kernels", f"gru_scan {dtype} D=2 T=60 B={b} U={u} on {card}: "
-                       + ", ".join(f"{k} {fwd_rows[r]['ms']:.4f} ms"
-                                   for k, r in kinds)
-                       + f"; plain_ms {plain_ms:.4f} library_ms (cuDNN GRU "
-                       f"training forward) {lib_ms:.4f} bound_ms "
-                       f"{bound_ms:.5f} ({bound_by})")
-        log("kernels", f"gru_scan_bwd {dtype} D=2 T=60 B={b} U={u} on "
-                       f"{card}: "
-                       + ", ".join(f"{k} {bwd_rows[r]['ms']:.4f} ms"
-                                   for k, r in kinds)
-                       + f"; plain_ms {bwd_plain_ms:.4f} library_ms (cuDNN "
-                       f"GRU backward) {lib_bwd_ms:.4f} bound_ms "
-                       f"{bwd_bound_ms:.5f} ({bwd_bound_by})")
+        bounds = gru_scan_bound(xp, rk, rb) + gru_scan_bound_tc(
+            xp, rk, rb, grid[0])
+        bwd_bounds = gru_bwd_bound(xp, rk, rb, ref, g) + gru_bwd_bound_tc(
+            xp, rk, rb, ref, g, grid[1])
+        fwd_rows[key].update(plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bounds[0], bound_by=bounds[1],
+                             bound_tc_ms=bounds[2], bound_tc_by=bounds[3])
+        bwd_rows[key].update(plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
+                             bound_ms=bwd_bounds[0], bound_by=bwd_bounds[1],
+                             bound_tc_ms=bwd_bounds[2],
+                             bound_tc_by=bwd_bounds[3])
+        for name, rows, pl, lib, bd in (
+                ("gru_scan", fwd_rows, plain_ms, lib_ms, bounds),
+                ("gru_scan_bwd", bwd_rows, bwd_plain_ms, lib_bwd_ms,
+                 bwd_bounds)):
+            log("kernels", f"{name} {dtype} D=2 T=60 B={b} U={u} Rk "
+                           f"{rk_dtype} on {card}: " + ", ".join(
+                               f"{lb} ({rows[key][lb]['kind']}) "
+                               + "/".join(
+                                   f"{m:.4f}" for m in rows[key][lb]["ms"])
+                               + " ms" + (
+                                   " [" + _split_text(
+                                       rows[key][lb]["passes_ms"]) + "]"
+                                   if name == "gru_scan_bwd" else "")
+                               for lb in labels)
+                           + f"; plain_ms {pl:.4f} library_ms (cuDNN GRU "
+                           f"{'backward' if name == 'gru_scan_bwd' else 'training forward'}"
+                           f") {lib:.4f} bound_ms f32 {bd[0]:.5f} ({bd[1]}),"
+                           f" tensor-core {bd[2]:.5f} ({bd[3]})")
     fwd_rows["wide_step"] = wide_step(card)
     return fwd_rows, bwd_rows
 
@@ -2066,7 +2295,8 @@ def phase_train(card):
                  f"dropout: losses finite {finite} (first "
                  f"{losses[0].item():.4f}/{losses[1].item():.4f}, last "
                  f"{losses[-2].item():.4f}/{losses[-1].item():.4f}); "
-                 f"launches {counts} (want {want}); {ms_step:.2f} ms/step, "
+                 f"launches {counts} (want {want}; each gru_scan_bwd its "
+                 f"tensor-core hp and dRk passes); {ms_step:.2f} ms/step, "
                  f"{wps:.1f} windows/s, MFU {mfu:.4f} of "
                  f"{H100_BF16_PEAK_TFLOPS:.0f} TFLOP/s bf16, "
                  f"max_memory_allocated "
@@ -2136,7 +2366,8 @@ def train_fused(card):
                  f"{metric_err:.2e} (tol {GRAPH_METRIC_RTOL:.0e}), dropout "
                  f"generators equal {same_gen}; launches fused "
                  f"{launches['fused']}, unfused {launches['unfused']} (want "
-                 f"{want}); ms a step in turns ({FUSED_TIMED} steps a run): "
+                 f"{want}; each gru_scan_bwd its tensor-core hp and dRk "
+                 f"passes); ms a step in turns ({FUSED_TIMED} steps a run): "
                  f"unfused {ms['unfused'][0]:.2f}/{ms['unfused'][1]:.2f}, "
                  f"fused {ms['fused'][0]:.2f}/{ms['fused'][1]:.2f} on {card} "
                  f"{'ok' if ok else 'FAIL'}")
@@ -2278,7 +2509,8 @@ def phase_graph(card):
                  f"{ms['graph'][0]:.2f}/{ms['graph'][1]:.2f} ms/step "
                  f"({256e3 / mean['graph']:.1f} windows/s), "
                  f"{mean['eager'] / mean['graph']:.2f}x; launches {replays} "
-                 f"(want {want_counts}) on {card}")
+                 f"(want {want_counts}; each gru_scan_bwd its tensor-core "
+                 f"hp and dRk passes) on {card}")
     if replays != want_counts:
         raise SystemExit("a graph replay skipped a kernel or was counted "
                          "wrongly")

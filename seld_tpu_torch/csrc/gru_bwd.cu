@@ -18,11 +18,12 @@
 //
 // Design. On the TPU dh, dRk and dRb lived in VMEM across a sequential grid
 // axis over T, and each step recomputed hp. Here three kernels and a sum:
-//   1. gru_bwd_hp_kernel: h_prev is known for every step from hs, so hp for
-//      all T is one parallel [T B, U] x [U, 3U] f32 product per direction
-//      (128 x 128 output tiles, 8 x 8 a thread, 16-deep chunks loaded into
-//      registers while the previous chunk is multiplied), into the
-//      workspace.
+//   1. hp: h_prev is known for every step from hs, so hp for all T is one
+//      parallel [T B, U] x [U, 3U] product per direction, into the
+//      workspace, on the tensor cores (gru_bwd_hp_tc_kernel: TMA,
+//      wgmma, f32 operands as bf16 parts; its note below). TMA loads rows
+//      of a multiple of 16 bytes: the wrapper hands hs and Rk over as they
+//      come where theirs are, else as f32 copies (bf16 with U % 8 == 4).
 //   2. gru_bwd_rec_kernel: the serial part, with ONE product a step,
 //      dh_prev = dh z + dhp @ Rk^T, on the forward kernel's partition: a
 //      thread block cluster per (direction, tile of BT batch rows), whose C
@@ -84,11 +85,13 @@
 //      dhp goes through the workspace (written over hp, as above) and ONE
 //      cluster barrier a step orders it; the product then reads the full
 //      dhp rows in chunks staged in shared memory (ld.global.cg).
-//   3. gru_bwd_drk_kernel: dRk[d] = sum over the T B rows of h_prev^T dhp,
-//      as pass 1's tile product over fixed slices of the rows, no float
-//      atomics; gru_bwd_finalize_kernel adds the slices (dRk) and the tiles
-//      (dRb) in a fixed order, so the result does not depend on block
-//      scheduling.
+//      Past U = 512 with Rk in bf16 the grid-resident recurrence
+//      (gru_bwd_grid_kernel; its note below) holds Rk on the whole card.
+//   3. dRk[d] = sum over the T B rows of h_prev^T dhp, as pass 1's product
+//      (gru_bwd_drk_tc_kernel) over fixed slices
+//      of the rows, no float atomics; gru_bwd_finalize_kernel adds the
+//      slices (dRk) and the tiles (dRb) in a fixed order, so the result
+//      does not depend on block scheduling.
 //
 // What bounds it. Pass 2 of every variant: the f32 FMAs of dhp @ Rk^T at
 // 67 TFLOP/s, then the per-step cluster barrier on the chain of T steps;
@@ -97,19 +100,21 @@
 // At the training shape (D = 2, T = 60, B = 256, U = 128,
 // bf16 storage) the three B x U x 3U products per step and direction are
 // 9.06 GFLOP, 0.135 ms at the f32 rate outside the tensor cores (67
-// TFLOP/s); the reference multiplies in f32, so neither bf16 nor one-pass
-// TF32 tensor-core products may stand in. Bytes (about 63 MB, plus the f32
-// workspace hp/dhp written and read twice, 47 MB) are a few hundredths of a
-// ms. Passes 1 and 3 are parallel f32 tile products (each float loaded from
-// shared memory feeds 4 FMAs, so shared-memory reads pace them with the
-// FMAs); pass 2 is a chain of T steps, each a third of the FMAs on 128 SMs
-// plus one cluster barrier. The previous design kept Rk[d] in shared
+// TFLOP/s); the reference multiplies in f32, so a single bf16 or TF32
+// tensor-core product may stand in only where both operands are exact in
+// bf16: the tensor-core passes split each f32 operand into three bf16
+// parts (1, 3 or 6 products at 989 TFLOP/s). Bytes (about 63 MB, plus the
+// f32 workspace hp/dhp written and read twice, 47 MB) are a few hundredths
+// of a ms. Pass 2 is a chain of T steps, each a third of the FMAs on 128
+// SMs plus one cluster barrier. The previous design kept Rk[d] in shared
 // memory, did both products of a step on the serial chain (h_prev @ Rk and
 // dhp @ Rk^T) with four block barriers a step, and reduced dRk with 4
 // outputs a thread (1.02 ms).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -176,12 +181,6 @@ static_assert(res_k(kResident[kNumResident - 1]) / 3 *
 // a CTA's units: a multiple of 4, so that C of them cover U
 int res_cta_units(int U, int c) { return 4 * ((U + 4 * c - 1) / (4 * c)); }
 
-// passes 1 and 3: 128 x 128 output tiles, 16-deep k chunks, 8 x 8 a thread
-constexpr int kTile = 128;
-constexpr int kDepth = 16;
-constexpr int kGemmThreads = 256;
-constexpr int kTargetBlocks = 264;  // two blocks on each of 132 SMs
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -236,6 +235,11 @@ __device__ __forceinline__ void store_run(__nv_bfloat16* p,
     *p = __float2bfloat16(v[0]);
 }
 
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);  // rounded to nearest even, as torch's cast
+}
+
 __device__ __forceinline__ uint32_t cluster_ctarank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
@@ -269,144 +273,6 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-// h_prev of row n = t B + b of direction d is hs at the previous scan step:
-// row n - B for d = 0, n + B for d = 1; -1 at the scan start
-__device__ __forceinline__ int prev_row(int n, int d, int batch, int N) {
-  return d == 0 ? (n >= batch ? n - batch : -1)
-                : (n + batch < N ? n + batch : -1);
-}
-
-// The 8 x 8 outputs of thread (ty, tx) of a 128 x 128 tile: rows
-// {4 ty + i, 64 + 4 ty + i}, columns {4 tx + j, 64 + 4 tx + j}; a[k][row]
-// and b[k][col] hold a 16-deep chunk of the two operands.
-__device__ __forceinline__ void tile_fma(float (&acc)[8][8],
-                                         const float (&a)[kDepth][kTile],
-                                         const float (&b)[kDepth][kTile],
-                                         int ty, int tx) {
-#pragma unroll
-  for (int k = 0; k < kDepth; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&a[k][4 * ty]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&a[k][64 + 4 * ty]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&b[k][4 * tx]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&b[k][64 + 4 * tx]);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ int tile_row(int ty, int i) {
-  return i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4;
-}
-
-// (ty, tx) of thread tid: a warp covers 4 ty x 8 tx, so its float4 reads
-// of a chunk row are 4 and 8 distinct words (one wavefront each)
-__device__ __forceinline__ void thread_tile(int tid, int& ty, int& tx) {
-  const int warp = tid / 32, lane = tid % 32;
-  ty = warp / 2 * 4 + lane / 8;
-  tx = warp % 2 * 8 + lane % 8;
-}
-
-// A 128 x 128 tile product over `chunks` 16-deep chunks, double-buffered:
-// chunk c + 1 is loaded into registers while chunk c is multiplied, so one
-// barrier a chunk. load_a(c, r) and load_b(c, r) give this thread's 8
-// elements (row tid / 128 + 2 i, column tid % 128, i < 8) of chunk c of
-// a[k][row] and b[k][col].
-template <class LoadA, class LoadB>
-__device__ __forceinline__ void tile_product(float (&acc)[8][8], int chunks,
-                                             LoadA load_a, LoadB load_b) {
-  __shared__ __align__(16) float a_s[2][kDepth][kTile];
-  __shared__ __align__(16) float b_s[2][kDepth][kTile];
-  const int tid = threadIdx.x;
-  int ty, tx;
-  thread_tile(tid, ty, tx);
-  const int r0 = tid / kTile, c = tid % kTile;
-  float ra[8], rb[8];
-  load_a(0, ra);
-  load_b(0, rb);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    a_s[0][r0 + 2 * i][c] = ra[i];
-    b_s[0][r0 + 2 * i][c] = rb[i];
-  }
-  __syncthreads();
-  for (int ch = 0; ch < chunks; ++ch) {
-    const bool more = ch + 1 < chunks;
-    if (more) {
-      load_a(ch + 1, ra);
-      load_b(ch + 1, rb);
-    }
-    tile_fma(acc, a_s[ch & 1], b_s[ch & 1], ty, tx);
-    if (more) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        a_s[(ch + 1) & 1][r0 + 2 * i][c] = ra[i];
-        b_s[(ch + 1) & 1][r0 + 2 * i][c] = rb[i];
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Pass 1: hp[d, n, :] = h_prev[d, n, :] @ Rk[d] + rb[d] for the N = T B
-// rows; grid (ceil(3U / 128), ceil(N / 128), D). Thread tid loads row
-// n0 + tid % 128 of h_prev (its k-th element for k = tid / 128 + 2 i).
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads, 2)
-gru_bwd_hp_kernel(const T* __restrict__ hs, const float* __restrict__ rk,
-                  const float* __restrict__ rb, float* __restrict__ hp,
-                  int steps, int batch, int units) {
-  const int U = units, K = 3 * units, N = steps * batch;
-  const int j0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  const int d = blockIdx.z;
-  const int tid = threadIdx.x;
-  int ty, tx;
-  thread_tile(tid, ty, tx);
-  const int r0 = tid / kTile, c = tid % kTile;
-  const int n = n0 + c;
-  const int p = n < N ? prev_row(n, d, batch, N) : -1;
-  const T* h_row = hs + (static_cast<size_t>(d) * N + (p < 0 ? 0 : p)) * U;
-  const float* rk_d = rk + static_cast<size_t>(d) * U * K;
-
-  float acc[8][8] = {};
-  tile_product(
-      acc, (U + kDepth - 1) / kDepth,
-      [&](int ch, float (&r)[8]) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int k = ch * kDepth + r0 + 2 * i;
-          r[i] = p >= 0 && k < U ? to_f32(h_row[k]) : 0.0f;
-        }
-      },
-      [&](int ch, float (&r)[8]) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int k = ch * kDepth + r0 + 2 * i;
-          r[i] = k < U && j0 + c < K
-                     ? rk_d[static_cast<size_t>(k) * K + j0 + c]
-                     : 0.0f;
-        }
-      });
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = n0 + tile_row(ty, i);
-    if (row >= N) continue;
-    float* out = hp + (static_cast<size_t>(d) * N + row) * K;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = j0 + 64 * h + 4 * tx;  // K % 4 == 0: all 4 or none
-      if (j >= K) continue;
-      const float* bias = rb + static_cast<size_t>(d) * K + j;
-      *reinterpret_cast<float4*>(out + j) =
-          make_float4(acc[i][4 * h] + bias[0], acc[i][4 * h + 1] + bias[1],
-                      acc[i][4 * h + 2] + bias[2], acc[i][4 * h + 3] + bias[3]);
-    }
-  }
 }
 
 // Adds up the partial sums of the S lanes of a group and leaves lane l the
@@ -1102,62 +968,653 @@ gru_bwd_res_kernel(const T* __restrict__ xp, const float* __restrict__ rk,
   }
 }
 
-// Pass 3: part[sl][d][u][j] = sum over rows n of slice sl of h_prev[d, n, u]
-// dhp[d, n, j]; grid (ceil(3U / 128), ceil(U / 128), D * slices). Thread
-// tid loads column tid % 128 of rows tid / 128 + 2 i of each chunk.
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads, 2)
-gru_bwd_drk_kernel(const T* __restrict__ hs, const float* __restrict__ dhp,
-                   float* __restrict__ part, int n_dirs, int steps, int batch,
-                   int units, int rows_per_slice) {
-  const int U = units, K = 3 * units, N = steps * batch;
-  const int j0 = blockIdx.x * kTile, u0 = blockIdx.y * kTile;
-  const int d = blockIdx.z % n_dirs, sl = blockIdx.z / n_dirs;
-  const int tid = threadIdx.x;
-  int ty, tx;
-  thread_tile(tid, ty, tx);
-  const int r0 = tid / kTile, c = tid % kTile;
-  const int n_begin = sl * rows_per_slice;
-  const int n_end = min(N, n_begin + rows_per_slice);
-  const T* hs_d = hs + static_cast<size_t>(d) * N * U;
-  const float* dhp_d = dhp + static_cast<size_t>(d) * N * K;
+// Passes 1 and 3 on the tensor cores (tc_pass; the kernels
+// gru_bwd_hp_tc_kernel and gru_bwd_drk_tc_kernel): C[M, N] = sum_k A[m, k]
+// B[k, n] over
+// 128 x 128 output tiles, each CTA walking tiles blockIdx.x, + gridDim.x,
+// ... (persistent: the producer loads the next tile's first chunks while
+// the consumers store the last one's). MODE 0 is pass 1, hp = h_prev @ Rk
+// + rb (A = h_prev rows [N, U], B = Rk [U, 3U]); MODE 1 is pass 3, the
+// partial dRk of a slice of rows, h_prev^T @ dhp (A = h_prev^T [U, rows],
+// B = dhp [rows, 3U]). Per 32-deep chunk of K:
+//   - warp 8 (the producer) loads A's and B's raw tiles by TMA into a ring
+//     of kTcStages stages (full / empty mbarriers); h_prev's shift by one
+//     scan step is the row coordinate of the box (n - B for direction 0,
+//     n + B for 1) and the scan start's zero row is TMA's out-of-bounds
+//     fill;
+//   - the two consumer warpgroups split each raw f32 value into bf16 parts
+//     (tc::split; a bf16 value is one part) and write them as K-major
+//     operand tiles (csrc/tc.cuh), double-buffered, then multiply: warp-
+//     group w takes rows [64 w, 64 w + 64) of the tile, m64n128k16 wgmma
+//     over the part pairs (a, b) with a + b < 3, smallest first, into a
+//     fresh accumulator that is then added to the tile's sum in f32 with
+//     round-to-nearest (the tensor cores' own additions truncate, so each
+//     chunk's partial sum is added once, in the f32 pipe);
+//   - the converting of chunk i + 1 runs while chunk i's wgmmas do.
+// Accuracy: three bf16 parts hold an f32 exactly (each part rounds what the
+// earlier ones leave: 8 bits of it); the pairs dropped (a + b >= 3) add up
+// to at most 3 x 2^-24 of each product; so either pass is an f32 product
+// up to summation order, and a pass whose operands are both bf16 (hp on the
+// bf16 training path, Rk handed over in bf16) is one product exact up to
+// summation order. Cost: 1, 3 or 6 products (bf16 x bf16, one side f32,
+// both f32) at 989 TFLOP/s.
+constexpr int kTcRows = 128;       // output tile rows (M) and columns (N)
+constexpr int kTcConsumers = 256;  // two warpgroups
+constexpr int kTcThreads = kTcConsumers + 32;
+constexpr int kTcSms = 132;        // H100 SXM: one persistent CTA a SM
+constexpr int kTcSlice = 64;       // a slice of pass 3: whole 64-row chunks
 
-  float acc[8][8] = {};
-  tile_product(
-      acc, (n_end - n_begin + kDepth - 1) / kDepth,
-      [&](int ch, float (&r)[8]) {
+template <typename T>
+struct Parts {
+  static constexpr int n = 3;
+};
+template <>
+struct Parts<__nv_bfloat16> {
+  static constexpr int n = 1;
+};
+
+// A pass's chunk depth and ring: 64-deep chunks where A is bf16 (hs in
+// bf16 storage: its raw rows are 128 bytes, one TMA box with the 128-byte
+// swizzle) in a ring of 3 stages, or of 2 where a side is f32 (so that two
+// double-buffered operand sets fit); 32-deep chunks (f32 rows of 128 bytes)
+// in a ring of 3 where A is f32.
+template <typename TA, typename TB>
+struct TcShape {
+  static constexpr int k = sizeof(TA) == 2 ? 64 : 32;
+  static constexpr int stages = k == 64 && sizeof(TB) == 4 ? 2 : 3;
+  static constexpr int tile = tc::tile_bytes<k>(kTcRows);  // an operand
+  static constexpr uint32_t sbo = tc::sbo<k>;              // tile, its groups
+  static constexpr int raw_a = kTcRows * k * static_cast<int>(sizeof(TA));
+  static constexpr int ring = kTcRows * k *
+                              static_cast<int>(sizeof(TA) + sizeof(TB));
+  static constexpr int operand = (Parts<TA>::n + Parts<TB>::n) * tile;
+  // dynamic shared memory: the 1024-byte alignment slack, two operand
+  // buffers, the ring and its barriers
+  static constexpr size_t smem = 1024 + 2 * operand + stages * ring +
+                                 2 * stages * 8;
+};
+static_assert(TcShape<__nv_bfloat16, float>::smem <= 232448 &&
+                  TcShape<float, float>::smem <= 232448,
+              "a tensor-core pass needs more shared memory than a block has");
+
+struct TcTile {
+  int d, sl, m0, j0, k0, nk;
+};
+
+// tile `tile` of MODE's grid: j tiles fastest, then m tiles, then
+// (direction, slice); nk chunks of depth K
+template <int MODE, int K>
+__device__ __forceinline__ TcTile tc_tile(int tile, int n_dirs, int N, int U,
+                                          int rows_per_slice) {
+  const int nj = (3 * U + kTcRows - 1) / kTcRows;
+  const int nm = ((MODE == 0 ? N : U) + kTcRows - 1) / kTcRows;
+  TcTile t;
+  t.j0 = tile % nj * kTcRows;
+  int rest = tile / nj;
+  t.m0 = rest % nm * kTcRows;
+  rest /= nm;
+  if (MODE == 0) {
+    t.d = rest;
+    t.sl = 0;
+    t.k0 = 0;
+    t.nk = (U + K - 1) / K;
+  } else {
+    t.d = rest % n_dirs;
+    t.sl = rest / n_dirs;
+    t.k0 = t.sl * rows_per_slice;
+    const int end = min(N, t.k0 + rows_per_slice);
+    t.nk = end > t.k0 ? (end - t.k0 + K - 1) / K : 0;
+  }
+  return t;
+}
+
+__device__ __forceinline__ void store8(uint8_t* dst,
+                                       const __nv_bfloat16 (&h)[8]) {
+  using tc::pack2;
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(pack2(h[0], h[1]), pack2(h[2], h[3]), pack2(h[4], h[5]),
+                 pack2(h[6], h[7]));
+}
+
+// 8 consecutive K values of row r, split into P parts, into the P operand
+// tiles (of depth K) at `tiles`
+template <int P, int K>
+__device__ __forceinline__ void put8(uint8_t* tiles, int r, int kc,
+                                     const float (&v)[8]) {
+  __nv_bfloat16 h[P][8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int n = n_begin + ch * kDepth + r0 + 2 * i;
-          const int p = n < n_end ? prev_row(n, d, batch, N) : -1;
-          r[i] = p >= 0 && u0 + c < U
-                     ? to_f32(hs_d[static_cast<size_t>(p) * U + u0 + c])
-                     : 0.0f;
-        }
-      },
-      [&](int ch, float (&r)[8]) {
+  for (int i = 0; i < 8; ++i) {
+    __nv_bfloat16 p[P];
+    tc::split<P>(v[i], p);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int n = n_begin + ch * kDepth + r0 + 2 * i;
-          r[i] = n < n_end && j0 + c < K
-                     ? dhp_d[static_cast<size_t>(n) * K + j0 + c]
-                     : 0.0f;
-        }
-      });
-  float* out = part + (static_cast<size_t>(sl) * n_dirs + d) * U * K;
+    for (int q = 0; q < P; ++q) h[q][i] = p[q];
+  }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int j = j0 + 64 * h + 4 * tx;
-    if (j >= K) continue;
+  for (int q = 0; q < P; ++q)
+    store8(tiles + q * tc::tile_bytes<K>(kTcRows) +
+               tc::tile_offset<K>(r, 8 * kc),
+           h[q]);
+}
+
+// A raw tile [kTcRows rows][K values], K innermost: rows of 128 bytes (K =
+// 32 f32 or 64 bf16) as TMA's 128-byte swizzle left them (16-byte chunk c
+// of row r at c ^ (r % 8)), into the operand tiles. A task is 8 values of
+// a row; the 8 lanes that share a store write one row group's 128 bytes.
+template <typename T, int K>
+__device__ __forceinline__ void convert_rows(const uint8_t* raw, uint8_t* tiles,
+                                             int tid) {
+  constexpr int P = Parts<T>::n, C = K / 8;  // 8-value chunks a row
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int u = u0 + tile_row(ty, i);
-      if (u < U)
-        *reinterpret_cast<float4*>(out + static_cast<size_t>(u) * K + j) =
-            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                        acc[i][4 * h + 3]);
+  for (int rep = 0; rep < kTcRows * C / kTcConsumers; ++rep) {
+    const int q = tid + kTcConsumers * rep;
+    const int r = q / (8 * C) * 8 + q % 8, kc = q / 8 % C;
+    const uint8_t* row = raw + r * 128;
+    if constexpr (P == 1) {
+      const uint4 x =
+          *reinterpret_cast<const uint4*>(row + ((kc ^ (r & 7)) << 4));
+      *reinterpret_cast<uint4*>(tiles + tc::tile_offset<K>(r, 8 * kc)) = x;
+    } else {
+      const float4 x0 = *reinterpret_cast<const float4*>(
+          row + (((2 * kc) ^ (r & 7)) << 4));
+      const float4 x1 = *reinterpret_cast<const float4*>(
+          row + (((2 * kc + 1) ^ (r & 7)) << 4));
+      const float v[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      put8<P, K>(tiles, r, kc, v);
     }
   }
+}
+
+// A raw tile [K values][kTcRows rows], rows innermost (unswizzled), into
+// the operand tiles: a lane takes one row, a warp reads 32 consecutive rows
+template <typename T, int K>
+__device__ __forceinline__ void convert_cols(const uint8_t* raw_bytes,
+                                             uint8_t* tiles, int tid) {
+  constexpr int P = Parts<T>::n;
+  const T* raw = reinterpret_cast<const T*>(raw_bytes);
+#pragma unroll
+  for (int rep = 0; rep < kTcRows * K / 8 / kTcConsumers; ++rep) {
+    const int q = tid + kTcConsumers * rep;
+    const int r = q % kTcRows, kc = q / kTcRows;
+    if constexpr (P == 1) {
+      __nv_bfloat16 h[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) h[i] = raw[(8 * kc + i) * kTcRows + r];
+      store8(tiles + tc::tile_offset<K>(r, 8 * kc), h);
+    } else {
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = to_f32(raw[(8 * kc + i) * kTcRows + r]);
+      put8<P, K>(tiles, r, kc, v);
+    }
+  }
+}
+
+template <int MODE, typename TA, typename TB>
+__device__ __forceinline__ void tc_pass(const CUtensorMap& map_a,
+                                        const CUtensorMap& map_b,
+                                        const float* __restrict__ rb,
+                                        float* __restrict__ out, int n_dirs,
+                                        int steps, int batch, int units,
+                                        int slices, int rows_per_slice) {
+  using S = TcShape<TA, TB>;
+  constexpr int PA = Parts<TA>::n, PB = Parts<TB>::n;
+  constexpr int P = PA > PB ? PA : PB;
+  constexpr int K = S::k, kStages = S::stages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ob = tc::align_1024(smem_raw);  // [2][PA + PB][S::tile]
+  uint8_t* ring = ob + 2 * S::operand;     // [kStages][A raw, B raw]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * S::ring);
+  uint64_t* empty = full + kStages;
+
+  const int U = units, K3 = 3 * units, N = steps * batch;
+  const int nj = (K3 + kTcRows - 1) / kTcRows;
+  const int nm = ((MODE == 0 ? N : U) + kTcRows - 1) / kTcRows;
+  const int n_tiles = nj * nm * n_dirs * (MODE == 0 ? 1 : slices);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], kTcConsumers);
+    }
+    tc::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= kTcConsumers) {  // the producer warp: one lane issues
+    if (tid == kTcConsumers) {
+      int g = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const TcTile t =
+            tc_tile<MODE, K>(tile, n_dirs, N, U, rows_per_slice);
+        const int shift = t.d == 0 ? -batch : batch;  // h_prev's row
+        for (int i = 0; i < t.nk; ++i, ++g) {
+          const int s = g % kStages;
+          tc::mbar_wait(&empty[s], ((g / kStages) & 1) ^ 1);
+          tc::mbar_expect_tx(&full[s], S::ring);
+          uint8_t* raw = ring + s * S::ring;
+          if (MODE == 0) {
+            tc::tma_load_3d(raw, &map_a, &full[s], K * i, t.m0 + shift, t.d);
+            tc::tma_load_3d(raw + S::raw_a, &map_b, &full[s], t.j0, K * i,
+                            t.d);
+          } else {
+            const int row = t.k0 + K * i;
+            tc::tma_load_3d(raw, &map_a, &full[s], t.m0, row + shift, t.d);
+            tc::tma_load_3d(raw + S::raw_a, &map_b, &full[s], t.j0, row,
+                            t.d);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, lane = tid % 32, warp = tid % 128 / 32;
+  int g = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const TcTile t = tc_tile<MODE, K>(tile, n_dirs, N, U, rows_per_slice);
+    float acc[64], part[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+    // chunk i of this tile: raw stage -> operand buffer i & 1
+    auto load = [&](int i) {
+      const int s = (g + i) % kStages;
+      tc::mbar_wait(&full[s], ((g + i) / kStages) & 1);
+      const uint8_t* raw = ring + s * S::ring;
+      uint8_t* o = ob + (i & 1) * S::operand;
+      if (MODE == 0)
+        convert_rows<TA, K>(raw, o, tid);
+      else
+        convert_cols<TA, K>(raw, o, tid);
+      convert_cols<TB, K>(raw + S::raw_a, o + PA * S::tile, tid);
+      tc::mbar_arrive(&empty[s]);
+      tc::fence_proxy_async();
+    };
+    if (t.nk > 0) {
+      load(0);
+      tc::named_sync(1, kTcConsumers);
+    }
+    for (int i = 0; i < t.nk; ++i) {
+      const uint32_t o = tc::smem_u32(ob + (i & 1) * S::operand);
+      const uint32_t a0 = o + wg * (64 / 8) * S::sbo;
+      const uint32_t b0 = o + PA * S::tile;
+      tc::wgmma_fence();
+      int accumulate = 0;  // the chunk's first product overwrites `part`
+#pragma unroll
+      for (int kk = 0; kk < K / 16; ++kk) {
+#pragma unroll
+        for (int sum = P - 1; sum >= 0; --sum) {
+#pragma unroll
+          for (int a = 0; a <= sum; ++a) {
+            const int b = sum - a;
+            if (a >= PA || b >= PB) continue;
+            tc::wgmma_n128(
+                part,
+                tc::desc(a0 + a * S::tile + kk * 2 * tc::kLbo, S::sbo),
+                tc::desc(b0 + b * S::tile + kk * 2 * tc::kLbo, S::sbo),
+                accumulate);
+            accumulate = 1;
+          }
+        }
+      }
+      tc::wgmma_commit();
+      if (i + 1 < t.nk) load(i + 1);
+      tc::wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] += part[e];
+      tc::named_sync(1, kTcConsumers);
+    }
+    g += t.nk;
+
+    // the accumulator fragment: n8 block i, rows 16 warp + lane / 4 (+ 8),
+    // columns 8 i + 2 (lane % 4) (+ 1)
+    const int row0 = t.m0 + 64 * wg + 16 * warp + lane / 4;
+    const int limit = MODE == 0 ? N : U;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = t.j0 + 8 * i + 2 * (lane % 4);
+      if (col >= K3) continue;  // K3 is even: col + 1 < K3 too
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= limit) continue;
+        float2 v = make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+        size_t at;
+        if (MODE == 0) {
+          const float* bias = rb + static_cast<size_t>(t.d) * K3 + col;
+          v.x += bias[0];
+          v.y += bias[1];
+          at = (static_cast<size_t>(t.d) * N + row) * K3 + col;
+        } else {
+          at = ((static_cast<size_t>(t.sl) * n_dirs + t.d) * U + row) * K3 +
+               col;
+        }
+        *reinterpret_cast<float2*>(out + at) = v;
+      }
+    }
+  }
+}
+
+// pass 1 (hp) and pass 3 (dRk's slice partials) on the tensor cores: the
+// two modes of tc_pass, named apart for the profiler
+template <typename TA, typename TB>
+__global__ void __launch_bounds__(kTcThreads, 1)
+gru_bwd_hp_tc_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     const float* __restrict__ rb, float* __restrict__ out,
+                     int n_dirs, int steps, int batch, int units, int slices,
+                     int rows_per_slice) {
+  tc_pass<0, TA, TB>(map_a, map_b, rb, out, n_dirs, steps, batch, units,
+                     slices, rows_per_slice);
+}
+template <typename TA, typename TB>
+__global__ void __launch_bounds__(kTcThreads, 1)
+gru_bwd_drk_tc_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const float* __restrict__ rb, float* __restrict__ out,
+                      int n_dirs, int steps, int batch, int units, int slices,
+                      int rows_per_slice) {
+  tc_pass<1, TA, TB>(map_a, map_b, rb, out, n_dirs, steps, batch, units,
+                     slices, rows_per_slice);
+}
+
+// The grid-resident recurrence (past U = 512, Rk in bf16), between the
+// tensor-core passes 1 and 3. Each step's product is dh_prev[:, u] =
+// dh z + sum over the 3U columns k of dhp[:, k] Rk[u, k]. Groups of
+// kGridSplit CTAs: group (d, q) owns units [64 q, 64 q + 64) and its CTA r
+// the K range [r Kq, r Kq + Kq), Kq = 3U / kGridSplit, holding
+// Rk[d][64 q + m][r Kq + k] (96 KB at U = 1024) in shared memory for all T
+// steps; D U / 16 CTAs (128 at U = 1024, D = 2), launched cooperatively. A
+// step (scan positions T - 1 down to 0):
+//   - the gates: thread (unit j = tid % 64, rows of block tid / 64 of the
+//     CTA's Bp / kGridSplit rows) forms dh = carry + g, dx_proj and dhp of
+//     its states from x_proj, hp (pass 1) and h_prev, writes dhp over hp
+//     (for pass 3) and, as three bf16 parts, into exchange slot p % 2 in
+//     the wgmma operand layout; the CTA adds 1 to its direction's counter;
+//   - the product: once every CTA of the direction has published, warp 8
+//     streams dhp's parts of the CTA's K range (TMA bulk copies, a ring of
+//     `stages`) and the two consumer warpgroups form the partial sums
+//     P[m, b] = sum over the range of Rk[m, k] dhp[b, k] (wgmma, M = the 64
+//     units, N = 64 batch rows at a time: A = the Rk tile, B = the dhp
+//     chunk, K-major both; warpgroup w the batch half [w Bp / 2, ...)),
+//     each chunk's partial sum added in f32;
+//   - the sum over the group: each CTA writes its partial sums to slot
+//     p % 2 of the group's buffer in L2 and adds 1 to the group's counter;
+//     once all kGridSplit have, the owner of each row (rank b / (Bp / 4))
+//     adds the kGridSplit partial sums in rank order: carry = dh z + that.
+// (Thread block clusters would sum through distributed shared memory, but
+// the H100 holds only 30 one-CTA-a-SM clusters of 4, 120 CTAs, short of the
+// 128 at U = 1024.) dRb's sums stay in registers (3 a thread) and go to
+// kGridTiles per-tile sums at the end, which gru_bwd_finalize_kernel adds
+// in order. Nothing is added in an order that depends on scheduling.
+// What bounds it: every CTA reads a quarter of dhp's three parts each step
+// (3 B 3U / 4 x 2 bytes: 1.1 MB at U = 1024, B = 256), 144 MB a step from
+// L2 over the card; the products are 2 x 3 B 64 Kq operations a CTA.
+constexpr int kGridSplit = 4;     // CTAs of a group: the K ranges
+constexpr int kGridUnits = 64;    // units of a group: the wgmma M
+constexpr int kGridConsumers = 256;
+constexpr int kGridThreads = kGridConsumers + 32;
+constexpr int kGridParts = 3;     // bf16 parts of dhp: f32 whole
+constexpr int kGridTiles = 16;    // dRb's per-tile sums: (rank, row block)
+constexpr int kGridRows = 256;    // the most batch rows
+constexpr int kGridN = 64;        // batch rows a wgmma (N)
+
+template <int N>
+__device__ __forceinline__ void wgmma_nb(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 64)
+    tc::wgmma_n64(d, da, db, accumulate);
+  else
+    tc::wgmma_n32(d, da, db, accumulate);
+}
+
+// NB = Bp / 2, a warpgroup's batch rows. xb: [2 slots][D][3 parts]
+// [3U / 32 chunks][Bp x 32 tile] bf16; part: [2 slots][D][U / 64 groups]
+// [kGridSplit][Bp][64] f32; counter: [D] steps, then [D][groups] group
+// sums, zero at launch.
+template <typename T, int NB>
+__global__ void __launch_bounds__(kGridThreads, 1)
+gru_bwd_grid_kernel(const T* __restrict__ xp,
+                    const __nv_bfloat16* __restrict__ rk,
+                    const T* __restrict__ hs, const T* __restrict__ g,
+                    T* __restrict__ dxp, float* __restrict__ hp_dhp,
+                    float* __restrict__ dbias, __nv_bfloat16* __restrict__ xb,
+                    float* __restrict__ psum, uint32_t* __restrict__ counter,
+                    int n_dirs, int T_steps, int B, int U, int stages) {
+  constexpr int Bp = 2 * NB, RB = Bp / kGridSplit;  // rows a rank owns
+  constexpr int kRows = RB / 4;                     // ... a thread
+  constexpr int P = kGridParts;
+  constexpr int NS = NB < kGridN ? NB : kGridN;     // rows a wgmma
+  constexpr int kSub = NB / NS;
+  extern __shared__ uint8_t smem_raw[];
+  const int K3 = 3 * U, N = T_steps * B, nch = K3 / tc::kK;
+  const int nq = nch / kGridSplit;            // K chunks a CTA
+  const int groups = U / kGridUnits;
+  const int group = blockIdx.x / kGridSplit;  // d groups + q
+  const int d = group / groups, u0 = group % groups * kGridUnits;
+  const int r = blockIdx.x % kGridSplit;
+  const int nct = groups * kGridSplit;        // CTAs a direction
+  const int chunk = tc::tile_bytes(Bp);
+  constexpr int kRkTile = tc::tile_bytes(kGridUnits);
+  uint8_t* rks = tc::align_1024(smem_raw);    // [nq][64 x 32 tile]
+  uint8_t* ring = rks + nq * kRkTile;         // [stages][P][chunk]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * P * chunk);
+  uint64_t* empty = full + stages;
+  const size_t slot = static_cast<size_t>(n_dirs) * P * nch * chunk;
+  const size_t pslot = static_cast<size_t>(n_dirs) * groups * kGridSplit *
+                       Bp * kGridUnits;
+  float* pgroup = psum + static_cast<size_t>(group) * kGridSplit * Bp *
+                             kGridUnits;
+  uint32_t* gcount = counter + n_dirs + group;
+  const int tid = threadIdx.x;
+
+  // Rk[d][u0 + m][r Kq + k] -> tile k / 32 of rks, (m, k % 32)
+  for (int e = tid; e < kGridUnits * nq * 4; e += kGridThreads) {
+    const int m = e / (nq * 4), k = e % (nq * 4) * 8;  // 8 k values
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        rk + (static_cast<size_t>(d) * U + u0 + m) * K3 +
+        r * nq * tc::kK + k);
+    *reinterpret_cast<uint4*>(rks + k / tc::kK * kRkTile +
+                              tc::tile_offset(m, k % tc::kK)) = v;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], kGridConsumers);
+    }
+    tc::fence_mbar_init();
+  }
+  tc::fence_proxy_async();
+  __syncthreads();
+
+  if (tid >= kGridConsumers) {  // the producer warp: one lane issues
+    if (tid == kGridConsumers) {
+      int gs = 0;
+      for (int p = T_steps - 1; p > 0; --p) {
+        tc::wait_counter(&counter[d],
+                         static_cast<uint32_t>(nct * (T_steps - p)));
+        tc::fence_proxy_async_global();
+        const uint8_t* src = reinterpret_cast<const uint8_t*>(xb) +
+                             (p & 1) * slot +
+                             static_cast<size_t>(d) * P * nch * chunk;
+        for (int kc = r * nq; kc < (r + 1) * nq; ++kc, ++gs) {
+          const int s = gs % stages;
+          tc::mbar_wait(&empty[s], ((gs / stages) & 1) ^ 1);
+          tc::mbar_expect_tx(&full[s], P * chunk);
+#pragma unroll
+          for (int a = 0; a < P; ++a)
+            tc::bulk_load(ring + (s * P + a) * chunk,
+                          src + (static_cast<size_t>(a) * nch + kc) * chunk,
+                          chunk, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int j = tid % kGridUnits, rs = tid / kGridUnits;
+  const int u = u0 + j;
+  const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+  float carry[kRows], dhz[kRows];
+  float db[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) carry[i] = 0.0f;
+  int gs = 0;
+  for (int p = T_steps - 1; p >= 0; --p) {
+    const int t = d == 0 ? p : T_steps - 1 - p;
+    const int tp = d == 0 ? p - 1 : T_steps - p;  // h_prev's real time
+    uint8_t* dst = reinterpret_cast<uint8_t*>(xb) + (p & 1) * slot +
+                   static_cast<size_t>(d) * P * nch * chunk;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int b = r * RB + rs * kRows + i;
+      float dhp[3] = {0.0f, 0.0f, 0.0f};
+      dhz[i] = 0.0f;
+      if (b < B) {
+        const size_t row = static_cast<size_t>(d) * N + t * B + b;
+        const float dh = carry[i] + to_f32(g[row * U + u]);
+        const float hprev =
+            p > 0 ? to_f32(hs[(static_cast<size_t>(d) * N + tp * B + b) * U +
+                              u])
+                  : 0.0f;
+        const T* x = xp + row * K3 + u;
+        float* hp = hp_dhp + row * K3 + u;
+        const float z = sigmoid(to_f32(x[0]) + hp[0]);
+        const float rr = sigmoid(to_f32(x[U]) + hp[U]);
+        const float hh = hp[2 * U];
+        const float c = tanh_fast(to_f32(x[2 * U]) + rr * hh);
+        const float da_h = dh * (1.0f - z) * (1.0f - c * c);
+        const float da_z = dh * (hprev - c) * z * (1.0f - z);
+        const float da_r = da_h * hh * rr * (1.0f - rr);
+        T* dx = dxp + row * K3 + u;
+        store1(dx, da_z);
+        store1(dx + U, da_r);
+        store1(dx + 2 * U, da_h);
+        dhp[0] = da_z;
+        dhp[1] = da_r;
+        dhp[2] = da_h * rr;
+        hp[0] = dhp[0];
+        hp[U] = dhp[1];
+        hp[2 * U] = dhp[2];
+        dhz[i] = dh * z;
+      }
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        db[gt] += dhp[gt];
+        const int col = gt * U + u;
+        uint8_t* at = dst + (col / tc::kK) * static_cast<size_t>(chunk) +
+                      tc::tile_offset(b, col % tc::kK);
+        float rest = dhp[gt];
+#pragma unroll
+        for (int a = 0; a < P; ++a) {
+          const __nv_bfloat16 part = __float2bfloat16_rn(rest);
+          rest -= __bfloat162float(part);
+          *reinterpret_cast<__nv_bfloat16*>(
+              at + static_cast<size_t>(a) * nch * chunk) = part;
+        }
+      }
+    }
+    // publish the step: every consumer's writes, then one release
+    tc::fence_proxy_async_global();
+    tc::named_sync(1, kGridConsumers);
+    if (tid == 0) {
+      __threadfence();
+      tc::red_release_add(&counter[d], 1);
+    }
+    if (p == 0) break;
+
+    // position p - 1's gate inputs into L2 while the product runs: a lane
+    // of each warp a row, the warp's 32 units
+    if (lane < kRows) {
+      const int tn = d == 0 ? p - 1 : T_steps - p;
+      const int b = r * RB + rs * kRows + lane;
+      if (b < B) {
+        const size_t row = static_cast<size_t>(d) * N + tn * B + b;
+        const int u32 = u0 + warp % 2 * 32;
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) {
+          prefetch_l2(xp + row * K3 + gt * U + u32);
+          prefetch_l2(hp_dhp + row * K3 + gt * U + u32);
+        }
+        prefetch_l2(g + row * U + u32);
+      }
+    }
+    // the product for position p - 1's carry, NS batch rows a wgmma
+    float acc[kSub][NS / 2];
+#pragma unroll
+    for (int sb = 0; sb < kSub; ++sb)
+#pragma unroll
+      for (int e = 0; e < NS / 2; ++e) acc[sb][e] = 0.0f;
+    for (int kc = 0; kc < nq; ++kc, ++gs) {
+      const int s = gs % stages;
+      tc::mbar_wait(&full[s], (gs / stages) & 1);
+#pragma unroll
+      for (int sb = 0; sb < kSub; ++sb) {
+        float part[NS / 2];
+        tc::wgmma_fence();
+        int accumulate = 0;
+#pragma unroll
+        for (int a = P - 1; a >= 0; --a)
+#pragma unroll
+          for (int kk = 0; kk < tc::kK / 16; ++kk) {
+            wgmma_nb<NS>(part,
+                         tc::desc(tc::smem_u32(rks + kc * kRkTile) +
+                                  kk * 2 * tc::kLbo),
+                         tc::desc(tc::smem_u32(ring + (s * P + a) * chunk) +
+                                  (wg * NB + sb * NS) / 8 * tc::kSbo +
+                                  kk * 2 * tc::kLbo),
+                         accumulate);
+            accumulate = 1;
+          }
+        tc::wgmma_commit();
+        tc::wgmma_wait<0>();
+#pragma unroll
+        for (int e = 0; e < NS / 2; ++e) acc[sb][e] += part[e];
+      }
+      tc::mbar_arrive(&empty[s]);
+    }
+    // the group's sum: fragment (unit m = 16 warp + lane / 4 + 8 h, row
+    // b = wg NB + sb NS + 8 i + 2 (lane % 4) + e) to pgroup[slot][r][b][m]
+    float* mine = pgroup + (p & 1) * pslot +
+                  static_cast<size_t>(r) * Bp * kGridUnits;
+#pragma unroll
+    for (int sb = 0; sb < kSub; ++sb)
+#pragma unroll
+      for (int i = 0; i < NS / 8; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = 16 * warp + lane / 4 + 8 * hh;
+            const int b = wg * NB + sb * NS + 8 * i + 2 * (lane % 4) + e;
+            __stcg(mine + b * kGridUnits + m, acc[sb][4 * i + 2 * hh + e]);
+          }
+    tc::named_sync(1, kGridConsumers);
+    if (tid == 0) {
+      __threadfence();
+      tc::red_release_add(gcount, 1);
+      tc::wait_counter(gcount,
+                       static_cast<uint32_t>(kGridSplit * (T_steps - p)));
+      __threadfence();
+    }
+    tc::named_sync(1, kGridConsumers);
+    const float* sums = pgroup + (p & 1) * pslot;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int b = r * RB + rs * kRows + i;
+      float back = 0.0f;
+#pragma unroll
+      for (int o = 0; o < kGridSplit; ++o)
+        back += __ldcg(sums + (static_cast<size_t>(o) * Bp + b) * kGridUnits +
+                       j);
+      carry[i] = dhz[i] + back;
+    }
+  }
+  // dRb's per-tile sums: tile (rank, row block) of the direction
+#pragma unroll
+  for (int gt = 0; gt < 3; ++gt)
+    dbias[(static_cast<size_t>(d) * kGridTiles + r * 4 + rs) * K3 + gt * U +
+          u] = db[gt];
 }
 
 // dRk: pass 3's slices added in slice order; dRb: the recurrence's
@@ -1182,23 +1639,25 @@ __global__ void gru_bwd_finalize_kernel(const float* __restrict__ part,
   }
 }
 
+// pass 3's output tiles: D x U / 128 x 3U / 128
 int tiles(int D, int U) {
   const int K = 3 * U;
-  return D * ((U + kTile - 1) / kTile) * ((K + kTile - 1) / kTile);
+  return D * ((U + kTcRows - 1) / kTcRows) * ((K + kTcRows - 1) / kTcRows);
 }
 
-// Row slices of pass 3 for N = T * B rows: about kTargetBlocks blocks, and
-// at least four 16-row chunks a slice.
-int reduce_slices(int D, int N, int U) {
-  const int want = (kTargetBlocks + tiles(D, U) - 1) / tiles(D, U);
-  const int most = (N + 4 * kDepth - 1) / (4 * kDepth);
+// Row slices of pass 3 for N = T * B rows: about kTcSms tiles in all (one
+// persistent CTA a SM), at least four kTcSlice-row chunks a slice
+int tc_slices(int D, int N, int U) {
+  const int want = (kTcSms + tiles(D, U) - 1) / tiles(D, U);
+  const int most = (N + 4 * kTcSlice - 1) / (4 * kTcSlice);
   const int s = want < most ? want : most;
   return s < 1 ? 1 : s;
 }
 
+// rows a slice: whole kTcSlice-row chunks (whole chunks of either pass)
 int rows_per_slice(int N, int slices) {
   const int rows = (N + slices - 1) / slices;
-  return (rows + kDepth - 1) / kDepth * kDepth;
+  return (rows + kTcSlice - 1) / kTcSlice * kTcSlice;
 }
 
 // The workspace holds hp, then dhp, [D, T * B, 3U] f32; the per-tile dRb
@@ -1215,11 +1674,197 @@ size_t stream_floats(int D, int B, int U) {
              : 0;
 }
 
+// the grid-resident recurrence (plan index kGridVariant): batch rows padded
+// to a wgmma block, 64, 128 or 256
+constexpr int kGridVariant = kNumVariants + kNumResident + 1;
+int grid_bp(int B) { return B <= 64 ? 64 : B <= 128 ? 128 : 256; }
+// ... its counters (the first kGridCounters floats), two slots of dhp's
+// parts, two slots of the groups' partial sums
+constexpr int kGridCounters = 1024;
+size_t grid_xb_floats(int D, int B, int U) {
+  return static_cast<size_t>(2) * D * kGridParts * (3 * U / tc::kK) *
+         tc::tile_bytes(grid_bp(B)) / sizeof(float);
+}
+size_t grid_floats(int D, int B, int U) {
+  if (U <= kResidentUnits) return 0;
+  return kGridCounters + grid_xb_floats(D, B, U) +
+         static_cast<size_t>(2) * D * U * kGridSplit * grid_bp(B);
+}
+// whether the plan takes (D, B, U): U % 128 == 0 (whole 32-deep chunks in
+// each of the 4 K ranges), B <= 256, one CTA a SM for D U / 16 CTAs
+bool grid_takes(int D, int B, int U) {
+  return U > kResidentUnits && U % (kGridUnits * 2) == 0 && B >= 1 &&
+         B <= kGridRows && D * U / (kGridUnits / kGridSplit) <= kTcSms;
+}
+// the ring's stages that fit beside the Rk tiles: 2 to 4, 0 if none
+int grid_stages(int B, int U) {
+  const size_t fixed = 1024 + static_cast<size_t>(3 * U / tc::kK / kGridSplit) *
+                                  tc::tile_bytes(kGridUnits);
+  const size_t stage = kGridParts * tc::tile_bytes(grid_bp(B)) + 16;
+  if (fixed + 2 * stage > 232448) return 0;
+  const size_t n = (232448 - fixed) / stage;
+  return n > 4 ? 4 : static_cast<int>(n);
+}
+size_t grid_smem(int B, int U, int stages) {
+  return 1024 +
+         static_cast<size_t>(3 * U / tc::kK / kGridSplit) *
+             tc::tile_bytes(kGridUnits) +
+         static_cast<size_t>(stages) *
+             (kGridParts * tc::tile_bytes(grid_bp(B)) + 16);
+}
+
+// dRb's per-tile sums: up to B tiles, kGridTiles for the grid plan
+size_t dbias_floats(int D, int B, int U) {
+  return hp_floats(D, B > kGridTiles ? B : kGridTiles, U);
+}
+
 size_t workspace_floats(int D, int T_steps, int B, int U) {
   const int N = T_steps * B;
-  return hp_floats(D, N, U) + hp_floats(D, B, U) +
-         static_cast<size_t>(reduce_slices(D, N, U)) * D * U * 3 * U +
-         stream_floats(D, B, U);
+  const size_t streamed = stream_floats(D, B, U), grid = grid_floats(D, B, U);
+  return hp_floats(D, N, U) + dbias_floats(D, B, U) +
+         static_cast<size_t>(tc_slices(D, N, U)) * D * U * 3 * U +
+         (streamed > grid ? streamed : grid);
+}
+
+// The grid-resident recurrence with NB = Bp / 2: launched cooperatively,
+// after checking that every CTA fits at once (else
+// cudaErrorCooperativeLaunchTooLarge: never a launch that could wait
+// forever); the counters are zeroed first.
+template <typename T, int NB>
+cudaError_t grid_config(int D, int B, int U, cudaLaunchConfig_t* cfg,
+                        int* per_sm) {
+  if (!grid_takes(D, B, U) || grid_bp(B) != 2 * NB) return cudaErrorInvalidValue;
+  const int stages = grid_stages(B, U);
+  if (stages < 2) return cudaErrorInvalidValue;
+  auto* kern = gru_bwd_grid_kernel<T, NB>;
+  *cfg = {};
+  cfg->gridDim = dim3(D * U / (kGridUnits / kGridSplit), 1, 1);
+  cfg->blockDim = dim3(kGridThreads, 1, 1);
+  cfg->dynamicSmemBytes = grid_smem(B, U, stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(cfg->dynamicSmemBytes));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kern, kGridThreads, cfg->dynamicSmemBytes);
+}
+
+template <typename T, int NB>
+cudaError_t launch_grid_nb(const void* xp, const void* rk16, const void* hs,
+                           const void* g, void* dxp, float* hp_dhp,
+                           float* dbias, float* grid_ws, int D, int T_steps,
+                           int B, int U, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = grid_config<T, NB>(D, B, U, &cfg, &per_sm);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm * sms < static_cast<int>(cfg.gridDim.x))
+    return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.stream = stream;
+  auto* counter = reinterpret_cast<uint32_t*>(grid_ws);
+  err = cudaMemsetAsync(counter, 0, kGridCounters * sizeof(float), stream);
+  if (err != cudaSuccess) return err;
+  float* xb = grid_ws + kGridCounters;
+  err = cudaLaunchKernelEx(
+      &cfg, gru_bwd_grid_kernel<T, NB>, static_cast<const T*>(xp),
+      static_cast<const __nv_bfloat16*>(rk16), static_cast<const T*>(hs),
+      static_cast<const T*>(g), static_cast<T*>(dxp), hp_dhp, dbias,
+      reinterpret_cast<__nv_bfloat16*>(xb), xb + grid_xb_floats(D, B, U),
+      counter, D, T_steps, B, U, grid_stages(B, U));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_grid(const void* xp, const void* rk16, const void* hs,
+                        const void* g, void* dxp, float* hp_dhp, float* dbias,
+                        float* grid_ws, int D, int T_steps, int B, int U,
+                        cudaStream_t stream) {
+  switch (grid_bp(B)) {
+    case 64: return launch_grid_nb<T, 32>(xp, rk16, hs, g, dxp, hp_dhp,
+                                          dbias, grid_ws, D, T_steps, B, U,
+                                          stream);
+    case 128: return launch_grid_nb<T, 64>(xp, rk16, hs, g, dxp, hp_dhp,
+                                           dbias, grid_ws, D, T_steps, B, U,
+                                           stream);
+    default: return launch_grid_nb<T, 128>(xp, rk16, hs, g, dxp, hp_dhp,
+                                           dbias, grid_ws, D, T_steps, B, U,
+                                           stream);
+  }
+}
+
+// One tensor-core pass (MODE 0: hp into `out`; 1: dRk's slice partials):
+// its two tensor maps, then as many persistent CTAs as the card holds, at
+// most one a tile. A and B as tc_pass's note says: MODE 0 a = hs,
+// b = Rk; MODE 1 a = hs, b = dhp.
+template <int MODE, typename TA, typename TB>
+cudaError_t launch_tc(const void* a, const void* b, const float* rb,
+                      float* out, int D, int T_steps, int B, int U,
+                      int slices, cudaStream_t stream) {
+  const int N = T_steps * B, K3 = 3 * U;
+  constexpr bool a16 = sizeof(TA) == 2, b16 = sizeof(TB) == 2;
+  constexpr int K = TcShape<TA, TB>::k;
+  CUtensorMap ma, mb;
+  bool ok;
+  if (MODE == 0)
+    ok = tc_host::map_3d(&ma, a, a16, U, N, D, K, kTcRows,
+                         CU_TENSOR_MAP_SWIZZLE_128B) &&
+         tc_host::map_3d(&mb, b, b16, K3, U, D, kTcRows, K,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  else
+    ok = tc_host::map_3d(&ma, a, a16, U, N, D, kTcRows, K,
+                         CU_TENSOR_MAP_SWIZZLE_NONE) &&
+         tc_host::map_3d(&mb, b, b16, K3, N, D, kTcRows, K,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (!ok) return cudaErrorInvalidValue;
+  auto* kern = MODE == 0 ? gru_bwd_hp_tc_kernel<TA, TB>
+                         : gru_bwd_drk_tc_kernel<TA, TB>;
+  constexpr size_t smem = TcShape<TA, TB>::smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int nj = (K3 + kTcRows - 1) / kTcRows;
+  const int nm = ((MODE == 0 ? N : U) + kTcRows - 1) / kTcRows;
+  const int n_tiles = nj * nm * D * (MODE == 0 ? 1 : slices);
+  const int grid = n_tiles < kTcSms ? n_tiles : kTcSms;
+  kern<<<grid, kTcThreads, smem, stream>>>(
+      ma, mb, rb, out, D, T_steps, B, U, slices,
+      rows_per_slice(N, slices));
+  return cudaGetLastError();
+}
+
+// passes 1 and 3 on the tensor cores, for hs and Rk as the wrapper hands
+// them over (each in bf16 or f32)
+cudaError_t launch_tc_hp(const void* hs, int hs_bf16, const void* rk,
+                         int rk_bf16, const float* rb, float* hp, int D,
+                         int T_steps, int B, int U, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  if (hs_bf16)
+    return rk_bf16 ? launch_tc<0, bf16, bf16>(hs, rk, rb, hp, D, T_steps, B,
+                                              U, 1, stream)
+                   : launch_tc<0, bf16, float>(hs, rk, rb, hp, D, T_steps, B,
+                                               U, 1, stream);
+  return rk_bf16 ? launch_tc<0, float, bf16>(hs, rk, rb, hp, D, T_steps, B, U,
+                                             1, stream)
+                 : launch_tc<0, float, float>(hs, rk, rb, hp, D, T_steps, B,
+                                              U, 1, stream);
+}
+cudaError_t launch_tc_drk(const void* hs, int hs_bf16, const float* dhp,
+                          float* part, int D, int T_steps, int B, int U,
+                          int slices, cudaStream_t stream) {
+  return hs_bf16 ? launch_tc<1, __nv_bfloat16, float>(hs, dhp, nullptr, part,
+                                                      D, T_steps, B, U,
+                                                      slices, stream)
+                 : launch_tc<1, float, float>(hs, dhp, nullptr, part, D,
+                                              T_steps, B, U, slices, stream);
 }
 
 // the cluster size of the streamed recurrence: the largest of 8, 4 dividing U
@@ -1416,59 +2061,60 @@ template <typename T>
 cudaError_t launch(const void* xp, const float* rk, const float* rb,
                    const void* hs, const void* g, void* dxp, float* workspace,
                    float* drk, float* drb, int D, int T_steps, int B, int U,
-                   int variant, int cluster, int res_bt,
+                   int variant, int cluster, int res_bt, const void* rk_pass,
+                   int rk_pass_bf16, const void* hs_pass, int hs_pass_bf16,
                    cudaStream_t stream) {
-  const int K = 3 * U;
   const int N = T_steps * B;
   float* hp_dhp = workspace;
   float* dbias = hp_dhp + hp_floats(D, N, U);
-  float* part = dbias + hp_floats(D, B, U);
+  float* part = dbias + dbias_floats(D, B, U);
   const bool streamed = variant == kNumVariants;
-  const bool resident = variant > kNumVariants;
-  if ((streamed || resident) != (U > kRegisterUnits) ||
-      variant > kNumVariants + kNumResident)
+  const bool grid = variant == kGridVariant;
+  const bool resident = variant > kNumVariants && !grid;
+  if ((streamed || resident || grid) != (U > kRegisterUnits) ||
+      variant > kGridVariant || (grid && !rk_pass_bf16))
     return cudaErrorInvalidValue;
 
-  gru_bwd_hp_kernel<T><<<dim3((K + kTile - 1) / kTile, (N + kTile - 1) / kTile,
-                              D),
-                         kGemmThreads, 0, stream>>>(
-      static_cast<const T*>(hs), rk, rb, hp_dhp, T_steps, B, U);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_tc_hp(hs_pass, hs_pass_bf16, rk_pass,
+                                 rk_pass_bf16, rb, hp_dhp, D, T_steps, B, U,
+                                 stream);
   if (err != cudaSuccess) return err;
 
-  const int slices = reduce_slices(D, N, U);
-  if (resident) {
+  const int slices = tc_slices(D, N, U);
+  float* extra = part + static_cast<size_t>(slices) * D * U * 3 * U;
+  if (grid) {
+    err = launch_grid<T>(xp, rk_pass, hs, g, dxp, hp_dhp, dbias, extra, D,
+                         T_steps, B, U, stream);
+  } else if (resident) {
     err = variant == kNumVariants + 1
               ? launch_res<0, T>(xp, rk, hs, g, dxp, hp_dhp, dbias, D,
                                  T_steps, B, U, cluster, res_bt, stream)
               : launch_res<1, T>(xp, rk, hs, g, dxp, hp_dhp, dbias, D,
                                  T_steps, B, U, cluster, res_bt, stream);
   } else if (streamed) {
-    float* carry = part + static_cast<size_t>(slices) * D * U * K;
-    err = launch_stream<T>(xp, rk, hs, g, dxp, hp_dhp, dbias, carry,
-                           carry + static_cast<size_t>(D) * B * U, D, T_steps,
+    err = launch_stream<T>(xp, rk, hs, g, dxp, hp_dhp, dbias, extra,
+                           extra + static_cast<size_t>(D) * B * U, D, T_steps,
                            B, U, cluster, stream);
   } else {
     err = dispatch_rec<T>(variant, xp, rk, hs, g, dxp, hp_dhp, dbias, D,
                           T_steps, B, U, cluster, stream);
   }
   if (err != cudaSuccess) return err;
-  // a valid variant: it launched
+  // a valid variant: it launched; dRb's per-tile sums it left
   const int bt = resident ? res_bt
-                 : streamed ? kStreamBT : kVariants[variant].bt;
+                 : streamed ? kStreamBT
+                 : grid     ? 1
+                            : kVariants[variant].bt;
+  const int n_tiles = grid ? kGridTiles : (B + bt - 1) / bt;
 
-  const dim3 grid((K + kTile - 1) / kTile, (U + kTile - 1) / kTile,
-                  D * slices);
-  gru_bwd_drk_kernel<T><<<grid, kGemmThreads, 0, stream>>>(
-      static_cast<const T*>(hs), hp_dhp, part, D, T_steps, B, U,
-      rows_per_slice(N, slices));
-  err = cudaGetLastError();
+  err = launch_tc_drk(hs_pass, hs_pass_bf16, hp_dhp, part, D, T_steps, B, U,
+                      slices, stream);
   if (err != cudaSuccess) return err;
 
-  const size_t total = static_cast<size_t>(D) * (U + 1) * K;
+  const size_t total = static_cast<size_t>(D) * (U + 1) * 3 * U;
   const unsigned fin_blocks = static_cast<unsigned>((total + 255) / 256);
   gru_bwd_finalize_kernel<<<fin_blocks, 256, 0, stream>>>(
-      part, dbias, drk, drb, slices, D, (B + bt - 1) / bt, U);
+      part, dbias, drk, drb, slices, D, n_tiles, U);
   return cudaGetLastError();
 }
 
@@ -1528,6 +2174,28 @@ int seld_gru_bwd_max_clusters(int D, int B, int U, int variant, int bt,
   return static_cast<int>(err);
 }
 
+// Writes the grid-resident recurrence's constants (kGridSplit, kGridUnits,
+// kGridThreads, kGridParts, kGridTiles, kGridRows) and its plan index into
+// out; returns their number
+int seld_gru_bwd_grid(int* out, int cap) {
+  if (cap < 7) return 0;
+  const int row[7] = {kGridSplit, kGridUnits, kGridThreads, kGridParts,
+                      kGridTiles, kGridRows, kGridVariant};
+  for (int i = 0; i < 7; ++i) out[i] = row[i];
+  return 7;
+}
+
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor of the grid-resident
+// recurrence at D, B, U, into *out; returns a cudaError_t
+int seld_gru_bwd_grid_blocks(int D, int B, int U, int* out) {
+  cudaLaunchConfig_t cfg;
+  switch (grid_bp(B)) {
+    case 64: return static_cast<int>(grid_config<float, 32>(D, B, U, &cfg, out));
+    case 128: return static_cast<int>(grid_config<float, 64>(D, B, U, &cfg, out));
+    default: return static_cast<int>(grid_config<float, 128>(D, B, U, &cfg, out));
+  }
+}
+
 // Bytes of scratch one call needs (hp/dhp and pass 3's partials); the
 // wrapper allocates them as one flat buffer, whose layout is this file's.
 size_t seld_gru_bwd_workspace_bytes(int D, int T_steps, int B, int U) {
@@ -1535,16 +2203,21 @@ size_t seld_gru_bwd_workspace_bytes(int D, int T_steps, int B, int U) {
 }
 
 // Returns a cudaError_t (0 on success). is_bf16 selects the storage type of
-// x_proj, hs, g and dx_proj; rk, rb, drk and drb are f32; workspace holds
-// seld_gru_bwd_workspace_bytes(D, T_steps, B, U) bytes; variant, cluster
-// and bt (the resident recurrence's tile rows) come from the wrapper's plan
-// (variant kNumVariants is the streamed recurrence, kNumVariants + 1 + i
-// resident variant i; both only past U = 256).
+// x_proj, hs, g and dx_proj; rk, rb, drk and drb are f32. Passes 1 and 3
+// (the tensor cores) read hs_pass and pass 1 rk_pass, hs and Rk as the
+// caller holds them or f32 copies (bf16 where hs_pass_bf16 / rk_pass_bf16),
+// each with rows of a multiple of 16 bytes, as TMA loads them; variant
+// kGridVariant, the grid-resident recurrence, reads rk_pass too, in bf16.
+// workspace holds seld_gru_bwd_workspace_bytes(D, T_steps, B, U) bytes;
+// variant, cluster and bt (the resident recurrence's tile rows) come from
+// the wrapper's plan (variant kNumVariants is the streamed recurrence,
+// kNumVariants + 1 + i resident variant i; both only past U = 256).
 int seld_gru_bwd(const void* xp, const void* rk, const void* rb,
                  const void* hs, const void* g, void* dxp, void* workspace,
                  void* drk, void* drb, int D, int T_steps, int B, int U,
                  int is_bf16, int variant, int cluster, int bt,
-                 void* stream) {
+                 const void* rk_pass, int rk_pass_bf16, const void* hs_pass,
+                 int hs_pass_bf16, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* rkf = static_cast<const float*>(rk);
   const auto* rbf = static_cast<const float*>(rb);
@@ -1554,9 +2227,11 @@ int seld_gru_bwd(const void* xp, const void* rk, const void* rb,
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(xp, rkf, rbf, hs, g, dxp, ws, drkf,
                                       drbf, D, T_steps, B, U, variant,
-                                      cluster, bt, st)
+                                      cluster, bt, rk_pass, rk_pass_bf16,
+                                      hs_pass, hs_pass_bf16, st)
               : launch<float>(xp, rkf, rbf, hs, g, dxp, ws, drkf, drbf, D,
-                              T_steps, B, U, variant, cluster, bt, st);
+                              T_steps, B, U, variant, cluster, bt, rk_pass,
+                              rk_pass_bf16, hs_pass, hs_pass_bf16, st);
   return static_cast<int>(err);
 }
 

@@ -81,8 +81,11 @@
 // would halve the h reads, but its Rk share then needs more registers than
 // a thread may have beside its accumulators.
 //
+// Past U = 512 with Rk handed over in bf16 (as the training step does) the
+// grid-resident variant (gru_fwd_grid_kernel, its note below) holds Rk on
+// the whole card, one CTA a SM, and multiplies on the tensor cores.
 // The streamed variant (gru_fwd_stream_kernel) takes every U % 4 == 0 past
-// 256 and is the plan's past 512: a CTA's slice of Rk (U x 3U/C f32, 221 KB
+// 256 and is the plan's past 512 otherwise: a CTA's slice of Rk (U x 3U/C f32, 221 KB
 // at U = 384 on 8 CTAs) fits neither the registers nor, beside h, the
 // shared memory of one SM. So each step streams the slice from device
 // memory (L2: both
@@ -120,6 +123,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -689,6 +694,236 @@ gru_fwd_res_kernel(const T* __restrict__ xp, const float* __restrict__ rk,
   }
 }
 
+// The grid-resident forward (past U = 512, Rk in bf16): one CTA a SM
+// holds the Rk columns of kGridUnits units (all three gates: 48 columns, U
+// rows, 96 KB at U = 1024) in shared memory for all T steps; the D x U /
+// kGridUnits CTAs are launched cooperatively (all resident or no launch).
+// CTA c of direction d owns units [u0, u0 + 16), u0 = 16 c. A step:
+//   - warp 8 waits until every CTA of the direction has published the
+//     previous state (a counter a direction, release / acquire at GPU
+//     scope), then streams it from the exchange buffer in 32-deep K chunks
+//     (TMA bulk copies, a ring of `stages` stages): the state as HP =
+//     kGridParts bf16 parts, each chunk [Bp rows][32] already in the wgmma
+//     operand layout (tc::tile_offset), Bp = B rounded up to 64;
+//   - two consumer warpgroups multiply each chunk with the CTA's Rk tiles
+//     (m64n48k16 wgmma, warpgroup w the row blocks w and w + 2), each
+//     chunk's partial sum added to the step's in f32;
+//   - the epilogue is the gate math, thread-local: the 48 columns are z, r
+//     and h of the same 16 units, so a thread holds all three gates of its
+//     (row, unit) states, and it keeps those states' h in registers across
+//     the steps; it writes hs and the new state's parts into the other
+//     exchange slot, and the CTA adds 1 to its direction's counter.
+// Two exchange slots suffice: a CTA writes slot t % 2 only after every CTA
+// has published step t - 1, which each did after reading slot t % 2.
+// Accuracy: the state h is f32 (kept so across the steps whatever the
+// storage type), as in the TPU kernel's h @ Rk. Three bf16 parts hold it
+// exactly (each part rounds what the earlier ones leave), so with Rk exact
+// in bf16 the product is f32's up to summation order. Two parts would keep
+// h to within 2^-18 of itself (each rounding leaves at most 2^-9 of what
+// it rounds) at two thirds of the exchange's bytes.
+// What bounds it: every CTA reads the whole state each step (HP x B x U x
+// 2 bytes: 1.5 MB at U = 1024, B = 256), 192 MB a step from L2 over the
+// card; the products are 2 HP B U 48 operations a CTA.
+constexpr int kGridUnits = 16;
+constexpr int kGridConsumers = 256;
+constexpr int kGridThreads = kGridConsumers + 32;
+constexpr int kGridRows = 256;       // the most batch rows (4 row blocks)
+constexpr int kGridParts = 3;        // bf16 parts of the state: f32 whole
+constexpr int kGridRkTile = tc::tile_bytes(3 * kGridUnits);  // a K chunk
+
+// hx: [2 slots][D][HP][U / 32 chunks][Bp x 32 tile] bf16; counter: [D],
+// zero at launch
+template <typename T, int HP>
+__global__ void __launch_bounds__(kGridThreads, 1)
+gru_fwd_grid_kernel(const T* __restrict__ xp,
+                    const __nv_bfloat16* __restrict__ rk,
+                    const float* __restrict__ rb, T* __restrict__ hs,
+                    __nv_bfloat16* __restrict__ hx,
+                    uint32_t* __restrict__ counter, int n_dirs, int T_steps,
+                    int B, int U, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const int cpd = U / kGridUnits;
+  const int d = blockIdx.x / cpd, u0 = blockIdx.x % cpd * kGridUnits;
+  const int K3 = 3 * U, Bp = (B + 63) / 64 * 64, nch = U / tc::kK;
+  const int chunk = tc::tile_bytes(Bp);  // one part of one K chunk
+  uint8_t* rks = tc::align_1024(smem_raw);  // [nch][48 x 32 tile]
+  uint8_t* ring = rks + nch * kGridRkTile;  // [stages][HP][chunk]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * HP * chunk);
+  uint64_t* empty = full + stages;
+  const size_t slot = static_cast<size_t>(n_dirs) * HP * nch * chunk;
+  const int tid = threadIdx.x;
+
+  // Rk's 48 columns of the CTA, row n = 16 g + j <- Rk[d][k][g U + u0 + j]
+  for (int e = tid; e < U * 6; e += kGridThreads) {
+    const int k = e / 6, g = e % 6 / 2, half = e % 2;
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        rk + (static_cast<size_t>(d) * U + k) * K3 + g * U + u0 + 8 * half);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint8_t* tile = rks + k / tc::kK * kGridRkTile;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int n = 16 * g + 8 * half + i;
+      *reinterpret_cast<uint16_t*>(tile + tc::tile_offset(n, k % tc::kK)) =
+          static_cast<uint16_t>(w[i / 2] >> (16 * (i % 2)));
+    }
+  }
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      tc::mbar_init(&full[s], 1);
+      tc::mbar_init(&empty[s], kGridConsumers);
+    }
+    tc::fence_mbar_init();
+  }
+  tc::fence_proxy_async();  // the Rk tiles, for wgmma
+  __syncthreads();
+
+  if (tid >= kGridConsumers) {  // the producer warp: one lane issues
+    if (tid == kGridConsumers) {
+      int g = 0;
+      for (int p = 1; p < T_steps; ++p) {
+        tc::wait_counter(&counter[d], static_cast<uint32_t>(cpd * p));
+        tc::fence_proxy_async_global();
+        const uint8_t* src = reinterpret_cast<const uint8_t*>(hx) +
+                             ((p - 1) & 1) * slot +
+                             static_cast<size_t>(d) * HP * nch * chunk;
+        for (int kc = 0; kc < nch; ++kc, ++g) {
+          const int s = g % stages;
+          tc::mbar_wait(&empty[s], ((g / stages) & 1) ^ 1);
+          tc::mbar_expect_tx(&full[s], HP * chunk);
+#pragma unroll
+          for (int a = 0; a < HP; ++a)
+            tc::bulk_load(ring + (s * HP + a) * chunk,
+                          src + (static_cast<size_t>(a) * nch + kc) * chunk,
+                          chunk, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // this thread's states: row blocks mb = wg + 2 q (below Bp / 64); in
+  // each, rows 16 warp + lane / 4 (+ 8 h) and units 8 i + 2 (lane % 4) + e
+  // of the CTA's 16: z, r and h are accumulator n8 blocks i, i + 2, i + 4
+  const int wg = tid / 128, warp = tid % 128 / 32, lane = tid % 32;
+  const int blocks = Bp / 64;
+  float h[2][2][2][2] = {};  // [q][i][h][e]
+  int g = 0;
+  for (int p = 0; p < T_steps; ++p) {
+    const int t = d == 0 ? p : T_steps - 1 - p;
+    // x_proj of the states, loaded before the product
+    float x[2][3][2][2][2];  // [q][gate][i][h][e]
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int mb = wg + 2 * q;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = 64 * mb + 16 * warp + lane / 4 + 8 * hh;
+          const int u = u0 + 8 * i + 2 * (lane % 4);
+#pragma unroll
+          for (int gt = 0; gt < 3; ++gt) {
+            float v0 = 0.0f, v1 = 0.0f;
+            if (mb < blocks && row < B) {
+              const T* src = xp + ((static_cast<size_t>(d) * T_steps + t) *
+                                       B + row) * K3 + gt * U + u;
+              v0 = to_f32(src[0]);
+              v1 = to_f32(src[1]);
+            }
+            x[q][gt][i][hh][0] = v0;
+            x[q][gt][i][hh][1] = v1;
+          }
+        }
+    }
+    float acc[2][24] = {};
+    if (p > 0) {
+      for (int kc = 0; kc < nch; ++kc, ++g) {
+        const int s = g % stages;
+        tc::mbar_wait(&full[s], (g / stages) & 1);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int mb = wg + 2 * q;
+          if (mb >= blocks) continue;
+          float part[24];
+          tc::wgmma_fence();
+          int accumulate = 0;
+#pragma unroll
+          for (int a = HP - 1; a >= 0; --a)
+#pragma unroll
+            for (int kk = 0; kk < tc::kK / 16; ++kk) {
+              tc::wgmma_n48(
+                  part,
+                  tc::desc(tc::smem_u32(ring + (s * HP + a) * chunk) +
+                           mb * 8 * tc::kSbo + kk * 2 * tc::kLbo),
+                  tc::desc(tc::smem_u32(rks + kc * kGridRkTile) +
+                           kk * 2 * tc::kLbo),
+                  accumulate);
+              accumulate = 1;
+            }
+          tc::wgmma_commit();
+          tc::wgmma_wait<0>();
+#pragma unroll
+          for (int e = 0; e < 24; ++e) acc[q][e] += part[e];
+        }
+        tc::mbar_arrive(&empty[s]);
+      }
+    }
+    // the gates; the new state into hs and, as HP bf16 parts, into slot
+    // p % 2 of the exchange buffer (rows past B hold 0)
+    uint8_t* dst = reinterpret_cast<uint8_t*>(hx) + (p & 1) * slot +
+                   static_cast<size_t>(d) * HP * nch * chunk;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int mb = wg + 2 * q;
+      if (mb >= blocks) continue;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = 64 * mb + 16 * warp + lane / 4 + 8 * hh;
+          const int u = u0 + 8 * i + 2 * (lane % 4);
+          float hn[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float* bias = rb + static_cast<size_t>(d) * K3 + u + e;
+            const float hz = acc[q][4 * i + 2 * hh + e] + bias[0];
+            const float hr = acc[q][4 * (i + 2) + 2 * hh + e] + bias[U];
+            const float hc = acc[q][4 * (i + 4) + 2 * hh + e] + bias[2 * U];
+            const float z = sigmoid(x[q][0][i][hh][e] + hz);
+            const float r = sigmoid(x[q][1][i][hh][e] + hr);
+            const float c = tanh_fast(x[q][2][i][hh][e] + r * hc);
+            hn[e] = row < B ? z * h[q][i][hh][e] + (1.0f - z) * c : 0.0f;
+            h[q][i][hh][e] = hn[e];
+          }
+          if (row < B) {
+            T* out = hs + ((static_cast<size_t>(d) * T_steps + t) * B + row) *
+                              U + u;
+            store(out, hn[0]);
+            store(out + 1, hn[1]);
+          }
+          float rest[2] = {hn[0], hn[1]};
+#pragma unroll
+          for (int a = 0; a < HP; ++a) {
+            const __nv_bfloat16 p0 = __float2bfloat16_rn(rest[0]);
+            const __nv_bfloat16 p1 = __float2bfloat16_rn(rest[1]);
+            rest[0] -= __bfloat162float(p0);
+            rest[1] -= __bfloat162float(p1);
+            *reinterpret_cast<uint32_t*>(
+                dst + (static_cast<size_t>(a) * nch + u / tc::kK) * chunk +
+                tc::tile_offset(row, u % tc::kK)) = tc::pack2(p0, p1);
+          }
+        }
+    }
+    // publish the step: every consumer's writes, then one release
+    tc::fence_proxy_async_global();
+    tc::named_sync(1, kGridConsumers);
+    if (tid == 0) {
+      __threadfence();
+      tc::red_release_add(&counter[d], 1);
+    }
+  }
+}
+
 // the cluster size of the streamed variant: the largest of 8, 4 dividing U
 int stream_cluster(int U) { return U % 8 == 0 ? 8 : 4; }
 
@@ -843,11 +1078,93 @@ cudaError_t launch(const void* xp, const float* rk, const float* rb, void* hs,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// the grid-resident forward (plan index kGridVariant): kGridParts bf16
+// parts of the state, rows padded to a multiple of 64, its exchange buffer
+constexpr int kGridVariant = kNumVariants + kNumResident + 1;
+constexpr int kSms = 132;  // H100 SXM
+int grid_bp(int B) { return (B + 63) / 64 * 64; }
+size_t grid_bytes(int D, int B, int U, int parts) {
+  return 256 + static_cast<size_t>(2) * D * parts * (U / tc::kK) *
+                   tc::tile_bytes(grid_bp(B));
+}
+bool grid_takes(int D, int B, int U) {
+  return U > kResidentUnits && U % (2 * kGridUnits) == 0 && B >= 1 &&
+         B <= kGridRows && D * U / kGridUnits <= kSms;
+}
+// the ring's stages that fit beside the Rk tiles (2 to 4; 0 if fewer)
+int grid_stages(int B, int U, int parts) {
+  const size_t fixed = 1024 + static_cast<size_t>(U / tc::kK) * kGridRkTile;
+  const size_t stage = parts * tc::tile_bytes(grid_bp(B)) + 16;
+  if (fixed + 2 * stage > 232448) return 0;
+  const size_t n = (232448 - fixed) / stage;
+  return n > 4 ? 4 : static_cast<int>(n);
+}
+size_t grid_smem(int B, int U, int parts, int stages) {
+  return 1024 + static_cast<size_t>(U / tc::kK) * kGridRkTile +
+         static_cast<size_t>(stages) * (parts * tc::tile_bytes(grid_bp(B)) + 16);
+}
+
+// The grid-resident forward: cooperative, after checking that every CTA
+// fits at once (else cudaErrorCooperativeLaunchTooLarge: never a launch
+// that could wait forever); the counters are zeroed first.
+template <typename T, int HP>
+cudaError_t grid_config(int D, int B, int U, cudaLaunchConfig_t* cfg,
+                        int* per_sm) {
+  if (!grid_takes(D, B, U)) return cudaErrorInvalidValue;
+  const int stages = grid_stages(B, U, HP);
+  if (stages < 2) return cudaErrorInvalidValue;
+  *cfg = {};
+  cfg->gridDim = dim3(D * U / kGridUnits, 1, 1);
+  cfg->blockDim = dim3(kGridThreads, 1, 1);
+  cfg->dynamicSmemBytes = grid_smem(B, U, HP, stages);
+  auto* kern = gru_fwd_grid_kernel<T, HP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(cfg->dynamicSmemBytes));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kern, kGridThreads, cfg->dynamicSmemBytes);
+}
+
+template <typename T, int HP>
+cudaError_t launch_grid(const void* xp, const void* rk16, const float* rb,
+                        void* hs, void* ws, int D, int T_steps, int B, int U,
+                        cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = grid_config<T, HP>(D, B, U, &cfg, &per_sm);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (per_sm * sms < static_cast<int>(cfg.gridDim.x) || ws == nullptr)
+    return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.stream = stream;
+  auto* counter = static_cast<uint32_t*>(ws);
+  err = cudaMemsetAsync(counter, 0, 256, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(
+      &cfg, gru_fwd_grid_kernel<T, HP>, static_cast<const T*>(xp),
+      static_cast<const __nv_bfloat16*>(rk16), rb, static_cast<T*>(hs),
+      reinterpret_cast<__nv_bfloat16*>(static_cast<uint8_t*>(ws) + 256),
+      counter, D, T_steps, B, U, grid_stages(B, U, HP));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch(int variant, const void* xp, const float* rk,
                      const float* rb, void* hs, float* ws, int D, int T_steps,
-                     int B, int U, int cluster, int bt, cudaStream_t st) {
+                     int B, int U, int cluster, int bt, const void* rk16,
+                     cudaStream_t st) {
   switch (variant) {
+    case kGridVariant:
+      return launch_grid<T, kGridParts>(xp, rk16, rb, hs, ws, D,
+                                                    T_steps, B, U, st);
     case kNumVariants:
       return launch_stream<T>(xp, rk, rb, hs, ws, D, T_steps, B, U, cluster,
                               st);
@@ -864,7 +1181,7 @@ cudaError_t dispatch(int variant, const void* xp, const float* rk,
     default: return cudaErrorInvalidValue;
   }
 }
-static_assert(kNumVariants == 4 && kNumResident == 2,
+static_assert(kNumVariants == 4 && kNumResident == 2 && kGridVariant == 7,
               "dispatch() names every variant");
 
 }  // namespace
@@ -922,31 +1239,55 @@ int seld_gru_fwd_max_clusters(int D, int B, int U, int variant, int bt,
 }
 
 // Bytes of scratch one call needs: the streamed variant's double-buffered
-// f32 states (variant kNumVariants), none for the register variants.
+// f32 states (variant kNumVariants), the grid-resident one's counters and
+// exchange slots (kGridVariant), none for the others.
 size_t seld_gru_fwd_workspace_bytes(int D, int B, int U, int variant) {
+  if (variant == kGridVariant) return grid_bytes(D, B, U, kGridParts);
   return variant == kNumVariants
              ? sizeof(float) * 2 * static_cast<size_t>(D) * B * U
              : 0;
 }
 
+// Writes the grid-resident forward's constants (kGridUnits, kGridThreads,
+// kGridRows, kGridParts, its plan index) into out; returns their number
+int seld_gru_fwd_grid(int* out, int cap) {
+  if (cap < 5) return 0;
+  out[0] = kGridUnits;
+  out[1] = kGridThreads;
+  out[2] = kGridRows;
+  out[3] = kGridParts;
+  out[4] = kGridVariant;
+  return 5;
+}
+
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor of the grid-resident
+// forward at D, B, U, into *out; returns a cudaError_t
+int seld_gru_fwd_grid_blocks(int D, int B, int U, int is_bf16, int* out) {
+  cudaLaunchConfig_t cfg;
+  return static_cast<int>(
+      is_bf16 ? grid_config<__nv_bfloat16, kGridParts>(D, B, U, &cfg, out)
+              : grid_config<float, kGridParts>(D, B, U, &cfg, out));
+}
+
 // Returns a cudaError_t (0 on success). is_bf16 selects the storage type of
 // x_proj and hs; variant, cluster and bt (the resident variants' tile rows)
 // come from the wrapper's plan (variant kNumVariants is the streamed one,
-// kNumVariants + 1 + i resident variant i); workspace holds
+// kNumVariants + 1 + i resident variant i, kGridVariant the grid-resident
+// one, which reads rk16, Rk in bf16, instead of rk); workspace holds
 // seld_gru_fwd_workspace_bytes(D, B, U, variant) bytes.
 int seld_gru_fwd(const void* xp, const void* rk, const void* rb, void* hs,
                  void* workspace, int D, int T_steps, int B, int U,
                  int is_bf16, int variant, int cluster, int bt,
-                 void* stream) {
+                 const void* rk16, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* rkf = static_cast<const float*>(rk);
   const auto* rbf = static_cast<const float*>(rb);
   auto* ws = static_cast<float*>(workspace);
   const cudaError_t err =
       is_bf16 ? dispatch<__nv_bfloat16>(variant, xp, rkf, rbf, hs, ws, D,
-                                        T_steps, B, U, cluster, bt, st)
+                                        T_steps, B, U, cluster, bt, rk16, st)
               : dispatch<float>(variant, xp, rkf, rbf, hs, ws, D, T_steps, B,
-                                U, cluster, bt, st);
+                                U, cluster, bt, rk16, st);
   return static_cast<int>(err);
 }
 

@@ -1,7 +1,7 @@
 """Where a GRU forward step's time goes past U = 256, on the card.
 
     python -m seld_tpu_torch.gru_probe [--units 384 512] [--batch 256]
-                                       [--kernel streamed|resident]
+                                       [--kernel streamed|resident|grid]
 
 Builds csrc/gru_fwd.cu several times into build/probe/ (one nvcc each, all
 at once): as it is, and with one part of the variant's step taken out by
@@ -16,6 +16,10 @@ the resident one (RES_EDITS): full; no_exchange (no st.shared::cluster of
 the new h); no_barrier (one cluster barrier after the last step, so that
 no CTA leaves while a peer writes into it); no_smem_w (the Rk chunks held
 in shared memory are constants); no_h_reads (the h rows are constants).
+`--kernel grid` instead times csrc/gru_fwd.cu's grid-resident forward with
+the state in 3 bf16 parts (as it is) and in 2 (GRID_FWD_EDITS), and takes
+csrc/gru_bwd.cu's grid-resident recurrence apart (GRID_EDITS), splitting
+the backward by pass with each copy.
 Each is timed on the variant's plan (`_fwd_plan(..., variant=_FWD_STREAM)`
 or the default plan) at D=2, T=60, B=`--batch`, bf16, with CUDA events.
 Then splits the backward (the same kind of plan) into its passes with
@@ -84,6 +88,34 @@ RES_EDITS = {
          "h4[b] = make_float4(1e-3f * b, 1e-3f, 2e-3f, 3e-3f);", 1)],
 }
 
+# the grid-resident backward recurrence (`--kernel grid`, csrc/gru_bwd.cu;
+# timed by pass at Rk in bf16): full; no_product (no chunk streamed and no
+# wgmma: the step's gates, stores, barriers and group sums alone);
+# no_group (the partial sums neither written nor waited for)
+GRID_EDITS = {
+    "full": [],
+    "no_product": [
+        ("for (int kc = r * nq; kc < (r + 1) * nq; ++kc, ++gs) {",
+         "for (int kc = r * nq; kc < r * nq; ++kc, ++gs) {", 1),
+        ("for (int kc = 0; kc < nq; ++kc, ++gs) {",
+         "for (int kc = 0; kc < 0; ++kc, ++gs) {", 1)],
+    "no_group": [
+        ("      tc::wait_counter(gcount,", "      if (0) tc::wait_counter(gcount,",
+         1),
+        ("            __stcg(mine + b * kGridUnits + m, acc[sb][4 * i + 2 * hh + e]);",
+         "            if (0) __stcg(mine + b * kGridUnits + m, "
+         "acc[sb][4 * i + 2 * hh + e]);", 1)],
+}
+
+# the grid-resident forward (`--kernel grid`, csrc/gru_fwd.cu; timed with
+# Rk in bf16): full; two_parts (the state h exchanged and multiplied as 2
+# bf16 parts instead of 3: 2^-18 of h kept, two thirds of the bytes)
+GRID_FWD_EDITS = {
+    "full": [],
+    "two_parts": [("constexpr int kGridParts = 3;",
+                   "constexpr int kGridParts = 2;", 1)],
+}
+
 # a kernel whose occupancy stands for a resident variant's: one CTA of
 # `threads` threads and `smem` bytes of dynamic shared memory
 OCCUPANCY_SRC = r"""
@@ -118,8 +150,8 @@ extern "C" int probe_max_clusters(int cluster, int threads, int smem,
 """
 
 
-def edited_source(name: str, edits=EDITS) -> str:
-    with open(os.path.join(kernels.CSRC_DIR, "gru_fwd.cu")) as f:
+def edited_source(name: str, edits=EDITS, source="gru_fwd.cu") -> str:
+    with open(os.path.join(kernels.CSRC_DIR, source)) as f:
         src = f.read()
     for old, new, times in edits[name]:
         found = src.count(old)
@@ -130,20 +162,25 @@ def edited_source(name: str, edits=EDITS) -> str:
     return src
 
 
-def build_all(edits):
-    """One nvcc per edited copy and one for the occupancy kernel, all at
-    once; returns {name: library path}."""
+def build_all(edits, source="gru_fwd.cu", occupancy=True, more=None):
+    """One nvcc per edited copy of `source`, one for the occupancy kernel
+    and one for each of `more` ({name: source text}), all at once; returns
+    {name: library path}."""
     os.makedirs(PROBE_DIR, exist_ok=True)
-    sources = {n: edited_source(n, edits) for n in edits}
-    sources["occupancy"] = OCCUPANCY_SRC
+    sources = {n: edited_source(n, edits, source) for n in edits}
+    if occupancy:
+        sources["occupancy"] = OCCUPANCY_SRC
+    sources.update(more or {})
     procs = {}
     for name, src in sources.items():
         cu = os.path.join(PROBE_DIR, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(src)
         so = os.path.join(PROBE_DIR, f"lib{name}.so")
+        # -I: the copies include csrc/'s headers (tc.cuh)
         procs[name] = (subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so, cu],
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", kernels.CSRC_DIR,
+             "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     out = {}
     for name, (proc, so) in procs.items():
@@ -159,22 +196,25 @@ def time_forward(lib_path, xp, rk, rb, plan, iters=10):
     import torch
     lib = ctypes.CDLL(lib_path)
     lib.seld_gru_fwd.argtypes = [ctypes.c_void_p] * 5 + \
-        [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
     lib.seld_gru_fwd.restype = ctypes.c_int
     lib.seld_gru_fwd_workspace_bytes.argtypes = [ctypes.c_int] * 4
     lib.seld_gru_fwd_workspace_bytes.restype = ctypes.c_size_t
     d, t, b, k = xp.shape
     u = k // 3
+    is_bf16 = int(xp.dtype == torch.bfloat16)
     hs = torch.empty((d, t, b, u), dtype=xp.dtype, device=xp.device)
-    ws = torch.empty(lib.seld_gru_fwd_workspace_bytes(d, b, u, plan.variant),
-                     dtype=torch.uint8, device=xp.device)
+    ws = torch.empty(max(1, lib.seld_gru_fwd_workspace_bytes(
+        d, b, u, plan.variant)), dtype=torch.uint8, device=xp.device)
     stream = kernels.current_stream(xp.device.index)
 
     def call():
+        # rk16 (Rk in bf16, read by the grid-resident variant alone) is rk
+        # itself: each probed variant reads rk in the dtype it takes
         err = lib.seld_gru_fwd(xp.data_ptr(), rk.data_ptr(), rb.data_ptr(),
                                hs.data_ptr(), ws.data_ptr(), d, t, b, u,
-                               int(xp.dtype == torch.bfloat16), plan.variant,
-                               plan.c, plan.bt, stream)
+                               is_bf16, plan.variant, plan.c, plan.bt,
+                               rk.data_ptr(), stream)
         if err:
             raise SystemExit(f"launch failed: CUDA error {err}")
     for _ in range(2):
@@ -221,16 +261,96 @@ def backward_split(xp, rk, rb, g, plan, n=5):
     return out
 
 
+def grid_split(libs, units, b):
+    """The backward by pass at D=2, T=60, B=b, bf16 with Rk in bf16 (the
+    grid-resident plan) with each edited gru_bwd.cu library in turn in
+    place of the port's (the wrapper loads whichever library the kernel
+    cache holds for the source)."""
+    import torch
+
+    from seld_tpu_torch.ops import gru
+    rng = np.random.RandomState(16)
+    d, t = 2, 60
+    out = {}
+    for u in units:
+        xp = torch.from_numpy(rng.randn(d, t, b, 3 * u).astype(
+            np.float32)).cuda().bfloat16()
+        rk = torch.from_numpy((rng.randn(d, u, 3 * u) / math.sqrt(u))
+                              .astype(np.float32)).cuda().bfloat16()
+        rb = torch.from_numpy(0.1 * rng.randn(d, 3 * u).astype(
+            np.float32)).cuda()
+        g = torch.from_numpy(rng.randn(d, t, b, u).astype(
+            np.float32)).cuda().bfloat16()
+        plan = gru._bwd_plan(d, b, u, rk_bf16=True)
+        if plan.variant != gru._BWD_GRID:
+            raise SystemExit(f"U={u}, B={b}: no grid-resident plan")
+        for name, path in libs.items():
+            lib = ctypes.CDLL(path)
+            lib.seld_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.seld_cuda_error_string.restype = ctypes.c_char_p
+            kernels._libs[gru._BWD_SOURCE] = lib
+            gru._bwd_library.cache_clear()
+            split = backward_split(xp, rk, rb, g, plan)
+            out[f"U{u}_{name}"] = split
+            print(f"[probe] grid backward bf16 D=2 T=60 B={b} U={u} {name}, "
+                  f"device ms a call by kernel: " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in split.items())
+                  + f"; sum {sum(split.values()):.4f}", flush=True)
+    kernels._libs.pop(gru._BWD_SOURCE, None)
+    gru._bwd_library.cache_clear()
+    return out
+
+
+def grid_forward(libs, units, b, rounds=2):
+    """The grid-resident forward at D=2, T=60, B=b, bf16 storage, Rk in
+    bf16, with each edited gru_fwd.cu library: ms a call (CUDA events; the
+    libraries in turns, `rounds` times each way) and max |hs - ref|
+    against gru_scan_ref."""
+    import torch
+
+    from seld_tpu_torch.ops import gru
+    rng = np.random.RandomState(18)
+    d, t = 2, 60
+    out = {}
+    for u in units:
+        xp = torch.from_numpy(rng.randn(d, t, b, 3 * u).astype(
+            np.float32)).cuda().bfloat16()
+        rk = torch.from_numpy((rng.randn(d, u, 3 * u) / math.sqrt(u))
+                              .astype(np.float32)).cuda().bfloat16()
+        rb = torch.from_numpy(0.1 * rng.randn(d, 3 * u).astype(
+            np.float32)).cuda()
+        plan = gru._fwd_plan(d, b, u, rk_bf16=True)
+        if plan.variant != gru._FWD_GRID:
+            raise SystemExit(f"U={u}, B={b}: no grid-resident forward")
+        ref = gru.gru_scan_ref(xp, rk, rb).float()
+        row = {n: {"ms": []} for n in libs}
+        order = list(libs) * rounds
+        for name in order + order[::-1]:
+            ms, hs = time_forward(libs[name], xp, rk, rb, plan)
+            row[name]["ms"].append(ms)
+            row[name]["max_abs_err"] = (hs.float() - ref).abs().max().item()
+        out[f"U{u}"] = row
+        print(f"[probe] grid forward bf16 D=2 T=60 B={b} U={u} Rk bf16: "
+              + "; ".join(f"{n} " + "/".join(f"{m:.4f}" for m in r["ms"])
+                          + f" ms, max_abs_err {r['max_abs_err']:.3e}"
+                          for n, r in row.items()), flush=True)
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    parser.add_argument("--units", type=int, nargs="+", default=[384, 512])
+    parser.add_argument("--units", type=int, nargs="+", default=None,
+                        help="default 384 512; 1024 with --kernel grid")
     parser.add_argument("--batch", type=int, default=256)
-    parser.add_argument("--kernel", choices=("streamed", "resident"),
+    parser.add_argument("--kernel", choices=("streamed", "resident", "grid"),
                         default="streamed",
                         help="the variant whose step is taken apart (the "
-                             "backward split is the same variant's)")
+                             "backward split is the same variant's; grid: "
+                             "the grid-resident forward with 3 and 2 parts "
+                             "of h, and the backward recurrence taken "
+                             "apart, --units 1024 by default)")
     parser.add_argument("--occupancy", nargs="+", default=[
         "8:384:230400", "8:384:208896", "8:256:229376", "16:256:229376",
         "16:256:204800", "16:512:204800", "16:384:229376"],
@@ -249,6 +369,18 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"[probe] {smi}", flush=True)
+    if args.kernel == "grid":
+        libs = build_all(GRID_EDITS, "gru_bwd.cu", occupancy=False, more={
+            f"fwd_{n}": edited_source(n, GRID_FWD_EDITS)
+            for n in GRID_FWD_EDITS})
+        fwd = {n: libs.pop(f"fwd_{n}") for n in GRID_FWD_EDITS}
+        units = args.units or [1024]
+        print(json.dumps({"device": smi,
+                          "grid_forward": grid_forward(fwd, units,
+                                                       args.batch),
+                          "grid_backward": grid_split(libs, units,
+                                                      args.batch)}))
+        return 0
     libs = build_all(RES_EDITS if resident else EDITS)
     occ_lib = ctypes.CDLL(libs.pop("occupancy"))
     occ_lib.probe_max_clusters.argtypes = [ctypes.c_int] * 3 + \
@@ -256,7 +388,7 @@ def main(argv=None):
     result = {"device": smi, "forward": {}, "backward": {}, "occupancy": {}}
     rng = np.random.RandomState(15)
     d, t, b = 2, 60, args.batch
-    for u in args.units:
+    for u in args.units or [384, 512]:
         xp = torch.from_numpy(rng.randn(d, t, b, 3 * u).astype(
             np.float32)).cuda().bfloat16()
         rk = torch.from_numpy((rng.randn(d, u, 3 * u) / math.sqrt(u))

@@ -71,6 +71,18 @@ _SMEM_BLOCK = 232448          # shared memory a block may have (227 KiB)
 # values staged a chunk, kStreamSplits most thread groups splitting a
 # chunk); its plan index follows the register variants
 _STREAM = (16, 256, 128, 4)
+# the grid-resident plans past _RESIDENT_UNITS, Rk handed over in bf16
+# (csrc/gru_fwd.cu's and gru_bwd.cu's kGrid* constants, plan index 7 of
+# both): the forward's (kGridUnits units a CTA, kGridThreads, kGridRows the
+# most batch rows, kGridParts bf16 parts of h), the backward's (kGridSplit CTAs a cluster splitting K,
+# kGridUnits units a cluster, kGridThreads, kGridParts bf16 parts of dhp,
+# kGridTiles dRb tiles, kGridRows)
+_GRID_FWD = (16, 288, 256, 3)
+_GRID_H_PARTS = _GRID_FWD[3]
+_GRID_BWD = (4, 64, 288, 3, 16, 256)
+_GRID_DHP_PARTS = _GRID_BWD[3]
+_FWD_GRID = _BWD_GRID = 7
+_SMEM_TILE = 32 * 2           # bytes of one row of a 32-deep bf16 tile
 _CLUSTERS = (1, 2, 4, 8)      # portable thread block cluster sizes
 _SMS = 132                    # H100 SXM
 # the latency variant while its warps average at most 4 per SM
@@ -171,8 +183,81 @@ def _res_variant(widest, first: int, u: int, variant):
     return takes[0] if takes else None
 
 
+def _grid_stages(fixed: int, stage: int) -> int:
+    """The ring stages that fit a block's shared memory beside `fixed`
+    bytes: 2 to 4, 0 where 2 do not fit (the .cu's grid_stages)."""
+    stage += 16                   # its two mbarriers
+    if fixed + 2 * stage > _SMEM_BLOCK:
+        return 0
+    return min(4, (_SMEM_BLOCK - fixed) // stage)
+
+
+def _fwd_grid_smem(b: int, u: int) -> int:
+    """The grid-resident forward's shared memory: the alignment slack, the
+    Rk tiles (U / 32 chunks of 48 rows), the ring of state chunks (3
+    parts); 0 where two stages do not fit."""
+    bp = -(-b // 64) * 64
+    fixed = 1024 + u // 32 * 48 * _SMEM_TILE
+    stage = _GRID_H_PARTS * bp * _SMEM_TILE
+    stages = _grid_stages(fixed, stage)
+    return fixed + stages * (stage + 16) if stages else 0
+
+
+def _bwd_grid_bp(b: int) -> int:
+    return 64 if b <= 64 else 128 if b <= 128 else 256
+
+
+def _bwd_grid_smem(b: int, u: int) -> int:
+    """The grid-resident backward's: the slack, its Rk tiles (64 rows, a
+    quarter of the 3U / 32 chunks), the ring of dhp chunks (3 parts)."""
+    split, units, _, parts, _, _ = _GRID_BWD
+    fixed = 1024 + 3 * u // 32 // split * units * _SMEM_TILE
+    stage = parts * _bwd_grid_bp(b) * _SMEM_TILE
+    stages = _grid_stages(fixed, stage)
+    return fixed + stages * (stage + 16) if stages else 0
+
+
+def _fwd_grid_takes(d: int, b: int, u: int) -> bool:
+    """Past U = 512 with U % 32 == 0, B <= 256, one CTA of 16 units a SM
+    (D U / 16 <= 132) and its shared memory within a block's."""
+    units, _, rows, _ = _GRID_FWD
+    return (u > _RESIDENT_UNITS and u % (2 * units) == 0 and 1 <= b <= rows
+            and d * u // units <= _SMS and _fwd_grid_smem(b, u) > 0)
+
+
+def _bwd_grid_takes(d: int, b: int, u: int) -> bool:
+    """Past U = 512 with U % 128 == 0 (each of the 4 K ranges whole 32-deep
+    chunks), B <= 256, D U / 16 CTAs on 132 SMs, and its shared memory."""
+    split, units, _, _, _, rows = _GRID_BWD
+    return (u > _RESIDENT_UNITS and u % (2 * units) == 0 and 1 <= b <= rows
+            and d * u // (units // split) <= _SMS
+            and _bwd_grid_smem(b, u) > 0)
+
+
+def _fwd_grid_plan(d: int, b: int, u: int) -> "FwdPlan":
+    """The grid-resident forward: D U / 16 CTAs of 288 threads (one a SM,
+    launched cooperatively, no cluster: `c` 1), each holding the 48 Rk
+    columns of its 16 units (`rk_smem` bytes) for all T steps; the whole
+    batch a tile."""
+    units, threads, _, _ = _GRID_FWD
+    return FwdPlan(_FWD_GRID, b, 1, threads, (u // units, d), 0,
+                   u * 3 * units * 2, _fwd_grid_smem(b, u))
+
+
+def _bwd_grid_plan(d: int, b: int, u: int) -> "BwdPlan":
+    """The grid-resident backward recurrence: D U / 16 CTAs of 288
+    threads (one a SM, launched cooperatively, no cluster: `c` 1), in
+    groups of 4 that each hold 64 units' Rk rows over a quarter of the 3U
+    columns (`rk_smem` bytes a CTA)."""
+    split, units, threads, _, _, _ = _GRID_BWD
+    ctas = u // (units // split)
+    return BwdPlan(_BWD_GRID, b, 1, threads, (ctas, d), 0,
+                   units * 3 * u // split * 2, _bwd_grid_smem(b, u))
+
+
 @functools.lru_cache(maxsize=None)
-def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
+def _fwd_plan(d: int, b: int, u: int, variant: int = None,
+              rk_bf16: bool = False) -> FwdPlan:
     """The forward kernel's tile plan for D directions, B rows, U units.
 
     The latency variant (BT = 4) spreads each tile over the largest cluster
@@ -182,7 +267,14 @@ def _fwd_plan(d: int, b: int, u: int, variant: int = None) -> FwdPlan:
     (at U = 128, B = 256: 2 CTAs of 256 threads, 128 CTAs in all), and the
     widest past U = 144, the streamed one past U = 256. `variant` forces
     one. Raises on a U no variant takes. Past U = 256 the resident variants
-    (`_fwd_res_plan`) up to U = 512, the streamed one past it."""
+    (`_fwd_res_plan`) up to U = 512; past it the grid-resident one
+    (`_fwd_grid_plan`) where Rk comes in bf16 (`rk_bf16`) and it takes
+    (D, B, U), else the streamed one."""
+    if variant == _FWD_GRID or (variant is None and rk_bf16 and
+                                _fwd_grid_takes(d, b, u)):
+        if not _fwd_grid_takes(d, b, u):
+            raise ValueError(f"variant {variant} does not take U={u}, B={b}")
+        return _fwd_grid_plan(d, b, u)
     if _takes_streamed(u):
         if variant == _FWD_STREAM:
             return _stream_plan(FwdPlan, _FWD_STREAM, d, b, u)
@@ -285,15 +377,22 @@ def _bwd_clusters(v: int, u: int) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_plan(d: int, b: int, u: int, variant: int = None) -> BwdPlan:
+def _bwd_plan(d: int, b: int, u: int, variant: int = None,
+              rk_bf16: bool = False) -> BwdPlan:
     """The backward recurrence's tile plan for D directions, B rows, U
     units, by `_fwd_plan`'s rule: a variant of 4-row tiles over the largest
     cluster that takes U, while its threads fit `_LATENCY_THREADS`; else
     the first variant that takes U (8-row tiles) over the smallest cluster
     that does (U = 128, B = 256: 2 CTAs of 256 threads, 128 CTAs in all);
-    past U = 256 the resident recurrence (`_bwd_res_plan`) up to U = 512,
-    the streamed one past it. `variant` forces one. Raises on a U no
-    variant takes."""
+    past U = 256 the resident recurrence (`_bwd_res_plan`) up to U = 512;
+    past it the grid-resident one (`_bwd_grid_plan`) where Rk comes in bf16
+    (`rk_bf16`) and it takes (D, B, U), else the streamed one. `variant`
+    forces one. Raises on a U no variant takes."""
+    if variant == _BWD_GRID or (variant is None and rk_bf16 and
+                                _bwd_grid_takes(d, b, u)):
+        if not _bwd_grid_takes(d, b, u):
+            raise ValueError(f"variant {variant} does not take U={u}, B={b}")
+        return _bwd_grid_plan(d, b, u)
     if _takes_streamed(u):
         if variant == _BWD_STREAM:
             return _stream_plan(BwdPlan, _BWD_STREAM, d, b, u)
@@ -543,16 +642,19 @@ def _check_cuda_bwd_args(x_proj, rec_kernel, rec_bias, hs, g):
 def _library() -> ctypes.CDLL:
     lib = kernels.load(_SOURCE)
     lib.seld_gru_fwd.argtypes = [ctypes.c_void_p] * 5 + \
-        [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
     lib.seld_gru_fwd.restype = ctypes.c_int
     lib.seld_gru_fwd_workspace_bytes.argtypes = [ctypes.c_int] * 4
     lib.seld_gru_fwd_workspace_bytes.restype = ctypes.c_size_t
+    lib.seld_gru_fwd_grid_blocks.argtypes = [ctypes.c_int] * 4 + \
+        [ctypes.POINTER(ctypes.c_int)]
+    lib.seld_gru_fwd_grid_blocks.restype = ctypes.c_int
     _declare_tables(lib, "seld_gru_fwd")
     return lib
 
 
 def _declare_tables(lib, prefix: str) -> None:
-    for name in ("variants", "stream_params", "resident"):
+    for name in ("variants", "stream_params", "resident", "grid"):
         fn = getattr(lib, f"{prefix}_{name}")
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
         fn.restype = ctypes.c_int
@@ -567,6 +669,34 @@ def _resident_table(fn) -> tuple:
     n = fn(buf, 64)
     return (tuple(tuple(buf[6 * i:6 * i + 6]) for i in range(n)),
             buf[6 * n])
+
+
+def grid_residency(plan, d: int, b: int, u: int, dtype) -> Tuple[int, int]:
+    """(CTAs the card holds at once, CTAs the launch needs) of a
+    grid-resident plan, read on the current card: blocks a SM times the
+    SMs. The kernels raise rather than launch where the first is short of
+    the second."""
+    out = ctypes.c_int(-1)
+    if isinstance(plan, FwdPlan):
+        lib = _library()
+        err = lib.seld_gru_fwd_grid_blocks(
+            d, b, u, int(dtype == torch.bfloat16), ctypes.byref(out))
+    else:
+        lib = _bwd_library()
+        err = lib.seld_gru_bwd_grid_blocks(d, b, u, ctypes.byref(out))
+    kernels.check(lib, err, "grid-resident occupancy")
+    return out.value * torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count, plan.ctas
+
+
+def library_grid() -> tuple:
+    """The grid-resident constants compiled into csrc/gru_fwd.cu and
+    gru_bwd.cu, each followed by its plan index, to hold (`_GRID_FWD`,
+    `_FWD_GRID`) and (`_GRID_BWD`, `_BWD_GRID`) against (loads both)."""
+    buf = (ctypes.c_int * 16)()
+    fwd = tuple(buf[:_library().seld_gru_fwd_grid(buf, 16)])
+    bwd = tuple(buf[:_bwd_library().seld_gru_bwd_grid(buf, 16)])
+    return fwd, bwd
 
 
 def max_active_clusters(plan, d: int, b: int, u: int) -> int:
@@ -602,10 +732,14 @@ def library_variants() -> tuple:
 def _bwd_library() -> ctypes.CDLL:
     lib = kernels.load(_BWD_SOURCE)
     lib.seld_gru_bwd.argtypes = [ctypes.c_void_p] * 9 + \
-        [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_int] * 2 + \
+        [ctypes.c_void_p]
     lib.seld_gru_bwd.restype = ctypes.c_int
     lib.seld_gru_bwd_workspace_bytes.argtypes = [ctypes.c_int] * 4
     lib.seld_gru_bwd_workspace_bytes.restype = ctypes.c_size_t
+    lib.seld_gru_bwd_grid_blocks.argtypes = [ctypes.c_int] * 3 + \
+        [ctypes.POINTER(ctypes.c_int)]
+    lib.seld_gru_bwd_grid_blocks.restype = ctypes.c_int
     _declare_tables(lib, "seld_gru_bwd")
     return lib
 
@@ -628,7 +762,9 @@ def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
     d, t, b, k = x_proj.shape
     u = k // 3
     if plan is None:
-        plan = _fwd_plan(d, b, u)
+        plan = _fwd_plan(d, b, u, rk_bf16=rec_kernel.dtype == torch.bfloat16)
+    if plan.variant == _FWD_GRID and rec_kernel.dtype != torch.bfloat16:
+        raise TypeError("the grid-resident plan takes rec_kernel in bf16")
     dev = x_proj.get_device()
     if dev != torch.cuda.current_device():
         with torch.cuda.device(dev):
@@ -641,21 +777,29 @@ def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
     rb = rec_bias.float().contiguous()
     lib = _library()
     workspace = None
-    if plan.variant == _FWD_STREAM:
+    is_bf16 = int(x_proj.dtype == torch.bfloat16)
+    if plan.variant in (_FWD_STREAM, _FWD_GRID):
         # the streamed variant's f32 states, exchanged between a cluster's
-        # CTAs
+        # CTAs; the grid-resident one's step counters and state parts
         workspace = torch.empty(
             lib.seld_gru_fwd_workspace_bytes(d, b, u, plan.variant),
             dtype=torch.uint8, device=x_proj.device)
     err = lib.seld_gru_fwd(x_proj.data_ptr(), rk.data_ptr(), rb.data_ptr(),
                            hs.data_ptr(),
                            0 if workspace is None else workspace.data_ptr(),
-                           d, t, b, u,
-                           int(x_proj.dtype == torch.bfloat16), plan.variant,
-                           plan.c, plan.bt, kernels.current_stream(dev))
+                           d, t, b, u, is_bf16, plan.variant,
+                           plan.c, plan.bt, rec_kernel.data_ptr(),
+                           kernels.current_stream(dev))
     kernels.check(lib, err, "gru_fwd launch")
     kernels.count_launch("gru_scan")
     return hs
+
+
+def _tma_rows(a: torch.Tensor) -> torch.Tensor:
+    """`a` as the tensor-core passes read it: as it is where its rows (the
+    last dimension) are a multiple of 16 bytes, as TMA loads them, else an
+    f32 copy (a bf16 array with U % 8 == 4; U % 4 == 0 holds)."""
+    return a if a.shape[-1] * a.element_size() % 16 == 0 else a.float()
 
 
 def _gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, hs, g, plan=None):
@@ -664,13 +808,18 @@ def _gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, hs, g, plan=None):
     d, t, b, k = x_proj.shape
     u = k // 3
     if plan is None:
-        plan = _bwd_plan(d, b, u)
+        plan = _bwd_plan(d, b, u, rk_bf16=rec_kernel.dtype == torch.bfloat16)
+    if plan.variant == _BWD_GRID and rec_kernel.dtype != torch.bfloat16:
+        raise TypeError("the grid-resident plan takes rec_kernel in bf16")
     dev = x_proj.device
     dxp = torch.empty_like(x_proj)
     if dxp.numel() == 0:
         return (dxp, torch.zeros_like(rec_kernel), torch.zeros_like(rec_bias))
     rk = rec_kernel.float().contiguous()
     rb = rec_bias.float().contiguous()
+    # what the hp and dRk passes read: Rk and hs as they come, where TMA
+    # can load their rows
+    rk_pass, hs_pass = _tma_rows(rec_kernel), _tma_rows(hs)
     lib = _bwd_library()
     # scratch of the three passes (hp, then dhp, and the dRk partials; past
     # U = 256 the streamed recurrence's carry and Rk^T), laid out by
@@ -686,6 +835,10 @@ def _gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, hs, g, plan=None):
                                drk.data_ptr(), drb.data_ptr(), d, t, b, u,
                                int(x_proj.dtype == torch.bfloat16),
                                plan.variant, plan.c, plan.bt,
+                               rk_pass.data_ptr(),
+                               int(rk_pass.dtype == torch.bfloat16),
+                               hs_pass.data_ptr(),
+                               int(hs_pass.dtype == torch.bfloat16),
                                kernels.current_stream(dev.index))
     kernels.check(lib, err, "gru_bwd launch")
     kernels.count_launch("gru_scan_bwd")

@@ -3,7 +3,8 @@
 Each kernel is one `.cu` file under `seld_tpu_torch/csrc/` with a plain C
 interface. At first use it is compiled by nvcc for sm_90a into
 `build/kernels/` at the repository root, under a file name that carries a
-hash of the source (an edited source builds anew), and loaded with ctypes.
+hash of the source and of the headers beside it (an edited source or
+header builds anew), and loaded with ctypes.
 `build()` starts one nvcc per source, all at once, so a cold start pays for
 the slowest source only.
 
@@ -59,8 +60,13 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The built library of `source`, named by a hash of the source, the
+    headers beside it (csrc/*.cuh) and the flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
 

@@ -443,6 +443,15 @@ def test_variant_tables_equal_their_cuda_sources():
     assert _cuda_table("gru_fwd.cu", "kResident") == gru._FWD_RESIDENT
     assert _cuda_table("gru_bwd.cu", "kResident") == gru._BWD_RESIDENT
     assert _cuda_table("gru_bwd.cu", "kGroupUnits") == gru._GROUP_UNITS
+    # the grid-resident plans (a producer warp beside the consumers)
+    assert (_cuda_table("gru_fwd.cu", "kGridUnits"),
+            _cuda_table("gru_fwd.cu", "kGridConsumers") + 32,
+            _cuda_table("gru_fwd.cu", "kGridRows"),
+            _cuda_table("gru_fwd.cu", "kGridParts")) == gru._GRID_FWD
+    assert tuple(_cuda_table("gru_bwd.cu", name) for name in (
+        "kGridSplit", "kGridUnits", "kGridConsumers", "kGridParts",
+        "kGridTiles", "kGridRows")) == \
+        gru._GRID_BWD[:2] + (gru._GRID_BWD[2] - 32,) + gru._GRID_BWD[3:]
 
 
 def _bwd_model(xp, rk, rb, hs, g):
