@@ -50,6 +50,7 @@ import torch
 from seld_tpu_torch.data.loader import cast_clips, window_clips
 from seld_tpu_torch.ops.gather import gather_batch
 from seld_tpu_torch.parallel.mesh import batch_shard_count
+from seld_tpu_torch.utils.profiling import span
 
 LAUNCHES_PER_BATCH = 1
 
@@ -137,8 +138,10 @@ class DeviceDataset:
     def epoch_index_matrix(self) -> torch.Tensor:
         """Write one epoch's [steps, B / n_shards] int32 matrix of this
         shard's rows into the dataset's buffer on the card (the same tensor
-        every epoch) and advance the shuffle."""
-        return self._idx.copy_(torch.from_numpy(self._epoch_order()))
+        every epoch) and advance the shuffle (the span
+        `seld.feed.epoch_index`: what an epoch waits on its feed)."""
+        with span("seld.feed.epoch_index"):
+            return self._idx.copy_(torch.from_numpy(self._epoch_order()))
 
     def __len__(self) -> int:
         return (self.shard_len * self.loop_time) // self.local_batch

@@ -14,6 +14,13 @@ only the sequence head; with `clip_batch > 1` it stacks equal-length
 clips. The scoring half (DCASE CSVs, the official metric, the threshold
 search) stays numpy on the host.
 
+Under a profiler (utils/profiling.py) a call is the span
+`seld.score.ensemble`, holding `seld.score.trunk` (the fast paths),
+`seld.score.windows` (a chunk's gather and forward) and
+`seld.score.overlap_add`; the counts `score.windows` (the windows the
+outputs need) and `score.window_rows` (the rows the windowed stage ran,
+padding included, over every rank of a mesh) give the share of useful rows.
+
 Over several cards (`mesh`, parallel/mesh.py: one process a card, every
 rank holding the same weights and the same clips) each padded chunk of
 windows is split over the `data` axis: a rank runs its `data_index`-th
@@ -41,6 +48,7 @@ from seld_tpu_torch.parallel import collectives
 from seld_tpu_torch.train.metrics import calculate_seld_score
 from seld_tpu_torch.train.official_metrics import SELDMetricsOfficial
 from seld_tpu_torch.utils import io
+from seld_tpu_torch.utils.profiling import count, span
 
 # per-class SED decision thresholds of the shipped submission
 # (make_answer.py:156)
@@ -77,14 +85,17 @@ def _chunked_windows_forward(source: torch.Tensor, twin: int, tstep: int,
     in chunks of `batch_size` and run `forward` on each chunk (the shared
     machinery of the exact and fast sliding-window paths)."""
     n_chunks = -(-n_win // batch_size)
+    count("score.windows", n_win)
+    count("score.window_rows", n_chunks * batch_size)
     win_idx = torch.arange(twin, device=source.device)
     rows = torch.arange(batch_size, device=source.device)
     seds, doas = [], []
     for chunk in range(n_chunks):
-        starts = (chunk * batch_size + rows) * tstep
-        # clamp so padded windows gather valid data (sliced off below)
-        starts = starts.clamp(max=source.shape[0] - twin)
-        sed, doa = forward(source[starts[:, None] + win_idx[None, :]])
+        with span("seld.score.windows"):
+            starts = (chunk * batch_size + rows) * tstep
+            # clamp so padded windows gather valid data (sliced off below)
+            starts = starts.clamp(max=source.shape[0] - twin)
+            sed, doa = forward(source[starts[:, None] + win_idx[None, :]])
         seds.append(sed)
         doas.append(doa)
     return torch.cat(seds)[:n_win], torch.cat(doas)[:n_win]
@@ -154,13 +165,14 @@ def _overlap_add_normalized(sed: torch.Tensor, doa: torch.Tensor,
             f"frame multiplier {multiplier} (win {win_size} -> {label_win} "
             f"label frames)")
     label_step = step_size // multiplier
-    # accumulate in f32 whatever the model's compute dtype: a frame receives
-    # up to win/step (= 60) overlapping contributions
-    sed, doa = sed.float(), doa.float()
-    counts = overlap_add(torch.ones((n_win, label_win, 1),
-                                    device=sed.device), label_step)
-    return (overlap_add(sed, label_step) / counts,
-            overlap_add(doa, label_step) / counts)
+    with span("seld.score.overlap_add"):
+        # accumulate in f32 whatever the model's compute dtype: a frame
+        # receives up to win/step (= 60) overlapping contributions
+        sed, doa = sed.float(), doa.float()
+        counts = overlap_add(torch.ones((n_win, label_win, 1),
+                                        device=sed.device), label_step)
+        return (overlap_add(sed, label_step) / counts,
+                overlap_add(doa, label_step) / counts)
 
 
 def _check_fast_geometry(win_size: int, step_size: int, time_down: int):
@@ -196,7 +208,8 @@ def _predict_clip_fast(apply: Callable, x: torch.Tensor, *, win_size: int,
     t_f = x.shape[0]
     _check_fast_geometry(win_size, step_size, time_down)
     n_win = (t_f - win_size) // step_size + 1
-    trunk = apply(x[None], stage="trunk")[0]
+    with span("seld.score.trunk"):
+        trunk = apply(x[None], stage="trunk")[0]
     if trunk.shape[0] != t_f // time_down:
         raise ValueError(
             f"time_down={time_down} does not match the model: a "
@@ -235,20 +248,24 @@ def _predict_clips_fast_batched(apply: Callable, xs: torch.Tensor, *,
     n, t_f = xs.shape[0], xs.shape[1]
     _check_fast_geometry(win_size, step_size, time_down)
     n_win = (t_f - win_size) // step_size + 1
-    trunks = apply(xs, stage="trunk")
+    with span("seld.score.trunk"):
+        trunks = apply(xs, stage="trunk")
     if trunks.shape[1] != t_f // time_down:
         raise ValueError(
             f"time_down={time_down} does not match the model: "
             f"{t_f}-frame clips produced {trunks.shape[1]} trunk frames "
             f"(expected {t_f // time_down})")
-    idx = _frame_index(n_win, win_size // time_down, step_size // time_down,
-                       trunks.device)
-    windows = trunks[:, idx]                           # [N, n_win, twin, ..]
-    flat = windows.reshape(n * n_win, *windows.shape[2:])
-    pad = (-flat.shape[0]) % (8 * _shards(mesh))
-    if pad:  # zero rows (not a slice of flat: flat may have < pad rows)
-        flat = torch.cat([flat, flat.new_zeros((pad, *flat.shape[1:]))])
-    sed, doa = _sharded(lambda w: apply(w, stage="head"), mesh)(flat)
+    with span("seld.score.windows"):
+        idx = _frame_index(n_win, win_size // time_down,
+                           step_size // time_down, trunks.device)
+        windows = trunks[:, idx]                       # [N, n_win, twin, ..]
+        flat = windows.reshape(n * n_win, *windows.shape[2:])
+        pad = (-flat.shape[0]) % (8 * _shards(mesh))
+        if pad:  # zero rows (not a slice of flat: flat may have < pad rows)
+            flat = torch.cat([flat, flat.new_zeros((pad, *flat.shape[1:]))])
+        count("score.windows", n * n_win)
+        count("score.window_rows", flat.shape[0])
+        sed, doa = _sharded(lambda w: apply(w, stage="head"), mesh)(flat)
     sed = sed[: n * n_win].reshape(n, n_win, *sed.shape[1:])
     doa = doa[: n * n_win].reshape(n, n_win, *doa.shape[1:])
     return [_overlap_add_normalized(s, d, win_size, step_size)
@@ -315,7 +332,7 @@ def ensemble_outputs(model: nn.Module, xs: Sequence,
     was_training = model.training
     model.eval()
     try:
-        with torch.inference_mode():
+        with span("seld.score.ensemble"), torch.inference_mode():
             return _ensemble_outputs(apply, xs, device, win_size, step_size,
                                      batch_size, fast, time_down, clip_batch,
                                      mesh)

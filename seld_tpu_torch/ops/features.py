@@ -32,6 +32,7 @@ from seld_tpu_torch.ops.mel import (amplitude_to_db, apply_melscale,
                                     mel_filterbank)
 from seld_tpu_torch.ops.stft import complex_spec
 from seld_tpu_torch.utils.coords import polar_to_cartesian
+from seld_tpu_torch.utils.profiling import span
 
 _PCM_SCALE = {torch.int16: 32768.0, torch.int32: 2147483648.0}
 FEATURE_CHANNELS = {"foa": 7, "mic": 10}
@@ -239,7 +240,8 @@ def calculate_statistics(features: np.ndarray
 
 
 def apply_normalizer(features, mean, std, eps: float = 1e-8):
-    if isinstance(features, torch.Tensor):
-        mean, std = torch.as_tensor(mean), torch.as_tensor(std)
-        return (features - mean) / torch.clamp_min(std, eps)
-    return (features - mean) / np.maximum(std, eps)
+    with span("seld.score.normalize"):
+        if isinstance(features, torch.Tensor):
+            mean, std = torch.as_tensor(mean), torch.as_tensor(std)
+            return (features - mean) / torch.clamp_min(std, eps)
+        return (features - mean) / np.maximum(std, eps)

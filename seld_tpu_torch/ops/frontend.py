@@ -29,6 +29,7 @@ import torch
 from seld_tpu_torch.ops import kernels
 from seld_tpu_torch.ops.mel import _mel_filterbank_np, amplitude_to_db
 from seld_tpu_torch.ops.stft import _dft_bases, _padded_window_np, reflect_pad
+from seld_tpu_torch.utils.profiling import span
 
 _SOURCE = "foa_frontend.cu"
 _N_FFT = 1024    # csrc/foa_frontend.cu: a 512-point complex FFT per frame
@@ -215,19 +216,21 @@ def fused_foa_frontend(wav: torch.Tensor,
                        eps: float = 1e-8) -> torch.Tensor:
     """[4, L] (or [n, 4, L]) float FOA wav -> [time, n_mels, 7] (or [n,
     ...]) features: 4 log-mel (dB, top_db 80, the floor per clip) + 3
-    mel-projected intensity vectors (extract_features parity)."""
+    mel-projected intensity vectors (extract_features parity). The span
+    `seld.score.frontend` under a profiler."""
     if wav.dim() < 2 or wav.shape[-2] != 4:
         raise ValueError("fused FOA frontend expects 4 input channels")
-    single = wav.dim() == 2
-    batch = wav.reshape(-1, 4, wav.shape[-1]).float()
-    padded = reflect_pad(batch, n_fft // 2).contiguous()
-    mel, iv = foa_frontend(padded, n_fft=n_fft, win_length=win_length,
-                           hop_length=hop_length, n_mels=n_mels,
-                           sample_rate=sample_rate, eps=eps)
-    mel_db = amplitude_to_db(mel, clip_dims=1)
-    features = torch.cat([mel_db, iv], dim=1).permute(0, 2, 3, 1)
-    return features[0] if single else features.reshape(
-        *wav.shape[:-2], *features.shape[1:])
+    with span("seld.score.frontend"):
+        single = wav.dim() == 2
+        batch = wav.reshape(-1, 4, wav.shape[-1]).float()
+        padded = reflect_pad(batch, n_fft // 2).contiguous()
+        mel, iv = foa_frontend(padded, n_fft=n_fft, win_length=win_length,
+                               hop_length=hop_length, n_mels=n_mels,
+                               sample_rate=sample_rate, eps=eps)
+        mel_db = amplitude_to_db(mel, clip_dims=1)
+        features = torch.cat([mel_db, iv], dim=1).permute(0, 2, 3, 1)
+        return features[0] if single else features.reshape(
+            *wav.shape[:-2], *features.shape[1:])
 
 
 # the JAX package's 2-D-block layout variant: the same function here

@@ -15,13 +15,12 @@ run is ceil(STEPS / k) calls, and every number below is per step.
   ms_per_step           host clock per step, without the profiler
   traced_ms_per_step    host clock per step under the profiler
   device_ms_per_step    summed device time of every kernel, copy and set
-  idle_share            1 - device time / ms_per_step: the share of a step
-                        the card waits on the host (eager dispatch); the
-                        kernels' device times do not change under the
-                        profiler, the host's time does. The script fails
-                        if the device time exceeds the step by more than
-                        OVERLAP_NOISE, which would mean device time was
-                        counted twice
+                        (two streams' overlap counted twice)
+  idle_share            1 - the union of the device's kernel, copy and set
+                        intervals / the traced run's wall time: the share
+                        of the traced run the card waits on the host, from
+                        that one run (utils/trace_analysis.py::idle_share;
+                        overlapping streams count once)
   port_kernels          ms per step and share of device time of each
                         hand-written kernel (gru_scan, gru_scan_bwd,
                         stem_dy, foa_frontend, gather_rows)
@@ -43,13 +42,10 @@ import torch
 
 from seld_tpu_torch.bench import (build, card_name_and_power_limit,
                                   steps_per_call_from_env, zoo_model)
-from seld_tpu_torch.utils.trace_analysis import PORT_KERNELS, _classify
+from seld_tpu_torch.utils.trace_analysis import (PORT_KERNELS, _classify,
+                                                 idle_share, profile_events)
 
 STEPS = 10            # steps per timed and per traced run
-# one stream runs the step's kernels one after another, so their summed
-# device time cannot exceed the host's step; past this share of it, the
-# trace double-counts
-OVERLAP_NOISE = 0.02
 
 
 def _device_us(avg) -> float:
@@ -106,11 +102,7 @@ def main(argv=None) -> None:
     port = {k: {"ms_per_step": groups.get(k, 0.0),
                 "share_of_device": groups.get(k, 0.0) / device_ms}
             for k in PORT_KERNELS}
-    idle_share = 1.0 - device_ms / ms_step
-    if idle_share < -OVERLAP_NOISE:
-        raise SystemExit(f"device time {device_ms:.3f} ms per step exceeds "
-                         f"the host's step {ms_step:.3f} ms: the trace "
-                         "counts some device time twice")
+    idle = idle_share(profile_events(prof), traced_ms * steps * 1e3)
     top = sorted(per_step.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
         "metric": "train_step_breakdown",
@@ -119,7 +111,7 @@ def main(argv=None) -> None:
         "ms_per_step": ms_step,
         "traced_ms_per_step": traced_ms,
         "device_ms_per_step": device_ms,
-        "idle_share": idle_share,
+        "idle_share": idle,
         "port_kernels": port,
         "groups": {k: groups.get(k, 0.0)
                    for k in ("gemm", "conv", "elementwise", "other")},

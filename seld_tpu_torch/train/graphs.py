@@ -31,6 +31,9 @@ call:
     again on each replay.
   - A capture that fails raises: on a CUDA tensor there is no eager
     fallback.
+  - Under a profiler each replay is the span `seld.train.replay` and the
+    warm-up and capture `seld.train.capture` (utils/profiling.py); the
+    body itself carries no span, which would run at the capture alone.
 
 `StepLoop(one_step, generators, device, unroll, capture)` runs a one-step
 body `steps` times a call: `unroll` steps to a graph, and the rest of a
@@ -45,6 +48,7 @@ from typing import Callable, Dict, Sequence
 import torch
 
 from seld_tpu_torch.ops import kernels
+from seld_tpu_torch.utils.profiling import span
 
 
 class StepGraph:
@@ -64,29 +68,31 @@ class StepGraph:
         elif self.graph is None:
             self._warm_up_and_capture()
         else:
-            self.graph.replay()
-            kernels.launch_counts.update(self.launches)
+            with span("seld.train.replay"):
+                self.graph.replay()
+                kernels.launch_counts.update(self.launches)
 
     def _warm_up_and_capture(self) -> None:
-        current = torch.cuda.current_stream(self.device)
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            self.body()
-        current.wait_stream(stream)
-
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
-        before = collections.Counter(kernels.launch_counts)
-        try:
-            with torch.cuda.graph(graph, stream=stream):
+        with span("seld.train.capture"):
+            current = torch.cuda.current_stream(self.device)
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
                 self.body()
-        finally:
-            captured = kernels.launch_counts - before
-            kernels.launch_counts.subtract(captured)
-        self.launches = captured
-        self.graph = graph
+            current.wait_stream(stream)
+
+            graph = torch.cuda.CUDAGraph()
+            for gen in self.generators:
+                graph.register_generator_state(gen)
+            before = collections.Counter(kernels.launch_counts)
+            try:
+                with torch.cuda.graph(graph, stream=stream):
+                    self.body()
+            finally:
+                captured = kernels.launch_counts - before
+                kernels.launch_counts.subtract(captured)
+            self.launches = captured
+            self.graph = graph
 
 
 class StepLoop:

@@ -52,6 +52,7 @@ from seld_tpu_torch.parallel import collectives
 from seld_tpu_torch.train import metrics as M
 from seld_tpu_torch.train.graphs import StepGraph, StepLoop
 from seld_tpu_torch.train.train_state import TrainState
+from seld_tpu_torch.utils.profiling import span
 
 
 def l2_kernel_penalty(params: Dict[str, torch.Tensor],
@@ -520,39 +521,40 @@ def make_train_epoch(*,
 
     def epoch(state: TrainState, metric_state, x_all, y_all, idx_all,
               aug_generator):
-        if idx_all.dim() != 2 or y_all.shape[-1] <= c:
-            raise ValueError(f"idx_all must be [steps, B] and y_all "
-                             f"[N, T, >{c}]; got {tuple(idx_all.shape)}, "
-                             f"{tuple(y_all.shape)}")
-        key = (_state_key(state), id(aug_generator),
-               tuple(sorted(metric_state)),
-               *[(_tensor_key(a), a.data_ptr())
-                 for a in (x_all, y_all, idx_all)])
-        if key not in live:
-            live.clear()
-            live[key] = build(state, x_all, y_all, idx_all, aug_generator,
-                              metric_state)
-        _, slots, loop, metric = live[key]
-        with torch.no_grad():
-            slots.counter.zero_()
-            if metric is not None:
-                for name, t in metric.items():
-                    t.copy_(metric_state[name])
-        steps = idx_all.shape[0]
-        loop.run(steps)
-        state.step += steps
-        b = slots.bufs
-        with torch.no_grad(), collectives.data_parallel(mesh):
-            if metric is not None:
-                metric_state = {k: v.clone() for k, v in metric.items()}
-            else:
-                metric_state = M.update_global(
-                    metric_state, (_fold(b["sed"]), _fold(b["doa"])),
-                    (_fold(b["sed_p"]), _fold(b["doa_p"])),
-                    doa_threshold=doa_threshold,
-                    block_size=metric_block_size)
-            losses = b["losses"].clone()
-        return state, metric_state, (losses[:, 0], losses[:, 1])
+        with span("seld.train.epoch"):
+            if idx_all.dim() != 2 or y_all.shape[-1] <= c:
+                raise ValueError(f"idx_all must be [steps, B] and y_all "
+                                 f"[N, T, >{c}]; got {tuple(idx_all.shape)}, "
+                                 f"{tuple(y_all.shape)}")
+            key = (_state_key(state), id(aug_generator),
+                   tuple(sorted(metric_state)),
+                   *[(_tensor_key(a), a.data_ptr())
+                     for a in (x_all, y_all, idx_all)])
+            if key not in live:
+                live.clear()
+                live[key] = build(state, x_all, y_all, idx_all, aug_generator,
+                                  metric_state)
+            _, slots, loop, metric = live[key]
+            with torch.no_grad():
+                slots.counter.zero_()
+                if metric is not None:
+                    for name, t in metric.items():
+                        t.copy_(metric_state[name])
+            steps = idx_all.shape[0]
+            loop.run(steps)
+            state.step += steps
+            b = slots.bufs
+            with torch.no_grad(), collectives.data_parallel(mesh):
+                if metric is not None:
+                    metric_state = {k: v.clone() for k, v in metric.items()}
+                else:
+                    metric_state = M.update_global(
+                        metric_state, (_fold(b["sed"]), _fold(b["doa"])),
+                        (_fold(b["sed_p"]), _fold(b["doa_p"])),
+                        doa_threshold=doa_threshold,
+                        block_size=metric_block_size)
+                losses = b["losses"].clone()
+            return state, metric_state, (losses[:, 0], losses[:, 1])
 
     epoch.release = live.clear
     return epoch

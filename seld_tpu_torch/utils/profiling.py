@@ -1,4 +1,5 @@
-"""Profiling and step timing (seld_tpu/utils/profiling.py).
+"""Profiling, spans and counters, and step timing
+(seld_tpu/utils/profiling.py).
 
 Usage:
     with trace("/tmp/torch-trace"):        # a Chrome trace of the card
@@ -10,6 +11,44 @@ Usage:
             state, *_ = step(state, ...)
     print(timer.summary())                 # p50/p90/mean wall times + rate
 
+Spans and counters. The program marks its layers with `span(name)` (a
+`torch.profiler.record_function` range) and counts work with
+`count(name, n)`. Both are on exactly while a torch.profiler profile
+records on the calling thread: under `trace()`, `profile_train --trace`,
+the benchmark's `--trace 1` or any `torch.profiler.profile` block. There is
+no other switch. Off, each costs one check (`span` returns one shared null
+context). On, a span is a host range of category `user_annotation` in the
+profiler's trace, on the clock of the card's kernels, nested in the span
+that encloses it on the same thread; a count adds to `counts`. A worker
+thread the profiler was not started on records nothing.
+
+  seld.train.epoch        one `make_train_epoch` call (train/steps.py):
+                          the host's time an epoch, its replays inside
+  seld.train.replay       one replay of a step's CUDA graph
+                          (train/graphs.py): how long the host stays in
+                          the launch, i.e. whether it runs ahead
+  seld.train.capture      a step graph's warm-up and capture: a graph built
+                          (again), e.g. after a TDM rebuild
+  seld.feed.epoch_index   `DeviceDataset.epoch_index_matrix`: the host
+                          shuffle and the index upload an epoch waits on
+  seld.score.frontend     `ops/frontend.py::fused_foa_frontend`
+  seld.score.normalize    `ops/features.py::apply_normalizer`
+  seld.score.ensemble     `inference/ensemble.py::ensemble_outputs`
+  seld.score.trunk        the fast paths' trunk over whole clips
+  seld.score.windows      one chunk's window gather and forward (the head's
+                          on the fast paths, padding included)
+  seld.score.overlap_add  a clip's overlap-add and normalisation
+
+  counts["score.windows"]      windows the outputs need (n_win a clip)
+  counts["score.window_rows"]  rows the windowed model stage ran, padding
+                               included: their ratio is the share of
+                               useful rows
+
+No span sits inside a captured step body: it would run at the capture
+and never at a replay, so a graph's device split is read from its
+kernels. `ops/kernels.py::launch_counts` is the always-on proof that a
+hand-written kernel ran, not a trace counter.
+
 The JAX package's `enable_compilation_cache` (XLA's persistent compile
 cache) and `configure_fast_rng` (XLA's rbg PRNG) have no PyTorch
 counterpart: the port compiles its kernels once a machine into build/
@@ -18,8 +57,10 @@ ported.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import threading
 import time
 from typing import Dict, Optional
 
@@ -27,6 +68,32 @@ import numpy as np
 import torch
 
 TRACE_FILE = "trace.json"
+
+# what `count` adds to while a profiler records; `trace()` clears it
+counts: collections.Counter = collections.Counter()
+_counts_lock = threading.Lock()
+_NULL_SPAN = contextlib.nullcontext()
+_recording = torch.autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context manager marking `name` on the profiler's timeline: a
+    `torch.profiler.record_function` while a profiler records on this
+    thread, else one shared null context (no allocation, nothing
+    recorded)."""
+    if not _recording():
+        return _NULL_SPAN
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to `counts[name]` while a profiler records on this thread
+    (under a lock: the thread may be one of several), else nothing.
+    `trace()` clears `counts` on entry; under any other profiler they are
+    the counts of every profiled block since the process began."""
+    if _recording():
+        with _counts_lock:
+            counts[name] += n
 
 
 def host_fingerprint() -> str:
@@ -50,12 +117,15 @@ def host_fingerprint() -> str:
 def trace(logdir: str):
     """torch.profiler over the block (host and card), written as a Chrome
     trace `logdir/trace.json` (Perfetto, chrome://tracing,
-    utils/trace_analysis.py); yields the profiler."""
+    utils/trace_analysis.py); yields the profiler. The program's spans
+    and `counts` record inside it; `counts` is cleared on entry."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    with _counts_lock:
+        counts.clear()
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))

@@ -14,15 +14,19 @@ The JAX package groups XLA's ops by HLO opcode (fusion, convolution, dot,
 CUDA sources, named after the wrappers that launch them), library GEMMs
 (the JAX package's dots), convolutions (its convolutions), elementwise
 and reduction passes (most of what XLA fuses) and everything else.
-`profile_step` groups a step's device time with the same `_classify`.
+`profile_step` groups a step's device time with the same `_classify`, and
+takes its idle share from `idle_share`: 1 - the union of the device's
+kernel, copy and fill intervals over a traced window's wall time, so two
+streams that overlap count once.
 """
 from __future__ import annotations
 
 import glob
 import json
 import os
+import tempfile
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, List, Sequence, Tuple
 
 # the port's kernels by the prefixes of their CUDA function names
 PORT_KERNELS = {"gru_scan": ("gru_fwd_",),
@@ -38,6 +42,8 @@ ELEMENTWISE_WORDS = ("elementwise", "foreach", "multi_tensor", "reduce",
                      "aten::where", "aten::copy_", "aten::sum", "aten::mean")
 # trace event categories: the card's kernels, the host's operators
 DEVICE, HOST = "kernel", "cpu_op"
+# every category of work on the card: kernels, copies, fills
+DEVICE_CATS = (DEVICE, "gpu_memcpy", "gpu_memset")
 
 
 def _classify(name: str) -> str:
@@ -88,6 +94,41 @@ def analyze_trace(trace_dir: str, category: str = DEVICE) -> Dict:
                   for key, (us, cnt) in total.items()), reverse=True)
     return {"total_ms": ssum / 1e3, "n_events": n, "category": category,
             "ops": ops}
+
+
+def profile_events(prof) -> List[Dict]:
+    """The Chrome trace events of a finished `torch.profiler.profile`,
+    through a temporary file removed at once."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+
+
+def union(intervals: Sequence[Tuple[float, float]]
+          ) -> List[Tuple[float, float]]:
+    """Merged, sorted, disjoint intervals covering the same points."""
+    merged: List[List[float]] = []
+    for s, e in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return [(s, e) for s, e in merged]
+
+
+def idle_share(events: Sequence[Dict], window_us: float) -> float:
+    """1 - (the union of the device's kernel, copy and fill intervals among
+    a Chrome trace's `events`) / `window_us`, the traced window's wall
+    time in microseconds: the share of the window the card waits."""
+    busy = union([(float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0)))
+                  for ev in events if ev.get("ph") == "X"
+                  and ev.get("cat") in DEVICE_CATS])
+    return 1.0 - sum(e - s for s, e in busy) / window_us
 
 
 def format_report(report: Dict, top: int = 20) -> str:
