@@ -1,10 +1,12 @@
 """Sliding-window overlap-add inference (seld_tpu/inference/ensemble.py).
 
 Each full clip is framed into win=300-feature-frame windows at step=5, the
-windows go through the model in chunks of `batch_size`, and the per-window
-label-domain outputs are averaged back into one sequence by overlap-add
-normalised by window counts (the reference's trainv2.py:158-192 and
-make_answer.py:21-55).
+windows go through the model in as few chunks as `batch_size` allows, all
+of equal rows (at most `batch_size`, rounded up to a multiple of 8 a shard
+of the data axis: a 60-s clip's 541 windows at 512 run as 2 x 272 rows),
+and the per-window label-domain outputs are averaged back into one
+sequence by overlap-add normalised by window counts (the reference's
+trainv2.py:158-192 and make_answer.py:21-55).
 
 Everything runs on the model's device: the windows are gathered a chunk at
 a time by tensor indexing (the 60x-expanded tensor is never built) and the
@@ -22,12 +24,12 @@ outputs need) and `score.window_rows` (the rows the windowed stage ran,
 padding included, over every rank of a mesh) give the share of useful rows.
 
 Over several cards (`mesh`, parallel/mesh.py: one process a card, every
-rank holding the same weights and the same clips) each padded chunk of
-windows is split over the `data` axis: a rank runs its `data_index`-th
-slice and `collectives.gather_rows` puts the chunk back together in rank
-order, so every rank returns every clip's full result. The fast path runs
-the trunk whole on every rank (it is time-local and cheap) and splits only
-the head's window batch. Without a process group nothing is split or
+rank holding the same weights and the same clips) each chunk of windows
+is split over the `data` axis: a rank runs its `data_index`-th slice and
+`collectives.gather_rows` puts the chunk back together in rank order, so
+every rank returns every clip's full result. The fast path runs the
+trunk whole on every rank (it is time-local and cheap) and splits only the
+head's window batch. Without a process group nothing is split or
 communicated.
 
 `model` is any SELD model of models.build_model (the fast path: a
@@ -79,20 +81,38 @@ def overlap_add(frames: torch.Tensor, step: int = 1) -> torch.Tensor:
     return out.index_add_(len(lead), idx, frames.reshape(*lead, n * l, c))
 
 
-def _chunked_windows_forward(source: torch.Tensor, twin: int, tstep: int,
-                             n_win: int, batch_size: int, forward):
-    """Gather [twin]-frame windows of `source` ([T, ...]) at stride `tstep`
-    in chunks of `batch_size` and run `forward` on each chunk (the shared
-    machinery of the exact and fast sliding-window paths)."""
+def _chunk_plan(n_win: int, batch_size: int, shards: int
+                ) -> Tuple[int, int]:
+    """(chunks, rows a chunk) for `n_win` windows in chunks of at most
+    `batch_size` rows: as few chunks as `batch_size` allows, each of the
+    same rows (one shape a clip length), rounded up to a multiple of 8 a
+    shard of the data axis (`shards` ways) so that a chunk splits evenly
+    over it. A `batch_size` the axis does not divide raises, on every rank
+    alike, before any collective."""
+    if batch_size % shards:
+        raise ValueError(f"a batch of {batch_size} windows does not shard "
+                         f"evenly over the {shards}-way data axis")
     n_chunks = -(-n_win // batch_size)
+    pad_to = 8 * shards
+    rows = -(-n_win // n_chunks)
+    return n_chunks, min(batch_size, -(-rows // pad_to) * pad_to)
+
+
+def _chunked_windows_forward(source: torch.Tensor, twin: int, tstep: int,
+                             n_win: int, batch_size: int, shards: int,
+                             forward):
+    """Gather [twin]-frame windows of `source` ([T, ...]) at stride `tstep`
+    in the chunks of `_chunk_plan` and run `forward` on each chunk (the
+    shared machinery of the exact and fast sliding-window paths)."""
+    n_chunks, n_rows = _chunk_plan(n_win, batch_size, shards)
     count("score.windows", n_win)
-    count("score.window_rows", n_chunks * batch_size)
+    count("score.window_rows", n_chunks * n_rows)
     win_idx = torch.arange(twin, device=source.device)
-    rows = torch.arange(batch_size, device=source.device)
+    rows = torch.arange(n_rows, device=source.device)
     seds, doas = [], []
     for chunk in range(n_chunks):
         with span("seld.score.windows"):
-            starts = (chunk * batch_size + rows) * tstep
+            starts = (chunk * n_rows + rows) * tstep
             # clamp so padded windows gather valid data (sliced off below)
             starts = starts.clamp(max=source.shape[0] - twin)
             sed, doa = forward(source[starts[:, None] + win_idx[None, :]])
@@ -119,21 +139,17 @@ def _data_ranks(mesh) -> List[int]:
 
 
 def _sharded(forward, mesh):
-    """`forward` on this rank's rows of a window batch, every rank's rows
-    gathered back in order (on every rank); `forward` itself without a
-    process group. A batch the `data` axis does not divide raises on every
-    rank alike, before any collective."""
+    """`forward` on this rank's rows of a window batch (a multiple of the
+    `data` axis's size: `_chunk_plan`'s chunks and the batched fast path's
+    padded batch are), every rank's rows gathered back in order (on every
+    rank); `forward` itself without a process group."""
     if mesh is None or not mesh.distributed:
         return forward
     n, i = mesh.data_size, mesh.data_index
     ranks = _data_ranks(mesh)
 
     def run(windows):
-        b = windows.shape[0]
-        if b % n:
-            raise ValueError(f"a batch of {b} windows does not shard evenly "
-                             f"over the {n}-way data axis")
-        rows = b // n
+        rows = windows.shape[0] // n
         sed, doa = forward(windows[i * rows:(i + 1) * rows])
         c = sed.shape[-1]
         # one collective for both heads, in f32 (what the overlap-add
@@ -188,7 +204,8 @@ def _predict_clip(apply: Callable, x: torch.Tensor, *, win_size: int,
     doa [T_l, 3C]); each chunk split over `mesh`'s data axis."""
     n_win = (x.shape[0] - win_size) // step_size + 1
     sed, doa = _chunked_windows_forward(x, win_size, step_size, n_win,
-                                        batch_size, _sharded(apply, mesh))
+                                        batch_size, _shards(mesh),
+                                        _sharded(apply, mesh))
     return _overlap_add_normalized(sed, doa, win_size, step_size)
 
 
@@ -225,12 +242,13 @@ def _predict_clip_fast(apply: Callable, x: torch.Tensor, *, win_size: int,
     # clip's windows in one chunk when they fit (a 60-s clip: 541 windows,
     # padded to 544), padded to a multiple of 8 a shard
     eff_batch = batch_size
+    shards = _shards(mesh)
     if n_win <= max(batch_size, 1024):
-        pad_to = 8 * _shards(mesh)
+        pad_to = 8 * shards
         eff_batch = -(-n_win // pad_to) * pad_to
     sed, doa = _chunked_windows_forward(
         trunk, win_size // time_down, step_size // time_down, n_win,
-        eff_batch, _sharded(head, mesh))
+        eff_batch, shards, _sharded(head, mesh))
     return _overlap_add_normalized(sed, doa, win_size, step_size)
 
 
@@ -306,6 +324,11 @@ def ensemble_outputs(model: nn.Module, xs: Sequence,
     the default and the parity baseline. clip_batch > 1 (with fast) stacks
     consecutive equal-length clips with all their windows in one head
     chunk.
+
+    A clip's windows run in ceil(n_win / batch_size) chunks of equal rows:
+    ceil(n_win / chunks) rounded up to a multiple of 8 x the data axis's
+    size, and at most `batch_size`; the rows past n_win are computed and
+    dropped. `batch_size` bounds a chunk and sets how many there are.
 
     `mesh` (parallel.mesh.make_mesh under a process group; every rank calls
     this with the same weights and clips) splits each window batch over

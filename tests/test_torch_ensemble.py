@@ -6,7 +6,8 @@ the same outputs and ground-truth CSVs.
 
 Setup: narrow SS5 (tests/test_torch_model.py::narrow_ss5) for [60, 16, 7]
 windows (12 label frames, trunk time stride 5), clips of 200 frames at
-win 60 / step 5 (29 windows; in chunks of 8 the last chunk is padded).
+win 60 / step 5 (29 windows; at batch_size 8 four chunks of 8 rows, the
+last holding 5 windows and 3 padded rows).
 Tolerance: 1e-5 abs / 1e-4 rel in f32 (the model test's); the split's
 trunk -> head against the full forward, 1e-6 abs; scores and searched
 thresholds exactly equal.
@@ -121,6 +122,47 @@ def test_ensemble_outputs_match_jax(pair, fast):
                                 batch_size=BATCH, fast=fast)
     assert tuple(got[0][0].shape) == (40, 12)
     assert tuple(got[0][1].shape) == (40, 36)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("n_win,batch_size,shards,plan", [
+    (541, 512, 1, (2, 272)),    # a 60-s clip: 544 rows, not 1,024
+    (29, 24, 1, (2, 16)),
+    (31, 24, 2, (2, 16)),
+    (31, 24, 3, (2, 24)),
+    (21, 8, 1, (3, 8)),
+    (1024, 512, 1, (2, 512)),   # n_win a multiple of batch_size
+    (29, 8, 1, (4, 8)),
+    (1, 512, 1, (1, 8)),
+    (5, 6, 2, (1, 6)),          # a batch_size under 8 a shard bounds rows
+])
+def test_the_chunk_plan(n_win, batch_size, shards, plan):
+    n_chunks, rows = tens._chunk_plan(n_win, batch_size, shards)
+    assert (n_chunks, rows) == plan
+    assert n_chunks == -(-n_win // batch_size)
+    assert rows <= batch_size and rows % shards == 0
+    assert n_chunks * rows >= n_win
+
+
+def test_the_chunk_plan_refuses_a_batch_the_axis_does_not_divide():
+    with pytest.raises(ValueError, match="a batch of 25 windows does not "
+                       "shard evenly over the 2-way data axis"):
+        tens._chunk_plan(31, 25, 2)
+
+
+def test_exact_path_runs_the_planned_rows_and_matches_jax(pair, tmp_path):
+    """29 windows at batch_size 24: two chunks of 16 rows (32 counted, not
+    2 x 24), the same outputs as the JAX package's padded chunks."""
+    from seld_tpu_torch.utils import profiling
+    jm, v, model = pair
+    clips = _clips(1, seed=13)
+    want = jens.ensemble_outputs(jm.apply, v, clips, win_size=WIN,
+                                 step_size=STEP, batch_size=24)
+    with profiling.trace(str(tmp_path)):
+        got = tens.ensemble_outputs(model, clips, win_size=WIN,
+                                    step_size=STEP, batch_size=24)
+        counts = dict(profiling.counts)
+    assert counts == {"score.windows": 29, "score.window_rows": 32}
     _close(got, want)
 
 

@@ -5,7 +5,7 @@ serving/server.py) against one rank and against the JAX package's sharded
 counterparts.
 
 The invariant: `ensemble_outputs(mesh=...)` on N ranks, each running its
-slice of every padded chunk of windows, returns on every rank what one
+slice of every chunk of windows, returns on every rank what one
 rank returns for the whole chunk; only the batch each library call sees
 differs. Five worker processes (this file run as a script: a gloo group of
 two CPU ranks and one of three) run every multi-rank scenario once; the
@@ -17,7 +17,8 @@ CPU, which exercises the split and the order of the rows without a card.
 Models: SS5 at full width and the tiny seldnet of
 tests/test_inference_trainer.py, for [50, 16, 7] windows (win_size 50,
 step_size 5), JAX's random variables carried across by bridge.py; three
-200-frame clips (31 windows: at batch 24 two chunks, the last padded).
+200-frame clips (31 windows: at batch 24 two chunks of 16 rows on one rank
+and on two, of 24 on three: a multiple of 8 a shard).
 Tolerances (f32): N ranks against one rank 1e-5 absolute; against JAX
 1e-5 absolute / 1e-4 relative (tests/test_torch_ensemble.py's); official
 scores 1e-6 relative; the ranks of a group equal bit for bit.
@@ -91,6 +92,15 @@ def score(models, case, mesh, batch_size=BATCH):
                             mesh=mesh, time_down=5, **kw)
 
 
+def score_counted(models, case, mesh, logdir):
+    """`score` under the port's profiler: (the outputs, the scorer's
+    counts)."""
+    from seld_tpu_torch.utils import profiling
+    with profiling.trace(logdir):
+        out = score(models, case, mesh)
+        return out, dict(profiling.counts)
+
+
 def _names():
     return [f"clip{i}" for i in range(len(_clips()))]
 
@@ -126,7 +136,11 @@ def _worker(rank, world, port, workdir):
     mesh = make_mesh("data:-1", "cpu")
     assert (mesh.world, mesh.rank, mesh.data_index) == (world, rank, rank)
     models = _models(workdir)
-    out = {case: score(models, case, mesh) for case in CASES}
+    out = {case: score(models, case, mesh) for case in CASES
+           if case != "ss5_exact"}
+    out["ss5_exact"], out["rows"] = score_counted(
+        models, "ss5_exact", mesh,
+        os.path.join(workdir, f"trace{world}_{rank}"))
     # data:1,model:N on the same group: every rank holds the whole batch
     replicas = Mesh(axes={"data": 1, "model": world}, world=world,
                     rank=rank, data_size=1, data_index=0,
@@ -194,7 +208,10 @@ def runs(tmp_path_factory):
             stderr=subprocess.STDOUT, text=True) for r in range(world)]
 
     models = _models(workdir)
-    one = {case: score(models, case, None) for case in CASES}
+    one = {case: score(models, case, None) for case in CASES
+           if case != "ss5_exact"}
+    one["ss5_exact"], one_rows = score_counted(
+        models, "ss5_exact", None, os.path.join(workdir, "trace1"))
     mesh8 = jax_make_mesh("data:8")
     jax_out = {}
     for case, (key, kw) in CASES.items():
@@ -213,7 +230,7 @@ def runs(tmp_path_factory):
                                  weights_only=False) for r in range(world)]
               for world in WORLDS}
     return {"groups": groups, "one": one, "jax": jax_out,
-            "one_eval": one_eval}
+            "one_eval": one_eval, "one_rows": one_rows}
 
 
 def _close(got, want, atol, rtol=0.0):
@@ -236,6 +253,19 @@ def test_sharded_scoring_equals_one_rank_and_jax(runs, world, case):
             assert torch.equal(a, c) and torch.equal(b, d)
     _close(ranks[0][case], runs["one"][case], RANK_ATOL)
     _close(ranks[0][case], runs["jax"][case], ATOL, RTOL)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_the_sharded_exact_path_runs_the_planned_rows(runs, world):
+    """Three clips of 31 windows at batch 24: two chunks of 16 rows a clip
+    on one rank and on two (32 rows, not 2 x 24), of 24 on three; the
+    counts are the whole chunks', alike on every rank."""
+    rows = {2: 32, 3: 48}[world]
+    assert runs["one_rows"] == {"score.windows": 93,
+                                "score.window_rows": 96}
+    for r in runs["groups"][world]:
+        assert r["rows"] == {"score.windows": 93,
+                             "score.window_rows": 3 * rows}
 
 
 @pytest.mark.parametrize("world", WORLDS)

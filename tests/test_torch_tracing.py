@@ -129,9 +129,10 @@ def test_a_traced_clip_holds_the_scorer_spans_and_counts(
                                           "seld.score.overlap_add",
                                           "seld.score.trunk")]
     assert all(_inside(o, ensemble[0]) for o in inner)
-    # 21 windows a clip; the exact path 3 chunks of 8 rows, the fast path
-    # one head chunk padded to 8, the batched path the clips' windows
-    # together padded to 8
+    # 21 windows a clip; the exact path the chunk plan's 3 chunks of 8
+    # rows (ceil(21 / 3) = 7 rows, rounded up to 8), the fast path one head
+    # chunk padded to 8, the batched path the clips' windows together
+    # padded to 8
     n_win = 21
     if not fast:
         rows, chunks = 3 * 8, 3
