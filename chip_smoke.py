@@ -9,7 +9,11 @@ Phases, one line each:
   3. kernels  each kernel against its plain PyTorch version on the card, in
               f32 and bf16 at its path's shapes, with its time, the plain
               version's time, its bound and one PyTorch library call's time
-              (none for stem_dy)
+              (none for stem_dy); batch_norm's four passes at SELDnet's
+              first BatchNorm, SS5's mother stage, the SS5 stem's
+              statistics and odd and mixed cases (the sums bit for bit),
+              each pass's device ms beside its bytes bound, the composed
+              chain's and cuDNN's forward + backward
   4. routes   the shapes the kernels do not take, on the card against the
               CPU through the composed routes, with no kernel launched: a
               biGRU at U=6 (B=8) and U=390 (B=3), FOA features at 40
@@ -38,7 +42,11 @@ Phases, one line each:
               (losses, every gradient, the updated parameters, the running
               statistics); (b) 20 bf16 steps at B=256 with dropout through
               seld_tpu_torch.bench's step: finite losses and exactly 2
-              gru_scan, 2 gru_scan_bwd and 1 stem_dy launches per step;
+              gru_scan, 2 gru_scan_bwd, 1 stem_dy and 29 batch_norm
+              launches per step (4 passes for each of 7 BatchNorms, the
+              stem's statistics; the other phases check the first five
+              kernels' launches and leave batch_norm's, which follow each
+              model's BatchNorms);
               (c) the fused single step (make_train_step(fuse_metrics=
               True): the update and the metric as one CUDA graph), 3 calls
               against 3 unfused steps from the same seed (losses, state,
@@ -340,6 +348,14 @@ TRAIN_NULL_GRAD = 1e-6
 TRAIN_PARAM_ATOL = 1e-6
 TRAIN_STATS_RTOL = 1e-5
 TRAIN_STEPS = 20
+# the kernels whose launches every phase checks exactly; batch_norm's
+# passes follow a model's train-mode BatchNorms (4 a BatchNorm and 1 a
+# fused stem a step) and are checked exactly where the model is SS5: 7
+# BatchNorms (4 in the mother stage, 3 in the dense stage) and the stem
+COUNTED = ("gru_scan", "gru_scan_bwd", "stem_dy", "foa_frontend",
+           "gather_rows")
+SS5_BN_LAUNCHES = 4 * 7 + 1
+SS5_COUNTED = COUNTED + ("batch_norm",)
 # [graph]: make_train_multistep(k=GRAPH_STEPS) against k eager steps from
 # the same seed, bf16, cuDNN's deterministic algorithms in both: the graph
 # replays the kernels the eager step launches, on the same values, with
@@ -1447,9 +1463,10 @@ def wide_step(card):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) / k * 1e3)
         losses += [sl, dl]
-    launches = {n: kernels.launch_counts[n] for n in kernels.KERNELS}
-    want = {n: {"gru_scan": 2, "gru_scan_bwd": 2, "stem_dy": 1}.get(n, 0)
-            * 3 * k for n in kernels.KERNELS}
+    launches = {n: kernels.launch_counts[n] for n in SS5_COUNTED}
+    want = {n: {"gru_scan": 2, "gru_scan_bwd": 2, "stem_dy": 1,
+                "batch_norm": SS5_BN_LAUNCHES}.get(n, 0)
+            * 3 * k for n in SS5_COUNTED}
 
     def call():
         multistep(state, metric, xs, ys)
@@ -1681,6 +1698,166 @@ def kernels_stem_dy(card):
             "yardstick_ms": stream_ms,
             "yardstick_device_ms": stream_device_ms,
             "dpooled_strides": list(dstride)}
+
+
+# batch_norm cases: (label, [..., C] shape, x dtype, params dtype); the
+# first three are the training cells' shapes (SELDnet's first BatchNorm,
+# SS5's mother stage, the SS5 stem's statistics over y), the rest the odd
+# and mixed cases (C = 3 takes the one-channel-a-thread plan; bf16 x with
+# f32 parameters gives an f32 y)
+BN_CASES = (("seldnet", (256, 300, 64, 64), "bfloat16", "bfloat16"),
+            ("ss5_stage", (256, 60, 11, 96), "bfloat16", "bfloat16"),
+            ("stem_stats", (256, 300, 64, 32), "bfloat16", None),
+            ("dense", (256, 60, 192), "float32", "float32"),
+            ("odd", (7, 13, 11, 3), "float32", "float32"),
+            ("mixed", (5, 9, 7, 32), "bfloat16", "float32"))
+# the passes against their plain versions on the card: the sums (passes 1
+# and 3) add in the same order with every step rounded alone, so they
+# agree bit for bit; the normalise and dx round an f32 value to the output
+# dtype on both sides, one rsqrt and one fused multiply-add apart (f32: a
+# few f32 steps of the largest element; bf16: one bf16 step)
+BN_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+
+
+def composed_batch_norm(x, scale, bias, eps=1e-3):
+    """The composed train-mode BatchNorm the port ran before the passes
+    (models/layers.py): f32 copy, two means, the normalise, the cast."""
+    import torch
+    xf = x.float()
+    dims = tuple(range(x.dim() - 1))
+    mean = xf.mean(dims)
+    var = xf.square().mean(dims) - mean.square()
+    inv = torch.rsqrt(var + eps) * scale.float()
+    out = torch.promote_types(x.dtype, scale.dtype)
+    return ((xf - mean) * inv + bias.float()).to(out)
+
+
+def kernels_batch_norm(card):
+    """The four train-mode BatchNorm passes of csrc/batch_norm.cu against
+    their plain versions on every BN_CASES case, then at SELDnet's first
+    BatchNorm each pass's device ms beside its bytes bound, the composed
+    chain's forward + backward and cuDNN's (F.batch_norm, a yardstick the
+    port never calls) in the same call."""
+    import torch
+    import torch.nn.functional as F
+    from seld_tpu_torch.ops import batch_norm as bn
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    timing = None
+    for label, shape, dtype, pdtype in BN_CASES:
+        dt = getattr(torch, dtype)
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 1.5
+             + torch.rand(c, generator=gen, device="cuda") * 4 - 2).to(dt)
+        x2 = x.view(-1, c)
+        sums = bn.batch_norm_stats(x2)
+        want_sums = bn.batch_norm_stats_ref(x2)
+        errs = {"sums": rel_err(sums, want_sums)}
+        equal = {"sums": torch.equal(sums, want_sums)}
+        if pdtype is not None:
+            pt = getattr(torch, pdtype)
+            scale = (1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+                     ).to(pt)
+            bias = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(pt)
+            n = x2.shape[0]
+            out = torch.promote_types(dt, pt)
+            y, mom = bn.batch_norm_apply(x2, sums, scale, bias, n, 1e-3, out)
+            want_y, want_mom = bn.batch_norm_apply_ref(x2, sums, scale, bias,
+                                                       n, 1e-3, out)
+            dy = torch.randn(y.shape, generator=gen, device="cuda").to(out)
+            dsums = bn.batch_norm_grad_sums(x2, dy, mom)
+            want_dsums = bn.batch_norm_grad_sums_ref(x2, dy, mom)
+            dx = bn.batch_norm_grad_apply(x2, dy, mom, scale, dsums, n)
+            want_dx = bn.batch_norm_grad_apply_ref(x2, dy, mom, scale, dsums,
+                                                   n)
+            errs.update(moments=rel_err(mom, want_mom), y=rel_err(y, want_y),
+                        grad_sums=rel_err(dsums, want_dsums),
+                        dx=rel_err(dx, want_dx))
+            equal["grad_sums"] = torch.equal(dsums, want_dsums)
+            tol = {"sums": 0.0, "grad_sums": 0.0, "moments": BN_TOL["float32"],
+                   "y": BN_TOL[str(out).split(".")[1]], "dx": BN_TOL[dtype]}
+            worst[dtype] = max(worst[dtype], errs["dx"], errs["y"])
+            if label == "seldnet":
+                timing = (x2, sums, scale, bias, y, mom, dy, dsums)
+        else:
+            tol = {"sums": 0.0}
+        torch.cuda.synchronize()
+        ok = all(errs[k] <= tol[k] for k in errs)
+        log("kernels", f"batch_norm {label} {list(shape)} {dtype}"
+                       f"{'' if pdtype is None else f' (params {pdtype})'} "
+                       f"vector path {bool(bn._vec(x2))}: rel_err "
+                       + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                       + "; bit for bit: "
+                       + ", ".join(f"{k} {v}" for k, v in equal.items())
+                       + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"batch_norm disagrees with its plain versions "
+                             f"at {label}")
+        del x, x2
+    x2, sums, scale, bias, y, mom, dy, dsums = timing
+    n = x2.shape[0]
+    passes = {
+        "stats": (lambda: bn.batch_norm_stats(x2), 1),
+        "apply": (lambda: bn.batch_norm_apply(x2, sums, scale, bias, n, 1e-3,
+                                              torch.bfloat16), 2),
+        "grad_sums": (lambda: bn.batch_norm_grad_sums(x2, dy, mom), 2),
+        "grad_apply": (lambda: bn.batch_norm_grad_apply(x2, dy, mom, scale,
+                                                        dsums, n), 3)}
+    xbytes = x2.numel() * x2.element_size()
+    timed, total_ms, total_bytes = {}, 0.0, 0
+    for name, (fn, tensors) in passes.items():
+        device_ms = graph_ms(fn, 10)
+        bound_ms, _ = bound(tensors * xbytes, 0)
+        timed[name] = {"ms": cuda_ms(fn, 10), "device_ms": device_ms,
+                       "bound_ms": bound_ms}
+        total_ms += device_ms
+        total_bytes += tensors * xbytes
+    split = kernel_split_ms(lambda: [fn() for fn, _ in passes.values()], 5,
+                            "batch_norm_")
+    total_bound, _ = bound(total_bytes, 0)
+    x4 = x2.view(256, 300, 64, 64)
+
+    def composed():
+        xg = x4.detach().requires_grad_(True)
+        s, b = (t.detach().requires_grad_(True) for t in (scale, bias))
+        composed_batch_norm(xg, s, b).backward(dy.view_as(x4))
+
+    def fused():
+        xg = x4.detach().requires_grad_(True)
+        s, b = (t.detach().requires_grad_(True) for t in (scale, bias))
+        bn.batch_norm_train(xg, s, b, 1e-3)[0].backward(dy.view_as(x4))
+
+    def cudnn():
+        xg = x4.movedim(-1, 1).detach().requires_grad_(True)
+        s, b = (t.float().detach().requires_grad_(True)
+                for t in (scale, bias))
+        F.batch_norm(xg, None, None, s, b, training=True,
+                     eps=1e-3).backward(dy.view_as(x4).movedim(-1, 1))
+    fused_ms = cuda_ms(fused, 5)
+    composed_ms = cuda_ms(composed, 3)
+    library_ms = cuda_ms(cudnn, 5)
+    share = 100 * total_bound / total_ms
+    log("kernels", f"batch_norm SELDnet's first BatchNorm [256,300,64,64] "
+                   f"bf16 on {card}, device ms a pass (bound at 3.35 TB/s): "
+                   + ", ".join(f"{k} {v['device_ms']:.4f} "
+                               f"({v['bound_ms']:.4f})"
+                               for k, v in timed.items())
+                   + f"; the four {total_ms:.4f} against {total_bound:.4f} "
+                   f"({share:.1f}% of the bytes bound; "
+                   f"{total_bytes / 1e9:.2f} GB); by kernel "
+                   f"{_split_text(split)}; forward + backward through the "
+                   f"autograd Function {fused_ms:.4f} ms, the composed "
+                   f"chain {composed_ms:.4f} ms, library_ms (cuDNN "
+                   f"F.batch_norm, channels-last) {library_ms:.4f}")
+    return {"name": "batch_norm", "route": "cuda",
+            "source": "seld_tpu_torch/csrc/batch_norm.cu",
+            "replaces": None, "launches": None,
+            "max_abs_err": worst["float32"],
+            "max_abs_err_bf16": worst["bfloat16"],
+            "ms": fused_ms, "plain_ms": composed_ms,
+            "bound_ms": total_bound, "bound_by": "bytes",
+            "library_ms": library_ms, "device_ms": total_ms,
+            "passes_ms": timed, "split_ms": split}
 
 
 def _tied_windows(y, p6, pool):
@@ -2284,13 +2461,14 @@ def phase_train(card):
         losses += [sl, dl]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: kernels.launch_counts[k] for k in kernels.KERNELS}
+    counts = {k: kernels.launch_counts[k] for k in SS5_COUNTED}
     finite = bool(torch.isfinite(torch.stack(losses)).all().item())
     ms_step = wall / TRAIN_STEPS * 1e3
     wps = TRAIN_STEPS * b.batch / wall
     mfu = wps * gflops_per_window(b.cfg) / 1e3 / H100_BF16_PEAK_TFLOPS
     want = {"gru_scan": 2 * TRAIN_STEPS, "gru_scan_bwd": 2 * TRAIN_STEPS,
-            "stem_dy": TRAIN_STEPS, "foa_frontend": 0, "gather_rows": 0}
+            "stem_dy": TRAIN_STEPS, "foa_frontend": 0, "gather_rows": 0,
+            "batch_norm": SS5_BN_LAUNCHES * TRAIN_STEPS}
     log("train", f"(b) SS5 full width bf16 B=256, {TRAIN_STEPS} steps with "
                  f"dropout: losses finite {finite} (first "
                  f"{losses[0].item():.4f}/{losses[1].item():.4f}, last "
@@ -2332,7 +2510,7 @@ def train_fused(card):
                                                      r.x, r.y)
                 losses[name] += [sl.item(), dl.item()]
             launches[name] = {k: kernels.launch_counts[k]
-                              for k in kernels.KERNELS}
+                              for k in SS5_COUNTED}
         f, u = runs["fused"], runs["unfused"]
         loss_err = _max_rel(losses["fused"], losses["unfused"])
         param_err, stats_err = _state_err(f.state, u.state)
@@ -2343,7 +2521,8 @@ def train_fused(card):
     finally:
         torch.backends.cudnn.deterministic = False
     want = {"gru_scan": 2 * FUSED_CALLS, "gru_scan_bwd": 2 * FUSED_CALLS,
-            "stem_dy": FUSED_CALLS, "foa_frontend": 0, "gather_rows": 0}
+            "stem_dy": FUSED_CALLS, "foa_frontend": 0, "gather_rows": 0,
+            "batch_norm": SS5_BN_LAUNCHES * FUSED_CALLS}
     ms = {"unfused": [], "fused": []}
     for name in ("unfused", "fused", "fused", "unfused"):
         r = runs[name]
@@ -2413,13 +2592,13 @@ def phase_graph(card):
     from seld_tpu_torch.bench import build
     from seld_tpu_torch.ops import kernels
     k, per_step = GRAPH_STEPS, {"gru_scan": 2, "gru_scan_bwd": 2,
-                                "stem_dy": 1}
+                                "stem_dy": 1, "batch_norm": SS5_BN_LAUNCHES}
 
     def want(steps):
-        return {n: per_step.get(n, 0) * steps for n in kernels.KERNELS}
+        return {n: per_step.get(n, 0) * steps for n in SS5_COUNTED}
 
     def counts():
-        return {n: kernels.launch_counts[n] for n in kernels.KERNELS}
+        return {n: kernels.launch_counts[n] for n in SS5_COUNTED}
 
     # (a) the same k batches through the graph and eagerly; cuDNN's
     # deterministic algorithms in both, so that the two run the same
@@ -2494,7 +2673,7 @@ def phase_graph(card):
     g.state, g.metric, _ = multistep(g.state, g.metric, xs, (sed, doa))
     n = GRAPH_CALLS * k
     ms = {"eager": [], "graph": []}
-    replays = {name: 0 for name in kernels.KERNELS}
+    replays = {name: 0 for name in SS5_COUNTED}
     for name in ("eager", "graph", "graph", "eager"):
         kernels.launch_counts.clear()
         ms[name].append(_step_ms(eager if name == "eager" else graphed, n))
@@ -2899,7 +3078,7 @@ def _feed_run(argv):
     kernels.launch_counts.clear()
     out = train_main([*argv, "--device", "cuda"])
     torch.cuda.synchronize()
-    return out, {k: kernels.launch_counts[k] for k in kernels.KERNELS}
+    return out, {k: kernels.launch_counts[k] for k in COUNTED}
 
 
 def _frontend_chunks(n_train, n_val, n_test, chunk=8):
@@ -3269,13 +3448,15 @@ def _gru_at_clip_shape(rng, b, card):
 
 
 def _counted(run):
-    """run() with the launch counts set to 0 before and read after."""
+    """run() with the launch counts set to 0 before and read after (the
+    COUNTED kernels')."""
     import torch
     from seld_tpu_torch.ops import kernels
     kernels.launch_counts.clear()
     out = run()
     torch.cuda.synchronize()
-    return out, dict(kernels.launch_counts)
+    return out, {k: v for k, v in kernels.launch_counts.items()
+                 if k in COUNTED}
 
 
 def phase_clip(card):
@@ -4126,8 +4307,9 @@ def nas_cli(card, root, results_dir):
         runs.append({"config": model_config,
                      "seconds": time.perf_counter() - t0,
                      "fit_seconds": timed.seconds,
-                     "counts": dict(collections.Counter(
-                         kernels.launch_counts) - before),
+                     "counts": {k: v for k, v in (collections.Counter(
+                         kernels.launch_counts) - before).items()
+                         if k in COUNTED},
                      "n_train": len(trainset), "n_eval": len(testset),
                      "batch": trainset.batch_size})
         return perf
@@ -4427,7 +4609,8 @@ def phase_vad(card):
         if search.n_done != 2 or not all(np.isfinite(aucs)):
             raise SystemExit(f"the VAD search gave {aucs}")
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
+    launches = {k: v for k, v in kernels.launch_counts.items()
+                if k in COUNTED}
     if launches:
         raise SystemExit(f"the VAD path launched {launches}")
     log("vad", "seconds by part: " + ", ".join(
@@ -4541,7 +4724,7 @@ def _zoo_bf16_run(model_name, cfg, batch, k=ZOO_STEPS):
         losses += [sl, dl]
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) / k * 1e3
-    eager = {n: kernels.launch_counts[n] for n in kernels.KERNELS}
+    eager = {n: kernels.launch_counts[n] for n in COUNTED}
     torch.cuda.empty_cache()      # the graph's pool allocates on its own
     multistep = make_train_multistep(steps_per_call=k, **b.step_kwargs)
     xs = b.x.unsqueeze(0).expand(k, *b.x.shape)
@@ -4555,7 +4738,7 @@ def _zoo_bf16_run(model_name, cfg, batch, k=ZOO_STEPS):
     torch.cuda.synchronize()
     graph_ms = (time.perf_counter() - t0) / k * 1e3
     losses += [sl, dl]
-    replays = {n: kernels.launch_counts[n] for n in kernels.KERNELS}
+    replays = {n: kernels.launch_counts[n] for n in COUNTED}
     finite = bool(torch.isfinite(torch.cat(
         [v.reshape(-1).float() for v in losses])).all())
     peak = (torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -4574,7 +4757,7 @@ def zoo_bf16(card):
         model_name, cfg = zoo_model(name)
         per_step = {"gru_scan": 2, "gru_scan_bwd": 2,
                     "stem_dy": int(model_name == "conv_temporal")}
-        want = {n: per_step.get(n, 0) * ZOO_STEPS for n in kernels.KERNELS}
+        want = {n: per_step.get(n, 0) * ZOO_STEPS for n in COUNTED}
         batch = ZOO_TRAIN_B
         eager_ms, graph_ms, eager, replays, finite, peak = _zoo_bf16_run(
             model_name, cfg, batch)
@@ -4844,7 +5027,7 @@ def blocks_bf16(card):
         gru = _row_gru_layers(row, train=True)
         per_step = {"gru_scan": gru, "gru_scan_bwd": gru, "stem_dy": 1}
         want = {n: per_step.get(n, 0) * BLOCKS_STEPS
-                for n in kernels.KERNELS}
+                for n in COUNTED}
         batch = ZOO_TRAIN_B
         eager_ms, graph_ms, eager, replays, finite, peak = _zoo_bf16_run(
             model_name, cfg, batch, BLOCKS_STEPS)
@@ -5016,7 +5199,7 @@ def _dp_run(device, mesh, batches):
     end = torch.cuda.Event(enable_timing=True)
     end.record()
     torch.cuda.synchronize()
-    counts = {k: kernels.launch_counts[k] for k in kernels.KERNELS}
+    counts = {k: kernels.launch_counts[k] for k in COUNTED}
     ms = marks[1].elapsed_time(end) / (len(marks) - 1)
     return {"losses": torch.stack(losses).cpu().numpy().tolist(),
             "before": before, "grads": dict(zip(b.state.params, first)),
@@ -5448,7 +5631,7 @@ def _infer_run(device, mesh):
         kernels.launch_counts.clear()
         got = run()
         torch.cuda.synchronize()
-        counts = {k: kernels.launch_counts[k] for k in kernels.KERNELS}
+        counts = {k: kernels.launch_counts[k] for k in COUNTED}
         times = []
         for _ in range(DP_INFER_REPS):
             t0 = time.perf_counter()
@@ -5772,7 +5955,7 @@ def _tp_run(device, mesh):
             "model_index": 0 if mesh is None else mesh.model_index,
             "stats": {k: v.float().cpu()
                       for k, v in b.state.batch_stats.items()},
-            "counts": {k: kernels.launch_counts[k] for k in kernels.KERNELS},
+            "counts": {k: kernels.launch_counts[k] for k in COUNTED},
             "ms": marks[1].elapsed_time(end) / (len(marks) - 1)}
 
 
@@ -5903,9 +6086,8 @@ SMOKE_STEPS, SMOKE_CHUNKS = 10, 3      # smoke.py: 41 windows, batch 16
 
 
 def _want(**counts):
-    """Launch counts of every kernel (0 where not given)."""
-    from seld_tpu_torch.ops import kernels
-    return {k: counts.get(k, 0) for k in kernels.KERNELS}
+    """Launch counts of every COUNTED kernel (0 where not given)."""
+    return {k: counts.get(k, 0) for k in COUNTED}
 
 
 def _launched(fn):
@@ -6270,7 +6452,7 @@ def main(argv=None):
     if kernels_only:
         failed = []
         for phase in (phase_sass, phase_kernels, phase_kernels_bwd,
-                      gru_wide, phase_kernels_feed):
+                      kernels_batch_norm, gru_wide, phase_kernels_feed):
             try:
                 phase(smi)
             except SystemExit as e:
@@ -6298,6 +6480,9 @@ def main(argv=None):
         return out
 
     entries = [timed(phase_kernels, smi)] + timed(phase_kernels_bwd, smi)
+    # batch_norm's launches follow each model's BatchNorms: its entry takes
+    # the SS5 phases' counts alone
+    bn_entry = timed(kernels_batch_norm, smi)
     entries[0]["wide"], entries[1]["wide"] = timed(gru_wide, smi)
     feed_entries = timed(phase_kernels_feed, smi)
     timed(phase_routes, smi)
@@ -6309,6 +6494,9 @@ def main(argv=None):
     for e in entries[1:]:
         e["launches"] = train_counts[e["name"]]
     graph_counts = timed(phase_graph, smi)
+    bn_entry.update(launches=train_counts["batch_norm"],
+                    graph_launches=graph_counts["batch_norm"],
+                    train_fused_launches=fused["launches"]["batch_norm"])
     feed_counts = timed(phase_feed, smi)
     for e in feed_entries:
         e["launches"] = feed_counts["eager"][e["name"]]
@@ -6398,6 +6586,7 @@ def main(argv=None):
     by_name["stem_dy"]["profile_train"] = tools["profile_train"]
 
     log("time", f"all phases {time.perf_counter() - t_start:.1f} s")
+    entries.append(bn_entry)
     entries[0]["phase_seconds"] = phase_seconds
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -17,7 +17,8 @@ Ported so far:
     evaluation, and `python -m seld_tpu_torch.{make_answer,search_best,
     bench_infer,dress_rehearsal}`.
 Every TPU kernel of those paths is a hand-written CUDA kernel for sm_90a
-(csrc/: gru_fwd, gru_bwd, stem_dy, foa_frontend, gather_rows); everything
-else is plain PyTorch. Entry points take a `device` argument that defaults
+(csrc/: gru_fwd, gru_bwd, stem_dy, foa_frontend, gather_rows), and so is
+train-mode BatchNorm (csrc/batch_norm.cu: the statistics, the normalise
+and their backward); everything else is plain PyTorch. Entry points take a `device` argument that defaults
 to "cuda"; the CPU is used only when the caller passes device="cpu".
 """

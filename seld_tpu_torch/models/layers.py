@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from seld_tpu_torch.ops.batch_norm import batch_norm_train
 from seld_tpu_torch.ops.dropout import dropout, keep_mask
 from seld_tpu_torch.parallel import collectives
 from seld_tpu_torch.ops.gru import (gru_forward, in_scan_order,
@@ -276,10 +277,12 @@ class BatchNorm(nn.Module):
     """BatchNorm with Keras defaults (momentum 0.99, epsilon 1e-3) over the
     last axis: f32 math, result cast back to the promoted input/param dtype.
     Training mode uses biased batch statistics and updates the running
-    stats as ra = m * ra + (1 - m) * batch. Inside a data-parallel step
-    (parallel/collectives.py) the statistics are the global batch's: the
-    sums of x and x^2 are all-reduced, E[x^2] - E[x]^2 over the global
-    count."""
+    stats as ra = m * ra + (1 - m) * batch; it runs as
+    `ops.batch_norm.batch_norm_train`, the hand-written passes of
+    csrc/batch_norm.cu on the card and their plain twins on the CPU. Inside
+    a data-parallel step (parallel/collectives.py) the statistics are the
+    global batch's: the sums of x and x^2 are all-reduced, E[x^2] - E[x]^2
+    over the global count."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3):
@@ -291,25 +294,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            if collectives.active() is None:
-                mean = xf.mean(dims)
-                var = xf.square().mean(dims) - mean.square()
-            else:
-                # data parallel: the global batch's sums, count and moments
-                sums = collectives.global_sum(
-                    torch.stack([xf.sum(dims), xf.square().sum(dims)]))
-                n = collectives.global_rows(xf.numel() // xf.shape[-1])
-                mean = sums[0] / n
-                var = sums[1] / n - mean.square()
-            self.update_running(mean, var)
-        else:
-            mean, var = self.mean, self.var
+            y, moments = batch_norm_train(x, self.scale, self.bias,
+                                          self.epsilon)
+            self.update_running(moments[0], moments[1])
+            return y
         out_dtype = torch.promote_types(x.dtype, self.scale.dtype)
-        inv = torch.rsqrt(var + self.epsilon) * self.scale.float()
-        y = (xf - mean) * inv + self.bias.float()
+        inv = torch.rsqrt(self.var + self.epsilon) * self.scale.float()
+        y = (x.float() - self.mean) * inv + self.bias.float()
         return y.to(out_dtype)
 
     @torch.no_grad()

@@ -3,8 +3,9 @@ pool, with a hand-scheduled backward (seld_tpu/ops/stem.py).
 
 The forward is the JAX `_forward` formula for formula: the SAME conv, then
 the bias added in the storage dtype; f32 batch statistics with the biased
-E[y^2] - E[y]^2; scale/shift cast to y's dtype (`stem_bwd.bn_affine`);
-bno = y * scale + shift; the pre-ReLU pool max m_bno is saved; pooled =
+E[y^2] - E[y]^2, from [sum y, sum y^2] (`ops.batch_norm.batch_norm_stats`,
+one read of y on the card); scale/shift cast to y's dtype
+(`stem_bwd.bn_affine`); bno = y * scale + shift; the pre-ReLU pool max m_bno is saved; pooled =
 relu(m_bno).
 
 The backward needs one full-resolution pass beyond the conv's own
@@ -47,6 +48,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from seld_tpu_torch.ops.batch_norm import batch_norm_stats
 from seld_tpu_torch.ops.stem_bwd import bn_affine, stem_dy
 from seld_tpu_torch.parallel import collectives
 
@@ -69,18 +71,14 @@ class _ConvBNReLUPool(torch.autograd.Function):
         w = kernel.permute(3, 2, 0, 1)                        # HWIO -> OIHW
         y = F.conv2d(x_pad, w) + bias.to(x.dtype)[:, None, None]
         b, c, t, f = y.shape
-        yf = y.float()
-        if collectives.active() is None:
-            mean = yf.mean(dim=(0, 2, 3))
-            var = yf.square().mean(dim=(0, 2, 3)) - mean.square()
-        else:
-            # data parallel: [sum y, sum y^2] over the global batch
-            sums = collectives.batch_reduce_(torch.stack(
-                [yf.sum(dim=(0, 2, 3)), yf.square().sum(dim=(0, 2, 3))]))
-            n = collectives.global_rows(b) * t * f
-            mean = sums[0] / n
-            var = sums[1] / n - mean.square()
-        del yf
+        # [sum y, sum y^2] in one read of y (batch_norm.cu's pass 1), over
+        # the global batch under data parallelism
+        sums = batch_norm_stats(y.movedim(1, -1).reshape(-1, c))
+        if collectives.active() is not None:
+            collectives.batch_reduce_(sums)
+        n = collectives.global_rows(b) * t * f
+        mean = sums[0] / n
+        var = sums[1] / n - mean.square()
         inv = torch.rsqrt(var + eps)
         scale, shift = bn_affine(mean, inv, gamma, beta, y.dtype)
         bno = y * scale[:, None, None] + shift[:, None, None]
@@ -96,7 +94,7 @@ class _ConvBNReLUPool(torch.autograd.Function):
         # not see this thread's data-parallel step
         ctx.dp = collectives.active() is not None
         ctx.group = collectives.batch_group()
-        ctx.n = collectives.global_rows(b) * t * f
+        ctx.n = n
         ctx.mark_non_differentiable(mean, var)
         return pooled.movedim(1, -1), mean, var
 

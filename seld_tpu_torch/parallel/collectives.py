@@ -8,8 +8,9 @@ Every rank takes part in every collective (the default group).
 
 `data_parallel(mesh)` marks the span of a step. Inside it, under a
 process group (`mesh.distributed`, of any size):
-  - `global_sum(t)` all-reduces t; its gradient is all-reduced too, since
-    every rank's loss reaches every rank's t (BatchNorm's sums);
+  - `batch_reduce_(t)` all-reduces t in place (BatchNorm's sums, forward
+    and backward, inside ops/batch_norm.py's and ops/stem.py's autograd
+    Functions);
   - `gather_rows(t)` stacks every rank's rows of t into the global batch
     (an all-reduce of a zero-filled buffer that holds this rank's rows in
     its slot); its gradient is the cotangent of this rank's slot. The
@@ -129,23 +130,6 @@ def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
     import torch.distributed as dist
     dist.broadcast(t, src)
     return t
-
-
-class _GlobalSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return all_reduce_(_fresh(t), group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_reduce_(_fresh(g), ctx.group), None
-
-
-def global_sum(t: torch.Tensor) -> torch.Tensor:
-    """t summed over the ranks of the active step's batch (t itself
-    outside one), differentiable."""
-    return t if active() is None else _GlobalSum.apply(t, batch_group())
 
 
 def _stack(t: torch.Tensor, dim: int, index: int, n: int, group):

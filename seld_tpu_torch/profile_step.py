@@ -23,7 +23,7 @@ run is ceil(STEPS / k) calls, and every number below is per step.
                         overlapping streams count once)
   port_kernels          ms per step and share of device time of each
                         hand-written kernel (gru_scan, gru_scan_bwd,
-                        stem_dy, foa_frontend, gather_rows)
+                        stem_dy, foa_frontend, gather_rows, batch_norm)
   groups                device ms per step of library GEMMs, convolutions,
                         elementwise and reduction passes, and everything
                         else (utils/trace_analysis.py's families)

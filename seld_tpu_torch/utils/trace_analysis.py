@@ -10,7 +10,7 @@ a trace viewer:
     print(format_report(report))
 
 The JAX package groups XLA's ops by HLO opcode (fusion, convolution, dot,
-...). The port's families are its own kernels (the five hand-written
+...). The port's families are its own kernels (the six hand-written
 CUDA sources, named after the wrappers that launch them), library GEMMs
 (the JAX package's dots), convolutions (its convolutions), elementwise
 and reduction passes (most of what XLA fuses) and everything else.
@@ -33,7 +33,8 @@ PORT_KERNELS = {"gru_scan": ("gru_fwd_",),
                 "gru_scan_bwd": ("gru_bwd_",),
                 "stem_dy": ("stem_dy_",),
                 "foa_frontend": ("foa_frontend_",),
-                "gather_rows": ("gather_rows_",)}
+                "gather_rows": ("gather_rows_",),
+                "batch_norm": ("batch_norm_",)}
 GEMM_WORDS = ("gemm", "xmma", "cutlass", "cublas", "matmul", "aten::mm",
               "aten::addmm", "aten::bmm")
 CONV_WORDS = ("conv", "cudnn", "implicit", "winograd", "wgrad", "dgrad")
