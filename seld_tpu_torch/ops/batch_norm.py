@@ -206,23 +206,16 @@ def _partials(x: torch.Tensor, vec: int) -> Tuple[int, torch.Tensor]:
                                device=x.device)
 
 
-def _run(fn, what: str, x: torch.Tensor, *args) -> None:
-    lib = _library()
-    with torch.cuda.device(x.device):
-        err = fn(*args, kernels.current_stream(x.device.index))
-    kernels.check(lib, err, what)
-    kernels.count_launch(_KERNEL)
-
-
 def _stats_cuda(x):
     _check(x)
     rows, c = x.shape
     sums = torch.empty((2, c), dtype=torch.float32, device=x.device)
     vec = _vec(x)
     blocks, partial = _partials(x, vec)
-    _run(_library().seld_batch_norm_stats, "batch_norm_stats launch", x,
-         x.data_ptr(), _is_bf16(x), rows, c, vec, blocks, partial.data_ptr(),
-         sums.data_ptr())
+    kernels.launch(_KERNEL, _library().seld_batch_norm_stats,
+                   "batch_norm_stats launch", x.get_device(), x.data_ptr(),
+                   _is_bf16(x), rows, c, vec, blocks, partial.data_ptr(),
+                   sums.data_ptr())
     return sums
 
 
@@ -233,10 +226,12 @@ def _apply_cuda(x, sums, scale, bias, n, eps, dtype):
     scale, bias = _params(c, x.device, scale, bias)
     y = torch.empty((rows, c), dtype=dtype, device=x.device)
     moments = torch.empty((3, c), dtype=torch.float32, device=x.device)
-    _run(_library().seld_batch_norm_apply, "batch_norm_apply launch", x,
-         x.data_ptr(), _is_bf16(x), y.data_ptr(), _is_bf16(y), rows, c,
-         _vec(x, y), sums.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-         _is_bf16(scale), float(n), float(eps), moments.data_ptr())
+    kernels.launch(_KERNEL, _library().seld_batch_norm_apply,
+                   "batch_norm_apply launch", x.get_device(), x.data_ptr(),
+                   _is_bf16(x), y.data_ptr(), _is_bf16(y), rows, c,
+                   _vec(x, y), sums.data_ptr(), scale.data_ptr(),
+                   bias.data_ptr(), _is_bf16(scale), float(n), float(eps),
+                   moments.data_ptr())
     return y, moments
 
 
@@ -249,10 +244,11 @@ def _grad_sums_cuda(x, dy, moments):
     dsums = torch.empty((2, c), dtype=torch.float32, device=x.device)
     vec = _vec(x, dy)
     blocks, partial = _partials(x, vec)
-    _run(_library().seld_batch_norm_grad_sums, "batch_norm_grad_sums launch",
-         x, x.data_ptr(), _is_bf16(x), dy.data_ptr(), _is_bf16(dy), rows, c,
-         vec, blocks, moments.data_ptr(), partial.data_ptr(),
-         dsums.data_ptr())
+    kernels.launch(_KERNEL, _library().seld_batch_norm_grad_sums,
+                   "batch_norm_grad_sums launch", x.get_device(),
+                   x.data_ptr(), _is_bf16(x), dy.data_ptr(), _is_bf16(dy),
+                   rows, c, vec, blocks, moments.data_ptr(),
+                   partial.data_ptr(), dsums.data_ptr())
     return dsums
 
 
@@ -265,11 +261,12 @@ def _grad_apply_cuda(x, dy, moments, scale, dsums, n):
     _f32(dsums, 2, c, "dsums")
     scale, = _params(c, x.device, scale)
     dx = torch.empty_like(x)
-    _run(_library().seld_batch_norm_grad_apply,
-         "batch_norm_grad_apply launch", x, x.data_ptr(), _is_bf16(x),
-         dy.data_ptr(), _is_bf16(dy), dx.data_ptr(), rows, c,
-         _vec(x, dy, dx), moments.data_ptr(), scale.data_ptr(),
-         _is_bf16(scale), dsums.data_ptr(), float(n))
+    kernels.launch(_KERNEL, _library().seld_batch_norm_grad_apply,
+                   "batch_norm_grad_apply launch", x.get_device(),
+                   x.data_ptr(), _is_bf16(x), dy.data_ptr(), _is_bf16(dy),
+                   dx.data_ptr(), rows, c, _vec(x, dy, dx),
+                   moments.data_ptr(), scale.data_ptr(), _is_bf16(scale),
+                   dsums.data_ptr(), float(n))
     return dx
 
 

@@ -169,16 +169,11 @@ def _foa_frontend_cuda(wav, n_fft, win_length, hop_length, n_mels,
                       device=wav.device)
     iv = torch.empty((n, 3, t, n_mels), dtype=torch.float32,
                      device=wav.device)
-    lib = _library()
-    with torch.cuda.device(wav.device):
-        stream = torch.cuda.current_stream(wav.device).cuda_stream
-        err = lib.seld_foa_frontend(
-            wav.data_ptr(), tables.window.data_ptr(),
-            tables.twiddles.data_ptr(), tables.fb_index.data_ptr(),
-            tables.fb_weights.data_ptr(), mel.data_ptr(), iv.data_ptr(), n,
-            lp, t, hop_length, eps, stream)
-    kernels.check(lib, err, "foa_frontend launch")
-    kernels.count_launch("foa_frontend")
+    kernels.launch("foa_frontend", _library().seld_foa_frontend,
+                   "foa_frontend launch", wav.get_device(), wav.data_ptr(),
+                   tables.window.data_ptr(), tables.twiddles.data_ptr(),
+                   tables.fb_index.data_ptr(), tables.fb_weights.data_ptr(),
+                   mel.data_ptr(), iv.data_ptr(), n, lp, t, hop_length, eps)
     return mel, iv
 
 

@@ -12,8 +12,9 @@ kernel does not clamp them, as XLA's gather would.
 
 The wrapper's host work is the call's cost for small rows (the labels'
 5.9 MB take 1.8 us at the card's memory rate), so it makes one combined
-check, reads the raw current stream without a device switch when the
-tensors lie on the current card, and never synchronises.
+check, launches through `kernels.launch` (the raw current stream, no
+device switch when the tensors lie on the current card) and never
+synchronises.
 
 `packed_rows`, `pack_rows` and `unpack_rows` copy the JAX package's packed
 [N, rp, 128] staging layout, so its packed case has a twin here; the
@@ -87,9 +88,6 @@ def _gather_batch_cuda(arrays, ids):
             and all(a.get_device() == dev and a.dim() >= 1
                     and a.is_contiguous() for a in arrays)):
         _raise_bad_args(arrays, ids)
-    if dev != torch.cuda.current_device():
-        with torch.cuda.device(dev):
-            return _gather_batch_cuda(arrays, ids)
     b = ids.shape[0]
     outs = tuple(a.new_empty((b,) + a.shape[1:]) for a in arrays)
     if b == 0:
@@ -101,11 +99,8 @@ def _gather_batch_cuda(arrays, ids):
         args += [a.data_ptr(), out.data_ptr(), row_bytes]
     if len(arrays) == 1:
         args += [None, None, 0]
-    lib = _library()
-    err = lib.seld_gather_batch(ids.data_ptr(), b, *args,
-                                kernels.current_stream(dev))
-    kernels.check(lib, err, "gather_rows launch")
-    kernels.count_launch("gather_rows")
+    kernels.launch("gather_rows", _library().seld_gather_batch,
+                   "gather_rows launch", dev, ids.data_ptr(), b, *args)
     return outs
 
 

@@ -765,10 +765,6 @@ def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
         plan = _fwd_plan(d, b, u, rk_bf16=rec_kernel.dtype == torch.bfloat16)
     if plan.variant == _FWD_GRID and rec_kernel.dtype != torch.bfloat16:
         raise TypeError("the grid-resident plan takes rec_kernel in bf16")
-    dev = x_proj.get_device()
-    if dev != torch.cuda.current_device():
-        with torch.cuda.device(dev):
-            return _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan)
     hs = torch.empty((d, t, b, u), dtype=x_proj.dtype, device=x_proj.device)
     if hs.numel() == 0:
         return hs
@@ -784,14 +780,12 @@ def _gru_scan_cuda(x_proj, rec_kernel, rec_bias, plan=None):
         workspace = torch.empty(
             lib.seld_gru_fwd_workspace_bytes(d, b, u, plan.variant),
             dtype=torch.uint8, device=x_proj.device)
-    err = lib.seld_gru_fwd(x_proj.data_ptr(), rk.data_ptr(), rb.data_ptr(),
-                           hs.data_ptr(),
-                           0 if workspace is None else workspace.data_ptr(),
-                           d, t, b, u, is_bf16, plan.variant,
-                           plan.c, plan.bt, rec_kernel.data_ptr(),
-                           kernels.current_stream(dev))
-    kernels.check(lib, err, "gru_fwd launch")
-    kernels.count_launch("gru_scan")
+    kernels.launch("gru_scan", lib.seld_gru_fwd, "gru_fwd launch",
+                   x_proj.get_device(), x_proj.data_ptr(), rk.data_ptr(),
+                   rb.data_ptr(), hs.data_ptr(),
+                   0 if workspace is None else workspace.data_ptr(),
+                   d, t, b, u, is_bf16, plan.variant, plan.c, plan.bt,
+                   rec_kernel.data_ptr())
     return hs
 
 
@@ -828,20 +822,15 @@ def _gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, hs, g, plan=None):
                             dtype=torch.uint8, device=dev)
     drk = torch.empty((d, u, k), dtype=torch.float32, device=dev)
     drb = torch.empty((d, k), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.seld_gru_bwd(x_proj.data_ptr(), rk.data_ptr(),
-                               rb.data_ptr(), hs.data_ptr(), g.data_ptr(),
-                               dxp.data_ptr(), workspace.data_ptr(),
-                               drk.data_ptr(), drb.data_ptr(), d, t, b, u,
-                               int(x_proj.dtype == torch.bfloat16),
-                               plan.variant, plan.c, plan.bt,
-                               rk_pass.data_ptr(),
-                               int(rk_pass.dtype == torch.bfloat16),
-                               hs_pass.data_ptr(),
-                               int(hs_pass.dtype == torch.bfloat16),
-                               kernels.current_stream(dev.index))
-    kernels.check(lib, err, "gru_bwd launch")
-    kernels.count_launch("gru_scan_bwd")
+    kernels.launch("gru_scan_bwd", lib.seld_gru_bwd, "gru_bwd launch",
+                   dev.index, x_proj.data_ptr(), rk.data_ptr(),
+                   rb.data_ptr(), hs.data_ptr(), g.data_ptr(),
+                   dxp.data_ptr(), workspace.data_ptr(), drk.data_ptr(),
+                   drb.data_ptr(), d, t, b, u,
+                   int(x_proj.dtype == torch.bfloat16), plan.variant,
+                   plan.c, plan.bt, rk_pass.data_ptr(),
+                   int(rk_pass.dtype == torch.bfloat16), hs_pass.data_ptr(),
+                   int(hs_pass.dtype == torch.bfloat16))
     return dxp, drk.to(rec_kernel.dtype), drb.to(rec_bias.dtype)
 
 

@@ -8,10 +8,14 @@ header builds anew), and loaded with ctypes.
 `build()` starts one nvcc per source, all at once, so a cold start pays for
 the slowest source only.
 
-Every wrapper adds one to `launch_counts[<kernel>]` where it launches its
-kernel, and nowhere else (`count_launch`, under a lock: worker threads that
-share a card, as the NAS search's run_parallel does, lose no count), so a
-run can show that it went through the kernel.
+Every op module declares its C entry points' argument types in its own
+`_library()` and launches them through `launch`, the one launch protocol:
+it appends the raw handle of the card's current stream, enters a device
+guard only where the card is not the current one, checks the returned
+CUDA error, and then adds one to `launch_counts[<kernel>]`. Nothing else
+counts (`count_launch`, under a lock: worker threads that share a card,
+as the NAS search's run_parallel does, lose no count), so a run can show
+that it went through the kernel.
 """
 from __future__ import annotations
 
@@ -130,3 +134,19 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.seld_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch(kernel: str, entry, what: str, device: int, *args) -> None:
+    """Launch `kernel` (a key of KERNELS) through its declared C entry
+    point: entry(*args, stream) on card `device`, `stream` the raw handle
+    of PyTorch's current stream there. A device guard is entered only where
+    that card is not the current one. A returned CUDA error raises, naming
+    `what`, and counts nothing; a launch that succeeded counts one."""
+    import torch
+    if device == torch.cuda.current_device():
+        err = entry(*args, current_stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = entry(*args, current_stream(device))
+    check(_libs[KERNELS[kernel]], err, what)
+    count_launch(kernel)

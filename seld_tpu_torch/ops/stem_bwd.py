@@ -167,19 +167,14 @@ def _stem_dy_cuda(y, dpooled, params6, pool, out):
     pt, pf = pool
     vec = _vector_path(y, pool) and out.data_ptr() % 16 == 0
     blocks = _blocks(y.shape, pool, vec, y.element_size())
-    lib = _library()
     # the blocks' dbias partial rows, then dbias itself
     work = torch.empty((blocks + 1, c), dtype=torch.float32, device=y.device)
-    with torch.cuda.device(y.device):
-        err = lib.seld_stem_dy(
-            y.data_ptr(), dpooled.data_ptr(), params6.data_ptr(),
-            out.data_ptr(), work.data_ptr(), work[blocks].data_ptr(),
-            b, t, f, c, pt, pf, *y.stride(), *dpooled.stride(),
-            int(y.dtype == torch.bfloat16),
-            int(dpooled.dtype == torch.bfloat16), int(vec),
-            blocks, kernels.current_stream(y.device.index))
-    kernels.check(lib, err, "stem_dy launch")
-    kernels.count_launch("stem_dy")
+    kernels.launch("stem_dy", _library().seld_stem_dy, "stem_dy launch",
+                   y.get_device(), y.data_ptr(), dpooled.data_ptr(),
+                   params6.data_ptr(), out.data_ptr(), work.data_ptr(),
+                   work[blocks].data_ptr(), b, t, f, c, pt, pf, *y.stride(),
+                   *dpooled.stride(), int(y.dtype == torch.bfloat16),
+                   int(dpooled.dtype == torch.bfloat16), int(vec), blocks)
     return out, work[blocks]
 
 

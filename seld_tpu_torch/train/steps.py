@@ -11,12 +11,15 @@ loss (bf16 copies through `torch.func.functional_call`), so gradients flow
 back through the cast to the f32 masters; the running statistics stay f32;
 predictions are upcast to f32 before the loss.
 
-`make_train_step` runs one step eagerly. `make_train_multistep` (k steps a
-call) and `make_train_epoch` (an epoch over a card-resident split) run
+`make_train_step` runs one step eagerly. One program (`_program`) runs
 the same update as a captured CUDA graph on a CUDA device and as a plain
 loop on the CPU (train/graphs.py): each step reads its batch at a
 device-side counter and writes its outputs there, so the graph holds no
-per-step value of the host.
+per-step value of the host. Three fronts feed it: `make_train_epoch`
+gathers each step's batch from a card-resident split, and
+`make_train_multistep` (k stacked batches a call) and
+`make_train_step(fuse_metrics=True)` (one batch, the metric inside) read
+it from the batches they stage.
 
 Data parallelism (`mesh=` of parallel/mesh.py under a process group):
 each rank holds its rows of the global batch, and a step on N ranks
@@ -50,7 +53,7 @@ import torch
 from seld_tpu_torch.ops.gather import gather_batch
 from seld_tpu_torch.parallel import collectives
 from seld_tpu_torch.train import metrics as M
-from seld_tpu_torch.train.graphs import StepGraph, StepLoop
+from seld_tpu_torch.train.graphs import StepLoop
 from seld_tpu_torch.train.train_state import TrainState
 from seld_tpu_torch.utils.profiling import span
 
@@ -206,17 +209,26 @@ def make_train_step(*,
     global batch's on every rank.
 
     With fuse_metrics=True (seld_tpu/train/steps.py:117-123, one jit of
-    the update and the metric) the metric update runs inside the step, and
-    on a CUDA device the whole step is one captured CUDA graph
+    the update and the metric) the metric update runs inside the step: the
+    step is the k-step call's front at k = 1 with the metric inside the
+    program, so on a CUDA device the whole step is one captured CUDA graph
     (train/graphs.py), replayed once a call: x, y and the metric state are
-    copied into the graph's buffers, the first call on a state warms up
+    copied into the program's buffers, the first call on a state warms up
     and captures. Its result equals the unfused step's. Under a gloo group
     it runs eagerly.
     """
     update = _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
                                compute_dtype, mesh)
     if fuse_metrics:
-        return _fused_step(update, mesh, doa_threshold, metric_block_size)
+        staged = _staged_front(update, mesh, 1, 1, True, doa_threshold,
+                               metric_block_size)
+
+        def fused(state: TrainState, metric_state, x, y):
+            state, metric_state, (sl, dl) = staged(
+                state, metric_state, x[None], (y[0][None], y[1][None]))
+            return state, metric_state, (sl[0], dl[0])
+
+        return fused
 
     def step(state: TrainState, metric_state, x, y):
         preds, losses = update(state, x, y)
@@ -230,67 +242,30 @@ def make_train_step(*,
     return step
 
 
-def _fused_step(update, mesh, doa_threshold, metric_block_size):
-    """`make_train_step(fuse_metrics=True)`'s step."""
-    live = {}      # the one program of the last signature
-
-    def build(state, x, y, metric_state):
-        bufs = {"x": torch.empty_like(x), "sed": torch.empty_like(y[0]),
-                "doa": torch.empty_like(y[1]),
-                "losses": torch.empty(2, device=x.device)}
-        metric = {k: torch.empty_like(v) for k, v in metric_state.items()}
-
-        def body():
-            yb = (bufs["sed"], bufs["doa"])
-            preds, (sl, dl) = update(state, bufs["x"], yb)
-            with torch.no_grad(), collectives.data_parallel(mesh):
-                new = M.update_global(metric, yb, preds,
-                                      doa_threshold=doa_threshold,
-                                      block_size=metric_block_size)
-                for name, t in metric.items():
-                    t.copy_(new[name])
-                bufs["losses"].copy_(torch.stack([sl, dl]))
-
-        graph = StepGraph(body, [state.generator], x.device,
-                          capture=_uses_graphs(mesh))
-        return state, bufs, metric, graph
-
-    def step(state: TrainState, metric_state, x, y):
-        key = (_state_key(state), _tensor_key(x), _tensor_key(y[0]),
-               _tensor_key(y[1]), tuple(sorted(metric_state)))
-        if key not in live:
-            live.clear()
-            live[key] = build(state, x, y, metric_state)
-        _, bufs, metric, graph = live[key]
-        with torch.no_grad():
-            bufs["x"].copy_(x)
-            bufs["sed"].copy_(y[0])
-            bufs["doa"].copy_(y[1])
-            for name, t in metric.items():
-                t.copy_(metric_state[name])
-        graph()
-        state.step += 1
-        losses = bufs["losses"].clone()
-        return (state, {k: v.clone() for k, v in metric.items()},
-                (losses[0], losses[1]))
-
-    return step
-
-
 def _fold(a: torch.Tensor) -> torch.Tensor:
     """[k, B, ...] -> [k*B, ...]"""
     return a.reshape(a.shape[0] * a.shape[1], *a.shape[2:])
 
 
 def _state_key(state: TrainState) -> tuple:
-    # the program that holds these ids keeps the objects alive, so an id
-    # is not reused while its entry exists
+    # the program that holds these ids (its step holds the state and its
+    # inputs) keeps the objects alive, so an id is not reused while its
+    # entry exists
     return id(state), id(state.model), id(state.optimizer), \
         id(state.generator)
 
 
 def _tensor_key(t: torch.Tensor) -> tuple:
     return tuple(t.shape), t.dtype, t.device
+
+
+def _input_key(a) -> tuple:
+    """A program input's part of its signature: a tensor's shape, dtype,
+    device and address (the program reads it where it lay at the
+    capture), any other object's id."""
+    if isinstance(a, torch.Tensor):
+        return _tensor_key(a), a.data_ptr()
+    return id(a),
 
 
 class _Slots:
@@ -315,6 +290,134 @@ class _Slots:
         return a.index_select(0, self.counter).squeeze(0)
 
 
+def _program(update, mesh, batch, *, fuse_metrics: bool,
+             doa_threshold: float, metric_block_size: int, unroll: int = 1):
+    """The one captured training program, which `make_train_epoch`,
+    `make_train_multistep` and `make_train_step(fuse_metrics=True)` front.
+
+    Returns run(state, metric_state, inputs, steps, labels, generators) ->
+    (state, metric_state, (sed_losses [steps], doa_losses [steps])): step
+    i's batch is `batch(row, *inputs)` -> (x, (sed, doa)), row(a) being
+    a[i] at the device-side counter i. With fuse_metrics the metric state
+    is updated inside every step; without, every step's labels (`labels`:
+    the (shape, dtype) of a step's sed and doa) and predictions go to
+    slots and ONE metric update folds them in after the last step.
+    `generators`: the inputs the batch draws from, registered with the
+    graph beside the state's. The steps run as `StepLoop`s of `unroll`
+    steps (train/graphs.py). The program is built once per signature (the
+    state, `steps`, the metric state's names, each input's `_input_key`);
+    another replaces it, and `run.release()` drops it.
+    """
+    capture = _uses_graphs(mesh)
+    live = {}      # the one program of the last signature
+
+    def build(state, metric_state, inputs, steps, labels, generators):
+        device = inputs[0].device
+        slots = _Slots(device, steps)
+        slots.alloc("losses", (2,), torch.float32)
+        if fuse_metrics:
+            metric = {k: torch.empty_like(v) for k, v in metric_state.items()}
+        else:
+            metric = None
+            for name, (shape, dtype) in zip(("sed", "doa"), labels):
+                slots.alloc(name, shape, dtype)
+                slots.alloc(f"{name}_p", shape, torch.float32)
+
+        def one_step():
+            x, y = batch(slots.row, *inputs)
+            preds, (sl, dl) = update(state, x, y)
+            with torch.no_grad(), collectives.data_parallel(mesh):
+                if fuse_metrics:
+                    new = M.update_global(metric, y, preds,
+                                          doa_threshold=doa_threshold,
+                                          block_size=metric_block_size)
+                    for name, t in metric.items():
+                        t.copy_(new[name])
+                else:
+                    slots.put("sed", y[0])
+                    slots.put("doa", y[1])
+                    slots.put("sed_p", preds[0])
+                    slots.put("doa_p", preds[1])
+                slots.put("losses", torch.stack([sl, dl]))
+                slots.counter.add_(1)
+
+        loop = StepLoop(one_step, [state.generator, *generators], device,
+                        unroll, capture=capture)
+        return slots, loop, metric
+
+    def run(state: TrainState, metric_state, inputs, steps: int,
+            labels=None, generators=()):
+        key = (_state_key(state), steps, tuple(sorted(metric_state)),
+               *map(_input_key, inputs))
+        if key not in live:
+            live.clear()
+            live[key] = build(state, metric_state, inputs, steps, labels,
+                              generators)
+        slots, loop, metric = live[key]
+        with torch.no_grad():
+            slots.counter.zero_()
+            if metric is not None:
+                for name, t in metric.items():
+                    t.copy_(metric_state[name])
+        loop.run(steps)
+        state.step += steps
+        b = slots.bufs
+        with torch.no_grad(), collectives.data_parallel(mesh):
+            if metric is not None:
+                metric_state = {k: v.clone() for k, v in metric.items()}
+            else:
+                metric_state = M.update_global(
+                    metric_state, (_fold(b["sed"]), _fold(b["doa"])),
+                    (_fold(b["sed_p"]), _fold(b["doa_p"])),
+                    doa_threshold=doa_threshold,
+                    block_size=metric_block_size)
+            losses = b["losses"].clone()
+        return state, metric_state, (losses[:, 0], losses[:, 1])
+
+    run.release = live.clear
+    return run
+
+
+def _staged_front(update, mesh, steps: int, unroll: int, fuse_metrics: bool,
+                  doa_threshold: float, metric_block_size: int):
+    """The program over `steps` = k batches a call, stacked: step(state,
+    metric_state, xs [k, B, ...], (sed [k, B, ...], doa [k, B, ...])) ->
+    (state, metric_state, (sed_losses [k], doa_losses [k])). The batches
+    are copied into staging buffers kept for their signature, and step i
+    reads row i of each (at k = 1 the one row, as a view)."""
+    def batch(row, xs, sed, doa):
+        if steps == 1:
+            return xs[0], (sed[0], doa[0])
+        return row(xs), (row(sed), row(doa))
+
+    program = _program(update, mesh, batch, fuse_metrics=fuse_metrics,
+                       doa_threshold=doa_threshold,
+                       metric_block_size=metric_block_size, unroll=unroll)
+    staged = {}    # the staging buffers of the last signature
+
+    def step(state: TrainState, metric_state, xs, ys):
+        arrays = (xs, *ys)
+        if any(a.shape[0] != steps for a in arrays):
+            got = ", ".join(str(tuple(a.shape)) for a in arrays)
+            raise ValueError(f"batches must be stacked [{steps}, B, ...]; "
+                             f"got {got}")
+        key = tuple(map(_tensor_key, arrays))
+        if key not in staged:
+            # the program over the old buffers goes first: one set is held
+            program.release()
+            staged.clear()
+            staged[key] = tuple(torch.empty(a.shape, dtype=a.dtype,
+                                            device=a.device) for a in arrays)
+        bufs = staged[key]
+        with torch.no_grad():
+            for buf, a in zip(bufs, arrays):
+                buf.copy_(a)
+        return program(state, metric_state, bufs, steps,
+                       [(a.shape[1:], a.dtype) for a in ys])
+
+    return step
+
+
 def make_train_multistep(*,
                          steps_per_call: int,
                          sed_loss_fn: Callable,
@@ -336,15 +439,17 @@ def make_train_multistep(*,
     batch, the dropout masks drawn from the state's generator in step
     order, so the generator ends where k single steps leave it.
 
-    On a CUDA device the steps run as a captured CUDA graph of `unroll`
-    steps, replayed over the k (train/graphs.py); the batches are copied
-    once a call into the graph's own [k, B, ...] buffers, and each step
-    reads its batch at a device-side counter. The first call on a state
-    warms up (its first `unroll` steps run eagerly) and captures. On the
-    CPU the same step body runs in a plain loop. `unroll` does not change
-    the result. `donate` is accepted for the JAX signature: the port
-    always updates the state in place. `mesh`: as `make_train_step`; under
-    a gloo group the steps run in the plain loop on any device.
+    It is a front of the epoch's program (`make_train_epoch` with
+    fuse_metrics=False and no augment): the batches are copied once a call
+    into staging buffers, and each step reads its batch there at a
+    device-side counter. On a CUDA device the steps run as a captured CUDA
+    graph of `unroll` steps, replayed over the k (train/graphs.py); the
+    first call on a state warms up (its first `unroll` steps run eagerly)
+    and captures. On the CPU the same step body runs in a plain loop.
+    `unroll` does not change the result. `donate` is accepted for the JAX
+    signature: the port always updates the state in place. `mesh`: as
+    `make_train_step`; under a gloo group the steps run in the plain loop
+    on any device.
 
     Returns step(state, metric_state, xs, ys) -> (state, metric_state,
     (sed_losses [k], doa_losses [k])).
@@ -353,63 +458,10 @@ def make_train_multistep(*,
         raise ValueError("steps_per_call must be >= 1")
     if not 1 <= int(unroll) <= steps_per_call:
         raise ValueError(f"unroll={unroll!r} must be in [1, steps_per_call]")
-    k, unroll = int(steps_per_call), int(unroll)
     update = _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
                                compute_dtype, mesh)
-    capture = _uses_graphs(mesh)
-    live = {}      # the one program of the last signature
-
-    def build(state, xs, sed, doa):
-        slots = _Slots(xs.device, k)
-        for name, a in (("x", xs), ("sed", sed), ("doa", doa)):
-            slots.alloc(name, a.shape[1:], a.dtype)
-        slots.alloc("sed_p", sed.shape[1:], torch.float32)
-        slots.alloc("doa_p", doa.shape[1:], torch.float32)
-        slots.alloc("losses", (2,), torch.float32)
-        b = slots.bufs
-
-        def one_step():
-            x = slots.row(b["x"])
-            y = (slots.row(b["sed"]), slots.row(b["doa"]))
-            (sp, dp), (sl, dl) = update(state, x, y)
-            slots.put("sed_p", sp)
-            slots.put("doa_p", dp)
-            slots.put("losses", torch.stack([sl, dl]))
-            slots.counter.add_(1)
-
-        loop = StepLoop(one_step, [state.generator], xs.device, unroll,
-                        capture=capture)
-        return state, slots, loop
-
-    def step(state: TrainState, metric_state, xs, ys):
-        sed, doa = ys
-        if xs.shape[0] != k or sed.shape[0] != k or doa.shape[0] != k:
-            raise ValueError(f"batches must be stacked [{k}, B, ...]; got "
-                             f"{tuple(xs.shape)}, {tuple(sed.shape)}, "
-                             f"{tuple(doa.shape)}")
-        key = (_state_key(state), _tensor_key(xs), _tensor_key(sed),
-               _tensor_key(doa))
-        if key not in live:
-            live.clear()
-            live[key] = build(state, xs, sed, doa)
-        _, slots, loop = live[key]
-        b = slots.bufs
-        with torch.no_grad():
-            b["x"].copy_(xs)
-            b["sed"].copy_(sed)
-            b["doa"].copy_(doa)
-            slots.counter.zero_()
-        loop.run(k)
-        state.step += k
-        with torch.no_grad(), collectives.data_parallel(mesh):
-            metric_state = M.update_global(
-                metric_state, (_fold(sed), _fold(doa)),
-                (_fold(b["sed_p"]), _fold(b["doa_p"])),
-                doa_threshold=doa_threshold, block_size=metric_block_size)
-            losses = b["losses"].clone()
-        return state, metric_state, (losses[:, 0], losses[:, 1])
-
-    return step
+    return _staged_front(update, mesh, int(steps_per_call), int(unroll),
+                         False, doa_threshold, metric_block_size)
 
 
 def make_train_epoch(*,
@@ -432,16 +484,17 @@ def make_train_epoch(*,
     Companion to `data.device_dataset.DeviceDataset`: the windowed split
     (x_all [N, ...], y_all [N, T, 4C], sed and doa labels side by side)
     and the epoch's index matrix (idx_all [steps, B] int32) already lie on
-    the card. Each step reads its row of idx_all at a device-side counter,
-    gathers its batch with `gather_batch` (the gather_rows kernel), applies
-    `augment_fn(generator, x, y)`, splits the labels at `n_classes` and
-    runs the update. On a CUDA device that step is a captured CUDA graph,
-    replayed `steps` times (train/graphs.py): the host's work a step is one
-    replay. The graph is captured once per signature (shapes, dtypes, the
-    state, the generator and the addresses of x_all, y_all and idx_all),
-    so an epoch over the same buffers with new ids in idx_all replays it
-    again; the first step of the first epoch is its warm-up and runs
-    eagerly. On the CPU the same step body runs in a plain loop.
+    the card. Each step of the program (`_program`) reads its row of
+    idx_all at a device-side counter, gathers its batch with
+    `gather_batch` (the gather_rows kernel), applies `augment_fn(generator,
+    x, y)`, splits the labels at `n_classes` and runs the update. On a
+    CUDA device that step is a captured CUDA graph, replayed `steps` times
+    (train/graphs.py): the host's work a step is one replay. The graph is
+    captured once per signature (shapes, dtypes, the state, the generator
+    and the addresses of x_all, y_all and idx_all), so an epoch over the
+    same buffers with new ids in idx_all replays it again; the first step
+    of the first epoch is its warm-up and runs eagerly. On the CPU the
+    same step body runs in a plain loop.
 
     The program holds the split it was captured over (its closure refers
     to x_all, y_all and idx_all) until another signature replaces it or
@@ -476,48 +529,18 @@ def make_train_epoch(*,
     """
     update = _make_update_step(sed_loss_fn, doa_loss_fn, loss_weights, l2,
                                compute_dtype, mesh)
-    capture = _uses_graphs(mesh)
     c = n_classes
-    live = {}      # the one program of the last signature
 
-    def build(state, x_all, y_all, idx_all, aug_generator, metric_state):
-        steps, batch = idx_all.shape
-        slots = _Slots(x_all.device, steps)
-        slots.alloc("losses", (2,), torch.float32)
-        if fuse_metrics:
-            metric = {k: torch.empty_like(v) for k, v in metric_state.items()}
-        else:
-            metric = None
-            lead = (batch, *y_all.shape[1:-1])
-            for name, width in (("sed", c), ("doa", y_all.shape[-1] - c)):
-                slots.alloc(name, (*lead, width), y_all.dtype)
-                slots.alloc(f"{name}_p", (*lead, width), torch.float32)
+    def batch(row, x_all, y_all, idx_all, aug_generator):
+        xb, yb = gather_batch((x_all, y_all), row(idx_all))
+        if augment_fn is not None:
+            with collectives.data_parallel(mesh):
+                xb, yb = augment_fn(aug_generator, xb, yb)
+        return xb, (yb[..., :c], yb[..., c:])
 
-        def one_step():
-            xb, yb = gather_batch((x_all, y_all), slots.row(idx_all))
-            if augment_fn is not None:
-                with collectives.data_parallel(mesh):
-                    xb, yb = augment_fn(aug_generator, xb, yb)
-            y = (yb[..., :c], yb[..., c:])
-            preds, (sl, dl) = update(state, xb, y)
-            with torch.no_grad(), collectives.data_parallel(mesh):
-                if fuse_metrics:
-                    new = M.update_global(metric, y, preds,
-                                          doa_threshold=doa_threshold,
-                                          block_size=metric_block_size)
-                    for name, t in metric.items():
-                        t.copy_(new[name])
-                else:
-                    slots.put("sed", y[0])
-                    slots.put("doa", y[1])
-                    slots.put("sed_p", preds[0])
-                    slots.put("doa_p", preds[1])
-                slots.put("losses", torch.stack([sl, dl]))
-                slots.counter.add_(1)
-
-        gens = [state.generator] + ([aug_generator] if augment_fn else [])
-        loop = StepLoop(one_step, gens, x_all.device, capture=capture)
-        return (state, aug_generator), slots, loop, metric
+    program = _program(update, mesh, batch, fuse_metrics=fuse_metrics,
+                       doa_threshold=doa_threshold,
+                       metric_block_size=metric_block_size)
 
     def epoch(state: TrainState, metric_state, x_all, y_all, idx_all,
               aug_generator):
@@ -526,37 +549,15 @@ def make_train_epoch(*,
                 raise ValueError(f"idx_all must be [steps, B] and y_all "
                                  f"[N, T, >{c}]; got {tuple(idx_all.shape)}, "
                                  f"{tuple(y_all.shape)}")
-            key = (_state_key(state), id(aug_generator),
-                   tuple(sorted(metric_state)),
-                   *[(_tensor_key(a), a.data_ptr())
-                     for a in (x_all, y_all, idx_all)])
-            if key not in live:
-                live.clear()
-                live[key] = build(state, x_all, y_all, idx_all, aug_generator,
-                                  metric_state)
-            _, slots, loop, metric = live[key]
-            with torch.no_grad():
-                slots.counter.zero_()
-                if metric is not None:
-                    for name, t in metric.items():
-                        t.copy_(metric_state[name])
-            steps = idx_all.shape[0]
-            loop.run(steps)
-            state.step += steps
-            b = slots.bufs
-            with torch.no_grad(), collectives.data_parallel(mesh):
-                if metric is not None:
-                    metric_state = {k: v.clone() for k, v in metric.items()}
-                else:
-                    metric_state = M.update_global(
-                        metric_state, (_fold(b["sed"]), _fold(b["doa"])),
-                        (_fold(b["sed_p"]), _fold(b["doa_p"])),
-                        doa_threshold=doa_threshold,
-                        block_size=metric_block_size)
-                losses = b["losses"].clone()
-            return state, metric_state, (losses[:, 0], losses[:, 1])
+            steps, rows = idx_all.shape
+            lead = (rows, *y_all.shape[1:-1])
+            labels = [((*lead, c), y_all.dtype),
+                      ((*lead, y_all.shape[-1] - c), y_all.dtype)]
+            return program(state, metric_state,
+                           (x_all, y_all, idx_all, aug_generator), steps,
+                           labels, (aug_generator,) if augment_fn else ())
 
-    epoch.release = live.clear
+    epoch.release = program.release
     return epoch
 
 

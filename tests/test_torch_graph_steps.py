@@ -1,7 +1,8 @@
 """The port's multi-step and whole-epoch training steps
-(seld_tpu_torch/train/steps.py: `make_train_multistep`, `make_train_epoch`,
-run by train/graphs.py) against the JAX package's on the same weights and
-batches, and against the port's own eager steps with dropout and augments
+(seld_tpu_torch/train/steps.py: `make_train_multistep`, `make_train_epoch`
+and the fused single step, fronts of one program run by train/graphs.py)
+against the JAX package's on the same weights and batches, against each
+other, and against the port's own eager steps with dropout and augments
 on.
 
 On the CPU the step body runs in a plain loop, as it does whenever the
@@ -298,6 +299,46 @@ def test_fused_single_step_equals_the_unfused_step(dtype):
     _, _, after_a = plain(a, ma, xs[0], (sed[0], doa[0]))
     _, _, after_b = plain(b, mb, xs[0], (sed[0], doa[0]))
     assert torch.equal(torch.stack(after_a), torch.stack(after_b))
+
+
+@pytest.mark.parametrize("fuse", [False, True],
+                         ids=lambda f: "fused" if f else "folded")
+def test_staged_fronts_equal_the_epoch_over_an_identity_index(fuse):
+    """The k-step call (fuse_metrics=False) and K calls of the fused single
+    step (fuse_metrics=True) are fronts of the epoch's program: over K
+    stacked batches they leave the state, the metric state and the losses
+    bit for bit where `make_train_epoch` at the same fuse_metrics leaves
+    them over the same rows under the identity index matrix, dropout on
+    and no augment."""
+    cfg = narrow_ss5()
+    cfg["n_classes"] = N_CLASSES
+    xs, sed, doa = (torch.from_numpy(a) for a in _stacked())
+    a = _port_state(None, cfg, seed=5)
+    b = _port_state(None, cfg, seed=5)
+    b.model.load_state_dict(a.model.state_dict())
+    ma = TM.init_state(N_CLASSES, "cpu")
+    if fuse:
+        step, losses = make_train_step(fuse_metrics=True,
+                                       **_port_kwargs()), []
+        for i in range(K):
+            a, ma, (sl, dl) = step(a, ma, xs[i], (sed[i], doa[i]))
+            losses.append(torch.stack([sl, dl]))
+        la = torch.stack(losses)
+    else:
+        step = make_train_multistep(steps_per_call=K, **_port_kwargs())
+        a, ma, (sl, dl) = step(a, ma, xs, (sed, doa))
+        la = torch.stack([sl, dl], -1)
+    epoch = make_train_epoch(n_classes=N_CLASSES, fuse_metrics=fuse,
+                             **_port_kwargs())
+    x_all = xs.reshape(K * B, *xs.shape[2:])
+    y_all = torch.cat([sed, doa], -1).reshape(K * B, *sed.shape[2:-1], -1)
+    idx = torch.arange(K * B, dtype=torch.int32).reshape(K, B)
+    b, mb, (sl, dl) = epoch(b, TM.init_state(N_CLASSES, "cpu"), x_all,
+                            y_all, idx, torch.Generator())
+    assert torch.equal(la, torch.stack([sl, dl], -1))
+    _assert_same_state(a, b)
+    for key in ma:
+        assert torch.equal(ma[key], mb[key]), key
 
 
 def _augment():

@@ -76,6 +76,38 @@ def test_gru_scan_refuses_other_devices():
                      torch.empty(2, 48, device="meta"))
 
 
+@pytest.mark.parametrize("err", [0, 700], ids=["ok", "refused"])
+def test_kernel_launch_checks_then_counts(monkeypatch, err):
+    """kernels.launch, every op module's launch protocol, on the current
+    card: the entry point gets the raw stream handle last; a non-zero
+    return raises with the C error string and counts nothing; a launch
+    that succeeded counts one. The card, its stream and the library are
+    stand-ins, so the protocol runs here on the CPU."""
+    class Lib:
+        @staticmethod
+        def seld_cuda_error_string(code):
+            return f"the error string of {code}".encode()
+
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return err
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(kernels, "current_stream", lambda device: 0xAB)
+    monkeypatch.setitem(kernels._libs, kernels.KERNELS["gru_scan"], Lib())
+    before = kernels.launch_counts["gru_scan"]
+    if err:
+        with pytest.raises(RuntimeError, match=r"^gru_fwd launch: CUDA "
+                           r"error 700 \(the error string of 700\)$"):
+            kernels.launch("gru_scan", entry, "gru_fwd launch", 0, 1, 2)
+    else:
+        kernels.launch("gru_scan", entry, "gru_fwd launch", 0, 1, 2)
+    assert calls == [(1, 2, 0xAB)]
+    assert kernels.launch_counts["gru_scan"] == before + (err == 0)
+
+
 @pytest.mark.parametrize("case,exc,match", [
     ("dirs", ValueError, "directions"),
     ("shape", ValueError, "do not match"),
