@@ -13,7 +13,13 @@ Phases, one line each:
               first BatchNorm, SS5's mother stage, the SS5 stem's
               statistics and odd and mixed cases (the sums bit for bit),
               each pass's device ms beside its bytes bound, the composed
-              chain's and cuDNN's forward + backward
+              chain's and cuDNN's forward + backward; the fused BatchNorm
+              -> ReLU -> max pool at SELDnet's three blocks in bf16
+              against the composed chain, bit for bit (pooled output,
+              batch mean and var, dx, dscale, dbias, the tie counts) on
+              inputs with tied maxima and windows all <= 0, 1 batch_norm
+              and 3 batch_norm_pool launches, each pass's device ms beside
+              its bytes bound and both chains' forward + backward
   4. routes   the shapes the kernels do not take, on the card against the
               CPU through the composed routes, with no kernel launched: a
               biGRU at U=6 (B=8) and U=390 (B=3), FOA features at 40
@@ -44,9 +50,10 @@ Phases, one line each:
               seld_tpu_torch.bench's step: finite losses and exactly 2
               gru_scan, 2 gru_scan_bwd, 1 stem_dy and 29 batch_norm
               launches per step (4 passes for each of 7 BatchNorms, the
-              stem's statistics; the other phases check the first five
-              kernels' launches and leave batch_norm's, which follow each
-              model's BatchNorms);
+              stem's statistics) and no batch_norm_pool (SS5 feeds no
+              BatchNorm to a pool; [graph] holds the same); the other
+              phases check the first five kernels' launches and leave
+              batch_norm's, which follow each model's BatchNorms;
               (c) the fused single step (make_train_step(fuse_metrics=
               True): the update and the metric as one CUDA graph), 3 calls
               against 3 unfused steps from the same seed (losses, state,
@@ -176,7 +183,9 @@ Phases, one line each:
               steps at B=256 eagerly, then make_train_multistep(10)'s
               capture and a timed call of replays: finite losses, exactly
               gru_scan 2, gru_scan_bwd 2 and stem_dy 1 (conv_temporal) or
-              0 a step, ms/step, windows/s and peak memory; (d) stem_dy at
+              0 a step, batch_norm_pool 9 a step in seldnet, seldnet_v1
+              and Condseldnet (3 a conv layer) and 0 elsewhere, ms/step,
+              windows/s and peak memory; (d) stem_dy at
               conv_temp's [256, 300, 64, 32] bf16, pool [5, 1], the
               cotangent as its first res_bottleneck_stage hands it over,
               against stem_dy_ref on data with ties, its time, bound and
@@ -351,11 +360,16 @@ TRAIN_STEPS = 20
 # the kernels whose launches every phase checks exactly; batch_norm's
 # passes follow a model's train-mode BatchNorms (4 a BatchNorm and 1 a
 # fused stem a step) and are checked exactly where the model is SS5: 7
-# BatchNorms (4 in the mother stage, 3 in the dense stage) and the stem
+# BatchNorms (4 in the mother stage, 3 in the dense stage) and the stem;
+# SS5 feeds no BatchNorm to a pool, so it launches no batch_norm_pool
 COUNTED = ("gru_scan", "gru_scan_bwd", "stem_dy", "foa_frontend",
            "gather_rows")
 SS5_BN_LAUNCHES = 4 * 7 + 1
-SS5_COUNTED = COUNTED + ("batch_norm",)
+SS5_COUNTED = COUNTED + ("batch_norm", "batch_norm_pool")
+# batch_norm_pool launches a train step: 3 for each BatchNorm -> ReLU ->
+# max pool of the zoo's conv stacks (SELDnet's three blocks; pass 1 stays
+# batch_norm's)
+ZOO_POOL_LAUNCHES = {"seldnet": 9, "seldnet_v1": 9, "Condseldnet": 9}
 # [graph]: make_train_multistep(k=GRAPH_STEPS) against k eager steps from
 # the same seed, bf16, cuDNN's deterministic algorithms in both: the graph
 # replays the kernels the eager step launches, on the same values, with
@@ -1860,6 +1874,148 @@ def kernels_batch_norm(card):
             "passes_ms": timed, "split_ms": split}
 
 
+# BatchNorm -> ReLU -> max pool at SELDnet's three blocks in training,
+# bf16 as the training step runs them: (label, x [B, T, F, C], window)
+BN_POOL_CASES = (("block1", (256, 300, 64, 64), (5, 4)),
+                 ("block2", (256, 60, 16, 64), (1, 4)),
+                 ("block3", (256, 60, 4, 64), (1, 2)))
+
+
+def kernels_batch_norm_pool(card):
+    """The fused BatchNorm -> ReLU -> max pool (batch_norm_relu_pool_train:
+    pass 1 and csrc/batch_norm.cu's three pool passes) against the
+    composed chain it stands for (batch_norm_train, relu, max_pool) on the
+    card at BN_POOL_CASES: the pooled output, the batch mean and var (the
+    running statistics' inputs), dx, dscale and dbias bit for bit, on x in
+    quarter steps (windows with tied maxima), four channels biased to -3
+    (windows all <= 0 after the affine) and a constant one with bias 0 (y
+    exactly 0, which ReLU's backward stops); pass 2' counts against the
+    composed ReLU output's; the launches (1 batch_norm, 3
+    batch_norm_pool); each pass's device ms beside its bytes bound and
+    both chains' forward + backward."""
+    import torch
+    from seld_tpu_torch.ops import batch_norm as bn
+    from seld_tpu_torch.ops import kernels
+    from seld_tpu_torch.ops.pooling import _windows, max_pool
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for label, shape, window in BN_POOL_CASES:
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 4).round() \
+            .div(4)
+        x[..., 4] = 0.5
+        x = x.to(torch.bfloat16)
+        scale = (1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+                 ).to(torch.bfloat16)
+        bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        bias[:4] = -3.0
+        bias[4] = 0.0
+        bias = bias.to(torch.bfloat16)
+        pshape = (shape[0], shape[1] // window[0], shape[2] // window[1], c)
+        dp = torch.randn(pshape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+        def fused(xg, s, b):
+            return bn.batch_norm_relu_pool_train(xg, s, b, 1e-3, window)
+
+        def composed(xg, s, b):
+            y, m = bn.batch_norm_train(xg, s, b, 1e-3)
+            return max_pool(torch.relu(y), window, strides=window), m
+
+        def run(chain):
+            xg, s, b = (t.detach().requires_grad_(True)
+                        for t in (x, scale, bias))
+            p, m = chain(xg, s, b)
+            p.backward(dp)
+            return (p.detach(), m[0], m[1], xg.grad, s.grad, b.grad)
+
+        kernels.launch_counts.clear()
+        got = run(fused)
+        torch.cuda.synchronize()
+        launches = {k: kernels.launch_counts[k]
+                    for k in ("batch_norm", "batch_norm_pool")}
+        want = run(composed)
+        names = ("pooled", "mean", "var", "dx", "dscale", "dbias")
+        equal = {n: torch.equal(g, w) for n, g, w in zip(names, got, want)}
+        x2 = x.view(-1, c)
+        n = x2.shape[0]
+        sums = bn.batch_norm_stats(x2)
+        p, count, mom = bn.batch_norm_pool_apply(
+            x, sums, scale, bias, n, 1e-3, torch.bfloat16, window)
+        y, _ = bn.batch_norm_apply(x2, sums, scale, bias, n, 1e-3,
+                                   torch.bfloat16)
+        r = _windows(torch.relu(y.view(shape)), window)
+        want_count = (r == r.amax(dim=(2, 4), keepdim=True)).sum(dim=(2, 4))
+        equal["count"] = torch.equal(count.long(), want_count)
+        tied = int(((count > 1) & (p > 0)).sum())
+        nonpositive = int((p <= 0).sum())
+        del r, want_count, y
+        ok = (all(equal.values()) and tied > 0 and nonpositive > 0
+              and launches == {"batch_norm": 1, "batch_norm_pool": 3})
+        dsums, share = bn.batch_norm_pool_grad_sums(x, p, dp, count, mom,
+                                                    scale, bias, window)
+        xb, pb, kb = (t.numel() * t.element_size() for t in (x, p, count))
+        passes = {
+            "stats": (lambda: bn.batch_norm_stats(x2), xb),
+            "pool_apply": (lambda: bn.batch_norm_pool_apply(
+                x, sums, scale, bias, n, 1e-3, torch.bfloat16, window),
+                xb + pb + kb),
+            "pool_grad_sums": (lambda: bn.batch_norm_pool_grad_sums(
+                x, p, dp, count, mom, scale, bias, window), xb + 3 * pb + kb),
+            "pool_grad_apply": (lambda: bn.batch_norm_pool_grad_apply(
+                x, p, share, mom, scale, bias, window, dsums, n),
+                2 * xb + 2 * pb)}
+        timed = {}
+        for name, (fn, nbytes) in passes.items():
+            timed[name] = {"device_ms": graph_ms(fn, 10),
+                           "bound_ms": bound(nbytes, 0)[0]}
+        total_ms = sum(v["device_ms"] for v in timed.values())
+        total_bytes = sum(nbytes for _, nbytes in passes.values())
+        total_bound = bound(total_bytes, 0)[0]
+
+        def step(chain):
+            def go():
+                xg, s, b = (t.detach().requires_grad_(True)
+                            for t in (x, scale, bias))
+                chain(xg, s, b)[0].backward(dp)
+            return go
+        fused_ms = cuda_ms(step(fused), 5)
+        composed_ms = cuda_ms(step(composed), 3)
+        split = (kernel_split_ms(lambda: [fn() for fn, _ in passes.values()],
+                                 5, "batch_norm_") if label == "block1"
+                 else None)
+        log("kernels", f"batch_norm_pool {label} {list(shape)} bf16 window "
+                       f"{list(window)} on {card}: bit for bit against the "
+                       f"composed chain: "
+                       + ", ".join(f"{k} {v}" for k, v in equal.items())
+                       + f"; {tied} tied windows, {nonpositive} windows "
+                       f"<= 0; launches {launches}; device ms a pass "
+                       f"(bound at 3.35 TB/s): "
+                       + ", ".join(f"{k} {v['device_ms']:.4f} "
+                                   f"({v['bound_ms']:.4f})"
+                                   for k, v in timed.items())
+                       + f"; the four {total_ms:.4f} against "
+                       f"{total_bound:.4f} ({100 * total_bound / total_ms:.1f}"
+                       f"% of the bytes bound; {total_bytes / 1e9:.3f} GB)"
+                       + (f"; by kernel {_split_text(split)}" if split else "")
+                       + f"; forward + backward fused {fused_ms:.4f} ms, "
+                       f"composed {composed_ms:.4f} ms "
+                       f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"batch_norm_pool disagrees with the composed "
+                             f"chain at {label}")
+        out[label] = {"shape": list(shape), "window": list(window),
+                      "passes_ms": timed, "device_ms": total_ms,
+                      "bound_ms": total_bound, "ms": fused_ms,
+                      "composed_ms": composed_ms, "tied": tied,
+                      "nonpositive": nonpositive, "split_ms": split}
+        del x, x2, p, count, dp, share, got, want
+    return {"name": "batch_norm_pool", "route": "cuda",
+            "source": "seld_tpu_torch/csrc/batch_norm.cu",
+            "replaces": None, "launches": None, "bound_by": "bytes",
+            "blocks": out}
+
+
 def _tied_windows(y, p6, pool):
     """Windows whose positive maximum is held by two or more elements."""
     from seld_tpu_torch.ops.stem_bwd import bn_affine
@@ -2468,7 +2624,8 @@ def phase_train(card):
     mfu = wps * gflops_per_window(b.cfg) / 1e3 / H100_BF16_PEAK_TFLOPS
     want = {"gru_scan": 2 * TRAIN_STEPS, "gru_scan_bwd": 2 * TRAIN_STEPS,
             "stem_dy": TRAIN_STEPS, "foa_frontend": 0, "gather_rows": 0,
-            "batch_norm": SS5_BN_LAUNCHES * TRAIN_STEPS}
+            "batch_norm": SS5_BN_LAUNCHES * TRAIN_STEPS,
+            "batch_norm_pool": 0}
     log("train", f"(b) SS5 full width bf16 B=256, {TRAIN_STEPS} steps with "
                  f"dropout: losses finite {finite} (first "
                  f"{losses[0].item():.4f}/{losses[1].item():.4f}, last "
@@ -2522,7 +2679,8 @@ def train_fused(card):
         torch.backends.cudnn.deterministic = False
     want = {"gru_scan": 2 * FUSED_CALLS, "gru_scan_bwd": 2 * FUSED_CALLS,
             "stem_dy": FUSED_CALLS, "foa_frontend": 0, "gather_rows": 0,
-            "batch_norm": SS5_BN_LAUNCHES * FUSED_CALLS}
+            "batch_norm": SS5_BN_LAUNCHES * FUSED_CALLS,
+            "batch_norm_pool": 0}
     ms = {"unfused": [], "fused": []}
     for name in ("unfused", "fused", "fused", "unfused"):
         r = runs[name]
@@ -4699,11 +4857,11 @@ def zoo_train_step(card):
     return out
 
 
-def _zoo_bf16_run(model_name, cfg, batch, k=ZOO_STEPS):
+def _zoo_bf16_run(model_name, cfg, batch, k=ZOO_STEPS, names=COUNTED):
     """k eager bf16 steps, then a make_train_multistep(k) call that warms
     up and captures and a timed call of replays: (eager ms/step, graphed
-    ms/step, eager launches, replay launches, losses finite, peak
-    allocated and reserved GiB)."""
+    ms/step, eager launches, replay launches of the kernels `names`,
+    losses finite, peak allocated and reserved GiB)."""
     import torch
     from seld_tpu_torch.bench import build
     from seld_tpu_torch.ops import kernels
@@ -4724,7 +4882,7 @@ def _zoo_bf16_run(model_name, cfg, batch, k=ZOO_STEPS):
         losses += [sl, dl]
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) / k * 1e3
-    eager = {n: kernels.launch_counts[n] for n in COUNTED}
+    eager = {n: kernels.launch_counts[n] for n in names}
     torch.cuda.empty_cache()      # the graph's pool allocates on its own
     multistep = make_train_multistep(steps_per_call=k, **b.step_kwargs)
     xs = b.x.unsqueeze(0).expand(k, *b.x.shape)
@@ -4738,7 +4896,7 @@ def _zoo_bf16_run(model_name, cfg, batch, k=ZOO_STEPS):
     torch.cuda.synchronize()
     graph_ms = (time.perf_counter() - t0) / k * 1e3
     losses += [sl, dl]
-    replays = {n: kernels.launch_counts[n] for n in COUNTED}
+    replays = {n: kernels.launch_counts[n] for n in names}
     finite = bool(torch.isfinite(torch.cat(
         [v.reshape(-1).float() for v in losses])).all())
     peak = (torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -4756,11 +4914,13 @@ def zoo_bf16(card):
     for name in ZOO_MODELS:
         model_name, cfg = zoo_model(name)
         per_step = {"gru_scan": 2, "gru_scan_bwd": 2,
-                    "stem_dy": int(model_name == "conv_temporal")}
-        want = {n: per_step.get(n, 0) * ZOO_STEPS for n in COUNTED}
+                    "stem_dy": int(model_name == "conv_temporal"),
+                    "batch_norm_pool": ZOO_POOL_LAUNCHES.get(name, 0)}
+        names = COUNTED + ("batch_norm_pool",)
+        want = {n: per_step.get(n, 0) * ZOO_STEPS for n in names}
         batch = ZOO_TRAIN_B
         eager_ms, graph_ms, eager, replays, finite, peak = _zoo_bf16_run(
-            model_name, cfg, batch)
+            model_name, cfg, batch, names=names)
         ok = finite and eager == want and replays == want
         log("zoo", f"(c) {name} bf16 B={batch}, {ZOO_STEPS} steps: eager "
                    f"{eager_ms:.2f} ms/step "
@@ -6452,7 +6612,8 @@ def main(argv=None):
     if kernels_only:
         failed = []
         for phase in (phase_sass, phase_kernels, phase_kernels_bwd,
-                      kernels_batch_norm, gru_wide, phase_kernels_feed):
+                      kernels_batch_norm, kernels_batch_norm_pool, gru_wide,
+                      phase_kernels_feed):
             try:
                 phase(smi)
             except SystemExit as e:
@@ -6483,6 +6644,7 @@ def main(argv=None):
     # batch_norm's launches follow each model's BatchNorms: its entry takes
     # the SS5 phases' counts alone
     bn_entry = timed(kernels_batch_norm, smi)
+    pool_entry = timed(kernels_batch_norm_pool, smi)
     entries[0]["wide"], entries[1]["wide"] = timed(gru_wide, smi)
     feed_entries = timed(phase_kernels_feed, smi)
     timed(phase_routes, smi)
@@ -6494,9 +6656,10 @@ def main(argv=None):
     for e in entries[1:]:
         e["launches"] = train_counts[e["name"]]
     graph_counts = timed(phase_graph, smi)
-    bn_entry.update(launches=train_counts["batch_norm"],
-                    graph_launches=graph_counts["batch_norm"],
-                    train_fused_launches=fused["launches"]["batch_norm"])
+    for e in (bn_entry, pool_entry):
+        e.update(launches=train_counts[e["name"]],
+                 graph_launches=graph_counts[e["name"]],
+                 train_fused_launches=fused["launches"][e["name"]])
     feed_counts = timed(phase_feed, smi)
     for e in feed_entries:
         e["launches"] = feed_counts["eager"][e["name"]]
@@ -6546,6 +6709,8 @@ def main(argv=None):
     for e in entries:
         e["zoo_launches"] = {n: r["launches"][e["name"]]
                              for n, r in zoo["bf16"].items()}
+    pool_entry["zoo_launches"] = {n: r["launches"]["batch_norm_pool"]
+                                  for n, r in zoo["bf16"].items()}
     by_name["gru_scan"]["zoo"] = {n: {**zoo["bf16"][n], **zoo["forward"][n]}
                                   for n in zoo["bf16"]}
     by_name["stem_dy"]["zoo_pool_5x1"] = zoo["stem_dy"]
@@ -6586,7 +6751,7 @@ def main(argv=None):
     by_name["stem_dy"]["profile_train"] = tools["profile_train"]
 
     log("time", f"all phases {time.perf_counter() - t_start:.1f} s")
-    entries.append(bn_entry)
+    entries += [bn_entry, pool_entry]
     entries[0]["phase_seconds"] = phase_seconds
     print(json.dumps({"kernels": entries}))
     print(smi)

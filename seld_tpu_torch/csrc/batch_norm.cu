@@ -58,6 +58,28 @@
 //   - No pass allocates: the wrapper hands over every output and the
 //     partial rows (blocks x 2C f32), and nothing synchronises, so
 //     the passes run inside a captured CUDA graph.
+//
+// BatchNorm -> ReLU -> VALID max pool (windows [wt, wf] = strides, which
+// divide T and F), train mode, on x [B, T, F, C] as three more passes
+// beside pass 1 (the `batch_norm_pool_*` kernels). They stand for pass 2,
+// ReLU, the pool's max, the max's backward (the cotangent split evenly
+// over a window's tied maxima, PyTorch's amax backward), ReLU's backward
+// and passes 3 and 4, which write and read four full-size tensors more:
+//   2'. pool apply: y = (x - mean) * a + bias as pass 2 forms it, rounded
+//       to y's dtype, r = relu(y); writes only the pooled p [B, T/wt,
+//       F/wf, C] = the window's max of r, and count (one byte) = how many
+//       of the window's r equal it; the moments as pass 2.
+//   3'. pool grad sums: first a pooled element's share s = p > 0 ? dp /
+//       count rounded to y's dtype : 0 (PyTorch's amax backward, then
+//       ReLU's), then pass 3 with dy recomputed a row from x, the moments,
+//       the parameters and the row's window: dy = y == p ? s : 0, bit for
+//       bit the composed chain's dy.
+//   4'. pool grad apply: pass 4 on that dy (s from 3').
+// 3' and 4' walk pass 3 and 4's plan and rows, so their sums equal the
+// composed chain's bit for bit. At SELDnet's first block, [256, 300, 64,
+// 64] bf16 under [5, 4], the seven passes of the composed chain move 11.0
+// GB a training step; pass 1 and these three 3.3 GB (x five times, the
+// pooled tensors a few).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -416,6 +438,359 @@ batch_norm_grad_apply_kernel(const T* __restrict__ x,
   }
 }
 
+// ------------------------------------------ BatchNorm -> ReLU -> max pool
+
+// n / d for 0 <= n < 2^31, d >= 1, by a high product and a shift.
+struct Divisor {
+  unsigned int d, m, s;
+};
+
+Divisor divisor(unsigned int d) {
+  Divisor v;
+  v.d = d;
+  v.s = 0;
+  while ((1ull << v.s) < d) ++v.s;
+  v.m = static_cast<unsigned int>(
+      ((1ull << 32) * ((1ull << v.s) - d)) / d + 1);
+  return v;
+}
+
+__device__ __forceinline__ unsigned int divide(const Divisor& v,
+                                               unsigned int n) {
+  return (__umulhi(n, v.m) + n) >> v.s;
+}
+
+// The pool's geometry over the [rows, C] view of x [B, T, F, C]: x's F,
+// the window [wt, wf] and the pooled F' = F / wf as divisors.
+struct Window {
+  int F, wt, wf;
+  Divisor f, t, w, fp;   // F, wt, wf, F'
+};
+
+// The pooled row of x's row r: (r / F / wt) F' + (r mod F) / wf.
+__device__ __forceinline__ unsigned int pooled_row(const Window& g,
+                                                   unsigned int r) {
+  const unsigned int line = divide(g.f, r);            // b T + t
+  const unsigned int f = r - line * g.F;
+  return divide(g.t, line) * g.fp.d + divide(g.w, f);
+}
+
+// y as pass 2 rounds it to TY, back in f32.
+template <typename TY>
+__device__ __forceinline__ float rounded(float v) {
+  return to_f32(from_f32<TY>(v));
+}
+
+// N one-byte counts at p (aligned to N bytes) as f32, and back.
+template <int N>
+__device__ __forceinline__ void load_count(const uint8_t* __restrict__ p,
+                                           float* f) {
+  if constexpr (N == 8) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[i] = static_cast<float>((w.x >> (8 * i)) & 0xffu);
+      f[4 + i] = static_cast<float>((w.y >> (8 * i)) & 0xffu);
+    }
+  } else if constexpr (N == 4) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[i] = static_cast<float>((w >> (8 * i)) & 0xffu);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = static_cast<float>(p[i]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_count(uint8_t* __restrict__ p,
+                                            const float* f) {
+  uint32_t w[(N + 3) / 4] = {};
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    w[i / 4] |= static_cast<uint32_t>(f[i]) << (8 * (i % 4));
+  if constexpr (N == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else if constexpr (N == 4) {
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i] = static_cast<uint8_t>(f[i]);
+  }
+}
+
+// The per-channel affine of pass 2 from the moments: mean, a = inv * scale,
+// bias.
+template <int N>
+__device__ __forceinline__ void affine(const float* __restrict__ moments,
+                                       const void* __restrict__ scale,
+                                       const void* __restrict__ bias,
+                                       int p_bf16, int C, int col, float* m,
+                                       float* inv, float* a, float* b) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = col * N + i;
+    m[i] = moments[c];
+    inv[i] = moments[2 * C + c];
+    a[i] = __fmul_rn(inv[i], param(scale, p_bf16, c));
+    b[i] = param(bias, p_bf16, c);
+  }
+}
+
+// A row's dy: y recomputed from the row's x values v; where it equals its
+// window's maximum p, the window's share s (pass 3' first kernel), else
+// 0.
+template <typename TY, int N>
+__device__ __forceinline__ void routed(const float* v, const float* m,
+                                       const float* a, const float* b,
+                                       const float* p, const float* s,
+                                       float* dy) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    dy[i] = rounded<TY>(fmaf(v[i] - m[i], a[i], b[i])) == p[i] ? s[i] : 0.0f;
+}
+
+// The pooled operands of row r: p and the share s (TY).
+template <typename TY, int N>
+__device__ __forceinline__ void load_window(const TY* __restrict__ p,
+                                            const TY* __restrict__ share,
+                                            const Window& g, long long r,
+                                            int C, int col, float* pv,
+                                            float* sv) {
+  const size_t at = static_cast<size_t>(
+      pooled_row(g, static_cast<unsigned int>(r))) * C + col * N;
+  load<TY, N>(p + at, pv);
+  load<TY, N>(share + at, sv);
+}
+
+// Pass 2': a thread a pooled row and N channels; block (0, *)'s first row
+// lane writes moments.
+template <typename T, typename TY, int N>
+__global__ void __launch_bounds__(kThreads)
+batch_norm_pool_apply_kernel(const T* __restrict__ x, TY* __restrict__ p,
+                             uint8_t* __restrict__ cnt, int pooled, int C,
+                             int cv, int R, Window g,
+                             const float* __restrict__ sums,
+                             const void* __restrict__ scale,
+                             const void* __restrict__ bias, int p_bf16,
+                             float n, float eps,
+                             float* __restrict__ moments) {
+  const Place pl = place(C / N, cv, R);
+  if (!pl.live) return;
+  float m[N], a[N], b[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = pl.col * N + i;
+    const float mean = __fdiv_rn(sums[c], n);
+    const float var = __fsub_rn(__fdiv_rn(sums[C + c], n),
+                                __fmul_rn(mean, mean));
+    const float inv = rsqrtf(__fadd_rn(var, eps));
+    m[i] = mean;
+    a[i] = __fmul_rn(inv, param(scale, p_bf16, c));
+    b[i] = param(bias, p_bf16, c);
+    if (blockIdx.x == 0 && pl.row == 0) {
+      moments[c] = mean;
+      moments[C + c] = var;
+      moments[2 * C + c] = inv;
+    }
+  }
+  const long long q = static_cast<long long>(blockIdx.x) * R + pl.row;
+  if (q >= pooled) return;
+  const unsigned int line = divide(g.fp, static_cast<unsigned int>(q));
+  const long long first =
+      static_cast<long long>(line) * g.wt * g.F +
+      static_cast<long long>(q - static_cast<long long>(line) * g.fp.d) *
+          g.wf;
+  const T* xb = x + first * C + pl.col * N;
+  float mx[N], k[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mx[i] = -1.0f;   // below every ReLU output
+    k[i] = 0.0f;
+  }
+  for (int i = 0; i < g.wt; ++i) {
+    const T* rb = xb + static_cast<long long>(i) * g.F * C;
+    int j = 0;
+    for (; j + kUnroll <= g.wf; j += kUnroll) {
+      float v[kUnroll][N];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) load<T, N>(rb + (j + u) * C, v[u]);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int c = 0; c < N; ++c) {
+          const float y = rounded<TY>(fmaf(v[u][c] - m[c], a[c], b[c]));
+          const float r = y < 0.0f ? 0.0f : y;
+          if (r > mx[c] || r != r) {
+            mx[c] = r;
+            k[c] = 1.0f;
+          } else if (r == mx[c]) {
+            k[c] += 1.0f;
+          }
+        }
+    }
+    for (; j < g.wf; ++j) {
+      float v[N];
+      load<T, N>(rb + j * C, v);
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        const float y = rounded<TY>(fmaf(v[c] - m[c], a[c], b[c]));
+        const float r = y < 0.0f ? 0.0f : y;
+        if (r > mx[c] || r != r) {
+          mx[c] = r;
+          k[c] = 1.0f;
+        } else if (r == mx[c]) {
+          k[c] += 1.0f;
+        }
+      }
+    }
+  }
+  const size_t at = static_cast<size_t>(q) * C + pl.col * N;
+  store<TY, N>(p + at, mx);
+  store_count<N>(cnt + at, k);
+}
+
+// Pass 3', first kernel: a pooled element's share, what amax's backward
+// sends each of its window's tied maxima: dp / count rounded to TY where
+// the maximum p > 0, else 0 (ReLU's backward); a thread N channels.
+template <typename TY, int N>
+__global__ void __launch_bounds__(kThreads)
+batch_norm_pool_share_kernel(const TY* __restrict__ p,
+                             const TY* __restrict__ dp,
+                             const uint8_t* __restrict__ cnt,
+                             long long vectors, TY* __restrict__ share) {
+  const long long v = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (v >= vectors) return;
+  float pv[N], dv[N], kv[N];
+  load<TY, N>(p + v * N, pv);
+  load<TY, N>(dp + v * N, dv);
+  load_count<N>(cnt + v * N, kv);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    dv[i] = !(pv[i] > 0.0f) ? 0.0f
+            : kv[i] == 1.0f ? dv[i]
+                            : rounded<TY>(__fdiv_rn(dv[i], kv[i]));
+  store<TY, N>(share + v * N, dv);
+}
+
+// Pass 3', second kernel: pass 3's walk and sums on the routed dy.
+template <typename T, typename TY, int N>
+__global__ void __launch_bounds__(kThreads)
+batch_norm_pool_grad_sums_kernel(const T* __restrict__ x,
+                                 const TY* __restrict__ p,
+                                 const TY* __restrict__ share,
+                                 long long rows, int C, int cv, int R,
+                                 Window g, const float* __restrict__ moments,
+                                 const void* __restrict__ scale,
+                                 const void* __restrict__ bias, int p_bf16,
+                                 float* __restrict__ partial) {
+  const Place pl = place(C / N, cv, R);
+  float acc[2][N], mean[N], inv[N], a[N], b[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[0][i] = acc[1][i] = 0.0f;
+  if (pl.live) {
+    affine<N>(moments, scale, bias, p_bf16, C, pl.col, mean, inv, a, b);
+    const long long step = static_cast<long long>(gridDim.x) * R;
+    long long r = static_cast<long long>(blockIdx.x) * R + pl.row;
+    const T* xb = x + pl.col * N;
+    for (; r + (kUnroll - 1) * step < rows; r += kUnroll * step) {
+      float v[kUnroll][N], pv[kUnroll][N], sv[kUnroll][N];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        load<T, N>(xb + (r + u * step) * C, v[u]);
+        load_window<TY, N>(p, share, g, r + u * step, C, pl.col, pv[u],
+                           sv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float dy[N];
+        routed<TY, N>(v[u], mean, a, b, pv[u], sv[u], dy);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const float xhat = __fmul_rn(__fsub_rn(v[u][i], mean[i]), inv[i]);
+          acc[0][i] = __fadd_rn(acc[0][i], dy[i]);
+          acc[1][i] = __fadd_rn(acc[1][i], __fmul_rn(dy[i], xhat));
+        }
+      }
+    }
+    for (; r < rows; r += step) {
+      float v[N], pv[N], sv[N], dy[N];
+      load<T, N>(xb + r * C, v);
+      load_window<TY, N>(p, share, g, r, C, pl.col, pv, sv);
+      routed<TY, N>(v, mean, a, b, pv, sv, dy);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float xhat = __fmul_rn(__fsub_rn(v[i], mean[i]), inv[i]);
+        acc[0][i] = __fadd_rn(acc[0][i], dy[i]);
+        acc[1][i] = __fadd_rn(acc[1][i], __fmul_rn(dy[i], xhat));
+      }
+    }
+  }
+  block_partial<N>(acc, C, cv, R, partial);
+}
+
+// Pass 4': pass 4's dx on the routed dy.
+template <typename T, typename TY, int N>
+__global__ void __launch_bounds__(kThreads)
+batch_norm_pool_grad_apply_kernel(const T* __restrict__ x,
+                                  const TY* __restrict__ p,
+                                  const TY* __restrict__ share,
+                                  T* __restrict__ dx, long long rows, int C,
+                                  int cv, int R, Window g,
+                                  const float* __restrict__ moments,
+                                  const void* __restrict__ scale,
+                                  const void* __restrict__ bias, int p_bf16,
+                                  const float* __restrict__ dsums, float n) {
+  const Place pl = place(C / N, cv, R);
+  if (!pl.live) return;
+  float mean[N], inv[N], a[N], b[N], k[N], c1[N], c2[N];
+  affine<N>(moments, scale, bias, p_bf16, C, pl.col, mean, inv, a, b);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int c = pl.col * N + i;
+    k[i] = param(scale, p_bf16, c) * inv[i];
+    c1[i] = dsums[c] / n;
+    c2[i] = dsums[C + c] / n;
+  }
+  const long long step = static_cast<long long>(gridDim.x) * R;
+  long long r = static_cast<long long>(blockIdx.x) * R + pl.row;
+  const T* xb = x + pl.col * N;
+  T* ob = dx + pl.col * N;
+  for (; r + (kUnroll - 1) * step < rows; r += kUnroll * step) {
+    float v[kUnroll][N], pv[kUnroll][N], sv[kUnroll][N];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      load<T, N>(xb + (r + u * step) * C, v[u]);
+      load_window<TY, N>(p, share, g, r + u * step, C, pl.col, pv[u], sv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float dy[N];
+      routed<TY, N>(v[u], mean, a, b, pv[u], sv[u], dy);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float xhat = (v[u][i] - mean[i]) * inv[i];
+        v[u][i] = k[i] * (dy[i] - c1[i] - xhat * c2[i]);
+      }
+      store<T, N>(ob + (r + u * step) * C, v[u]);
+    }
+  }
+  for (; r < rows; r += step) {
+    float v[N], pv[N], sv[N], dy[N];
+    load<T, N>(xb + r * C, v);
+    load_window<TY, N>(p, share, g, r, C, pl.col, pv, sv);
+    routed<TY, N>(v, mean, a, b, pv, sv, dy);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float xhat = (v[i] - mean[i]) * inv[i];
+      v[i] = k[i] * (dy[i] - c1[i] - xhat * c2[i]);
+    }
+    store<T, N>(ob + r * C, v);
+  }
+}
+
 // The launch plan of a pass over [rows, C] at N channels a thread.
 struct Plan {
   int cv, R;
@@ -498,6 +873,65 @@ cudaError_t grad_apply(const void* x, const void* dy, void* dx,
   return cudaGetLastError();
 }
 
+// Pass 2' has a thread a pooled row, no walk: pass 2's block shape, as
+// many blocks as the pooled rows need.
+template <typename T, typename TY, int N>
+cudaError_t pool_apply(const void* x, void* p, void* cnt, long long rows,
+                       int C, const Window& g, const float* sums,
+                       const void* scale, const void* bias, int p_bf16,
+                       float n, float eps, float* moments, cudaStream_t st) {
+  const Plan pl = plan(rows, C, N);
+  const long long pooled = rows / (static_cast<long long>(g.wt) * g.wf);
+  const dim3 grid(static_cast<unsigned>((pooled + pl.R - 1) / pl.R),
+                  pl.grid.y);
+  batch_norm_pool_apply_kernel<T, TY, N><<<grid, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<TY*>(p),
+      static_cast<uint8_t*>(cnt), static_cast<int>(pooled), C, pl.cv, pl.R,
+      g, sums, scale, bias, p_bf16, n, eps, moments);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TY, int N>
+cudaError_t pool_grad_sums(const void* x, const void* p, const void* dp,
+                           const void* cnt, void* share, long long rows,
+                           int C, const Window& g, int blocks,
+                           const float* moments, const void* scale,
+                           const void* bias, int p_bf16, float* partial,
+                           float* dsums, cudaStream_t st) {
+  const Plan pl = plan(rows, C, N);
+  if (static_cast<int>(pl.grid.x) != blocks) return cudaErrorInvalidValue;
+  const long long vectors =
+      rows / (static_cast<long long>(g.wt) * g.wf) * (C / N);
+  batch_norm_pool_share_kernel<TY, N>
+      <<<static_cast<unsigned>((vectors + kThreads - 1) / kThreads), kThreads,
+         0, st>>>(static_cast<const TY*>(p), static_cast<const TY*>(dp),
+                  static_cast<const uint8_t*>(cnt), vectors,
+                  static_cast<TY*>(share));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  batch_norm_pool_grad_sums_kernel<T, TY, N><<<pl.grid, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const TY*>(p),
+      static_cast<const TY*>(share), rows, C, pl.cv, pl.R, g, moments, scale,
+      bias, p_bf16, partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return finalize(partial, pl.grid.x, C, dsums, st);
+}
+
+template <typename T, typename TY, int N>
+cudaError_t pool_grad_apply(const void* x, const void* p, const void* share,
+                            void* dx, long long rows, int C, const Window& g,
+                            const float* moments, const void* scale,
+                            const void* bias, int p_bf16, const float* dsums,
+                            float n, cudaStream_t st) {
+  const Plan pl = plan(rows, C, N);
+  batch_norm_pool_grad_apply_kernel<T, TY, N><<<pl.grid, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const TY*>(p),
+      static_cast<const TY*>(share), static_cast<T*>(dx), rows, C, pl.cv,
+      pl.R, g, moments, scale, bias, p_bf16, dsums, n);
+  return cudaGetLastError();
+}
+
 // x's vector width on the 16-byte path: 16 bytes of x's dtype.
 template <typename T>
 constexpr int kVec = 16 / static_cast<int>(sizeof(T));
@@ -506,6 +940,46 @@ bool valid(long long rows, int C, int vec, int x_bf16) {
   if (rows < 1 || C < 1) return false;
   const int n = !vec ? 1 : x_bf16 ? kVec<bf16> : kVec<float>;
   return C % n == 0;
+}
+
+// The pooled passes' geometry: x [B, T, F, C] as rows = B T F rows under
+// windows [wt, wf] that divide T and F, rows < 2^31 (the divisors' range),
+// a count of at most 255 a window.
+bool window_of(long long rows, int T, int F, int wt, int wf, Window* g) {
+  if (T < 1 || F < 1 || wt < 1 || wf < 1 || T % wt || F % wf ||
+      wt * wf > 255 || rows % (static_cast<long long>(T) * F) ||
+      rows >= (1ll << 31))
+    return false;
+  g->F = F;
+  g->wt = wt;
+  g->wf = wf;
+  g->f = divisor(F);
+  g->t = divisor(wt);
+  g->w = divisor(wf);
+  g->fp = divisor(F / wf);
+  return true;
+}
+
+// The pooled passes' (x, y, N) instantiations: fn(Types<T, TY, N>()).
+template <typename T_, typename TY_, int N_>
+struct Types {
+  using T = T_;
+  using TY = TY_;
+  static constexpr int N = N_;
+};
+
+template <typename Fn>
+cudaError_t by_types(int x_bf16, int y_bf16, int vec, Fn fn) {
+  if (x_bf16 && y_bf16)
+    return vec ? fn(Types<bf16, bf16, kVec<bf16>>())
+               : fn(Types<bf16, bf16, 1>());
+  if (x_bf16)
+    return vec ? fn(Types<bf16, float, kVec<bf16>>())
+               : fn(Types<bf16, float, 1>());
+  if (!y_bf16)
+    return vec ? fn(Types<float, float, kVec<float>>())
+               : fn(Types<float, float, 1>());
+  return cudaErrorInvalidValue;   // y = promote(x, scale): f32 for f32 x
 }
 
 }  // namespace
@@ -611,6 +1085,70 @@ int seld_batch_norm_grad_apply(const void* x, int x_bf16, const void* dy,
     err = cudaErrorInvalidValue;   // dy is y's cotangent: f32 for f32 x
 #undef SELD_BN_GAPPLY
   return static_cast<int>(err);
+}
+
+// The pooled passes: x the [rows, C] view of [B, T, F, C]; p, dp and
+// share [rows / (wt wf), C] in y's dtype (p_bf16), count as many bytes;
+// the parameters in par_bf16. Pass 3' writes share, pass 4' reads it. The
+// rest as passes 2-4.
+
+int seld_batch_norm_pool_apply(const void* x, int x_bf16, void* p,
+                               int p_bf16, void* count, long long rows,
+                               int C, int T, int F, int wt, int wf, int vec,
+                               const void* sums, const void* scale,
+                               const void* bias, int par_bf16, float n,
+                               float eps, void* moments, void* stream) {
+  Window g;
+  if (!valid(rows, C, vec, x_bf16) || !window_of(rows, T, F, wt, wf, &g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_types(x_bf16, p_bf16, vec, [&](auto t) {
+    using S = decltype(t);
+    return pool_apply<typename S::T, typename S::TY, S::N>(
+        x, p, count, rows, C, g, static_cast<const float*>(sums), scale,
+        bias, par_bf16, n, eps, static_cast<float*>(moments), st);
+  }));
+}
+
+int seld_batch_norm_pool_grad_sums(const void* x, int x_bf16, const void* p,
+                                   const void* dp, int p_bf16,
+                                   const void* count, void* share,
+                                   long long rows, int C, int T, int F,
+                                   int wt, int wf, int vec, int blocks,
+                                   const void* moments, const void* scale,
+                                   const void* bias, int par_bf16,
+                                   void* partial, void* dsums, void* stream) {
+  Window g;
+  if (!valid(rows, C, vec, x_bf16) || !window_of(rows, T, F, wt, wf, &g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_types(x_bf16, p_bf16, vec, [&](auto t) {
+    using S = decltype(t);
+    return pool_grad_sums<typename S::T, typename S::TY, S::N>(
+        x, p, dp, count, share, rows, C, g, blocks,
+        static_cast<const float*>(moments), scale, bias, par_bf16,
+        static_cast<float*>(partial), static_cast<float*>(dsums), st);
+  }));
+}
+
+int seld_batch_norm_pool_grad_apply(const void* x, int x_bf16, const void* p,
+                                    const void* share, int p_bf16, void* dx,
+                                    long long rows, int C, int T, int F,
+                                    int wt, int wf, int vec,
+                                    const void* moments, const void* scale,
+                                    const void* bias, int par_bf16,
+                                    const void* dsums, float n,
+                                    void* stream) {
+  Window g;
+  if (!valid(rows, C, vec, x_bf16) || !window_of(rows, T, F, wt, wf, &g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_types(x_bf16, p_bf16, vec, [&](auto t) {
+    using S = decltype(t);
+    return pool_grad_apply<typename S::T, typename S::TY, S::N>(
+        x, p, share, dx, rows, C, g, static_cast<const float*>(moments),
+        scale, bias, par_bf16, static_cast<const float*>(dsums), n, st);
+  }));
 }
 
 const char* seld_cuda_error_string(int err) {

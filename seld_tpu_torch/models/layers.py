@@ -30,7 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from seld_tpu_torch.ops.batch_norm import batch_norm_train
+from seld_tpu_torch.ops.batch_norm import (batch_norm_pool_applicable,
+                                           batch_norm_relu_pool_train,
+                                           batch_norm_train)
 from seld_tpu_torch.ops.dropout import dropout, keep_mask
 from seld_tpu_torch.parallel import collectives
 from seld_tpu_torch.ops.gru import (gru_forward, in_scan_order,
@@ -282,7 +284,15 @@ class BatchNorm(nn.Module):
     csrc/batch_norm.cu on the card and their plain twins on the CPU. Inside
     a data-parallel step (parallel/collectives.py) the statistics are the
     global batch's: the sums of x and x^2 are all-reduced, E[x^2] - E[x]^2
-    over the global count."""
+    over the global count.
+
+    With `relu_pool`, a window [wt, wf], the result of x [B, T, F, C] goes
+    on through ReLU and a VALID max pool with strides equal to the window.
+    In training, where `batch_norm_pool_applicable` holds (the window
+    divides T and F, C a multiple of x's 16-byte vector), the three run as
+    one autograd Function, `ops.batch_norm.batch_norm_relu_pool_train`,
+    which writes only the pooled tensor and equals the composed chain bit
+    for bit; eval mode and other shapes compose them."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3):
@@ -293,7 +303,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                relu_pool: Optional[Sequence[int]] = None) -> torch.Tensor:
+        if relu_pool is not None:
+            window = tuple(relu_pool)
+            if self.training and batch_norm_pool_applicable(
+                    x.shape, x.dtype, window):
+                pooled, moments = batch_norm_relu_pool_train(
+                    x, self.scale, self.bias, self.epsilon, window)
+                self.update_running(moments[0], moments[1])
+                return pooled
+            return max_pool(torch.relu(self.forward(x)), window,
+                            strides=window)
         if self.training:
             y, moments = batch_norm_train(x, self.scale, self.bias,
                                           self.epsilon)

@@ -944,7 +944,9 @@ def _pooled(shape, window, strides=None, padding="VALID"):
 
 class SimpleConvBlock(nn.Module):
     """Classic SELDnet conv stack: [conv3x3-BN-relu-maxpool-dropout] x N
-    (modules.py:771-793). Its Conv2DBNs take no pool, so no fused stem."""
+    (modules.py:771-793). Its Conv2DBNs take no pool, so no fused stem:
+    each layer runs its Conv, then its BatchNorm with the pool
+    (`BatchNorm(x, relu_pool=...)`: BatchNorm, ReLU and the pool)."""
 
     def __init__(self, filters: Tuple[int, ...],
                  pool_size: Tuple[Tuple[int, int], ...],
@@ -964,7 +966,7 @@ class SimpleConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv, pool in self.layers:
-            x = max_pool(conv(x), pool, strides=pool)
+            x = conv.BatchNorm_0(conv.Conv_0(x), relu_pool=pool)
             x = dropout(x, self.dropout_rate, self.training,
                         self.dropout_generator)
         return x
@@ -1012,7 +1014,7 @@ class CondConvBlock(nn.Module):
             weights = torch.sigmoid(route(x.mean(dim=(1, 2))))   # [B, K]
             mixed = torch.stack([conv(x) for conv in experts], dim=-1)
             x = torch.einsum("bhwck,bk->bhwc", mixed, weights)
-            x = max_pool(torch.relu(bn(x)), pool, strides=pool)
+            x = bn(x, relu_pool=pool)
             x = dropout(x, self.dropout_rate, self.training,
                         self.dropout_generator)
         return x

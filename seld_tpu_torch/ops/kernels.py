@@ -36,7 +36,8 @@ SOURCES = ("gru_fwd.cu", "gru_bwd.cu", "stem_dy.cu", "foa_frontend.cu",
 # kernel name (its launch_counts key) -> the source that holds it
 KERNELS = {"gru_scan": "gru_fwd.cu", "gru_scan_bwd": "gru_bwd.cu",
            "stem_dy": "stem_dy.cu", "foa_frontend": "foa_frontend.cu",
-           "gather_rows": "gather_rows.cu", "batch_norm": "batch_norm.cu"}
+           "gather_rows": "gather_rows.cu", "batch_norm": "batch_norm.cu",
+           "batch_norm_pool": "batch_norm.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -23,6 +23,12 @@ through E[x^2] and E[x]^2 separately, the passes through x - mean. bf16:
 the output and dx to one bf16 step (2^-7) of their largest element: both sides round
 an f32 value to bf16 once, and their f32 values differ by f32 rounding;
 dscale and dbias, f32 sums of bf16 cotangents, to 1e-4.
+
+The fused BatchNorm -> ReLU -> max pool (`batch_norm_relu_pool_train`,
+`BatchNorm(x, relu_pool=...)`) runs its plain twins here, which spell out
+the routing of the cotangent and add in the kernels' order: it must equal
+the composed BatchNorm -> relu -> max_pool under autograd bit for bit, on
+inputs with tied window maxima and windows all <= 0 after the affine.
 """
 import os
 import socket
@@ -188,7 +194,16 @@ def test_kernels_name_the_new_source():
     "batch_norm_finalize_kernel(float const*, int, int, float*)",
     "batch_norm_apply_kernel<float, float, 4>",
     "batch_norm_grad_sums_kernel<__nv_bfloat16, __nv_bfloat16, 8>",
-    "batch_norm_grad_apply_kernel<float, float, 1>"])
+    "batch_norm_grad_apply_kernel<float, float, 1>",
+    "void (anonymous namespace)::batch_norm_pool_apply_kernel<__nv_bfloat16,"
+    " __nv_bfloat16, 8>(__nv_bfloat16 const*, __nv_bfloat16*, unsigned "
+    "char*, int, int, int, int, (anonymous namespace)::Window, float const*, "
+    "void const*, void const*, int, float, float, float*)",
+    "void (anonymous namespace)::batch_norm_pool_share_kernel<__nv_bfloat16,"
+    " 8>(__nv_bfloat16 const*, __nv_bfloat16 const*, unsigned char const*, "
+    "long long, __nv_bfloat16*)",
+    "batch_norm_pool_grad_sums_kernel<__nv_bfloat16, float, 8>",
+    "batch_norm_pool_grad_apply_kernel<float, float, 4>"])
 def test_trace_families_of_the_passes(kernel):
     """The port's grouping names the passes' kernels batch_norm; the
     benchmark's frozen classifier, which predates them, puts them in its
@@ -197,6 +212,199 @@ def test_trace_families_of_the_passes(kernel):
     from seld_tpu_torch.utils.trace_analysis import _classify
     assert _classify(kernel) == "batch_norm"
     assert family(kernel) == "other"
+
+
+# ------------------------------------------ BatchNorm -> ReLU -> max pool
+
+POOL_SHAPE = (3, 10, 8)    # [B, T, F]: 240 rows; windows of 20 and of 2
+
+
+def _pool_inputs(c, dtype, window, seed=7):
+    """x in quarter steps (windows with tied maxima), scale, bias with the
+    first two channels at -3 (windows all <= 0 after the affine), a third
+    channel constant with bias 0 (y exactly 0: a window's maximum 0 held
+    by all its elements, which ReLU's backward stops) and a cotangent of
+    the pooled shape."""
+    rng = np.random.RandomState(seed)
+    b, t, f = POOL_SHAPE
+    x = np.round(rng.randn(b, t, f, c) * 4) / 4 + rng.uniform(-1, 1, c)
+    x[..., 2] = 0.5
+    bias = 0.1 * rng.randn(c)
+    bias[:2] = -3
+    bias[2] = 0
+    dp = rng.randn(b, t // window[0], f // window[1], c)
+    arrays = (x, 1 + 0.2 * rng.randn(c), bias, dp)
+    return [torch.from_numpy(a.astype(np.float32)).to(dtype) for a in arrays]
+
+
+def _fused_and_composed(c, dtype, window):
+    """(fused, composed): each (pooled, running mean, running var, dx,
+    dscale, dbias) of BatchNorm in training with its parameters in `dtype`
+    (as the train step's copies), the running statistics from seeded
+    values after one step."""
+    from seld_tpu_torch.models.layers import BatchNorm
+    from seld_tpu_torch.ops.pooling import max_pool
+    x, scale, bias, dp = _pool_inputs(c, dtype, window)
+    out = []
+    for fused in (True, False):
+        bn = BatchNorm(c).train()
+        with torch.no_grad():
+            bn.mean.uniform_(-1, 1, generator=torch.Generator().manual_seed(1))
+            bn.var.uniform_(0.5, 2, generator=torch.Generator().manual_seed(2))
+        xg, s, b = (t.detach().clone().requires_grad_(True)
+                    for t in (x, scale, bias))
+        params = {"scale": s, "bias": b}
+        if fused:
+            p = torch.func.functional_call(bn, params, (xg,),
+                                           {"relu_pool": window})
+        else:
+            y = torch.func.functional_call(bn, params, (xg,))
+            p = max_pool(torch.relu(y), window, strides=window)
+        grads = torch.autograd.grad((p.float() * dp.float()).sum(),
+                                    (xg, s, b))
+        out.append((p.detach(), bn.mean.clone(), bn.var.clone(), *grads))
+    return out
+
+
+@pytest.mark.parametrize("window", [(5, 4), (1, 2)], ids=["5x4", "1x2"])
+@pytest.mark.parametrize("c", [64, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_pool_equals_the_composed_chain_bit_for_bit(dtype, c, window):
+    """The Function's pooled output, running mean and var, dx, dscale and
+    dbias equal the composed chain's bit for bit (C = 64 takes the kernels'
+    16-byte vectors, C = 12 bf16 one channel a thread), on windows with
+    tied positive maxima and windows whose elements are all <= 0."""
+    from seld_tpu_torch.ops.batch_norm import batch_norm_pool_applicable
+    fused, composed = _fused_and_composed(c, dtype, window)
+    names = ("pooled", "mean", "var", "dx", "dscale", "dbias")
+    for name, got, want in zip(names, fused, composed):
+        assert got.dtype == want.dtype, name
+        assert torch.equal(got, want), name
+    x, scale, bias, _ = _pool_inputs(c, dtype, window)
+    from seld_tpu_torch.models.layers import BatchNorm
+    bn = BatchNorm(c).train()
+    with torch.no_grad():
+        y = torch.func.functional_call(bn, {"scale": scale, "bias": bias},
+                                       (x,))
+    from seld_tpu_torch.ops.pooling import _windows
+    r = _windows(torch.relu(y), window)
+    top = r.amax(dim=(2, 4), keepdim=True)
+    ties = ((r == top) & (top > 0)).sum(dim=(2, 4)) > 1
+    assert ties.any() and (top == 0).any()
+    assert batch_norm_pool_applicable(x.shape, dtype, window) == (
+        c % (16 // x.element_size()) == 0)
+
+
+def test_fused_pool_saves_one_full_size_tensor():
+    """Autograd keeps x and the pooled tensors of the Function: one tensor
+    of x's size (x), where the composed chain keeps the ReLU output too."""
+    from seld_tpu_torch.ops.batch_norm import (batch_norm_relu_pool_train,
+                                               batch_norm_train)
+    from seld_tpu_torch.ops.pooling import max_pool
+    x, scale, bias, _ = _pool_inputs(64, torch.bfloat16, (5, 4))
+    x.requires_grad_(True)
+
+    def full_size(fn):
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: saved.append(t.numel()) or t, lambda t: t):
+            fn()
+        return sum(n == x.numel() for n in saved)
+    assert full_size(lambda: batch_norm_relu_pool_train(
+        x, scale, bias, EPS, (5, 4))) == 1
+    assert full_size(lambda: max_pool(torch.relu(batch_norm_train(
+        x, scale, bias, EPS)[0]), (5, 4), strides=(5, 4))) > 1
+
+
+def test_pool_applicability():
+    from seld_tpu_torch.ops.batch_norm import batch_norm_pool_applicable
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert batch_norm_pool_applicable((256, 300, 64, 64), bf16, (5, 4))
+    assert batch_norm_pool_applicable((2, 10, 8, 12), f32, (5, 4))
+    assert not batch_norm_pool_applicable((2, 10, 8, 12), bf16, (5, 4))
+    assert not batch_norm_pool_applicable((2, 12, 8, 64), bf16, (5, 4))
+    assert not batch_norm_pool_applicable((2, 10, 6, 64), bf16, (5, 4))
+    assert not batch_norm_pool_applicable((2, 16, 16, 64), bf16, (16, 16))
+    assert batch_norm_pool_applicable((2, 15, 17, 64), bf16, (15, 17))
+    assert not batch_norm_pool_applicable((2, 10, 64), bf16, (5, 4))
+    assert not batch_norm_pool_applicable((2, 10, 8, 64), torch.float16,
+                                          (5, 4))
+    assert not batch_norm_pool_applicable((2 ** 20, 64, 32, 8), f32, (1, 1))
+
+
+def _counting(monkeypatch, module, name):
+    """Count the calls of `module.name`, which still runs."""
+    calls = []
+    fn = getattr(module, name)
+    monkeypatch.setattr(module, name,
+                        lambda *a, **k: calls.append(1) or fn(*a, **k))
+    return calls
+
+
+@pytest.mark.parametrize("block", ["simple_conv_block", "cond_conv_block"])
+def test_conv_blocks_take_the_fused_pool_in_training(block, monkeypatch):
+    """SELDnet's and CondSELDnet's conv stacks: one fused Function a layer
+    in training; eval mode composes; so does a layer whose pool does not
+    divide its T (T = 12 under [5, 4]: the first layer; the two after it
+    take the Function)."""
+    import seld_tpu_torch.models.layers as layers
+    from seld_tpu_torch.config.registry import get_block
+    calls = _counting(monkeypatch, layers, "batch_norm_relu_pool_train")
+    args = {"filters": [8, 8, 8], "pool_size": [[5, 4], [1, 4], [1, 2]],
+            "num_experts": 2}
+    x = torch.from_numpy(np.random.RandomState(3).randn(
+        2, 10, 32, 3).astype(np.float32))
+    net = get_block(block)(args)((10, 32, 3))
+    net.train()(x)
+    assert len(calls) == 3
+    with torch.no_grad():
+        net.eval()(x)
+    assert len(calls) == 3
+    odd = get_block(block)(args)((12, 32, 3))
+    odd.train()(torch.zeros(2, 12, 32, 3))
+    assert len(calls) == 5
+
+
+def test_stem_keeps_the_fused_stem(monkeypatch):
+    """SS5's stem (a Conv2DBN with a pool) stays conv_bn_relu_pool, with
+    stem_dy's backward on the card, and takes no pooled BatchNorm."""
+    import seld_tpu_torch.models.layers as layers
+    pooled = _counting(monkeypatch, layers, "batch_norm_relu_pool_train")
+    stem = _counting(monkeypatch, layers, "conv_bn_relu_pool")
+    conv = layers.Conv2DBN((20, 8, 3), 16, 3, pool=(5, 2)).train()
+    conv(torch.randn(2, 20, 8, 3))
+    assert len(stem) == 1 and not pooled
+
+
+def test_pool_plan_mirrors_the_kernel_source():
+    """Passes 3' and 4' run pass 3 and 4's plan (`plan(rows, C, N)`, 3'
+    checked against the blocks the twins' `_plan` gives), so the twins'
+    `_ordered_sum` is their order too; the count's byte and the divisors'
+    range are the wrapper's rules."""
+    import re
+
+    from seld_tpu_torch.ops import batch_norm as bn
+    from seld_tpu_torch.ops import kernels
+    with open(os.path.join(kernels.CSRC_DIR, "batch_norm.cu")) as f:
+        src = f.read()
+    for fn in ("pool_grad_sums", "pool_grad_apply"):
+        body = re.search(r"cudaError_t %s\(.*?\n}\n" % fn, src, re.S)
+        assert body and "const Plan pl = plan(rows, C, N);" in body.group(0)
+        assert f"batch_norm_{fn}_kernel<T, TY, N><<<pl.grid, kThreads" in \
+            body.group(0)
+    assert "if (static_cast<int>(pl.grid.x) != blocks) return" in re.search(
+        r"cudaError_t pool_grad_sums\(.*?\n}\n", src, re.S).group(0)
+    assert "wt * wf > 255" in src and "rows >= (1ll << 31)" in src
+    for name in ("apply", "share", "grad_sums", "grad_apply"):
+        assert f"batch_norm_pool_{name}_kernel" in src
+    for name in ("apply", "grad_sums", "grad_apply"):
+        assert f"int seld_batch_norm_pool_{name}(" in src
+    assert kernels.KERNELS["batch_norm_pool"] == "batch_norm.cu"
+    # SELDnet's three blocks at B=256, 8 bf16 channels a thread
+    assert bn._plan(256 * 300 * 64, 64, 8) == (32, 4096)
+    assert bn._plan(256 * 60 * 16, 64, 8) == (32, 1920)
+    assert bn._plan(256 * 60 * 4, 64, 8) == (32, 480)
 
 
 def test_passes_refuse_other_devices():
@@ -242,14 +450,20 @@ def _dp_inputs():
     return x, scale, bias, cot
 
 
-def dp_step(mesh, rank=0, world=1, other_thread=False):
+DP_POOL = (3, 5)       # the fused pooled BatchNorm's window over [6, 5]
+
+
+def dp_step(mesh, rank=0, world=1, other_thread=False, pool=None):
     """BatchNorm in training mode over this rank's rows (all with no mesh)
-    inside the step's data-parallel span: (y, dx, dscale, dbias, running
-    mean, running var), the backward on another thread when
-    `other_thread`."""
+    inside the step's data-parallel span, then ReLU and the max pool
+    `pool` as one fused Function where given: (y or the pooled output, dx,
+    dscale, dbias, running mean, running var), the backward on another
+    thread when `other_thread`."""
     from seld_tpu_torch.models.layers import BatchNorm
     from seld_tpu_torch.parallel import collectives
     x, scale, bias, cot = _dp_inputs()
+    if pool is not None:
+        cot = cot[:, ::pool[0], ::pool[1]]
     rows = DP_B // world
     x, cot = (t[rank * rows:(rank + 1) * rows] for t in (x, cot))
     bn = BatchNorm(DP_C).train()
@@ -258,7 +472,7 @@ def dp_step(mesh, rank=0, world=1, other_thread=False):
         bn.bias.copy_(bias)
     x.requires_grad_(True)
     with collectives.data_parallel(mesh):
-        y = bn(x)
+        y = bn(x) if pool is None else bn(x, relu_pool=pool)
         loss = (y * cot).sum()
     out = {}
 
@@ -280,7 +494,8 @@ def _worker(rank, world, port, out):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     mesh = make_mesh("data:-1", "cpu")
-    torch.save(dp_step(mesh, rank, world, other_thread=True),
+    torch.save([dp_step(mesh, rank, world, other_thread=True, pool=pool)
+                for pool in (None, DP_POOL)],
                os.path.join(out, f"rank{rank}.pt"))
     dist.destroy_process_group()
 
@@ -296,7 +511,11 @@ def test_two_rank_step_equals_one_process_over_the_batch(tmp_path):
     than the forward: each rank's output and input gradient are its rows
     of one process's over the whole batch; its running statistics are the
     whole batch's; its dscale and dbias are its rows' share, which sum
-    over the ranks to the whole batch's."""
+    over the ranks to the whole batch's. Both for the BatchNorm alone and
+    for the fused BatchNorm -> ReLU -> max pool."""
+    from seld_tpu_torch.ops.batch_norm import batch_norm_pool_applicable
+    assert batch_norm_pool_applicable((DP_B // 2, 6, 5, DP_C), torch.float32,
+                                      DP_POOL)
     port = _free_port()
     env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen(
@@ -306,21 +525,24 @@ def test_two_rank_step_equals_one_process_over_the_batch(tmp_path):
     for p in procs:
         log = p.communicate(timeout=300)[0]
         assert p.returncode == 0, log
-    ranks = [torch.load(os.path.join(tmp_path, f"rank{r}.pt"))
+    saved = [torch.load(os.path.join(tmp_path, f"rank{r}.pt"))
              for r in range(2)]
-    y, dx, dscale, dbias, mean, var = dp_step(None)
-    local = dp_step(None, 0, 2)
-    tol = dict(rtol=0, atol=1e-5)
-    torch.testing.assert_close(torch.cat([r[0] for r in ranks]), y, **tol)
-    torch.testing.assert_close(torch.cat([r[1] for r in ranks]), dx,
-                               rtol=0, atol=1e-5 * dx.abs().max().item())
-    torch.testing.assert_close(ranks[0][2] + ranks[1][2], dscale, **tol)
-    torch.testing.assert_close(ranks[0][3] + ranks[1][3], dbias, **tol)
-    for r in ranks:
-        torch.testing.assert_close(r[4], mean, **tol)
-        torch.testing.assert_close(r[5], var, **tol)
-    # the halves' own statistics are not the whole batch's
-    assert (local[4] - mean).abs().max() > 1e-3
+    for case, pool in enumerate((None, DP_POOL)):
+        ranks = [s[case] for s in saved]
+        y, dx, dscale, dbias, mean, var = dp_step(None, pool=pool)
+        local = dp_step(None, 0, 2, pool=pool)
+        tol = dict(rtol=0, atol=1e-5)
+        torch.testing.assert_close(torch.cat([r[0] for r in ranks]), y,
+                                   **tol)
+        torch.testing.assert_close(torch.cat([r[1] for r in ranks]), dx,
+                                   rtol=0, atol=1e-5 * dx.abs().max().item())
+        torch.testing.assert_close(ranks[0][2] + ranks[1][2], dscale, **tol)
+        torch.testing.assert_close(ranks[0][3] + ranks[1][3], dbias, **tol)
+        for r in ranks:
+            torch.testing.assert_close(r[4], mean, **tol)
+            torch.testing.assert_close(r[5], var, **tol)
+        # the halves' own statistics are not the whole batch's
+        assert (local[4] - mean).abs().max() > 1e-3
 
 
 if __name__ == "__main__":
